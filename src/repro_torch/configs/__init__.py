@@ -1,0 +1,26 @@
+"""Architecture registry of the port: the configs of this slice.
+
+Each module defines ``FULL`` (the published config) and ``smoke()`` (a
+reduced same-family config for CPU tests), as in ``repro.configs``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "qwen3-4b": "qwen3_4b",
+    # the paper's own serving model (Qwen2.5-32B, §4)
+    "qwen2.5-32b": "qwen2_5_32b",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.FULL
+
+
+def get_smoke(name: str) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.smoke()

@@ -1,0 +1,116 @@
+// Shared helpers of the paged attention kernels: element conversion for
+// the two storage types they take (fp32, bf16), the probability rounding
+// the TPU kernels apply before the PV product, and the paged K/V tile
+// load into shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace attn {
+
+constexpr float kNegInf = -1e30f;   // masked score, as the TPU kernels use
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// The TPU kernels cast p to v.dtype before the PV product
+// (ragged_prefill.py:293, decode_attn.py:201); the row sum l keeps the
+// unrounded fp32 p.
+template <typename T>
+__device__ __forceinline__ float round_p(float p) {
+  return to_f(from_f<T>(p));
+}
+
+// 16-byte vectors of storage elements, unpacked to fp32 without a trip
+// through local memory (a bf16 is the top half of its fp32)
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void unpack(uint4 r, float* o) {
+    o[0] = __uint_as_float(r.x);
+    o[1] = __uint_as_float(r.y);
+    o[2] = __uint_as_float(r.z);
+    o[3] = __uint_as_float(r.w);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int n = 8;
+  static __device__ __forceinline__ void unpack(uint4 r, float* o) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[2 * i] = __uint_as_float(w[i] << 16);
+      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// Load key positions [base, base + KT) of KV head g from the page pools
+// (N, page_size, hkv, D) into shared memory as fp32: ks with row stride
+// D + 1 (bank padding), vs with row stride D.  NT threads cooperate,
+// `lane` being this thread's index among them; each moves 16-byte
+// vectors, issuing up to 4 K and 4 V loads before it stores any, so
+// several loads are in flight per thread.  Positions >= n_keys are
+// zero-filled and their page-table entries are never read.  The pools'
+// base pointers must be 16-byte aligned (the wrappers check).
+template <typename T, int D, int KT, int NT>
+__device__ __forceinline__ void load_kv_tile(
+    const T* __restrict__ kpool, const T* __restrict__ vpool,
+    const int* __restrict__ pt, int base, int n_keys, int page_size,
+    int hkv, int g, int lane, float* ks, float* vs) {
+  constexpr int V = Vec16<T>::n;
+  constexpr int kRowVecs = D / V;
+  static_assert((KT * kRowVecs) % NT == 0, "tile must split evenly");
+  constexpr int kPer = KT * kRowVecs / NT;
+  constexpr int kRound = kPer < 4 ? kPer : 4;
+  static_assert(kPer % kRound == 0, "rounds must split evenly");
+#pragma unroll
+  for (int r = 0; r < kPer; r += kRound) {
+    uint4 kraw[kRound], vraw[kRound];
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const int vi = lane + (r + u) * NT;
+      const int pos = base + vi / kRowVecs;
+      kraw[u] = make_uint4(0u, 0u, 0u, 0u);
+      vraw[u] = kraw[u];
+      if (pos < n_keys) {
+        const int page = pt[pos / page_size];
+        const size_t o =
+            ((static_cast<size_t>(page) * page_size + pos % page_size) * hkv +
+             g) * D + (vi % kRowVecs) * V;
+        kraw[u] = __ldg(reinterpret_cast<const uint4*>(kpool + o));
+        vraw[u] = __ldg(reinterpret_cast<const uint4*>(vpool + o));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const int vi = lane + (r + u) * NT;
+      const int j = vi / kRowVecs, d0 = (vi % kRowVecs) * V;
+      float kf[V], vf[V];
+      Vec16<T>::unpack(kraw[u], kf);
+      Vec16<T>::unpack(vraw[u], vf);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        ks[j * (D + 1) + d0 + e] = kf[e];
+        vs[j * D + d0 + e] = vf[e];
+      }
+    }
+  }
+}
+
+}  // namespace attn

@@ -1,0 +1,58 @@
+"""Dispatch for the paged attention kernels, shaped like
+``repro.kernels.ops``.
+
+The dispatch follows the tensor's device and nothing else: a CUDA tensor
+reaches the hand-written CUDA kernel (which raises on what it does not
+take), a CPU tensor the plain PyTorch version.  Nothing is caught and
+nothing falls back; there is no backend switch.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import decode_attn as _decode
+from repro_torch.kernels import ragged_prefill as _prefill
+
+
+def _no_device(fn: str, dev: torch.device):
+    return RuntimeError(f"{fn}: no implementation for tensors on {dev}")
+
+
+def ragged_mha_paged(q, k, v, page_table, cu_seqlens, q_offsets=None,
+                     kv_lengths=None, *, causal=True,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Paged packed prefill attention.  q: (T, Hq, D) flat stream;
+    k, v: (N_pages, page_size, Hkv, D) page pools; page_table: (B, P_max)
+    physical page per logical block — pages may be shared between
+    segments (prefix reuse, COW forks)."""
+    b, p_max = page_table.shape
+    if q_offsets is None:
+        q_offsets = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), k.shape[1] * p_max, dtype=torch.int32,
+                                device=q.device)
+    if q.device.type == "cuda":
+        return _prefill.ragged_prefill_paged(
+            q, k, v, page_table, cu_seqlens, q_offsets, kv_lengths,
+            causal=causal, window=window)
+    if q.device.type == "cpu":
+        return _prefill.ragged_prefill_paged_plain(
+            q, k, v, page_table, cu_seqlens, q_offsets, kv_lengths,
+            causal=causal, window=window)
+    raise _no_device("ragged_mha_paged", q.device)
+
+
+def decode_paged(q, k, v, page_table, lengths, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Paged single-token decode attention.  q: (B, Hq, D); k, v:
+    (N_pages, page_size, Hkv, D) page pools; page_table: (B, P_max);
+    lengths: (B,)."""
+    if q.device.type == "cuda":
+        return _decode.decode_attn_paged(q, k, v, page_table, lengths,
+                                         window=window)
+    if q.device.type == "cpu":
+        return _decode.decode_attn_paged_plain(q, k, v, page_table, lengths,
+                                               window=window)
+    raise _no_device("decode_paged", q.device)

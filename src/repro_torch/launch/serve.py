@@ -1,0 +1,108 @@
+"""Serving launcher of the port: the real PyTorch engine + LAPS scheduler
+under synthetic multi-turn traffic (CLI wrapper over
+``repro_torch.serving.loop.ServeLoop``), from ``repro.launch.serve``.
+
+Runs on the card: the default path is packed and paged, with the smoke
+config unless ``--full`` asks for the published width (random weights
+from ``--seed``; ``--layers`` cuts the depth).  On the card the smoke
+config takes head_dim 128, the one head width the CUDA kernels take.
+``--no-packed`` names the slot/dense baseline, which is not ported yet
+and raises.
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+      --full --layers 4 --sessions 8 --turns 3 --variant pla_full
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.core import H200_QWEN32B, Variant, make_policy
+from repro_torch.core.awd import AWDConfig
+from repro_torch.models import transformer as tr
+from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.loop import ServeLoop
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--full", action="store_true",
+                    help="published widths instead of the smoke config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
+    ap.add_argument("--variant", default="pla_full",
+                    choices=[v.value for v in Variant])
+    ap.add_argument("--sessions", type=int, default=6)
+    ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--slo", type=float, default=2.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--packed", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="packed token-bucket stream over the paged pool")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if not args.packed:
+        raise NotImplementedError(
+            "the slot/dense baseline (--no-packed) is not ported yet "
+            "(ROADMAP Queue 1, item 9)")
+
+    if args.full:
+        cfg = get_config(args.arch)
+    else:
+        cfg = get_smoke(args.arch)
+        if torch.device(args.device).type == "cuda":
+            cfg = cfg.replace(head_dim=128)
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
+    params = tr.init_params(cfg, seed=args.seed, device=args.device)
+    # each turn adds a prompt of < 96 tokens, its first token and the
+    # decoded ones to the session's cache
+    max_len = args.turns * (96 + 1 + args.decode_steps)
+    engine = Engine(cfg, params, EngineConfig(
+        num_slots=max(8, args.sessions), max_len=max_len, chunk_tokens=32),
+        device=args.device)
+    awd_cfg = AWDConfig(packed=True, token_buckets=engine.ecfg.token_buckets,
+                        packed_max_seqs=engine.packed_executor.max_seqs)
+    policy = make_policy(Variant(args.variant), H200_QWEN32B, threshold=48,
+                         chunk_tokens=32, awd_cfg=awd_cfg)
+    loop = ServeLoop(engine, policy, slo_ttft=args.slo)
+
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    for turn in range(args.turns):
+        for s in range(args.sessions):
+            if rng.random() < 0.2:
+                n = int(rng.integers(48, 96))     # long prefill
+            else:
+                n = int(rng.integers(4, 32))      # short / re-prefill
+            loop.submit(s, rng.integers(0, cfg.vocab_size, n))
+        loop.run_until_idle(max_wall=120.0)
+        for s in range(args.sessions):
+            toks = loop.decode(s, args.decode_steps)
+            if turn == args.turns - 1 and s == 0:
+                print(f"[serve] session {s} decoded: {toks}")
+    wall = time.perf_counter() - t0
+
+    rep = loop.tracker.report(wall)
+    print(f"[serve] arch={cfg.name} layers={cfg.num_layers} "
+          f"variant={args.variant} requests={rep.n} wall={wall:.1f}s "
+          f"device={engine.device}")
+    print(f"[serve] mean TTFT {rep.mean_ttft * 1000:.1f} ms  "
+          f"p90 {rep.p90_ttft * 1000:.1f} ms  viol {rep.violation_rate:.3f}")
+    print(f"[serve] engine stats: {engine.stats()}")
+    fit = engine.fit_boundary()
+    if fit:
+        print(f"[serve] fitted boundary L_m = {fit.boundary():.0f} tokens "
+              f"(fixed {fit.fixed * 1000:.2f} ms, "
+              f"beta {fit.beta_eff * 1e3:.3f} ms/tok)")
+
+
+if __name__ == "__main__":
+    main()

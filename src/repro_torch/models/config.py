@@ -1,0 +1,101 @@
+"""Model configuration of the port: ``repro.models.config.ModelConfig``
+with its dtype string mapped to a torch dtype.
+
+One dataclass describes every architecture family of the JAX package,
+so the fields stay the same; this slice serves only the dense
+full-attention families, and the serving stack raises
+``NotImplementedError`` for the rest.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | vlm | ssm | audio | hybrid
+    num_layers: int
+    d_model: int
+    num_heads: int                   # query heads (0 for attn-free)
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: Optional[int] = None   # default d_model // num_heads
+    # --- attention options -------------------------------------------------
+    qk_norm: bool = False            # per-head RMSNorm on q,k (qwen3)
+    qkv_bias: bool = False           # bias on qkv projections (qwen2.5)
+    sliding_window: Optional[int] = None   # SWA width (mixtral)
+    causal: bool = True              # False for encoder-only (hubert)
+    rope_theta: float = 1_000_000.0
+    # --- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: Optional[int] = None
+    # --- SSM (Mamba2 / SSD) -------------------------------------------------
+    ssm_state_size: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 128
+    # --- hybrid layout (jamba) ----------------------------------------------
+    attn_layer_period: int = 1
+    attn_layer_offset: int = 0
+    moe_layer_period: int = 1
+    moe_layer_offset: int = 1
+    # --- modality frontend --------------------------------------------------
+    frontend: Optional[str] = None
+    frontend_tokens: int = 0
+    # --- numerics -----------------------------------------------------------
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+    max_seq_len: int = 131_072
+    tie_embeddings: bool = False
+    vocab_pad_to: int = 256
+
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return (self.vocab_size + p - 1) // p * p
+
+    @property
+    def hdim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    def layer_kind(self, i: int) -> str:
+        """'attn' or 'ssm' for mixer of layer i."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "hybrid":
+            if i % self.attn_layer_period == self.attn_layer_offset:
+                return "attn"
+            return "ssm"
+        return "attn"
+
+    def layer_is_moe(self, i: int) -> bool:
+        if self.num_experts == 0:
+            return False
+        if self.family == "hybrid":
+            return i % self.moe_layer_period == self.moe_layer_offset
+        return True
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,212 @@
+"""Transformer layers of the port, from ``repro.models.layers``: RMSNorm,
+RoPE, GQA attention (the dense oracle's), SwiGLU, and the two paged
+attention layers of the serving path.
+
+Parameters are plain nested dicts of tensors with the JAX package's
+names and layouts, so weights converted from its pytree compute the
+same function.  The paged layers write the step's new KV into the page
+pools IN PLACE (``index_put_``) where the JAX layers return updated
+pools.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+
+# ------------------------------------------------------------------ norms
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dt)
+
+
+# ------------------------------------------------------------------- rope
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, L, H, D); positions: (B, L) absolute token positions."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
+    angles = positions[..., None].float() * freqs                # (B, L, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------- attention
+
+
+def attention_mask(q_positions: torch.Tensor, kv_len: int, *, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """Boolean mask (B, Lq, S): True = attend.  Cache slot s holds
+    absolute position s."""
+    kv_pos = torch.arange(kv_len, device=q_positions.device)[None, None, :]
+    qp = q_positions[:, :, None]
+    mask = torch.ones(qp.shape[:2] + (kv_len,), dtype=torch.bool,
+                      device=q_positions.device)
+    if causal:
+        mask = mask & (kv_pos <= qp)
+    if window is not None:
+        mask = mask & (kv_pos > qp - window)
+    return mask
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Grouped-query attention without materializing repeated KV.
+
+    q: (B, Lq, Hq, D); k,v: (B, S, Hkv, D); mask: (B, Lq, S) bool.
+    Returns (B, Lq, Hq, D).  Softmax in fp32.
+    """
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, lq, hkv, rep, d)
+    scores = torch.einsum("blgrd,bsgd->bglrs", qg.float(),
+                          k.float()) / math.sqrt(d)
+    scores = scores.masked_fill(~mask[:, None, :, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bglrs,bsgd->blgrd", probs, v.float())
+    return out.reshape(b, lq, hq, d).to(q.dtype)
+
+
+ATTN_Q_CHUNK = 1024
+
+
+def attention_core(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+                   q_positions: torch.Tensor, *, causal: bool,
+                   window: Optional[int],
+                   q_chunk: int = ATTN_Q_CHUNK) -> torch.Tensor:
+    """Attention in q-chunks so the (Lq × S) score matrix is never held
+    beyond one chunk (long dense prefills)."""
+    s = keys.shape[1]
+    outs = []
+    for c0 in range(0, q.shape[1], q_chunk):
+        qc = q[:, c0:c0 + q_chunk]
+        mask = attention_mask(q_positions[:, c0:c0 + q_chunk], s,
+                              causal=causal, window=window)
+        outs.append(gqa_attention(qc, keys, vals, mask))
+    return torch.cat(outs, dim=1)
+
+
+def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """Shared projection → (qk-norm) → rope of the attention layers.
+    x: (B, L, d); positions: (B, L).  Returns q (B, L, Hq, D) and k, v
+    (B, L, Hkv, D)."""
+    b, l, _ = x.shape
+    hd = cfg.hdim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, l, cfg.num_heads, hd)
+    k = k.reshape(b, l, cfg.num_kv_heads, hd)
+    v = v.reshape(b, l, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.causal:  # encoder-only models use absolute (no) rope here
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_layer(p: Dict, x: torch.Tensor, *, cfg,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Self-attention over x (B, L, d) without a cache: the dense
+    oracle's mixer.  Returns (B, L, d)."""
+    b, l, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = attention_core(q, k, v, positions, causal=cfg.causal,
+                         window=cfg.sliding_window)
+    return out.reshape(b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
+
+
+def packed_paged_attention_layer(p: Dict, x: torch.Tensor, *, cfg,
+                                 positions: torch.Tensor,
+                                 token_pages: torch.Tensor,
+                                 token_offs: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 cu_seqlens: torch.Tensor,
+                                 q_offsets: torch.Tensor,
+                                 kv_lengths: torch.Tensor,
+                                 kv: Tuple[torch.Tensor, torch.Tensor],
+                                 window: Optional[int] = None,
+                                 ) -> torch.Tensor:
+    """Attention over a packed flat stream, PAGED.
+
+    x: (T, d); kv: (K, V) page pools (N_pages, page_size, Hkv, D) of
+    this layer; each segment's cache is the page list in its row of
+    ``page_table`` (B, P_max).  positions: (T,) absolute position of
+    each token in its sequence; token_pages/token_offs: (T,) physical
+    (page, offset) each token's new KV is written to — pad/tail rows
+    all target the reserved scratch page at offset page_size − 1, which
+    is harmless.  The write is in place; returns out (T, d).
+    """
+    t = x.shape[0]
+    q, k, v = _qkv(p, x[None], cfg, positions[None])
+    q, k, v = q[0], k[0], v[0]
+    idx = (token_pages.long(), token_offs.long())
+    kv[0].index_put_(idx, k.to(kv[0].dtype))
+    kv[1].index_put_(idx, v.to(kv[1].dtype))
+    out = kernel_ops.ragged_mha_paged(q, kv[0], kv[1], page_table,
+                                      cu_seqlens, q_offsets, kv_lengths,
+                                      causal=cfg.causal, window=window)
+    return out.reshape(t, cfg.num_heads * cfg.hdim) @ p["wo"]
+
+
+def paged_decode_layer(p: Dict, x: torch.Tensor, *, cfg,
+                       positions: torch.Tensor,
+                       write_pages: torch.Tensor, write_offs: torch.Tensor,
+                       page_table: torch.Tensor, kv_lengths: torch.Tensor,
+                       kv: Tuple[torch.Tensor, torch.Tensor],
+                       window: Optional[int] = None) -> torch.Tensor:
+    """Attention for one PAGED decode tick.
+
+    x: (B, d) one new token per row; kv: (K, V) page pools of this
+    layer; positions: (B,) absolute position of the new token;
+    write_pages/write_offs: (B,) physical (page, offset) its KV lands in
+    (pad rows target the scratch page at offset page_size − 1);
+    kv_lengths: (B,) valid entries including the new row.  The write is
+    in place; returns out (B, d).
+    """
+    b = x.shape[0]
+    q, k, v = _qkv(p, x[:, None], cfg, positions[:, None])
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    idx = (write_pages.long(), write_offs.long())
+    kv[0].index_put_(idx, k.to(kv[0].dtype))
+    kv[1].index_put_(idx, v.to(kv[1].dtype))
+    out = kernel_ops.decode_paged(q.contiguous(), kv[0], kv[1], page_table,
+                                  kv_lengths, window=window)
+    return out.reshape(b, cfg.num_heads * cfg.hdim) @ p["wo"]
+
+
+# ------------------------------------------------------------------- mlp
+
+
+def swiglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    return h @ p["wo"]

@@ -1,0 +1,310 @@
+"""Model assembly of the port, from ``repro.models.transformer``: the
+dense full-attention decoder stack, its page pool, the plain dense
+``forward`` (the oracle the serving steps are held against), and the two
+paged serving steps.
+
+Parameters keep the JAX package's layout: ``blocks`` is a list with one
+dict per layer-pattern position whose leaves are stacked over the
+``G = num_layers / period`` groups (a dense stack has period 1).  The
+layer scan becomes a Python loop over groups, and the page pools are
+updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (attention_layer,
+                                       packed_paged_attention_layer,
+                                       paged_decode_layer, rms_norm, swiglu)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; a CUDA device without a card
+    raises instead of carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "asks for the CPU (device='cpu')")
+    return dev
+
+
+def _check_slice(cfg: ModelConfig) -> None:
+    """This slice serves dense full-attention decoders only."""
+    if cfg.family in ("ssm", "hybrid") or any(
+            cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: SSM / hybrid stacks are not ported yet "
+            "(ROADMAP Queue 1, item 10)")
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet "
+            "(ROADMAP Queue 1, item 10)")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention is not ported yet "
+            "(ROADMAP Queue 1, item 10)")
+    if not cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-only models have no serving path")
+
+
+def pattern_period(cfg: ModelConfig) -> int:
+    return 1
+
+
+def num_groups(cfg: ModelConfig) -> int:
+    return cfg.num_layers // pattern_period(cfg)
+
+
+# ------------------------------------------------------------------- init
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters with the JAX package's shapes and stacked
+    ``blocks`` layout, drawn from a ``torch.Generator`` on ``device``
+    seeded with ``seed``.  Dense weights are N(0, 1/fan_in) (embed 0.02,
+    lm_head d_model^-0.5), norms 1, biases 0, in ``cfg.dtype``."""
+    _check_slice(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = cfg.torch_dtype
+    g = num_groups(cfg)
+
+    def dense(shape, scale=None):
+        fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+        scale = scale if scale is not None else fan_in ** -0.5
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (w.mul_(scale)).to(dt)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    d, hd = cfg.d_model, cfg.hdim
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    mixer = {"wq": dense((g, d, qd)), "wk": dense((g, d, kvd)),
+             "wv": dense((g, d, kvd)), "wo": dense((g, qd, d))}
+    if cfg.qkv_bias:
+        mixer.update(bq=zeros((g, qd)), bk=zeros((g, kvd)),
+                     bv=zeros((g, kvd)))
+    if cfg.qk_norm:
+        mixer.update(q_norm=ones((g, hd)), k_norm=ones((g, hd)))
+    block = {"ln1": ones((g, d)), "mixer": mixer, "ln2": ones((g, d)),
+             "ffn": {"wg": dense((g, d, cfg.d_ff)),
+                     "wi": dense((g, d, cfg.d_ff)),
+                     "wo": dense((g, cfg.d_ff, d))}}
+    return {"embed": dense((cfg.padded_vocab, d), scale=0.02),
+            "blocks": [block],
+            "final_norm": ones((d,)),
+            "lm_head": dense((d, cfg.padded_vocab), scale=d ** -0.5)}
+
+
+# ------------------------------------------------------------------ cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """Per-pattern-position KV cache stacked over groups:
+    {"k": (G, batch, max_len, Hkv, D), "v": ...}.  The paged arena passes
+    batch = N_pages + 1 and max_len = page_size, so each pool is
+    (G, N_pages + 1, page_size, Hkv, D)."""
+    _check_slice(cfg)
+    dev = resolve_device(device)
+    shape = (num_groups(cfg), batch, max_len, cfg.num_kv_heads, cfg.hdim)
+    dt = dtype or cfg.torch_dtype
+    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            for _ in range(pattern_period(cfg))]
+
+
+# ---------------------------------------------------------------- forward
+
+
+def _layer(block: Dict, g: int) -> Dict:
+    """Group ``g``'s slice of a stacked block dict (views, no copies)."""
+    return {k: (_layer(v, g) if isinstance(v, dict) else v[g])
+            for k, v in block.items()}
+
+
+def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Post-mixer FFN residual for one layer."""
+    return x + swiglu(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _lm_head_logits(params: Dict, cfg: ModelConfig,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Final-norm'd rows → logits with the padded-vocab columns masked
+    (argmax/softmax safety).  One implementation shared by every
+    serving step and the dense oracle."""
+    logits = x @ params["lm_head"]
+    vpad = cfg.padded_vocab - cfg.vocab_size
+    if vpad:
+        logits[..., cfg.vocab_size:] += -1e9
+    return logits
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain dense forward without a cache: the oracle.
+
+    tokens: (B, L) int; positions: (B, L) absolute positions (default
+    arange).  Returns logits (B, L, V)."""
+    _check_slice(cfg)
+    x = params["embed"][tokens.long()]
+    b, l = tokens.shape
+    if positions is None:
+        positions = torch.arange(l, device=x.device)[None].expand(b, l)
+    for block in params["blocks"]:
+        for g in range(num_groups(cfg)):
+            lp = _layer(block, g)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            x = x + attention_layer(lp["mixer"], h, cfg=cfg,
+                                    positions=positions)
+            x = _ffn(cfg, lp, x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_head_logits(params, cfg, x)
+
+
+def _scan_serving_stack(params: Dict, cfg: ModelConfig,
+                        tokens: torch.Tensor,
+                        caches: List[Dict[str, torch.Tensor]],
+                        mix_fn) -> torch.Tensor:
+    """Shared layer loop of the flat-stream serving steps: embed →
+    per-layer {norm → mix_fn → FFN} → final norm.
+
+    mix_fn(j, layer_params, h, cache_j) → mix, where cache_j is the
+    layer's {"k", "v"} pool slice (views: mix_fn writes them in place).
+    Returns the final-normed activations."""
+    x = params["embed"][tokens.long()]
+    for j, block in enumerate(params["blocks"]):
+        for g in range(num_groups(cfg)):
+            lp = _layer(block, g)
+            cache_j = {name: pool[g] for name, pool in caches[j].items()}
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            x = x + mix_fn(j, lp["mixer"], h, cache_j)
+            x = _ffn(cfg, lp, x)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+# ------------------------------------------------- capability descriptor
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerCapability:
+    """Arena capability of ONE pattern position: "attn" (full-attention
+    KV pages), "attn_window" or "ssm" (not ported yet)."""
+    kind: str
+    window: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaCapability:
+    """Per-layer arena-residency descriptor of a model config."""
+    layers: Tuple[LayerCapability, ...]   # one per pattern position
+    causal: bool
+
+    @property
+    def packed_ok(self) -> bool:
+        return self.causal
+
+    @property
+    def pure_attn(self) -> bool:
+        return all(c.kind == "attn" for c in self.layers)
+
+    @property
+    def has_window(self) -> bool:
+        return any(c.kind == "attn_window" for c in self.layers)
+
+    @property
+    def has_ssm(self) -> bool:
+        return any(c.kind == "ssm" for c in self.layers)
+
+
+def arena_capability(cfg: ModelConfig) -> ArenaCapability:
+    """Per-layer capability descriptor (the routing contract)."""
+    layers = []
+    for j in range(pattern_period(cfg)):
+        if cfg.layer_kind(j) != "attn":
+            layers.append(LayerCapability("ssm"))
+        elif cfg.sliding_window is not None:
+            layers.append(LayerCapability("attn_window",
+                                          window=cfg.sliding_window))
+        else:
+            layers.append(LayerCapability("attn"))
+    return ArenaCapability(layers=tuple(layers), causal=cfg.causal)
+
+
+# ------------------------------------------------------- paged serving
+
+
+def forward_packed_paged(params: Dict, cfg: ModelConfig, *,
+                         tokens: torch.Tensor,
+                         positions: torch.Tensor,
+                         token_pages: torch.Tensor,
+                         token_offs: torch.Tensor,
+                         page_table: torch.Tensor,
+                         cu_seqlens: torch.Tensor,
+                         q_offsets: torch.Tensor,
+                         kv_lengths: torch.Tensor,
+                         arena: List[Dict[str, torch.Tensor]],
+                         last_idx: torch.Tensor) -> torch.Tensor:
+    """Paged packed forward: prefill, chunk and decode segments side by
+    side in one flat stream, one logit row per segment via ``last_idx``.
+
+    The cache is a page POOL per pattern position ({"k"/"v": (G,
+    N_pages + 1, page_size, Hkv, D)}) and each segment's logical cache is
+    the ordered page list in its row of ``page_table (B, P_max)``.
+    Pages may be shared between segments; writes land via
+    ``token_pages`` / ``token_offs (T,)``, which the PagedKVArena only
+    points at exclusively-owned pages (pads park on the scratch page).
+    The pools are updated in place.  Returns last_logits (B, V)."""
+    _check_slice(cfg)
+
+    def mix_fn(j, lp, h, cache_j):
+        return packed_paged_attention_layer(
+            lp, h, cfg=cfg, positions=positions, token_pages=token_pages,
+            token_offs=token_offs, page_table=page_table,
+            cu_seqlens=cu_seqlens, q_offsets=q_offsets,
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+
+    x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
+    return _lm_head_logits(params, cfg, x[last_idx.long()])
+
+
+def forward_decode_paged(params: Dict, cfg: ModelConfig, *,
+                         tokens: torch.Tensor,
+                         positions: torch.Tensor,
+                         write_pages: torch.Tensor,
+                         write_offs: torch.Tensor,
+                         page_table: torch.Tensor,
+                         kv_lengths: torch.Tensor,
+                         arena: List[Dict[str, torch.Tensor]]
+                         ) -> torch.Tensor:
+    """One PAGED decode tick.
+
+    tokens: (B,) last sampled token per row; positions: (B,) absolute
+    position of the new token; write_pages/write_offs: (B,) physical
+    (page, offset) its KV lands in (pad rows park on the scratch page at
+    offset page_size − 1); page_table: (B, P_max); kv_lengths: (B,)
+    valid entries INCLUDING the new row.  The pools are updated in
+    place.  Returns logits (B, V)."""
+    _check_slice(cfg)
+
+    def mix_fn(j, lp, h, cache_j):
+        return paged_decode_layer(
+            lp, h, cfg=cfg, positions=positions, write_pages=write_pages,
+            write_offs=write_offs, page_table=page_table,
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+
+    x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
+    return _lm_head_logits(params, cfg, x)

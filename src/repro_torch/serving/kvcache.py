@@ -1,0 +1,440 @@
+"""Paged KV cache of the port, from ``repro.serving.kvcache``: the radix
+prefix index over page-sized token chunks and the page-pool arena with
+COW forks and LRU eviction.
+
+The bookkeeping (page ids, refcounts, the trie) is the JAX package's,
+line for line, so a replay gives identical page assignments.  The pools
+are torch tensors updated in place.  Not in this slice: the host spill
+tier (``host_pool_bytes > 0``), ring tables for sliding-window configs
+and SSM state pages; each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from repro_torch.models import transformer as tr
+from repro_torch.models.config import ModelConfig
+
+
+class _RadixNode:
+    """One edge of the prefix trie: a page_size-token chunk → one page."""
+    __slots__ = ("children", "parent", "chunk", "page", "last_use")
+
+    def __init__(self, parent: Optional["_RadixNode"] = None,
+                 chunk: Optional[Tuple[int, ...]] = None, page: int = -1):
+        self.children: Dict[Tuple[int, ...], "_RadixNode"] = {}
+        self.parent = parent
+        self.chunk = chunk
+        self.page = page
+        self.last_use = 0
+
+
+class RadixPageIndex:
+    """Radix/trie prefix index over page_size-token chunks.
+
+    Maps token-id prefixes to the KV pages that hold them, at PAGE
+    granularity: an edge at depth i is the tuple of token ids
+    ``tokens[i·ps : (i+1)·ps]`` and names the physical page caching that
+    chunk's KV.  Only FULL pages are indexed — a prefix is shareable
+    exactly up to its last page boundary, which is also what makes
+    sharing safe: sessions append at positions ≥ their committed length,
+    so an indexed (full) page is never written again.
+
+    The index holds its own reference on every indexed page; eviction
+    (LRU over leaf nodes) drops that reference so cold cached prefixes
+    return to the free pool once no session holds them either.
+    """
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self.root = _RadixNode()
+        self._clock = 0
+        self._n_pages = 0
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def match(self, tokens: Sequence[int],
+              touch: bool = True) -> List[int]:
+        """Longest indexed prefix of ``tokens`` in full-page chunks.
+
+        Returns the page ids caching ``tokens[:len(result)·ps]``.  Never
+        matches past ``len(tokens) − 1``: the caller must keep ≥ 1 token
+        of true suffix to prefill.
+        """
+        ps = self.page_size
+        limit = max(len(tokens) - 1, 0) // ps
+        node, pages = self.root, []
+        now = self._tick() if touch else self._clock
+        for i in range(limit):
+            child = node.children.get(tuple(tokens[i * ps:(i + 1) * ps]))
+            if child is None:
+                break
+            if touch:
+                child.last_use = now
+            pages.append(child.page)
+            node = child
+        return pages
+
+    def insert(self, tokens: Sequence[int],
+               pages: Sequence[int]) -> List[int]:
+        """Index every full-page chunk of ``tokens``; return the page ids
+        NEWLY referenced (the caller owns refcounts).  Chunks already
+        indexed keep their existing page — the duplicate stays private
+        to its session."""
+        ps = self.page_size
+        node, newly = self.root, []
+        now = self._tick()
+        for i in range(len(tokens) // ps):
+            chunk = tuple(tokens[i * ps:(i + 1) * ps])
+            child = node.children.get(chunk)
+            if child is None:
+                child = _RadixNode(parent=node, chunk=chunk, page=pages[i])
+                node.children[chunk] = child
+                newly.append(pages[i])
+                self._n_pages += 1
+            child.last_use = now
+            node = child
+        return newly
+
+    def pages(self) -> List[int]:
+        out, stack = [], [self.root]
+        while stack:
+            n = stack.pop()
+            if n is not self.root:
+                out.append(n.page)
+            stack.extend(n.children.values())
+        return out
+
+    def leaves(self) -> Iterable[_RadixNode]:
+        stack = [self.root]
+        while stack:
+            n = stack.pop()
+            if n is not self.root and not n.children:
+                yield n
+            stack.extend(n.children.values())
+
+    def remove(self, node: _RadixNode) -> int:
+        """Unlink a LEAF node; returns its page (caller drops the ref)."""
+        assert not node.children and node.parent is not None
+        del node.parent.children[node.chunk]
+        self._n_pages -= 1
+        return node.page
+
+    def __len__(self) -> int:
+        return self._n_pages
+
+
+class PagedKVArena:
+    """Paged KV cache: fixed-size pages in a shared pool + per-session
+    page tables, with radix-tree prefix reuse, COW forks, and LRU
+    eviction.
+
+    Layout per layer-pattern position: k/v ``(G, N_pages + 1, page_size,
+    Hkv, D)`` torch tensors.  Page ``N_pages`` is the reserved SCRATCH
+    page: it is never allocated, never indexed, and pad stream rows
+    write at (scratch, page_size − 1).
+
+    Sessions own ORDERED page lists (logical page i = positions
+    [i·ps, (i+1)·ps)).  Pages are shared through radix-tree prefix reuse
+    (``match_prefix`` / ``match_extend``) and COW forks (``fork``; the
+    fork-shared partial boundary page is copied by ``prepare_extend`` on
+    the first diverging write).
+
+    ``refcount[p]`` = #sessions whose table holds p, + 1 if the radix
+    index holds p.  A page returns to the free pool when its refcount
+    drops to zero; when the pool runs dry, LRU leaf pages held only by
+    the index are evicted.
+
+    ``cfg=None`` builds a bookkeeping-only arena (no tensors) for
+    property tests of the share/fork/evict/write state machine.
+    """
+
+    def __init__(self, cfg: Optional[ModelConfig], num_pages: int,
+                 page_size: int, max_len: int, dtype=None,
+                 prefix_cache: bool = True,
+                 ring_pages: Optional[int] = None,
+                 state_slots: bool = False,
+                 host_pool_bytes: int = 0, device="cuda"):
+        if ring_pages is not None or state_slots:
+            raise NotImplementedError(
+                "ring page tables and SSM state pages are not ported yet "
+                "(ROADMAP Queue 1, item 10)")
+        if host_pool_bytes > 0:
+            raise NotImplementedError(
+                "the host spill tier is not ported yet "
+                "(ROADMAP Queue 1, item 11)")
+        self.cfg = cfg
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_len = max_len
+        self.scratch: int = num_pages          # reserved, never allocated
+        self.arena = (tr.init_cache(cfg, num_pages + 1, page_size, dtype,
+                                    device=device)
+                      if cfg is not None else None)
+        self._free: List[int] = list(range(num_pages))
+        self._refcount: List[int] = [0] * num_pages
+        self._pages: Dict[int, List[int]] = {}     # session -> page list
+        self._tokens: Dict[int, List[int]] = {}    # session -> cached ids
+        self.lengths: Dict[int, int] = {}          # session -> tokens cached
+        self.index: Optional[RadixPageIndex] = (
+            RadixPageIndex(page_size) if prefix_cache else None)
+        # proof counters (engine.stats())
+        self.prefix_hit_tokens = 0
+        self.chunk_hit_tokens = 0
+        self.pages_cow_forked = 0
+        self.pages_evicted = 0
+        # the paged paths never materialize whole sequences: kept for
+        # stats() symmetry with the JAX package and asserted == 0
+        self.gather_calls = 0
+        self.scatter_calls = 0
+
+    # ---------------------------------------------------------- refcounts
+    def _ref(self, page: int) -> None:
+        self._refcount[page] += 1
+
+    def _unref(self, page: int) -> None:
+        rc = self._refcount[page] = self._refcount[page] - 1
+        assert rc >= 0, f"page {page} refcount underflow"
+        if rc == 0:
+            self._free.append(page)
+
+    def _alloc_page(self) -> int:
+        if not self._free:
+            self._evict(1)
+        if not self._free:
+            raise RuntimeError("KV page pool exhausted")
+        page = self._free.pop()
+        self._refcount[page] = 1
+        return page
+
+    def _evict(self, need: int) -> None:
+        """LRU-evict leaf pages held ONLY by the radix index."""
+        if self.index is None:
+            return
+        freed = 0
+        while freed < need:
+            victim = None
+            for leaf in self.index.leaves():
+                if self._refcount[leaf.page] != 1:
+                    continue                   # pinned by a live session
+                if victim is None or leaf.last_use < victim.last_use:
+                    victim = leaf
+            if victim is None:
+                return
+            self._unref(self.index.remove(victim))
+            self.pages_evicted += 1
+            freed += 1
+
+    # ------------------------------------------------------------ sessions
+    def open(self, session: int) -> None:
+        if session in self._pages:
+            return
+        self._pages[session] = []
+        self._tokens[session] = []
+        self.lengths[session] = 0
+
+    def free(self, session: int) -> None:
+        pages = self._pages.pop(session, None)
+        if pages is None:
+            return
+        for p in pages:
+            self._unref(p)
+        self._tokens.pop(session, None)
+        self.lengths.pop(session, None)
+
+    def pages_of(self, session: int) -> List[int]:
+        return self._pages.get(session, [])
+
+    def length(self, session: int) -> int:
+        return self.lengths.get(session, 0)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def max_pages_per_seq(self) -> int:
+        return self.max_len // self.page_size
+
+    # -------------------------------------------------------- prefix reuse
+    def _walk(self, start: _RadixNode, tokens: Sequence[int], limit: int,
+              *, pin: bool) -> List[_RadixNode]:
+        """Follow ``tokens`` chunk by chunk from ``start``.  ``pin=True``
+        refs every matched page (the caller owns the refs)."""
+        node = start
+        out: List[_RadixNode] = []
+        now = self.index._tick() if pin else self.index._clock
+        ps = self.page_size
+        for i in range(limit):
+            chunk = tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+            child = node.children.get(chunk)
+            if child is None:
+                break
+            if pin:
+                child.last_use = now
+                self._ref(child.page)
+            out.append(child)
+            node = child
+        return out
+
+    def probe_prefix(self, tokens: Sequence[int]) -> int:
+        """Tokens a fresh session with this prompt would NOT re-prefill
+        (non-adopting; used by the serve loop for length-aware
+        scheduling of the true suffix)."""
+        if self.index is None:
+            return 0
+        limit = max(len(tokens) - 1, 0) // self.page_size
+        nodes = self._walk(self.index.root, tokens, limit, pin=False)
+        return len(nodes) * self.page_size
+
+    def match_prefix(self, session: int, tokens: Sequence[int]) -> int:
+        """Map the longest indexed prefix of ``tokens`` onto existing
+        pages; the session then only prefills ``tokens[matched:]``.
+
+        Only valid on an EMPTY session.  Returns the matched token count
+        (multiple of page_size, ≤ len(tokens) − 1).
+        """
+        self.open(session)
+        assert self.lengths[session] == 0 and not self._pages[session], \
+            f"match_prefix on non-empty session {session}"
+        if self.index is None:
+            return 0
+        limit = max(len(tokens) - 1, 0) // self.page_size
+        nodes = self._walk(self.index.root, tokens, limit, pin=True)
+        if not nodes:
+            return 0
+        matched = len(nodes) * self.page_size
+        self._pages[session] = [nd.page for nd in nodes]
+        self._tokens[session] = [int(t) for t in tokens[:matched]]
+        self.lengths[session] = matched
+        self.prefix_hit_tokens += matched
+        return matched
+
+    def match_extend(self, session: int, tokens: Sequence[int]) -> int:
+        """CHUNK-LEVEL prefix matching: mid-request, map the longest
+        indexed continuation of the session's cached history onto
+        existing pages.
+
+        ``tokens`` is the not-yet-cached remainder of the prompt.  Only
+        valid when the session sits exactly on a page boundary.  Keeps
+        ≥ 1 token of true suffix.  Returns the adopted token count.
+        """
+        if self.index is None:
+            return 0
+        h = self.lengths.get(session, 0)
+        ps = self.page_size
+        if h == 0 or h % ps:
+            return 0
+        toks = self._tokens[session]
+        # locate the session's frontier node by CONTENT (the session may
+        # hold private duplicate pages; the trie is keyed on token ids)
+        node = self.index.root
+        for i in range(h // ps):
+            child = node.children.get(tuple(toks[i * ps:(i + 1) * ps]))
+            if child is None:
+                return 0                       # history not indexed
+            node = child
+        limit = max(len(tokens) - 1, 0) // ps
+        nodes = self._walk(node, tokens, limit, pin=True)
+        if not nodes:
+            return 0
+        matched = len(nodes) * ps
+        self._pages[session].extend(nd.page for nd in nodes)
+        toks.extend(int(t) for t in tokens[:matched])
+        self.lengths[session] = h + matched
+        self.prefix_hit_tokens += matched
+        self.chunk_hit_tokens += matched
+        return matched
+
+    # --------------------------------------------------------------- write
+    def prepare_extend(self, session: int, n: int) -> List[int]:
+        """Make positions [length, length + n) writable: COW-copy the
+        fork-shared partial boundary page (the ONLY shareable page a
+        write can touch — full pages are append-safe) and allocate fresh
+        pages for the tail.  Returns the session's page list; every page
+        overlapping the write range is exclusively owned afterwards."""
+        self.open(session)
+        h = self.lengths[session]
+        if h + n > self.max_len - 2:
+            raise RuntimeError(
+                f"session {session} overflows arena "
+                f"({h + n} > {self.max_len - 2})")
+        ps = self.page_size
+        pages = self._pages[session]
+        if h % ps and self._refcount[pages[h // ps]] > 1:
+            src = pages[h // ps]
+            dst = self._alloc_page()
+            self._copy_page(src, dst)
+            self._unref(src)
+            pages[h // ps] = dst
+            self.pages_cow_forked += 1
+        last = (h + n - 1) // ps
+        while len(pages) <= last:
+            pages.append(self._alloc_page())
+        return pages
+
+    def commit(self, session: int, token_ids: Sequence[int]) -> None:
+        """Record ``token_ids`` as written at [length, length + n) (the
+        step already wrote their KV via prepare_extend's pages) and
+        index every newly-FULL page for cross-session reuse."""
+        toks = self._tokens[session]
+        toks.extend(int(t) for t in token_ids)
+        self.lengths[session] += len(token_ids)
+        if self.index is not None:
+            n_full = self.lengths[session] // self.page_size
+            for p in self.index.insert(toks[:n_full * self.page_size],
+                                       self._pages[session][:n_full]):
+                self._ref(p)
+
+    # ---------------------------------------------------------------- fork
+    def fork(self, parent: int, child: int) -> None:
+        """COW-fork: the child shares every page (and the token history)
+        of the parent; diverging writes copy the partial boundary page
+        on demand (prepare_extend)."""
+        assert child not in self._pages, f"fork onto live session {child}"
+        self.open(child)
+        for p in self._pages[parent]:
+            self._ref(p)
+        self._pages[child] = list(self._pages[parent])
+        self._tokens[child] = list(self._tokens[parent])
+        self.lengths[child] = self.lengths[parent]
+
+    # ------------------------------------------------------------- tensors
+    def _copy_page(self, src: int, dst: int) -> None:
+        if self.arena is None:
+            return
+        for leaves in self.arena:
+            for a in leaves.values():
+                a[:, dst].copy_(a[:, src])
+
+    # --------------------------------------------------------------- audit
+    def audit(self) -> None:
+        """Assert the refcount/free-list/scratch invariants (tests)."""
+        rc = [0] * self.num_pages
+        for pages in self._pages.values():
+            for p in pages:
+                assert p != self.scratch, "scratch page in a session table"
+                rc[p] += 1
+        if self.index is not None:
+            stack = [self.index.root]
+            while stack:
+                nd = stack.pop()
+                if nd is not self.index.root:
+                    assert nd.page != self.scratch, \
+                        "scratch page in the radix index"
+                    assert nd.page >= 0, "placeholder node leaked"
+                    rc[nd.page] += 1
+                stack.extend(nd.children.values())
+        assert rc == self._refcount, \
+            f"refcount drift: counted {rc} != tracked {self._refcount}"
+        assert sorted(self._free) == sorted(set(self._free)), \
+            "duplicate pages in the free list"
+        free = set(self._free)
+        for p in self._free:
+            assert p != self.scratch and self._refcount[p] == 0, \
+                f"free page {p} still referenced"
+        for p, r in enumerate(self._refcount):
+            assert (r == 0) == (p in free), \
+                f"page {p} rc={r} free-list membership mismatch"

@@ -20,3 +20,8 @@ except ImportError:
 else:
     settings.register_profile("ci", max_examples=25, deadline=None)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips inside the test without one)")

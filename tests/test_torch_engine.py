@@ -1,0 +1,158 @@
+"""Serving engine of the PyTorch port against the JAX engine on the paged
+default path: the same ``step_mixed`` / ``decode_batch`` /
+``prefill_long`` / ``fork_session`` schedule on both, with weights
+converted from the JAX pytree, must commit identical tokens, place them
+on identical pages, count identical prefix hits, and give logits within
+1e-5 (fp32; XLA and PyTorch's CPU matmuls sum in different orders).
+Also: the split paths for over-wide ticks, the entry-point guards and
+the branches outside the slice.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.configs import get_smoke  # noqa: E402
+from repro.models import transformer as jtr  # noqa: E402
+from repro.serving import Engine as JEngine  # noqa: E402
+from repro.serving import EngineConfig as JConfig  # noqa: E402
+from repro_torch.configs import get_smoke as tget  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    out = {}
+    for arch in ("qwen3-4b", "qwen2.5-32b"):
+        cfg = get_smoke(arch)
+        params, _ = jtr.init_params(cfg, jax.random.key(11))
+        tp = params_from_numpy(jax.tree.map(np.asarray, params),
+                               tget(arch), "cpu")
+        out[arch] = (cfg, params, tget(arch), tp)
+    return out
+
+
+def _pair(stack, **kw):
+    cfg, params, tcfg, tp = stack
+    base = dict(num_slots=6, max_len=128, chunk_tokens=16, measure=False)
+    base.update(kw)
+    return (JEngine(cfg, params, JConfig(**base)),
+            Engine(tcfg, tp, EngineConfig(**base), device="cpu"))
+
+
+def _same(je, te, sessions):
+    for s in sessions:
+        np.testing.assert_allclose(te.last_logits[s], je.last_logits[s],
+                                   **TOL)
+        assert te.arena.pages_of(s) == je.arena.pages_of(s)
+        assert te.arena._tokens[s] == je.arena._tokens[s]
+    keys = ("prefix_hit_tokens", "chunk_hit_tokens", "pages_cow_forked",
+            "pages_evicted", "packed_dispatches", "decode_dispatches",
+            "packed_useful_tokens", "packed_padded_tokens", "mixed_steps",
+            "decode_tokens_fused", "free_pages", "radix_pages")
+    js, ts = je.stats(), te.stats()
+    assert {k: ts[k] for k in keys} == {k: js[k] for k in keys}
+    te.arena.audit()
+
+
+def _prompts(vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab, 20).astype(np.int32)
+    return [np.concatenate([system, rng.integers(1, vocab, n)]).astype(
+        np.int32) for n in (5, 11, 3)], rng
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-32b"])
+def test_mixed_schedule_matches_jax(stacks, arch):
+    """Prefill → prefix-hit prefill fused with decode rows → bucketed
+    decode: identical tokens, pages and counters."""
+    je, te = _pair(stacks[arch])
+    prompts, rng = _prompts(stacks[arch][0].vocab_size)
+    outs = []
+    for e in (je, te):
+        r1 = e.step_mixed([(0, prompts[0])], [])
+        r2 = e.step_mixed([(1, prompts[1]), (2, prompts[2])],
+                          [(0, r1.tokens[0])])
+        d = e.decode_batch([0, 1, 2], [r2.tokens[0], r2.tokens[1],
+                                       r2.tokens[2]], steps=3)
+        outs.append((r1.tokens, r2.tokens, r2.fused, d))
+    assert outs[0] == outs[1]
+    assert te.stats()["prefix_hit_tokens"] > 0
+    _same(je, te, [0, 1, 2])
+
+
+def test_long_prefill_fork_and_split_match_jax(stacks):
+    """Chunked prefill with chunk-level matching, a COW fork diverging
+    on the shared boundary page, an over-wide tick split across packed
+    steps, and a decode batch over the ladder top."""
+    je, te = _pair(stacks["qwen3-4b"], num_slots=4,
+                   decode_buckets=(1, 2))
+    vocab = stacks["qwen3-4b"][0].vocab_size
+    rng = np.random.default_rng(3)
+    long_p = rng.integers(1, vocab, 70).astype(np.int32)
+    # five segments over 4 stream rows: split, never dense
+    many = [(10 + i, rng.integers(1, vocab, 4).astype(np.int32))
+            for i in range(5)]
+    outs = []
+    for e in (je, te):
+        t0 = e.prefill_long(0, long_p)
+        e.open_session(1)
+        hit = e.adopt_prefix(1, long_p[:50])
+        t1 = e.prefill_long(1, long_p[hit:60])     # chunk-level re-probe
+        e.fork_session(0, 3)
+        d = e.decode_batch([0, 3], [t0, t0 + 1], steps=2)  # COW on fork
+        r = e.step_mixed(many, [])
+        d2 = e.decode_batch([0, 1, 3], [d[0][-1], t1, d[3][-1]], steps=1)
+        outs.append((t0, hit, t1, d, r.tokens, r.fused, d2))
+    assert outs[0] == outs[1]
+    assert outs[1][5] is False                       # split tick
+    assert te.stats()["pages_cow_forked"] == 1
+    _same(je, te, [0, 1, 3])
+
+
+def test_greedy_ids_path_skips_the_logits_transfer(stacks):
+    _, te = _pair(stacks["qwen3-4b"], keep_last_logits=False)
+    prompts, _ = _prompts(stacks["qwen3-4b"][0].vocab_size)
+    _, tk = _pair(stacks["qwen3-4b"])
+    r = te.step_mixed([(0, prompts[0])], [])
+    want = tk.step_mixed([(0, prompts[0])], [])
+    assert r.tokens == want.tokens
+    st = te.stats()
+    assert st["fused_greedy_steps"] == 1 and st["logits_rows_shipped"] == 0
+
+
+def test_engine_refuses_the_cpu_by_default():
+    """No device given → CUDA; without a card that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    tcfg = tget("qwen3-4b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(tcfg, {})
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(paged_kv=False), "item 9"),
+    (dict(fused_sampling=True), "item 12"),
+    (dict(host_pool_bytes=1 << 20), "item 11"),
+])
+def test_config_branches_outside_the_slice_raise(stacks, kw, item):
+    _, _, tcfg, tp = stacks["qwen3-4b"]
+    with pytest.raises(NotImplementedError, match=item):
+        Engine(tcfg, tp, EngineConfig(**kw), device="cpu")
+
+
+def test_method_branches_outside_the_slice_raise(stacks):
+    _, te = _pair(stacks["qwen3-4b"])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        te.enable_spec(object())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        te.export_session(0)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        te.import_session(0, None)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Engine(tget("qwen3-4b").replace(sliding_window=32), {},
+               device="cpu")

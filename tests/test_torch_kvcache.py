@@ -1,0 +1,135 @@
+"""Paged KV arena of the PyTorch port against the JAX package's: a seeded
+replay of open / prefix-match / extend / commit / fork / free under a
+tiny pool (LRU eviction) drives both arenas and must give identical page
+ids, refcounts, free lists, counters and a green ``audit()`` after every
+step; COW page copies move the same pool content; the branches outside
+the slice raise.
+"""
+import random
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.configs import get_smoke  # noqa: E402
+from repro.serving.kvcache import PagedKVArena as JArena  # noqa: E402
+from repro_torch.configs import get_smoke as tget  # noqa: E402
+from repro_torch.serving.kvcache import PagedKVArena as TArena  # noqa: E402
+
+NUM_PAGES, PS, MAX_LEN = 10, 4, 24
+
+
+def _state(ar):
+    return (dict(ar._pages), dict(ar._tokens), dict(ar.lengths),
+            list(ar._refcount), list(ar._free), ar.prefix_hit_tokens,
+            ar.chunk_hit_tokens, ar.pages_cow_forked, ar.pages_evicted,
+            sorted(ar.index.pages()) if ar.index is not None else None)
+
+
+def _write(ar, session, toks):
+    try:
+        pages = ar.prepare_extend(session, len(toks))
+    except RuntimeError:
+        return None                    # pool exhausted / arena overflow
+    ar.commit(session, toks)
+    return list(pages)
+
+
+def _replay(seed, steps, prefix_cache=True):
+    """Apply one seeded op sequence to both arenas in lock step."""
+    rng = random.Random(seed)
+    arenas = (JArena(None, NUM_PAGES, PS, MAX_LEN, prefix_cache=prefix_cache),
+              TArena(None, NUM_PAGES, PS, MAX_LEN, prefix_cache=prefix_cache))
+    next_sid = 0
+    for _ in range(steps):
+        live = sorted(arenas[0]._pages)
+        op = rng.choice(["submit", "submit"] + (
+            ["extend", "fork", "free", "match_extend"] if live else []))
+        if op == "submit":
+            toks = (list(arenas[0]._tokens[rng.choice(live)])
+                    if live and rng.random() < 0.5 else [])
+            toks += [rng.randint(0, 3) for _ in range(rng.randint(1, 10))]
+            toks = toks[:MAX_LEN - 2]
+            next_sid += 1
+            outs = []
+            for ar in arenas:
+                m = ar.match_prefix(next_sid, toks)
+                w = _write(ar, next_sid, toks[m:])
+                if w is None:
+                    ar.free(next_sid)
+                outs.append((m, w))
+            assert outs[0] == outs[1]
+        elif op == "extend":
+            s = rng.choice(live)
+            toks = [rng.randint(0, 3) for _ in range(rng.randint(1, 3))]
+            assert _write(arenas[0], s, toks) == _write(arenas[1], s, toks)
+        elif op == "match_extend":
+            s = rng.choice(live)
+            toks = [rng.randint(0, 3) for _ in range(rng.randint(1, 9))]
+            assert arenas[0].match_extend(s, toks) == \
+                arenas[1].match_extend(s, toks)
+        elif op == "fork":
+            parent = rng.choice(live)
+            next_sid += 1
+            for ar in arenas:
+                ar.fork(parent, next_sid)
+        else:
+            s = rng.choice(live)
+            for ar in arenas:
+                ar.free(s)
+        for ar in arenas:
+            ar.audit()
+        assert _state(arenas[0]) == _state(arenas[1])
+        assert arenas[1].probe_prefix(toks) == arenas[0].probe_prefix(toks)
+    return arenas
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_replay_matches_jax_arena(seed):
+    arenas = _replay(seed, steps=60)
+    # drain: freeing every session then evicting everything empties both
+    for ar in arenas:
+        for s in list(ar._pages):
+            ar.free(s)
+        ar._evict(NUM_PAGES)
+        ar.audit()
+        assert ar.free_pages == NUM_PAGES
+    assert _state(arenas[0]) == _state(arenas[1])
+
+
+def test_replay_without_prefix_cache():
+    _replay(99, steps=40, prefix_cache=False)
+
+
+def test_cow_copy_moves_the_same_pool_content():
+    """A fork-shared partial boundary page is copied on the first
+    diverging write, content and all, exactly as in the JAX arena."""
+    cfg, tcfg = get_smoke("qwen3-4b"), tget("qwen3-4b")
+    ja = JArena(cfg, 8, PS, 32)
+    ta = TArena(tcfg, 8, PS, 32, device="cpu")
+    rng = np.random.default_rng(0)
+    fill = rng.standard_normal(ja.arena[0]["k"].shape).astype(np.float32)
+    ja.arena = [{"k": jax.numpy.asarray(fill), "v": jax.numpy.asarray(-fill)}]
+    ta.arena[0]["k"].copy_(torch.from_numpy(fill))
+    ta.arena[0]["v"].copy_(torch.from_numpy(-fill))
+    for ar in (ja, ta):
+        ar.open(1)
+        _write(ar, 1, [1, 2, 3, 4, 5, 6])         # one full + one partial
+        ar.fork(1, 2)
+        _write(ar, 2, [9])                         # COW of the partial page
+        ar.audit()
+    assert ja.pages_of(2) == ta.pages_of(2) and ta.pages_cow_forked == 1
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(ta.arena[0][name].numpy(),
+                                      np.asarray(ja.arena[0][name]))
+
+
+def test_branches_outside_the_slice_raise():
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TArena(None, 8, PS, 32, host_pool_bytes=1 << 20)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TArena(None, 8, PS, 32, ring_pages=4)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TArena(None, 8, PS, 32, state_slots=True)
