@@ -1,32 +1,41 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's main path on one NVIDIA card and fails on any fault:
+Drives every path of the port on one NVIDIA card and fails on any fault:
 
   1. card and build — ``nvidia-smi`` name and power limit, the nvcc
-     build of every kernel (seconds, ``-Xptxas -v`` registers / shared
-     memory / spills);
+     build of the five kernels (seconds, ``-Xptxas -v`` registers /
+     shared memory / spills);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
-     shapes (Hq 32, Hkv 8, D 128, page_size 16), fp32 and bf16, on
-     fragmented, shared and COW-forked page tables, q_offsets > 0,
-     length-1 decode segments inside a prefill stream, a bucket tail
-     past cu_seqlens[-1], empty segments, decode rows with lengths 0,
-     kv lengths off the page grid, 256- and 512-row chunks at histories
-     of 1.5k-2k keys beside short segments, and table entries past the
-     valid length poisoned so a stray read faults;
-  3. the engine against the plain dense forward: qwen3-4b widths, 2
-     layers, fp32, ServeLoop over 4 sessions × 2 turns + prefill_long,
+     shapes (Hq 32, Hkv 8, D 128), fp32 and bf16.  Paged kernels: page
+     size 16, fragmented, shared and COW-forked page tables, q_offsets
+     > 0, length-1 decode segments inside a prefill stream, a bucket
+     tail past cu_seqlens[-1], empty segments, decode rows with lengths
+     0, kv lengths off the page grid, 256- and 512-row chunks at
+     histories of 1.5k-2k keys, and table entries past the valid length
+     poisoned so a stray read faults.  Slot kernels: pad segments, tail
+     rows, decode-ladder pad rows, keyless rows, S_max of 64, 192, 200
+     and the main path (a 512-row chunk at history 1536 beside a short
+     segment and a decode row in an 8-slot x 4096 arena), with every
+     row at and past each kv length holding a large finite value;
+  3. the engine against the plain dense forward in each of its four
+     modes (the launcher's slot/dense default, the packed slot arena,
+     the gathered slot baseline, the paged default): qwen3-4b widths, 2
+     layers, fp32, ServeLoop over 4 sessions x 2 turns + prefill_long,
      then 4 decode steps; logits within 1e-3 and the same greedy tokens;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
-     --seed, 8 sessions × 2 turns under ``pla_full`` with one
-     2048-token prompt, served once to warm up and then --runs times,
-     each on a fresh engine with a fixed LAPS boundary (no wall-time
-     refit); every request answered, both kernels launched, prefix
-     hits, a green arena audit, finite logits; median and spread of
-     TTFT, throughput and seconds per tick, and peak memory;
+     --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
+     served in each mode after one warm-up run, each run on a fresh
+     engine with a fixed LAPS boundary (no wall-time refit); every
+     request answered, each of the mode's kernels launched, finite
+     logits; TTFT, throughput, seconds per tick, whole-slot copies,
+     peak memory and launches per mode;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
-     version, one PyTorch library call as a yardstick, the bound), and
-     each kernel's output there held to its plain version;
-  6. one JSON line describing every kernel, then the card line and the
+     version, one PyTorch library call as a yardstick, the bound), each
+     kernel's output there held to its plain version, and the parts of
+     a dense grid tick (whole-slot copies, attention over S_max);
+  6. the serve launcher, its default and ``--packed``, at the smoke
+     config and at published widths cut to 4 layers;
+  7. one JSON line describing every kernel, then the card line and the
      result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -184,7 +193,7 @@ def phase_kernels(seed, errs):
             tail_zero = bool((out[keyless] == 0).all().item()) and \
                 bool(keyless[int(cu[-1]):].all().item())
             ok = ok and tail_zero
-            errs.setdefault(("prefill", dtype), []).append(err)
+            errs.setdefault(("ragged_prefill_paged", dtype), []).append(err)
             log(f"[2] ragged_prefill_paged {name:14s} {str(dtype):15s} "
                 f"T={t} max_abs_err={err:.3e} tol={TOL[dtype]:.0e} "
                 f"err/bound={worst:.3f} tail_zero={tail_zero} "
@@ -203,7 +212,7 @@ def phase_kernels(seed, errs):
             zeros = bool((out[zero_rows] == 0).all().item()) \
                 if zero_rows else True
             ok = ok and zeros
-            errs.setdefault(("decode", dtype), []).append(err)
+            errs.setdefault(("decode_attn_paged", dtype), []).append(err)
             log(f"[2] decode_attn_paged    {name:14s} {str(dtype):15s} "
                 f"B={b} max_abs_err={err:.3e} tol={TOL[dtype]:.0e} "
                 f"err/bound={worst:.3f} zero_rows_zero={zeros} "
@@ -211,19 +220,176 @@ def phase_kernels(seed, errs):
             assert ok, f"decode_attn_paged {name} {dtype}"
 
 
+ARENA_SLOTS = 8
+POISON_KV = 1000.0  # arena rows at and past kv_len: a large finite value,
+#                     so a kernel that reads a masked row still passes
+#                     (0 x finite = 0) but one that attends it fails
+ARENA_PREFILL_CASES = {
+    # S_max, lens, hists, tail rows, pad segments, keyless segment
+    "pad_segments": (192, [37, 5, 1], [0, 21, 120], 13, 2, None),
+    "keyless_segment": (64, [6, 4, 11], [0, 0, 30], 5, 0, 1),
+    "s_max_200": (200, [100, 3, 1], [90, 40, 196], 0, 1, None),
+    # the main path: a 512-row chunk at history 1536 over 2048 keys
+    # beside a short segment and a decode row, padded to 8 stream rows
+    "main_path": (4096, [512, 17, 1], [1536, 40, 900], 9, 5, None),
+}
+ARENA_DECODE_CASES = {
+    # S_max, lengths of the live rows, decode-ladder pad rows
+    "s_max_64": (64, [1, 17, 62, 0], 4),
+    "s_max_192": (192, [190, 64, 33], 5),
+    "s_max_200": (200, [198, 17, 0, 130, 1], 3),
+    "main_path": (4096, [2048] * 8, 0),
+}
+
+
+def _arena(gen, s_max, dtype, live):
+    """An (ARENA_SLOTS, s_max, HKV, D) K/V arena of random rows whose
+    rows at and past each live slot's valid length (``live``: {slot:
+    kv_len}), park row S_max - 1 included, and every row of the other
+    slots hold POISON_KV."""
+    shape = (ARENA_SLOTS, s_max, HKV, D)
+    k = torch.randn(shape, generator=gen, device=DEVICE)
+    v = torch.randn(shape, generator=gen, device=DEVICE)
+    valid = torch.zeros((ARENA_SLOTS, s_max), dtype=torch.bool,
+                        device=DEVICE)
+    for slot, n in live.items():
+        valid[slot, :min(n, s_max - 1)] = True
+    for a in (k, v):
+        a[~valid] = POISON_KV
+    return k.to(dtype), v.to(dtype)
+
+
+def _prefill_layout(rng, name):
+    """Stream layout of an ARENA_PREFILL_CASES case: the slot map (pad
+    segments name the first segment's slot, as the engine pads), cu,
+    q_offsets and kv_lengths over all stream rows, T and S_max."""
+    s_max, lens, hists, tail, n_pad, keyless = ARENA_PREFILL_CASES[name]
+    kvl = [h + l for h, l in zip(hists, lens)]
+    if keyless is not None:
+        kvl[keyless] = 0
+    slots = [int(s) for s in rng.permutation(ARENA_SLOTS)[:len(lens)]]
+    total = sum(lens)
+    cu = [0] + list(np.cumsum(lens)) + [total] * n_pad
+    slot_map = slots + [slots[0]] * n_pad
+    return (slot_map, cu, hists + [0] * n_pad, kvl + [0] * n_pad,
+            total + tail, s_max, dict(zip(slots, kvl)))
+
+
+def phase_slot_kernels(seed, errs):
+    """The three slot-arena kernels against their plain versions."""
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels import ragged_prefill as rp
+    rng = np.random.default_rng(seed + 10)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 10)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in ARENA_PREFILL_CASES:
+            slot_map, cu, hists, kvl, t, s_max, live = \
+                _prefill_layout(rng, name)
+            k, v = _arena(gen, s_max, dtype, live)
+            q = torch.randn((t, HQ, D), generator=gen,
+                            device=DEVICE).to(dtype)
+            index = (_i32(cu), _i32(hists), _i32(kvl))
+            # the gathered baseline's caches: each stream row's slot
+            # copied out, as KVArena.gather gives them
+            kg, vg = (a[_i32(slot_map).long()].contiguous() for a in (k, v))
+            for kname, out, plain, args in (
+                    ("ragged_prefill_arena",
+                     rp.ragged_prefill_arena(q, k, v, _i32(slot_map),
+                                             *index),
+                     rp.ragged_prefill_arena_plain,
+                     (q, k, v, _i32(slot_map)) + index),
+                    ("ragged_prefill_attn",
+                     rp.ragged_prefill_attn(q, kg, vg, *index),
+                     rp.ragged_prefill_attn_plain, (q, kg, vg) + index)):
+                torch.cuda.synchronize()
+                err, worst, ok, ref = _held(out, plain, *args)
+                keyless = ref.abs().amax(dim=(1, 2)) == 0
+                zeros = bool((out[keyless] == 0).all().item()) and \
+                    bool(keyless[int(cu[-1]):].all().item())
+                ok = ok and zeros
+                errs.setdefault((kname, dtype), []).append(err)
+                log(f"[2] {kname:20s} {name:15s} {str(dtype):15s} "
+                    f"S_max={s_max} T={t} max_abs_err={err:.3e} "
+                    f"err/bound={worst:.3f} tail_and_keyless_zero={zeros} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, f"{kname} {name} {dtype}"
+        for name, (s_max, lengths, n_pad) in ARENA_DECODE_CASES.items():
+            slots = [int(s) for s in rng.permutation(ARENA_SLOTS)
+                     [:len(lengths)]]
+            k, v = _arena(gen, s_max, dtype, dict(zip(slots, lengths)))
+            # pad rows read row 0 of the first live row's slot
+            slot_map = slots + [slots[0]] * n_pad
+            lens = lengths + [1] * n_pad
+            b = len(lens)
+            q = torch.randn((b, HQ, D), generator=gen,
+                            device=DEVICE).to(dtype)
+            args = (q, k, v, _i32(slot_map), _i32(lens))
+            out = dec.decode_attn_arena(*args)
+            torch.cuda.synchronize()
+            live_rows = list(range(len(lengths)))
+            err, worst, ok, _ = _held(out[live_rows],
+                                      dec.decode_attn_arena_plain,
+                                      q[live_rows], k, v,
+                                      _i32(slots), _i32(lengths))
+            zero_rows = [i for i, n in enumerate(lengths) if n == 0]
+            zeros = bool((out[zero_rows] == 0).all().item()) \
+                if zero_rows else True
+            ok = ok and zeros and bool(torch.isfinite(out).all().item())
+            errs.setdefault(("decode_attn_arena", dtype), []).append(err)
+            log(f"[2] decode_attn_arena    {name:15s} {str(dtype):15s} "
+                f"S_max={s_max} B={b} max_abs_err={err:.3e} "
+                f"err/bound={worst:.3f} zero_rows_zero={zeros} "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok, f"decode_attn_arena {name} {dtype}"
+
+
 # ------------------------------------------------------------ phase 3
+
+# the engine configurations served: the launcher's default (the dense
+# (L, B) grid with arena decode), the two packed slot-arena forms and
+# the paged default stack
+MODES = {
+    "slot_dense": dict(packed=False, paged_kv=False),
+    "slot_arena": dict(paged_kv=False),
+    "slot_gathered": dict(paged_kv=False, arena_prefill=False),
+    "paged": dict(),
+}
+# the kernels each mode's serving path must launch
+MODE_KERNELS = {
+    "slot_dense": ("decode_attn_arena",),
+    "slot_arena": ("ragged_prefill_arena", "decode_attn_arena"),
+    "slot_gathered": ("ragged_prefill_attn", "decode_attn_arena"),
+    "paged": ("ragged_prefill_paged", "decode_attn_paged"),
+}
+
+
+def _launchers():
+    """{kernel name: its launcher, whose ``launches`` counts launches}."""
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels import ragged_prefill as rp
+    return {"ragged_prefill_paged": rp.ragged_prefill_paged,
+            "decode_attn_paged": dec.decode_attn_paged,
+            "decode_attn_arena": dec.decode_attn_arena,
+            "ragged_prefill_arena": rp.ragged_prefill_arena,
+            "ragged_prefill_attn": rp.ragged_prefill_attn}
+
 
 def _policy(engine, chunk_tokens, threshold):
     from repro_torch.core import H200_QWEN32B, Variant, make_policy
     from repro_torch.core.awd import AWDConfig
-    awd = AWDConfig(packed=True, token_buckets=engine.ecfg.token_buckets,
-                    packed_max_seqs=engine.packed_executor.max_seqs)
+    awd = None
+    if engine.packed_executor is not None:
+        awd = AWDConfig(packed=True, token_buckets=engine.ecfg.token_buckets,
+                        packed_max_seqs=engine.packed_executor.max_seqs)
     return make_policy(Variant("pla_full"), H200_QWEN32B,
                        threshold=threshold, chunk_tokens=chunk_tokens,
                        awd_cfg=awd)
 
 
-def phase_oracle(seed):
+def phase_oracle(seed, mode):
+    """The engine in ``mode`` against the plain dense forward over each
+    session's cached ids, at qwen3-4b widths, 2 layers, fp32."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -231,37 +397,45 @@ def phase_oracle(seed):
     cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32")
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
     engine = Engine(cfg, params, EngineConfig(
-        num_slots=8, max_len=1024, chunk_tokens=64, measure=False),
-        device=DEVICE)
+        num_slots=8, max_len=1024, chunk_tokens=64, measure=False,
+        **MODES[mode]), device=DEVICE)
     loop = ServeLoop(engine, _policy(engine, 64, 96), slo_ttft=None)
     rng = np.random.default_rng(seed + 1)
     system = rng.integers(1, cfg.vocab_size, 40)
-    convs = {}
     for s in range(4):                       # turn 1: fresh sessions
-        convs[s] = np.concatenate(
+        loop.submit(s, np.concatenate(
             [system, rng.integers(1, cfg.vocab_size,
-                                  int(rng.integers(20, 160)))])
-        loop.submit(s, convs[s], decode_tokens=2)
+                                  int(rng.integers(20, 160)))]),
+                    decode_tokens=2)
     loop.run_until_idle(max_wall=600.0)
     for s in range(4):                       # turn 2: the same sessions
         loop.submit(s, rng.integers(1, cfg.vocab_size,
                                     int(rng.integers(8, 40))),
                     decode_tokens=2)
     loop.run_until_idle(max_wall=600.0)
-    # a fifth session prefilled through the chunked long path directly,
-    # adopting the shared system prompt's indexed pages
+    # a fifth session prefilled through the chunked long path directly
+    # (on the page pool it adopts the shared system prompt's pages)
     long_prompt = np.concatenate(
         [system, rng.integers(1, cfg.vocab_size, 200)])
     engine.open_session(4)
     engine.adopt_prefix(4, long_prompt)
     first = engine.prefill_long(4, long_prompt[engine.history(4):])
+    # the cached ids of each session: the loop's transcript, and for the
+    # fifth the prompt, the first token and all but the last decoded one
+    cached = {s: list(loop._cache_tokens[s]) for s in range(4)}
+    pending = {s: loop._cache_pending[s] for s in range(4)}
+    cached[4], pending[4] = [int(t) for t in long_prompt], first
     loop.first_tokens[4] = first
     loop.last_token[4] = first
     for s in range(5):
-        loop.decode(s, 4)
+        toks = loop.decode(s, 4)
+        cached[s] += [pending[s]] + toks[1:-1]
     worst = 0.0
     for s in range(5):
-        ids = engine.arena._tokens[s]
+        ids = cached[s]
+        assert engine.history(s) == len(ids), (s, engine.history(s))
+        if engine._paged:
+            assert engine.arena._tokens[s] == ids, f"session {s} ids"
         with torch.no_grad():
             ref = tr.forward(params, cfg, torch.tensor([ids], device=DEVICE))
         ref_last = ref[0, -1].float().cpu().numpy()
@@ -269,29 +443,53 @@ def phase_oracle(seed):
         err = float(np.abs(got - ref_last).max())
         same = int(np.argmax(got)) == int(np.argmax(ref_last))
         worst = max(worst, err)
-        log(f"[3] session {s}: {len(ids)} cached tokens, logits "
+        log(f"[3] {mode}: session {s}: {len(ids)} cached tokens, logits "
             f"max_abs_err={err:.3e} (tol 1e-3) greedy_match={same}")
-        assert err <= 1e-3 and same, f"engine vs oracle, session {s}"
-    engine.arena.audit()
-    log(f"[3] ok: engine == dense oracle (max_abs_err {worst:.3e}), "
-        f"prefix_hit_tokens={engine.stats()['prefix_hit_tokens']}")
+        assert err <= 1e-3 and same, f"{mode} engine vs oracle, session {s}"
+    st = engine.stats()
+    if engine._paged:
+        engine.arena.audit()
+    log(f"[3] ok: {mode} engine == dense oracle (max_abs_err {worst:.3e}); "
+        f"prefix_hit_tokens {st['prefix_hit_tokens']}, arena_gathers "
+        f"{st['arena_gathers']}, dense_dispatches {st['dense_dispatches']} "
+        f"{st['dense_dispatches_by_cause']}")
 
 
 # ------------------------------------------------------------ phase 4
 
-def _serve_once(cfg, params, seed):
-    """Serve phase 4's trace once on a fresh engine and page pool, with
-    the LAPS boundary fixed (``measure=False``: no refit from wall-time
-    samples), so every run makes the same schedule.  The kernels' launch
-    counters are set to 0 just before the trace and read just after."""
-    from repro_torch.kernels import decode_attn as dec
-    from repro_torch.kernels import ragged_prefill as rp
+def _dispatches(engine):
+    """(prefill dispatches, decode dispatches) so far: packed and dense
+    prefill steps, arena / paged and dense decode steps."""
+    dense = engine.executor.kind_hits, engine.executor.kind_misses
+    pre = sum(d.get("prefill", 0) for d in dense)
+    dec = sum(d.get("decode", 0) for d in dense)
+    if engine.packed_executor is not None:
+        pre += engine.packed_executor.dispatches
+    if engine.decode_executor is not None:
+        dec += engine.decode_executor.dispatches
+    return pre, dec
+
+
+def _serve_once(cfg, params, seed, mode):
+    """Serve phase 4's trace once on a fresh engine in ``mode``, with the
+    LAPS boundary fixed (``measure=False``: no refit from wall-time
+    samples).  Every kernel's launch counter is set to 0 just before the
+    trace and read just after.
+
+    Turn 1: one 2048-token prompt (long queue, chunked) and seven
+    64-token-system-prompt prompts of 80-256 tokens.  On the page pool
+    turn 2 resubmits each full conversation plus 16-64 new tokens under
+    a new session (radix prefix hits).  A slot keeps its session's
+    history, so there turn 2 submits only the 16-64 new tokens to the
+    same session, and turn 3 another 24-32 (short enough for the (L, B)
+    grid).  Every request decodes 16 tokens."""
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.loop import ServeLoop
     engine = Engine(cfg, params, EngineConfig(
-        num_slots=8, max_len=4096, chunk_tokens=256, measure=False),
-        device=DEVICE)
-    loop = ServeLoop(engine, _policy(engine, 256, 512), slo_ttft=None)
+        num_slots=8, max_len=4096, chunk_tokens=256, measure=False,
+        **MODES[mode]), device=DEVICE)
+    policy = _policy(engine, 256, 512)
+    loop = ServeLoop(engine, policy, slo_ttft=None)
     rng = np.random.default_rng(seed + 2)
     system = rng.integers(1, cfg.vocab_size, 64)
     prompts = {0: rng.integers(1, cfg.vocab_size, 2048)}
@@ -303,107 +501,152 @@ def _serve_once(cfg, params, seed):
 
     def drive():
         while loop.has_work:
-            px0 = engine.packed_executor.dispatches
-            dx0 = engine.decode_executor.dispatches
+            pre0, dec0 = _dispatches(engine)
             t = time.perf_counter()
             did, _ = loop.tick()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
-            if engine.packed_executor.dispatches > px0:
-                ticks.append((dt, "packed"))
-            elif engine.decode_executor.dispatches > dx0:
+            pre, dec = _dispatches(engine)
+            if pre > pre0:
+                ticks.append((dt, "prefill"))
+            elif dec > dec0:
                 ticks.append((dt, "decode"))
             elif not did:
                 time.sleep(0.0005)
 
+    launchers = _launchers()
     torch.cuda.synchronize()
-    rp.ragged_prefill_paged.launches = 0
-    dec.decode_attn_paged.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for fn in launchers.values():
+        fn.launches = 0
     t_run = time.perf_counter()
     for s in range(8):                       # turn 1
         loop.submit(s, prompts[s], decode_tokens=16)
     drive()
-    for s in range(8):                       # turn 2: full conversation
-        gen = loop.generated[s][:-1]         # tokens whose KV is cached
-        conv = np.concatenate(
-            [prompts[s], gen, rng.integers(1, cfg.vocab_size,
-                                           int(rng.integers(16, 65)))])
-        loop.close_session(s)
-        loop.submit(100 + s, conv, decode_tokens=16)
+    for s in range(8):                       # turn 2
+        new = rng.integers(1, cfg.vocab_size, int(rng.integers(16, 65)))
+        if engine._paged:
+            gen = loop.generated[s][:-1]     # tokens whose KV is cached
+            loop.close_session(s)
+            loop.submit(100 + s, np.concatenate([prompts[s], gen, new]),
+                        decode_tokens=16)
+        else:
+            loop.submit(s, new, decode_tokens=16)
     drive()
+    n_requests = 16
+    if not engine._paged:
+        for s in range(8):                   # turn 3: grid-sized turns
+            loop.submit(s, rng.integers(1, cfg.vocab_size,
+                                        int(rng.integers(24, 33))),
+                        decode_tokens=16)
+        drive()
+        n_requests = 24
     wall = time.perf_counter() - t_run
-    n_rp = rp.ragged_prefill_paged.launches
-    n_dec = dec.decode_attn_paged.launches
+    launches = {name: fn.launches for name, fn in launchers.items()}
     rep = loop.tracker.report(wall)
     st = engine.stats()
-    prefill_s = sum(dt for dt, k in ticks if k == "packed")
+    prefill_s = sum(dt for dt, k in ticks if k == "prefill")
     decode_s = sum(dt for dt, k in ticks if k == "decode")
+    n_pre = sum(1 for _, k in ticks if k == "prefill")
+    n_dec = sum(1 for _, k in ticks if k == "decode")
+    # prompt tokens through packed steps and through dense grid steps
+    # (every mode decodes on the arena, so the dense executor counts
+    # prefill tokens only)
+    assert "decode" not in st["dense_dispatches_by_cause"]
+    prefill_tokens = st.get("packed_useful_tokens", 0) + st["useful_tokens"]
+    decode_rows = st.get("decode_useful_rows", 0)
     finite = all(bool(np.isfinite(x).all())
                  for x in engine.last_logits.values())
-    engine.arena.audit()
-    assert rep.n == 16 and rep.abandoned == 0, "unanswered requests"
-    assert n_rp > 0 and n_dec > 0, "a kernel never launched"
-    assert st["prefix_hit_tokens"] > 0, "no radix prefix hit"
-    assert finite, "non-finite logits"
+    if engine._paged:
+        engine.arena.audit()
+    assert rep.n == n_requests and rep.abandoned == 0, \
+        f"{mode}: unanswered requests"
+    assert all(launches[k] > 0 for k in MODE_KERNELS[mode]), \
+        f"{mode}: a kernel of its path never launched: {launches}"
+    assert finite, f"{mode}: non-finite logits"
+    if engine._paged:
+        assert st["prefix_hit_tokens"] > 0, "no radix prefix hit"
+    if mode == "slot_dense":
+        assert policy.awd.graph_hits > 0, "the (L, B) grid was never hit"
+    if mode == "slot_arena":
+        assert st["arena_gathers"] == st["dense_dispatches"], \
+            "an arena-resident step copied whole slots"
     return {
         "ttft_mean_ms": rep.mean_ttft * 1e3, "ttft_p90_ms": rep.p90_ttft * 1e3,
-        "prefill_tok_s": st["packed_useful_tokens"] / prefill_s,
-        "decode_tok_s": st["decode_useful_rows"] / max(decode_s, 1e-9),
-        "packed_s_per_tick": prefill_s / max(1, st["packed_dispatches"]),
-        "decode_s_per_tick": decode_s / max(1, st["decode_dispatches"]),
+        "prefill_tok_s": prefill_tokens / max(prefill_s, 1e-9),
+        "decode_tok_s": decode_rows / max(decode_s, 1e-9),
+        "prefill_s_per_tick": prefill_s / max(1, n_pre),
+        "decode_s_per_tick": decode_s / max(1, n_dec),
+        # every whole-slot copy happens on a prefill tick (all modes
+        # decode in place)
+        "gathers_per_prefill_tick": st["arena_gathers"] / max(1, n_pre),
+        "scatters_per_prefill_tick": st["arena_scatters"] / max(1, n_pre),
         "wall_s": wall,
-        "schedule": (st["packed_dispatches"], st["decode_dispatches"],
-                     st["packed_useful_tokens"], st["decode_useful_rows"],
-                     st["prefix_hit_tokens"], st["chunk_hit_tokens"],
-                     n_rp, n_dec),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches,
+        "schedule": (n_pre, n_dec, prefill_tokens, decode_rows,
+                     st["prefix_hit_tokens"], st["arena_gathers"],
+                     st["dense_dispatches"], policy.awd.graph_hits,
+                     tuple(sorted(launches.items()))),
     }
 
 
 def phase_full(seed, card, runs):
+    """Phase 4: qwen3-4b at full width through each mode.  Returns
+    {kernel: (launches, ticks of its mode)} from each kernel's first
+    mode's first kept run."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
     cfg = get_config("qwen3-4b")
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
     torch.cuda.synchronize()
     log(f"[4] qwen3-4b {cfg.num_layers} layers d_model {cfg.d_model} "
         f"{cfg.dtype}: weights ready in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    results = []
-    for i in range(runs + 1):            # run 0 warms up and is not kept
-        r = _serve_once(cfg, params, seed)
-        gc.collect()
-        (packed, decode, ptok, drows, hits, chunk_hits, n_rp,
-         n_dec) = r["schedule"]
-        log(f"[4] run {i}: TTFT mean {r['ttft_mean_ms']:.1f} ms p90 "
-            f"{r['ttft_p90_ms']:.1f} ms; prefill {ptok} tokens in {packed} "
-            f"packed ticks, {r['prefill_tok_s']:.0f} tokens/s; decode "
-            f"{drows} rows in {decode} decode ticks, "
-            f"{r['decode_tok_s']:.0f} tokens/s; wall {r['wall_s']:.2f} s; "
-            f"prefix_hit_tokens {hits} chunk_hit_tokens {chunk_hits}; "
-            f"launches ragged_prefill_paged {n_rp} decode_attn_paged "
-            f"{n_dec}; 16 requests answered, finite logits, audit green"
-            f"{' (warm-up, not kept)' if i == 0 else ''}")
-        if i:
-            results.append(r)
-    same = len({r["schedule"] for r in results}) == 1
-    log(f"[4] card {card}: {runs} runs of the same trace after the "
-        f"warm-up, schedule identical across them: {same}")
-    for key, unit in [("ttft_mean_ms", "ms"), ("ttft_p90_ms", "ms"),
-                      ("prefill_tok_s", "tokens/s"),
-                      ("decode_tok_s", "tokens/s"),
-                      ("packed_s_per_tick", "s"), ("decode_s_per_tick", "s"),
-                      ("wall_s", "s")]:
-        xs = [r[key] for r in results]
-        log(f"[4] {key}: median {float(np.median(xs)):.4f} {unit}, "
-            f"min {min(xs):.4f} max {max(xs):.4f} over {runs} runs "
-            f"(card {card})")
-    log(f"[4] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (card {card})")
-    packed, decode, *_, n_rp, n_dec = results[0]["schedule"]
-    return {"ragged_prefill_paged": (n_rp, packed),
-            "decode_attn_paged": (n_dec, decode)}
+    kept = {"slot_dense": runs, "slot_arena": 1, "slot_gathered": 1,
+            "paged": max(1, runs // 2)}
+    launches = {}
+    for mode, n_runs in kept.items():
+        results = []
+        for i in range(n_runs + 1):      # run 0 warms up and is not kept
+            r = _serve_once(cfg, params, seed, mode)
+            gc.collect()
+            (n_pre, n_dec, ptok, drows, hits, gathers, dense, graph_hits,
+             _) = r["schedule"]
+            ran = {k: v for k, v in r["launches"].items() if v}
+            log(f"[4] {mode} run {i}: TTFT mean {r['ttft_mean_ms']:.1f} ms "
+                f"p90 {r['ttft_p90_ms']:.1f} ms; prefill {ptok} tokens in "
+                f"{n_pre} ticks, {r['prefill_tok_s']:.0f} tokens/s; decode "
+                f"{drows} rows in {n_dec} ticks, {r['decode_tok_s']:.0f} "
+                f"tokens/s; wall {r['wall_s']:.2f} s; gathers {gathers} "
+                f"dense steps {dense} grid hits {graph_hits} prefix hits "
+                f"{hits}; peak {r['peak_gib']:.2f} GiB; launches {ran}"
+                f"{' (warm-up, not kept)' if i == 0 else ''}")
+            if i:
+                results.append(r)
+        same = len({r["schedule"] for r in results}) == 1
+        log(f"[4] {mode}: {n_runs} kept runs after the warm-up, schedule "
+            f"identical across them: {same} (card {card})")
+        for key, unit in [("ttft_mean_ms", "ms"), ("ttft_p90_ms", "ms"),
+                          ("prefill_tok_s", "tokens/s"),
+                          ("decode_tok_s", "tokens/s"),
+                          ("prefill_s_per_tick", "s"),
+                          ("decode_s_per_tick", "s"),
+                          ("gathers_per_prefill_tick", ""),
+                          ("scatters_per_prefill_tick", ""),
+                          ("peak_gib", "GiB"), ("wall_s", "s")]:
+            xs = [r[key] for r in results]
+            log(f"[4] {mode} {key}: median {float(np.median(xs)):.4f} "
+                f"{unit}, min {min(xs):.4f} max {max(xs):.4f} over "
+                f"{n_runs} runs")
+        n_pre, n_dec = results[0]["schedule"][:2]
+        for name in MODE_KERNELS[mode]:
+            if name not in launches:
+                n = results[0]["launches"][name]
+                ticks = n_dec if name.startswith("decode") else n_pre
+                launches[name] = (n, ticks, mode)
+    return launches
 
 
 # ------------------------------------------------------------ phase 5
@@ -448,7 +691,7 @@ def phase_times(seed, errs):
     args = (q, k, v, _i32(table), _i32(cu), _i32(q_off), _i32(kvl))
     got = rp.ragged_prefill_paged(*args)
     err, worst, ok, _ = _held(got, rp.ragged_prefill_paged_plain, *args)
-    errs.setdefault(("prefill", dt), []).append(err)
+    errs.setdefault(("ragged_prefill_paged", dt), []).append(err)
     log(f"[5] ragged_prefill_paged 512 rows over {keys} keys: max_abs_err="
         f"{err:.3e} err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
     assert ok, "ragged_prefill_paged at main-path shapes"
@@ -480,7 +723,7 @@ def phase_times(seed, errs):
     dargs = (qd, k, v, _i32(tab), _i32(lengths))
     got = dec.decode_attn_paged(*dargs)
     err, worst, ok, _ = _held(got, dec.decode_attn_paged_plain, *dargs)
-    errs.setdefault(("decode", dt), []).append(err)
+    errs.setdefault(("decode_attn_paged", dt), []).append(err)
     log(f"[5] decode_attn_paged {b_rows} rows x {keys} keys: max_abs_err="
         f"{err:.3e} err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
     assert ok, "decode_attn_paged at main-path shapes"
@@ -497,17 +740,142 @@ def phase_times(seed, errs):
         flops=4 * b_rows * keys * D * HQ,
         bytes=(2 * b_rows * HQ * D + 2 * b_rows * keys * HKV * D) * el
         + 4 * (tab.size + b_rows))
+
+    # slot arena at phase 2's main-path layout: a 512-row chunk at
+    # history 1536 beside a 17-row segment and a decode row, 5 pad
+    # segments and 9 tail rows, in an 8-slot x 4096 arena; the gathered
+    # baseline's kernel on the same stream over each row's slot copied
+    # out
+    slot_map, cu, hists, kvl, t, s_max, live = \
+        _prefill_layout(rng, "main_path")
+    ka, va = _arena(gen, s_max, dt, live)
+    qa = torch.randn((t, HQ, D), generator=gen, device=DEVICE).to(dt)
+    index = (_i32(cu), _i32(hists), _i32(kvl))
+    kg, vg = (a[_i32(slot_map).long()].contiguous() for a in (ka, va))
+    real = [i for i in range(len(kvl)) if cu[i + 1] > cu[i]]
+    # the yardstick: one SDPA call over the real rows against the real
+    # segments' slot prefixes side by side, each row masked to its own
+    # segment's keys up to its position (the same function)
+    kcat = torch.cat([ka[slot_map[i], :kvl[i]] for i in real])
+    vcat = torch.cat([va[slot_map[i], :kvl[i]] for i in real])
+    n_rows = int(cu[real[-1] + 1])
+    seg_mask = torch.zeros((n_rows, kcat.shape[0]), dtype=torch.bool,
+                           device=DEVICE)
+    k0, attended = 0, 0
+    for i in real:
+        rows_i = torch.arange(cu[i], cu[i + 1], device=DEVICE)
+        qpos = hists[i] + rows_i - cu[i]
+        kpos = torch.arange(kvl[i], device=DEVICE)
+        seg_mask[cu[i]:cu[i + 1], k0:k0 + kvl[i]] = \
+            kpos[None, :] <= qpos[:, None]
+        attended += int(torch.minimum(qpos + 1, torch.tensor(
+            kvl[i], device=DEVICE)).sum().item())
+        k0 += kvl[i]
+    qs = qa[:n_rows].transpose(0, 1)[None]
+    ks = kcat.repeat_interleave(HQ // HKV, 1).transpose(0, 1)[None]
+    vs = vcat.repeat_interleave(HQ // HKV, 1).transpose(0, 1)[None]
+    nbytes = (2 * t * HQ * D + 2 * sum(kvl) * HKV * D) * el \
+        + 4 * (4 * len(kvl) + 1)
+    for name, fn, plain, args in (
+            ("ragged_prefill_arena", rp.ragged_prefill_arena,
+             rp.ragged_prefill_arena_plain,
+             (qa, ka, va, _i32(slot_map)) + index),
+            ("ragged_prefill_attn", rp.ragged_prefill_attn,
+             rp.ragged_prefill_attn_plain, (qa, kg, vg) + index)):
+        got = fn(*args)
+        err, worst, ok, _ = _held(got, plain, *args)
+        errs.setdefault((name, dt), []).append(err)
+        log(f"[5] {name} {t} stream rows (512 over {kvl[0]} keys): "
+            f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, f"{name} at main-path shapes"
+        out[name] = dict(
+            ms=_time(lambda: fn(*args)),
+            plain_ms=_time(lambda: plain(*args), 3),
+            library_ms=_time(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=seg_mask)),
+            flops=4 * attended * D * HQ, bytes=nbytes)
+
+    # slot-arena decode: 8 rows x 2048 keys, one slot each
+    s_max, lengths, _ = ARENA_DECODE_CASES["main_path"]
+    slots = [int(x) for x in rng.permutation(ARENA_SLOTS)[:len(lengths)]]
+    kd, vd = _arena(gen, s_max, dt, dict(zip(slots, lengths)))
+    qd = torch.randn((len(slots), HQ, D), generator=gen,
+                     device=DEVICE).to(dt)
+    dargs = (qd, kd, vd, _i32(slots), _i32(lengths))
+    got = dec.decode_attn_arena(*dargs)
+    err, worst, ok, _ = _held(got, dec.decode_attn_arena_plain, *dargs)
+    errs.setdefault(("decode_attn_arena", dt), []).append(err)
+    log(f"[5] decode_attn_arena {len(slots)} rows x {lengths[0]} keys: "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, "decode_attn_arena at main-path shapes"
+    ksd = kd[slots, :lengths[0]].repeat_interleave(HQ // HKV, 2) \
+        .transpose(1, 2)
+    vsd = vd[slots, :lengths[0]].repeat_interleave(HQ // HKV, 2) \
+        .transpose(1, 2)
+    out["decode_attn_arena"] = dict(
+        ms=_time(lambda: dec.decode_attn_arena(*dargs)),
+        plain_ms=_time(lambda: dec.decode_attn_arena_plain(*dargs), 3),
+        library_ms=_time(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], ksd, vsd)),
+        flops=4 * sum(lengths) * D * HQ,
+        bytes=(2 * len(slots) * HQ * D + 2 * sum(lengths) * HKV * D) * el
+        + 4 * 2 * len(slots))
     for name, r in out.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / BF16_FLOPS * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         log(f"[5] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, library (SDPA over gathered pages) "
+            f" ms, library (SDPA over the gathered keys) "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
             f"{r['flops'] / 1e9:.2f} GFLOP)")
     return out
+
+
+def phase_dense_tick(seed, card):
+    """Where a dense (L, B) grid tick of the launcher's default goes, at
+    full width: copying 8 whole slots out of an 8-slot x 4096 arena and
+    back (one gather and one scatter), and one layer's fp32 attention
+    at (L, B) = (64, 8) over the gathered 4096 positions against the
+    same over only the 320 a history of 256 needs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import attention_core
+    from repro_torch.serving.kvcache import KVArena
+    cfg = get_config("qwen3-4b")
+    arena = KVArena(cfg, 8, 4096, device=DEVICE)
+    slots = list(range(8))
+    caches = arena.gather(slots)
+    nbytes = sum(a.numel() * a.element_size() for c in caches
+                 for a in c.values())
+    gather_ms = _time(lambda: arena.gather(slots), 5)
+    scatter_ms = _time(lambda: arena.scatter(slots, caches), 5)
+    bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3      # read + write
+    log(f"[5] dense tick: gather of 8 whole slots {gather_ms:.3f} ms, "
+        f"scatter {scatter_ms:.3f} ms ({nbytes / 1e9:.2f} GB each way, "
+        f"bound {bound_ms:.3f} ms each) (card {card})")
+    del caches, arena
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 4)
+    b, l, hist, s_max = 8, 64, 256, 4096
+    q = torch.randn((b, l, HQ, D), generator=gen, device=DEVICE).bfloat16()
+    k = torch.randn((b, s_max, HKV, D), generator=gen,
+                    device=DEVICE).bfloat16()
+    v = torch.randn((b, s_max, HKV, D), generator=gen,
+                    device=DEVICE).bfloat16()
+    pos = (hist + torch.arange(l, device=DEVICE))[None].expand(b, l)
+    full_ms = _time(lambda: attention_core(q, k, v, pos, causal=True,
+                                           window=None), 5)
+    n = hist + l
+    prefix_ms = _time(lambda: attention_core(q, k[:, :n], v[:, :n], pos,
+                                             causal=True, window=None), 5)
+    log(f"[5] dense tick: one layer's attention at (L, B) = ({l}, {b}), "
+        f"history {hist}: over all {s_max} positions {full_ms:.3f} ms, "
+        f"over the {n} needed {prefix_ms:.3f} ms; x {cfg.num_layers} "
+        f"layers: {full_ms * cfg.num_layers:.1f} vs "
+        f"{prefix_ms * cfg.num_layers:.1f} ms (card {card})")
 
 
 # ------------------------------------------------------------ main
@@ -516,23 +884,50 @@ KERNELS = {
     "ragged_prefill_paged": dict(
         source="src/repro_torch/csrc/ragged_prefill_paged.cu",
         replaces="src/repro/kernels/ragged_prefill.py:309",
-        jax="repro.kernels.ragged_prefill.ragged_prefill_paged",
-        key="prefill"),
+        jax="repro.kernels.ragged_prefill.ragged_prefill_paged"),
     "decode_attn_paged": dict(
         source="src/repro_torch/csrc/decode_attn_paged.cu",
         replaces="src/repro/kernels/decode_attn.py:215",
-        jax="repro.kernels.decode_attn.decode_attn_paged",
-        key="decode"),
+        jax="repro.kernels.decode_attn.decode_attn_paged"),
+    "decode_attn_arena": dict(
+        source="src/repro_torch/csrc/decode_attn_arena.cu",
+        replaces="src/repro/kernels/decode_attn.py:303",
+        jax="repro.kernels.decode_attn.decode_attn_arena"),
+    "ragged_prefill_arena": dict(
+        source="src/repro_torch/csrc/ragged_prefill_arena.cu",
+        replaces="src/repro/kernels/ragged_prefill.py:417",
+        jax="repro.kernels.ragged_prefill.ragged_prefill_arena"),
+    "ragged_prefill_attn": dict(
+        source="src/repro_torch/csrc/ragged_prefill_attn.cu",
+        replaces="src/repro/kernels/ragged_prefill.py:148",
+        jax="repro.kernels.ragged_prefill.ragged_prefill_attn"),
 }
+
+
+def phase_launcher(card):
+    """The serve launcher on the card: its default (the slot/dense
+    baseline) and ``--packed``, each on the smoke config at head_dim 128
+    and at published widths cut to 4 layers."""
+    from repro_torch.launch import serve
+    for extra in ([], ["--full", "--layers", "4"]):
+        for packed in ([], ["--packed"]):
+            argv = extra + packed
+            t0 = time.perf_counter()
+            serve.main(argv)
+            torch.cuda.synchronize()
+            log(f"[6] launch.serve {' '.join(argv) or '(default)'}: "
+                f"finished in {time.perf_counter() - t0:.1f} s (card {card})")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=5,
-                    help="runs of phase 4's trace after one warm-up "
-                         "(median and spread)")
-    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="kept runs of phase 4's trace in the launcher's "
+                         "default mode, after one warm-up (median and "
+                         "spread); the paged mode keeps half as many, "
+                         "the two packed slot modes one")
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -547,29 +942,34 @@ def main() -> int:
     phase_build()
     if 2 in phases:
         phase_kernels(args.seed, errs)
+        phase_slot_kernels(args.seed, errs)
     if 3 in phases:
-        phase_oracle(args.seed)
+        for mode in MODES:
+            phase_oracle(args.seed, mode)
     if 4 in phases:
         launches = phase_full(args.seed, card, args.runs)
     if 5 in phases:
         times = phase_times(args.seed, errs)
+        phase_dense_tick(args.seed, card)
+    if 6 in phases:
+        phase_launcher(card)
     rows = []
     for name, meta in KERNELS.items():
         t = times.get(name, {})
-        n, ticks = launches.get(name, (None, None))
-        e16 = errs.get((meta["key"], torch.bfloat16))
-        e32 = errs.get((meta["key"], torch.float32))
+        n, ticks, mode = launches.get(name, (None, None, None))
+        e16 = errs.get((name, torch.bfloat16))
+        e32 = errs.get((name, torch.float32))
         rows.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "jax": meta["jax"],
-            "launches": n,
+            "launches": n, "launches_mode": mode,
             "launches_per_tick": (n / ticks if n and ticks else None),
             "max_abs_err": max(e16) if e16 else None,
             "max_abs_err_fp32": max(e32) if e32 else None,
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms")})
-    log(f"[6] all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(f"[7] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

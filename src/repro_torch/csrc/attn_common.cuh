@@ -1,7 +1,8 @@
-// Shared helpers of the paged attention kernels: element conversion for
-// the two storage types they take (fp32, bf16), the probability rounding
-// the TPU kernels apply before the PV product, and the paged K/V tile
-// load into shared memory.
+// Shared helpers of the attention kernels: element conversion for the
+// two storage types they take (fp32, bf16), the probability rounding the
+// TPU kernels apply before the PV product, the two KV layouts (a page
+// pool read through a page table, a slot arena read through a slot map)
+// and the K/V tile load into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,19 +61,61 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-// Load key positions [base, base + KT) of KV head g from the page pools
-// (N, page_size, hkv, D) into shared memory as fp32: ks with row stride
-// D + 1 (bank padding), vs with row stride D.  NT threads cooperate,
-// `lane` being this thread's index among them; each moves 16-byte
-// vectors, issuing up to 4 K and 4 V loads before it stores any, so
-// several loads are in flight per thread.  Positions >= n_keys are
-// zero-filled and their page-table entries are never read.  The pools'
-// base pointers must be 16-byte aligned (the wrappers check).
-template <typename T, int D, int KT, int NT>
+// Where segment b's key position pos lives: row rows(pos) of K/V storage
+// laid out (rows, hkv, D).  A page pool (N_pages, page_size, hkv, D) maps
+// pos through the segment's page-table row; a slot arena (N_slots, S_max,
+// hkv, D) holds the segment's positions contiguously in one slot.
+struct PagedRows {
+  const int* pt;
+  int page_size;
+  __device__ __forceinline__ size_t operator()(int pos) const {
+    return static_cast<size_t>(pt[pos / page_size]) * page_size +
+           pos % page_size;
+  }
+};
+
+struct SlotRows {
+  size_t base;
+  __device__ __forceinline__ size_t operator()(int pos) const {
+    return base + pos;
+  }
+};
+
+// The KV layout a kernel reads: capacity() is the most positions a
+// segment can hold, rows(b) segment b's row map.
+struct PagedLayout {
+  const int* page_table;   // (B, p_max)
+  int page_size, p_max;
+  __device__ __forceinline__ int capacity() const {
+    return p_max * page_size;
+  }
+  __device__ __forceinline__ PagedRows rows(int b) const {
+    return {page_table + static_cast<size_t>(b) * p_max, page_size};
+  }
+};
+
+struct SlotLayout {
+  const int* slot_map;     // (B,); nullptr: segment b reads slot b
+  int s_max;
+  __device__ __forceinline__ int capacity() const { return s_max; }
+  __device__ __forceinline__ SlotRows rows(int b) const {
+    const int slot = slot_map != nullptr ? slot_map[b] : b;
+    return {static_cast<size_t>(slot) * s_max};
+  }
+};
+
+// Load key positions [base, base + KT) of KV head g into shared memory
+// as fp32: ks with row stride D + 1 (bank padding), vs with row stride D.
+// NT threads cooperate, `lane` being this thread's index among them;
+// each moves 16-byte vectors, issuing up to 4 K and 4 V loads before it
+// stores any, so several loads are in flight per thread.  Positions >=
+// n_keys are zero-filled and their rows (page-table entries, slot rows)
+// are never read.  The storage base pointers must be 16-byte aligned
+// (the wrappers check).
+template <typename T, int D, int KT, int NT, typename Rows>
 __device__ __forceinline__ void load_kv_tile(
-    const T* __restrict__ kpool, const T* __restrict__ vpool,
-    const int* __restrict__ pt, int base, int n_keys, int page_size,
-    int hkv, int g, int lane, float* ks, float* vs) {
+    const T* __restrict__ kbuf, const T* __restrict__ vbuf, Rows rows,
+    int base, int n_keys, int hkv, int g, int lane, float* ks, float* vs) {
   constexpr int V = Vec16<T>::n;
   constexpr int kRowVecs = D / V;
   static_assert((KT * kRowVecs) % NT == 0, "tile must split evenly");
@@ -89,12 +132,10 @@ __device__ __forceinline__ void load_kv_tile(
       kraw[u] = make_uint4(0u, 0u, 0u, 0u);
       vraw[u] = kraw[u];
       if (pos < n_keys) {
-        const int page = pt[pos / page_size];
         const size_t o =
-            ((static_cast<size_t>(page) * page_size + pos % page_size) * hkv +
-             g) * D + (vi % kRowVecs) * V;
-        kraw[u] = __ldg(reinterpret_cast<const uint4*>(kpool + o));
-        vraw[u] = __ldg(reinterpret_cast<const uint4*>(vpool + o));
+            (rows(pos) * hkv + g) * D + (vi % kRowVecs) * V;
+        kraw[u] = __ldg(reinterpret_cast<const uint4*>(kbuf + o));
+        vraw[u] = __ldg(reinterpret_cast<const uint4*>(vbuf + o));
       }
     }
 #pragma unroll

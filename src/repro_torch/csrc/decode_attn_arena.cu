@@ -1,0 +1,20 @@
+// Slot-arena flash decode for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/decode_attn.py::decode_attn_arena
+// (pallas_call at :373): the flash decode of decode_attn.cuh over the
+// whole per-layer KV arena (N_slots, S_max, Hkv, D), read in place; row
+// b's keys are slot slot_map[b], and it reads only that slot's first
+// lengths[b] rows, so a decode tick streams O(cached length) per row
+// and never the slot's park row S_max - 1.  Decode-ladder pad rows
+// (lengths 1, slot_map naming a live slot) read one key and their
+// output is discarded.  S_max need not be a multiple of the key tile.
+#include "decode_attn.cuh"
+
+extern "C" int decode_attn_arena_launch(
+    const void* q, const void* k, const void* v, const void* slot_map,
+    const void* lengths, void* out, int n_rows, int hq, int hkv,
+    int head_dim, int s_max, int dtype, void* stream) {
+  const attn::SlotLayout layout{static_cast<const int*>(slot_map), s_max};
+  return attn::decode::entry(q, k, v, layout, lengths, out, n_rows, hq, hkv,
+                             head_dim, dtype, stream);
+}

@@ -30,6 +30,12 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
         "ragged_prefill_paged_launch", (_P,) * 8 + (_I,) * 8 + (_P,)),
     "decode_attn_paged": (
         "decode_attn_paged_launch", (_P,) * 6 + (_I,) * 7 + (_P,)),
+    "ragged_prefill_arena": (
+        "ragged_prefill_arena_launch", (_P,) * 8 + (_I,) * 7 + (_P,)),
+    "ragged_prefill_attn": (
+        "ragged_prefill_attn_launch", (_P,) * 7 + (_I,) * 7 + (_P,)),
+    "decode_attn_arena": (
+        "decode_attn_arena_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -1,5 +1,4 @@
-"""Dispatch for the paged attention kernels, shaped like
-``repro.kernels.ops``.
+"""Dispatch for the attention kernels, shaped like ``repro.kernels.ops``.
 
 The dispatch follows the tensor's device and nothing else: a CUDA tensor
 reaches the hand-written CUDA kernel (which raises on what it does not
@@ -18,6 +17,48 @@ from repro_torch.kernels import ragged_prefill as _prefill
 
 def _no_device(fn: str, dev: torch.device):
     return RuntimeError(f"{fn}: no implementation for tensors on {dev}")
+
+
+def ragged_mha(q, k, v, cu_seqlens, q_offsets=None, kv_lengths=None, *,
+               causal=True) -> torch.Tensor:
+    """Packed padding-free prefill attention over gathered caches.
+    q: (T, Hq, D) flat stream; k, v: (B, S, Hkv, D), segment b reading
+    row b."""
+    b, s = k.shape[0], k.shape[1]
+    if q_offsets is None:
+        q_offsets = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    if q.device.type == "cuda":
+        return _prefill.ragged_prefill_attn(q, k, v, cu_seqlens, q_offsets,
+                                            kv_lengths, causal=causal)
+    if q.device.type == "cpu":
+        return _prefill.ragged_prefill_attn_plain(
+            q, k, v, cu_seqlens, q_offsets, kv_lengths, causal=causal)
+    raise _no_device("ragged_mha", q.device)
+
+
+def ragged_mha_arena(q, k, v, slot_map, cu_seqlens, q_offsets=None,
+                     kv_lengths=None, *, causal=True,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Slot-arena packed prefill attention.  q: (T, Hq, D) flat stream;
+    k, v: (N_slots, S_max, Hkv, D) full arenas; slot_map: (B,) arena
+    slot per segment."""
+    b = slot_map.shape[0]
+    if q_offsets is None:
+        q_offsets = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
+                                device=q.device)
+    if q.device.type == "cuda":
+        return _prefill.ragged_prefill_arena(
+            q, k, v, slot_map, cu_seqlens, q_offsets, kv_lengths,
+            causal=causal, window=window)
+    if q.device.type == "cpu":
+        return _prefill.ragged_prefill_arena_plain(
+            q, k, v, slot_map, cu_seqlens, q_offsets, kv_lengths,
+            causal=causal, window=window)
+    raise _no_device("ragged_mha_arena", q.device)
 
 
 def ragged_mha_paged(q, k, v, page_table, cu_seqlens, q_offsets=None,
@@ -42,6 +83,20 @@ def ragged_mha_paged(q, k, v, page_table, cu_seqlens, q_offsets=None,
             q, k, v, page_table, cu_seqlens, q_offsets, kv_lengths,
             causal=causal, window=window)
     raise _no_device("ragged_mha_paged", q.device)
+
+
+def decode_arena(q, k, v, slot_map, lengths, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Slot-arena single-token decode attention.  q: (B, Hq, D);
+    k, v: (N_slots, S_max, Hkv, D) full arenas; slot_map, lengths:
+    (B,)."""
+    if q.device.type == "cuda":
+        return _decode.decode_attn_arena(q, k, v, slot_map, lengths,
+                                         window=window)
+    if q.device.type == "cpu":
+        return _decode.decode_attn_arena_plain(q, k, v, slot_map, lengths,
+                                               window=window)
+    raise _no_device("decode_arena", q.device)
 
 
 def decode_paged(q, k, v, page_table, lengths, *,

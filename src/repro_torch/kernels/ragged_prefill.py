@@ -1,11 +1,22 @@
-"""Paged ragged prefill attention: the CUDA kernel's launcher and, beside
-it, its plain PyTorch version.
+"""Ragged prefill attention: the CUDA kernels' launchers and, beside
+each, its plain PyTorch version.
 
-``ragged_prefill_paged`` launches ``csrc/ragged_prefill_paged.cu``, the
-port of ``repro.kernels.ragged_prefill.ragged_prefill_paged``.  It takes
-CUDA tensors only and raises on anything the kernel does not take;
-``ragged_prefill_paged_plain`` (``ref.ref_ragged_prefill_paged``)
-computes the same function with plain tensor ops.
+Three kernels share one body (``csrc/ragged_prefill.cuh``) and differ in
+where a segment's keys live:
+
+- ``ragged_prefill_paged`` (``csrc/ragged_prefill_paged.cu``): a page
+  pool read through a page table, the port of
+  ``repro.kernels.ragged_prefill.ragged_prefill_paged``;
+- ``ragged_prefill_arena`` (``csrc/ragged_prefill_arena.cu``): the slot
+  arena read in place through a slot map, the port of
+  ``repro.kernels.ragged_prefill.ragged_prefill_arena``;
+- ``ragged_prefill_attn`` (``csrc/ragged_prefill_attn.cu``): a gathered
+  per-segment cache, segment b reading row b, the port of
+  ``repro.kernels.ragged_prefill.ragged_prefill_attn``.
+
+Each launcher takes CUDA tensors only and raises on anything its kernel
+does not take; the ``*_plain`` functions (``kernels/ref.py``) compute the
+same functions with plain tensor ops.
 """
 from __future__ import annotations
 
@@ -15,52 +26,81 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import \
+    ref_ragged_prefill as ragged_prefill_attn_plain  # noqa: F401
+from repro_torch.kernels.ref import \
+    ref_ragged_prefill_arena as ragged_prefill_arena_plain  # noqa: F401
+from repro_torch.kernels.ref import \
     ref_ragged_prefill_paged as ragged_prefill_paged_plain  # noqa: F401
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_paged_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       page_table: torch.Tensor, *index: torch.Tensor,
-                       max_rep: int) -> None:
-    """Raise ValueError on anything the paged CUDA kernels do not take:
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *index: torch.Tensor, max_rep: int) -> None:
+    """Raise ValueError on anything the attention kernels do not take:
     tensors off the card or on two devices, dtypes other than fp32/bf16
-    (int32 tables), mismatched shapes, non-contiguous memory, or pools
-    not 16-byte aligned."""
+    (int32 tables and index vectors), K/V storage that is not
+    (N, rows, Hkv, 128) alike, GQA groups wider than ``max_rep``,
+    non-contiguous memory, or K/V not 16-byte aligned."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called with a tensor on {dev}")
-    for name, x in [("k", k), ("v", v), ("page_table", page_table)] + [
-            (f"index{i}", x) for i, x in enumerate(index)]:
+    named = [("k", k), ("v", v)] + [(f"index{i}", x)
+                                    for i, x in enumerate(index)]
+    for name, x in named:
         if x.device != dev:
             raise ValueError(f"{name} on {x.device}, q on {dev}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: "
                          "the kernel takes float32 or bfloat16, all alike")
-    if page_table.dtype != torch.int32 or any(
-            x.dtype != torch.int32 for x in index):
-        raise ValueError("page table and index vectors must be int32")
+    if any(x.dtype != torch.int32 for x in index):
+        raise ValueError("page tables, slot maps and index vectors must "
+                         "be int32")
     if k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"pools must be (N, page_size, Hkv, D): "
+        raise ValueError(f"K/V must be (N, rows, Hkv, D) alike: "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
     hq, d = q.shape[-2], q.shape[-1]
     hkv = k.shape[2]
     if k.shape[3] != d or d != 128:
-        raise ValueError(f"head_dim {d} (pool {k.shape[3]}): the kernels "
+        raise ValueError(f"head_dim {d} (K/V {k.shape[3]}): the kernels "
                          "take 128, the head_dim of every config served")
     if hq % hkv or hq // hkv > max_rep:
         raise ValueError(f"{hq} query heads over {hkv} KV heads: needs "
                          f"Hq % Hkv == 0 and Hq / Hkv <= {max_rep}")
-    if page_table.dim() != 2:
-        raise ValueError("page_table must be (B, P_max)")
-    for name, x in [("q", q), ("k", k), ("v", v),
-                    ("page_table", page_table)] + [
-            (f"index{i}", x) for i, x in enumerate(index)]:
+    for name, x in [("q", q)] + named:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k/v pools must start on a 16-byte boundary "
+        raise ValueError("K/V must start on a 16-byte boundary "
                          "(the kernels load 16-byte vectors)")
+
+
+def _check_segments(n_seqs: int, cu_seqlens: torch.Tensor,
+                    q_offsets: torch.Tensor,
+                    kv_lengths: torch.Tensor) -> None:
+    if cu_seqlens.shape != (n_seqs + 1,) or q_offsets.shape != (n_seqs,) \
+            or kv_lengths.shape != (n_seqs,):
+        raise ValueError("cu_seqlens must be (B+1,), q_offsets and "
+                         "kv_lengths (B,)")
+
+
+def _refuse(causal: bool, window: Optional[int]) -> None:
+    if window is not None:
+        raise NotImplementedError(
+            "windowed prefill (ring tables, rolling slots) is not ported "
+            "yet (ROADMAP Queue 1, item 10)")
+    if not causal:
+        raise NotImplementedError(
+            "non-causal (encoder-only) prefill is not on the serving path")
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C launcher with ``args`` (pointers, sizes,
+    dtype code, stream; see ``_build.SIGNATURES``) and raise if the
+    launch was refused."""
+    err = _build.launcher(name)(*args)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,36 +117,94 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cu_seqlens[-1].  Never synchronises and never reads a device tensor
     back to the host.
     """
-    if window is not None:
-        raise NotImplementedError(
-            "windowed (ring-table) prefill is not ported yet "
-            "(ROADMAP Queue 1, item 10)")
-    if not causal:
-        raise NotImplementedError(
-            "non-causal (encoder-only) prefill is not on the serving path")
-    check_paged_inputs(q, k, v, page_table, cu_seqlens, q_offsets,
-                       kv_lengths, max_rep=32)
+    _refuse(causal, window)
+    check_kernel_inputs(q, k, v, page_table, cu_seqlens, q_offsets,
+                        kv_lengths, max_rep=32)
+    if page_table.dim() != 2:
+        raise ValueError("page_table must be (B, P_max)")
     t, hq, d = q.shape
     n_pages, ps, hkv, _ = k.shape
     b, p_max = page_table.shape
-    if cu_seqlens.shape != (b + 1,) or q_offsets.shape != (b,) \
-            or kv_lengths.shape != (b,):
-        raise ValueError("cu_seqlens must be (B+1,), q_offsets and "
-                         "kv_lengths (B,)")
+    _check_segments(b, cu_seqlens, q_offsets, kv_lengths)
     out = torch.empty_like(q)
     if t == 0:
         return out
-    launch = _build.launcher("ragged_prefill_paged")
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 page_table.data_ptr(), cu_seqlens.data_ptr(),
-                 q_offsets.data_ptr(), kv_lengths.data_ptr(), out.data_ptr(),
-                 t, hq, hkv, d, ps, b, p_max, _DTYPES[q.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"ragged_prefill_paged launch failed: CUDA "
-                           f"error {err}")
+    launch("ragged_prefill_paged",
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
+           cu_seqlens.data_ptr(), q_offsets.data_ptr(), kv_lengths.data_ptr(),
+           out.data_ptr(), t, hq, hkv, d, ps, b, p_max, _DTYPES[q.dtype],
+           torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_paged.launches += 1
     return out
 
 
+def ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         slot_map: torch.Tensor, cu_seqlens: torch.Tensor,
+                         q_offsets: torch.Tensor, kv_lengths: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the slot-arena ragged prefill kernel on the current stream.
+
+    q: (T, Hq, D); k, v: (N_slots, S_max, Hkv, D) — one layer's slice of
+    the arena, with this step's new KV already written at each token's
+    (slot, position); slot_map: (B,) arena slot of each segment (pad
+    segments name any live slot); cu_seqlens: (B+1,), q_offsets,
+    kv_lengths: (B,) int32, all on the card.  Returns (T, Hq, D) in q's
+    dtype, zeros on rows past cu_seqlens[-1] and on rows of segments
+    with no valid key.  Never synchronises.
+    """
+    _refuse(causal, window)
+    check_kernel_inputs(q, k, v, slot_map, cu_seqlens, q_offsets,
+                        kv_lengths, max_rep=32)
+    t, hq, d = q.shape
+    n_slots, s_max, hkv, _ = k.shape
+    b = slot_map.shape[0]
+    if slot_map.dim() != 1:
+        raise ValueError("slot_map must be (B,)")
+    _check_segments(b, cu_seqlens, q_offsets, kv_lengths)
+    out = torch.empty_like(q)
+    if t == 0:
+        return out
+    launch("ragged_prefill_arena",
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_map.data_ptr(),
+           cu_seqlens.data_ptr(), q_offsets.data_ptr(), kv_lengths.data_ptr(),
+           out.data_ptr(), t, hq, hkv, d, s_max, b, _DTYPES[q.dtype],
+           torch.cuda.current_stream(q.device).cuda_stream)
+    ragged_prefill_arena.launches += 1
+    return out
+
+
+def ragged_prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cu_seqlens: torch.Tensor, q_offsets: torch.Tensor,
+                        kv_lengths: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Launch the batch-cache ragged prefill kernel on the current
+    stream.
+
+    q: (T, Hq, D); k, v: (B, S, Hkv, D) gathered per-segment caches,
+    segment b reading row b; cu_seqlens: (B+1,), q_offsets, kv_lengths:
+    (B,) int32, all on the card.  Returns (T, Hq, D) in q's dtype, zeros
+    on rows past cu_seqlens[-1] and on rows of segments with no valid
+    key.  Never synchronises.
+    """
+    _refuse(causal, None)
+    check_kernel_inputs(q, k, v, cu_seqlens, q_offsets, kv_lengths,
+                        max_rep=32)
+    t, hq, d = q.shape
+    b, s, hkv, _ = k.shape
+    _check_segments(b, cu_seqlens, q_offsets, kv_lengths)
+    out = torch.empty_like(q)
+    if t == 0:
+        return out
+    launch("ragged_prefill_attn",
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), cu_seqlens.data_ptr(),
+           q_offsets.data_ptr(), kv_lengths.data_ptr(), out.data_ptr(),
+           t, hq, hkv, d, s, b, _DTYPES[q.dtype],
+           torch.cuda.current_stream(q.device).cuda_stream)
+    ragged_prefill_attn.launches += 1
+    return out
+
+
 ragged_prefill_paged.launches = 0
+ragged_prefill_arena.launches = 0
+ragged_prefill_attn.launches = 0

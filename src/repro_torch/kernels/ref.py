@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the paged attention kernels (the
-correctness contract), ported from ``repro.kernels.ref``.
+"""Plain PyTorch versions of the attention kernels (the correctness
+contract), ported from ``repro.kernels.ref``.
 
 Each ``ref_*`` function computes the same math as its kernel with plain
 tensor ops in fp32.  The CPU tests run them against the JAX oracles,
@@ -17,8 +17,8 @@ import torch
 def _no_window(window: Optional[int]) -> None:
     if window is not None:
         raise NotImplementedError(
-            "windowed (ring-table) attention is not ported yet "
-            "(ROADMAP Queue 1, item 10)")
+            "windowed attention (ring tables, rolling slots) is not "
+            "ported yet (ROADMAP Queue 1, item 10)")
 
 
 def ref_ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,6 +94,27 @@ def ref_ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor,
                               kv_lengths=kv_lengths, causal=causal)
 
 
+def ref_ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, slot_map: torch.Tensor,
+                             cu_seqlens: torch.Tensor,
+                             q_offsets: Optional[torch.Tensor] = None,
+                             kv_lengths: Optional[torch.Tensor] = None, *,
+                             causal: bool = True,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """Slot-arena packed prefill attention.
+
+    q: (T, Hq, D) flat packed stream; k, v: (N_slots, S_max, Hkv, D)
+    full arenas; slot_map: (B,) arena slot per segment.  The gather here
+    is this version's convenience; the kernel indexes the slot axis in
+    place.
+    """
+    _no_window(window)
+    idx = slot_map.long()
+    return ref_ragged_prefill(q, k[idx], v[idx], cu_seqlens,
+                              q_offsets=q_offsets, kv_lengths=kv_lengths,
+                              causal=causal)
+
+
 def ref_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """Single-token decode attention.
@@ -132,6 +153,21 @@ def ref_decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg = k[idx].reshape(b, p_max * ps, hkv, d)
     vg = v[idx].reshape(b, p_max * ps, hkv, d)
     return ref_decode_attn(q, kg, vg, lengths)
+
+
+def ref_decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          slot_map: torch.Tensor, lengths: torch.Tensor, *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Slot-arena single-token decode attention.
+
+    q: (B, Hq, D); k, v: (N_slots, S_max, Hkv, D) full arenas; slot_map:
+    (B,) arena slot per row; lengths: (B,) valid KV entries.  The gather
+    here is this version's convenience; the kernel indexes the slot axis
+    in place.
+    """
+    _no_window(window)
+    idx = slot_map.long()
+    return ref_decode_attn(q, k[idx], v[idx], lengths)
 
 
 FP32_TOL = 1e-4        # fp32 kernel vs plain version: summation order

@@ -2,12 +2,15 @@
 under synthetic multi-turn traffic (CLI wrapper over
 ``repro_torch.serving.loop.ServeLoop``), from ``repro.launch.serve``.
 
-Runs on the card: the default path is packed and paged, with the smoke
-config unless ``--full`` asks for the published width (random weights
-from ``--seed``; ``--layers`` cuts the depth).  On the card the smoke
-config takes head_dim 128, the one head width the CUDA kernels take.
-``--no-packed`` names the slot/dense baseline, which is not ported yet
-and raises.
+Runs on the card, with the reference launcher's flags and defaults:
+the plain run serves the slot/dense baseline (``packed=False,
+paged_kv=False``: the dense (L, B) grid for prefill, run once per shape
+at init, and arena-resident bucketed decode); ``--packed`` serves the
+default engine stack (packed token-bucket stream over the paged pool).
+The smoke config is used unless ``--full`` asks for the published width
+(random weights from ``--seed``; ``--layers`` cuts the depth).  On the
+card the smoke config takes head_dim 128, the one head width the CUDA
+kernels take.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
@@ -43,15 +46,10 @@ def main(argv=None):
     ap.add_argument("--decode-steps", type=int, default=4)
     ap.add_argument("--slo", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--packed", action=argparse.BooleanOptionalAction,
-                    default=True,
+    ap.add_argument("--packed", action="store_true",
                     help="packed token-bucket stream over the paged pool")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not args.packed:
-        raise NotImplementedError(
-            "the slot/dense baseline (--no-packed) is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
 
     if args.full:
         cfg = get_config(args.arch)
@@ -65,13 +63,31 @@ def main(argv=None):
     # each turn adds a prompt of < 96 tokens, its first token and the
     # decoded ones to the session's cache
     max_len = args.turns * (96 + 1 + args.decode_steps)
+    # --packed rides the default stack (packed + paged pool); the plain
+    # run keeps the explicit slot/dense baseline
     engine = Engine(cfg, params, EngineConfig(
-        num_slots=max(8, args.sessions), max_len=max_len, chunk_tokens=32),
-        device=args.device)
-    awd_cfg = AWDConfig(packed=True, token_buckets=engine.ecfg.token_buckets,
-                        packed_max_seqs=engine.packed_executor.max_seqs)
+        num_slots=max(8, args.sessions), max_len=max_len, chunk_tokens=32,
+        packed=args.packed, paged_kv=args.packed), device=args.device)
+    awd_cfg = None
+    if engine.packed_executor is not None:
+        awd_cfg = AWDConfig(packed=True,
+                            token_buckets=engine.ecfg.token_buckets,
+                            packed_max_seqs=engine.packed_executor.max_seqs)
     policy = make_policy(Variant(args.variant), H200_QWEN32B, threshold=48,
                          chunk_tokens=32, awd_cfg=awd_cfg)
+    if engine.packed_executor is None:
+        # capture the (L, B) grid at system init: run each shape once
+        cap = engine.executor.precapture(
+            params, engine.arena.gather, lengths=(8, 16, 32, 64),
+            depths=(1, 2, 4))
+        print(f"[serve] captured {len(engine.executor.compile_times)} "
+              f"shapes in {cap:.1f}s at init")
+    if engine.decode_executor is not None and not engine._paged:
+        # and every decode-ladder rung, so no live decode tick is the
+        # first of its shape (the paged engine's rungs meet theirs live)
+        dcap = engine.decode_executor.precapture(params, engine.arena.arena)
+        print(f"[serve] captured {len(engine.decode_executor.compile_times)}"
+              f" decode rungs in {dcap:.1f}s at init")
     loop = ServeLoop(engine, policy, slo_ttft=args.slo)
 
     rng = np.random.default_rng(args.seed)
@@ -95,7 +111,8 @@ def main(argv=None):
           f"variant={args.variant} requests={rep.n} wall={wall:.1f}s "
           f"device={engine.device}")
     print(f"[serve] mean TTFT {rep.mean_ttft * 1000:.1f} ms  "
-          f"p90 {rep.p90_ttft * 1000:.1f} ms  viol {rep.violation_rate:.3f}")
+          f"p90 {rep.p90_ttft * 1000:.1f} ms  viol {rep.violation_rate:.3f}  "
+          f"graph-hit {rep.graph_hit_rate:.2f}")
     print(f"[serve] engine stats: {engine.stats()}")
     fit = engine.fit_boundary()
     if fit:

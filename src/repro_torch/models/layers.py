@@ -1,12 +1,12 @@
 """Transformer layers of the port, from ``repro.models.layers``: RMSNorm,
-RoPE, GQA attention (the dense oracle's), SwiGLU, and the two paged
-attention layers of the serving path.
+RoPE, GQA attention (the dense path's, with or without a cache), SwiGLU,
+and the attention layers of the serving steps: over a gathered cache
+batch, over the slot arena and over the page pool.
 
 Parameters are plain nested dicts of tensors with the JAX package's
 names and layouts, so weights converted from its pytree compute the
-same function.  The paged layers write the step's new KV into the page
-pools IN PLACE (``index_put_``) where the JAX layers return updated
-pools.
+same function.  Every layer with a cache writes the step's new KV into
+it IN PLACE (``index_put_``) where the JAX layers return updated caches.
 """
 from __future__ import annotations
 
@@ -59,7 +59,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def attention_mask(q_positions: torch.Tensor, kv_len: int, *, causal: bool,
                    window: Optional[int]) -> torch.Tensor:
     """Boolean mask (B, Lq, S): True = attend.  Cache slot s holds
-    absolute position s."""
+    absolute position s, so the causal condition ``s <= qp`` also
+    excludes unwritten (junk) slots of a ragged cached batch."""
     kv_pos = torch.arange(kv_len, device=q_positions.device)[None, None, :]
     qp = q_positions[:, :, None]
     mask = torch.ones(qp.shape[:2] + (kv_len,), dtype=torch.bool,
@@ -134,15 +135,99 @@ def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
+def write_kv_cache(cache: torch.Tensor, new: torch.Tensor,
+                   positions: torch.Tensor) -> None:
+    """Write new KV rows into the cache at per-token absolute positions,
+    in place.  cache: (B, S, Hkv, D); new: (B, L, Hkv, D); positions:
+    (B, L)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache.index_put_((rows.expand_as(positions), positions.long()),
+                     new.to(cache.dtype))
+
+
 def attention_layer(p: Dict, x: torch.Tensor, *, cfg,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Self-attention over x (B, L, d) without a cache: the dense
-    oracle's mixer.  Returns (B, L, d)."""
+                    positions: torch.Tensor,
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """One attention mixer over x (B, L, d).
+
+    Without a cache (the dense oracle): self-attention over x.  With
+    ``kv=(K, V)`` cache tensors of shape (B, S, Hkv, D) (the dense
+    (L, B) grid step): the new tokens' KV is written at ``positions`` in
+    place and attention runs over the whole cache, masked causally by
+    position.  Returns (B, L, d)."""
     b, l, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    out = attention_core(q, k, v, positions, causal=cfg.causal,
+    keys, vals = k, v
+    if kv is not None:
+        write_kv_cache(kv[0], k, positions)
+        write_kv_cache(kv[1], v, positions)
+        keys, vals = kv
+    out = attention_core(q, keys, vals, positions, causal=cfg.causal,
                          window=cfg.sliding_window)
     return out.reshape(b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
+
+
+def _qkv_flat(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """``_qkv`` of a flat stream or decode batch x (T, d) with positions
+    (T,): q (T, Hq, D), k and v (T, Hkv, D)."""
+    q, k, v = _qkv(p, x[None], cfg, positions[None])
+    return q[0], k[0], v[0]
+
+
+def packed_attention_layer(p: Dict, x: torch.Tensor, *, cfg,
+                           positions: torch.Tensor, seg_ids: torch.Tensor,
+                           cu_seqlens: torch.Tensor,
+                           q_offsets: torch.Tensor,
+                           kv_lengths: torch.Tensor,
+                           kv: Tuple[torch.Tensor, torch.Tensor]
+                           ) -> torch.Tensor:
+    """Attention over a packed flat stream, GATHERED caches.
+
+    x: (T, d); kv: (K, V) per-segment caches (B, S, Hkv, D) copied out
+    of the slot arena; seg_ids: (T,) cache row each token's KV is
+    written to (tail rows write at the park position S − 1).  The write
+    is in place; the ragged kernel then attends each stream row to its
+    own segment's row only.  Returns out (T, d)."""
+    t = x.shape[0]
+    q, k, v = _qkv_flat(p, x, cfg, positions)
+    idx = (seg_ids.long(), positions.long())
+    kv[0].index_put_(idx, k.to(kv[0].dtype))
+    kv[1].index_put_(idx, v.to(kv[1].dtype))
+    out = kernel_ops.ragged_mha(q, kv[0], kv[1], cu_seqlens, q_offsets,
+                                kv_lengths, causal=cfg.causal)
+    return out.reshape(t, cfg.num_heads * cfg.hdim) @ p["wo"]
+
+
+def packed_arena_attention_layer(p: Dict, x: torch.Tensor, *, cfg,
+                                 positions: torch.Tensor,
+                                 seg_slots: torch.Tensor,
+                                 slot_map: torch.Tensor,
+                                 cu_seqlens: torch.Tensor,
+                                 q_offsets: torch.Tensor,
+                                 kv_lengths: torch.Tensor,
+                                 kv: Tuple[torch.Tensor, torch.Tensor],
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Attention over a packed flat stream, SLOT ARENA resident.
+
+    x: (T, d); kv: (K, V) this layer's full arena (N_slots, S_max, Hkv,
+    D); positions: (T,) absolute position of each token in its sequence
+    (tail rows park at S_max − 1); seg_slots: (T,) arena slot each
+    token's KV is written to (tail rows reuse a live slot but write its
+    park row, never live data); slot_map: (B,) arena slot per segment.
+    Only the step's new KV rows are written, in place; the arena kernel
+    attends each stream row to its segment's valid cache prefix.  No
+    whole slot is copied.  Returns out (T, d)."""
+    t = x.shape[0]
+    q, k, v = _qkv_flat(p, x, cfg, positions)
+    idx = (seg_slots.long(), positions.long())
+    kv[0].index_put_(idx, k.to(kv[0].dtype))
+    kv[1].index_put_(idx, v.to(kv[1].dtype))
+    out = kernel_ops.ragged_mha_arena(q, kv[0], kv[1], slot_map, cu_seqlens,
+                                      q_offsets, kv_lengths,
+                                      causal=cfg.causal, window=window)
+    return out.reshape(t, cfg.num_heads * cfg.hdim) @ p["wo"]
 
 
 def packed_paged_attention_layer(p: Dict, x: torch.Tensor, *, cfg,
@@ -167,8 +252,7 @@ def packed_paged_attention_layer(p: Dict, x: torch.Tensor, *, cfg,
     is harmless.  The write is in place; returns out (T, d).
     """
     t = x.shape[0]
-    q, k, v = _qkv(p, x[None], cfg, positions[None])
-    q, k, v = q[0], k[0], v[0]
+    q, k, v = _qkv_flat(p, x, cfg, positions)
     idx = (token_pages.long(), token_offs.long())
     kv[0].index_put_(idx, k.to(kv[0].dtype))
     kv[1].index_put_(idx, v.to(kv[1].dtype))
@@ -200,6 +284,31 @@ def paged_decode_layer(p: Dict, x: torch.Tensor, *, cfg,
     kv[0].index_put_(idx, k.to(kv[0].dtype))
     kv[1].index_put_(idx, v.to(kv[1].dtype))
     out = kernel_ops.decode_paged(q.contiguous(), kv[0], kv[1], page_table,
+                                  kv_lengths, window=window)
+    return out.reshape(b, cfg.num_heads * cfg.hdim) @ p["wo"]
+
+
+def arena_decode_layer(p: Dict, x: torch.Tensor, *, cfg,
+                       slot_map: torch.Tensor, positions: torch.Tensor,
+                       kv_lengths: torch.Tensor,
+                       kv: Tuple[torch.Tensor, torch.Tensor],
+                       window: Optional[int] = None) -> torch.Tensor:
+    """Attention for one SLOT ARENA decode tick.
+
+    x: (B, d) one new token per row; kv: (K, V) this layer's full arena
+    (N_slots, S_max, Hkv, D); slot_map: (B,) arena slot of each row;
+    positions: (B,) absolute write position of the new token (its cached
+    history; pad rows park at S_max − 1); kv_lengths: (B,) valid entries
+    including the new row.  The single new KV row per session is written
+    in place and the arena kernel attends each row over its own valid
+    prefix.  Returns out (B, d)."""
+    b = x.shape[0]
+    q, k, v = _qkv(p, x[:, None], cfg, positions[:, None])
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    idx = (slot_map.long(), positions.long())
+    kv[0].index_put_(idx, k.to(kv[0].dtype))
+    kv[1].index_put_(idx, v.to(kv[1].dtype))
+    out = kernel_ops.decode_arena(q.contiguous(), kv[0], kv[1], slot_map,
                                   kv_lengths, window=window)
     return out.reshape(b, cfg.num_heads * cfg.hdim) @ p["wo"]
 

@@ -1,13 +1,15 @@
 """Model assembly of the port, from ``repro.models.transformer``: the
-dense full-attention decoder stack, its page pool, the plain dense
-``forward`` (the oracle the serving steps are held against), and the two
-paged serving steps.
+dense full-attention decoder stack, its caches, the plain dense
+``forward`` (the oracle the serving steps are held against, and with
+caches the dense (L, B) grid step), and the flat-stream serving steps:
+packed prefill over gathered caches, over the slot arena and over the
+page pool, and decode over the slot arena and over the page pool.
 
 Parameters keep the JAX package's layout: ``blocks`` is a list with one
 dict per layer-pattern position whose leaves are stacked over the
 ``G = num_layers / period`` groups (a dense stack has period 1).  The
-layer scan becomes a Python loop over groups, and the page pools are
-updated in place.
+layer scan becomes a Python loop over groups, and every cache (gathered
+batch, slot arena, page pool) is updated in place.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention_layer,
+from repro_torch.models.layers import (arena_decode_layer, attention_layer,
+                                       packed_arena_attention_layer,
+                                       packed_attention_layer,
                                        packed_paged_attention_layer,
                                        paged_decode_layer, rms_norm, swiglu)
 
@@ -115,9 +119,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> List[Dict[str, torch.Tensor]]:
     """Per-pattern-position KV cache stacked over groups:
-    {"k": (G, batch, max_len, Hkv, D), "v": ...}.  The paged arena passes
-    batch = N_pages + 1 and max_len = page_size, so each pool is
-    (G, N_pages + 1, page_size, Hkv, D)."""
+    {"k": (G, batch, max_len, Hkv, D), "v": ...}.  The slot arena passes
+    batch = N_slots; the paged arena passes batch = N_pages + 1 and
+    max_len = page_size, so each pool is (G, N_pages + 1, page_size,
+    Hkv, D)."""
     _check_slice(cfg)
     dev = resolve_device(device)
     shape = (num_groups(cfg), batch, max_len, cfg.num_kv_heads, cfg.hdim)
@@ -154,24 +159,38 @@ def _lm_head_logits(params: Dict, cfg: ModelConfig,
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain dense forward without a cache: the oracle.
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[List[Dict[str, torch.Tensor]]] = None,
+            logits_slice: Optional[str] = None) -> torch.Tensor:
+    """The plain dense forward.
 
     tokens: (B, L) int; positions: (B, L) absolute positions (default
-    arange).  Returns logits (B, L, V)."""
+    arange).  Without ``caches`` it is the oracle the serving steps are
+    held against.  With ``caches`` (from :func:`init_cache` with batch B,
+    e.g. whole slots gathered from the arena) each layer writes the new
+    tokens' KV at ``positions`` in place and attends over its whole
+    cache, masked by position: the dense (L, B) grid step, prefill and
+    re-prefill alike (positions carry the history offset), and the
+    (B, 1) decode step.  logits_slice: None → (B, L, V); "last" → (B, V)
+    of the final position only.  (The JAX step also takes
+    ``seq_valid_len``, which only SSM layers read.)"""
     _check_slice(cfg)
     x = params["embed"][tokens.long()]
     b, l = tokens.shape
     if positions is None:
         positions = torch.arange(l, device=x.device)[None].expand(b, l)
-    for block in params["blocks"]:
+    for j, block in enumerate(params["blocks"]):
         for g in range(num_groups(cfg)):
             lp = _layer(block, g)
+            kv = None if caches is None else (caches[j]["k"][g],
+                                              caches[j]["v"][g])
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             x = x + attention_layer(lp["mixer"], h, cfg=cfg,
-                                    positions=positions)
+                                    positions=positions, kv=kv)
             x = _ffn(cfg, lp, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if logits_slice == "last":
+        x = x[:, -1]
     return _lm_head_logits(params, cfg, x)
 
 
@@ -242,6 +261,98 @@ def arena_capability(cfg: ModelConfig) -> ArenaCapability:
         else:
             layers.append(LayerCapability("attn"))
     return ArenaCapability(layers=tuple(layers), causal=cfg.causal)
+
+
+# ------------------------------------------------- packed slot serving
+
+
+def forward_packed(params: Dict, cfg: ModelConfig, *,
+                   tokens: torch.Tensor,
+                   positions: torch.Tensor,
+                   seg_ids: torch.Tensor,
+                   cu_seqlens: torch.Tensor,
+                   q_offsets: torch.Tensor,
+                   kv_lengths: torch.Tensor,
+                   caches: List[Dict[str, torch.Tensor]],
+                   last_idx: torch.Tensor) -> torch.Tensor:
+    """Padding-free forward over a packed flat stream with GATHERED
+    caches: prefill, re-prefill, chunk and decode segments side by side.
+
+    tokens/positions/seg_ids: (T,) — every segment's new tokens, each
+    with its absolute position and its cache row; segment i owns rows
+    [cu_seqlens[i], cu_seqlens[i+1]); rows past cu_seqlens[-1] are
+    bucket tail (parked positions).  caches: {"k"/"v": (G, B, S, Hkv,
+    D)}, whole arena slots copied out by the caller, written in place.
+    last_idx: (B,) flat index of each segment's final token.  Returns
+    last_logits (B, V)."""
+    _check_slice(cfg)
+
+    def mix_fn(j, lp, h, cache_j):
+        return packed_attention_layer(
+            lp, h, cfg=cfg, positions=positions, seg_ids=seg_ids,
+            cu_seqlens=cu_seqlens, q_offsets=q_offsets,
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+
+    x = _scan_serving_stack(params, cfg, tokens, caches, mix_fn)
+    return _lm_head_logits(params, cfg, x[last_idx.long()])
+
+
+def forward_packed_arena(params: Dict, cfg: ModelConfig, *,
+                         tokens: torch.Tensor,
+                         positions: torch.Tensor,
+                         seg_slots: torch.Tensor,
+                         slot_map: torch.Tensor,
+                         cu_seqlens: torch.Tensor,
+                         q_offsets: torch.Tensor,
+                         kv_lengths: torch.Tensor,
+                         arena: List[Dict[str, torch.Tensor]],
+                         last_idx: torch.Tensor) -> torch.Tensor:
+    """Arena-resident packed forward: :func:`forward_packed` with the
+    slot arena itself ({"k"/"v": (G, N_slots, S_max, Hkv, D)}) read and
+    written IN PLACE instead of gathered caches.
+
+    seg_slots (T,) carries each token's arena slot (tail rows reuse a
+    live slot but park at S_max − 1); slot_map (B,) routes each
+    segment's KV reads inside the kernel.  Each layer writes only the
+    step's new KV rows, so a step moves O(history + new) rows, not the
+    O(b_max · S_max) whole-slot copies of the gathered path.  Returns
+    last_logits (B, V)."""
+    _check_slice(cfg)
+
+    def mix_fn(j, lp, h, cache_j):
+        return packed_arena_attention_layer(
+            lp, h, cfg=cfg, positions=positions, seg_slots=seg_slots,
+            slot_map=slot_map, cu_seqlens=cu_seqlens, q_offsets=q_offsets,
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+
+    x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
+    return _lm_head_logits(params, cfg, x[last_idx.long()])
+
+
+def forward_decode_arena(params: Dict, cfg: ModelConfig, *,
+                         tokens: torch.Tensor,
+                         slot_map: torch.Tensor,
+                         write_pos: torch.Tensor,
+                         kv_lengths: torch.Tensor,
+                         arena: List[Dict[str, torch.Tensor]]
+                         ) -> torch.Tensor:
+    """One arena-resident decode tick: B rows advance one token each
+    against the slot arena IN PLACE.
+
+    tokens: (B,) last sampled token per row; slot_map: (B,) arena slot
+    of each row; write_pos: (B,) absolute position of the new token (the
+    row's cached history; pad rows park at S_max − 1); kv_lengths: (B,)
+    valid entries INCLUDING the new row (pad rows 1).  Returns logits
+    (B, V).  B is a decode-ladder rung."""
+    _check_slice(cfg)
+
+    def mix_fn(j, lp, h, cache_j):
+        return arena_decode_layer(
+            lp, h, cfg=cfg, slot_map=slot_map, positions=write_pos,
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+
+    x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
+    return _lm_head_logits(params, cfg, x)
 
 
 # ------------------------------------------------------- paged serving

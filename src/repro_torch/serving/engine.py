@@ -1,22 +1,29 @@
 """Single-instance serving engine of the port, from
-``repro.serving.engine``, on the paged default path.
+``repro.serving.engine``.
 
-Composes the paged KV arena (radix prefix reuse, COW forks) with the
-packed and decode step executors under the paper's primitives:
+Composes a KV arena — the paged pool (radix prefix reuse, COW forks;
+the default) or the slot arena (``paged_kv=False``, the measurement
+baseline) — with the step executors under the paper's primitives:
 
   * prefills, long-prefill chunks and decode rows fused into one packed
-    flat stream per tick (``step_mixed``), prefix-matched pages adopted
-    before the bucket is chosen;
-  * long prefills advanced in C_l chunks with chunk-level prefix
-    matching (``prefill_long``);
-  * decode-only ticks through the bucketed paged decode step;
+    flat stream per tick (``step_mixed``): over the page pool with
+    prefix-matched pages adopted before the bucket is chosen, over the
+    slot arena in place (``arena_prefill``), or over whole slots
+    gathered and scattered back (``arena_prefill=False``);
+  * the dense (L, B) grid (``prefill_batch`` with a pinned bucket,
+    ``packed=False``, and slot-arena ticks that fall off the token
+    ladder), whose gathered slots the plain dense forward writes;
+  * long prefills advanced in C_l chunks, with chunk-level prefix
+    matching on the page pool (``prefill_long``);
+  * decode-only ticks through the bucketed decode step (slot arena or
+    page pool), or the dense (B, 1) step when the ladder overflows or
+    ``arena_decode`` is off;
   * runtime (T, L, H) samples feeding ``core.boundary.fit_total``.
 
 Sampling is greedy argmax on the device or the numpy sampler on the
-host.  Outside this slice — the slot arena (``paged_kv=False``), fused
-on-device sampling, speculative decoding, session export/import, and
-windowed, SSM and MoE configs — every entry raises
-``NotImplementedError`` naming its ROADMAP item.
+host.  Outside this slice — fused on-device sampling, speculative
+decoding, session export/import, and windowed, SSM and MoE configs —
+every entry raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,14 +36,15 @@ import torch
 
 from repro_torch.core import boundary as boundary_mod
 from repro_torch.core.buckets import (DEFAULT_DECODE_BUCKETS,
-                                      DEFAULT_TOKEN_BUCKETS)
+                                      DEFAULT_TOKEN_BUCKETS, BucketGrid)
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import packing
 from repro_torch.serving import sampling as sampling_mod
-from repro_torch.serving.executor import (DecodeBucketExecutor,
+from repro_torch.serving.executor import (BucketExecutor,
+                                          DecodeBucketExecutor,
                                           PackedBucketExecutor)
-from repro_torch.serving.kvcache import PagedKVArena
+from repro_torch.serving.kvcache import KVArena, PagedKVArena
 from repro_torch.serving.sampling import SamplingParams
 
 
@@ -55,19 +63,26 @@ class EngineConfig:
     num_slots: int = 16
     max_len: int = 256
     chunk_tokens: int = 64           # C_l
+    grid_lengths: Tuple[int, ...] = (8, 16, 32, 64)
+    grid_depths: Tuple[int, ...] = (1, 2, 4, 8)
     pad_token: int = 0
     measure: bool = True             # collect boundary-fit samples
+    # padding-free packed serving is the default; packed=False is the
+    # explicitly requested dense (L, B) measurement baseline
+    packed: bool = True
     token_buckets: Tuple[int, ...] = DEFAULT_TOKEN_BUCKETS
     packed_max_seqs: Optional[int] = None  # None → min(num_slots, 16)
+    arena_decode: bool = True        # in-place bucketed decode
     decode_buckets: Tuple[int, ...] = DEFAULT_DECODE_BUCKETS
+    arena_prefill: bool = True       # in-place packed prefill
     # keep a host copy of every step's last logits row per session
     # (parity harnesses, sampling introspection).  False lets all-greedy
     # steps take their token from the on-device argmax and skip the
     # full-vocab logits transfer
     keep_last_logits: bool = True
     # paged KV arena: a shared page pool + per-session page tables with
-    # radix-tree prefix reuse and COW forks.  False (the slot arena) is
-    # not ported yet
+    # radix-tree prefix reuse and COW forks.  Requires the packed + arena
+    # paths; False keeps the slot arena as the measurement baseline
     paged_kv: bool = True
     page_size: int = 16
     num_pages: Optional[int] = None  # None → num_slots·max_len/page_size
@@ -84,27 +99,50 @@ class Engine:
         self.ecfg = ecfg or EngineConfig()
         self.device = tr.resolve_device(device)
         tr._check_slice(cfg)
-        if not self.ecfg.paged_kv:
-            raise NotImplementedError(
-                "the slot-arena baseline (paged_kv=False) is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
         if self.ecfg.fused_sampling:
             raise NotImplementedError(
                 "fused on-device sampling is not ported yet "
                 "(ROADMAP Queue 1, item 12)")
-        num_pages = self.ecfg.num_pages or (
-            self.ecfg.num_slots * self.ecfg.max_len // self.ecfg.page_size)
-        self.arena = PagedKVArena(
-            cfg, num_pages, self.ecfg.page_size, self.ecfg.max_len,
-            prefix_cache=self.ecfg.prefix_cache,
-            host_pool_bytes=self.ecfg.host_pool_bytes, device=self.device)
-        max_seqs = self.ecfg.packed_max_seqs or min(self.ecfg.num_slots, 16)
-        self.packed_executor = PackedBucketExecutor(
-            cfg, token_buckets=self.ecfg.token_buckets,
-            max_seqs=min(max_seqs, self.ecfg.num_slots))
-        self.decode_executor = DecodeBucketExecutor(
-            cfg, decode_buckets=self.ecfg.decode_buckets,
-            max_seqs=self.ecfg.num_slots)
+        self._paged = bool(self.ecfg.paged_kv)
+        if self._paged:
+            if not (self.ecfg.packed and self.ecfg.arena_prefill
+                    and self.ecfg.arena_decode):
+                raise ValueError(
+                    "paged_kv requires the packed + arena execution paths "
+                    "(packed=True, arena_prefill=True, arena_decode=True): "
+                    "a paged pool has no dense gather fallback — set "
+                    "paged_kv=False to pin the slot/dense baseline")
+            num_pages = self.ecfg.num_pages or (
+                self.ecfg.num_slots * self.ecfg.max_len
+                // self.ecfg.page_size)
+            self.arena = PagedKVArena(
+                cfg, num_pages, self.ecfg.page_size, self.ecfg.max_len,
+                prefix_cache=self.ecfg.prefix_cache,
+                host_pool_bytes=self.ecfg.host_pool_bytes,
+                device=self.device)
+        else:
+            self.arena = KVArena(cfg, self.ecfg.num_slots,
+                                 self.ecfg.max_len, device=self.device)
+        # dense gather/scatter is a valid fallback on the slot arena; a
+        # paged pool has no whole-sequence row to gather, so there
+        # oversized work is split across packed steps
+        self._dense_ok = not self._paged
+        self.executor = BucketExecutor(cfg)
+        self.packed_executor: Optional[PackedBucketExecutor] = None
+        if self.ecfg.packed:
+            max_seqs = self.ecfg.packed_max_seqs or min(self.ecfg.num_slots,
+                                                        16)
+            self.packed_executor = PackedBucketExecutor(
+                cfg, token_buckets=self.ecfg.token_buckets,
+                max_seqs=min(max_seqs, self.ecfg.num_slots))
+        self.decode_executor: Optional[DecodeBucketExecutor] = None
+        if self.ecfg.arena_decode:
+            self.decode_executor = DecodeBucketExecutor(
+                cfg, decode_buckets=self.ecfg.decode_buckets,
+                max_seqs=self.ecfg.num_slots)
+        self.grid = BucketGrid(self.ecfg.grid_lengths, self.ecfg.grid_depths,
+                               mem_budget_tokens=self.ecfg.num_slots
+                               * self.ecfg.max_len)
         self.samples: List[Tuple[float, float, float]] = []  # (T, L, H)
         self.fitted: Optional[boundary_mod.TotalFit] = None
         # last-step logits per session (parity harness + sampling hooks)
@@ -112,6 +150,12 @@ class Engine:
         # per-session sampling options (greedy argmax when absent)
         self.sampling: Dict[int, SamplingParams] = {}
         self._rngs: Dict[int, np.random.Generator] = {}
+        # dense-dispatch accounting by (kind, cause): "requested" = the
+        # config asked for the dense baseline (packed off, a pinned
+        # (L, B) bucket, arena decode off); "forced" = the packed path
+        # exists but this step fell off it (off-ladder total, over-depth
+        # batch, ladder overflow)
+        self.dense_causes: Dict[Tuple[str, str], int] = {}
         # steps that took tokens from the on-device argmax without
         # shipping full-vocab logits to host
         self.fused_greedy_steps = 0
@@ -124,7 +168,10 @@ class Engine:
 
     # ------------------------------------------------------------ session
     def open_session(self, session: int) -> None:
-        self.arena.open(session)
+        if self._paged:
+            self.arena.open(session)
+        else:
+            self.arena.alloc(session)
 
     def close_session(self, session: int) -> None:
         self.arena.free(session)
@@ -137,23 +184,27 @@ class Engine:
 
     def probe_prefix(self, tokens: Sequence[int]) -> int:
         """Tokens of ``tokens`` a FRESH session would inherit from the
-        radix prefix index instead of prefilling (0 with the prefix
-        cache off)."""
+        radix prefix index instead of prefilling (0 on slot arenas or
+        with the prefix cache off)."""
+        if not self._paged:
+            return 0
         return int(self.arena.probe_prefix(tokens))
 
     def adopt_prefix(self, session: int, tokens: Sequence[int]) -> int:
         """Map the longest indexed prefix of ``tokens`` onto existing
         pages for fresh session ``session`` NOW, returning the adopted
         token count; the pages stay refcount-pinned while the request
-        waits."""
-        if self.arena.length(session) != 0:
+        waits.  0 on slot arenas or with the prefix cache off."""
+        if not self._paged or self.arena.length(session) != 0:
             return 0
         return self.arena.match_prefix(session, tokens)
 
     def fork_session(self, parent: int, child: int) -> None:
         """COW-fork ``parent``'s cached context into fresh session
         ``child``: both share every page until one writes into the
-        partial boundary page, which then copies on demand."""
+        partial boundary page, which then copies on demand.  Paged
+        arenas only."""
+        assert self._paged, "fork_session requires paged_kv=True"
         self.arena.fork(parent, child)
 
     def export_session(self, session: int):
@@ -208,17 +259,95 @@ class Engine:
         self.logits_rows_shipped += int(logits_np.shape[0])
         return self._sample_rows(sessions, logits_np[:n]), logits_np
 
-    # ------------------------------------------------------------- prefill
+    def _note_dense(self, kind: str, cause: str) -> None:
+        key = (kind, cause)
+        self.dense_causes[key] = self.dense_causes.get(key, 0) + 1
+
+    # ------------------------------------------------- bucketized prefill
     def prefill_batch(self, sessions: Sequence[int],
                       token_lists: Sequence[np.ndarray],
                       bucket: Optional[Tuple[int, int]] = None
                       ) -> Dict[int, int]:
-        """Short-prefill / re-prefill batch on the packed stream.  A
-        pinned (L, B) graph bucket has no meaning on a paged pool (there
-        is no dense gather path), so ``bucket`` is ignored, as the JAX
-        engine ignores it on paged arenas.
+        """Short-prefill / re-prefill batch.
+
+        With a packed executor and no pinned (L, B) ``bucket``, the
+        batch rides the packed token-bucket stream via
+        :meth:`step_mixed` (which itself falls back to the dense path
+        for off-ladder totals or over-depth batches on a slot arena).
+        An explicit ``bucket`` pins the dense (L, B) grid path; it has
+        no meaning on a paged pool (no dense gather path exists), where
+        the batch rides the packed stream instead.
         Returns {session: first_sampled_token}."""
-        return self.step_mixed(list(zip(sessions, token_lists)), []).tokens
+        if self.packed_executor is not None and (
+                bucket is None or not self._dense_ok):
+            return self.step_mixed(list(zip(sessions, token_lists)),
+                                   []).tokens
+        cause = "requested" if (bucket is not None
+                                or self.packed_executor is None) else "forced"
+        return self._prefill_batch_dense(sessions, token_lists, bucket,
+                                         cause=cause)
+
+    def _prefill_batch_dense(self, sessions: Sequence[int],
+                             token_lists: Sequence[np.ndarray],
+                             bucket: Optional[Tuple[int, int]] = None,
+                             cause: str = "requested") -> Dict[int, int]:
+        """Dense (L, B) grid prefill: pads to ``bucket`` when given (the
+        grid path), else to the longest prompt; gathers whole arena
+        slots and scatters them back.  ``cause`` records whether the
+        config requested it or the packed path forced it (``stats()``)."""
+        assert self._dense_ok, "a paged pool has no dense gather path"
+        assert len(sessions) == len(token_lists)
+        self._note_dense("prefill", cause)
+        n = len(sessions)
+        lens = [len(t) for t in token_lists]
+        if bucket is not None:
+            pad_l, pad_b = bucket
+            assert pad_l >= max(lens) and pad_b >= n, (bucket, lens, n)
+        else:
+            pad_l, pad_b = max(lens), n
+
+        slots, hists = [], []
+        for s, l in zip(sessions, lens):
+            slots.append(self.arena.alloc(s))
+            hists.append(self.arena.length(s))
+            self.arena.check_length(s, hists[-1] + l)
+        # depth padding reuses slot 0's cache row for dummy rows
+        all_slots = slots + [slots[0]] * (pad_b - n)
+
+        tokens = np.full((pad_b, pad_l), self.ecfg.pad_token, np.int32)
+        positions = np.zeros((pad_b, pad_l), np.int32)
+        sample_idx = np.zeros((pad_b,), np.int32)
+        park = self.arena.max_len - 1
+        for i, (tl, h) in enumerate(zip(token_lists, hists)):
+            tokens[i, :len(tl)] = tl
+            pos = h + np.arange(pad_l)
+            pos[len(tl):] = park                    # junk KV → park row
+            positions[i] = pos
+            sample_idx[i] = len(tl) - 1
+        positions[n:] = park                        # dummy depth rows
+
+        caches = self.arena.gather(all_slots)
+        t0 = time.perf_counter()
+        last = self.executor.prefill(
+            self.params, self._dev(tokens), self._dev(positions), caches,
+            self._dev(sample_idx))
+        last_np = last.float().cpu().numpy()
+        toks = self._sample_rows(sessions, last_np)
+        elapsed = time.perf_counter() - t0
+        self.executor.note_padding(sum(lens), pad_l * pad_b)
+        # write back only the real rows
+        self.arena.scatter(slots, [{k: a[:, :n] for k, a in c.items()}
+                                   for c in caches])
+        out: Dict[int, int] = {}
+        for i, s in enumerate(sessions):
+            self.arena.set_length(s, hists[i] + lens[i])
+            out[s] = int(toks[i])
+            self.last_logits[s] = last_np[i]
+        if self.ecfg.measure and n:
+            per = elapsed / n
+            for l, h in zip(lens, hists):
+                self.samples.append((per, float(l), float(h)))
+        return out
 
     def prefill_packed(self, sessions: Sequence[int],
                        token_lists: Sequence[np.ndarray],
@@ -247,57 +376,80 @@ class Engine:
         token each.  ``max_new`` is accepted for the serve loop's
         interface (it caps speculative commits, which are not ported).
 
-        A mix that overflows ``max_seqs`` or the ladder is SPLIT across
-        packed steps (a paged pool has no dense fallback).  Returns a
-        :class:`MixedStepResult`."""
+        A mix without a packed executor, that overflows ``max_seqs`` or
+        whose total is off the ladder runs the dense path on a slot
+        arena (a prefill batch then a decode batch: up to two
+        dispatches) and is SPLIT across packed steps on a paged pool.
+        Returns a :class:`MixedStepResult`."""
         prefills, decodes = list(prefills), list(decodes)
         n_p, n_d = len(prefills), len(decodes)
         assert n_p + n_d > 0, "empty mixed step"
         sess_all = [s for s, _ in prefills] + [s for s, _ in decodes]
         assert len(set(sess_all)) == len(sess_all), \
             f"session appears twice in one step: {sess_all}"
-        # radix prefix adoption: a FRESH session's prompt maps its
-        # longest indexed prefix onto existing pages BEFORE the bucket is
-        # chosen, so the step only prefills (and the ladder only prices)
-        # the new suffix
-        rewritten = []
-        for s, toks in prefills:
-            toks = np.asarray(toks, np.int32)
-            if self.arena.length(s) == 0:
-                matched = self.arena.match_prefix(s, toks)
-                if matched:
-                    toks = toks[matched:]
-            rewritten.append((s, toks))
-        prefills = rewritten
+        if self._paged:
+            # radix prefix adoption: a FRESH session's prompt maps its
+            # longest indexed prefix onto existing pages BEFORE the
+            # bucket is chosen, so the step only prefills (and the
+            # ladder only prices) the new suffix
+            rewritten = []
+            for s, toks in prefills:
+                toks = np.asarray(toks, np.int32)
+                if self.arena.length(s) == 0:
+                    matched = self.arena.match_prefix(s, toks)
+                    if matched:
+                        toks = toks[matched:]
+                rewritten.append((s, toks))
+            prefills = rewritten
         lens = [len(t) for _, t in prefills]
         total = sum(lens) + n_d
         px = self.packed_executor
         bucket = None
-        if n_p + n_d <= px.max_seqs:
+        if px is not None and n_p + n_d <= px.max_seqs:
             bucket = token_bucket or px.bucket_for(total)
             if bucket is not None and bucket < total:
                 bucket = None
         if bucket is None:
-            return self._step_split(prefills, decodes)
+            if not self._dense_ok:
+                return self._step_split(prefills, decodes)
+            out: Dict[int, int] = {}
+            if prefills:
+                out.update(self._prefill_batch_dense(
+                    [s for s, _ in prefills], [t for _, t in prefills],
+                    cause="forced" if px is not None else "requested"))
+            if decodes:
+                dec = self.decode_batch([s for s, _ in decodes],
+                                        [t for _, t in decodes])
+                out.update({s: toks[0] for s, toks in dec.items()})
+            return MixedStepResult(tokens=out, fused=False,
+                                   n_prefill=n_p, n_decode=n_d)
 
         segments: List[packing.SegmentSpec] = []
         for s, toks in prefills:
+            # arena.length is 0 for a session without a slot yet; the
+            # slot itself is claimed once, inside _run_packed
             segments.append(packing.SegmentSpec(
                 s, np.asarray(toks, np.int32), self.arena.length(s),
                 kind="prefill"))
         for s, tok in decodes:
-            assert self.arena.length(s) > 0, \
-                f"decode session {s} has no cached context"
+            if self._paged:
+                assert self.arena.length(s) > 0, \
+                    f"decode session {s} has no cached context"
+            else:
+                assert self.arena.slot_of(s) is not None, \
+                    f"decode session {s} has no cache slot"
             segments.append(packing.SegmentSpec(
                 s, np.asarray([tok], np.int32), self.arena.length(s),
                 kind="decode"))
-        return self._run_packed_paged(segments, bucket)
+        if self._paged:
+            return self._run_packed_paged(segments, bucket)
+        return self._run_packed(segments, bucket)
 
     def _step_split(self, prefills: Sequence[Tuple[int, np.ndarray]],
                     decodes: Sequence[Tuple[int, int]]) -> MixedStepResult:
-        """Serve an off-ladder / over-depth mix without a dense path:
-        prefills advance in C_l-sized packed chunks and the decode
-        backlog drains in ladder-top groups."""
+        """Serve an off-ladder / over-depth mix on a paged pool, which
+        has no dense path: prefills advance in C_l-sized packed chunks
+        and the decode backlog drains in ladder-top groups."""
         px = self.packed_executor
         c = min(self.ecfg.chunk_tokens, px.ladder.max_tokens)
         out: Dict[int, int] = {}
@@ -317,6 +469,87 @@ class Engine:
         return MixedStepResult(tokens=out, fused=False,
                                n_prefill=len(prefills),
                                n_decode=len(decodes))
+
+    def _record_packed(self, segments: List[packing.SegmentSpec],
+                       toks: np.ndarray, last_np: Optional[np.ndarray],
+                       elapsed: float) -> Dict[int, int]:
+        """Per-segment bookkeeping after a packed step: the sampled
+        token, the kept logits row and the boundary-fit samples."""
+        out: Dict[int, int] = {}
+        for i, seg in enumerate(segments):
+            out[seg.session] = int(toks[i])
+            if last_np is not None:
+                self.last_logits[seg.session] = last_np[i]
+        if self.ecfg.measure:
+            # only prefill work feeds the (T, L, H) boundary fit — decode
+            # rows are priced by the decode model, not T(L, H)
+            pre = [seg for seg in segments if seg.kind != "decode"]
+            if pre:
+                per = elapsed / len(pre)
+                for seg in pre:
+                    self.samples.append((per, float(seg.length),
+                                         float(seg.history)))
+        return out
+
+    def _run_packed(self, segments: List[packing.SegmentSpec],
+                    bucket: int) -> MixedStepResult:
+        """Slot-arena dispatch of an assembled segment list as one packed
+        stream.
+
+        Arena-resident by default: the step reads cached history and
+        writes new KV rows directly in the arena through the slot map —
+        no whole-slot copy.  ``arena_prefill=False`` keeps the gathered
+        baseline: every stream row's slot is copied out before the step
+        and the real rows scattered back after it.  Dummy segments and
+        tail rows reuse the first segment's slot, confined to its park
+        row S_max − 1 by their positions."""
+        px = self.packed_executor
+        n = len(segments)
+        slots = [self.arena.alloc(seg.session) for seg in segments]
+        for seg in segments:
+            self.arena.check_length(seg.session, seg.history + seg.length)
+        b_max = px.stream_rows
+        all_slots = slots + [slots[0]] * (b_max - n)
+        stream = packing.assemble_mixed_stream(
+            segments, bucket, b_max, park_position=self.arena.max_len - 1,
+            pad_token=self.ecfg.pad_token)
+        sessions = [seg.session for seg in segments]
+
+        if self.ecfg.arena_prefill:
+            slot_map = np.asarray(all_slots, np.int32)
+            seg_slots = slot_map[stream.seg_ids]   # per-token arena slot
+            t0 = time.perf_counter()
+            last, ids = px.mixed_step_arena(
+                self.params, self._dev(stream.tokens),
+                self._dev(stream.positions), self._dev(seg_slots),
+                self._dev(slot_map), self._dev(stream.cu_seqlens),
+                self._dev(stream.q_offsets), self._dev(stream.kv_lengths),
+                self.arena.arena, self._dev(stream.last_idx),
+                n_decode=stream.decode_tokens)
+            toks, last_np = self._tokens_from_step(sessions, last, ids)
+        else:
+            caches = self.arena.gather(all_slots)
+            t0 = time.perf_counter()
+            last = px.mixed_step(
+                self.params, self._dev(stream.tokens),
+                self._dev(stream.positions), self._dev(stream.seg_ids),
+                self._dev(stream.cu_seqlens), self._dev(stream.q_offsets),
+                self._dev(stream.kv_lengths), caches,
+                self._dev(stream.last_idx), n_decode=stream.decode_tokens)
+            last_np = last.float().cpu().numpy()
+            self.logits_rows_shipped += int(last_np.shape[0])
+            toks = self._sample_rows(sessions, last_np[:n])
+        elapsed = time.perf_counter() - t0
+        px.note_padding(stream.total_tokens, bucket)
+        if not self.ecfg.arena_prefill:
+            self.arena.scatter(slots, [{k: a[:, :n] for k, a in c.items()}
+                                       for c in caches])
+        for seg in segments:
+            self.arena.set_length(seg.session, seg.history + seg.length)
+        out = self._record_packed(segments, toks, last_np, elapsed)
+        n_d = stream.decode_tokens
+        return MixedStepResult(tokens=out, fused=True, bucket=bucket,
+                               n_prefill=n - n_d, n_decode=n_d)
 
     def _run_packed_paged(self, segments: List[packing.SegmentSpec],
                           bucket: int) -> MixedStepResult:
@@ -364,21 +597,9 @@ class Engine:
         toks, last_np = self._tokens_from_step(sessions, last, ids)
         elapsed = time.perf_counter() - t0
         px.note_padding(stream.total_tokens, bucket)
-        out: Dict[int, int] = {}
-        for i, seg in enumerate(segments):
+        for seg in segments:
             ar.commit(seg.session, seg.tokens)
-            out[seg.session] = int(toks[i])
-            if last_np is not None:
-                self.last_logits[seg.session] = last_np[i]
-        if self.ecfg.measure:
-            # only prefill work feeds the (T, L, H) boundary fit — decode
-            # rows are priced by the decode model, not T(L, H)
-            pre = [seg for seg in segments if seg.kind != "decode"]
-            if pre:
-                per = elapsed / len(pre)
-                for seg in pre:
-                    self.samples.append((per, float(seg.length),
-                                         float(seg.history)))
+        out = self._record_packed(segments, toks, last_np, elapsed)
         n_d = stream.decode_tokens
         return MixedStepResult(tokens=out, fused=True, bucket=bucket,
                                n_prefill=n - n_d, n_decode=n_d)
@@ -388,16 +609,17 @@ class Engine:
         """Chunked long prefill (C_l per step).  Returns first token.
 
         Each chunk rides the packed stream as a re-prefill segment whose
-        history is the tokens already done.  CHUNK-LEVEL prefix
-        matching: the radix index is re-probed at every chunk boundary,
-        so a long prompt whose cached prefix extends past the first
-        chunk adopts the already-indexed pages mid-request."""
+        history is the tokens already done (off-ladder chunks take the
+        dense path on a slot arena).  CHUNK-LEVEL prefix matching on a
+        paged pool: the radix index is re-probed at every chunk
+        boundary, so a long prompt whose cached prefix extends past the
+        first chunk adopts the already-indexed pages mid-request."""
         c = self.ecfg.chunk_tokens
         arr = np.asarray(token_list)
         tok = None
         i = 0
         while i < len(arr):
-            if self.arena.index is not None:
+            if self._paged and self.arena.index is not None:
                 i += self.arena.match_extend(
                     session, [int(t) for t in arr[i:]])
             chunk = arr[i:i + c]
@@ -410,20 +632,58 @@ class Engine:
     def decode_batch(self, sessions: Sequence[int],
                      tokens: Sequence[int], steps: int = 1
                      ) -> Dict[int, List[int]]:
-        """Decode ``steps`` tokens for each session through the bucketed
-        paged decode step; a batch over the ladder top splits into
-        ladder-top groups."""
+        """Decode ``steps`` tokens for each session.
+
+        Routed through the bucketed decode step when available: the
+        batch axis pads to a decode-ladder rung and the arena (slot or
+        paged) is read in place.  A batch over the ladder top takes the
+        dense gather path on a slot arena and splits into ladder-top
+        groups on a paged pool; without ``arena_decode`` every tick is
+        dense."""
         dx = self.decode_executor
-        bucket = dx.bucket_for(len(sessions))
+        bucket = dx.bucket_for(len(sessions)) if dx is not None else None
         if bucket is None:
-            m = dx.ladder.max_seqs
-            out: Dict[int, List[int]] = {}
-            sessions, tokens = list(sessions), list(tokens)
-            for i in range(0, len(sessions), m):
-                out.update(self.decode_batch(sessions[i:i + m],
-                                             tokens[i:i + m], steps))
-            return out
-        return self._decode_batch_paged(sessions, tokens, steps, bucket)
+            if not self._dense_ok:
+                m = dx.ladder.max_seqs
+                out: Dict[int, List[int]] = {}
+                sessions, tokens = list(sessions), list(tokens)
+                for i in range(0, len(sessions), m):
+                    out.update(self.decode_batch(sessions[i:i + m],
+                                                 tokens[i:i + m], steps))
+                return out
+            return self._decode_batch_dense(
+                sessions, tokens, steps,
+                cause="requested" if dx is None else "forced")
+        if self._paged:
+            return self._decode_batch_paged(sessions, tokens, steps, bucket)
+
+        n = len(sessions)
+        slots = [self.arena.slot_of(s) for s in sessions]
+        assert all(sl is not None for sl in slots), \
+            f"decode session without a cache slot: {list(sessions)}"
+        park = self.arena.max_len - 1
+        cur = np.asarray(tokens, np.int32)
+        out = {s: [] for s in sessions}
+        for _ in range(steps):
+            hists = [self.arena.length(s) for s in sessions]
+            for s, h in zip(sessions, hists):
+                self.arena.check_length(s, h + 1)
+            rows = packing.pad_decode_rows(
+                slots, hists, cur, bucket, park_position=park,
+                pad_token=self.ecfg.pad_token)
+            logits, ids = dx.decode(
+                self.params, self._dev(rows.tokens),
+                self._dev(rows.slot_map), self._dev(rows.write_pos),
+                self._dev(rows.kv_lengths), self.arena.arena)
+            dx.note_padding(n, bucket)
+            toks, logits_np = self._tokens_from_step(sessions, logits, ids)
+            cur = toks.astype(np.int32)
+            for i, s in enumerate(sessions):
+                self.arena.set_length(s, hists[i] + 1)
+                out[s].append(int(cur[i]))
+                if logits_np is not None:
+                    self.last_logits[s] = logits_np[i]
+        return out
 
     def _decode_batch_paged(self, sessions: Sequence[int],
                             tokens: Sequence[int], steps: int,
@@ -476,6 +736,39 @@ class Engine:
                     self.last_logits[s] = logits_np[i]
         return out
 
+    def _decode_batch_dense(self, sessions: Sequence[int],
+                            tokens: Sequence[int], steps: int = 1,
+                            cause: str = "requested"
+                            ) -> Dict[int, List[int]]:
+        """Dense decode: gather whole arena slots, run the (B, 1) step,
+        scatter the slots back — O(S_max) bytes per token and one shape
+        per session count.  ``cause`` records whether the config
+        requested it or the ladder forced it."""
+        assert self._dense_ok, "a paged pool has no dense gather path"
+        n = len(sessions)
+        slots = [self.arena.slot_of(s) for s in sessions]
+        cur = np.asarray(tokens, np.int32)
+        out: Dict[int, List[int]] = {s: [] for s in sessions}
+        for _ in range(steps):
+            self._note_dense("decode", cause)
+            hists = [self.arena.length(s) for s in sessions]
+            for s, h in zip(sessions, hists):
+                self.arena.check_length(s, h + 1)
+            positions = np.asarray(hists, np.int32)[:, None]
+            caches = self.arena.gather(slots)
+            logits = self.executor.decode(
+                self.params, self._dev(cur[:, None]), self._dev(positions),
+                caches)
+            self.arena.scatter(slots, caches)
+            self.executor.note_padding(n, n)
+            logits_np = logits.float().cpu().numpy()
+            cur = self._sample_rows(sessions, logits_np).astype(np.int32)
+            for i, s in enumerate(sessions):
+                self.arena.set_length(s, hists[i] + 1)
+                out[s].append(int(cur[i]))
+                self.last_logits[s] = logits_np[i]
+        return out
+
     # ------------------------------------------------------ runtime fit
     def fit_boundary(self) -> Optional[boundary_mod.TotalFit]:
         if len(self.samples) >= 8:
@@ -489,35 +782,63 @@ class Engine:
 
     # ------------------------------------------------------------- stats
     def stats(self) -> Dict:
-        ar, px, dx = self.arena, self.packed_executor, self.decode_executor
-        return {
-            "free_slots": ar.free_pages,
-            "free_pages": ar.free_pages,
-            "radix_pages": (len(ar.index.pages())
-                            if ar.index is not None else 0),
+        ar, ex = self.arena, self.executor
+        out = {
+            "graph_hit_rate": ex.hit_rate,
+            "captured_shapes": len(ex.compile_times),
+            "capture_seconds": ex.capture_cost(),
+            "free_slots": ar.free_pages if self._paged else ar.free_slots,
             "fit_samples": len(self.samples),
-            # whole-sequence copy proof: the paged paths keep both at 0
+            "useful_tokens": ex.useful_tokens,
+            "padded_tokens": ex.padded_tokens,
+            "padding_efficiency": ex.padding_efficiency,
+            "hit_rate_by_kind": ex.hit_rate_by_kind,
+            # whole-slot copy proof: the arena-resident paths keep both
+            # at 0
             "arena_gathers": ar.gather_calls,
             "arena_scatters": ar.scatter_calls,
-            "prefix_hit_tokens": ar.prefix_hit_tokens,
-            "chunk_hit_tokens": ar.chunk_hit_tokens,
-            "pages_cow_forked": ar.pages_cow_forked,
-            "pages_evicted": ar.pages_evicted,
-            "decode_shapes": len(dx.compile_times),
-            "decode_dispatches": dx.dispatches,
-            "decode_hit_rate": dx.hit_rate,
-            "decode_useful_rows": dx.useful_tokens,
-            "decode_pad_rows": dx.padded_tokens,
-            "decode_padding_efficiency": dx.padding_efficiency,
-            "packed_shapes": len(px.compile_times),
-            "packed_hit_rate": px.hit_rate,
-            "packed_useful_tokens": px.useful_tokens,
-            "packed_padded_tokens": px.padded_tokens,
-            "packed_padding_efficiency": px.padding_efficiency,
-            "packed_dispatches": px.dispatches,
-            "packed_shapes_by_kind": px.shapes_by_kind(),
-            "mixed_steps": px.mixed_steps,
-            "decode_tokens_fused": px.decode_tokens_fused,
-            "fused_greedy_steps": self.fused_greedy_steps,
-            "logits_rows_shipped": self.logits_rows_shipped,
+            # paged-arena proof counters (0 on slot arenas)
+            "prefix_hit_tokens": getattr(ar, "prefix_hit_tokens", 0),
+            "chunk_hit_tokens": getattr(ar, "chunk_hit_tokens", 0),
+            "pages_cow_forked": getattr(ar, "pages_cow_forked", 0),
+            "pages_evicted": getattr(ar, "pages_evicted", 0),
         }
+        if self._paged:
+            out["free_pages"] = ar.free_pages
+            out["radix_pages"] = (len(ar.index.pages())
+                                  if ar.index is not None else 0)
+        if self.decode_executor is not None:
+            dx = self.decode_executor
+            out.update({
+                "decode_shapes": len(dx.compile_times),
+                "decode_dispatches": dx.dispatches,
+                "decode_hit_rate": dx.hit_rate,
+                "decode_useful_rows": dx.useful_tokens,
+                "decode_pad_rows": dx.padded_tokens,
+                "decode_padding_efficiency": dx.padding_efficiency,
+            })
+        if self.packed_executor is not None:
+            px = self.packed_executor
+            out.update({
+                "packed_shapes": len(px.compile_times),
+                "packed_hit_rate": px.hit_rate,
+                "packed_useful_tokens": px.useful_tokens,
+                "packed_padded_tokens": px.padded_tokens,
+                "packed_padding_efficiency": px.padding_efficiency,
+                "packed_dispatches": px.dispatches,
+                "packed_shapes_by_kind": px.shapes_by_kind(),
+                "mixed_steps": px.mixed_steps,
+                "decode_tokens_fused": px.decode_tokens_fused,
+            })
+        out["dense_dispatches"] = ex.dispatches
+        # per-kind dense causes: "requested" = the config pinned the
+        # dense baseline; "forced" = a ladder miss pushed an otherwise
+        # packed step onto the dense path
+        by_cause: Dict[str, Dict[str, int]] = {}
+        for (kind, cause), count in self.dense_causes.items():
+            by_cause.setdefault(kind, {}).setdefault(cause, 0)
+            by_cause[kind][cause] += count
+        out["dense_dispatches_by_cause"] = by_cause
+        out["fused_greedy_steps"] = self.fused_greedy_steps
+        out["logits_rows_shipped"] = self.logits_rows_shipped
+        return out

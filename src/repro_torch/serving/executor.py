@@ -1,16 +1,22 @@
 """Bucketed step executors of the port, from ``repro.serving.executor``:
-the paged packed step and the paged decode step.
+the dense (L, B) grid (:class:`BucketExecutor`), the packed token-bucket
+steps over gathered caches, the slot arena and the page pool
+(:class:`PackedBucketExecutor`), and the bucketed decode steps over the
+slot arena and the page pool (:class:`DecodeBucketExecutor`).
 
-The JAX package lowers and compiles one executable per bucket shape.
-Here execution is eager: every step runs the PyTorch stack directly
-(CUDA-graph capture per bucket is a later slice).  The shape-keyed
-bookkeeping stays — the first step of a shape counts as a miss, later
-ones as hits — with the same counter names, because ``Engine.stats()``
-and the benches read them.
+The JAX package lowers and compiles one executable per bucket shape —
+its analogue of CUDA Graph capture, the paper's (L, B) grid captured at
+system init.  Here execution is eager: every step runs the PyTorch stack
+directly (CUDA-graph capture per bucket is a later slice).  The
+shape-keyed bookkeeping stays — the first step of a shape counts as a
+miss, later ones as hits — with the same counter names, because
+``Engine.stats()`` and the benches read them; ``precapture`` runs each
+grid shape once at init and records how long that took.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -19,6 +25,86 @@ from repro_torch.core.buckets import (DEFAULT_DECODE_BUCKETS,
                                       DecodeBucketLadder, TokenBucketLadder)
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
+
+
+def make_prefill_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens(B,L), positions(B,L), caches, sample_idx(B,)) →
+    last_logits(B,V).  The dense (L, B) grid step: first prefill AND
+    re-prefill (positions carry the history offset); the gathered
+    caches are written in place."""
+
+    @torch.no_grad()
+    def prefill_step(params, tokens, positions, caches, sample_idx):
+        logits = tr.forward(params, cfg, tokens, positions, caches=caches)
+        rows = torch.arange(tokens.shape[0], device=logits.device)
+        return logits[rows, sample_idx.long()]
+
+    return prefill_step
+
+
+def make_decode_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens(B,1), positions(B,1), caches) → logits(B,V).  The
+    dense (B, 1) decode step over gathered caches, written in place."""
+
+    @torch.no_grad()
+    def decode_step(params, tokens, positions, caches):
+        return tr.forward(params, cfg, tokens, positions, caches=caches,
+                          logits_slice="last")
+
+    return decode_step
+
+
+def make_packed_prefill_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens(T,), positions(T,), seg_ids(T,), cu_seqlens(B+1,),
+    q_offsets(B,), kv_lengths(B,), caches, last_idx(B,)) →
+    last_logits(B,V).  Padding-free packed prefill over gathered caches,
+    written in place."""
+
+    @torch.no_grad()
+    def packed_step(params, tokens, positions, seg_ids, cu_seqlens,
+                    q_offsets, kv_lengths, caches, last_idx):
+        return tr.forward_packed(
+            params, cfg, tokens=tokens, positions=positions,
+            seg_ids=seg_ids, cu_seqlens=cu_seqlens, q_offsets=q_offsets,
+            kv_lengths=kv_lengths, caches=caches, last_idx=last_idx)
+
+    return packed_step
+
+
+def make_packed_arena_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens(T,), positions(T,), seg_slots(T,), slot_map(B,),
+    cu_seqlens(B+1,), q_offsets(B,), kv_lengths(B,), arena, last_idx(B,))
+    → (last_logits(B,V), greedy_ids(B,)).  Arena-resident packed
+    prefill: the slot arena is read in place through the slot map and
+    only the step's new KV rows are written."""
+
+    @torch.no_grad()
+    def packed_step(params, tokens, positions, seg_slots, slot_map,
+                    cu_seqlens, q_offsets, kv_lengths, arena, last_idx):
+        last = tr.forward_packed_arena(
+            params, cfg, tokens=tokens, positions=positions,
+            seg_slots=seg_slots, slot_map=slot_map, cu_seqlens=cu_seqlens,
+            q_offsets=q_offsets, kv_lengths=kv_lengths, arena=arena,
+            last_idx=last_idx)
+        return last, torch.argmax(last, dim=-1).to(torch.int32)
+
+    return packed_step
+
+
+def make_arena_decode_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens(B,), slot_map(B,), write_pos(B,), kv_lengths(B,),
+    arena) → (logits(B,V), greedy_ids(B,)).  Arena-resident decode: one
+    new KV row per row written in place, the arena read through the slot
+    map."""
+
+    @torch.no_grad()
+    def decode_step(params, tokens, slot_map, write_pos, kv_lengths, arena):
+        logits = tr.forward_decode_arena(
+            params, cfg, tokens=tokens, slot_map=slot_map,
+            write_pos=write_pos, kv_lengths=kv_lengths, arena=arena)
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    return decode_step
 
 
 def make_packed_paged_fn(cfg: ModelConfig) -> Callable:
@@ -63,8 +149,9 @@ class _ExecutorBase:
     """Shape-keyed dispatch accounting + padding-efficiency stats."""
 
     def __init__(self) -> None:
-        # shape key → first-dispatch cost; eager execution compiles
-        # nothing, so the value is 0.0 (CUDA-graph capture fills it later)
+        # shape key → first-dispatch cost: the seconds its precapture
+        # run took, 0.0 for a shape first met while serving (eager
+        # execution compiles nothing)
         self.compile_times: Dict[Tuple, float] = {}
         self.hits = 0
         self.misses = 0
@@ -78,7 +165,9 @@ class _ExecutorBase:
         return (kind,) + tuple((tuple(t.shape), str(t.dtype))
                                for t in tensors)
 
-    def _note_dispatch(self, kind: str, *tensors: torch.Tensor) -> None:
+    def _note_dispatch(self, kind: str, *tensors: torch.Tensor) -> Tuple:
+        """Count one dispatch of the step ``kind`` at the shapes of
+        ``tensors`` (a miss the first time); returns its key."""
         key = self._key(kind, *tensors)
         if key not in self.compile_times:
             self.misses += 1
@@ -87,6 +176,23 @@ class _ExecutorBase:
         else:
             self.hits += 1
             self.kind_hits[kind] = self.kind_hits.get(kind, 0) + 1
+        return key
+
+    def _capture(self, kind: str, fn: Callable, args: tuple,
+                 *shaped: torch.Tensor) -> None:
+        """Precapture one shape: count it as a dispatch of ``kind`` (as
+        the JAX executors count the compile), run ``fn(*args)`` once and
+        record the seconds it took."""
+        key = self._note_dispatch(kind, *shaped)
+        t0 = time.perf_counter()
+        fn(*args)
+        if shaped[0].device.type == "cuda":
+            torch.cuda.synchronize(shaped[0].device)
+        self.compile_times[key] = time.perf_counter() - t0
+
+    def capture_cost(self) -> float:
+        """Total precapture seconds."""
+        return sum(self.compile_times.values())
 
     # ------------------------------------------------------------- stats
     def note_padding(self, useful: int, total: int) -> None:
@@ -108,6 +214,16 @@ class _ExecutorBase:
         total = self.hits + self.misses
         return self.hits / total if total else 0.0
 
+    @property
+    def hit_rate_by_kind(self) -> Dict[str, float]:
+        """Per-dispatch-kind hit rates."""
+        out: Dict[str, float] = {}
+        for kind in set(self.kind_hits) | set(self.kind_misses):
+            h = self.kind_hits.get(kind, 0)
+            m = self.kind_misses.get(kind, 0)
+            out[kind] = h / (h + m) if (h + m) else 0.0
+        return out
+
     def shapes_by_kind(self) -> Dict[str, int]:
         out: Dict[str, int] = {}
         for key in self.compile_times:
@@ -120,10 +236,55 @@ class _ExecutorBase:
         return self.hits + self.misses
 
 
+def _zeros(device, *shape: int) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.int32, device=device)
+
+
+class BucketExecutor(_ExecutorBase):
+    """The dense (L, B) bucket-grid executor: every batch is padded to a
+    grid (length, depth) shape, so the shape space is |L| × |B|."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self._prefill = make_prefill_fn(cfg)
+        self._decode = make_decode_fn(cfg)
+
+    def prefill(self, params, tokens, positions, caches, sample_idx):
+        self._note_dispatch("prefill", tokens)
+        return self._prefill(params, tokens, positions, caches, sample_idx)
+
+    def decode(self, params, tokens, positions, caches):
+        self._note_dispatch("decode", tokens)
+        return self._decode(params, tokens, positions, caches)
+
+    def precapture(self, params, arena_gather: Callable, lengths, depths
+                   ) -> float:
+        """Run the (L, B) grid once at init (paper: graphs captured at
+        system initialization) on gathered copies of the first slots.
+        Returns total capture seconds."""
+        t0 = time.perf_counter()
+        dev = params["embed"].device
+        for b in depths:
+            caches = arena_gather(list(range(b)))
+            for l in lengths:
+                tokens = _zeros(dev, b, l)
+                self._capture("prefill", self._prefill,
+                              (params, tokens, _zeros(dev, b, l), caches,
+                               _zeros(dev, b)), tokens)
+            tok1 = _zeros(dev, b, 1)
+            self._capture("decode", self._decode,
+                          (params, tok1, _zeros(dev, b, 1), caches), tok1)
+        return time.perf_counter() - t0
+
+
 class PackedBucketExecutor(_ExecutorBase):
     """Padding-free packed step keyed on a 1-D total-token bucket: one
     flat (T,) stream with ``max_seqs`` segment rows, so the shape space
-    grows with |token_buckets| only."""
+    grows with |token_buckets| only.  Three forms: over gathered caches
+    (``mixed_step``, the measurement baseline), over the slot arena
+    (``mixed_step_arena``) and over the page pool
+    (``mixed_step_paged``)."""
 
     def __init__(self, cfg: ModelConfig,
                  token_buckets: Tuple[int, ...] = DEFAULT_TOKEN_BUCKETS,
@@ -131,6 +292,8 @@ class PackedBucketExecutor(_ExecutorBase):
         super().__init__()
         self.cfg = cfg
         self.ladder = TokenBucketLadder(token_buckets, max_seqs)
+        self._packed = make_packed_prefill_fn(cfg)
+        self._packed_arena = make_packed_arena_fn(cfg)
         self._packed_paged = make_packed_paged_fn(cfg)
         # continuous-batching counters: a mixed step fuses decode rows
         # into the same packed stream
@@ -155,6 +318,49 @@ class PackedBucketExecutor(_ExecutorBase):
         """Smallest token bucket ≥ total_tokens (None if off-scale)."""
         return self.ladder.bucket_for(total_tokens)
 
+    def _note_mixed(self, n_decode: int) -> None:
+        if n_decode:
+            self.mixed_steps += 1
+            self.decode_tokens_fused += int(n_decode)
+
+    def prefill_packed(self, params, tokens, positions, seg_ids, cu_seqlens,
+                       q_offsets, kv_lengths, caches, last_idx):
+        self._note_dispatch("packed_prefill", tokens)
+        return self._packed(params, tokens, positions, seg_ids, cu_seqlens,
+                            q_offsets, kv_lengths, caches, last_idx)
+
+    def mixed_step(self, params, tokens, positions, seg_ids, cu_seqlens,
+                   q_offsets, kv_lengths, caches, last_idx, *,
+                   n_decode: int = 0):
+        """One continuous-batching step over GATHERED caches: prefill,
+        chunk and decode segments in one flat stream; the caches are
+        written in place.  Returns last_logits (B, V)."""
+        self._note_mixed(n_decode)
+        return self.prefill_packed(params, tokens, positions, seg_ids,
+                                   cu_seqlens, q_offsets, kv_lengths,
+                                   caches, last_idx)
+
+    def prefill_packed_arena(self, params, tokens, positions, seg_slots,
+                             slot_map, cu_seqlens, q_offsets, kv_lengths,
+                             arena, last_idx):
+        self._note_dispatch("packed_arena", tokens)
+        return self._packed_arena(params, tokens, positions, seg_slots,
+                                  slot_map, cu_seqlens, q_offsets,
+                                  kv_lengths, arena, last_idx)
+
+    def mixed_step_arena(self, params, tokens, positions, seg_slots,
+                         slot_map, cu_seqlens, q_offsets, kv_lengths,
+                         arena, last_idx, *, n_decode: int = 0):
+        """One ARENA-RESIDENT continuous-batching step: each segment's
+        KV is routed through ``slot_map`` and only the new rows are
+        written, in place.  Returns (last_logits (B, V), greedy_ids
+        (B,))."""
+        self._note_mixed(n_decode)
+        return self.prefill_packed_arena(params, tokens, positions,
+                                         seg_slots, slot_map, cu_seqlens,
+                                         q_offsets, kv_lengths, arena,
+                                         last_idx)
+
     def mixed_step_paged(self, params, tokens, positions, token_pages,
                          token_offs, page_table, cu_seqlens, q_offsets,
                          kv_lengths, arena, last_idx, *,
@@ -163,17 +369,50 @@ class PackedBucketExecutor(_ExecutorBase):
         segments in one flat stream; each segment's KV is routed through
         its row of ``page_table`` and the pool is written in place.
         Returns (last_logits (B, V), greedy_ids (B,))."""
-        if n_decode:
-            self.mixed_steps += 1
-            self.decode_tokens_fused += int(n_decode)
+        self._note_mixed(n_decode)
         self._note_dispatch("packed_paged", tokens, page_table)
         return self._packed_paged(params, tokens, positions, token_pages,
                                   token_offs, page_table, cu_seqlens,
                                   q_offsets, kv_lengths, arena, last_idx)
 
+    def precapture(self, params, arena_gather: Callable) -> float:
+        """Run every token bucket's gathered step once at init on copies
+        of the first ``max_seqs`` slots.  Returns total seconds."""
+        t0 = time.perf_counter()
+        b = self.max_seqs
+        dev = params["embed"].device
+        caches = arena_gather(list(range(b)))
+        for t in self.token_buckets:
+            tokens = _zeros(dev, t)
+            self._capture("packed_prefill", self._packed,
+                          (params, tokens, _zeros(dev, t), _zeros(dev, t),
+                           _zeros(dev, b + 1), _zeros(dev, b),
+                           _zeros(dev, b), caches, _zeros(dev, b)), tokens)
+        return time.perf_counter() - t0
+
+    def precapture_arena(self, params, arena: List[Dict[str, torch.Tensor]]
+                         ) -> float:
+        """Run every token bucket's arena-resident step once at init.
+        Its stream has no segment (every kv length 0) and parks every
+        write on slot 0's park row, so no cached row changes.  Returns
+        total seconds."""
+        t0 = time.perf_counter()
+        b = self.stream_rows
+        dev = params["embed"].device
+        park = arena[0]["k"].shape[2] - 1
+        for t in self.token_buckets:
+            tokens = _zeros(dev, t)
+            self._capture("packed_arena", self._packed_arena,
+                          (params, tokens, _zeros(dev, t) + park,
+                           _zeros(dev, t), _zeros(dev, b),
+                           _zeros(dev, b + 1), _zeros(dev, b),
+                           _zeros(dev, b), arena, _zeros(dev, b)), tokens)
+        return time.perf_counter() - t0
+
 
 class DecodeBucketExecutor(_ExecutorBase):
-    """Bucketed paged decode: the batch axis is padded to a decode-ladder
+    """Bucketed decode over the slot arena (``decode``) or the page pool
+    (``decode_paged``): the batch axis is padded to a decode-ladder
     rung, so the shape space is keyed on the BUCKET, not the live
     session count."""
 
@@ -183,6 +422,7 @@ class DecodeBucketExecutor(_ExecutorBase):
         super().__init__()
         self.cfg = cfg
         self.ladder = DecodeBucketLadder(decode_buckets, max_seqs)
+        self._decode = make_arena_decode_fn(cfg)
         self._decode_paged = make_paged_decode_fn(cfg)
 
     @property
@@ -192,6 +432,32 @@ class DecodeBucketExecutor(_ExecutorBase):
     def bucket_for(self, n_seqs: int) -> Optional[int]:
         """Smallest ladder rung ≥ n_seqs (None → split)."""
         return self.ladder.bucket_for(n_seqs)
+
+    def decode(self, params, tokens, slot_map, write_pos, kv_lengths,
+               arena):
+        """One ARENA-RESIDENT decode tick: each row's new KV row is
+        written in place at (slot, write_pos) and the arena read through
+        the slot map.  Returns (logits (B, V), greedy_ids (B,))."""
+        self._note_dispatch("arena_decode", tokens)
+        return self._decode(params, tokens, slot_map, write_pos,
+                            kv_lengths, arena)
+
+    def precapture(self, params, arena: List[Dict[str, torch.Tensor]]
+                   ) -> float:
+        """Run every decode rung's arena-resident step once at init.
+        Every row writes slot 0's park row and reads its row 0, as a
+        ladder pad row does, so no cached row changes.  Returns total
+        seconds."""
+        t0 = time.perf_counter()
+        dev = params["embed"].device
+        park = arena[0]["k"].shape[2] - 1
+        for b in self.decode_buckets:
+            tokens = _zeros(dev, b)
+            self._capture("arena_decode", self._decode,
+                          (params, tokens, _zeros(dev, b),
+                           _zeros(dev, b) + park, _zeros(dev, b) + 1,
+                           arena), tokens)
+        return time.perf_counter() - t0
 
     def decode_paged(self, params, tokens, positions, write_pages,
                      write_offs, page_table, kv_lengths, arena):

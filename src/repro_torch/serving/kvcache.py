@@ -1,19 +1,141 @@
-"""Paged KV cache of the port, from ``repro.serving.kvcache``: the radix
-prefix index over page-sized token chunks and the page-pool arena with
+"""KV caches of the port, from ``repro.serving.kvcache``: the slot arena
+(one preallocated slot of S_max positions per session), the radix
+prefix index over page-sized token chunks, and the page-pool arena with
 COW forks and LRU eviction.
 
-The bookkeeping (page ids, refcounts, the trie) is the JAX package's,
-line for line, so a replay gives identical page assignments.  The pools
-are torch tensors updated in place.  Not in this slice: the host spill
-tier (``host_pool_bytes > 0``), ring tables for sliding-window configs
-and SSM state pages; each raises ``NotImplementedError``.
+The bookkeeping (slots, lengths, page ids, refcounts, the trie) is the
+JAX package's, line for line, so a replay gives identical assignments.
+The arenas are torch tensors updated in place by the serving steps.  Not
+in this slice: the host spill tier (``host_pool_bytes > 0``), rolling
+slots and ring tables for sliding-window configs, SSM state slots and
+pages, and slot export/import; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
+
+
+class KVArena:
+    """Slot arena: per layer-pattern position k/v ``(G, N_slots, S_max,
+    Hkv, D)`` torch tensors; each session owns one slot and its cached
+    positions [0, length).  Row S_max − 1 of every slot is the PARK row:
+    pad and tail rows of a step write there, and ``set_length`` caps a
+    session at S_max − 2 so no live position ever reaches it.
+
+    The arena-resident steps read and write the tensors in place through
+    a slot map (there is no ``replace``: the JAX package's swap of the
+    donated result is the identity here).  ``gather`` / ``scatter`` copy
+    whole slots out and back for the dense (L, B) path and the gathered
+    packed baseline; ``gather_calls`` / ``scatter_calls`` count them, and
+    the arena-resident paths keep both at 0.
+    """
+
+    def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
+                 dtype=None, swa_depth: Optional[int] = None,
+                 scratch_slot: bool = False, device="cuda"):
+        if swa_depth is not None or scratch_slot:
+            raise NotImplementedError(
+                "rolling window slots and the scratch slot are not "
+                "ported yet (ROADMAP Queue 1, item 10)")
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.scratch: Optional[int] = None     # pads park on a live slot
+        self.arena = tr.init_cache(cfg, num_slots, max_len, dtype,
+                                   device=device)
+        self._free: List[int] = list(range(num_slots))
+        self._session_slot: Dict[int, int] = {}
+        self.lengths: Dict[int, int] = {}          # session -> tokens cached
+        self.gather_calls = 0
+        self.scatter_calls = 0
+
+    # ----------------------------------------------------------- slots
+    def alloc(self, session: int) -> int:
+        if session in self._session_slot:
+            return self._session_slot[session]
+        if not self._free:
+            raise RuntimeError("KV arena exhausted")
+        slot = self._free.pop()
+        self._session_slot[session] = slot
+        self.lengths[session] = 0
+        return slot
+
+    def free(self, session: int) -> None:
+        slot = self._session_slot.pop(session, None)
+        if slot is not None:
+            self._free.append(slot)
+            self.lengths.pop(session, None)
+
+    def slot_of(self, session: int) -> Optional[int]:
+        return self._session_slot.get(session)
+
+    def length(self, session: int) -> int:
+        return self.lengths.get(session, 0)
+
+    def check_length(self, session: int, n: int) -> None:
+        """Raise if ``n`` cached positions would reach the park row.  The
+        engine calls it before a step writes (an out-of-range write is
+        an error in PyTorch, where a JAX scatter drops it)."""
+        if n > self.max_len - 2:
+            raise RuntimeError(
+                f"session {session} overflows arena ({n} > {self.max_len - 2})")
+
+    def set_length(self, session: int, n: int) -> None:
+        self.check_length(session, n)
+        self.lengths[session] = n
+
+    def truncate(self, session: int, n: int) -> None:
+        """Drop cached rows past ``n``: pure length bookkeeping, since
+        rows past the valid length are never read and the next append
+        overwrites them."""
+        h = self.lengths.get(session, 0)
+        if not 0 <= n <= h:
+            raise ValueError(
+                f"truncate session {session} to {n} outside [0, {h}]")
+        self.lengths[session] = n
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    # ---------------------------------------------------------- gather
+    def gather(self, slots: Sequence[int]) -> List[Dict[str, torch.Tensor]]:
+        """Copy whole slots out: {"k"/"v": (G, len(slots), S_max, Hkv,
+        D)} per pattern position (a slot may repeat)."""
+        self.gather_calls += 1
+        idx = self._index(slots)
+        return [{name: a.index_select(1, idx) for name, a in leaves.items()}
+                for leaves in self.arena]
+
+    def scatter(self, slots: Sequence[int],
+                batch_cache: List[Dict[str, torch.Tensor]]) -> None:
+        """Copy whole slots back: row i of ``batch_cache`` into slot
+        ``slots[i]``."""
+        self.scatter_calls += 1
+        idx = self._index(slots)
+        for leaves, batch in zip(self.arena, batch_cache):
+            for name, a in leaves.items():
+                a.index_copy_(1, idx, batch[name].to(a.dtype))
+
+    def _index(self, slots: Sequence[int]) -> torch.Tensor:
+        dev = self.arena[0]["k"].device
+        return torch.as_tensor(list(slots), dtype=torch.long, device=dev)
+
+    # ----------------------------------------------------------- handoff
+    def export_slot(self, session: int):
+        raise NotImplementedError(
+            "session export/import is not ported yet "
+            "(ROADMAP Queue 1, item 13)")
+
+    def import_slot(self, session: int, kv, n_tokens: int) -> int:
+        raise NotImplementedError(
+            "session export/import is not ported yet "
+            "(ROADMAP Queue 1, item 13)")
 
 
 class _RadixNode:

@@ -241,7 +241,7 @@ class ServeLoop:
         page, keeping 1 token of true suffix).  None when the engine has
         no radix index or the prompt spans no full page."""
         eng = self.engine
-        if eng.arena.index is None:
+        if not eng._paged or eng.arena.index is None:
             return None
         ps = eng.arena.page_size
         n_full = max(len(prompt) - 1, 0) // ps
@@ -469,7 +469,8 @@ class ServeLoop:
         # and keeps ≥ 1 token of true suffix, so the final chunk always
         # dispatches and produces the first-token logits.
         adopt = 0
-        if self.chunk_matching and self.engine.arena.index is not None:
+        if self.chunk_matching and self.engine._paged \
+                and self.engine.arena.index is not None:
             rem = pr.tokens[work.done_tokens:]
             if len(rem) > 1:
                 if self.engine.history(r.session) == 0:
@@ -521,7 +522,8 @@ class ServeLoop:
 
     def _run_decode_only(self) -> None:
         """No prefill work this tick: advance every in-flight session one
-        token in a single bucketed paged decode dispatch."""
+        token in a single dispatch: the bucketed decode step over the
+        arena (slot or paged), or the dense (B, 1) gather step."""
         sessions = list(self.active_decodes)
         tokens = [self.last_token[s] for s in sessions]
         out = self.engine.decode_batch(sessions, tokens, steps=1)

@@ -134,15 +134,15 @@ def test_engine_refuses_the_cpu_by_default():
         Engine(tcfg, {})
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(paged_kv=False), "item 9"),
-    (dict(fused_sampling=True), "item 12"),
-    (dict(host_pool_bytes=1 << 20), "item 11"),
+@pytest.mark.parametrize("cfg_kw,kw,item", [
+    (dict(sliding_window=32), dict(paged_kv=False), "item 10"),
+    ({}, dict(fused_sampling=True), "item 12"),
+    ({}, dict(host_pool_bytes=1 << 20), "item 11"),
 ])
-def test_config_branches_outside_the_slice_raise(stacks, kw, item):
+def test_config_branches_outside_the_slice_raise(stacks, cfg_kw, kw, item):
     _, _, tcfg, tp = stacks["qwen3-4b"]
     with pytest.raises(NotImplementedError, match=item):
-        Engine(tcfg, tp, EngineConfig(**kw), device="cpu")
+        Engine(tcfg.replace(**cfg_kw), tp, EngineConfig(**kw), device="cpu")
 
 
 def test_method_branches_outside_the_slice_raise(stacks):

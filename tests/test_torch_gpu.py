@@ -145,3 +145,97 @@ def test_engine_on_card_matches_engine_on_cpu(card):
         np.testing.assert_allclose(engines[1].last_logits[s],
                                    engines[0].last_logits[s], atol=1e-4,
                                    rtol=0)
+
+
+def _slot_arena(card, dtype, g, s_max, live, slots=6):
+    """A K/V arena whose rows at and past each live slot's length (the
+    park row included) hold a large finite value."""
+    k = torch.randn((slots, s_max, HKV, D), generator=g, device=card)
+    v = torch.randn((slots, s_max, HKV, D), generator=g, device=card)
+    valid = torch.zeros((slots, s_max), dtype=torch.bool, device=card)
+    for slot, n in live.items():
+        valid[slot, :n] = True
+    k[~valid] = 1000.0
+    v[~valid] = -1000.0
+    return k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_max,lens,hists", [
+    (200, [37, 1, 12], [120, 196, 0]),
+    (4096, [512, 17, 1], [1536, 40, 900]),
+])
+def test_slot_prefill_kernels_match_plain(card, dtype, s_max, lens, hists):
+    """ragged_prefill_arena over the arena and ragged_prefill_attn over
+    the gathered slots, with two pad segments and a bucket tail."""
+    g = torch.Generator(device=card).manual_seed(3)
+    slots = [4, 0, 2]
+    kvl = [h + n for h, n in zip(hists, lens)]
+    k, v = _slot_arena(card, dtype, g, s_max, dict(zip(slots, kvl)))
+    total = sum(lens)
+    cu = [0] + list(np.cumsum(lens)) + [total] * 2
+    slot_map = _i32(slots + [slots[0]] * 2, card)
+    q = torch.randn((total + 7, HQ, D), generator=g, device=card).to(dtype)
+    idx = [_i32(x, card) for x in (cu, hists + [0, 0], kvl + [0, 0])]
+    kg, vg = k[slot_map.long()].contiguous(), v[slot_map.long()].contiguous()
+    for fn, plain, args in (
+            (rp.ragged_prefill_arena, rp.ragged_prefill_arena_plain,
+             (q, k, v, slot_map, *idx)),
+            (rp.ragged_prefill_attn, rp.ragged_prefill_attn_plain,
+             (q, kg, vg, *idx))):
+        n0 = fn.launches
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        _assert_held(out, plain, *args)
+        assert (out[total:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_arena_kernel_matches_plain(card, dtype):
+    """Live rows of 0 to 2053 keys and ladder pad rows (length 1 on the
+    first row's slot) in a 192-deep and a 4096-deep arena."""
+    g = torch.Generator(device=card).manual_seed(4)
+    for s_max, lengths in ((192, [0, 190, 33, 1]),
+                           (4096, [2053, 1, 129, 64])):
+        slots = [3, 1, 5, 0]
+        k, v = _slot_arena(card, dtype, g, s_max, dict(zip(slots, lengths)))
+        slot_map = slots + [slots[0]] * 3
+        lens = lengths + [1] * 3
+        q = torch.randn((len(lens), HQ, D), generator=g,
+                        device=card).to(dtype)
+        out = dec.decode_attn_arena(q, k, v, _i32(slot_map, card),
+                                    _i32(lens, card))
+        torch.cuda.synchronize()
+        _assert_held(out[:4], dec.decode_attn_arena_plain, q[:4], k, v,
+                     _i32(slots, card), _i32(lengths, card))
+        zero = [i for i, n in enumerate(lengths) if n == 0]
+        assert (out[zero] == 0).all() and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("mode", [
+    dict(paged_kv=False), dict(paged_kv=False, arena_prefill=False),
+    dict(packed=False, paged_kv=False)], ids=["arena", "gathered", "dense"])
+def test_slot_engine_on_card_matches_engine_on_cpu(card, mode):
+    """Each slot mode through the CUDA kernels and through the plain
+    versions: the same greedy tokens, logits within 1e-4 (fp32)."""
+    cfg = get_smoke("qwen3-4b").replace(head_dim=128)
+    params = tr.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, card)
+    ecfg = dict(num_slots=4, max_len=256, chunk_tokens=32, measure=False,
+                **mode)
+    engines = [Engine(cfg, params, EngineConfig(**ecfg), device="cpu"),
+               Engine(cfg, on_card, EngineConfig(**ecfg), device=card)]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (70, 9, 33)]
+    outs = []
+    for e in engines:
+        r = e.prefill_batch([0, 1, 2], prompts)
+        d = e.decode_batch([0, 1, 2], [r[i] for i in range(3)], 4)
+        r2 = e.prefill_batch([1], [prompts[1]], bucket=(16, 2))
+        outs.append((r, d, r2))
+    assert outs[0] == outs[1]
+    for s in range(3):
+        np.testing.assert_allclose(engines[1].last_logits[s],
+                                   engines[0].last_logits[s], atol=1e-4,
+                                   rtol=0)

@@ -146,13 +146,20 @@ def test_port_imports_no_jax():
 
 
 def test_serve_launcher_runs_on_cpu(capsys):
+    """The plain run serves the reference launcher's default, the
+    slot/dense baseline with its grid and decode rungs run at init;
+    ``--packed`` the paged stack."""
     from repro_torch.launch import serve
-    serve.main(["--device", "cpu", "--sessions", "2", "--turns", "2",
-                "--decode-steps", "2"])
+    args = ["--device", "cpu", "--sessions", "2", "--turns", "2",
+            "--decode-steps", "2"]
+    serve.main(args)
     out = capsys.readouterr().out
     assert "requests=4" in out and "device=cpu" in out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve.main(["--device", "cpu", "--no-packed"])
+    assert "[serve] captured 15 shapes" in out
+    assert "[serve] captured 4 decode rungs" in out
+    serve.main(args + ["--packed"])
+    out = capsys.readouterr().out
+    assert "requests=4" in out and "[serve] captured" not in out
 
 
 def test_serve_launcher_default_traffic_fits_the_arena(capsys):
