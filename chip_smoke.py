@@ -3,7 +3,7 @@
 Drives every path of the port on one NVIDIA card and fails on any fault:
 
   1. card and build — ``nvidia-smi`` name and power limit, the nvcc
-     build of the five kernels (seconds, ``-Xptxas -v`` registers /
+     build of the six kernels (seconds, ``-Xptxas -v`` registers /
      shared memory / spills);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128), fp32 and bf16.  Paged kernels: page
@@ -16,23 +16,40 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      rows, decode-ladder pad rows, keyless rows, S_max of 64, 192, 200
      and the main path (a 512-row chunk at history 1536 beside a short
      segment and a decode row in an 8-slot x 4096 arena), with every
-     row at and past each kv length holding a large finite value;
+     row at and past each kv length holding a large finite value.
+     The fused sampling kernel: V = 151,936 (qwen3-4b's vocabulary, not
+     a multiple of the 1024-thread block) and 128, R = 40 and 1, fp32
+     and bf16 logits, rows for each trouble spot (a padded-vocab tail,
+     a negative kth value, top_k off and 1, ties at the kth value, -0.0
+     beside +0.0, top_p near 1 and tiny, u = 0 and just below 1, all 8
+     bias slots with a repeated id and one past V, tied greedy maxima);
   3. the engine against the plain dense forward in each of its four
      modes (the launcher's slot/dense default, the packed slot arena,
      the gathered slot baseline, the paged default): qwen3-4b widths, 2
      layers, fp32, ServeLoop over 4 sessions x 2 turns + prefill_long,
-     then 4 decode steps; logits within 1e-3 and the same greedy tokens;
+     then 4 decode steps; logits within 1e-3 and the same greedy tokens.
+     Speculative decoding on the paged and slot_arena engines: greedy
+     speculation (drafts scripted from the plain stream at acceptance
+     0.7) lossless, a sampled session's stream the same through the
+     fused kernel and the host sampler, and a ServeLoop armed with
+     NGramDraft(n=3), k = 4 giving the unarmed loop's transcripts;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
      --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
      served in each mode after one warm-up run, each run on a fresh
      engine with a fixed LAPS boundary (no wall-time refit); every
      request answered, each of the mode's kernels launched, finite
      logits; TTFT, throughput, seconds per tick, whole-slot copies,
-     peak memory and launches per mode;
+     peak memory and launches per mode.  A fifth mode, spec, serves the
+     paged trace with NGramDraft(n=3), k = 4 armed and half the sessions
+     sampled through the fused kernel: 0 logits rows shipped, tokens per
+     verify dispatch, acceptance and fused_sample launches per tick;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
-     version, one PyTorch library call as a yardstick, the bound), each
-     kernel's output there held to its plain version, and the parts of
-     a dense grid tick (whole-slot copies, attention over S_max);
+     version, one PyTorch library call as a yardstick where one computes
+     the same function, the bound; fused_sample at a verify tick's
+     40 x 151,936 bf16 rows; ragged_prefill_paged also at a verify
+     tick's 8 x 5 rows), each kernel's output there held to its plain
+     version, and the parts of a dense grid tick (whole-slot copies,
+     attention over S_max);
   6. the serve launcher, its default and ``--packed``, at the smoke
      config and at published widths cut to 4 layers;
   7. one JSON line describing every kernel, then the card line and the
@@ -49,6 +66,10 @@ round the output once, each a relative error of at most u = 2^-8, so
 |out - ref| <= u * (sum_j p_j |v_j| / l + |ref|) + 1e-4, where the first
 term is the plain version run on |v|; and the max abs error <= 2e-2.
 A dropped or repeated key tile moves outputs past that bound.
+fused_sample: greedy tokens exact; token and alt equal except on a row
+whose u lies within 1e-5 of a non-zero cumulative mass of the plain
+version (the order of float sums may move such a draw; such rows are
+counted and printed); p_draft within 1e-5.
 """
 from __future__ import annotations
 
@@ -70,6 +91,7 @@ DEVICE = "cuda"
 HQ, HKV, D, PS = 32, 8, 128, 16
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -344,6 +366,142 @@ def phase_slot_kernels(seed, errs):
             assert ok, f"decode_attn_arena {name} {dtype}"
 
 
+SAMPLE_MARGIN = 1e-5   # a draw may move only where u is this close to a
+#                        non-zero cumulative mass of the plain version
+
+
+def _sample_batch(rng, r, v):
+    """Host inputs of one fused_sample batch of ``r`` rows over ``v``
+    columns whose first rows are the kernel's trouble spots, the rest
+    random: (logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft,
+    row names)."""
+    from repro_torch.kernels.sampling import MAX_BIAS
+    logits = rng.normal(0.0, 3.0, (r, v)).astype(np.float32)
+    temp = np.zeros(r, np.float32)
+    top_k = np.zeros(r, np.int32)
+    top_p = np.ones(r, np.float32)
+    bids = np.full((r, MAX_BIAS), -1, np.int32)
+    bvals = np.zeros((r, MAX_BIAS), np.float32)
+    u = rng.random(r).astype(np.float32)
+    draft = rng.integers(0, v, r).astype(np.int32)
+    names = []
+
+    def kth_negative(i):
+        logits[i] = -np.abs(logits[i]) - 1.0
+        temp[i], top_k[i] = 1.0, max(v // 3, 2)
+
+    def kth_negative_side(i):
+        logits[i, : v // 2] = -np.abs(logits[i, : v // 2]) - 0.5
+        logits[i, v // 2:] = np.abs(logits[i, v // 2:]) + 0.5
+        temp[i], top_k[i] = 0.6, v // 2 + 7
+
+    def signed_zeros(i):
+        logits[i, :6] = [3.0, 2.5, 2.0, 0.0, 0.0, 0.0]
+        logits[i, 6:9] = -0.0
+        logits[i, 9:] = -np.abs(logits[i, 9:]) - 1.0
+        temp[i], top_k[i] = 1.0, 5
+
+    def ties_at_kth(i):
+        logits[i] = np.round(logits[i] / 2.0)
+        temp[i], top_k[i] = 1.0, 10
+
+    def padded_vocab(i):
+        logits[i, v - min(64, v // 4):] = -1e9
+        temp[i], top_k[i] = 0.9, 40
+
+    def bias_all_slots(i):
+        temp[i], top_k[i] = 0.7, 12
+        bids[i] = [5, 5, v + 3, 1, 2, 3, 4, 6]        # repeat, past V
+        bvals[i] = [2.0, 2.5, 9.0, 0.5, 0.5, 0.5, 0.5, 0.5]
+
+    def greedy_tie(i):
+        logits[i, [17, 4, 60]] = 20.0
+        draft[i] = 4
+
+    def biased_greedy(i):
+        bids[i, :3] = [9, 9, v]
+        bvals[i, :3] = [4.0, 4.0, 50.0]
+
+    def set_(t=0.0, k=0, p=1.0, uu=None, d=None):
+        def f(i):
+            temp[i], top_k[i], top_p[i] = t, k, p
+            if uu is not None:
+                u[i] = uu
+            if d is not None:
+                draft[i] = d
+        return f
+
+    spots = [
+        ("greedy_tie", greedy_tie), ("biased_greedy", biased_greedy),
+        ("padded_vocab", padded_vocab), ("kth_negative", kth_negative),
+        ("kth_negative_side", kth_negative_side),
+        ("top_k_off", set_(1.1, v + 5)), ("top_k_1", set_(1.1, 1)),
+        ("ties_at_kth", ties_at_kth), ("signed_zeros", signed_zeros),
+        ("top_p_near_1", set_(1.0, 0, 0.999999)),
+        ("top_p_tiny", set_(1.2, 0, 1e-6)), ("u_zero", set_(1.0, 8, 1.0, 0.0)),
+        ("u_below_1", set_(2.0, 0, 1.0, np.float32(1.0 - 2.0 ** -24))),
+        ("bias_all_slots", bias_all_slots),
+        ("draft_minus_1", set_(0.8, 20, 0.95, None, -1)),
+        ("case_top_k_top_p", set_(0.8, 24, 0.85)),
+    ]
+    for i in range(r):
+        if i < len(spots):
+            names.append(spots[i][0])
+            spots[i][1](i)
+        else:
+            t, k, p = [(0.0, 0, 1.0), (1.0, 0, 1.0), (0.7, 16, 1.0),
+                       (1.3, 0, 0.9), (0.8, 24, 0.85)][i % 5]
+            temp[i], top_k[i], top_p[i] = t, k, p
+            names.append(f"random_{t}_{k}_{p}")
+    return (logits, temp, top_k, top_p, bids, bvals, u, draft), names
+
+
+def _held_draws(args, got):
+    """Hold fused_sample's outputs ``got`` to its plain version on the
+    same inputs: greedy tokens exact; token and alt equal except on rows
+    whose u lies within SAMPLE_MARGIN of a non-zero cumulative mass of
+    the plain version; p_draft within 1e-5.  Returns (p_draft max abs
+    error, rows let through by the margin, ok)."""
+    from repro_torch.kernels import sampling as ks
+    want = [x.cpu().numpy() for x in ks.fused_sample_plain(*args)]
+    got = [x.cpu().numpy() for x in got]
+    margin = ks.cdf_margin(*args).cpu().numpy()
+    greedy = np.asarray(args[1]) <= 0
+    ok = bool((got[0][greedy] == want[0][greedy]).all())
+    moved = set()
+    for k in (0, 2):
+        for i in np.nonzero(got[k] != want[k])[0]:
+            moved.add(int(i))
+            ok = ok and bool(margin[i] < SAMPLE_MARGIN)
+    err = float(np.abs(got[1] - want[1]).max())
+    return err, sorted(moved), ok and err <= 1e-5
+
+
+def phase_sample_kernel(seed, errs):
+    """fused_sample against its plain version: V = 151,936 (qwen3-4b's
+    vocabulary, 148 blocks of 1024 + 384) and V = 128, R = 40 (phase 4's
+    verify tick: 8 stream rows x (k + 1)) and R = 1, fp32 and bf16
+    logits, the first rows the kernel's trouble spots."""
+    from repro_torch.kernels import sampling as ks
+    rng = np.random.default_rng(seed + 20)
+    for v in (151936, 128):
+        for r in (40, 1):
+            host, names = _sample_batch(rng, r, v)
+            for dtype in (torch.float32, torch.bfloat16):
+                logits = torch.as_tensor(host[0], device=DEVICE).to(dtype)
+                args = (logits,) + host[1:]
+                got = ks.fused_sample(*args)
+                torch.cuda.synchronize()
+                err, moved, ok = _held_draws(args, got)
+                errs.setdefault(("fused_sample", dtype), []).append(err)
+                log(f"[2] fused_sample R={r:2d} V={v:6d} {str(dtype):15s} "
+                    f"p_draft max_abs_err={err:.3e} (tol 1e-5) draws moved "
+                    f"within {SAMPLE_MARGIN} of a CDF boundary: "
+                    f"{len(moved)} {[names[i] for i in moved]} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, f"fused_sample R={r} V={v} {dtype}"
+
+
 # ------------------------------------------------------------ phase 3
 
 # the engine configurations served: the launcher's default (the dense
@@ -361,18 +519,30 @@ MODE_KERNELS = {
     "slot_arena": ("ragged_prefill_arena", "decode_attn_arena"),
     "slot_gathered": ("ragged_prefill_attn", "decode_attn_arena"),
     "paged": ("ragged_prefill_paged", "decode_attn_paged"),
+    "spec": ("ragged_prefill_paged", "fused_sample"),
 }
+# phase 4 serves one more mode: the paged engine with speculation armed
+# (NGramDraft(n=3), k = SPEC_K) and fused sampling, half its sessions
+# sampled.  Armed, every decode tick is a verify step on the packed
+# stream (the reference routes no decode to the decode step then), so
+# the mode launches ragged_prefill_paged and fused_sample, and
+# decode_attn_paged only on a tick split for overflowing the ladder.
+SERVE_MODES = {**MODES, "spec": dict(fused_sampling=True,
+                                     keep_last_logits=False)}
+SPEC_K = 4
 
 
 def _launchers():
     """{kernel name: its launcher, whose ``launches`` counts launches}."""
     from repro_torch.kernels import decode_attn as dec
     from repro_torch.kernels import ragged_prefill as rp
+    from repro_torch.kernels import sampling as ks
     return {"ragged_prefill_paged": rp.ragged_prefill_paged,
             "decode_attn_paged": dec.decode_attn_paged,
             "decode_attn_arena": dec.decode_attn_arena,
             "ragged_prefill_arena": rp.ragged_prefill_arena,
-            "ragged_prefill_attn": rp.ragged_prefill_attn}
+            "ragged_prefill_attn": rp.ragged_prefill_attn,
+            "fused_sample": ks.fused_sample}
 
 
 def _policy(engine, chunk_tokens, threshold):
@@ -455,6 +625,143 @@ def phase_oracle(seed, mode):
         f"{st['dense_dispatches_by_cause']}")
 
 
+def _spec_run(engine, prompt, n, sampling=None):
+    """Prefill session 0 and speculate until ``n`` tokens are out."""
+    engine.open_session(0)
+    if sampling is not None:
+        engine.set_sampling(0, sampling)
+    out = [engine.prefill_packed([0], [prompt])[0]]
+    while len(out) < n:
+        got = engine.spec_step([(0, out[-1])],
+                               max_new={0: n - len(out)})[0]
+        assert 1 <= len(got) <= n - len(out), got
+        out += got
+    return out
+
+
+def phase_spec_oracle(seed, mode):
+    """Speculative decoding on ``mode``'s engine (paged or slot_arena) at
+    qwen3-4b widths, 2 layers, fp32: (a) greedy speculation with drafts
+    scripted from the plain decode's stream at acceptance 0.7 gives that
+    stream token for token; (b) a sampled session (temperature 0.8,
+    top_k 20, top_p 0.95, one bias) gives the same stream through the
+    fused kernel and through the host sampler, every kernel call held to
+    the plain version on its rows; (c) a ServeLoop armed with
+    NGramDraft(n=3), k = 4 gives the unarmed loop's transcripts (and a
+    green audit on the page pool).  Two of (c)'s four prompts repeat one
+    token, on which the random model's greedy stream falls into a loop
+    the n-gram draft predicts, so the armed loop does speculate and
+    accept; the other two are random."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.draft import NGramDraft, ScriptedDraft
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.loop import ServeLoop
+    from repro_torch.serving.sampling import SamplingParams
+    cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    prefill = _launchers()[MODE_KERNELS[mode][0]]
+
+    def engine(**kw):
+        return Engine(cfg, params, EngineConfig(
+            num_slots=8, max_len=1024, chunk_tokens=64, measure=False,
+            keep_last_logits=False, **MODES[mode], **kw), device=DEVICE)
+
+    rng = np.random.default_rng(seed + 5)
+    prompt = rng.integers(1, cfg.vocab_size, 40)
+    # (a) greedy: lossless at acceptance 0.7
+    eng = engine()
+    eng.open_session(0)
+    t0 = eng.prefill_packed([0], [prompt])[0]
+    base = [t0] + eng.decode_batch([0], [t0], steps=24)[0]
+    eng = engine()
+    eng.enable_spec(ScriptedDraft({0: base}, accept=0.7,
+                                  vocab=cfg.vocab_size, seed=1), k=4)
+    n0 = prefill.launches
+    got = _spec_run(eng, prompt, len(base))
+    st = eng.stats()
+    log(f"[3] {mode} spec (a): greedy stream of {len(base)} tokens "
+        f"lossless={got == base}; {st['spec_dispatches']} verify "
+        f"dispatches, {st['spec_tokens_per_dispatch']:.2f} tokens per "
+        f"dispatch, acceptance {st['spec_acceptance']:.2f}, "
+        f"{prefill.launches - n0} {MODE_KERNELS[mode][0]} launches")
+    assert got == base, f"{mode}: greedy speculation is not lossless"
+    assert st["spec_dispatches"] > 0 and st["logits_rows_shipped"] == 0
+    if eng._paged:
+        eng.arena.audit()
+
+    # (b) sampled: the fused kernel's stream == the host sampler's
+    sp = SamplingParams(temperature=0.8, top_k=20, top_p=0.95, seed=7,
+                        logit_bias={3: 2.0})
+    calls = []
+    inner = ops.fused_sample
+
+    def recorded(*args):
+        out = inner(*args)
+        calls.append((args, out))
+        return out
+
+    streams, stats = {}, {}
+    ops.fused_sample = recorded
+    try:
+        n0 = ks.fused_sample.launches
+        for fused in (False, True):
+            eng = engine(fused_sampling=fused)
+            eng.enable_spec(ScriptedDraft({0: base}, vocab=cfg.vocab_size),
+                            k=4)
+            streams[fused] = _spec_run(eng, prompt, 24, sampling=sp)
+            stats[fused] = eng.stats()
+        launched = ks.fused_sample.launches - n0
+    finally:
+        ops.fused_sample = inner
+    moved, worst = 0, 0.0
+    for args, out in calls:
+        err, rows, ok = _held_draws(args, out)
+        moved += len(rows)
+        worst = max(worst, err)
+        assert ok, f"{mode}: a fused draw off its plain version"
+    same = streams[True] == streams[False]
+    log(f"[3] {mode} spec (b): sampled stream fused == host: {same}; "
+        f"{launched} fused_sample launches ({len(calls)} calls held to "
+        f"the plain version: p_draft max_abs_err {worst:.3e}, {moved} "
+        f"draws within {SAMPLE_MARGIN} of a CDF boundary); logits rows "
+        f"shipped fused {stats[True]['logits_rows_shipped']} host "
+        f"{stats[False]['logits_rows_shipped']}; acceptance "
+        f"{stats[True]['spec_acceptance']:.2f}")
+    assert same, f"{mode}: fused and host sampled streams differ"
+    assert launched > 0 and stats[True]["fused_sample_steps"] > 0
+    assert stats[True]["logits_rows_shipped"] == 0
+    assert stats[False]["logits_rows_shipped"] > 0
+
+    # (c) the serve loop, armed and unarmed
+    prompts = {s: rng.integers(1, cfg.vocab_size, int(rng.integers(20, 160)))
+               for s in range(2)}
+    prompts.update({s: np.full(40, 1000 + s) for s in (2, 3)})
+    gen = {}
+    for armed in (False, True):
+        eng = engine()
+        if armed:
+            eng.enable_spec(NGramDraft(n=3), k=4)
+        loop = ServeLoop(eng, _policy(eng, 64, 96), slo_ttft=None)
+        for s, p in prompts.items():
+            loop.submit(s, p, decode_tokens=24)
+        loop.run_until_idle(max_wall=600.0)
+        gen[armed] = {s: list(loop.generated[s]) for s in prompts}
+        if eng._paged:
+            eng.arena.audit()
+    st = eng.stats()
+    log(f"[3] {mode} spec (c): ServeLoop + NGramDraft(n=3), k=4: "
+        f"transcripts == unarmed: {gen[True] == gen[False]}; "
+        f"{st['spec_dispatches']} verify dispatches, drafted "
+        f"{st['tokens_drafted']}, accepted {st['tokens_accepted']}"
+        f"{', audit green' if eng._paged else ''}")
+    assert gen[True] == gen[False], f"{mode}: armed loop transcripts differ"
+    assert st["spec_dispatches"] > 0 and st["tokens_accepted"] > 0, \
+        f"{mode}: the armed loop never speculated"
+
+
 # ------------------------------------------------------------ phase 4
 
 def _dispatches(engine):
@@ -482,12 +789,42 @@ def _serve_once(cfg, params, seed, mode):
     a new session (radix prefix hits).  A slot keeps its session's
     history, so there turn 2 submits only the 16-64 new tokens to the
     same session, and turn 3 another 24-32 (short enough for the (L, B)
-    grid).  Every request decodes 16 tokens."""
+    grid).  Every request decodes 16 tokens.
+
+    The spec mode serves the paged trace with NGramDraft(n=3), k =
+    SPEC_K armed and the odd sessions sampled (temperature 0.8, top_k 20,
+    top_p 0.95; session 1 with one bias) through the fused kernel; its
+    decode ticks are the loop's speculative steps."""
+    from repro_torch.serving.draft import NGramDraft
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.loop import ServeLoop
+    from repro_torch.serving.sampling import SamplingParams
     engine = Engine(cfg, params, EngineConfig(
         num_slots=8, max_len=4096, chunk_tokens=256, measure=False,
-        **MODES[mode]), device=DEVICE)
+        **SERVE_MODES[mode]), device=DEVICE)
+    spec = mode == "spec"
+    sampling = {}
+    spec_ticks = {"n": 0, "tokens": 0, "stream": 0}
+    if spec:
+        engine.enable_spec(NGramDraft(n=3), k=SPEC_K)
+        for s in range(1, 8, 2):
+            sampling[s] = sampling[100 + s] = SamplingParams(
+                temperature=0.8, top_k=20, top_p=0.95, seed=s,
+                logit_bias={3: 2.0} if s == 1 else None)
+        inner = engine.spec_step
+        px = engine.packed_executor
+
+        def spec_step(decodes, max_new=None):
+            # the loop's decode-only ticks: count them, their committed
+            # tokens, and the stream tokens they ran
+            u0 = px.useful_tokens
+            out = inner(decodes, max_new=max_new)
+            spec_ticks["n"] += 1
+            spec_ticks["tokens"] += sum(len(v) for v in out.values())
+            spec_ticks["stream"] += px.useful_tokens - u0
+            return out
+
+        engine.spec_step = spec_step
     policy = _policy(engine, 256, 512)
     loop = ServeLoop(engine, policy, slo_ttft=None)
     rng = np.random.default_rng(seed + 2)
@@ -502,12 +839,15 @@ def _serve_once(cfg, params, seed, mode):
     def drive():
         while loop.has_work:
             pre0, dec0 = _dispatches(engine)
+            n_spec = spec_ticks["n"]
             t = time.perf_counter()
             did, _ = loop.tick()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
             pre, dec = _dispatches(engine)
-            if pre > pre0:
+            if spec_ticks["n"] > n_spec:
+                ticks.append((dt, "decode"))
+            elif pre > pre0:
                 ticks.append((dt, "prefill"))
             elif dec > dec0:
                 ticks.append((dt, "decode"))
@@ -521,7 +861,8 @@ def _serve_once(cfg, params, seed, mode):
         fn.launches = 0
     t_run = time.perf_counter()
     for s in range(8):                       # turn 1
-        loop.submit(s, prompts[s], decode_tokens=16)
+        loop.submit(s, prompts[s], decode_tokens=16,
+                    sampling=sampling.get(s))
     drive()
     for s in range(8):                       # turn 2
         new = rng.integers(1, cfg.vocab_size, int(rng.integers(16, 65)))
@@ -529,7 +870,7 @@ def _serve_once(cfg, params, seed, mode):
             gen = loop.generated[s][:-1]     # tokens whose KV is cached
             loop.close_session(s)
             loop.submit(100 + s, np.concatenate([prompts[s], gen, new]),
-                        decode_tokens=16)
+                        decode_tokens=16, sampling=sampling.get(100 + s))
         else:
             loop.submit(s, new, decode_tokens=16)
     drive()
@@ -557,6 +898,13 @@ def _serve_once(cfg, params, seed, mode):
     decode_rows = st.get("decode_useful_rows", 0)
     finite = all(bool(np.isfinite(x).all())
                  for x in engine.last_logits.values())
+    if spec:
+        # verify ticks run on the packed executor: their stream tokens
+        # are not prefill, their committed tokens are the decode rows
+        prefill_tokens -= spec_ticks["stream"]
+        decode_rows += spec_ticks["tokens"]
+        finite = all(0 <= t < cfg.vocab_size for g in loop.generated.values()
+                     for t in g)
     if engine._paged:
         engine.arena.audit()
     assert rep.n == n_requests and rep.abandoned == 0, \
@@ -571,7 +919,34 @@ def _serve_once(cfg, params, seed, mode):
     if mode == "slot_arena":
         assert st["arena_gathers"] == st["dense_dispatches"], \
             "an arena-resident step copied whole slots"
+    spec_row = None
+    if spec:
+        assert st["spec_dispatches"] > 0, "spec: no verify dispatch"
+        assert st["logits_rows_shipped"] == 0, \
+            f"spec: {st['logits_rows_shipped']} logits rows shipped"
+        assert st["fused_sample_steps"] > 0
+        px = engine.packed_executor
+        segs = st["spec_committed"] - st["tokens_accepted"]
+        spec_row = {
+            # committed tokens per verify dispatch (over all its
+            # sessions) and per verify segment (one session's walk)
+            "tokens_per_dispatch": st["spec_tokens_per_dispatch"],
+            "tokens_per_segment": st["spec_committed"] / max(1, segs),
+            "acceptance": st["spec_acceptance"],
+            "drafted": st["tokens_drafted"],
+            "dispatches": st["spec_dispatches"],
+            # rows each verify dispatch gathers (every stream row x
+            # (k + 1)) and the live ones: each verify segment's pending
+            # token and drafts
+            "verify_rows_per_dispatch": px.verify_rows
+            / max(1, px.verify_steps),
+            "live_verify_rows_per_dispatch": (st["tokens_drafted"] + segs)
+            / max(1, st["spec_dispatches"]),
+            "fused_sample_per_tick": launches["fused_sample"]
+            / max(1, n_pre + n_dec),
+        }
     return {
+        "spec": spec_row,
         "ttft_mean_ms": rep.mean_ttft * 1e3, "ttft_p90_ms": rep.p90_ttft * 1e3,
         "prefill_tok_s": prefill_tokens / max(prefill_s, 1e-9),
         "decode_tok_s": decode_rows / max(decode_s, 1e-9),
@@ -605,7 +980,7 @@ def phase_full(seed, card, runs):
         f"{cfg.dtype}: weights ready in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     kept = {"slot_dense": runs, "slot_arena": 1, "slot_gathered": 1,
-            "paged": max(1, runs // 2)}
+            "paged": max(1, runs // 2), "spec": 1}
     launches = {}
     for mode, n_runs in kept.items():
         results = []
@@ -623,6 +998,17 @@ def phase_full(seed, card, runs):
                 f"dense steps {dense} grid hits {graph_hits} prefix hits "
                 f"{hits}; peak {r['peak_gib']:.2f} GiB; launches {ran}"
                 f"{' (warm-up, not kept)' if i == 0 else ''}")
+            if r["spec"] is not None:
+                sr = r["spec"]
+                log(f"[4] {mode} run {i}: {sr['dispatches']} verify "
+                    f"dispatches, {sr['tokens_per_dispatch']:.3f} tokens "
+                    f"per dispatch, {sr['tokens_per_segment']:.3f} per "
+                    f"session segment, acceptance {sr['acceptance']:.3f} "
+                    f"({sr['drafted']} drafted), verify rows per dispatch "
+                    f"{sr['live_verify_rows_per_dispatch']:.2f} live of "
+                    f"{sr['verify_rows_per_dispatch']:.0f} gathered, "
+                    f"fused_sample launches per tick "
+                    f"{sr['fused_sample_per_tick']:.3f}")
             if i:
                 results.append(r)
         same = len({r["schedule"] for r in results}) == 1
@@ -644,7 +1030,8 @@ def phase_full(seed, card, runs):
         for name in MODE_KERNELS[mode]:
             if name not in launches:
                 n = results[0]["launches"][name]
-                ticks = n_dec if name.startswith("decode") else n_pre
+                ticks = (n_pre + n_dec if name == "fused_sample" else
+                         n_dec if name.startswith("decode") else n_pre)
                 launches[name] = (n, ticks, mode)
     return launches
 
@@ -714,6 +1101,26 @@ def phase_times(seed, errs):
         library_ms=_time(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask)),
         flops=flops, bytes=nbytes)
+
+    # the same kernel at a speculative verify tick's layout: 8 segments
+    # of k + 1 = 5 rows, each at history 2043 over 2048 keys (what a
+    # decode tick's 8 rows x 2048 keys become under speculation)
+    vrows = SPEC_K + 1
+    tab8, _ = _layout(rng, n_pages, p_max, [keys] * b_rows, None)
+    tab8 = np.where(tab8 == POISON, n_pages, tab8).astype(np.int32)
+    qv = torch.randn((b_rows * vrows, HQ, D), generator=gen,
+                     device=DEVICE).to(dt)
+    vargs = (qv, k, v, _i32(tab8),
+             _i32([vrows * i for i in range(b_rows + 1)]),
+             _i32([keys - vrows] * b_rows), _i32([keys] * b_rows))
+    got = rp.ragged_prefill_paged(*vargs)
+    err, worst, ok, _ = _held(got, rp.ragged_prefill_paged_plain, *vargs)
+    assert ok, "ragged_prefill_paged at the verify layout"
+    verify_ms = _time(lambda: rp.ragged_prefill_paged(*vargs))
+    log(f"[5] ragged_prefill_paged at a verify tick ({b_rows} segments x "
+        f"{vrows} rows over {keys} keys): {verify_ms:.4f} ms per layer, "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+        f"(decode_attn_paged over the same keys: below)")
 
     # decode: 8 rows x 2048 keys
     lengths = [keys] * b_rows
@@ -822,14 +1229,47 @@ def phase_times(seed, errs):
         flops=4 * sum(lengths) * D * HQ,
         bytes=(2 * len(slots) * HQ * D + 2 * sum(lengths) * HKV * D) * el
         + 4 * 2 * len(slots))
+    # fused sampling at phase 4's verify tick: 8 stream rows x (k + 1)
+    # = 40 rows over qwen3-4b's 151,936-column vocabulary in bf16, every
+    # row sampled as phase 4's sampled sessions are (temperature 0.8,
+    # top_k 20, top_p 0.95, one row with a bias)
+    from repro_torch.kernels import sampling as ks
+    r_rows, vocab = 8 * (SPEC_K + 1), 151936
+    host, _ = _sample_batch(rng, r_rows, vocab)
+    host[1][:], host[2][:], host[3][:] = 0.8, 20, 0.95
+    logits = torch.as_tensor(host[0], device=DEVICE).to(dt)
+    sargs = (logits,) + host[1:]
+    got = ks.fused_sample(*sargs)
+    err, moved, ok = _held_draws(sargs, got)
+    errs.setdefault(("fused_sample", dt), []).append(err)
+    log(f"[5] fused_sample {r_rows} rows x {vocab}: p_draft max_abs_err="
+        f"{err:.3e}, draws moved within {SAMPLE_MARGIN}: {len(moved)} "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, "fused_sample at main-path shapes"
+    # the per-row inputs as device tensors, as the kernel takes them
+    dargs = (logits,) + tuple(torch.as_tensor(x, device=DEVICE)
+                              for x in host[1:])
+    out["fused_sample"] = dict(
+        ms=_time(lambda: ks.fused_sample(*dargs)),
+        plain_ms=_time(lambda: ks.fused_sample_plain(*dargs), 3),
+        # no single PyTorch call computes this function
+        library_ms=None,
+        # bytes: the logits read once, the per-row inputs, the outputs;
+        # operations: 6 fp32 per logit (the temperature, and a subtract,
+        # an exp and a sum in each of the two softmaxes)
+        flops=6 * r_rows * vocab, flops_rate=FP32_FLOPS,
+        bytes=r_rows * vocab * el + r_rows * (4 * 5 + 2 * 4 * ks.MAX_BIAS)
+        + r_rows * 12)
     for name, r in out.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / BF16_FLOPS * 1e3
+        t_ops = r["flops"] / r.get("flops_rate", BF16_FLOPS) * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = ("none (no single PyTorch call computes it)"
+               if r["library_ms"] is None else
+               f"(SDPA over the gathered keys) {r['library_ms']:.4f} ms")
         log(f"[5] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, library (SDPA over the gathered keys) "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f" ms, library {lib}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
             f"{r['flops'] / 1e9:.2f} GFLOP)")
     return out
@@ -901,6 +1341,10 @@ KERNELS = {
         source="src/repro_torch/csrc/ragged_prefill_attn.cu",
         replaces="src/repro/kernels/ragged_prefill.py:148",
         jax="repro.kernels.ragged_prefill.ragged_prefill_attn"),
+    "fused_sample": dict(
+        source="src/repro_torch/csrc/fused_sample.cu",
+        replaces="src/repro/kernels/sampling.py:185",
+        jax="repro.kernels.sampling.fused_sample"),
 }
 
 
@@ -943,9 +1387,12 @@ def main() -> int:
     if 2 in phases:
         phase_kernels(args.seed, errs)
         phase_slot_kernels(args.seed, errs)
+        phase_sample_kernel(args.seed, errs)
     if 3 in phases:
         for mode in MODES:
             phase_oracle(args.seed, mode)
+        for mode in ("paged", "slot_arena"):
+            phase_spec_oracle(args.seed, mode)
     if 4 in phases:
         launches = phase_full(args.seed, card, args.runs)
     if 5 in phases:

@@ -36,6 +36,8 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
         "ragged_prefill_attn_launch", (_P,) * 7 + (_I,) * 7 + (_P,)),
     "decode_attn_arena": (
         "decode_attn_arena_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
+    "fused_sample": (
+        "fused_sample_launch", (_P,) * 12 + (_I,) * 3 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -1,4 +1,4 @@
-"""Dispatch for the attention kernels, shaped like ``repro.kernels.ops``.
+"""Dispatch for the kernels, shaped like ``repro.kernels.ops``.
 
 The dispatch follows the tensor's device and nothing else: a CUDA tensor
 reaches the hand-written CUDA kernel (which raises on what it does not
@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import ragged_prefill as _prefill
+from repro_torch.kernels import sampling as _sampling
+from repro_torch.kernels.sampling import MAX_BIAS  # noqa: F401  (re-export)
 
 
 def _no_device(fn: str, dev: torch.device):
@@ -111,3 +113,18 @@ def decode_paged(q, k, v, page_table, lengths, *,
         return _decode.decode_attn_paged_plain(q, k, v, page_table, lengths,
                                                window=window)
     raise _no_device("decode_paged", q.device)
+
+
+def fused_sample(logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft):
+    """Fused on-device sampling: bias → temperature → exact top-k →
+    tie-inclusive top-p → inverse-CDF draw per (R, V) logits row, plus
+    p(draft) and the residual resample.  The per-row inputs may be host
+    arrays.  Returns (token (R,) int32, p_draft (R,) float32, alt (R,)
+    int32) on ``logits``' device."""
+    if logits.device.type == "cuda":
+        return _sampling.fused_sample(logits, temp, top_k, top_p, bias_ids,
+                                      bias_vals, u, draft)
+    if logits.device.type == "cpu":
+        return _sampling.fused_sample_plain(logits, temp, top_k, top_p,
+                                            bias_ids, bias_vals, u, draft)
+    raise _no_device("fused_sample", logits.device)

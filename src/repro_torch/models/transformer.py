@@ -355,6 +355,34 @@ def forward_decode_arena(params: Dict, cfg: ModelConfig, *,
     return _lm_head_logits(params, cfg, x)
 
 
+def forward_packed_verify_arena(params: Dict, cfg: ModelConfig, *,
+                                tokens: torch.Tensor,
+                                positions: torch.Tensor,
+                                seg_slots: torch.Tensor,
+                                slot_map: torch.Tensor,
+                                cu_seqlens: torch.Tensor,
+                                q_offsets: torch.Tensor,
+                                kv_lengths: torch.Tensor,
+                                arena: List[Dict[str, torch.Tensor]],
+                                gather_idx: torch.Tensor) -> torch.Tensor:
+    """Speculative verification step: the unchanged
+    :func:`forward_packed_arena` dispatch gathering L logit rows per
+    segment instead of one.
+
+    Each verify segment ``[t0, d_1..d_{L-1}]`` is a length-L re-prefill
+    scored against its arena history; ``gather_idx (B, L)`` names every
+    row of every segment (other segments repeat their last row), so row
+    j of a segment scores position ``history + j + 1``.  Returns logits
+    (B, L, V)."""
+    b, l = gather_idx.shape
+    logits = forward_packed_arena(
+        params, cfg, tokens=tokens, positions=positions,
+        seg_slots=seg_slots, slot_map=slot_map, cu_seqlens=cu_seqlens,
+        q_offsets=q_offsets, kv_lengths=kv_lengths, arena=arena,
+        last_idx=gather_idx.reshape(-1))
+    return logits.reshape(b, l, -1)
+
+
 # ------------------------------------------------------- paged serving
 
 
@@ -390,6 +418,29 @@ def forward_packed_paged(params: Dict, cfg: ModelConfig, *,
 
     x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
     return _lm_head_logits(params, cfg, x[last_idx.long()])
+
+
+def forward_packed_verify_paged(params: Dict, cfg: ModelConfig, *,
+                                tokens: torch.Tensor,
+                                positions: torch.Tensor,
+                                token_pages: torch.Tensor,
+                                token_offs: torch.Tensor,
+                                page_table: torch.Tensor,
+                                cu_seqlens: torch.Tensor,
+                                q_offsets: torch.Tensor,
+                                kv_lengths: torch.Tensor,
+                                arena: List[Dict[str, torch.Tensor]],
+                                gather_idx: torch.Tensor) -> torch.Tensor:
+    """Paged speculative verification: :func:`forward_packed_paged`
+    gathering L logit rows per segment via ``gather_idx (B, L)`` (see
+    :func:`forward_packed_verify_arena`).  Returns logits (B, L, V)."""
+    b, l = gather_idx.shape
+    logits = forward_packed_paged(
+        params, cfg, tokens=tokens, positions=positions,
+        token_pages=token_pages, token_offs=token_offs,
+        page_table=page_table, cu_seqlens=cu_seqlens, q_offsets=q_offsets,
+        kv_lengths=kv_lengths, arena=arena, last_idx=gather_idx.reshape(-1))
+    return logits.reshape(b, l, -1)
 
 
 def forward_decode_paged(params: Dict, cfg: ModelConfig, *,

@@ -18,12 +18,20 @@ baseline) — with the step executors under the paper's primitives:
   * decode-only ticks through the bucketed decode step (slot arena or
     page pool), or the dense (B, 1) step when the ladder overflows or
     ``arena_decode`` is off;
+  * speculative decoding (``enable_spec``): decode sessions advance
+    through length-(k+1) ``verify`` segments ``[pending, d_1..d_k]`` on
+    the same packed stream, the accepted prefix plus one corrective or
+    bonus token committed per dispatch, the rejected tail rolled back
+    with ``arena.truncate``;
   * runtime (T, L, H) samples feeding ``core.boundary.fit_total``.
 
-Sampling is greedy argmax on the device or the numpy sampler on the
-host.  Outside this slice — fused on-device sampling, speculative
-decoding, session export/import, and windowed, SSM and MoE configs —
-every entry raises ``NotImplementedError`` naming its ROADMAP item.
+Sampling is greedy argmax on the device, the fused sampling kernel
+(``fused_sampling=True`` with ``keep_last_logits=False``: bias,
+temperature, top-k / top-p and the draw on the device, host-drawn
+uniforms in, (R,) ids out), or the numpy sampler on the host.  Outside
+this slice — session export/import, the host spill tier, and windowed,
+SSM and MoE configs — every entry raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from repro_torch.core import boundary as boundary_mod
 from repro_torch.core.buckets import (DEFAULT_DECODE_BUCKETS,
                                       DEFAULT_TOKEN_BUCKETS, BucketGrid)
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import packing
@@ -56,6 +65,10 @@ class MixedStepResult:
     bucket: Optional[int] = None  # token bucket used (fused path)
     n_prefill: int = 0            # prefill + chunk segments
     n_decode: int = 0             # fused decode segments
+    # speculative ticks commit SEVERAL tokens per decode session in one
+    # dispatch; ``committed[s]`` is the full emitted list (``tokens[s]``
+    # stays the LAST of them for non-spec callers)
+    committed: Optional[Dict[int, List[int]]] = None
 
 
 @dataclasses.dataclass
@@ -88,7 +101,12 @@ class EngineConfig:
     num_pages: Optional[int] = None  # None → num_slots·max_len/page_size
     prefix_cache: bool = True        # radix prefix index on/off
     host_pool_bytes: int = 0         # host spill tier: not ported yet
-    fused_sampling: bool = False     # fused sampling kernel: not ported yet
+    # route sampled rows through the fused sampling kernel (bias +
+    # temperature + top-k/top-p + the inverse-CDF draw on the device,
+    # host uniforms shipped in): only the (R,) ids cross to host.  Takes
+    # effect with keep_last_logits=False; a session with more than
+    # kernels.sampling.MAX_BIAS bias entries keeps its step on the host
+    fused_sampling: bool = False
 
 
 class Engine:
@@ -99,10 +117,7 @@ class Engine:
         self.ecfg = ecfg or EngineConfig()
         self.device = tr.resolve_device(device)
         tr._check_slice(cfg)
-        if self.ecfg.fused_sampling:
-            raise NotImplementedError(
-                "fused on-device sampling is not ported yet "
-                "(ROADMAP Queue 1, item 12)")
+        self.capability = tr.arena_capability(cfg)
         self._paged = bool(self.ecfg.paged_kv)
         if self._paged:
             if not (self.ecfg.packed and self.ecfg.arena_prefill
@@ -160,6 +175,20 @@ class Engine:
         # shipping full-vocab logits to host
         self.fused_greedy_steps = 0
         self.logits_rows_shipped = 0
+        # non-greedy steps served by the fused sampling kernel (no
+        # full-vocab logits transfer)
+        self.fused_sample_steps = 0
+        # speculative decoding: a draft proposer attached via enable_spec
+        # turns decode segments into length-(k+1) "verify" segments on
+        # the same packed stream; the counters prove the multi-token
+        # commits
+        self.draft: Optional[Any] = None     # serving.draft.DraftProposer
+        self.spec_k = 0
+        self.tokens_drafted = 0
+        self.tokens_accepted = 0
+        self.spec_dispatches = 0
+        self.spec_committed = 0
+        self._spec_by_session: Dict[int, List[int]] = {}  # [drafted, acc.]
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         """Host int32 step inputs → the engine's device."""
@@ -178,6 +207,8 @@ class Engine:
         self.last_logits.pop(session, None)
         self.sampling.pop(session, None)
         self._rngs.pop(session, None)
+        if self.draft is not None:
+            self.draft.forget(session)
 
     def history(self, session: int) -> int:
         return self.arena.length(session)
@@ -217,10 +248,97 @@ class Engine:
             "session export/import is not ported yet "
             "(ROADMAP Queue 1, item 13)")
 
+    # ------------------------------------------------ speculative decode
+    @property
+    def can_spec(self) -> bool:
+        """Speculative verify/rollback is defined where ``arena.truncate``
+        is: pure-attention, non-rolling layouts.  The port builds no
+        other engine yet (windowed, SSM and MoE configs raise, item 10),
+        so this holds wherever an engine exists."""
+        return self.capability.pure_attn
+
     def enable_spec(self, draft: Any, k: int = 4) -> None:
-        raise NotImplementedError(
-            "speculative decoding is not ported yet "
-            "(ROADMAP Queue 1, item 12)")
+        """Attach a draft proposer (``serving.draft``): decode sessions
+        now advance through length-(k+1) ``verify`` segments on the
+        packed mixed stream — up to k accepted drafts plus one
+        corrective/bonus token per dispatch, rejected tails rolled back
+        via ``arena.truncate``.  Greedy sessions stay identical to plain
+        decode; sampled sessions commit by rejection sampling, which
+        preserves the target distribution."""
+        assert self.can_spec, \
+            "speculative decoding needs a pure-attention, non-rolling arena"
+        assert self.packed_executor is not None and self.ecfg.arena_prefill, \
+            "speculative decoding rides the packed arena stream"
+        assert k >= 1, k
+        self.draft = draft
+        self.spec_k = int(k)
+
+    def disable_spec(self) -> None:
+        self.draft = None
+        self.spec_k = 0
+
+    def _spec_ready(self) -> bool:
+        return (self.draft is not None and self.spec_k > 0
+                and self.packed_executor is not None
+                and self.ecfg.arena_prefill and self.can_spec)
+
+    @property
+    def spec_enabled(self) -> bool:
+        """True when decode ticks will run speculative verify segments —
+        the serve loop reads this to size its stream-token reservations
+        (1 + k per fused session instead of 1)."""
+        return self._spec_ready()
+
+    def _plan_spec(self, decodes: Sequence[Tuple[int, int]],
+                   max_new: Optional[Dict[int, int]]
+                   ) -> Dict[int, List[int]]:
+        """Ask the draft for up to k tokens per eligible decode session.
+        A session sits the tick out (plain 1-token decode segment) when
+        its k+1 verify rows would overflow the arena, its remaining
+        token budget cannot cover even one accepted draft, or the
+        proposer has nothing to say."""
+        spec: Dict[int, List[int]] = {}
+        lim = self.ecfg.max_len - 2
+        for s, tok in decodes:
+            h = self.arena.length(s)
+            budget = self.spec_k + 1
+            if max_new is not None:
+                budget = min(budget, int(max_new.get(s, budget)))
+            if h <= 0 or budget < 2 or h + self.spec_k + 1 > lim:
+                continue
+            d = self.draft.propose(s, int(tok), self.spec_k)
+            d = [int(x) for x in list(d)[:min(self.spec_k, budget - 1)]]
+            if d:
+                spec[s] = d
+        return spec
+
+    def spec_step(self, decodes: Sequence[Tuple[int, int]],
+                  max_new: Optional[Dict[int, int]] = None
+                  ) -> Dict[int, List[int]]:
+        """One speculative decode tick: every eligible session's
+        ``[pending, draft_1..draft_k]`` verify segment fused into ONE
+        packed dispatch, 1..k+1 tokens committed each.  ``max_new``
+        caps a session's emitted tokens.  Returns {session: emitted
+        tokens}."""
+        res = self.step_mixed([], decodes, max_new=max_new)
+        if res.committed is not None:
+            return res.committed
+        return {s: [res.tokens[s]] for s, _ in decodes}
+
+    def _spec_draws(self, session: int, m: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(u_acc, u_samp) uniforms for one verify walk, drawn as
+        interleaved pairs j = 0..m from the session's replayable rng —
+        row j's accept test is ``u_acc[j] < p_j(draft)``, its reject
+        resample (or the row-m bonus draw) consumes ``u_samp[j]``.  The
+        2(m+1) draws happen up front whatever prefix is accepted, so the
+        per-step rng consumption is deterministic.  Greedy sessions draw
+        nothing (accept = exact id match)."""
+        rng = self._rngs.get(session)
+        if rng is None:
+            return np.zeros(m + 1), np.zeros(m + 1)
+        u = np.asarray([rng.random() for _ in range(2 * (m + 1))])
+        return u[0::2], u[1::2]
 
     # ----------------------------------------------------------- sampling
     def set_sampling(self, session: int,
@@ -255,9 +373,62 @@ class Engine:
         if all_greedy and not self.ecfg.keep_last_logits:
             self.fused_greedy_steps += 1
             return ids_dev[:n].cpu().numpy().astype(np.int64), None
+        if (self.ecfg.fused_sampling and not self.ecfg.keep_last_logits
+                and self._fused_bias_ok(sessions)):
+            return self._fused_sample_rows(sessions, logits_dev), None
         logits_np = logits_dev.float().cpu().numpy()
         self.logits_rows_shipped += int(logits_np.shape[0])
         return self._sample_rows(sessions, logits_np[:n]), logits_np
+
+    def _fused_bias_ok(self, sessions: Sequence[int]) -> bool:
+        """The fused sampling kernel carries MAX_BIAS bias slots per row;
+        a step with a heavier-biased session keeps the host path."""
+        return all(len(self.sampling[s].logit_bias or ())
+                   <= kernel_ops.MAX_BIAS
+                   for s in sessions if s in self.sampling)
+
+    def _sampling_rows(self, r: int):
+        """Empty per-row kernel inputs for ``r`` rows: greedy, top-k and
+        top-p off, no bias, no draft."""
+        return (np.zeros(r, np.float32), np.zeros(r, np.int32),
+                np.ones(r, np.float32), np.zeros(r, np.float32),
+                np.full(r, -1, np.int32),
+                np.full((r, kernel_ops.MAX_BIAS), -1, np.int32),
+                np.zeros((r, kernel_ops.MAX_BIAS), np.float32))
+
+    def _fill_params(self, rows, i: int, sp: SamplingParams) -> None:
+        """Write session options ``sp`` into row ``i`` of the kernel
+        inputs ``rows``."""
+        temp, topk, topp, _, _, bias_ids, bias_vals = rows
+        temp[i] = max(float(sp.temperature), 0.0)
+        topk[i] = int(sp.top_k or 0)
+        topp[i] = float(sp.top_p) if sp.top_p is not None else 1.0
+        for j, (t, v) in enumerate(sp.logit_bias or ()):
+            bias_ids[i, j] = int(t)
+            bias_vals[i, j] = float(v)
+
+    def _fused_sample_rows(self, sessions: Sequence[int],
+                           logits_dev: torch.Tensor) -> np.ndarray:
+        """Sample one token per live row through the fused kernel: bias,
+        temperature, top-k/top-p and the inverse-CDF draw all happen on
+        the device; host-drawn uniforms go in, (R,) ids come out, and the
+        full-vocab logits never cross.  Consumes ONE uniform per
+        non-greedy row (cast to float32) — the host sampler's rng
+        protocol, so a session can hop between paths mid-stream."""
+        r = int(logits_dev.shape[0])
+        rows = self._sampling_rows(r)
+        temp, topk, topp, u, draft, bias_ids, bias_vals = rows
+        for i, s in enumerate(sessions):
+            sp = self.sampling.get(s)
+            if sp is None:
+                continue
+            self._fill_params(rows, i, sp)
+            if not sp.is_greedy:
+                u[i] = float(self._rngs[s].random())
+        tok, _, _ = kernel_ops.fused_sample(logits_dev, temp, topk, topp,
+                                            bias_ids, bias_vals, u, draft)
+        self.fused_sample_steps += 1
+        return tok.cpu().numpy()[:len(sessions)].astype(np.int64)
 
     def _note_dense(self, kind: str, cause: str) -> None:
         key = (kind, cause)
@@ -373,8 +544,8 @@ class Engine:
         prefills: (session, new_tokens) — fresh prefill, re-prefill, or a
         C_l chunk (the session's cached length is the history offset).
         decodes: (session, last_token) — in-flight sessions advancing one
-        token each.  ``max_new`` is accepted for the serve loop's
-        interface (it caps speculative commits, which are not ported).
+        token each, or with a draft attached up to k + 1 through a verify
+        segment; ``max_new`` caps a session's speculative commit.
 
         A mix without a packed executor, that overflows ``max_seqs`` or
         whose total is off the ladder runs the dense path on a slot
@@ -402,13 +573,31 @@ class Engine:
                 rewritten.append((s, toks))
             prefills = rewritten
         lens = [len(t) for _, t in prefills]
-        total = sum(lens) + n_d
+        # speculative planning: with a draft attached, each eligible
+        # decode session's segment grows from 1 token to 1 + k (pending
+        # + drafts) — the ladder prices the true verify stream
+        spec: Dict[int, List[int]] = {}
+        if decodes and self._spec_ready():
+            spec = self._plan_spec(decodes, max_new)
+        spec_len = 1 + self.spec_k
+        total = sum(lens) + sum(spec_len if s in spec else 1
+                                for s, _ in decodes)
         px = self.packed_executor
         bucket = None
-        if px is not None and n_p + n_d <= px.max_seqs:
+        fits = px is not None and n_p + n_d <= px.max_seqs
+        if fits:
             bucket = token_bucket or px.bucket_for(total)
             if bucket is not None and bucket < total:
                 bucket = None
+        if bucket is None and spec:
+            # speculative lengths pushed the tick off the ladder — this
+            # dispatch drops back to plain 1-token decode segments
+            spec = {}
+            total = sum(lens) + n_d
+            if fits:
+                bucket = token_bucket or px.bucket_for(total)
+                if bucket is not None and bucket < total:
+                    bucket = None
         if bucket is None:
             if not self._dense_ok:
                 return self._step_split(prefills, decodes)
@@ -438,9 +627,23 @@ class Engine:
             else:
                 assert self.arena.slot_of(s) is not None, \
                     f"decode session {s} has no cache slot"
-            segments.append(packing.SegmentSpec(
-                s, np.asarray([tok], np.int32), self.arena.length(s),
-                kind="decode"))
+            if s in spec:
+                # uniform verify length 1 + k (short proposals pad with
+                # pad_token rows — KV written past the commit is rolled
+                # back anyway) so every spec dispatch shares one shape
+                d = spec[s]
+                toks = np.asarray(
+                    [tok] + d + [self.ecfg.pad_token]
+                    * (self.spec_k - len(d)), np.int32)
+                segments.append(packing.SegmentSpec(
+                    s, toks, self.arena.length(s), kind="verify"))
+            else:
+                segments.append(packing.SegmentSpec(
+                    s, np.asarray([tok], np.int32), self.arena.length(s),
+                    kind="decode"))
+        if spec:
+            return self._run_spec(segments, bucket,
+                                  {s: len(d) for s, d in spec.items()})
         if self._paged:
             return self._run_packed_paged(segments, bucket)
         return self._run_packed(segments, bucket)
@@ -470,6 +673,18 @@ class Engine:
                                n_prefill=len(prefills),
                                n_decode=len(decodes))
 
+    def _observe(self, seg: packing.SegmentSpec) -> None:
+        """Keep the draft's view of the cached stream in sync: a decode
+        segment cached its one input token, a prefill or chunk segment
+        seeds the draft's history with its prompt tokens."""
+        if self.draft is None:
+            return
+        if seg.kind == "decode":
+            self.draft.observe(seg.session, [int(seg.tokens[0])])
+        else:
+            self.draft.observe(seg.session, [int(t) for t in seg.tokens],
+                               prompt=True)
+
     def _record_packed(self, segments: List[packing.SegmentSpec],
                        toks: np.ndarray, last_np: Optional[np.ndarray],
                        elapsed: float) -> Dict[int, int]:
@@ -477,6 +692,7 @@ class Engine:
         token, the kept logits row and the boundary-fit samples."""
         out: Dict[int, int] = {}
         for i, seg in enumerate(segments):
+            self._observe(seg)
             out[seg.session] = int(toks[i])
             if last_np is not None:
                 self.last_logits[seg.session] = last_np[i]
@@ -491,6 +707,42 @@ class Engine:
                                          float(seg.history)))
         return out
 
+    def _slot_map(self, segments: List[packing.SegmentSpec]
+                  ) -> Tuple[List[int], np.ndarray]:
+        """Claim (or find) each segment's slot and check its write fits:
+        (slots, slot map over every stream row).  Dummy segments and tail
+        rows reuse the first segment's slot, confined to its park row
+        S_max − 1 by their positions."""
+        slots = [self.arena.alloc(seg.session) for seg in segments]
+        for seg in segments:
+            self.arena.check_length(seg.session, seg.history + seg.length)
+        pad = self.packed_executor.stream_rows - len(slots)
+        return slots, np.asarray(slots + [slots[0]] * pad, np.int32)
+
+    def _page_tables(self, segments: List[packing.SegmentSpec],
+                     stream: packing.MixedStream, bucket: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``prepare_extend`` every segment's write range (COW-copying a
+        fork-shared boundary page, allocating tail pages): (page table
+        (b_max, P_max), token pages (bucket,), token offsets (bucket,)).
+        Tail rows and dummy sequences park on the reserved scratch page
+        at offset page_size − 1."""
+        ar = self.arena
+        ps = ar.page_size
+        page_table = np.full((self.packed_executor.stream_rows,
+                              ar.max_pages_per_seq), ar.scratch, np.int32)
+        token_pages = np.full(bucket, ar.scratch, np.int32)
+        token_offs = np.full(bucket, ps - 1, np.int32)
+        cu = stream.cu_seqlens
+        for i, seg in enumerate(segments):
+            pages = ar.prepare_extend(seg.session, seg.length)
+            page_table[i, :len(pages)] = pages
+            pos = stream.positions[cu[i]:cu[i + 1]]
+            token_pages[cu[i]:cu[i + 1]] = np.asarray(pages, np.int32)[
+                pos // ps]
+            token_offs[cu[i]:cu[i + 1]] = pos % ps
+        return page_table, token_pages, token_offs
+
     def _run_packed(self, segments: List[packing.SegmentSpec],
                     bucket: int) -> MixedStepResult:
         """Slot-arena dispatch of an assembled segment list as one packed
@@ -500,23 +752,17 @@ class Engine:
         writes new KV rows directly in the arena through the slot map —
         no whole-slot copy.  ``arena_prefill=False`` keeps the gathered
         baseline: every stream row's slot is copied out before the step
-        and the real rows scattered back after it.  Dummy segments and
-        tail rows reuse the first segment's slot, confined to its park
-        row S_max − 1 by their positions."""
+        and the real rows scattered back after it."""
         px = self.packed_executor
         n = len(segments)
-        slots = [self.arena.alloc(seg.session) for seg in segments]
-        for seg in segments:
-            self.arena.check_length(seg.session, seg.history + seg.length)
-        b_max = px.stream_rows
-        all_slots = slots + [slots[0]] * (b_max - n)
+        slots, slot_map = self._slot_map(segments)
         stream = packing.assemble_mixed_stream(
-            segments, bucket, b_max, park_position=self.arena.max_len - 1,
+            segments, bucket, px.stream_rows,
+            park_position=self.arena.max_len - 1,
             pad_token=self.ecfg.pad_token)
         sessions = [seg.session for seg in segments]
 
         if self.ecfg.arena_prefill:
-            slot_map = np.asarray(all_slots, np.int32)
             seg_slots = slot_map[stream.seg_ids]   # per-token arena slot
             t0 = time.perf_counter()
             last, ids = px.mixed_step_arena(
@@ -528,7 +774,7 @@ class Engine:
                 n_decode=stream.decode_tokens)
             toks, last_np = self._tokens_from_step(sessions, last, ids)
         else:
-            caches = self.arena.gather(all_slots)
+            caches = self.arena.gather(slot_map.tolist())
             t0 = time.perf_counter()
             last = px.mixed_step(
                 self.params, self._dev(stream.tokens),
@@ -565,26 +811,13 @@ class Engine:
         token ids and indexes newly-full pages for cross-session reuse."""
         px = self.packed_executor
         ar = self.arena
-        ps = ar.page_size
         n = len(segments)
-        b_max = px.stream_rows
         stream = packing.assemble_mixed_stream(
-            segments, bucket, b_max, park_position=ar.max_len - 1,
+            segments, bucket, px.stream_rows, park_position=ar.max_len - 1,
             pad_token=self.ecfg.pad_token)
         sessions = [seg.session for seg in segments]
-
-        page_table = np.full((b_max, ar.max_pages_per_seq), ar.scratch,
-                             np.int32)
-        token_pages = np.full(bucket, ar.scratch, np.int32)
-        token_offs = np.full(bucket, ps - 1, np.int32)
-        cu = stream.cu_seqlens
-        for i, seg in enumerate(segments):
-            pages = ar.prepare_extend(seg.session, seg.length)
-            page_table[i, :len(pages)] = pages
-            pos = stream.positions[cu[i]:cu[i + 1]]
-            pt = np.asarray(pages, np.int32)
-            token_pages[cu[i]:cu[i + 1]] = pt[pos // ps]
-            token_offs[cu[i]:cu[i + 1]] = pos % ps
+        page_table, token_pages, token_offs = self._page_tables(
+            segments, stream, bucket)
 
         t0 = time.perf_counter()
         last, ids = px.mixed_step_paged(
@@ -603,6 +836,251 @@ class Engine:
         n_d = stream.decode_tokens
         return MixedStepResult(tokens=out, fused=True, bucket=bucket,
                                n_prefill=n - n_d, n_decode=n_d)
+
+    # ------------------------------------------- speculative verify step
+    def _run_spec(self, segments: List[packing.SegmentSpec], bucket: int,
+                  n_drafts: Dict[int, int]) -> MixedStepResult:
+        """Dispatch a mixed stream carrying ``verify`` segments.
+
+        The same packed arena step runs — a verify segment is a
+        length-(k+1) re-prefill — but every verify row's output is
+        gathered back ((B, L) on-device argmax ids for all-greedy steps,
+        (R,) fused-kernel samples, or (B, L, V) host rows) so acceptance
+        can walk each session's drafts: row j scores the token AFTER
+        inputs [pending, d_1..d_j], so accepted drafts and the
+        corrective/bonus token commit together, 1..k+1 per session per
+        dispatch.  Accepted prefixes stay in place; rejected tails roll
+        back via ``arena.truncate`` (slot: length bookkeeping; paged:
+        page release + radix de-index)."""
+        px = self.packed_executor
+        n = len(segments)
+        L = 1 + self.spec_k
+        b_max = px.stream_rows
+        stream = packing.assemble_mixed_stream(
+            segments, bucket, b_max, park_position=self.arena.max_len - 1,
+            pad_token=self.ecfg.pad_token)
+        sessions = [seg.session for seg in segments]
+        # gather row i: a verify segment reads ALL its L rows back; other
+        # kinds repeat their last row (their token is column 0); pad
+        # segments read row 0 and are discarded
+        gather = np.zeros((b_max, L), np.int32)
+        cu = stream.cu_seqlens
+        for i, seg in enumerate(segments):
+            if seg.kind == "verify":
+                gather[i] = cu[i] + np.arange(L, dtype=np.int32)
+            else:
+                gather[i] = stream.last_idx[i]
+
+        if self._paged:
+            page_table, token_pages, token_offs = self._page_tables(
+                segments, stream, bucket)
+            t0 = time.perf_counter()
+            logits, ids = px.verify_step_paged(
+                self.params, self._dev(stream.tokens),
+                self._dev(stream.positions), self._dev(token_pages),
+                self._dev(token_offs), self._dev(page_table),
+                self._dev(stream.cu_seqlens), self._dev(stream.q_offsets),
+                self._dev(stream.kv_lengths), self.arena.arena,
+                self._dev(gather))
+        else:
+            _, slot_map = self._slot_map(segments)
+            seg_slots = slot_map[stream.seg_ids]
+            t0 = time.perf_counter()
+            logits, ids = px.verify_step_arena(
+                self.params, self._dev(stream.tokens),
+                self._dev(stream.positions), self._dev(seg_slots),
+                self._dev(slot_map), self._dev(stream.cu_seqlens),
+                self._dev(stream.q_offsets), self._dev(stream.kv_lengths),
+                self.arena.arena, self._dev(gather))
+
+        # interleaved uniforms per verify session, drawn up front so the
+        # fused kernel and the host oracle consume one rng stream layout
+        draws = {seg.session: self._spec_draws(seg.session,
+                                               n_drafts[seg.session])
+                 for seg in segments if seg.kind == "verify"}
+        all_greedy = all(s not in self.sampling for s in sessions)
+        logits_np = None
+        frows = None            # fused-kernel (tok, p_draft, alt) rows
+        if all_greedy and not self.ecfg.keep_last_logits:
+            self.fused_greedy_steps += 1
+        elif (self.ecfg.fused_sampling and not self.ecfg.keep_last_logits
+                and self._fused_bias_ok(sessions)):
+            frows = self._fused_verify_rows(segments, n_drafts, logits, L,
+                                            draws)
+        else:
+            logits_np = logits.float().cpu().numpy()
+            self.logits_rows_shipped += int(logits_np.shape[0]
+                                            * logits_np.shape[1])
+        ids_np = ids.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        px.note_padding(stream.total_tokens, bucket)
+
+        committed: Dict[int, List[int]] = {}
+        out: Dict[int, int] = {}
+        n_verify = 0
+        for i, seg in enumerate(segments):
+            s = seg.session
+            if seg.kind != "verify":
+                if logits_np is not None:
+                    row = logits_np[i, 0]
+                    sp = self.sampling.get(s)
+                    if sp is None or sp.is_default:
+                        tok = int(np.argmax(row))
+                    else:
+                        tok = int(sampling_mod.sample_token(
+                            row, sp, self._rngs.get(s)))
+                    self.last_logits[s] = row
+                elif frows is not None:
+                    tok = int(frows[0][i * L])
+                else:
+                    tok = int(ids_np[i, 0])
+                if self._paged:
+                    self.arena.commit(s, [int(t) for t in seg.tokens])
+                else:
+                    self.arena.set_length(s, seg.history + seg.length)
+                self._observe(seg)
+                committed[s] = [tok]
+                out[s] = tok
+                continue
+            # ---- verify segment: walk the drafts ----------------------
+            m = n_drafts[s]
+            d = [int(t) for t in seg.tokens[1:1 + m]]
+            if logits_np is not None:
+                tok_r, pd_r, alt_r = self._host_verify_row(
+                    s, logits_np[i], d, draws[s][1])
+            elif frows is not None:
+                base = i * L
+                tok_r = [int(frows[0][base + j]) for j in range(m + 1)]
+                pd_r = [float(frows[1][base + j]) for j in range(m + 1)]
+                alt_r = [int(frows[2][base + j]) for j in range(m + 1)]
+            else:
+                ids_row = ids_np[i]
+                tok_r = [int(ids_row[j]) for j in range(m + 1)]
+                pd_r = [1.0 if (j < m and tok_r[j] == d[j]) else 0.0
+                        for j in range(m + 1)]
+                alt_r = list(tok_r)
+            u_acc = draws[s][0]
+            emitted: List[int] = []
+            for j in range(m):
+                if u_acc[j] < pd_r[j]:
+                    emitted.append(d[j])     # draft accepted
+                else:
+                    emitted.append(alt_r[j])  # corrective token; stop
+                    break
+            else:
+                emitted.append(tok_r[m])     # all accepted → bonus token
+            c = len(emitted)
+            if self._paged:
+                # the radix index must only ever see tokens whose KV is
+                # REAL: pending + accepted drafts.  commit advances the
+                # length to h + c; truncate then releases the
+                # over-allocated tail pages the verify write touched
+                self.arena.commit(s, [int(t) for t in seg.tokens[:c]])
+                self.arena.truncate(s, seg.history + c)
+            else:
+                self.arena.set_length(s, seg.history + seg.length)
+                self.arena.truncate(s, seg.history + c)
+            if logits_np is not None:
+                self.last_logits[s] = logits_np[i, c - 1]
+            if self.draft is not None:
+                self.draft.observe(s, [int(t) for t in seg.tokens[:c]])
+            self.tokens_drafted += m
+            self.tokens_accepted += c - 1
+            self.spec_committed += c
+            acc = self._spec_by_session.setdefault(s, [0, 0])
+            acc[0] += m
+            acc[1] += c - 1
+            n_verify += 1
+            committed[s] = emitted
+            out[s] = emitted[-1]
+        if self.ecfg.measure:
+            pre = [seg for seg in segments
+                   if seg.kind not in ("decode", "verify")]
+            if pre:
+                per = elapsed / len(pre)
+                for seg in pre:
+                    self.samples.append((per, float(seg.length),
+                                         float(seg.history)))
+        if n_verify:
+            self.spec_dispatches += 1
+        n_dec = sum(1 for seg in segments
+                    if seg.kind in ("decode", "verify"))
+        return MixedStepResult(tokens=out, fused=True, bucket=bucket,
+                               n_prefill=n - n_dec, n_decode=n_dec,
+                               committed=committed)
+
+    def _host_verify_row(self, session: int, logits_row: np.ndarray,
+                         d: List[int], u_samp: np.ndarray
+                         ) -> Tuple[List[int], List[float], List[int]]:
+        """Per verify row j, the triple the fused kernel returns — (plain
+        sample, p(draft_j), residual resample with the draft zeroed) —
+        computed by the host oracle sampler over the session's filtered
+        distribution."""
+        m = len(d)
+        sp = self.sampling.get(session)
+        tok_r: List[int] = []
+        pd_r: List[float] = []
+        alt_r: List[int] = []
+        for j in range(m + 1):
+            row = logits_row[j]
+            if sp is None or sp.is_greedy:
+                t = (int(sampling_mod.sample_token(row, sp))
+                     if sp is not None else int(np.argmax(row)))
+                tok_r.append(t)
+                pd_r.append(1.0 if (j < m and t == d[j]) else 0.0)
+                alt_r.append(t)
+                continue
+            probs = sampling_mod.filtered_probs(row, sp)
+            v = probs.shape[0]
+            u = float(u_samp[j])
+            tok_r.append(sampling_mod.sample_from_probs(probs, u))
+            in_range = j < m and 0 <= d[j] < v
+            pd_r.append(float(probs[d[j]]) if in_range else 0.0)
+            if in_range and probs[d[j]] < 1.0:
+                resid = probs.copy()
+                resid[d[j]] = 0.0
+                alt_r.append(sampling_mod.sample_from_probs(
+                    resid / resid.sum(), u))
+            else:
+                alt_r.append(tok_r[-1])
+        return tok_r, pd_r, alt_r
+
+    def _fused_verify_rows(self, segments: List[packing.SegmentSpec],
+                           n_drafts: Dict[int, int],
+                           logits_dev: torch.Tensor, L: int,
+                           draws: Dict[int, Tuple[np.ndarray, np.ndarray]]
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Run the fused sampling kernel over EVERY gathered row ((b_max ·
+        L, V) logits, reshaped on the card): each row's plain sample,
+        p(draft) and residual resample come back as (R,) scalars — the
+        full-vocab logits never cross to host even for sampled
+        speculative sessions.  Non-verify segments use column 0 (their
+        repeated last row); pad rows run greedy into the void."""
+        r = int(logits_dev.shape[0]) * L
+        rows = self._sampling_rows(r)
+        _, _, _, u, draft, _, _ = rows
+        for i, seg in enumerate(segments):
+            s = seg.session
+            sp = self.sampling.get(s)
+            verify = seg.kind == "verify"
+            m = n_drafts.get(s, 0)
+            for j in range(L if verify else 1):
+                rr = i * L + j
+                if sp is not None:
+                    self._fill_params(rows, rr, sp)
+                if verify:
+                    if j <= m:
+                        u[rr] = float(draws[s][1][j])
+                    if j < m:
+                        draft[rr] = int(seg.tokens[1 + j])
+                elif sp is not None and not sp.is_greedy:
+                    u[rr] = float(self._rngs[s].random())
+        temp, topk, topp, _, _, bias_ids, bias_vals = rows
+        tok, p_d, alt = kernel_ops.fused_sample(
+            logits_dev.reshape(r, -1), temp, topk, topp, bias_ids,
+            bias_vals, u, draft)
+        self.fused_sample_steps += 1
+        return tok.cpu().numpy(), p_d.cpu().numpy(), alt.cpu().numpy()
 
     # ------------------------------------------------------ long prefill
     def prefill_long(self, session: int, token_list: np.ndarray) -> int:
@@ -676,6 +1154,9 @@ class Engine:
                 self._dev(rows.slot_map), self._dev(rows.write_pos),
                 self._dev(rows.kv_lengths), self.arena.arena)
             dx.note_padding(n, bucket)
+            if self.draft is not None:
+                for i, s in enumerate(sessions):
+                    self.draft.observe(s, [int(cur[i])])
             toks, logits_np = self._tokens_from_step(sessions, logits, ids)
             cur = toks.astype(np.int32)
             for i, s in enumerate(sessions):
@@ -728,6 +1209,8 @@ class Engine:
             # radix index must see the ids whose keys occupy the pages
             for i, s in enumerate(sessions):
                 ar.commit(s, [int(cur[i])])
+                if self.draft is not None:
+                    self.draft.observe(s, [int(cur[i])])
             toks, logits_np = self._tokens_from_step(sessions, logits, ids)
             cur = toks.astype(np.int32)
             for i, s in enumerate(sessions):
@@ -762,6 +1245,9 @@ class Engine:
             self.arena.scatter(slots, caches)
             self.executor.note_padding(n, n)
             logits_np = logits.float().cpu().numpy()
+            if self.draft is not None:
+                for i, s in enumerate(sessions):
+                    self.draft.observe(s, [int(cur[i])])
             cur = self._sample_rows(sessions, logits_np).astype(np.int32)
             for i, s in enumerate(sessions):
                 self.arena.set_length(s, hists[i] + 1)
@@ -840,5 +1326,20 @@ class Engine:
             by_cause[kind][cause] += count
         out["dense_dispatches_by_cause"] = by_cause
         out["fused_greedy_steps"] = self.fused_greedy_steps
+        out["fused_sample_steps"] = self.fused_sample_steps
         out["logits_rows_shipped"] = self.logits_rows_shipped
+        # speculative decoding counters: drafted vs accepted tokens,
+        # verify dispatches, total commits, and per-session acceptance
+        out["tokens_drafted"] = self.tokens_drafted
+        out["tokens_accepted"] = self.tokens_accepted
+        out["spec_dispatches"] = self.spec_dispatches
+        out["spec_committed"] = self.spec_committed
+        out["spec_acceptance"] = (self.tokens_accepted
+                                  / max(1, self.tokens_drafted))
+        out["spec_tokens_per_dispatch"] = (self.spec_committed
+                                           / max(1, self.spec_dispatches))
+        out["spec_by_session"] = {
+            s: {"drafted": v[0], "accepted": v[1],
+                "acceptance": v[1] / max(1, v[0])}
+            for s, v in self._spec_by_session.items()}
         return out

@@ -128,6 +128,49 @@ def make_packed_paged_fn(cfg: ModelConfig) -> Callable:
     return packed_step
 
 
+def make_packed_verify_arena_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens(T,), positions(T,), seg_slots(T,), slot_map(B,),
+    cu_seqlens(B+1,), q_offsets(B,), kv_lengths(B,), arena,
+    gather_idx(B,L)) → (logits(B,L,V), greedy_ids(B,L)).  Speculative
+    verification: the arena-resident packed step gathering EVERY row's
+    logits per segment instead of one; ``greedy_ids`` is the per-row
+    on-device argmax, so all-greedy acceptance walks it without shipping
+    (B, L, V) to host."""
+
+    @torch.no_grad()
+    def verify_step(params, tokens, positions, seg_slots, slot_map,
+                    cu_seqlens, q_offsets, kv_lengths, arena, gather_idx):
+        logits = tr.forward_packed_verify_arena(
+            params, cfg, tokens=tokens, positions=positions,
+            seg_slots=seg_slots, slot_map=slot_map, cu_seqlens=cu_seqlens,
+            q_offsets=q_offsets, kv_lengths=kv_lengths, arena=arena,
+            gather_idx=gather_idx)
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    return verify_step
+
+
+def make_packed_verify_paged_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens(T,), positions(T,), token_pages(T,), token_offs(T,),
+    page_table(B,P_max), cu_seqlens(B+1,), q_offsets(B,), kv_lengths(B,),
+    arena, gather_idx(B,L)) → (logits(B,L,V), greedy_ids(B,L)).  Paged
+    speculative verification."""
+
+    @torch.no_grad()
+    def verify_step(params, tokens, positions, token_pages, token_offs,
+                    page_table, cu_seqlens, q_offsets, kv_lengths, arena,
+                    gather_idx):
+        logits = tr.forward_packed_verify_paged(
+            params, cfg, tokens=tokens, positions=positions,
+            token_pages=token_pages, token_offs=token_offs,
+            page_table=page_table, cu_seqlens=cu_seqlens,
+            q_offsets=q_offsets, kv_lengths=kv_lengths, arena=arena,
+            gather_idx=gather_idx)
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    return verify_step
+
+
 def make_paged_decode_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens(B,), positions(B,), write_pages(B,), write_offs(B,),
     page_table(B,P_max), kv_lengths(B,), arena) → (logits(B,V),
@@ -284,7 +327,8 @@ class PackedBucketExecutor(_ExecutorBase):
     grows with |token_buckets| only.  Three forms: over gathered caches
     (``mixed_step``, the measurement baseline), over the slot arena
     (``mixed_step_arena``) and over the page pool
-    (``mixed_step_paged``)."""
+    (``mixed_step_paged``); the last two also verify speculative drafts
+    (``verify_step_arena`` / ``verify_step_paged``)."""
 
     def __init__(self, cfg: ModelConfig,
                  token_buckets: Tuple[int, ...] = DEFAULT_TOKEN_BUCKETS,
@@ -295,10 +339,17 @@ class PackedBucketExecutor(_ExecutorBase):
         self._packed = make_packed_prefill_fn(cfg)
         self._packed_arena = make_packed_arena_fn(cfg)
         self._packed_paged = make_packed_paged_fn(cfg)
+        # speculative verification forms: the same packed dispatch with
+        # an L-per-segment logits gather
+        self._verify_arena = make_packed_verify_arena_fn(cfg)
+        self._verify_paged = make_packed_verify_paged_fn(cfg)
         # continuous-batching counters: a mixed step fuses decode rows
         # into the same packed stream
         self.mixed_steps = 0
         self.decode_tokens_fused = 0
+        # speculative counters: verify dispatches and rows verified
+        self.verify_steps = 0
+        self.verify_rows = 0
 
     @property
     def token_buckets(self) -> Tuple[int, ...]:
@@ -374,6 +425,32 @@ class PackedBucketExecutor(_ExecutorBase):
         return self._packed_paged(params, tokens, positions, token_pages,
                                   token_offs, page_table, cu_seqlens,
                                   q_offsets, kv_lengths, arena, last_idx)
+
+    def verify_step_arena(self, params, tokens, positions, seg_slots,
+                          slot_map, cu_seqlens, q_offsets, kv_lengths,
+                          arena, gather_idx):
+        """One speculative verification dispatch over the slot arena:
+        the arena-resident packed step scoring every session's draft
+        segment at once.  Returns (logits (B, L, V), greedy_ids (B, L));
+        the arena is written in place."""
+        self.verify_steps += 1
+        self.verify_rows += int(gather_idx.shape[0] * gather_idx.shape[1])
+        self._note_dispatch("verify_arena", tokens, gather_idx)
+        return self._verify_arena(params, tokens, positions, seg_slots,
+                                  slot_map, cu_seqlens, q_offsets,
+                                  kv_lengths, arena, gather_idx)
+
+    def verify_step_paged(self, params, tokens, positions, token_pages,
+                          token_offs, page_table, cu_seqlens, q_offsets,
+                          kv_lengths, arena, gather_idx):
+        """Paged speculative verification dispatch —
+        :meth:`verify_step_arena` over the shared page pool."""
+        self.verify_steps += 1
+        self.verify_rows += int(gather_idx.shape[0] * gather_idx.shape[1])
+        self._note_dispatch("verify_paged", tokens, page_table, gather_idx)
+        return self._verify_paged(params, tokens, positions, token_pages,
+                                  token_offs, page_table, cu_seqlens,
+                                  q_offsets, kv_lengths, arena, gather_idx)
 
     def precapture(self, params, arena_gather: Callable) -> float:
         """Run every token bucket's gathered step once at init on copies

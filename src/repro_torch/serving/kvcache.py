@@ -1,7 +1,7 @@
 """KV caches of the port, from ``repro.serving.kvcache``: the slot arena
 (one preallocated slot of S_max positions per session), the radix
 prefix index over page-sized token chunks, and the page-pool arena with
-COW forks and LRU eviction.
+COW forks, LRU eviction and speculative rollback (``truncate``).
 
 The bookkeeping (slots, lengths, page ids, refcounts, the trie) is the
 JAX package's, line for line, so a replay gives identical assignments.
@@ -509,6 +509,64 @@ class PagedKVArena:
             for p in self.index.insert(toks[:n_full * self.page_size],
                                        self._pages[session][:n_full]):
                 self._ref(p)
+
+    # ------------------------------------------------------------ rollback
+    def truncate(self, session: int, n: int) -> None:
+        """Speculative rollback: forget every cached token past ``n``.
+
+        Three things unwind, in order:
+
+        1. **Radix de-index** — the session's indexed chunk path is
+           walked and suffix nodes covering chunks >= ``n // ps`` are
+           unlinked deepest first, including the boundary chunk whose
+           page goes full → partial (an indexed page must stay
+           append-only).  A node survives when it still has children (a
+           longer indexed prefix — shared, not ours to drop) or when it
+           names another physical page (a private duplicate was never
+           indexed); then every shallower node survives too, and a
+           still-indexed boundary page keeps rc > 1 so
+           ``prepare_extend``'s COW shields it from the re-extend.
+        2. **Page release** — the session unrefs every page past
+           ``ceil(n / ps)``; pages held by the index or a fork sibling
+           stay alive, exclusively-owned tails return to the free pool.
+           Pages a speculative ``prepare_extend`` over-allocated (never
+           committed) are released the same way even when
+           ``n == length``.
+        3. **Token trim** — the token ids and length shrink to ``n``.
+
+        ``audit()`` holds afterwards.  (Ring tables for windowed configs
+        are not ported: ROADMAP Queue 1, item 10.)
+        """
+        h = self.lengths.get(session, 0)
+        if not 0 <= n <= h:
+            raise ValueError(
+                f"truncate session {session} to {n} outside [0, {h}]")
+        self.open(session)
+        ps = self.page_size
+        toks = self._tokens[session]
+        pages = self._pages[session]
+        new_full = n // ps
+        keep_pages = -(-n // ps)
+        if self.index is not None:
+            # the session's indexed chain, chunk by chunk
+            path: List[_RadixNode] = []
+            node = self.index.root
+            for i in range(h // ps):
+                child = node.children.get(tuple(toks[i * ps:(i + 1) * ps]))
+                if child is None:
+                    break
+                path.append(child)
+                node = child
+            for i in range(len(path) - 1, new_full - 1, -1):
+                nd = path[i]
+                if nd.children or nd.page != pages[i]:
+                    break
+                self._unref(self.index.remove(nd))
+        for p in pages[keep_pages:]:
+            self._unref(p)
+        del pages[keep_pages:]
+        del toks[n:]
+        self.lengths[session] = n
 
     # ---------------------------------------------------------------- fork
     def fork(self, parent: int, child: int) -> None:

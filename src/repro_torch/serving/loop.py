@@ -19,9 +19,6 @@ in-flight session, so prefill and decode share a single dispatch.  The
 decode backlog is reported to the policy, which shrinks the AWD waiting
 window (a stalled window stalls every session's TPOT) and reserves
 stream rows for the fused decode segments.
-
-Speculative decoding is not ported (ROADMAP Queue 1, item 12), so every
-decode session costs one stream token per tick and commits one token.
 """
 from __future__ import annotations
 
@@ -401,6 +398,22 @@ class ServeLoop:
         return [(s, self.last_token[s]) for s in self.active_decodes
                 if s not in exclude]
 
+    def _tokens_per_decode(self) -> int:
+        """Stream tokens one fused decode session costs this tick: 1 +
+        spec_k when the engine runs speculative verify segments, else 1.
+        Sizing the ladder/AWD reserves with this keeps verify segments
+        from busting the token bucket mid-assembly."""
+        return 1 + self.engine.spec_k if self.engine.spec_enabled else 1
+
+    @staticmethod
+    def _committed(res, session: int) -> List[int]:
+        """Tokens a mixed step emitted for a fused decode session — the
+        full speculative commit when present, the single sampled token
+        otherwise."""
+        if res.committed and session in res.committed:
+            return list(res.committed[session])
+        return [res.tokens[session]]
+
     # ----------------------------------------------------------- execute
     def _run_batch(self, batch: Batch) -> None:
         now = self.clock()
@@ -424,7 +437,8 @@ class ServeLoop:
                 cand = self._fusable_decodes(exclude=tuple(sessions))
                 n_fit, bucket = packing.fit_decodes(
                     sum(len(t) for t in token_lists), len(sessions),
-                    len(cand), px.ladder, token_bucket=batch.token_bucket)
+                    len(cand), px.ladder, token_bucket=batch.token_bucket,
+                    tokens_per_decode=self._tokens_per_decode())
                 fused = cand[:n_fit]
             batch.decode_tokens = len(fused)
             res = self.engine.step_mixed(
@@ -434,7 +448,7 @@ class ServeLoop:
             firsts = res.tokens
             done = self.clock()
             for s, _ in fused:
-                self._record_decoded(s, [res.tokens[s]], done)
+                self._record_decoded(s, self._committed(res, s), done)
         else:
             bucket = None
             if batch.uses_graph:
@@ -497,7 +511,8 @@ class ServeLoop:
             # decode backlog instead of serializing against it
             cand = self._fusable_decodes(exclude=(r.session,))
             n_fit, bucket = packing.fit_decodes(
-                len(chunk), 1, len(cand), px.ladder)
+                len(chunk), 1, len(cand), px.ladder,
+                tokens_per_decode=self._tokens_per_decode())
             fused = cand[:n_fit] if bucket is not None else []
             res = self.engine.step_mixed(
                 [(r.session, chunk)], fused, token_bucket=bucket,
@@ -505,7 +520,7 @@ class ServeLoop:
             firsts = res.tokens
             done = self.clock()
             for s, _ in fused:
-                self._record_decoded(s, [res.tokens[s]], done)
+                self._record_decoded(s, self._committed(res, s), done)
         else:
             firsts = self.engine.prefill_batch([r.session], [chunk])
             done = self.clock()
@@ -521,10 +536,21 @@ class ServeLoop:
             self._finish_fill(r.rid)         # release parked waiters
 
     def _run_decode_only(self) -> None:
-        """No prefill work this tick: advance every in-flight session one
-        token in a single dispatch: the bucketed decode step over the
-        arena (slot or paged), or the dense (B, 1) gather step."""
+        """No prefill work this tick: advance every in-flight session in
+        a single dispatch.  With a draft armed this is one speculative
+        verify step — each session commits up to spec_k + 1 tokens per
+        dispatch (DESIGN.md §10), capped by its remaining budget — else
+        one token via the arena-resident bucketed decode path (or the
+        dense gather step)."""
         sessions = list(self.active_decodes)
+        if self.engine.spec_enabled:
+            out = self.engine.spec_step(
+                [(s, self.last_token[s]) for s in sessions],
+                max_new=dict(self.active_decodes))
+            done = self.clock()
+            for s in sessions:
+                self._record_decoded(s, out[s], done)
+            return
         tokens = [self.last_token[s] for s in sessions]
         out = self.engine.decode_batch(sessions, tokens, steps=1)
         done = self.clock()
@@ -545,7 +571,9 @@ class ServeLoop:
         interleave many loops without nesting their drain loops."""
         now = self.clock()
         self.ticks += 1
-        self.policy.note_decode_backlog(len(self.active_decodes))
+        self.policy.note_decode_backlog(
+            len(self.active_decodes),
+            tokens_per_decode=self._tokens_per_decode())
         work, wake = self.policy.next_work(now)
         if work is not None and self.faults is not None and \
                 self.faults.dispatch_fails(self.engine_id, self.ticks):
@@ -576,6 +604,13 @@ class ServeLoop:
             self._run_decode_only()
         else:
             did = False
+        if self.engine.spec_dispatches:
+            # mirror the engine's speculative totals into the tracker so
+            # cluster-merged SLO reports carry acceptance statistics
+            self.tracker.note_spec(self.engine.tokens_drafted,
+                                   self.engine.tokens_accepted,
+                                   self.engine.spec_dispatches,
+                                   self.engine.spec_committed)
         self._since_fit += 1
         if self._since_fit >= self.refit_every:
             self._since_fit = 0

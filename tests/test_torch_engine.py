@@ -4,8 +4,9 @@ default path: the same ``step_mixed`` / ``decode_batch`` /
 converted from the JAX pytree, must commit identical tokens, place them
 on identical pages, count identical prefix hits, and give logits within
 1e-5 (fp32; XLA and PyTorch's CPU matmuls sum in different orders).
-Also: the split paths for over-wide ticks, the entry-point guards and
-the branches outside the slice.
+Also: the split paths for over-wide ticks, the entry-point guards, the
+refusal of speculation off the packed arena stream, and the branches
+outside the slice.
 """
 import numpy as np
 import pytest
@@ -136,7 +137,6 @@ def test_engine_refuses_the_cpu_by_default():
 
 @pytest.mark.parametrize("cfg_kw,kw,item", [
     (dict(sliding_window=32), dict(paged_kv=False), "item 10"),
-    ({}, dict(fused_sampling=True), "item 12"),
     ({}, dict(host_pool_bytes=1 << 20), "item 11"),
 ])
 def test_config_branches_outside_the_slice_raise(stacks, cfg_kw, kw, item):
@@ -147,8 +147,6 @@ def test_config_branches_outside_the_slice_raise(stacks, cfg_kw, kw, item):
 
 def test_method_branches_outside_the_slice_raise(stacks):
     _, te = _pair(stacks["qwen3-4b"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        te.enable_spec(object())
     with pytest.raises(NotImplementedError, match="item 13"):
         te.export_session(0)
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -156,3 +154,28 @@ def test_method_branches_outside_the_slice_raise(stacks):
     with pytest.raises(NotImplementedError, match="item 10"):
         Engine(tget("qwen3-4b").replace(sliding_window=32), {},
                device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(packed=False, paged_kv=False),
+    dict(arena_prefill=False, paged_kv=False),
+], ids=["unpacked", "gathered"])
+def test_enable_spec_refuses_off_the_packed_arena_stream(stacks, kw):
+    """Speculation rides the packed arena stream: like the JAX engine,
+    ``enable_spec`` refuses an engine without it; the packed slot arena
+    and the paged default accept."""
+    from repro.serving.draft import NGramDraft as JNGram
+    from repro_torch.serving.draft import NGramDraft
+    je, te = _pair(stacks["qwen3-4b"], **kw)
+    assert te.can_spec and je.can_spec
+    with pytest.raises(AssertionError):
+        je.enable_spec(JNGram(), k=4)
+    with pytest.raises(AssertionError):
+        te.enable_spec(NGramDraft(), k=4)
+    assert not te.spec_enabled
+    for ok in (dict(paged_kv=False), {}):
+        _, te = _pair(stacks["qwen3-4b"], **ok)
+        te.enable_spec(NGramDraft(), k=4)
+        assert te.spec_enabled and te.spec_k == 4
+        te.disable_spec()
+        assert not te.spec_enabled

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version at qwen3-4b's head shapes (fp32 with TF32 off, and
-bf16), and the serving engine on the card against the same engine on
-the CPU.  Without a card every test skips inside its fixture.
+bf16), the fused sampling kernel at qwen3-4b's vocabulary, and the
+serving engine on the card against the same engine on the CPU.  Without
+a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -11,6 +12,9 @@ bf16: the kernels round p to bf16 before the PV product, as the TPU
 kernels do, and round the output once, each a relative error of at most
 u = 2^-8, so |out - ref| ≤ u·(Σ p|v| / l + |ref|) + 1e-4, where the first
 term is the plain version on |v|; and the max abs error ≤ 2e-2.
+Fused sampling: greedy tokens exact; token and alt equal except on a row
+whose u lies within 1e-5 of a non-zero cumulative mass of the plain
+version (``kernels.sampling.cdf_margin``); p_draft within 1e-5.
 """
 import numpy as np
 import pytest
@@ -20,9 +24,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import decode_attn as dec  # noqa: E402
 from repro_torch.kernels import ragged_prefill as rp  # noqa: E402
+from repro_torch.kernels import sampling as ks  # noqa: E402
 from repro_torch.kernels.ref import kernel_error_bound  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
+from repro_torch.serving.draft import ScriptedDraft  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
+from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 HQ, HKV, D, PS, NPAGES, PMAX = 32, 8, 128, 16, 320, 160
@@ -239,3 +246,88 @@ def test_slot_engine_on_card_matches_engine_on_cpu(card, mode):
         np.testing.assert_allclose(engines[1].last_logits[s],
                                    engines[0].last_logits[s], atol=1e-4,
                                    rtol=0)
+
+
+# (temp, top_k, top_p, bias) cycled over the rows of a sampling batch:
+# greedy, biased greedy, plain temperature, top-k of 1, off (>= V) and
+# 20, top-p tiny and near 1, all 8 bias slots with a repeated id and one
+# past the vocabulary
+SAMPLE_PARAMS = [
+    (0.0, 0, 1.0, ()), (0.0, 0, 1.0, ((9, 4.0), (9, 4.0))),
+    (1.0, 0, 1.0, ()), (1.1, 1, 1.0, ()), (0.9, 1 << 20, 1.0, ()),
+    (0.8, 20, 0.95, ((3, 2.0),)), (1.2, 0, 1e-6, ()),
+    (1.0, 0, 0.999999, ()),
+    (0.7, 12, 1.0, tuple((7 * j + 1, 0.5) for j in range(6))
+     + ((1, 1.0), (1 << 30, 9.0))),
+]
+
+
+def _sample_inputs(card, r, v, dtype, seed):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0.0, 3.0, (r, v)).astype(np.float32)
+    logits[::3, max(v - 64, 1):] = -1e9          # a padded-vocab tail
+    temp = np.zeros(r, np.float32)
+    top_k = np.zeros(r, np.int32)
+    top_p = np.ones(r, np.float32)
+    bids = -np.ones((r, ks.MAX_BIAS), np.int32)
+    bvals = np.zeros((r, ks.MAX_BIAS), np.float32)
+    for i in range(r):
+        t, k, p, bias = SAMPLE_PARAMS[i % len(SAMPLE_PARAMS)]
+        temp[i], top_k[i], top_p[i] = t, k, p
+        for j, (tok, b) in enumerate(bias):
+            bids[i, j], bvals[i, j] = tok, b
+    u = rng.random(r).astype(np.float32)
+    u[::5] = 0.0
+    u[1::7] = np.float32(1.0 - 2.0 ** -24)
+    draft = rng.integers(-1, v, r).astype(np.int32)
+    x = torch.as_tensor(logits, device=card).to(dtype)
+    return (x, temp, top_k, top_p, bids, bvals, u, draft)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,v", [(40, 151936), (1, 151936), (23, 128)])
+def test_fused_sample_kernel_matches_plain(card, dtype, r, v):
+    args = _sample_inputs(card, r, v, dtype, seed=r + v)
+    n0 = ks.fused_sample.launches
+    got = [x.cpu().numpy() for x in ks.fused_sample(*args)]
+    torch.cuda.synchronize()
+    assert ks.fused_sample.launches == n0 + 1
+    want = [x.cpu().numpy() for x in ks.fused_sample_plain(*args)]
+    margin = ks.cdf_margin(*args).cpu().numpy()
+    greedy = args[1] <= 0
+    assert (got[0][greedy] == want[0][greedy]).all()
+    for k in (0, 2):
+        bad = got[k] != want[k]
+        assert (margin[bad] < 1e-5).all(), (k, np.nonzero(bad), margin[bad])
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=0)
+
+
+def test_sampled_spec_fused_matches_host_on_card(card):
+    """A sampled session under speculation on the card: the fused
+    kernel's stream equals the host sampler's, and only the host path
+    ships logits rows."""
+    cfg = get_smoke("qwen3-4b").replace(head_dim=128)
+    params = _to(tr.init_params(cfg, seed=0, device="cpu"), card)
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(1, cfg.vocab_size, 9)
+    script = list(rng.integers(1, cfg.vocab_size, 40))
+    streams = {}
+    for fused in (False, True):
+        eng = Engine(cfg, params, EngineConfig(
+            num_slots=4, max_len=256, chunk_tokens=32, measure=False,
+            keep_last_logits=False, fused_sampling=fused), device=card)
+        eng.enable_spec(ScriptedDraft({0: script}, vocab=cfg.vocab_size),
+                        k=3)
+        eng.open_session(0)
+        eng.set_sampling(0, SamplingParams(temperature=0.8, top_k=20,
+                                           top_p=0.95, seed=7,
+                                           logit_bias={3: 2.0}))
+        out = [eng.prefill_packed([0], [prompt])[0]]
+        while len(out) < 16:
+            out += eng.spec_step([(0, out[-1])],
+                                 max_new={0: 16 - len(out)})[0]
+        streams[fused] = out
+        st = eng.stats()
+        assert (st["logits_rows_shipped"] == 0) == fused
+        assert (st["fused_sample_steps"] > 0) == fused
+    assert streams[True] == streams[False]
