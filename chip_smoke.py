@@ -3,8 +3,8 @@
 Drives every path of the port on one NVIDIA card and fails on any fault:
 
   1. card and build — ``nvidia-smi`` name and power limit, the nvcc
-     build of the six kernels (seconds, ``-Xptxas -v`` registers /
-     shared memory / spills);
+     build of the seven kernels (seconds, ``-Xptxas -v`` registers /
+     shared memory / spills, ``ssd_scan``'s dynamic shared memory);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128), fp32 and bf16.  Paged kernels: page
      size 16, fragmented, shared and COW-forked page tables, q_offsets
@@ -22,7 +22,12 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      and bf16 logits, rows for each trouble spot (a padded-vocab tail,
      a negative kth value, top_k off and 1, ties at the kth value, -0.0
      beside +0.0, top_p near 1 and tiny, u = 0 and just below 1, all 8
-     bias slots with a repeated id and one past V, tied greedy maxima);
+     bias slots with a repeated id and one past V, tied greedy maxima).
+     ``ssd_scan`` at mamba2-2.7b's heads (NH 80, HD 64, DS 128, chunk
+     128), B/C in group form (G = 1) and per head (G = NH), L = 1, 127,
+     128, 129, 300 and 2048, B = 1 and 8, fp32 and bf16, x / B / C as
+     views into one conv-output row, pad (dt = 0) and strong-decay rows,
+     a random non-zero init state;
   3. the engine against the plain dense forward in each of its four
      modes (the launcher's slot/dense default, the packed slot arena,
      the gathered slot baseline, the paged default): qwen3-4b widths, 2
@@ -32,7 +37,11 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      speculation (drafts scripted from the plain stream at acceptance
      0.7) lossless, a sampled session's stream the same through the
      fused kernel and the host sampler, and a ServeLoop armed with
-     NGramDraft(n=3), k = 4 giving the unarmed loop's transcripts;
+     NGramDraft(n=3), k = 4 giving the unarmed loop's transcripts.  The
+     SSM family in its three modes (ssm_paged, ssm_slot_arena, ssm_dense)
+     at mamba2-2.7b widths, 2 layers, fp32, against the dense forward
+     (one ``ssd_scan`` from a zero state), with a prefix adopted
+     through a state checkpoint on the page pool;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
      --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
      served in each mode after one warm-up run, each run on a fresh
@@ -42,16 +51,25 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      peak memory and launches per mode.  A fifth mode, spec, serves the
      paged trace with NGramDraft(n=3), k = 4 armed and half the sessions
      sampled through the fused kernel: 0 logits rows shipped, tokens per
-     verify dispatch, acceptance and fused_sample launches per tick;
+     verify dispatch, acceptance and fused_sample launches per tick.
+     Then mamba2-2.7b (64 layers, bf16) serves the same trace in the
+     three SSM modes (the paged one on ``SSM_POOL``: every page carries
+     a ~170 MB state slot): every request answered, ``ssd_scan`` once
+     per layer in every prefill dispatch and never in a decode-only
+     tick, state checkpoints and prefix hits, whole-slot copies;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound; fused_sample at a verify tick's
      40 x 151,936 bf16 rows; ragged_prefill_paged also at a verify
-     tick's 8 x 5 rows), each kernel's output there held to its plain
-     version, and the parts of a dense grid tick (whole-slot copies,
-     attention over S_max);
-  6. the serve launcher, its default and ``--packed``, at the smoke
-     config and at published widths cut to 4 layers;
+     tick's 8 x 5 rows; ``ssd_scan`` on a 2048-token prompt in 8 chunk
+     steps, a (64, 8) grid step and a packed step's (512, 8) bridge),
+     each kernel's output there held to its plain version, the parts of
+     a dense grid tick (whole-slot copies, attention over S_max), and
+     ``torch.profiler`` over a mamba2 packed prefill, grid prefill and
+     decode tick (device time by kernel, busy share);
+  6. the serve launcher, its default and ``--packed``, for qwen3-4b and
+     mamba2-2.7b, at the smoke config and at published widths cut to 4
+     layers;
   7. one JSON line describing every kernel, then the card line and the
      result line.
 
@@ -69,7 +87,11 @@ A dropped or repeated key tile moves outputs past that bound.
 fused_sample: greedy tokens exact; token and alt equal except on a row
 whose u lies within 1e-5 of a non-zero cumulative mass of the plain
 version (the order of float sums may move such a draw; such rows are
-counted and printed); p_draft within 1e-5.
+counted and printed); p_draft within 1e-5.  ssd_scan
+(``kernels.ref.ssd_error_bound``): y and the final state within 1e-4 of
+the largest magnitude in their (batch row, head) — sums of up to
+Q + DS products taken in another order — and a bf16 y also within its
+one rounding, u * |ref|.
 """
 from __future__ import annotations
 
@@ -122,6 +144,13 @@ def phase_build():
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "smem", "bytes stack")):
                 log(f"[1] {name}: {line.strip()}")
+    # ssd_scan's shared memory is dynamic (csrc/ssd_scan.cu smem_floats):
+    # state and B padded to DS + 1, X, C, 16 rows of M, four row vectors
+    hd, ds, q = SSD_HD, SSD_DS, SSD_CHUNK
+    smem = 4 * (hd * (ds + 1) + q * hd + q * (ds + 1) + q * ds + 16 * q
+                + 4 * q)
+    log(f"[1] ssd_scan: dynamic shared memory {smem} bytes per block at "
+        f"mamba2's heads (HD {hd}, DS {ds}, chunk {q}) of 232448")
 
 
 # ------------------------------------------------------------ phase 2
@@ -502,6 +531,80 @@ def phase_sample_kernel(seed, errs):
                 assert ok, f"fused_sample R={r} V={v} {dtype}"
 
 
+# mamba2-2.7b's SSD heads: 80 heads of 64, state 128, one group, chunk 128
+SSD_NH, SSD_HD, SSD_DS, SSD_CHUNK = 80, 64, 128, 128
+SSD_LENS = (1, 127, 128, 129, 300, 2048)
+
+
+def _ssd_inputs(gen, b, l, g, dtype):
+    """SSD scan inputs at mamba2's head shapes, shaped as the mamba layer
+    passes them: x, B and C are views into one (B, L, NH·HD + 2·G·DS)
+    conv-output row; dt = softplus(N(0, 1)) with dt = 0 on the last 5
+    rows (right padding) and on every 97th row, and 40 x dt (|a·dt| up to
+    ~600, strong decay) on every 89th row from row 40; a =
+    -linspace(1, 16, NH) (mamba2's A init); a random non-zero init
+    state.  The conv row is N(0, 1/4) and the state N(0, 1/100), so y
+    stays O(1)-O(10) as in the served model."""
+    import torch.nn.functional as F
+    nh, hd, ds = SSD_NH, SSD_HD, SSD_DS
+    xbc = 0.5 * torch.randn((b, l, nh * hd + 2 * g * ds), generator=gen,
+                            device=DEVICE)
+    xbc = xbc.to(dtype)
+    x = xbc[..., :nh * hd].reshape(b, l, nh, hd)
+    bm = xbc[..., nh * hd:nh * hd + g * ds].reshape(b, l, g, ds)
+    cm = xbc[..., nh * hd + g * ds:].reshape(b, l, g, ds)
+    dt = F.softplus(torch.randn((b, l, nh), generator=gen, device=DEVICE))
+    rows = torch.arange(l, device=DEVICE)
+    dt[:, rows % 89 == 40] *= 40.0
+    dt[:, rows % 97 == 5] = 0.0
+    if l > 10:
+        dt[:, l - 5:] = 0.0
+    a = -torch.linspace(1.0, 16.0, nh, device=DEVICE)
+    h0 = 0.1 * torch.randn((b, nh, hd, ds), generator=gen, device=DEVICE)
+    return x, dt.contiguous(), a, bm, cm, h0
+
+
+def _held_ssd(args, chunk=SSD_CHUNK):
+    """Run ``ssd_scan`` once and hold y and the final state to the plain
+    version in fp32 elementwise (``ref.ssd_error_bound``).  Returns (max
+    abs error of y, the largest error / bound, ok)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_error_bound
+    y, st = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    yr, yb, sr, sb = ssd_error_bound(*args, chunk)
+    ey, es = (y.float() - yr).abs(), (st - sr).abs()
+    worst = max(float((ey / yb).max()), float((es / sb).max()))
+    finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(st).all())
+    return float(ey.max()), worst, finite and worst <= 1.0
+
+
+def phase_ssd_kernel(seed, errs):
+    """``ssd_scan`` against its plain version at mamba2's head shapes (NH
+    80, HD 64, DS 128, chunk 128), B/C in group form (G = 1) and per head
+    (G = NH), L = 1, 127, 128, 129, 300 and 2048, B = 1 and 8, fp32 and
+    bf16, with pad and strong-decay rows and a non-zero init state."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 5)
+    n = 0
+    for g in (1, SSD_NH):
+        for b in (1, 8):
+            for l in SSD_LENS:
+                for dt in (torch.float32, torch.bfloat16):
+                    err, worst, ok = _held_ssd(_ssd_inputs(gen, b, l, g, dt))
+                    errs.setdefault(("ssd_scan", dt), []).append(err)
+                    n += 1
+                    if not ok or l in (1, 2048):
+                        log(f"[2] ssd_scan G={g} B={b} L={l} "
+                            f"{str(dt)[6:]}: max_abs_err={err:.3e} "
+                            f"err/bound={worst:.3f} "
+                            f"{'ok' if ok else 'FAIL'}")
+                    assert ok, f"ssd_scan G={g} B={b} L={l} {dt}"
+    log(f"[2] ok: ssd_scan == plain on {n} cases (fp32 max_abs_err "
+        f"{max(errs[('ssd_scan', torch.float32)]):.3e}, bf16 "
+        f"{max(errs[('ssd_scan', torch.bfloat16)]):.3e})")
+
+
 # ------------------------------------------------------------ phase 3
 
 # the engine configurations served: the launcher's default (the dense
@@ -514,12 +617,22 @@ MODES = {
     "paged": dict(),
 }
 # the kernels each mode's serving path must launch
+# the SSM family (mamba2-2.7b) through the three arena layouts: the
+# paged default (a state page per session, boundary-state checkpoints on
+# the radix index), the slot arena with its scratch slot, and the
+# launcher's dense (L, B) grid with arena decode
+SSM_MODES = {
+    "ssm_paged": dict(),
+    "ssm_slot_arena": dict(paged_kv=False),
+    "ssm_dense": dict(packed=False, paged_kv=False),
+}
 MODE_KERNELS = {
     "slot_dense": ("decode_attn_arena",),
     "slot_arena": ("ragged_prefill_arena", "decode_attn_arena"),
     "slot_gathered": ("ragged_prefill_attn", "decode_attn_arena"),
     "paged": ("ragged_prefill_paged", "decode_attn_paged"),
     "spec": ("ragged_prefill_paged", "fused_sample"),
+    **{mode: ("ssd_scan",) for mode in SSM_MODES},
 }
 # phase 4 serves one more mode: the paged engine with speculation armed
 # (NGramDraft(n=3), k = SPEC_K) and fused sampling, half its sessions
@@ -528,7 +641,14 @@ MODE_KERNELS = {
 # the mode launches ragged_prefill_paged and fused_sample, and
 # decode_attn_paged only on a tick split for overflowing the ladder.
 SERVE_MODES = {**MODES, "spec": dict(fused_sampling=True,
-                                     keep_last_logits=False)}
+                                     keep_last_logits=False),
+               **SSM_MODES}
+# phase 4's mamba2 page pool: every page of a pure-SSM pool carries one
+# state slot of all 64 layers (~170 MB), token pages included, so the
+# reference's default of num_slots * max_len / page_size = 2048 pages
+# (~348 GB) cannot be held; 64-token pages and 160 pages (~27 GB) hold
+# the trace beside the 5.7 GB of weights
+SSM_POOL = dict(page_size=64, num_pages=192)
 SPEC_K = 4
 
 
@@ -537,12 +657,14 @@ def _launchers():
     from repro_torch.kernels import decode_attn as dec
     from repro_torch.kernels import ragged_prefill as rp
     from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import ssd_scan as ssd
     return {"ragged_prefill_paged": rp.ragged_prefill_paged,
             "decode_attn_paged": dec.decode_attn_paged,
             "decode_attn_arena": dec.decode_attn_arena,
             "ragged_prefill_arena": rp.ragged_prefill_arena,
             "ragged_prefill_attn": rp.ragged_prefill_attn,
-            "fused_sample": ks.fused_sample}
+            "fused_sample": ks.fused_sample,
+            "ssd_scan": ssd.ssd_scan}
 
 
 def _policy(engine, chunk_tokens, threshold):
@@ -559,19 +681,27 @@ def _policy(engine, chunk_tokens, threshold):
 
 def phase_oracle(seed, mode):
     """The engine in ``mode`` against the plain dense forward over each
-    session's cached ids, at qwen3-4b widths, 2 layers, fp32."""
+    session's cached ids, at full width cut to 2 layers, fp32: qwen3-4b
+    in the attention modes, mamba2-2.7b in the SSM modes (whose oracle
+    scans each whole sequence once from a zero state through
+    ``ssd_scan``).  The SSM system prompt is 64 tokens, one C_l chunk
+    and four pages: a chunked prompt's first commit lands on its end and
+    checkpoints the state there, which later sessions adopt on the page
+    pool."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.loop import ServeLoop
-    cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32")
+    ssm = mode in SSM_MODES
+    cfg = get_config("mamba2-2.7b" if ssm else "qwen3-4b").replace(
+        num_layers=2, dtype="float32")
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
     engine = Engine(cfg, params, EngineConfig(
         num_slots=8, max_len=1024, chunk_tokens=64, measure=False,
-        **MODES[mode]), device=DEVICE)
+        **(SSM_MODES if ssm else MODES)[mode]), device=DEVICE)
     loop = ServeLoop(engine, _policy(engine, 64, 96), slo_ttft=None)
     rng = np.random.default_rng(seed + 1)
-    system = rng.integers(1, cfg.vocab_size, 40)
+    system = rng.integers(1, cfg.vocab_size, 64 if ssm else 40)
     for s in range(4):                       # turn 1: fresh sessions
         loop.submit(s, np.concatenate(
             [system, rng.integers(1, cfg.vocab_size,
@@ -619,8 +749,12 @@ def phase_oracle(seed, mode):
     st = engine.stats()
     if engine._paged:
         engine.arena.audit()
+    if mode == "ssm_paged":
+        assert st["state_checkpoints"] > 0 and st["prefix_hit_tokens"] > 0, \
+            "ssm_paged: no prefix adopted through a state checkpoint"
     log(f"[3] ok: {mode} engine == dense oracle (max_abs_err {worst:.3e}); "
-        f"prefix_hit_tokens {st['prefix_hit_tokens']}, arena_gathers "
+        f"prefix_hit_tokens {st['prefix_hit_tokens']}, state_checkpoints "
+        f"{st['state_checkpoints']}, arena_gathers "
         f"{st['arena_gathers']}, dense_dispatches {st['dense_dispatches']} "
         f"{st['dense_dispatches_by_cause']}")
 
@@ -794,14 +928,18 @@ def _serve_once(cfg, params, seed, mode):
     The spec mode serves the paged trace with NGramDraft(n=3), k =
     SPEC_K armed and the odd sessions sampled (temperature 0.8, top_k 20,
     top_p 0.95; session 1 with one bias) through the fused kernel; its
-    decode ticks are the loop's speculative steps."""
+    decode ticks are the loop's speculative steps.  The SSM modes serve
+    mamba2 (``ssm_paged`` on ``SSM_POOL``'s page pool) and count the
+    ``ssd_scan`` launches of prefill and decode-only ticks apart."""
     from repro_torch.serving.draft import NGramDraft
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.loop import ServeLoop
     from repro_torch.serving.sampling import SamplingParams
+    ssm = mode in SSM_MODES
     engine = Engine(cfg, params, EngineConfig(
         num_slots=8, max_len=4096, chunk_tokens=256, measure=False,
-        **SERVE_MODES[mode]), device=DEVICE)
+        **SERVE_MODES[mode], **(SSM_POOL if mode == "ssm_paged" else {})),
+        device=DEVICE)
     spec = mode == "spec"
     sampling = {}
     spec_ticks = {"n": 0, "tokens": 0, "stream": 0}
@@ -835,26 +973,35 @@ def _serve_once(cfg, params, seed, mode):
             [system, rng.integers(1, cfg.vocab_size,
                                   int(rng.integers(16, 193)))])
     ticks = []          # (seconds, kind)
+    launchers = _launchers()
+    ssd = launchers["ssd_scan"]
+    # ssd_scan launches in prefill and in decode-only ticks, and the
+    # prefill dispatches those ticks ran
+    ssd_split = {"prefill": 0, "decode": 0, "dispatches": 0}
 
     def drive():
         while loop.has_work:
             pre0, dec0 = _dispatches(engine)
-            n_spec = spec_ticks["n"]
+            n_spec, n_ssd = spec_ticks["n"], ssd.launches
             t = time.perf_counter()
             did, _ = loop.tick()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
             pre, dec = _dispatches(engine)
+            kind = None
             if spec_ticks["n"] > n_spec:
-                ticks.append((dt, "decode"))
+                kind = "decode"
             elif pre > pre0:
-                ticks.append((dt, "prefill"))
+                kind = "prefill"
+                ssd_split["dispatches"] += pre - pre0
             elif dec > dec0:
-                ticks.append((dt, "decode"))
+                kind = "decode"
             elif not did:
                 time.sleep(0.0005)
+            if kind is not None:
+                ticks.append((dt, kind))
+                ssd_split[kind] += ssd.launches - n_ssd
 
-    launchers = _launchers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in launchers.values():
@@ -914,6 +1061,11 @@ def _serve_once(cfg, params, seed, mode):
     assert finite, f"{mode}: non-finite logits"
     if engine._paged:
         assert st["prefix_hit_tokens"] > 0, "no radix prefix hit"
+    if ssm:
+        # one scan per layer in every prefill dispatch, none in decode
+        assert ssd_split["decode"] == 0, f"{mode}: ssd_scan in a decode tick"
+        assert ssd_split["prefill"] == cfg.num_layers * ssd_split[
+            "dispatches"], f"{mode}: ssd_scan launches {ssd_split}"
     if mode == "slot_dense":
         assert policy.awd.graph_hits > 0, "the (L, B) grid was never hit"
     if mode == "slot_arena":
@@ -959,6 +1111,9 @@ def _serve_once(cfg, params, seed, mode):
         "wall_s": wall,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches,
+        "ssd_per_prefill_tick": ssd_split["prefill"] / max(1, n_pre),
+        "ssd_per_decode_tick": ssd_split["decode"] / max(1, n_dec),
+        "state_checkpoints": st["state_checkpoints"],
         "schedule": (n_pre, n_dec, prefill_tokens, decode_rows,
                      st["prefix_hit_tokens"], st["arena_gathers"],
                      st["dense_dispatches"], policy.awd.graph_hits,
@@ -966,21 +1121,28 @@ def _serve_once(cfg, params, seed, mode):
     }
 
 
-def phase_full(seed, card, runs):
-    """Phase 4: qwen3-4b at full width through each mode.  Returns
-    {kernel: (launches, ticks of its mode)} from each kernel's first
-    mode's first kept run."""
+def phase_full(seed, card, arch, kept):
+    """Phase 4: ``arch`` at full width through each mode of ``kept``
+    ({mode: kept runs}).  Returns {kernel: (launches, ticks of its mode,
+    mode)} from each kernel's first mode's first kept run."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
     torch.cuda.synchronize()
-    log(f"[4] qwen3-4b {cfg.num_layers} layers d_model {cfg.d_model} "
+    log(f"[4] {arch} {cfg.num_layers} layers d_model {cfg.d_model} "
         f"{cfg.dtype}: weights ready in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    kept = {"slot_dense": runs, "slot_arena": 1, "slot_gathered": 1,
-            "paged": max(1, runs // 2), "spec": 1}
+    if "ssm_paged" in kept:
+        from repro_torch.models.transformer import init_cache
+        page = sum(a[:, 0].numel() * a.element_size()
+                   for c in init_cache(cfg, 1, SSM_POOL["page_size"],
+                                       device=DEVICE) for a in c.values())
+        log(f"[4] ssm_paged pool: {SSM_POOL['num_pages']} pages of "
+            f"{SSM_POOL['page_size']} tokens + the scratch page, "
+            f"{page / 1e6:.1f} MB each (one state slot of every layer), "
+            f"{(SSM_POOL['num_pages'] + 1) * page / 1e9:.2f} GB")
     launches = {}
     for mode, n_runs in kept.items():
         results = []
@@ -998,6 +1160,14 @@ def phase_full(seed, card, runs):
                 f"dense steps {dense} grid hits {graph_hits} prefix hits "
                 f"{hits}; peak {r['peak_gib']:.2f} GiB; launches {ran}"
                 f"{' (warm-up, not kept)' if i == 0 else ''}")
+            if mode in SSM_MODES:
+                log(f"[4] {mode} run {i}: ssd_scan launches per prefill "
+                    f"tick {r['ssd_per_prefill_tick']:.2f}, per decode-only "
+                    f"tick {r['ssd_per_decode_tick']:.2f}; state "
+                    f"checkpoints {r['state_checkpoints']}; whole-slot "
+                    f"gathers / scatters per prefill tick "
+                    f"{r['gathers_per_prefill_tick']:.2f} / "
+                    f"{r['scatters_per_prefill_tick']:.2f}")
             if r["spec"] is not None:
                 sr = r["spec"]
                 log(f"[4] {mode} run {i}: {sr['dispatches']} verify "
@@ -1260,6 +1430,7 @@ def phase_times(seed, errs):
         flops=6 * r_rows * vocab, flops_rate=FP32_FLOPS,
         bytes=r_rows * vocab * el + r_rows * (4 * 5 + 2 * 4 * ks.MAX_BIAS)
         + r_rows * 12)
+    out["ssd_scan"] = _time_ssd(gen, errs)
     for name, r in out.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r.get("flops_rate", BF16_FLOPS) * 1e3
@@ -1273,6 +1444,145 @@ def phase_times(seed, errs):
             f"({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
             f"{r['flops'] / 1e9:.2f} GFLOP)")
     return out
+
+
+def _ssd_work(b, l, g, chunk=SSD_CHUNK, el=2):
+    """(operations, bytes) ``ssd_scan`` needs for one call at mamba2's
+    heads: per chunk of n rows the lower triangle of C.B^T once per
+    group, and per head the lower triangle of M X, the carried state's
+    C state^T and the state update X^T (w B); bytes: x in and y out, B
+    and C, dt and a, the state in and out."""
+    nh, hd, ds = SSD_NH, SSD_HD, SSD_DS
+    flops = 0
+    for c0 in range(0, l, chunk):
+        n = min(chunk, l - c0)
+        tri = n * (n + 1) // 2
+        flops += b * (2 * tri * ds * g + nh * (2 * tri * hd
+                                               + 4 * n * hd * ds))
+    nbytes = (2 * b * l * nh * hd * el + 2 * b * l * g * ds * el
+              + 4 * b * l * nh + 4 * nh + 2 * 4 * b * nh * hd * ds)
+    return flops, nbytes
+
+
+def _time_ssd(gen, errs):
+    """``ssd_scan`` at two main-path shapes of mamba2 in bf16: a
+    2048-token prompt as 8 chunk steps of 256 rows with the state
+    carried, B = 1 (the JSON row), and one dense grid step (L, B) =
+    (64, 8); each held to the plain version first.  The bound counts
+    fp32 operations at 67 TFLOP/s: the reference computes the scan in
+    fp32 (``preferred_element_type``), and so does the kernel."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_error_bound
+    dt_ = torch.bfloat16
+    x, dt, a, bm, cm, h0 = _ssd_inputs(gen, 1, 2048, 1, dt_)
+    steps = [(x[:, i:i + 256], dt[:, i:i + 256].contiguous(),
+              bm[:, i:i + 256], cm[:, i:i + 256]) for i in range(0, 2048, 256)]
+
+    def prompt(fn):
+        st, ys = h0, []
+        for xs, ds_, bs, cs in steps:
+            y, st = fn(xs, ds_, a, bs, cs, st, chunk=SSD_CHUNK)
+            ys.append(y)
+        return ys, st
+
+    ys, st = prompt(ssd.ssd_scan)
+    torch.cuda.synchronize()
+    yr, yb, sr, sb = ssd_error_bound(x, dt, a, bm, cm, h0, SSD_CHUNK)
+    y = torch.cat(ys, dim=1).float()
+    worst = max(float(((y - yr).abs() / yb).max()),
+                float(((st - sr).abs() / sb).max()))
+    err = float((y - yr).abs().max())
+    errs.setdefault(("ssd_scan", dt_), []).append(err)
+    log(f"[5] ssd_scan 2048-token prompt in 8 steps of 256, state carried: "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+        f"{'ok' if worst <= 1 else 'FAIL'}")
+    assert worst <= 1, "ssd_scan at the chunked-prompt shapes"
+    work = [_ssd_work(1, 256, 1) for _ in steps]
+    row = dict(ms=_time(lambda: prompt(ssd.ssd_scan), 10),
+               plain_ms=_time(lambda: prompt(ssd.ssd_scan_plain), 3),
+               # no single PyTorch call computes the scan
+               library_ms=None, flops=sum(w[0] for w in work),
+               flops_rate=FP32_FLOPS, bytes=sum(w[1] for w in work))
+    # a dense grid step, and the packed step's dense bridge at the
+    # largest token bucket: 8 stream rows x 512 (mostly empty) rows
+    for what, b, l in (("dense grid step", 8, 64),
+                       ("packed step's bridge", 8, 512)):
+        args = _ssd_inputs(gen, b, l, 1, dt_)
+        err, worst, ok = _held_ssd(args)
+        assert ok, f"ssd_scan at the {what}"
+        k_ms = _time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK), 20)
+        p_ms = _time(lambda: ssd.ssd_scan_plain(*args, chunk=SSD_CHUNK), 5)
+        flops, nbytes = _ssd_work(b, l, 1)
+        bound = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        log(f"[5] ssd_scan {what} (L, B) = ({l}, {b}): kernel {k_ms:.4f} "
+            f"ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB), "
+            f"max_abs_err={err:.3e} err/bound={worst:.3f}")
+    return row
+
+
+def _device_split(prof, wall_ms, what, card):
+    """Log the device time of a profiled region by kernel (the top 8)
+    and the device-busy share of its wall time."""
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    log(f"[5] profile {what}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / max(wall_ms, 1e-9):.1f}%, idle "
+        f"{100 * (1 - busy / max(wall_ms, 1e-9)):.1f}%) (card {card})")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        log(f"[5]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def phase_ssm_profile(seed, card):
+    """Where a mamba2-2.7b tick's time goes (full width, bf16):
+    ``torch.profiler`` over one packed prefill dispatch of 7 prompts
+    (512 tokens, the largest bucket) and one 8-row decode tick on the
+    slot arena, and the same prompts as one dense grid prefill; each
+    after a warm-up of the same step on other sessions."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = get_config("mamba2-2.7b")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    rng = np.random.default_rng(seed + 6)
+    lens = (120, 64, 96, 80, 100, 40, 12)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for mode in ("ssm_slot_arena", "ssm_dense"):
+        engine = Engine(cfg, params, EngineConfig(
+            num_slots=16, max_len=4096, chunk_tokens=256, measure=False,
+            **SSM_MODES[mode]), device=DEVICE)
+        for base in (0, 8):              # warm-up on 0..6, then profile
+            sess = list(range(base, base + 7))
+            prompts = [rng.integers(1, cfg.vocab_size, n) for n in lens]
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                first = engine.prefill_batch(sess, prompts)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            if base:
+                _device_split(prof, wall, f"{mode} prefill of 7 prompts "
+                              f"({sum(lens)} tokens)", card)
+            rows = sess + [base + 7]
+            engine.prefill_batch([base + 7], [rng.integers(
+                1, cfg.vocab_size, 30)])
+            toks = [first.get(r, 1) for r in rows]
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                engine.decode_batch(rows, toks)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            if base:
+                _device_split(prof, wall, f"{mode} decode tick of 8 rows",
+                              card)
+        del engine
+        gc.collect()
 
 
 def phase_dense_tick(seed, card):
@@ -1345,15 +1655,22 @@ KERNELS = {
         source="src/repro_torch/csrc/fused_sample.cu",
         replaces="src/repro/kernels/sampling.py:185",
         jax="repro.kernels.sampling.fused_sample"),
+    "ssd_scan": dict(
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:69",
+        jax="repro.kernels.ssd_scan.ssd_scan"),
 }
 
 
 def phase_launcher(card):
     """The serve launcher on the card: its default (the slot/dense
-    baseline) and ``--packed``, each on the smoke config at head_dim 128
-    and at published widths cut to 4 layers."""
+    baseline) and ``--packed``, for qwen3-4b (the smoke config at
+    head_dim 128) and mamba2-2.7b (its smoke config's own SSD head
+    widths), each also at published widths cut to 4 layers."""
     from repro_torch.launch import serve
-    for extra in ([], ["--full", "--layers", "4"]):
+    for extra in ([], ["--full", "--layers", "4"],
+                  ["--arch", "mamba2-2.7b"],
+                  ["--arch", "mamba2-2.7b", "--full", "--layers", "4"]):
         for packed in ([], ["--packed"]):
             argv = extra + packed
             t0 = time.perf_counter()
@@ -1388,16 +1705,25 @@ def main() -> int:
         phase_kernels(args.seed, errs)
         phase_slot_kernels(args.seed, errs)
         phase_sample_kernel(args.seed, errs)
+        phase_ssd_kernel(args.seed, errs)
     if 3 in phases:
-        for mode in MODES:
+        for mode in (*MODES, *SSM_MODES):
             phase_oracle(args.seed, mode)
         for mode in ("paged", "slot_arena"):
             phase_spec_oracle(args.seed, mode)
     if 4 in phases:
-        launches = phase_full(args.seed, card, args.runs)
+        runs = args.runs
+        launches = phase_full(args.seed, card, "qwen3-4b", {
+            "slot_dense": runs, "slot_arena": 1, "slot_gathered": 1,
+            "paged": max(1, runs // 2), "spec": 1})
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(phase_full(args.seed, card, "mamba2-2.7b",
+                                   {mode: 1 for mode in SSM_MODES}))
     if 5 in phases:
         times = phase_times(args.seed, errs)
         phase_dense_tick(args.seed, card)
+        phase_ssm_profile(args.seed, card)
     if 6 in phases:
         phase_launcher(card)
     rows = []

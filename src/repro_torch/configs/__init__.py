@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the configs of this slice.
+"""Architecture registry of the port: the configs it serves.
 
 Each module defines ``FULL`` (the published config) and ``smoke()`` (a
 reduced same-family config for CPU tests), as in ``repro.configs``.
@@ -13,6 +13,8 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     # the paper's own serving model (Qwen2.5-32B, §4)
     "qwen2.5-32b": "qwen2_5_32b",
+    # the SSM family: attention-free, SSD scan in every layer
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 

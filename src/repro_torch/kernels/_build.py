@@ -38,6 +38,8 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
         "decode_attn_arena_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
     "fused_sample": (
         "fused_sample_launch", (_P,) * 12 + (_I,) * 3 + (_P,)),
+    "ssd_scan": (
+        "ssd_scan_launch", (_P,) * 8 + (_I,) * 11 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

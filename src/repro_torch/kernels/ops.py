@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import ragged_prefill as _prefill
 from repro_torch.kernels import sampling as _sampling
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.sampling import MAX_BIAS  # noqa: F401  (re-export)
 
 
@@ -128,3 +129,29 @@ def fused_sample(logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft):
         return _sampling.fused_sample_plain(logits, temp, top_k, top_p,
                                             bias_ids, bias_vals, u, draft)
     raise _no_device("fused_sample", logits.device)
+
+
+def ssd_grouped(x, dt, a, bg, cg, init_state=None, *, chunk=128):
+    """Chunked SSD scan with B/C in group form, the mamba layer's entry.
+    x: (B, L, NH, HD); dt: (B, L, NH) float32 post-softplus; a: (NH,)
+    negative; bg, cg: (B, L, G, DS), NH % G == 0; init_state: (B, NH, HD,
+    DS) float32 or None (zeros).  Returns (y (B, L, NH, HD) in x's dtype,
+    final state (B, NH, HD, DS) float32)."""
+    if init_state is None:
+        b, _, nh, hd = x.shape
+        init_state = torch.zeros((b, nh, hd, bg.shape[-1]),
+                                 dtype=torch.float32, device=x.device)
+    if x.device.type == "cuda":
+        return _ssd.ssd_scan(x, dt.float().contiguous(),
+                             a.float().contiguous(), bg, cg,
+                             init_state.float().contiguous(), chunk=chunk)
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, a, bg, cg, init_state,
+                                   chunk=chunk)
+    raise _no_device("ssd", x.device)
+
+
+def ssd(x, dt, a, bmat, cmat, init_state, *, chunk=128):
+    """Chunked SSD scan with per-head B/C (B, L, NH, DS), shaped like
+    ``repro.kernels.ops.ssd``: the group form with G == NH."""
+    return ssd_grouped(x, dt, a, bmat, cmat, init_state, chunk=chunk)

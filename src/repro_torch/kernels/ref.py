@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the attention kernels (the correctness
-contract), ported from ``repro.kernels.ref``.
+"""Plain PyTorch versions of the kernels (the correctness contract),
+ported from ``repro.kernels.ref`` and, for the SSD scan, from
+``repro.models.mamba.ssd_chunked``.
 
 Each ``ref_*`` function computes the same math as its kernel with plain
 tensor ops in fp32.  The CPU tests run them against the JAX oracles,
@@ -12,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def _no_window(window: Optional[int]) -> None:
@@ -170,6 +172,80 @@ def ref_decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref_decode_attn(q, k[idx], v[idx], lengths)
 
 
+def ref_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor,
+                 init_state: Optional[torch.Tensor] = None, *,
+                 chunk: int = 128):
+    """Chunked Mamba2 SSD scan, group-factored (``ssd_chunked``).
+
+    x: (B, L, NH, HD); dt: (B, L, NH) post-softplus; a: (NH,) negative;
+    bmat, cmat: (B, L, G, DS) with NH % G == 0, head h reading group
+    h // (NH / G) — the per-head form is G == NH, and B/C are never
+    repeated to heads; init_state: (B, NH, HD, DS) or None (zeros).
+    Returns (y (B, L, NH, HD) in x's dtype, final state (B, NH, HD, DS)
+    fp32).  Per chunk of Q = min(chunk, L) rows, in fp32, with
+    la = dt * a and cum its prefix sums: the intra-chunk quadratic term
+    M[t, s] = exp(seg[t, s]) (C_t . B_s) dt_s for s <= t, the carried
+    state's term (C_t exp(cum_t)) . state, and the update
+    state <- exp(cum_last) state + X^T (w * B), w_s = exp(seg[last, s])
+    dt_s.  seg[t, s] = sum_{s < r <= t} la_r is summed directly where
+    the reference takes cum_t - cum_s: after a large decay early in a
+    chunk cum is large and the difference keeps few digits (a spike of
+    |a dt| ~ 30 put an error of 3e-4 of max |y| into it), while every
+    sum here adds terms of one sign.  seg is masked to -inf above the
+    diagonal BEFORE exp (exp overflows there).  L off the chunk grid is
+    zero-padded: dt = 0 rows are exact identities of the state.
+    """
+    b, l, nh, hd = x.shape
+    g, ds = bmat.shape[2], bmat.shape[3]
+    hpg = nh // g
+    q = min(chunk, l)
+    orig_l = l
+    if l % q:
+        pad = q - l % q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, 0, 0, pad))
+        l += pad
+    nc = l // q
+    f32 = torch.float32
+    xc = x.reshape(b, nc, q, g, hpg, hd)
+    dtc = dt.reshape(b, nc, q, g, hpg)
+    bc = bmat.reshape(b, nc, q, g, ds)
+    cc = cmat.reshape(b, nc, q, g, ds)
+    ag = a.reshape(g, hpg).to(f32)
+    if init_state is None:
+        h = torch.zeros((b, g, hpg, hd, ds), dtype=f32, device=x.device)
+    else:
+        h = init_state.to(f32).reshape(b, g, hpg, hd, ds)
+    ones = torch.ones((q, q), dtype=torch.bool, device=x.device)
+    tri = ones.tril()[None, :, :, None, None]          # s <= t
+    later = ones.tril(-1)[None, :, :, None, None]      # r > s
+    ys = []
+    for c in range(nc):
+        xq, dq = xc[:, c].to(f32), dtc[:, c].to(f32)
+        bq, cq = bc[:, c].to(f32), cc[:, c].to(f32)
+        la = dq * ag                                         # (b,q,g,hpg)
+        cum = torch.cumsum(la, dim=1)
+        # seg[b, t, s] = sum over s < r <= t of la_r: the cumsum over r
+        # of la_r kept where r > s
+        seg = torch.cumsum(la[:, :, None].expand(b, q, q, g, hpg)
+                           .masked_fill(~later, 0.0), dim=1)
+        seg = seg.masked_fill(~tri, -math.inf)               # (b,t,s,g,hpg)
+        cb = torch.einsum("btgd,bsgd->btsg", cq, bq)
+        m = torch.exp(seg) * cb[..., None] * dq[:, None]
+        y = torch.einsum("btsgh,bsghp->btghp", m, xq)
+        y = y + torch.einsum("btgd,btgh,bghpd->btghp", cq, torch.exp(cum),
+                             h)
+        w = torch.exp(seg[:, -1]) * dq                        # (b,s,g,hpg)
+        dstate = torch.einsum("bsgh,bsghp,bsgd->bghpd", w, xq, bq)
+        h = torch.exp(cum[:, -1])[..., None, None] * h + dstate
+        ys.append(y.to(x.dtype))
+    y = torch.stack(ys, dim=1).reshape(b, l, nh, hd)[:, :orig_l]
+    return y, h.reshape(b, nh, hd, ds)
+
+
 FP32_TOL = 1e-4        # fp32 kernel vs plain version: summation order
 U_BF16 = 2.0 ** -8     # unit roundoff of bfloat16
 
@@ -193,3 +269,38 @@ def kernel_error_bound(plain, dtype: torch.dtype, q: torch.Tensor,
         return ref, torch.full_like(ref, FP32_TOL)
     absv = plain(qf, kf, vf.abs(), *index)
     return ref, U_BF16 * (absv + ref.abs()) + FP32_TOL
+
+
+SSD_REL_TOL = 1e-4     # fp32 SSD scan vs plain version, of max |out|
+
+
+def ssd_error_bound(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    bmat: torch.Tensor, cmat: torch.Tensor,
+                    init_state: torch.Tensor, chunk: int):
+    """The plain SSD scan run in fp32 on a kernel's inputs, and the
+    elementwise bounds on how far the kernel's y (in x's dtype) and final
+    state (fp32) may lie from it.
+
+    Every output is a sum of up to Q + DS fp32 products (Q·DS more in
+    the intra-chunk dot products) that the kernel takes in another
+    order, so each may move by ``SSD_REL_TOL`` of the largest magnitude
+    in its (batch row, head); a bf16 y is rounded once more, a relative
+    error of at most u = 2^-8, so its bound adds ``u * |y_ref|``.  A
+    dropped chunk, a wrong decay or a wrong group lies far outside.
+    Returns ``(y_ref, y_bound, state_ref, state_bound)``.
+    """
+    y_ref, s_ref = ref_ssd_scan(x.float(), dt.float(), a.float(),
+                                bmat.float(), cmat.float(),
+                                init_state.float(), chunk=chunk)
+
+    def scale(t, dims, view):
+        m = t.abs().amax(dim=dims)
+        m = torch.maximum(m, 1e-6 * m.max())
+        return (SSD_REL_TOL * m).reshape(view)
+
+    b, _, nh, _ = x.shape
+    y_bound = scale(y_ref, (1, 3), (b, 1, nh, 1)).expand_as(y_ref)
+    if x.dtype != torch.float32:
+        y_bound = y_bound + U_BF16 * (y_ref.abs() + y_bound)
+    s_bound = scale(s_ref, (2, 3), (b, nh, 1, 1)).expand_as(s_ref)
+    return y_ref, y_bound, s_ref, s_bound

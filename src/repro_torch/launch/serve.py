@@ -9,12 +9,16 @@ at init, and arena-resident bucketed decode); ``--packed`` serves the
 default engine stack (packed token-bucket stream over the paged pool).
 The smoke config is used unless ``--full`` asks for the published width
 (random weights from ``--seed``; ``--layers`` cuts the depth).  On the
-card the smoke config takes head_dim 128, the one head width the CUDA
-kernels take.
+card an attention smoke config takes head_dim 128, the one head width
+the attention kernels take; the SSD scan kernel takes the SSM smoke
+config's own head widths.  ``--arch mamba2-2.7b`` serves the SSM family
+(a scratch slot on the slot arena, state pages on the paged pool).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --full --layers 4 --sessions 8 --turns 3 --variant pla_full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --packed
 """
 from __future__ import annotations
 
@@ -55,7 +59,8 @@ def main(argv=None):
         cfg = get_config(args.arch)
     else:
         cfg = get_smoke(args.arch)
-        if torch.device(args.device).type == "cuda":
+        if torch.device(args.device).type == "cuda" \
+                and cfg.family != "ssm":
             cfg = cfg.replace(head_dim=128)
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
@@ -85,7 +90,10 @@ def main(argv=None):
     if engine.decode_executor is not None and not engine._paged:
         # and every decode-ladder rung, so no live decode tick is the
         # first of its shape (the paged engine's rungs meet theirs live)
-        dcap = engine.decode_executor.precapture(params, engine.arena.arena)
+        # (an SSM arena runs them on its scratch slot: a decode step
+        # changes the state of the slot it reads)
+        dcap = engine.decode_executor.precapture(
+            params, engine.arena.arena, slot=engine.arena.scratch or 0)
         print(f"[serve] captured {len(engine.decode_executor.compile_times)}"
               f" decode rungs in {dcap:.1f}s at init")
     loop = ServeLoop(engine, policy, slo_ttft=args.slo)

@@ -2,8 +2,8 @@
 with its dtype string mapped to a torch dtype.
 
 One dataclass describes every architecture family of the JAX package,
-so the fields stay the same; this slice serves only the dense
-full-attention families, and the serving stack raises
+so the fields stay the same; the port serves the dense full-attention
+and the SSM (mamba2) families, and the serving stack raises
 ``NotImplementedError`` for the rest.
 """
 from __future__ import annotations
@@ -73,6 +73,14 @@ class ModelConfig:
         return self.d_model // max(self.num_heads, 1)
 
     @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
     def is_encoder_only(self) -> bool:
         return not self.causal
 
@@ -92,6 +100,44 @@ class ModelConfig:
         if self.family == "hybrid":
             return i % self.moe_layer_period == self.moe_layer_offset
         return True
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head), as
+        ``repro.models.config.ModelConfig.param_count``."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d                                   # embed
+        if not self.tie_embeddings and not self.is_encoder_only:
+            total += v * d                              # lm head
+        if self.is_encoder_only:
+            total += d * v                              # ctc-style head
+        for i in range(self.num_layers):
+            total += 2 * d                              # pre-norms
+            if self.layer_kind(i) == "attn":
+                hd = self.hdim
+                qd = self.num_heads * hd
+                kvd = self.num_kv_heads * hd
+                total += d * qd + 2 * d * kvd + qd * d  # qkvo
+                if self.qkv_bias:
+                    total += qd + 2 * kvd
+                if self.qk_norm:
+                    total += 2 * hd
+            else:
+                di, ds = self.ssm_d_inner, self.ssm_state_size
+                nh, g = self.ssm_nheads, self.ssm_n_groups
+                proj_in = 2 * di + 2 * g * ds + nh
+                total += d * proj_in + proj_in          # in_proj (+dt bias)
+                total += self.ssm_conv_width * (di + 2 * g * ds)
+                total += 2 * nh + di                    # A_log, D, norm
+                total += di * d                         # out_proj
+            if self.layer_is_moe(i):
+                e, ff = self.num_experts, (self.moe_d_ff or self.d_ff)
+                total += d * e                          # router
+                total += e * (3 * d * ff)               # gate/up/down
+            elif self.family != "ssm":
+                # mamba2 blocks have no separate FFN; dense blocks do
+                total += 3 * d * self.d_ff
+        total += d                                      # final norm
+        return total
 
     @property
     def torch_dtype(self) -> torch.dtype:

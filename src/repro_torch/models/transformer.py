@@ -1,9 +1,10 @@
 """Model assembly of the port, from ``repro.models.transformer``: the
-dense full-attention decoder stack, its caches, the plain dense
-``forward`` (the oracle the serving steps are held against, and with
-caches the dense (L, B) grid step), and the flat-stream serving steps:
-packed prefill over gathered caches, over the slot arena and over the
-page pool, and decode over the slot arena and over the page pool.
+dense full-attention decoder stack and the attention-free SSM (mamba2)
+stack, their caches, the plain dense ``forward`` (the oracle the serving
+steps are held against, and with caches the dense (L, B) grid step),
+and the flat-stream serving steps: packed prefill over gathered caches,
+over the slot arena and over the page pool, and decode over the slot
+arena and over the page pool.
 
 Parameters keep the JAX package's layout: ``blocks`` is a list with one
 dict per layer-pattern position whose leaves are stacked over the
@@ -18,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (arena_decode_layer, attention_layer,
                                        packed_arena_attention_layer,
@@ -38,11 +40,11 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_slice(cfg: ModelConfig) -> None:
-    """This slice serves dense full-attention decoders only."""
-    if cfg.family in ("ssm", "hybrid") or any(
-            cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+    """The port serves dense full-attention decoders and pure SSM
+    (mamba2) stacks."""
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: SSM / hybrid stacks are not ported yet "
+            f"{cfg.name}: hybrid attention/SSM stacks are not ported yet "
             "(ROADMAP Queue 1, item 10)")
     if cfg.num_experts:
         raise NotImplementedError(
@@ -54,7 +56,8 @@ def _check_slice(cfg: ModelConfig) -> None:
             "(ROADMAP Queue 1, item 10)")
     if not cfg.causal:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-only models have no serving path")
+            f"{cfg.name}: encoder-only models have no serving path "
+            "(their dense path is ROADMAP Queue 1, item 14)")
 
 
 def pattern_period(cfg: ModelConfig) -> int:
@@ -73,7 +76,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random parameters with the JAX package's shapes and stacked
     ``blocks`` layout, drawn from a ``torch.Generator`` on ``device``
     seeded with ``seed``.  Dense weights are N(0, 1/fan_in) (embed 0.02,
-    lm_head d_model^-0.5), norms 1, biases 0, in ``cfg.dtype``."""
+    lm_head d_model^-0.5), norms 1, biases 0, in ``cfg.dtype``.  An SSM
+    block is {"ln1", "mixer"}: mamba2 has no separate FFN."""
     _check_slice(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -95,18 +99,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         return torch.zeros(shape, dtype=dt, device=dev)
 
     d, hd = cfg.d_model, cfg.hdim
-    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    mixer = {"wq": dense((g, d, qd)), "wk": dense((g, d, kvd)),
-             "wv": dense((g, d, kvd)), "wo": dense((g, qd, d))}
-    if cfg.qkv_bias:
-        mixer.update(bq=zeros((g, qd)), bk=zeros((g, kvd)),
-                     bv=zeros((g, kvd)))
-    if cfg.qk_norm:
-        mixer.update(q_norm=ones((g, hd)), k_norm=ones((g, hd)))
-    block = {"ln1": ones((g, d)), "mixer": mixer, "ln2": ones((g, d)),
-             "ffn": {"wg": dense((g, d, cfg.d_ff)),
-                     "wi": dense((g, d, cfg.d_ff)),
-                     "wo": dense((g, cfg.d_ff, d))}}
+    if cfg.family == "ssm":
+        block = {"ln1": ones((g, d)),
+                 "mixer": mamba_mod.init_mamba(cfg, g, dense, zeros, ones)}
+    else:
+        qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        mixer = {"wq": dense((g, d, qd)), "wk": dense((g, d, kvd)),
+                 "wv": dense((g, d, kvd)), "wo": dense((g, qd, d))}
+        if cfg.qkv_bias:
+            mixer.update(bq=zeros((g, qd)), bk=zeros((g, kvd)),
+                         bv=zeros((g, kvd)))
+        if cfg.qk_norm:
+            mixer.update(q_norm=ones((g, hd)), k_norm=ones((g, hd)))
+        block = {"ln1": ones((g, d)), "mixer": mixer, "ln2": ones((g, d)),
+                 "ffn": {"wg": dense((g, d, cfg.d_ff)),
+                         "wi": dense((g, d, cfg.d_ff)),
+                         "wo": dense((g, cfg.d_ff, d))}}
     return {"embed": dense((cfg.padded_vocab, d), scale=0.02),
             "blocks": [block],
             "final_norm": ones((d,)),
@@ -118,18 +126,32 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """Per-pattern-position KV cache stacked over groups:
-    {"k": (G, batch, max_len, Hkv, D), "v": ...}.  The slot arena passes
-    batch = N_slots; the paged arena passes batch = N_pages + 1 and
-    max_len = page_size, so each pool is (G, N_pages + 1, page_size,
-    Hkv, D)."""
+    """Per-pattern-position cache stacked over groups:
+
+      attn position: {"k": (G, batch, max_len, Hkv, D), "v": ...}
+      ssm  position: {"ssm": (G, batch, NH, HD, DS) fp32,
+                      "conv": (G, batch, W-1, C)}
+
+    The slot arena passes batch = N_slots(+1 scratch); the paged arena
+    passes batch = N_pages + 1 and max_len = page_size, so each KV pool
+    is (G, N_pages + 1, page_size, Hkv, D) and the SSM leaves use the
+    page axis as the state-slot axis."""
     _check_slice(cfg)
     dev = resolve_device(device)
-    shape = (num_groups(cfg), batch, max_len, cfg.num_kv_heads, cfg.hdim)
+    g = num_groups(cfg)
     dt = dtype or cfg.torch_dtype
-    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
-            for _ in range(pattern_period(cfg))]
+    caches = []
+    for j in range(pattern_period(cfg)):
+        if cfg.layer_kind(j) == "attn":
+            shape = (g, batch, max_len, cfg.num_kv_heads, cfg.hdim)
+            caches.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                           "v": torch.zeros(shape, dtype=dt, device=dev)})
+        else:
+            ssm, conv = mamba_mod.init_mamba_cache(cfg, g * batch, dt, dev)
+            caches.append({"ssm": ssm.reshape((g, batch) + ssm.shape[1:]),
+                           "conv": conv.reshape((g, batch)
+                                                + conv.shape[1:])})
+    return caches
 
 
 # ---------------------------------------------------------------- forward
@@ -142,7 +164,10 @@ def _layer(block: Dict, g: int) -> Dict:
 
 
 def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Post-mixer FFN residual for one layer."""
+    """Post-mixer FFN residual for one layer (none in an SSM stack: the
+    mamba2 block already mixes channels)."""
+    if cfg.family == "ssm":
+        return x
     return x + swiglu(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
 
 
@@ -161,32 +186,48 @@ def _lm_head_logits(params: Dict, cfg: ModelConfig,
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[List[Dict[str, torch.Tensor]]] = None,
-            logits_slice: Optional[str] = None) -> torch.Tensor:
+            logits_slice: Optional[str] = None,
+            seq_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain dense forward.
 
     tokens: (B, L) int; positions: (B, L) absolute positions (default
     arange).  Without ``caches`` it is the oracle the serving steps are
-    held against.  With ``caches`` (from :func:`init_cache` with batch B,
-    e.g. whole slots gathered from the arena) each layer writes the new
-    tokens' KV at ``positions`` in place and attends over its whole
-    cache, masked by position: the dense (L, B) grid step, prefill and
-    re-prefill alike (positions carry the history offset), and the
-    (B, 1) decode step.  logits_slice: None → (B, L, V); "last" → (B, V)
-    of the final position only.  (The JAX step also takes
-    ``seq_valid_len``, which only SSM layers read.)"""
+    held against (an SSM layer scans from a zero state).  With
+    ``caches`` (from :func:`init_cache` with batch B, e.g. whole slots
+    gathered from the arena) each attention layer writes the new tokens'
+    KV at ``positions`` in place and attends over its whole cache,
+    masked by position, and each SSM layer carries its (ssm, conv) state
+    through the cache in place — a one-token step (L == 1) is a decode
+    step: the dense (L, B) grid step, prefill and re-prefill alike
+    (positions carry the history offset), and the (B, 1) decode step.
+    seq_valid_len (B,): real tokens per row, read by SSM layers only
+    (padded positions become identities of the state).  logits_slice:
+    None → (B, L, V); "last" → (B, V) of the final position only."""
     _check_slice(cfg)
     x = params["embed"][tokens.long()]
     b, l = tokens.shape
     if positions is None:
         positions = torch.arange(l, device=x.device)[None].expand(b, l)
+    decode = l == 1 and caches is not None
     for j, block in enumerate(params["blocks"]):
         for g in range(num_groups(cfg)):
             lp = _layer(block, g)
-            kv = None if caches is None else (caches[j]["k"][g],
-                                              caches[j]["v"][g])
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            x = x + attention_layer(lp["mixer"], h, cfg=cfg,
-                                    positions=positions, kv=kv)
+            if cfg.layer_kind(j) == "attn":
+                kv = None if caches is None else (caches[j]["k"][g],
+                                                  caches[j]["v"][g])
+                x = x + attention_layer(lp["mixer"], h, cfg=cfg,
+                                        positions=positions, kv=kv)
+            else:
+                cc = None if caches is None else (caches[j]["ssm"][g],
+                                                  caches[j]["conv"][g])
+                mix, upd = mamba_mod.mamba_layer(
+                    lp["mixer"], h, cfg=cfg, cache=cc, decode=decode,
+                    valid_len=seq_valid_len)
+                if upd is not None:
+                    cc[0].copy_(upd[0])
+                    cc[1].copy_(upd[1])
+                x = x + mix
             x = _ffn(cfg, lp, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_slice == "last":
@@ -202,8 +243,8 @@ def _scan_serving_stack(params: Dict, cfg: ModelConfig,
     per-layer {norm → mix_fn → FFN} → final norm.
 
     mix_fn(j, layer_params, h, cache_j) → mix, where cache_j is the
-    layer's {"k", "v"} pool slice (views: mix_fn writes them in place).
-    Returns the final-normed activations."""
+    layer's {"k", "v"} or {"ssm", "conv"} slice (views: mix_fn writes
+    them in place).  Returns the final-normed activations."""
     x = params["embed"][tokens.long()]
     for j, block in enumerate(params["blocks"]):
         for g in range(num_groups(cfg)):
@@ -221,7 +262,8 @@ def _scan_serving_stack(params: Dict, cfg: ModelConfig,
 @dataclasses.dataclass(frozen=True)
 class LayerCapability:
     """Arena capability of ONE pattern position: "attn" (full-attention
-    KV pages), "attn_window" or "ssm" (not ported yet)."""
+    KV slots or pages), "ssm" (a recurrent-state slot stepped in place)
+    or "attn_window" (not ported yet)."""
     kind: str
     window: Optional[int] = None
 
@@ -248,6 +290,13 @@ class ArenaCapability:
     def has_ssm(self) -> bool:
         return any(c.kind == "ssm" for c in self.layers)
 
+    @property
+    def needs_scratch_slot(self) -> bool:
+        """Rolling KV slots have no spare park row and SSM state has no
+        park position at all: pads must target a dedicated scratch slot
+        instead of aliasing a live one."""
+        return self.has_window or self.has_ssm
+
 
 def arena_capability(cfg: ModelConfig) -> ArenaCapability:
     """Per-layer capability descriptor (the routing contract)."""
@@ -261,6 +310,20 @@ def arena_capability(cfg: ModelConfig) -> ArenaCapability:
         else:
             layers.append(LayerCapability("attn"))
     return ArenaCapability(layers=tuple(layers), causal=cfg.causal)
+
+
+def _ssm_bridge(t: int, cu_seqlens: torch.Tensor, b: int
+                ) -> Dict[str, torch.Tensor]:
+    """Flat → (segment row, local index) bridge of the SSM layers,
+    computed once per step and shared by every ssm pattern position:
+    seg_rows / seg_pos (T,), valid_row (T,) (False on bucket-tail rows)
+    and seg_lens (B,) new tokens per segment (0 for pads)."""
+    cu = cu_seqlens.long()
+    rows = torch.arange(t, device=cu.device)
+    seg = (rows[:, None] >= cu[None, 1:]).sum(dim=1)
+    seg_rows = seg.clamp(0, b - 1)
+    return {"seg_rows": seg_rows, "seg_pos": rows - cu[seg_rows],
+            "valid_row": rows < cu[-1], "seg_lens": cu[1:] - cu[:-1]}
 
 
 # ------------------------------------------------- packed slot serving
@@ -284,8 +347,11 @@ def forward_packed(params: Dict, cfg: ModelConfig, *,
     bucket tail (parked positions).  caches: {"k"/"v": (G, B, S, Hkv,
     D)}, whole arena slots copied out by the caller, written in place.
     last_idx: (B,) flat index of each segment's final token.  Returns
-    last_logits (B, V)."""
+    last_logits (B, V).  Attention-only: an SSM state has no gathered
+    form."""
     _check_slice(cfg)
+    assert arena_capability(cfg).pure_attn, \
+        f"{cfg.name}: the gathered packed path is attention-only"
 
     def mix_fn(j, lp, h, cache_j):
         return packed_attention_layer(
@@ -315,11 +381,19 @@ def forward_packed_arena(params: Dict, cfg: ModelConfig, *,
     live slot but park at S_max − 1); slot_map (B,) routes each
     segment's KV reads inside the kernel.  Each layer writes only the
     step's new KV rows, so a step moves O(history + new) rows, not the
-    O(b_max · S_max) whole-slot copies of the gathered path.  Returns
+    O(b_max · S_max) whole-slot copies of the gathered path.  SSM
+    positions step each segment's state slot at ``slot_map`` in place
+    (pad segments point at the arena's scratch slot).  Returns
     last_logits (B, V)."""
     _check_slice(cfg)
+    cap = arena_capability(cfg)
+    bridge = (_ssm_bridge(tokens.shape[0], cu_seqlens, slot_map.shape[0])
+              if cap.has_ssm else None)
 
     def mix_fn(j, lp, h, cache_j):
+        if cap.layers[j].kind == "ssm":
+            return mamba_mod.packed_arena_mamba_layer(
+                lp, h, cfg=cfg, slot_map=slot_map, cache=cache_j, **bridge)
         return packed_arena_attention_layer(
             lp, h, cfg=cfg, positions=positions, seg_slots=seg_slots,
             slot_map=slot_map, cu_seqlens=cu_seqlens, q_offsets=q_offsets,
@@ -342,11 +416,16 @@ def forward_decode_arena(params: Dict, cfg: ModelConfig, *,
     tokens: (B,) last sampled token per row; slot_map: (B,) arena slot
     of each row; write_pos: (B,) absolute position of the new token (the
     row's cached history; pad rows park at S_max − 1); kv_lengths: (B,)
-    valid entries INCLUDING the new row (pad rows 1).  Returns logits
-    (B, V).  B is a decode-ladder rung."""
+    valid entries INCLUDING the new row (pad rows 1).  SSM positions
+    step each row's state slot in place (pad rows point at the scratch
+    slot).  Returns logits (B, V).  B is a decode-ladder rung."""
     _check_slice(cfg)
+    cap = arena_capability(cfg)
 
     def mix_fn(j, lp, h, cache_j):
+        if cap.layers[j].kind == "ssm":
+            return mamba_mod.arena_decode_mamba_layer(
+                lp, h, cfg=cfg, slot_map=slot_map, cache=cache_j)
         return arena_decode_layer(
             lp, h, cfg=cfg, slot_map=slot_map, positions=write_pos,
             kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
@@ -396,7 +475,9 @@ def forward_packed_paged(params: Dict, cfg: ModelConfig, *,
                          q_offsets: torch.Tensor,
                          kv_lengths: torch.Tensor,
                          arena: List[Dict[str, torch.Tensor]],
-                         last_idx: torch.Tensor) -> torch.Tensor:
+                         last_idx: torch.Tensor,
+                         state_map: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Paged packed forward: prefill, chunk and decode segments side by
     side in one flat stream, one logit row per segment via ``last_idx``.
 
@@ -406,10 +487,23 @@ def forward_packed_paged(params: Dict, cfg: ModelConfig, *,
     Pages may be shared between segments; writes land via
     ``token_pages`` / ``token_offs (T,)``, which the PagedKVArena only
     points at exclusively-owned pages (pads park on the scratch page).
+    SSM positions hold each session's recurrent state on a STATE PAGE —
+    the pool's page axis doubles as the state-slot axis ({"ssm": (G,
+    N_pages + 1, NH, HD, DS), "conv": ...}) — and ``state_map (B,)``
+    names each segment's state page (pads point at the scratch page).
     The pools are updated in place.  Returns last_logits (B, V)."""
     _check_slice(cfg)
+    cap = arena_capability(cfg)
+    bridge = None
+    if cap.has_ssm:
+        assert state_map is not None, "paged SSM needs a state_map"
+        bridge = _ssm_bridge(tokens.shape[0], cu_seqlens,
+                             page_table.shape[0])
 
     def mix_fn(j, lp, h, cache_j):
+        if cap.layers[j].kind == "ssm":
+            return mamba_mod.packed_arena_mamba_layer(
+                lp, h, cfg=cfg, slot_map=state_map, cache=cache_j, **bridge)
         return packed_paged_attention_layer(
             lp, h, cfg=cfg, positions=positions, token_pages=token_pages,
             token_offs=token_offs, page_table=page_table,
@@ -450,7 +544,8 @@ def forward_decode_paged(params: Dict, cfg: ModelConfig, *,
                          write_offs: torch.Tensor,
                          page_table: torch.Tensor,
                          kv_lengths: torch.Tensor,
-                         arena: List[Dict[str, torch.Tensor]]
+                         arena: List[Dict[str, torch.Tensor]],
+                         state_map: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """One PAGED decode tick.
 
@@ -458,11 +553,18 @@ def forward_decode_paged(params: Dict, cfg: ModelConfig, *,
     position of the new token; write_pages/write_offs: (B,) physical
     (page, offset) its KV lands in (pad rows park on the scratch page at
     offset page_size − 1); page_table: (B, P_max); kv_lengths: (B,)
-    valid entries INCLUDING the new row.  The pools are updated in
-    place.  Returns logits (B, V)."""
+    valid entries INCLUDING the new row.  SSM positions step the state
+    page named by ``state_map (B,)`` in place (pads point at the scratch
+    page).  The pools are updated in place.  Returns logits (B, V)."""
     _check_slice(cfg)
+    cap = arena_capability(cfg)
+    assert not cap.has_ssm or state_map is not None, \
+        "paged SSM needs a state_map"
 
     def mix_fn(j, lp, h, cache_j):
+        if cap.layers[j].kind == "ssm":
+            return mamba_mod.arena_decode_mamba_layer(
+                lp, h, cfg=cfg, slot_map=state_map, cache=cache_j)
         return paged_decode_layer(
             lp, h, cfg=cfg, positions=positions, write_pages=write_pages,
             write_offs=write_offs, page_table=page_table,

@@ -25,13 +25,21 @@ baseline) — with the step executors under the paper's primitives:
     with ``arena.truncate``;
   * runtime (T, L, H) samples feeding ``core.boundary.fit_total``.
 
+Dense attention stacks and pure SSM (mamba2) stacks are served.  An SSM
+stack keeps one recurrent-state slot per session — a slot of the slot
+arena plus a scratch slot that every pad row and pad segment targets,
+or a state page of the pool with boundary-state checkpoints on the
+radix index — and every sequence-mode layer runs the ``ssd_scan``
+kernel.  Its packed steps reserve one stream row for the scratch pad
+segment; speculation stays off for it (no rollback of recurrent state).
+
 Sampling is greedy argmax on the device, the fused sampling kernel
 (``fused_sampling=True`` with ``keep_last_logits=False``: bias,
 temperature, top-k / top-p and the draw on the device, host-drawn
-uniforms in, (R,) ids out), or the numpy sampler on the host.  Outside
-this slice — session export/import, the host spill tier, and windowed,
-SSM and MoE configs — every entry raises ``NotImplementedError`` naming
-its ROADMAP item.
+uniforms in, (R,) ids out), or the numpy sampler on the host.  Not
+ported — session export/import, the host spill tier, and windowed,
+hybrid and MoE configs — every such entry raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -117,7 +125,11 @@ class Engine:
         self.ecfg = ecfg or EngineConfig()
         self.device = tr.resolve_device(device)
         tr._check_slice(cfg)
-        self.capability = tr.arena_capability(cfg)
+        self.capability = cap = tr.arena_capability(cfg)
+        # SSM state has no park position: pads target a dedicated
+        # scratch slot instead of aliasing a live one
+        scratch = bool(cap.needs_scratch_slot
+                       and (self.ecfg.packed or self.ecfg.arena_decode))
         self._paged = bool(self.ecfg.paged_kv)
         if self._paged:
             if not (self.ecfg.packed and self.ecfg.arena_prefill
@@ -133,18 +145,23 @@ class Engine:
             self.arena = PagedKVArena(
                 cfg, num_pages, self.ecfg.page_size, self.ecfg.max_len,
                 prefix_cache=self.ecfg.prefix_cache,
+                state_slots=cap.has_ssm,
                 host_pool_bytes=self.ecfg.host_pool_bytes,
                 device=self.device)
         else:
             self.arena = KVArena(cfg, self.ecfg.num_slots,
-                                 self.ecfg.max_len, device=self.device)
+                                 self.ecfg.max_len, scratch_slot=scratch,
+                                 device=self.device)
         # dense gather/scatter is a valid fallback on the slot arena; a
         # paged pool has no whole-sequence row to gather, so there
         # oversized work is split across packed steps
         self._dense_ok = not self._paged
         self.executor = BucketExecutor(cfg)
         self.packed_executor: Optional[PackedBucketExecutor] = None
-        if self.ecfg.packed:
+        # the gathered packed form is attention-only (an SSM state has no
+        # gathered equivalent): without arena_prefill an SSM stack runs
+        # the dense grid
+        if self.ecfg.packed and (cap.pure_attn or self.ecfg.arena_prefill):
             max_seqs = self.ecfg.packed_max_seqs or min(self.ecfg.num_slots,
                                                         16)
             self.packed_executor = PackedBucketExecutor(
@@ -252,9 +269,9 @@ class Engine:
     @property
     def can_spec(self) -> bool:
         """Speculative verify/rollback is defined where ``arena.truncate``
-        is: pure-attention, non-rolling layouts.  The port builds no
-        other engine yet (windowed, SSM and MoE configs raise, item 10),
-        so this holds wherever an engine exists."""
+        is: pure-attention, non-rolling layouts.  An SSM stack has no
+        rollback of its recurrent state, so speculation stays off
+        there."""
         return self.capability.pure_attn
 
     def enable_spec(self, draft: Any, k: int = 4) -> None:
@@ -712,27 +729,34 @@ class Engine:
         """Claim (or find) each segment's slot and check its write fits:
         (slots, slot map over every stream row).  Dummy segments and tail
         rows reuse the first segment's slot, confined to its park row
-        S_max − 1 by their positions."""
+        S_max − 1 by their positions — or, on an SSM arena (state has no
+        park position), target the scratch slot."""
         slots = [self.arena.alloc(seg.session) for seg in segments]
         for seg in segments:
             self.arena.check_length(seg.session, seg.history + seg.length)
         pad = self.packed_executor.stream_rows - len(slots)
-        return slots, np.asarray(slots + [slots[0]] * pad, np.int32)
+        pad_slot = (self.arena.scratch if self.arena.scratch is not None
+                    else slots[0])
+        return slots, np.asarray(slots + [pad_slot] * pad, np.int32)
 
     def _page_tables(self, segments: List[packing.SegmentSpec],
                      stream: packing.MixedStream, bucket: int
-                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
         """``prepare_extend`` every segment's write range (COW-copying a
         fork-shared boundary page, allocating tail pages): (page table
-        (b_max, P_max), token pages (bucket,), token offsets (bucket,)).
-        Tail rows and dummy sequences park on the reserved scratch page
-        at offset page_size − 1."""
+        (b_max, P_max), token pages (bucket,), token offsets (bucket,),
+        state map (b_max,) — each segment's SSM state page).  Tail rows
+        and dummy sequences park on the reserved scratch page at offset
+        page_size − 1, and step its state."""
         ar = self.arena
         ps = ar.page_size
-        page_table = np.full((self.packed_executor.stream_rows,
-                              ar.max_pages_per_seq), ar.scratch, np.int32)
+        b_max = self.packed_executor.stream_rows
+        page_table = np.full((b_max, ar.max_pages_per_seq), ar.scratch,
+                             np.int32)
         token_pages = np.full(bucket, ar.scratch, np.int32)
         token_offs = np.full(bucket, ps - 1, np.int32)
+        state_map = np.full(b_max, ar.scratch, np.int32)
         cu = stream.cu_seqlens
         for i, seg in enumerate(segments):
             pages = ar.prepare_extend(seg.session, seg.length)
@@ -741,7 +765,9 @@ class Engine:
             token_pages[cu[i]:cu[i + 1]] = np.asarray(pages, np.int32)[
                 pos // ps]
             token_offs[cu[i]:cu[i + 1]] = pos % ps
-        return page_table, token_pages, token_offs
+            if ar.state_slots:
+                state_map[i] = ar.state_pages[seg.session]
+        return page_table, token_pages, token_offs, state_map
 
     def _run_packed(self, segments: List[packing.SegmentSpec],
                     bucket: int) -> MixedStepResult:
@@ -816,7 +842,7 @@ class Engine:
             segments, bucket, px.stream_rows, park_position=ar.max_len - 1,
             pad_token=self.ecfg.pad_token)
         sessions = [seg.session for seg in segments]
-        page_table, token_pages, token_offs = self._page_tables(
+        page_table, token_pages, token_offs, state_map = self._page_tables(
             segments, stream, bucket)
 
         t0 = time.perf_counter()
@@ -826,7 +852,8 @@ class Engine:
             self._dev(token_offs), self._dev(page_table),
             self._dev(stream.cu_seqlens), self._dev(stream.q_offsets),
             self._dev(stream.kv_lengths), ar.arena,
-            self._dev(stream.last_idx), n_decode=stream.decode_tokens)
+            self._dev(stream.last_idx), self._dev(state_map),
+            n_decode=stream.decode_tokens)
         toks, last_np = self._tokens_from_step(sessions, last, ids)
         elapsed = time.perf_counter() - t0
         px.note_padding(stream.total_tokens, bucket)
@@ -872,7 +899,7 @@ class Engine:
                 gather[i] = stream.last_idx[i]
 
         if self._paged:
-            page_table, token_pages, token_offs = self._page_tables(
+            page_table, token_pages, token_offs, _ = self._page_tables(
                 segments, stream, bucket)
             t0 = time.perf_counter()
             logits, ids = px.verify_step_paged(
@@ -1148,7 +1175,7 @@ class Engine:
                 self.arena.check_length(s, h + 1)
             rows = packing.pad_decode_rows(
                 slots, hists, cur, bucket, park_position=park,
-                pad_token=self.ecfg.pad_token)
+                pad_token=self.ecfg.pad_token, pad_slot=self.arena.scratch)
             logits, ids = dx.decode(
                 self.params, self._dev(rows.tokens),
                 self._dev(rows.slot_map), self._dev(rows.write_pos),
@@ -1174,7 +1201,8 @@ class Engine:
         boundary page first — and attends over its full logical context
         through its page-table row.  Ladder pad rows park on the scratch
         page at offset page_size − 1 and attend over one garbage key
-        (output discarded)."""
+        (output discarded).  SSM rows step their state page in place, pad
+        rows the scratch page's."""
         dx = self.decode_executor
         ar = self.arena
         ps = ar.page_size
@@ -1193,6 +1221,7 @@ class Engine:
             page_table = np.full((bucket, ar.max_pages_per_seq),
                                  ar.scratch, np.int32)
             kv_lengths = np.ones(bucket, np.int32)
+            state_map = np.full(bucket, ar.scratch, np.int32)
             for i, (s, h) in enumerate(zip(sessions, hists)):
                 pages = ar.prepare_extend(s, 1)
                 page_table[i, :len(pages)] = pages
@@ -1200,10 +1229,13 @@ class Engine:
                 write_pages[i] = pages[h // ps]
                 write_offs[i] = h % ps
                 kv_lengths[i] = h + 1
+                if ar.state_slots:
+                    state_map[i] = ar.state_pages[s]
             logits, ids = dx.decode_paged(
                 self.params, self._dev(tok), self._dev(positions),
                 self._dev(write_pages), self._dev(write_offs),
-                self._dev(page_table), self._dev(kv_lengths), ar.arena)
+                self._dev(page_table), self._dev(kv_lengths), ar.arena,
+                self._dev(state_map))
             dx.note_padding(n, bucket)
             # the KV written this tick belongs to the INPUT token — the
             # radix index must see the ids whose keys occupy the pages
@@ -1288,6 +1320,8 @@ class Engine:
             "chunk_hit_tokens": getattr(ar, "chunk_hit_tokens", 0),
             "pages_cow_forked": getattr(ar, "pages_cow_forked", 0),
             "pages_evicted": getattr(ar, "pages_evicted", 0),
+            # SSM boundary-state checkpoints on the radix index
+            "state_checkpoints": getattr(ar, "state_checkpoints", 0),
         }
         if self._paged:
             out["free_pages"] = ar.free_pages

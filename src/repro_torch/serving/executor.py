@@ -31,11 +31,14 @@ def make_prefill_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens(B,L), positions(B,L), caches, sample_idx(B,)) →
     last_logits(B,V).  The dense (L, B) grid step: first prefill AND
     re-prefill (positions carry the history offset); the gathered
-    caches are written in place."""
+    caches are written in place.  Each row's real length is
+    ``sample_idx + 1`` (SSM layers make the padding past it an identity
+    of their state)."""
 
     @torch.no_grad()
     def prefill_step(params, tokens, positions, caches, sample_idx):
-        logits = tr.forward(params, cfg, tokens, positions, caches=caches)
+        logits = tr.forward(params, cfg, tokens, positions, caches=caches,
+                            seq_valid_len=sample_idx + 1)
         rows = torch.arange(tokens.shape[0], device=logits.device)
         return logits[rows, sample_idx.long()]
 
@@ -110,19 +113,21 @@ def make_arena_decode_fn(cfg: ModelConfig) -> Callable:
 def make_packed_paged_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens(T,), positions(T,), token_pages(T,), token_offs(T,),
     page_table(B,P_max), cu_seqlens(B+1,), q_offsets(B,), kv_lengths(B,),
-    arena, last_idx(B,)) → (last_logits(B,V), greedy_ids(B,)).  The page
-    pool is read through the page table and written in place."""
+    arena, last_idx(B,), state_map(B,)) → (last_logits(B,V),
+    greedy_ids(B,)).  The page pool is read through the page table and
+    written in place; SSM positions step the state page named by
+    ``state_map``."""
 
     @torch.no_grad()
     def packed_step(params, tokens, positions, token_pages, token_offs,
                     page_table, cu_seqlens, q_offsets, kv_lengths, arena,
-                    last_idx):
+                    last_idx, state_map):
         last = tr.forward_packed_paged(
             params, cfg, tokens=tokens, positions=positions,
             token_pages=token_pages, token_offs=token_offs,
             page_table=page_table, cu_seqlens=cu_seqlens,
             q_offsets=q_offsets, kv_lengths=kv_lengths, arena=arena,
-            last_idx=last_idx)
+            last_idx=last_idx, state_map=state_map)
         return last, torch.argmax(last, dim=-1).to(torch.int32)
 
     return packed_step
@@ -173,16 +178,18 @@ def make_packed_verify_paged_fn(cfg: ModelConfig) -> Callable:
 
 def make_paged_decode_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens(B,), positions(B,), write_pages(B,), write_offs(B,),
-    page_table(B,P_max), kv_lengths(B,), arena) → (logits(B,V),
-    greedy_ids(B,)).  Paged decode, pool written in place."""
+    page_table(B,P_max), kv_lengths(B,), arena, state_map(B,)) →
+    (logits(B,V), greedy_ids(B,)).  Paged decode, pool written in place;
+    SSM positions step the state page named by ``state_map``."""
 
     @torch.no_grad()
     def decode_step(params, tokens, positions, write_pages, write_offs,
-                    page_table, kv_lengths, arena):
+                    page_table, kv_lengths, arena, state_map):
         logits = tr.forward_decode_paged(
             params, cfg, tokens=tokens, positions=positions,
             write_pages=write_pages, write_offs=write_offs,
-            page_table=page_table, kv_lengths=kv_lengths, arena=arena)
+            page_table=page_table, kv_lengths=kv_lengths, arena=arena,
+            state_map=state_map)
         return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
     return decode_step
@@ -283,6 +290,13 @@ def _zeros(device, *shape: int) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.int32, device=device)
 
 
+def _park(arena: List[Dict[str, torch.Tensor]]) -> int:
+    """The park row S_max − 1 of a slot arena's KV leaves (0 for a pure
+    SSM arena, whose layers read no positions)."""
+    return next((leaves["k"].shape[2] - 1 for leaves in arena
+                 if "k" in leaves), 0)
+
+
 class BucketExecutor(_ExecutorBase):
     """The dense (L, B) bucket-grid executor: every batch is padded to a
     grid (length, depth) shape, so the shape space is |L| × |B|."""
@@ -325,16 +339,27 @@ class PackedBucketExecutor(_ExecutorBase):
     """Padding-free packed step keyed on a 1-D total-token bucket: one
     flat (T,) stream with ``max_seqs`` segment rows, so the shape space
     grows with |token_buckets| only.  Three forms: over gathered caches
-    (``mixed_step``, the measurement baseline), over the slot arena
-    (``mixed_step_arena``) and over the page pool
+    (``mixed_step``, the measurement baseline, attention stacks only),
+    over the slot arena (``mixed_step_arena``) and over the page pool
     (``mixed_step_paged``); the last two also verify speculative drafts
-    (``verify_step_arena`` / ``verify_step_paged``)."""
+    (``verify_step_arena`` / ``verify_step_paged``).
+
+    Scratch-slot arenas (SSM state) permanently reserve ONE stream row:
+    bucket-tail tokens park in a dummy segment whose slot is the scratch
+    slot.  The reservation is folded into the ladder (``max_seqs`` one
+    less), so the engine, the serve loop and AWD agree on the
+    schedulable room."""
 
     def __init__(self, cfg: ModelConfig,
                  token_buckets: Tuple[int, ...] = DEFAULT_TOKEN_BUCKETS,
                  max_seqs: int = 16):
         super().__init__()
         self.cfg = cfg
+        self.reserve_pad_row = tr.arena_capability(cfg).needs_scratch_slot
+        if self.reserve_pad_row:
+            max_seqs = max_seqs - 1
+            assert max_seqs >= 1, \
+                "scratch-slot arenas need packed max_seqs >= 2"
         self.ladder = TokenBucketLadder(token_buckets, max_seqs)
         self._packed = make_packed_prefill_fn(cfg)
         self._packed_arena = make_packed_arena_fn(cfg)
@@ -361,9 +386,9 @@ class PackedBucketExecutor(_ExecutorBase):
 
     @property
     def stream_rows(self) -> int:
-        """Segment rows of the stream shape (no scratch pad row: full
-        attention parks pads on the scratch page)."""
-        return self.ladder.max_seqs
+        """Segment rows of the stream shape: the schedulable segments
+        plus the reserved scratch pad row, if any."""
+        return self.ladder.max_seqs + int(self.reserve_pad_row)
 
     def bucket_for(self, total_tokens: int) -> Optional[int]:
         """Smallest token bucket ≥ total_tokens (None if off-scale)."""
@@ -414,17 +439,19 @@ class PackedBucketExecutor(_ExecutorBase):
 
     def mixed_step_paged(self, params, tokens, positions, token_pages,
                          token_offs, page_table, cu_seqlens, q_offsets,
-                         kv_lengths, arena, last_idx, *,
+                         kv_lengths, arena, last_idx, state_map, *,
                          n_decode: int = 0):
         """One PAGED continuous-batching step: prefill, chunk and decode
         segments in one flat stream; each segment's KV is routed through
-        its row of ``page_table`` and the pool is written in place.
-        Returns (last_logits (B, V), greedy_ids (B,))."""
+        its row of ``page_table``, its SSM state through ``state_map``
+        (B,) (the scratch page for pads), and the pool is written in
+        place.  Returns (last_logits (B, V), greedy_ids (B,))."""
         self._note_mixed(n_decode)
         self._note_dispatch("packed_paged", tokens, page_table)
         return self._packed_paged(params, tokens, positions, token_pages,
                                   token_offs, page_table, cu_seqlens,
-                                  q_offsets, kv_lengths, arena, last_idx)
+                                  q_offsets, kv_lengths, arena, last_idx,
+                                  state_map)
 
     def verify_step_arena(self, params, tokens, positions, seg_slots,
                           slot_map, cu_seqlens, q_offsets, kv_lengths,
@@ -467,21 +494,22 @@ class PackedBucketExecutor(_ExecutorBase):
                            _zeros(dev, b), caches, _zeros(dev, b)), tokens)
         return time.perf_counter() - t0
 
-    def precapture_arena(self, params, arena: List[Dict[str, torch.Tensor]]
-                         ) -> float:
+    def precapture_arena(self, params, arena: List[Dict[str, torch.Tensor]],
+                         slot: int = 0) -> float:
         """Run every token bucket's arena-resident step once at init.
-        Its stream has no segment (every kv length 0) and parks every
-        write on slot 0's park row, so no cached row changes.  Returns
-        total seconds."""
+        Its stream has no segment (every kv length 0, so an SSM update
+        is an identity) and parks every write on ``slot``'s park row —
+        the scratch slot where the arena has one — so no cached row
+        changes.  Returns total seconds."""
         t0 = time.perf_counter()
         b = self.stream_rows
         dev = params["embed"].device
-        park = arena[0]["k"].shape[2] - 1
+        park = _park(arena)
         for t in self.token_buckets:
             tokens = _zeros(dev, t)
             self._capture("packed_arena", self._packed_arena,
                           (params, tokens, _zeros(dev, t) + park,
-                           _zeros(dev, t), _zeros(dev, b),
+                           _zeros(dev, t) + slot, _zeros(dev, b) + slot,
                            _zeros(dev, b + 1), _zeros(dev, b),
                            _zeros(dev, b), arena, _zeros(dev, b)), tokens)
         return time.perf_counter() - t0
@@ -519,28 +547,31 @@ class DecodeBucketExecutor(_ExecutorBase):
         return self._decode(params, tokens, slot_map, write_pos,
                             kv_lengths, arena)
 
-    def precapture(self, params, arena: List[Dict[str, torch.Tensor]]
-                   ) -> float:
+    def precapture(self, params, arena: List[Dict[str, torch.Tensor]],
+                   slot: int = 0) -> float:
         """Run every decode rung's arena-resident step once at init.
-        Every row writes slot 0's park row and reads its row 0, as a
-        ladder pad row does, so no cached row changes.  Returns total
-        seconds."""
+        Every row writes ``slot``'s park row and reads its row 0, as a
+        ladder pad row does, so no cached KV row changes.  A decode step
+        does change the recurrent state of the slot it reads, so an SSM
+        arena passes its scratch slot.  Returns total seconds."""
         t0 = time.perf_counter()
         dev = params["embed"].device
-        park = arena[0]["k"].shape[2] - 1
+        park = _park(arena)
         for b in self.decode_buckets:
             tokens = _zeros(dev, b)
             self._capture("arena_decode", self._decode,
-                          (params, tokens, _zeros(dev, b),
+                          (params, tokens, _zeros(dev, b) + slot,
                            _zeros(dev, b) + park, _zeros(dev, b) + 1,
                            arena), tokens)
         return time.perf_counter() - t0
 
     def decode_paged(self, params, tokens, positions, write_pages,
-                     write_offs, page_table, kv_lengths, arena):
+                     write_offs, page_table, kv_lengths, arena, state_map):
         """One PAGED decode tick: each row's KV is routed through its
-        page-table row, the pool written in place.  Returns (logits
-        (B, V), greedy_ids (B,))."""
+        page-table row and its SSM state through ``state_map`` (B,), the
+        pool written in place.  Returns (logits (B, V), greedy_ids
+        (B,))."""
         self._note_dispatch("paged_decode", tokens, page_table)
         return self._decode_paged(params, tokens, positions, write_pages,
-                                  write_offs, page_table, kv_lengths, arena)
+                                  write_offs, page_table, kv_lengths, arena,
+                                  state_map)

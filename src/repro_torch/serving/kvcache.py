@@ -1,14 +1,20 @@
-"""KV caches of the port, from ``repro.serving.kvcache``: the slot arena
-(one preallocated slot of S_max positions per session), the radix
-prefix index over page-sized token chunks, and the page-pool arena with
-COW forks, LRU eviction and speculative rollback (``truncate``).
+"""KV and state caches of the port, from ``repro.serving.kvcache``: the
+slot arena (one preallocated slot of S_max positions per session, plus a
+scratch slot for SSM stacks), the radix prefix index over page-sized
+token chunks, and the page-pool arena with COW forks, LRU eviction,
+speculative rollback (``truncate``) and, for SSM stacks, one state page
+per session with boundary-state checkpoints on the radix index.
 
 The bookkeeping (slots, lengths, page ids, refcounts, the trie) is the
 JAX package's, line for line, so a replay gives identical assignments.
-The arenas are torch tensors updated in place by the serving steps.  Not
-in this slice: the host spill tier (``host_pool_bytes > 0``), rolling
-slots and ring tables for sliding-window configs, SSM state slots and
-pages, and slot export/import; each raises ``NotImplementedError``.
+The arenas are torch tensors updated in place by the serving steps.  One
+difference: a session's recurrent state starts at zero — ``alloc`` and
+``open`` zero the SSM leaves of the slot or state page they hand out,
+where the JAX arenas hand out a reused slot or page with the state its
+last owner left (ROADMAP Queue 3).  Not ported: the host spill tier
+(``host_pool_bytes > 0``), rolling slots and ring tables for
+sliding-window configs, and slot export/import; each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,12 +26,26 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 
 
+def _zero_state(arena: List[Dict[str, torch.Tensor]], row: int) -> None:
+    """Zero the SSM leaves (recurrent and conv state) of slot or page
+    ``row``: a fresh session's state.  KV rows need nothing — rows past
+    a session's length are never read."""
+    for leaves in arena:
+        for name in ("ssm", "conv"):
+            if name in leaves:
+                leaves[name][:, row].zero_()
+
+
 class KVArena:
     """Slot arena: per layer-pattern position k/v ``(G, N_slots, S_max,
     Hkv, D)`` torch tensors; each session owns one slot and its cached
     positions [0, length).  Row S_max − 1 of every slot is the PARK row:
     pad and tail rows of a step write there, and ``set_length`` caps a
-    session at S_max − 2 so no live position ever reaches it.
+    session at S_max − 2 so no live position ever reaches it.  SSM
+    stacks (``scratch_slot=True``) hold per-layer {"ssm", "conv"} state
+    leaves ``(G, N_slots + 1, ...)``: state has no park position, so
+    pads target the extra SCRATCH slot ``N_slots``, which sessions never
+    claim.
 
     The arena-resident steps read and write the tensors in place through
     a slot map (there is no ``replace``: the JAX package's swap of the
@@ -38,16 +58,17 @@ class KVArena:
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  dtype=None, swa_depth: Optional[int] = None,
                  scratch_slot: bool = False, device="cuda"):
-        if swa_depth is not None or scratch_slot:
+        if swa_depth is not None:
             raise NotImplementedError(
-                "rolling window slots and the scratch slot are not "
-                "ported yet (ROADMAP Queue 1, item 10)")
+                "rolling window slots are not ported yet "
+                "(ROADMAP Queue 1, item 10)")
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
-        self.scratch: Optional[int] = None     # pads park on a live slot
-        self.arena = tr.init_cache(cfg, num_slots, max_len, dtype,
-                                   device=device)
+        # None: pads park on a live slot's park row
+        self.scratch: Optional[int] = num_slots if scratch_slot else None
+        self.arena = tr.init_cache(cfg, num_slots + int(scratch_slot),
+                                   max_len, dtype, device=device)
         self._free: List[int] = list(range(num_slots))
         self._session_slot: Dict[int, int] = {}
         self.lengths: Dict[int, int] = {}          # session -> tokens cached
@@ -63,6 +84,7 @@ class KVArena:
         slot = self._free.pop()
         self._session_slot[session] = slot
         self.lengths[session] = 0
+        _zero_state(self.arena, slot)
         return slot
 
     def free(self, session: int) -> None:
@@ -123,7 +145,7 @@ class KVArena:
                 a.index_copy_(1, idx, batch[name].to(a.dtype))
 
     def _index(self, slots: Sequence[int]) -> torch.Tensor:
-        dev = self.arena[0]["k"].device
+        dev = next(iter(self.arena[0].values())).device
         return torch.as_tensor(list(slots), dtype=torch.long, device=dev)
 
     # ----------------------------------------------------------- handoff
@@ -139,8 +161,14 @@ class KVArena:
 
 
 class _RadixNode:
-    """One edge of the prefix trie: a page_size-token chunk → one page."""
-    __slots__ = ("children", "parent", "chunk", "page", "last_use")
+    """One edge of the prefix trie: a page_size-token chunk → one page.
+
+    ``state_page`` (SSM stacks) optionally names a page holding the
+    boundary-state CHECKPOINT after this chunk — the recurrent state a
+    session holds having processed exactly the root→here token path.
+    The node owns one refcount on it."""
+    __slots__ = ("children", "parent", "chunk", "page", "last_use",
+                 "state_page")
 
     def __init__(self, parent: Optional["_RadixNode"] = None,
                  chunk: Optional[Tuple[int, ...]] = None, page: int = -1):
@@ -149,6 +177,7 @@ class _RadixNode:
         self.chunk = chunk
         self.page = page
         self.last_use = 0
+        self.state_page: Optional[int] = None
 
 
 class RadixPageIndex:
@@ -265,9 +294,19 @@ class PagedKVArena:
     the first diverging write).
 
     ``refcount[p]`` = #sessions whose table holds p, + 1 if the radix
-    index holds p.  A page returns to the free pool when its refcount
-    drops to zero; when the pool runs dry, LRU leaf pages held only by
-    the index are evicted.
+    index holds p, + 1 per session or radix node holding p as a state
+    page.  A page returns to the free pool when its refcount drops to
+    zero; when the pool runs dry, LRU leaf pages held only by the index
+    are evicted (with their state checkpoints).
+
+    ``state_slots=True`` (SSM stacks): each session gets one STATE page
+    from the same pool (the SSM leaves of the pool use the page axis as
+    the state-slot axis).  ``commit`` checkpoints the live state into a
+    fresh page attached to the radix node whenever the committed length
+    lands on a page boundary, and ``match_prefix`` / ``match_extend``
+    clamp adoption to the deepest matched ancestor that carries such a
+    checkpoint, copying it into the session's state page.  Every page,
+    token pages included, carries a state slot's worth of SSM leaves.
 
     ``cfg=None`` builds a bookkeeping-only arena (no tensors) for
     property tests of the share/fork/evict/write state machine.
@@ -279,9 +318,9 @@ class PagedKVArena:
                  ring_pages: Optional[int] = None,
                  state_slots: bool = False,
                  host_pool_bytes: int = 0, device="cuda"):
-        if ring_pages is not None or state_slots:
+        if ring_pages is not None:
             raise NotImplementedError(
-                "ring page tables and SSM state pages are not ported yet "
+                "ring page tables are not ported yet "
                 "(ROADMAP Queue 1, item 10)")
         if host_pool_bytes > 0:
             raise NotImplementedError(
@@ -292,6 +331,7 @@ class PagedKVArena:
         self.page_size = page_size
         self.max_len = max_len
         self.scratch: int = num_pages          # reserved, never allocated
+        self.state_slots = state_slots
         self.arena = (tr.init_cache(cfg, num_pages + 1, page_size, dtype,
                                     device=device)
                       if cfg is not None else None)
@@ -300,6 +340,7 @@ class PagedKVArena:
         self._pages: Dict[int, List[int]] = {}     # session -> page list
         self._tokens: Dict[int, List[int]] = {}    # session -> cached ids
         self.lengths: Dict[int, int] = {}          # session -> tokens cached
+        self.state_pages: Dict[int, int] = {}      # session -> SSM state page
         self.index: Optional[RadixPageIndex] = (
             RadixPageIndex(page_size) if prefix_cache else None)
         # proof counters (engine.stats())
@@ -307,6 +348,7 @@ class PagedKVArena:
         self.chunk_hit_tokens = 0
         self.pages_cow_forked = 0
         self.pages_evicted = 0
+        self.state_checkpoints = 0
         # the paged paths never materialize whole sequences: kept for
         # stats() symmetry with the JAX package and asserted == 0
         self.gather_calls = 0
@@ -345,6 +387,9 @@ class PagedKVArena:
                     victim = leaf
             if victim is None:
                 return
+            if victim.state_page is not None:
+                self._unref(victim.state_page)
+                victim.state_page = None
             self._unref(self.index.remove(victim))
             self.pages_evicted += 1
             freed += 1
@@ -356,6 +401,11 @@ class PagedKVArena:
         self._pages[session] = []
         self._tokens[session] = []
         self.lengths[session] = 0
+        if self.state_slots:
+            # one SSM state page per session, from the same pool, zeroed
+            sp = self.state_pages[session] = self._alloc_page()
+            if self.arena is not None:
+                _zero_state(self.arena, sp)
 
     def free(self, session: int) -> None:
         pages = self._pages.pop(session, None)
@@ -363,11 +413,20 @@ class PagedKVArena:
             return
         for p in pages:
             self._unref(p)
+        sp = self.state_pages.pop(session, None)
+        if sp is not None:
+            self._unref(sp)
         self._tokens.pop(session, None)
         self.lengths.pop(session, None)
 
     def pages_of(self, session: int) -> List[int]:
         return self._pages.get(session, [])
+
+    def slot_of(self, session: int) -> Optional[int]:
+        """KVArena-compatible accessor: the 'slot' carrying an SSM
+        session's recurrent state is its state page (None for
+        pure-attention stacks)."""
+        return self.state_pages.get(session)
 
     def length(self, session: int) -> int:
         return self.lengths.get(session, 0)
@@ -401,6 +460,18 @@ class PagedKVArena:
             node = child
         return out
 
+    def _adoptable(self, nodes: List[_RadixNode]) -> int:
+        """How many matched chunks a session can actually ADOPT: all of
+        them for attention stacks; with SSM state, only up to the
+        deepest one carrying a boundary-state checkpoint (the recurrent
+        state must be reconstructable, not just the KV)."""
+        if not self.state_slots:
+            return len(nodes)
+        for d in range(len(nodes), 0, -1):
+            if nodes[d - 1].state_page is not None:
+                return d
+        return 0
+
     def probe_prefix(self, tokens: Sequence[int]) -> int:
         """Tokens a fresh session with this prompt would NOT re-prefill
         (non-adopting; used by the serve loop for length-aware
@@ -409,7 +480,7 @@ class PagedKVArena:
             return 0
         limit = max(len(tokens) - 1, 0) // self.page_size
         nodes = self._walk(self.index.root, tokens, limit, pin=False)
-        return len(nodes) * self.page_size
+        return self._adoptable(nodes) * self.page_size
 
     def match_prefix(self, session: int, tokens: Sequence[int]) -> int:
         """Map the longest indexed prefix of ``tokens`` onto existing
@@ -425,6 +496,7 @@ class PagedKVArena:
             return 0
         limit = max(len(tokens) - 1, 0) // self.page_size
         nodes = self._walk(self.index.root, tokens, limit, pin=True)
+        nodes = self._clamp(nodes)
         if not nodes:
             return 0
         matched = len(nodes) * self.page_size
@@ -432,7 +504,16 @@ class PagedKVArena:
         self._tokens[session] = [int(t) for t in tokens[:matched]]
         self.lengths[session] = matched
         self.prefix_hit_tokens += matched
+        if self.state_slots:
+            self._copy_page(nodes[-1].state_page, self.state_pages[session])
         return matched
+
+    def _clamp(self, nodes: List[_RadixNode]) -> List[_RadixNode]:
+        """Unpin the matched chunks past the adoptable depth."""
+        d = self._adoptable(nodes)
+        for nd in nodes[d:]:
+            self._unref(nd.page)
+        return nodes[:d]
 
     def match_extend(self, session: int, tokens: Sequence[int]) -> int:
         """CHUNK-LEVEL prefix matching: mid-request, map the longest
@@ -459,7 +540,10 @@ class PagedKVArena:
                 return 0                       # history not indexed
             node = child
         limit = max(len(tokens) - 1, 0) // ps
-        nodes = self._walk(node, tokens, limit, pin=True)
+        # with SSM state the session's live state covers exactly h
+        # tokens: skipping ahead is sound only up to a checkpoint that
+        # replaces it, so clamp as match_prefix does
+        nodes = self._clamp(self._walk(node, tokens, limit, pin=True))
         if not nodes:
             return 0
         matched = len(nodes) * ps
@@ -468,6 +552,8 @@ class PagedKVArena:
         self.lengths[session] = h + matched
         self.prefix_hit_tokens += matched
         self.chunk_hit_tokens += matched
+        if self.state_slots:
+            self._copy_page(nodes[-1].state_page, self.state_pages[session])
         return matched
 
     # --------------------------------------------------------------- write
@@ -505,10 +591,42 @@ class PagedKVArena:
         toks.extend(int(t) for t in token_ids)
         self.lengths[session] += len(token_ids)
         if self.index is not None:
-            n_full = self.lengths[session] // self.page_size
-            for p in self.index.insert(toks[:n_full * self.page_size],
+            ps = self.page_size
+            n_full = self.lengths[session] // ps
+            for p in self.index.insert(toks[:n_full * ps],
                                        self._pages[session][:n_full]):
                 self._ref(p)
+            if (self.state_slots and n_full > 0
+                    and self.lengths[session] % ps == 0):
+                self._checkpoint_state(session, toks, n_full)
+
+    def _checkpoint_state(self, session: int, toks: List[int],
+                          n_full: int) -> None:
+        """SSM boundary-state checkpoint: when the committed length lands
+        exactly on a page boundary, the session's LIVE state is the state
+        after ``n_full`` chunks — snapshot it into a fresh page owned by
+        the radix node at that depth, so a later session matching this
+        prefix can adopt it.  Best-effort: pool pressure skips the
+        snapshot rather than evicting live data for it."""
+        ps = self.page_size
+        try:
+            cp = self._alloc_page()
+        except RuntimeError:
+            return
+        # re-walk AFTER the alloc: its eviction sweep may have dropped
+        # the very node about to be decorated
+        node: Optional[_RadixNode] = self.index.root
+        for i in range(n_full):
+            node = node.children.get(tuple(toks[i * ps:(i + 1) * ps]))
+            if node is None:
+                break
+        if node is None or node is self.index.root \
+                or node.state_page is not None:
+            self._unref(cp)
+            return
+        self._copy_page(self.state_pages[session], cp)
+        node.state_page = cp
+        self.state_checkpoints += 1
 
     # ------------------------------------------------------------ rollback
     def truncate(self, session: int, n: int) -> None:
@@ -561,6 +679,9 @@ class PagedKVArena:
                 nd = path[i]
                 if nd.children or nd.page != pages[i]:
                     break
+                if nd.state_page is not None:
+                    self._unref(nd.state_page)
+                    nd.state_page = None
                 self._unref(self.index.remove(nd))
         for p in pages[keep_pages:]:
             self._unref(p)
@@ -572,7 +693,8 @@ class PagedKVArena:
     def fork(self, parent: int, child: int) -> None:
         """COW-fork: the child shares every page (and the token history)
         of the parent; diverging writes copy the partial boundary page
-        on demand (prepare_extend)."""
+        on demand (prepare_extend).  With SSM state the parent's state
+        page is deep-copied (recurrent state diverges at once)."""
         assert child not in self._pages, f"fork onto live session {child}"
         self.open(child)
         for p in self._pages[parent]:
@@ -580,6 +702,9 @@ class PagedKVArena:
         self._pages[child] = list(self._pages[parent])
         self._tokens[child] = list(self._tokens[parent])
         self.lengths[child] = self.lengths[parent]
+        if self.state_slots:
+            self._copy_page(self.state_pages[parent],
+                            self.state_pages[child])
 
     # ------------------------------------------------------------- tensors
     def _copy_page(self, src: int, dst: int) -> None:
@@ -597,6 +722,9 @@ class PagedKVArena:
             for p in pages:
                 assert p != self.scratch, "scratch page in a session table"
                 rc[p] += 1
+        for sp in self.state_pages.values():
+            assert sp != self.scratch, "scratch page as a state page"
+            rc[sp] += 1
         if self.index is not None:
             stack = [self.index.root]
             while stack:
@@ -606,6 +734,9 @@ class PagedKVArena:
                         "scratch page in the radix index"
                     assert nd.page >= 0, "placeholder node leaked"
                     rc[nd.page] += 1
+                    if nd.state_page is not None:
+                        assert nd.state_page != self.scratch
+                        rc[nd.state_page] += 1
                 stack.extend(nd.children.values())
         assert rc == self._refcount, \
             f"refcount drift: counted {rc} != tracked {self._refcount}"

@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version at qwen3-4b's head shapes (fp32 with TF32 off, and
-bf16), the fused sampling kernel at qwen3-4b's vocabulary, and the
-serving engine on the card against the same engine on the CPU.  Without
-a card every test skips inside its fixture.
+bf16), the fused sampling kernel at qwen3-4b's vocabulary, the SSD scan
+kernel at mamba2-2.7b's head shapes, and the serving engine (qwen3-4b
+and mamba2-2.7b smoke configs) on the card against the same engine on
+the CPU.  Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -15,6 +16,9 @@ term is the plain version on |v|; and the max abs error ≤ 2e-2.
 Fused sampling: greedy tokens exact; token and alt equal except on a row
 whose u lies within 1e-5 of a non-zero cumulative mass of the plain
 version (``kernels.sampling.cdf_margin``); p_draft within 1e-5.
+SSD scan (``kernels.ref.ssd_error_bound``): y and the final state within
+1e-4 of the largest magnitude of their (batch row, head); a bf16 y also
+within its one rounding, u·|ref|.
 """
 import numpy as np
 import pytest
@@ -25,7 +29,9 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import decode_attn as dec  # noqa: E402
 from repro_torch.kernels import ragged_prefill as rp  # noqa: E402
 from repro_torch.kernels import sampling as ks  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import kernel_error_bound  # noqa: E402
+from repro_torch.kernels.ref import ssd_error_bound  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.serving.draft import ScriptedDraft  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
@@ -331,3 +337,80 @@ def test_sampled_spec_fused_matches_host_on_card(card):
         assert (st["logits_rows_shipped"] == 0) == fused
         assert (st["fused_sample_steps"] > 0) == fused
     assert streams[True] == streams[False]
+
+
+def _ssd_args(card, b, l, g, dtype, seed, nh=80, hd=64, ds=128):
+    """SSD scan inputs at mamba2's heads, x / B / C as views into one
+    conv-output row; dt = 0 on the last rows (right padding), a strong
+    decay on row l // 2, a non-zero init state."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    xbc = 0.5 * torch.randn((b, l, nh * hd + 2 * g * ds), generator=gen,
+                            device=card)
+    xbc = xbc.to(dtype)
+    x = xbc[..., :nh * hd].reshape(b, l, nh, hd)
+    bm = xbc[..., nh * hd:nh * hd + g * ds].reshape(b, l, g, ds)
+    cm = xbc[..., nh * hd + g * ds:].reshape(b, l, g, ds)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, nh), generator=gen, device=card))
+    dt[:, l // 2] *= 40.0
+    dt[:, max(l - 3, 1):] = 0.0
+    a = -torch.linspace(1.0, 16.0, nh, device=card)
+    h0 = 0.1 * torch.randn((b, nh, hd, ds), generator=gen, device=card)
+    return x, dt.contiguous(), a, bm, cm, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,g", [(1, 1, 1), (2, 129, 1), (1, 300, 80),
+                                   (8, 64, 1)])
+def test_ssd_scan_kernel_matches_plain(card, dtype, b, l, g):
+    args = _ssd_args(card, b, l, g, dtype, seed=l)
+    n = ssd.ssd_scan.launches
+    y, st = ssd.ssd_scan(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == n + 1
+    yr, yb, sr, sb = ssd_error_bound(*args, 128)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert bool(((y.float() - yr).abs() <= yb).all())
+    assert bool(((st - sr).abs() <= sb).all())
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
+    x, dt, a, bm, cm, h0 = _ssd_args(card, 1, 8, 1, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd.ssd_scan(x, dt, a, bm, cm, h0, chunk=256)
+    with pytest.raises(ValueError, match="float32"):
+        ssd.ssd_scan(x, dt.bfloat16(), a, bm, cm, h0)
+    with pytest.raises(ValueError, match="NH % G"):
+        ssd.ssd_scan(x, dt, a, bm[:, :, :0], cm[:, :, :0], h0)
+
+
+@pytest.mark.parametrize("mode", [
+    dict(), dict(paged_kv=False), dict(packed=False, paged_kv=False)],
+    ids=["paged", "arena", "dense"])
+def test_ssm_engine_on_card_matches_engine_on_cpu(card, mode):
+    """The mamba2 smoke config in each SSM mode through the ssd_scan
+    kernel and through its plain version: the same greedy tokens,
+    logits within 1e-4 (fp32)."""
+    cfg = get_smoke("mamba2-2.7b")
+    params = tr.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, card)
+    ecfg = dict(num_slots=4, max_len=256, chunk_tokens=32, measure=False,
+                **mode)
+    engines = [Engine(cfg, params, EngineConfig(**ecfg), device="cpu"),
+               Engine(cfg, on_card, EngineConfig(**ecfg), device=card)]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (70, 9, 33)]
+    outs = []
+    n = ssd.ssd_scan.launches
+    for e in engines:
+        r = e.prefill_batch([0, 1, 2], prompts)
+        d = e.decode_batch([0, 1, 2], [r[i] for i in range(3)], 4)
+        r2 = e.prefill_long(3, prompts[0])
+        outs.append((r, d, r2))
+    assert outs[0] == outs[1]
+    assert ssd.ssd_scan.launches > n
+    for s in range(4):
+        np.testing.assert_allclose(engines[1].last_logits[s],
+                                   engines[0].last_logits[s], atol=1e-4,
+                                   rtol=0)

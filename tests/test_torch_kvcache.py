@@ -2,8 +2,10 @@
 replay of open / prefix-match / extend / commit / fork / free under a
 tiny pool (LRU eviction) drives both arenas and must give identical page
 ids, refcounts, free lists, counters and a green ``audit()`` after every
-step; COW page copies move the same pool content; the branches outside
-the slice raise.
+step — also with SSM state pages (one per session, boundary-state
+checkpoints on the radix index, adoption clamped to a checkpoint, and
+truncate's de-index); COW page copies and state checkpoints move the
+same pool content; the branches outside the port raise.
 """
 import random
 
@@ -22,10 +24,18 @@ NUM_PAGES, PS, MAX_LEN = 10, 4, 24
 
 
 def _state(ar):
+    ckpt = []
+    if ar.index is not None:
+        stack = [ar.index.root]
+        while stack:
+            nd = stack.pop()
+            ckpt.append((nd.page, nd.state_page))
+            stack.extend(nd.children.values())
     return (dict(ar._pages), dict(ar._tokens), dict(ar.lengths),
             list(ar._refcount), list(ar._free), ar.prefix_hit_tokens,
             ar.chunk_hit_tokens, ar.pages_cow_forked, ar.pages_evicted,
-            sorted(ar.index.pages()) if ar.index is not None else None)
+            sorted(ar.index.pages()) if ar.index is not None else None,
+            dict(ar.state_pages), ar.state_checkpoints, sorted(ckpt))
 
 
 def _write(ar, session, toks):
@@ -37,16 +47,18 @@ def _write(ar, session, toks):
     return list(pages)
 
 
-def _replay(seed, steps, prefix_cache=True):
+def _replay(seed, steps, prefix_cache=True, state_slots=False):
     """Apply one seeded op sequence to both arenas in lock step."""
     rng = random.Random(seed)
-    arenas = (JArena(None, NUM_PAGES, PS, MAX_LEN, prefix_cache=prefix_cache),
-              TArena(None, NUM_PAGES, PS, MAX_LEN, prefix_cache=prefix_cache))
+    kw = dict(prefix_cache=prefix_cache, state_slots=state_slots)
+    arenas = (JArena(None, NUM_PAGES, PS, MAX_LEN, **kw),
+              TArena(None, NUM_PAGES, PS, MAX_LEN, **kw))
     next_sid = 0
     for _ in range(steps):
         live = sorted(arenas[0]._pages)
         op = rng.choice(["submit", "submit"] + (
-            ["extend", "fork", "free", "match_extend"] if live else []))
+            ["extend", "fork", "free", "match_extend"] if live else [])
+            + (["truncate"] if live and state_slots else []))
         if op == "submit":
             toks = (list(arenas[0]._tokens[rng.choice(live)])
                     if live and rng.random() < 0.5 else [])
@@ -55,8 +67,12 @@ def _replay(seed, steps, prefix_cache=True):
             next_sid += 1
             outs = []
             for ar in arenas:
-                m = ar.match_prefix(next_sid, toks)
-                w = _write(ar, next_sid, toks[m:])
+                try:
+                    m = ar.match_prefix(next_sid, toks)
+                except RuntimeError:       # no page left for its state
+                    m, w = None, None
+                else:
+                    w = _write(ar, next_sid, toks[m:])
                 if w is None:
                     ar.free(next_sid)
                 outs.append((m, w))
@@ -74,7 +90,15 @@ def _replay(seed, steps, prefix_cache=True):
             parent = rng.choice(live)
             next_sid += 1
             for ar in arenas:
-                ar.fork(parent, next_sid)
+                try:
+                    ar.fork(parent, next_sid)
+                except RuntimeError:       # no page left for its state
+                    ar.free(next_sid)
+        elif op == "truncate":
+            s = rng.choice(live)
+            n = rng.randint(0, arenas[0].length(s))
+            for ar in arenas:
+                ar.truncate(s, n)
         else:
             s = rng.choice(live)
             for ar in arenas:
@@ -101,6 +125,58 @@ def test_replay_matches_jax_arena(seed):
 
 def test_replay_without_prefix_cache():
     _replay(99, steps=40, prefix_cache=False)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_replay_with_state_pages_matches_jax_arena(seed):
+    """SSM state pages: each session holds one, commits that land on a
+    page boundary checkpoint it into a page owned by the radix node,
+    adoption stops at the deepest checkpoint, and eviction and truncate
+    release checkpoints; the same page ids, refcounts and checkpoint
+    nodes as the JAX arena after every step."""
+    arenas = _replay(seed, steps=60, state_slots=True)
+    assert arenas[1].state_checkpoints > 0
+    for ar in arenas:
+        for s in list(ar._pages):
+            ar.free(s)
+        ar._evict(NUM_PAGES)
+        ar.audit()
+        assert ar.free_pages == NUM_PAGES
+    assert _state(arenas[0]) == _state(arenas[1])
+
+
+def test_state_checkpoint_moves_the_same_pool_content():
+    """A boundary-state checkpoint and its adoption copy the state page
+    content as the JAX arena does; a fresh session's state page starts
+    at zero (the JAX arena hands out the page's old content)."""
+    cfg, tcfg = get_smoke("mamba2-2.7b"), tget("mamba2-2.7b")
+    ja = JArena(cfg, 8, PS, 32, state_slots=True)
+    ta = TArena(tcfg, 8, PS, 32, state_slots=True, device="cpu")
+    rng = np.random.default_rng(1)
+    for ar in (ja, ta):
+        ar.open(1)
+    sp = ta.slot_of(1)
+    assert sp == ja.slot_of(1)
+    fill = {k: rng.standard_normal(v.shape).astype(np.float32)
+            for k, v in ta.arena[0].items()}
+    for k, v in fill.items():
+        ta.arena[0][k][:, sp] = torch.from_numpy(v[:, sp])
+    ja.arena = [{k: jax.numpy.asarray(ta.arena[0][k].numpy())
+                 for k in fill}]
+    for ar in (ja, ta):
+        _write(ar, 1, [1, 2, 3, 4])               # one full page: checkpoint
+        assert ar.state_checkpoints == 1
+        assert ar.match_prefix(2, [1, 2, 3, 4, 5]) == 4
+    assert ta.slot_of(2) == ja.slot_of(2)
+    for k in fill:
+        np.testing.assert_array_equal(ta.arena[0][k].numpy(),
+                                      np.asarray(ja.arena[0][k]))
+        np.testing.assert_array_equal(ta.arena[0][k][:, ta.slot_of(2)],
+                                      fill[k][:, sp])
+    ta.open(3)
+    for k in fill:
+        assert not ta.arena[0][k][:, ta.slot_of(3)].any()
+    ta.audit()
 
 
 def test_cow_copy_moves_the_same_pool_content():
@@ -131,5 +207,3 @@ def test_branches_outside_the_slice_raise():
         TArena(None, 8, PS, 32, host_pool_bytes=1 << 20)
     with pytest.raises(NotImplementedError, match="item 10"):
         TArena(None, 8, PS, 32, ring_pages=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TArena(None, 8, PS, 32, state_slots=True)
