@@ -3,7 +3,7 @@
 Drives every path of the port on one NVIDIA card and fails on any fault:
 
   1. card and build — ``nvidia-smi`` name and power limit, the nvcc
-     build of the seven kernels (seconds, ``-Xptxas -v`` registers /
+     build of the nine kernels (seconds, ``-Xptxas -v`` registers /
      shared memory / spills, ``ssd_scan``'s dynamic shared memory);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128), fp32 and bf16.  Paged kernels: page
@@ -27,12 +27,22 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      128), B/C in group form (G = 1) and per head (G = NH), L = 1, 127,
      128, 129, 300 and 2048, B = 1 and 8, fp32 and bf16, x / B / C as
      views into one conv-output row, pad (dt = 0) and strong-decay rows,
-     a random non-zero init state;
-  3. the engine against the plain dense forward in each of its four
-     modes (the launcher's slot/dense default, the packed slot arena,
-     the gathered slot baseline, the paged default): qwen3-4b widths, 2
-     layers, fp32, ServeLoop over 4 sessions x 2 turns + prefill_long,
-     then 4 decode steps; logits within 1e-3 and the same greedy tokens.
+     a random non-zero init state.  The dense kernels: ``flash_attn``
+     at head widths 64, 80, 96 and 128 and ``decode_attn`` at 128, each
+     at GQA groups of 1, 4 and 5 (16/16, 32/8, 40/8 heads): causal with
+     per-row offsets, non-causal with kv lengths, a window, dummy rows
+     whose queries start at the park position S - 1, rows of length 0,
+     every row at and past each length poisoned;
+  3. the engine against the plain dense forward — run on a CPU copy of
+     the parameters, so it takes the plain versions and none of the
+     kernels it checks — in each of its five attention modes (the
+     launcher's slot/dense default, the same grid with the dense decode
+     step, the packed slot arena, the gathered slot baseline, the paged
+     default): qwen3-4b widths, 2 layers, fp32, ServeLoop over 4
+     sessions x 2 turns + prefill_long, then 4 decode steps; logits
+     within 1e-3 and the same greedy tokens.  hubert-xlarge's encoder
+     forward (full width, 2 layers, fp32) against the CPU forward,
+     without a cache and with one and ``kv_valid_len``, at 1e-3.
      Speculative decoding on the paged and slot_arena engines: greedy
      speculation (drafts scripted from the plain stream at acceptance
      0.7) lossless, a sampled session's stream the same through the
@@ -56,17 +66,26 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      three SSM modes (the paged one on ``SSM_POOL``: every page carries
      a ~170 MB state slot): every request answered, ``ssd_scan`` once
      per layer in every prefill dispatch and never in a decode-only
-     tick, state checkpoints and prefix hits, whole-slot copies;
+     tick, state checkpoints and prefix hits, whole-slot copies.  Then
+     hubert-xlarge (48 layers, bf16) over 8 clips of 1500 random frame
+     embeddings: ms per batch, frames/s, ``flash_attn`` once per layer
+     per forward and no other kernel;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound; fused_sample at a verify tick's
      40 x 151,936 bf16 rows; ragged_prefill_paged also at a verify
      tick's 8 x 5 rows; ``ssd_scan`` on a 2048-token prompt in 8 chunk
-     steps, a (64, 8) grid step and a packed step's (512, 8) bridge),
-     each kernel's output there held to its plain version, the parts of
-     a dense grid tick (whole-slot copies, attention over S_max), and
-     ``torch.profiler`` over a mamba2 packed prefill, grid prefill and
-     decode tick (device time by kernel, busy share);
+     steps, and a (64, 8) grid step and a packed step's (512, 8) bridge
+     as medians of 9 interleaved kernel / plain timings; ``flash_attn``
+     at the (64, 8) grid step at history 256 over 4096-deep slots and at
+     hubert's (8, 1500, 16, 80) non-causal layer; ``decode_attn`` at 8
+     rows x 2048 keys), each kernel's output there held to its plain
+     version, the parts of a dense grid tick (whole-slot copies, the
+     kernel's attention beside its plain version over S_max), and
+     ``torch.profiler`` over two qwen3-4b grid steps (eight 256-token
+     prompts; one 256-token re-prefill at history 1792) and a mamba2
+     packed prefill, grid prefill and decode tick (device time by
+     kernel, busy share);
   6. the serve launcher, its default and ``--packed``, for qwen3-4b and
      mamba2-2.7b, at the smoke config and at published widths cut to 4
      layers;
@@ -395,6 +414,96 @@ def phase_slot_kernels(seed, errs):
             assert ok, f"decode_attn_arena {name} {dtype}"
 
 
+# the dense kernels' GQA groups: hubert-xlarge's 16 / 16 (rep 1),
+# qwen3-4b's 32 / 8 (rep 4) and qwen2.5-32b's 40 / 8 (rep 5, the first
+# odd group on the card)
+DENSE_HEADS = ((16, 16), (32, 8), (40, 8))
+FLASH_DIMS = (64, 80, 96, 128)
+FLASH_CASES = {
+    # B, Lq, S, q_offsets, kv_lengths, causal, window
+    "causal_offsets": (3, 77, 300, [0, 100, 223], [77, 177, 300], True,
+                       None),
+    "noncausal": (3, 150, 150, [0, 0, 0], [150, 61, 0], False, None),
+    "window": (2, 77, 300, [10, 200], [87, 277], True, 48),
+    # dummy depth rows: queries from the park position S - 1 on, past S
+    "park_rows": (3, 16, 200, [199, 199, 30], [200, 200, 0], True, None),
+}
+DENSE_DECODE_LENGTHS = [0, 1, 17, 255, 256, 100]   # over S = 256
+
+
+def _batch_kv(gen, b, s, hkv, d, kv_lengths, dtype):
+    """(B, S, hkv, d) K/V batch caches of random rows whose rows at and
+    past each row's kv length hold POISON_KV."""
+    k = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE)
+    for i, n in enumerate(kv_lengths):
+        k[i, n:] = POISON_KV
+        v[i, n:] = POISON_KV
+    return k.to(dtype), v.to(dtype)
+
+
+def phase_dense_kernels(seed, errs):
+    """``flash_attn`` and ``decode_attn`` (the dense grid's and the dense
+    decode's kernels) against their plain versions: flash at D 64, 80,
+    96 and 128 and decode at 128, each at the GQA groups of
+    DENSE_HEADS; causal with offsets, non-causal with kv lengths, a
+    window, dummy rows parked at S - 1, rows of length 0, every row at
+    and past each length poisoned."""
+    import functools
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels import flash_attn as fl
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 30)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in FLASH_DIMS:
+            for hq, hkv in DENSE_HEADS:
+                for name, (b, lq, s, offs, kvl, causal, window) in \
+                        FLASH_CASES.items():
+                    k, v = _batch_kv(gen, b, s, hkv, d, kvl, dtype)
+                    q = torch.randn((b, lq, hq, d), generator=gen,
+                                    device=DEVICE).to(dtype)
+                    args = (q, k, v, _i32(offs), _i32(kvl))
+                    out = fl.flash_attn(*args, causal=causal, window=window)
+                    torch.cuda.synchronize()
+                    plain = functools.partial(fl.flash_attn_plain,
+                                              causal=causal, window=window)
+                    err, worst, ok, ref = _held(out, plain, *args)
+                    keyless = ref.abs().amax(dim=(2, 3)) == 0
+                    zeros = bool((out[keyless] == 0).all().item())
+                    ok = ok and zeros and bool(torch.isfinite(out).all())
+                    errs.setdefault(("flash_attn", dtype), []).append(err)
+                    n += 1
+                    if not ok or name == "causal_offsets":
+                        log(f"[2] flash_attn D={d} {hq}/{hkv} {name:15s} "
+                            f"{str(dtype):15s} max_abs_err={err:.3e} "
+                            f"err/bound={worst:.3f} keyless rows "
+                            f"{int(keyless.sum())} zero={zeros} "
+                            f"{'ok' if ok else 'FAIL'}")
+                    assert ok, f"flash_attn D={d} {hq}/{hkv} {name} {dtype}"
+        for hq, hkv in DENSE_HEADS:
+            lengths = DENSE_DECODE_LENGTHS
+            k, v = _batch_kv(gen, len(lengths), 256, hkv, D, lengths, dtype)
+            q = torch.randn((len(lengths), hq, D), generator=gen,
+                            device=DEVICE).to(dtype)
+            out = dec.decode_attn(q, k, v, _i32(lengths))
+            torch.cuda.synchronize()
+            err, worst, ok, _ = _held(out, dec.decode_attn_plain, q, k, v,
+                                      _i32(lengths))
+            zero_rows = [i for i, x in enumerate(lengths) if x == 0]
+            zeros = bool((out[zero_rows] == 0).all().item())
+            ok = ok and zeros and bool(torch.isfinite(out).all())
+            errs.setdefault(("decode_attn", dtype), []).append(err)
+            log(f"[2] decode_attn {hq}/{hkv} lengths {lengths} "
+                f"{str(dtype):15s} max_abs_err={err:.3e} "
+                f"err/bound={worst:.3f} zero_rows_zero={zeros} "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok, f"decode_attn {hq}/{hkv} {dtype}"
+    log(f"[2] ok: flash_attn == plain on {n} cases (fp32 max_abs_err "
+        f"{max(errs[('flash_attn', torch.float32)]):.3e}, bf16 "
+        f"{max(errs[('flash_attn', torch.bfloat16)]):.3e})")
+
+
 SAMPLE_MARGIN = 1e-5   # a draw may move only where u is this close to a
 #                        non-zero cumulative mass of the plain version
 
@@ -534,6 +643,7 @@ def phase_sample_kernel(seed, errs):
 # mamba2-2.7b's SSD heads: 80 heads of 64, state 128, one group, chunk 128
 SSD_NH, SSD_HD, SSD_DS, SSD_CHUNK = 80, 64, 128, 128
 SSD_LENS = (1, 127, 128, 129, 300, 2048)
+SSD_PAIRS = 9   # interleaved kernel / plain timings at the grid and bridge
 
 
 def _ssd_inputs(gen, b, l, g, dtype):
@@ -608,10 +718,13 @@ def phase_ssd_kernel(seed, errs):
 # ------------------------------------------------------------ phase 3
 
 # the engine configurations served: the launcher's default (the dense
-# (L, B) grid with arena decode), the two packed slot-arena forms and
-# the paged default stack
+# (L, B) grid with arena decode), the grid with the dense decode step,
+# the two packed slot-arena forms and the paged default stack
 MODES = {
     "slot_dense": dict(packed=False, paged_kv=False),
+    # the dense grid and the dense decode step over copied-out slots
+    "slot_dense_decode": dict(packed=False, paged_kv=False,
+                              arena_decode=False),
     "slot_arena": dict(paged_kv=False),
     "slot_gathered": dict(paged_kv=False, arena_prefill=False),
     "paged": dict(),
@@ -627,7 +740,8 @@ SSM_MODES = {
     "ssm_dense": dict(packed=False, paged_kv=False),
 }
 MODE_KERNELS = {
-    "slot_dense": ("decode_attn_arena",),
+    "slot_dense": ("flash_attn", "decode_attn_arena"),
+    "slot_dense_decode": ("flash_attn", "decode_attn"),
     "slot_arena": ("ragged_prefill_arena", "decode_attn_arena"),
     "slot_gathered": ("ragged_prefill_attn", "decode_attn_arena"),
     "paged": ("ragged_prefill_paged", "decode_attn_paged"),
@@ -655,6 +769,7 @@ SPEC_K = 4
 def _launchers():
     """{kernel name: its launcher, whose ``launches`` counts launches}."""
     from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels import flash_attn as fl
     from repro_torch.kernels import ragged_prefill as rp
     from repro_torch.kernels import sampling as ks
     from repro_torch.kernels import ssd_scan as ssd
@@ -664,7 +779,9 @@ def _launchers():
             "ragged_prefill_arena": rp.ragged_prefill_arena,
             "ragged_prefill_attn": rp.ragged_prefill_attn,
             "fused_sample": ks.fused_sample,
-            "ssd_scan": ssd.ssd_scan}
+            "ssd_scan": ssd.ssd_scan,
+            "flash_attn": fl.flash_attn,
+            "decode_attn": dec.decode_attn}
 
 
 def _policy(engine, chunk_tokens, threshold):
@@ -679,12 +796,23 @@ def _policy(engine, chunk_tokens, threshold):
                        awd_cfg=awd)
 
 
+def _to_cpu(tree):
+    """A CPU copy of a parameter or cache tree: a forward over it takes
+    the kernels' plain versions, never the kernels it is held against."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
 def phase_oracle(seed, mode):
     """The engine in ``mode`` against the plain dense forward over each
     session's cached ids, at full width cut to 2 layers, fp32: qwen3-4b
     in the attention modes, mamba2-2.7b in the SSM modes (whose oracle
-    scans each whole sequence once from a zero state through
-    ``ssd_scan``).  The SSM system prompt is 64 tokens, one C_l chunk
+    scans each whole sequence once from a zero state).  The oracle runs
+    on a CPU copy of the parameters, so it takes the plain versions and
+    passes through none of the kernels the engine launches.  The SSM system prompt is 64 tokens, one C_l chunk
     and four pages: a chunked prompt's first commit lands on its end and
     checkpoints the state there, which later sessions adopt on the page
     pool."""
@@ -696,6 +824,7 @@ def phase_oracle(seed, mode):
     cfg = get_config("mamba2-2.7b" if ssm else "qwen3-4b").replace(
         num_layers=2, dtype="float32")
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    cpu_params = _to_cpu(params)
     engine = Engine(cfg, params, EngineConfig(
         num_slots=8, max_len=1024, chunk_tokens=64, measure=False,
         **(SSM_MODES if ssm else MODES)[mode]), device=DEVICE)
@@ -737,8 +866,9 @@ def phase_oracle(seed, mode):
         if engine._paged:
             assert engine.arena._tokens[s] == ids, f"session {s} ids"
         with torch.no_grad():
-            ref = tr.forward(params, cfg, torch.tensor([ids], device=DEVICE))
-        ref_last = ref[0, -1].float().cpu().numpy()
+            ref = tr.forward(cpu_params, cfg, torch.tensor([ids]),
+                             logits_slice="last")
+        ref_last = ref[0].numpy()
         got = engine.last_logits[s]
         err = float(np.abs(got - ref_last).max())
         same = int(np.argmax(got)) == int(np.argmax(ref_last))
@@ -757,6 +887,46 @@ def phase_oracle(seed, mode):
         f"{st['state_checkpoints']}, arena_gathers "
         f"{st['arena_gathers']}, dense_dispatches {st['dense_dispatches']} "
         f"{st['dense_dispatches_by_cause']}")
+
+
+def phase_encoder_oracle(seed):
+    """hubert-xlarge's encoder forward on the card (full width cut to 2
+    layers, fp32, random frame embeddings) against the same forward on a
+    CPU copy of the parameters (the plain versions): two clips of 400
+    frames without a cache, then as a padded batch through a 512-deep
+    cache with ``kv_valid_len`` (400, 290).  Logits over the real
+    vocabulary within 1e-3, and ``flash_attn`` launched once per layer
+    in each forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as fl
+    from repro_torch.models import transformer as tr
+    cfg = get_config("hubert-xlarge").replace(num_layers=2, dtype="float32")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    cpu_params = _to_cpu(params)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 7)
+    emb = torch.randn((2, 400, cfg.d_model), generator=gen, device=DEVICE)
+    kvl = torch.tensor([400, 290], dtype=torch.int32)
+    for name, cached in (("no cache", False), ("cache + kv_valid_len", True)):
+        kw, cpu_kw = {}, {}
+        if cached:
+            kw = dict(caches=tr.init_cache(cfg, 2, 512, device=DEVICE),
+                      kv_valid_len=kvl.to(DEVICE))
+            cpu_kw = dict(caches=_to_cpu(kw["caches"]), kv_valid_len=kvl)
+        n0 = fl.flash_attn.launches
+        with torch.no_grad():
+            got = tr.forward(params, cfg, embeds=emb, **kw)
+            ref = tr.forward(cpu_params, cfg, embeds=emb.cpu(), **cpu_kw)
+        torch.cuda.synchronize()
+        launched = fl.flash_attn.launches - n0
+        v = cfg.vocab_size
+        err = float((got[..., :v].cpu() - ref[..., :v]).abs().max())
+        log(f"[3] hubert-xlarge encoder, {cfg.num_layers} layers fp32, "
+            f"{name}: logits {tuple(got.shape)} max_abs_err={err:.3e} "
+            f"(tol 1e-3), flash_attn launches {launched}")
+        assert err <= 1e-3, f"hubert encoder ({name}) vs the CPU forward"
+        assert launched == cfg.num_layers, f"hubert ({name}): {launched}"
+    log("[3] ok: hubert-xlarge encoder on the card == CPU forward")
 
 
 def _spec_run(engine, prompt, n, sampling=None):
@@ -973,6 +1143,22 @@ def _serve_once(cfg, params, seed, mode):
             [system, rng.integers(1, cfg.vocab_size,
                                   int(rng.integers(16, 193)))])
     ticks = []          # (seconds, kind)
+    # rows of dense decode steps (arena_decode=False): the dense executor
+    # counts them among its useful tokens, beside the grid's prompts
+    dense_decode_rows = [0]
+    # whole-slot gathers by tick kind (only slot_dense_decode copies
+    # slots on decode ticks)
+    gathers = {"prefill": 0, "decode": 0}
+    # the (L, B) shape of every dense grid step, and each prefill tick's
+    # seconds with the shapes it ran
+    dense_shapes, prefill_log = [], []
+    inner_prefill = engine.executor.prefill
+
+    def dense_prefill(params, tokens, *rest):
+        dense_shapes.append(tuple(tokens.shape[::-1]))
+        return inner_prefill(params, tokens, *rest)
+
+    engine.executor.prefill = dense_prefill
     launchers = _launchers()
     ssd = launchers["ssd_scan"]
     # ssd_scan launches in prefill and in decode-only ticks, and the
@@ -983,6 +1169,9 @@ def _serve_once(cfg, params, seed, mode):
         while loop.has_work:
             pre0, dec0 = _dispatches(engine)
             n_spec, n_ssd = spec_ticks["n"], ssd.launches
+            u0 = engine.executor.useful_tokens
+            g0 = engine.arena.gather_calls
+            s0 = len(dense_shapes)
             t = time.perf_counter()
             did, _ = loop.tick()
             torch.cuda.synchronize()
@@ -996,11 +1185,15 @@ def _serve_once(cfg, params, seed, mode):
                 ssd_split["dispatches"] += pre - pre0
             elif dec > dec0:
                 kind = "decode"
+                dense_decode_rows[0] += engine.executor.useful_tokens - u0
             elif not did:
                 time.sleep(0.0005)
             if kind is not None:
                 ticks.append((dt, kind))
                 ssd_split[kind] += ssd.launches - n_ssd
+                gathers[kind] += engine.arena.gather_calls - g0
+                if kind == "prefill":
+                    prefill_log.append((dt, dense_shapes[s0:]))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1038,11 +1231,13 @@ def _serve_once(cfg, params, seed, mode):
     n_pre = sum(1 for _, k in ticks if k == "prefill")
     n_dec = sum(1 for _, k in ticks if k == "decode")
     # prompt tokens through packed steps and through dense grid steps
-    # (every mode decodes on the arena, so the dense executor counts
-    # prefill tokens only)
-    assert "decode" not in st["dense_dispatches_by_cause"]
-    prefill_tokens = st.get("packed_useful_tokens", 0) + st["useful_tokens"]
-    decode_rows = st.get("decode_useful_rows", 0)
+    # (the dense executor also counts the rows of dense decode steps,
+    # which only slot_dense_decode runs)
+    assert ("decode" in st["dense_dispatches_by_cause"]) == (
+        mode == "slot_dense_decode")
+    prefill_tokens = (st.get("packed_useful_tokens", 0) + st["useful_tokens"]
+                      - dense_decode_rows[0])
+    decode_rows = st.get("decode_useful_rows", 0) + dense_decode_rows[0]
     finite = all(bool(np.isfinite(x).all())
                  for x in engine.last_logits.values())
     if spec:
@@ -1066,7 +1261,7 @@ def _serve_once(cfg, params, seed, mode):
         assert ssd_split["decode"] == 0, f"{mode}: ssd_scan in a decode tick"
         assert ssd_split["prefill"] == cfg.num_layers * ssd_split[
             "dispatches"], f"{mode}: ssd_scan launches {ssd_split}"
-    if mode == "slot_dense":
+    if mode in ("slot_dense", "slot_dense_decode"):
         assert policy.awd.graph_hits > 0, "the (L, B) grid was never hit"
     if mode == "slot_arena":
         assert st["arena_gathers"] == st["dense_dispatches"], \
@@ -1104,16 +1299,16 @@ def _serve_once(cfg, params, seed, mode):
         "decode_tok_s": decode_rows / max(decode_s, 1e-9),
         "prefill_s_per_tick": prefill_s / max(1, n_pre),
         "decode_s_per_tick": decode_s / max(1, n_dec),
-        # every whole-slot copy happens on a prefill tick (all modes
-        # decode in place)
-        "gathers_per_prefill_tick": st["arena_gathers"] / max(1, n_pre),
-        "scatters_per_prefill_tick": st["arena_scatters"] / max(1, n_pre),
+        # whole-slot copies (each gather is scattered back in its tick)
+        "gathers_per_prefill_tick": gathers["prefill"] / max(1, n_pre),
+        "gathers_per_decode_tick": gathers["decode"] / max(1, n_dec),
         "wall_s": wall,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches,
         "ssd_per_prefill_tick": ssd_split["prefill"] / max(1, n_pre),
         "ssd_per_decode_tick": ssd_split["decode"] / max(1, n_dec),
         "state_checkpoints": st["state_checkpoints"],
+        "prefill_log": prefill_log,
         "schedule": (n_pre, n_dec, prefill_tokens, decode_rows,
                      st["prefix_hit_tokens"], st["arena_gathers"],
                      st["dense_dispatches"], policy.awd.graph_hits,
@@ -1165,9 +1360,14 @@ def phase_full(seed, card, arch, kept):
                     f"tick {r['ssd_per_prefill_tick']:.2f}, per decode-only "
                     f"tick {r['ssd_per_decode_tick']:.2f}; state "
                     f"checkpoints {r['state_checkpoints']}; whole-slot "
-                    f"gathers / scatters per prefill tick "
+                    f"gathers per prefill / decode tick "
                     f"{r['gathers_per_prefill_tick']:.2f} / "
-                    f"{r['scatters_per_prefill_tick']:.2f}")
+                    f"{r['gathers_per_decode_tick']:.2f}")
+            if i == 1 and mode in ("slot_dense", "slot_dense_decode"):
+                log(f"[4] {mode} run {i}: prefill ticks, ms and the (L, B) "
+                    f"of their dense grid steps: " + ", ".join(
+                        f"{dt * 1e3:.1f} {shapes}"
+                        for dt, shapes in r["prefill_log"]))
             if r["spec"] is not None:
                 sr = r["spec"]
                 log(f"[4] {mode} run {i}: {sr['dispatches']} verify "
@@ -1190,7 +1390,7 @@ def phase_full(seed, card, arch, kept):
                           ("prefill_s_per_tick", "s"),
                           ("decode_s_per_tick", "s"),
                           ("gathers_per_prefill_tick", ""),
-                          ("scatters_per_prefill_tick", ""),
+                          ("gathers_per_decode_tick", ""),
                           ("peak_gib", "GiB"), ("wall_s", "s")]:
             xs = [r[key] for r in results]
             log(f"[4] {mode} {key}: median {float(np.median(xs)):.4f} "
@@ -1204,6 +1404,57 @@ def phase_full(seed, card, arch, kept):
                          n_dec if name.startswith("decode") else n_pre)
                 launches[name] = (n, ticks, mode)
     return launches
+
+
+ENCODER_CLIPS, ENCODER_FRAMES = 8, 1500   # 30 s of audio at 50 frames/s
+
+
+def phase_encoder(seed, card, runs=3):
+    """hubert-xlarge at full width (48 layers, bf16, random weights from
+    the seed) over ENCODER_CLIPS clips of ENCODER_FRAMES random frame
+    embeddings (the frontend is a stub, as in the reference): one
+    warm-up forward, then ``runs`` timed ones with every kernel's count
+    set to 0 just before them and read just after — ``flash_attn`` once
+    per layer per forward and no other kernel; finite logits; ms per
+    batch and frames/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    cfg = get_config("hubert-xlarge")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 8)
+    emb = torch.randn((ENCODER_CLIPS, ENCODER_FRAMES, cfg.d_model),
+                      generator=gen, device=DEVICE).to(cfg.torch_dtype)
+    with torch.no_grad():
+        tr.forward(params, cfg, embeds=emb)          # warm-up
+    torch.cuda.synchronize()
+    launchers = _launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits = tr.forward(params, cfg, embeds=emb)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    launches = {name: fn.launches for name, fn in launchers.items()}
+    finite = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    ms = float(np.median(secs)) * 1e3
+    frames = ENCODER_CLIPS * ENCODER_FRAMES
+    log(f"[4] hubert-xlarge {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"{cfg.dtype}, {ENCODER_CLIPS} clips x {ENCODER_FRAMES} frames: "
+        f"{ms:.1f} ms per batch (median of {runs}; min {min(secs) * 1e3:.1f}"
+        f" max {max(secs) * 1e3:.1f}), {frames / ms * 1e3:.0f} frames/s, "
+        f"flash_attn launches {launches['flash_attn']} "
+        f"({launches['flash_attn'] / runs:.0f} per forward), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, logits "
+        f"{tuple(logits.shape)} finite={finite} (card {card})")
+    assert finite, "hubert-xlarge: non-finite logits"
+    assert launches["flash_attn"] == cfg.num_layers * runs, launches
+    assert all(n == 0 for k, n in launches.items() if k != "flash_attn"), \
+        launches
 
 
 # ------------------------------------------------------------ phase 5
@@ -1431,6 +1682,7 @@ def phase_times(seed, errs):
         bytes=r_rows * vocab * el + r_rows * (4 * 5 + 2 * 4 * ks.MAX_BIAS)
         + r_rows * 12)
     out["ssd_scan"] = _time_ssd(gen, errs)
+    out.update(_time_dense(gen, errs))
     for name, r in out.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r.get("flops_rate", BF16_FLOPS) * 1e3
@@ -1438,12 +1690,126 @@ def phase_times(seed, errs):
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         lib = ("none (no single PyTorch call computes it)"
                if r["library_ms"] is None else
-               f"(SDPA over the gathered keys) {r['library_ms']:.4f} ms")
+               f"(SDPA over the keys attended) {r['library_ms']:.4f} ms")
         log(f"[5] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, library {lib}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
             f"{r['flops'] / 1e9:.2f} GFLOP)")
     return out
+
+
+GRID_L, GRID_B, GRID_HIST, GRID_S = 64, 8, 256, 4096
+
+
+def _time_dense(gen, errs):
+    """``flash_attn`` and ``decode_attn`` at the dense paths' shapes in
+    bf16, each held to its plain version first: the (L, B) = (64, 8)
+    grid step at history 256 over 8 gathered 4096-deep slots (the
+    ``flash_attn`` row), hubert-xlarge's non-causal layer over 8 clips
+    of 1500 frames at 16 heads of 80 (``flash_attn_encoder``), and the
+    dense decode step of 8 rows x 2048 keys in 4096-deep slots; and,
+    logged beside them, ``flash_attn`` at phase 4's other grid steps (a
+    long prompt's 256-row chunk at history 1792, seven 256-row prompts).
+    The plain versions attend over whole slots, masked, as the dense
+    path did before the kernels; the library yardstick is one SDPA call over
+    the keys each row attends (head-expanded beforehand, not timed).
+    Bounds count the keys attended: the grid reads 320 of each slot's
+    4096 rows, the decode 2048."""
+    import functools
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels import flash_attn as fl
+    dt, el = torch.bfloat16, 2
+    rep = HQ // HKV
+    rows = {}
+    b, l, hist, s = GRID_B, GRID_L, GRID_HIST, GRID_S
+    n = hist + l
+    q = torch.randn((b, l, HQ, D), generator=gen, device=DEVICE).to(dt)
+    k, v = _batch_kv(gen, b, s, HKV, D, [s] * b, dt)
+    args = (q, k, v, _i32([hist] * b), _i32([s] * b))
+    got = fl.flash_attn(*args)
+    err, worst, ok, _ = _held(got, fl.flash_attn_plain, *args)
+    errs.setdefault(("flash_attn", dt), []).append(err)
+    log(f"[5] flash_attn grid step (L, B) = ({l}, {b}) at history {hist} "
+        f"over {s}-deep slots: max_abs_err={err:.3e} err/bound={worst:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, "flash_attn at the grid step"
+    mask = (torch.arange(n, device=DEVICE)[None, :]
+            <= hist + torch.arange(l, device=DEVICE)[:, None])
+    qs = q.transpose(1, 2)
+    ks = k[:, :n].repeat_interleave(rep, 2).transpose(1, 2)
+    vs = v[:, :n].repeat_interleave(rep, 2).transpose(1, 2)
+    attended = b * sum(hist + i + 1 for i in range(l))
+    rows["flash_attn"] = dict(
+        ms=_time(lambda: fl.flash_attn(*args)),
+        plain_ms=_time(lambda: fl.flash_attn_plain(*args), 3),
+        library_ms=_time(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask)),
+        flops=4 * attended * D * HQ,
+        bytes=(2 * b * l * HQ * D + 2 * b * n * HKV * D) * el + 4 * 2 * b)
+
+    # the trace's other dense prefill steps: a chunk of the long prompt
+    # (256 rows at history 1792, B = 1) and turn 1's seven prompts
+    # padded to 256 rows (history 0, B = 7), each over 4096-deep slots
+    for what, cb, chist in (("the long prompt's chunk", 1, 1792),
+                            ("turn 1's seven prompts", 7, 0)):
+        cq = torch.randn((cb, 256, HQ, D), generator=gen,
+                         device=DEVICE).to(dt)
+        ck, cv = _batch_kv(gen, cb, s, HKV, D, [s] * cb, dt)
+        cargs = (cq, ck, cv, _i32([chist] * cb), _i32([s] * cb))
+        err, worst, ok, _ = _held(fl.flash_attn(*cargs), fl.flash_attn_plain,
+                                  *cargs)
+        assert ok, f"flash_attn at {what}"
+        k_ms = _time(lambda: fl.flash_attn(*cargs))
+        p_ms = _time(lambda: fl.flash_attn_plain(*cargs), 3)
+        log(f"[5] flash_attn at {what} (L, B) = (256, {cb}), history "
+            f"{chist} over {s}-deep slots: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms a layer (x 36: {36 * k_ms:.1f} vs "
+            f"{36 * p_ms:.1f} ms a tick), max_abs_err={err:.3e} "
+            f"err/bound={worst:.3f}")
+
+    eb, ef, eh, ed = ENCODER_CLIPS, ENCODER_FRAMES, 16, 80
+    qe, ke, ve = (torch.randn((eb, ef, eh, ed), generator=gen,
+                              device=DEVICE).to(dt) for _ in range(3))
+    eargs = (qe, ke, ve, _i32([0] * eb), _i32([ef] * eb))
+    plain = functools.partial(fl.flash_attn_plain, causal=False)
+    got = fl.flash_attn(*eargs, causal=False)
+    err, worst, ok, _ = _held(got, plain, *eargs)
+    errs.setdefault(("flash_attn", dt), []).append(err)
+    log(f"[5] flash_attn encoder layer ({eb}, {ef}, {eh}, {ed}) "
+        f"non-causal: max_abs_err={err:.3e} err/bound={worst:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, "flash_attn at the encoder layer"
+    qt, kt, vt = (x.transpose(1, 2) for x in (qe, ke, ve))
+    rows["flash_attn_encoder"] = dict(
+        ms=_time(lambda: fl.flash_attn(*eargs, causal=False), 5),
+        plain_ms=_time(lambda: plain(*eargs), 2),
+        library_ms=_time(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+        flops=4 * eb * ef * ef * ed * eh,
+        bytes=4 * eb * ef * eh * ed * el + 4 * 2 * eb)
+
+    keys = 2048
+    kd, vd = _batch_kv(gen, b, s, HKV, D, [keys] * b, dt)
+    qd = torch.randn((b, HQ, D), generator=gen, device=DEVICE).to(dt)
+    dargs = (qd, kd, vd, _i32([keys] * b))
+    got = dec.decode_attn(*dargs)
+    err, worst, ok, _ = _held(got, dec.decode_attn_plain, *dargs)
+    errs.setdefault(("decode_attn", dt), []).append(err)
+    log(f"[5] decode_attn {b} rows x {keys} keys in {s}-deep slots: "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, "decode_attn at main-path shapes"
+    ksd = kd[:, :keys].repeat_interleave(rep, 2).transpose(1, 2)
+    vsd = vd[:, :keys].repeat_interleave(rep, 2).transpose(1, 2)
+    rows["decode_attn"] = dict(
+        ms=_time(lambda: dec.decode_attn(*dargs)),
+        plain_ms=_time(lambda: dec.decode_attn_plain(*dargs), 3),
+        library_ms=_time(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], ksd, vsd)),
+        flops=4 * b * keys * D * HQ,
+        bytes=(2 * b * HQ * D + 2 * b * keys * HKV * D) * el + 4 * b)
+    return rows
 
 
 def _ssd_work(b, l, g, chunk=SSD_CHUNK, el=2):
@@ -1504,18 +1870,27 @@ def _time_ssd(gen, errs):
                library_ms=None, flops=sum(w[0] for w in work),
                flops_rate=FP32_FLOPS, bytes=sum(w[1] for w in work))
     # a dense grid step, and the packed step's dense bridge at the
-    # largest token bucket: 8 stream rows x 512 (mostly empty) rows
+    # largest token bucket: 8 stream rows x 512 (mostly empty) rows; the
+    # kernel and the plain version timed in turns, SSD_PAIRS times each,
+    # and compared by their medians
     for what, b, l in (("dense grid step", 8, 64),
                        ("packed step's bridge", 8, 512)):
         args = _ssd_inputs(gen, b, l, 1, dt_)
         err, worst, ok = _held_ssd(args)
         assert ok, f"ssd_scan at the {what}"
-        k_ms = _time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK), 20)
-        p_ms = _time(lambda: ssd.ssd_scan_plain(*args, chunk=SSD_CHUNK), 5)
+        pairs = [(_time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK), 20),
+                  _time(lambda: ssd.ssd_scan_plain(*args, chunk=SSD_CHUNK),
+                        5))
+                 for _ in range(SSD_PAIRS)]
+        k_ms, p_ms = (float(np.median([p[i] for p in pairs]))
+                      for i in (0, 1))
         flops, nbytes = _ssd_work(b, l, 1)
         bound = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
         log(f"[5] ssd_scan {what} (L, B) = ({l}, {b}): kernel {k_ms:.4f} "
-            f"ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+            f"ms, plain {p_ms:.4f} ms (medians of {SSD_PAIRS} interleaved "
+            f"timings: kernel {[round(p[0], 4) for p in pairs]}, plain "
+            f"{[round(p[1], 4) for p in pairs]}), kernel / plain "
+            f"{k_ms / p_ms:.3f}, bound {bound:.4f} ms "
             f"({flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB), "
             f"max_abs_err={err:.3e} err/bound={worst:.3f}")
     return row
@@ -1535,6 +1910,53 @@ def _device_split(prof, wall_ms, what, card):
         f"{100 * (1 - busy / max(wall_ms, 1e-9)):.1f}%) (card {card})")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"[5]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def phase_dense_profile(seed, card):
+    """Where a qwen3-4b dense grid tick's time goes (full width, bf16,
+    the launcher's slot_dense mode): ``torch.profiler`` over the trace's
+    two kinds of grid step — eight 256-token prompts as one (256, 8)
+    step, and one 256-token re-prefill at history 1792, a long prompt's
+    chunk — each after a warm-up of the same step on other sessions."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = get_config("qwen3-4b")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    engine = Engine(cfg, params, EngineConfig(
+        num_slots=18, max_len=4096, chunk_tokens=256, measure=False,
+        **MODES["slot_dense"]), device=DEVICE)
+    rng = np.random.default_rng(seed + 9)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def prompts(n, length):
+        return [rng.integers(1, cfg.vocab_size, length) for _ in range(n)]
+
+    for base in (0, 8):                  # warm-up on 0..7, then profile
+        sess = list(range(base, base + 8))
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            engine.prefill_batch(sess, prompts(8, 256))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if base:
+            _device_split(prof, wall, "slot_dense (256, 8) grid step",
+                          card)
+    for s in (16, 17):                   # warm-up on 16, then profile
+        engine.prefill_batch([s], prompts(1, 1792))
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            engine.prefill_batch([s], prompts(1, 256))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if s == 17:
+            _device_split(prof, wall, "slot_dense (256, 1) step at "
+                          "history 1792", card)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_ssm_profile(seed, card):
@@ -1585,17 +2007,18 @@ def phase_ssm_profile(seed, card):
         gc.collect()
 
 
-def phase_dense_tick(seed, card):
+def phase_dense_tick(card, times):
     """Where a dense (L, B) grid tick of the launcher's default goes, at
     full width: copying 8 whole slots out of an 8-slot x 4096 arena and
-    back (one gather and one scatter), and one layer's fp32 attention
-    at (L, B) = (64, 8) over the gathered 4096 positions against the
-    same over only the 320 a history of 256 needs."""
+    back (one gather and one scatter), and one layer's bf16 attention at
+    (L, B) = (64, 8), history 256, over the gathered slots — the
+    ``flash_attn`` kernel, which walks the 320 keys each row needs,
+    beside its plain version over all 4096 positions, the dense path's
+    attention before the kernel (``times["flash_attn"]``, phase 5)."""
     from repro_torch.configs import get_config
-    from repro_torch.models.layers import attention_core
     from repro_torch.serving.kvcache import KVArena
     cfg = get_config("qwen3-4b")
-    arena = KVArena(cfg, 8, 4096, device=DEVICE)
+    arena = KVArena(cfg, 8, GRID_S, device=DEVICE)
     slots = list(range(8))
     caches = arena.gather(slots)
     nbytes = sum(a.numel() * a.element_size() for c in caches
@@ -1607,25 +2030,13 @@ def phase_dense_tick(seed, card):
         f"scatter {scatter_ms:.3f} ms ({nbytes / 1e9:.2f} GB each way, "
         f"bound {bound_ms:.3f} ms each) (card {card})")
     del caches, arena
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed + 4)
-    b, l, hist, s_max = 8, 64, 256, 4096
-    q = torch.randn((b, l, HQ, D), generator=gen, device=DEVICE).bfloat16()
-    k = torch.randn((b, s_max, HKV, D), generator=gen,
-                    device=DEVICE).bfloat16()
-    v = torch.randn((b, s_max, HKV, D), generator=gen,
-                    device=DEVICE).bfloat16()
-    pos = (hist + torch.arange(l, device=DEVICE))[None].expand(b, l)
-    full_ms = _time(lambda: attention_core(q, k, v, pos, causal=True,
-                                           window=None), 5)
-    n = hist + l
-    prefix_ms = _time(lambda: attention_core(q, k[:, :n], v[:, :n], pos,
-                                             causal=True, window=None), 5)
-    log(f"[5] dense tick: one layer's attention at (L, B) = ({l}, {b}), "
-        f"history {hist}: over all {s_max} positions {full_ms:.3f} ms, "
-        f"over the {n} needed {prefix_ms:.3f} ms; x {cfg.num_layers} "
-        f"layers: {full_ms * cfg.num_layers:.1f} vs "
-        f"{prefix_ms * cfg.num_layers:.1f} ms (card {card})")
+    r, n = times["flash_attn"], cfg.num_layers
+    log(f"[5] dense tick: one layer's attention at (L, B) = ({GRID_L}, "
+        f"{GRID_B}), history {GRID_HIST}: flash_attn {r['ms']:.4f} ms "
+        f"(the {GRID_HIST + GRID_L} keys needed), the plain version over "
+        f"all {GRID_S} positions {r['plain_ms']:.3f} ms; x {n} layers: "
+        f"{r['ms'] * n:.1f} vs {r['plain_ms'] * n:.1f} ms, beside "
+        f"{gather_ms + scatter_ms:.1f} ms of slot copies (card {card})")
 
 
 # ------------------------------------------------------------ main
@@ -1659,6 +2070,14 @@ KERNELS = {
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:69",
         jax="repro.kernels.ssd_scan.ssd_scan"),
+    "decode_attn": dict(
+        source="src/repro_torch/csrc/decode_attn_dense.cu",
+        replaces="src/repro/kernels/decode_attn.py:101",
+        jax="repro.kernels.decode_attn.decode_attn"),
+    "flash_attn": dict(
+        source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn.py:103",
+        jax="repro.kernels.flash_attn.flash_attn"),
 }
 
 
@@ -1706,23 +2125,30 @@ def main() -> int:
         phase_slot_kernels(args.seed, errs)
         phase_sample_kernel(args.seed, errs)
         phase_ssd_kernel(args.seed, errs)
+        phase_dense_kernels(args.seed, errs)
     if 3 in phases:
         for mode in (*MODES, *SSM_MODES):
             phase_oracle(args.seed, mode)
+        phase_encoder_oracle(args.seed)
         for mode in ("paged", "slot_arena"):
             phase_spec_oracle(args.seed, mode)
     if 4 in phases:
         runs = args.runs
         launches = phase_full(args.seed, card, "qwen3-4b", {
-            "slot_dense": runs, "slot_arena": 1, "slot_gathered": 1,
+            "slot_dense": runs, "slot_dense_decode": max(1, runs // 2),
+            "slot_arena": 1, "slot_gathered": 1,
             "paged": max(1, runs // 2), "spec": 1})
         gc.collect()
         torch.cuda.empty_cache()
         launches.update(phase_full(args.seed, card, "mamba2-2.7b",
                                    {mode: 1 for mode in SSM_MODES}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_encoder(args.seed, card)
     if 5 in phases:
         times = phase_times(args.seed, errs)
-        phase_dense_tick(args.seed, card)
+        phase_dense_tick(card, times)
+        phase_dense_profile(args.seed, card)
         phase_ssm_profile(args.seed, card)
     if 6 in phases:
         phase_launcher(card)

@@ -15,6 +15,8 @@ _MODULES = {
     "qwen2.5-32b": "qwen2_5_32b",
     # the SSM family: attention-free, SSD scan in every layer
     "mamba2-2.7b": "mamba2_2_7b",
+    # the encoder-only audio family: non-causal attention at head_dim 80
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 

@@ -94,6 +94,8 @@ struct PagedLayout {
   }
 };
 
+// With slot_map == nullptr it is the batch-row layout of a gathered
+// cache (B, S, hkv, D): segment or row b reads cache row b.
 struct SlotLayout {
   const int* slot_map;     // (B,); nullptr: segment b reads slot b
   int s_max;
@@ -108,20 +110,25 @@ struct SlotLayout {
 // as fp32: ks with row stride D + 1 (bank padding), vs with row stride D.
 // NT threads cooperate, `lane` being this thread's index among them;
 // each moves 16-byte vectors, issuing up to 4 K and 4 V loads before it
-// stores any, so several loads are in flight per thread.  Positions >=
+// stores any, so several loads are in flight per thread.  When NT does
+// not divide the tile's KT * D / V vectors (D = 80 or 96: 10 or 12 bf16
+// vectors a row), the last round is ragged and its spare lanes idle;
+// where it divides, the guards fold away at compile time.  Positions >=
 // n_keys are zero-filled and their rows (page-table entries, slot rows)
 // are never read.  The storage base pointers must be 16-byte aligned
-// (the wrappers check).
+// (the wrappers check), and so is every row: D * sizeof(T) is a
+// multiple of 16.
 template <typename T, int D, int KT, int NT, typename Rows>
 __device__ __forceinline__ void load_kv_tile(
     const T* __restrict__ kbuf, const T* __restrict__ vbuf, Rows rows,
     int base, int n_keys, int hkv, int g, int lane, float* ks, float* vs) {
   constexpr int V = Vec16<T>::n;
+  static_assert(D % V == 0, "a row must split into 16-byte vectors");
   constexpr int kRowVecs = D / V;
-  static_assert((KT * kRowVecs) % NT == 0, "tile must split evenly");
-  constexpr int kPer = KT * kRowVecs / NT;
+  constexpr int kTotal = KT * kRowVecs;
+  constexpr int kPer = (kTotal + NT - 1) / NT;
   constexpr int kRound = kPer < 4 ? kPer : 4;
-  static_assert(kPer % kRound == 0, "rounds must split evenly");
+  constexpr bool kEven = kTotal % NT == 0 && kPer % kRound == 0;
 #pragma unroll
   for (int r = 0; r < kPer; r += kRound) {
     uint4 kraw[kRound], vraw[kRound];
@@ -131,7 +138,8 @@ __device__ __forceinline__ void load_kv_tile(
       const int pos = base + vi / kRowVecs;
       kraw[u] = make_uint4(0u, 0u, 0u, 0u);
       vraw[u] = kraw[u];
-      if (pos < n_keys) {
+      const bool in = kEven || (r + u < kPer && vi < kTotal);
+      if (in && pos < n_keys) {
         const size_t o =
             (rows(pos) * hkv + g) * D + (vi % kRowVecs) * V;
         kraw[u] = __ldg(reinterpret_cast<const uint4*>(kbuf + o));
@@ -141,6 +149,7 @@ __device__ __forceinline__ void load_kv_tile(
 #pragma unroll
     for (int u = 0; u < kRound; ++u) {
       const int vi = lane + (r + u) * NT;
+      if (!(kEven || (r + u < kPer && vi < kTotal))) continue;
       const int j = vi / kRowVecs, d0 = (vi % kRowVecs) * V;
       float kf[V], vf[V];
       Vec16<T>::unpack(kraw[u], kf);

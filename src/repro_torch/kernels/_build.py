@@ -40,6 +40,10 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
         "fused_sample_launch", (_P,) * 12 + (_I,) * 3 + (_P,)),
     "ssd_scan": (
         "ssd_scan_launch", (_P,) * 8 + (_I,) * 11 + (_P,)),
+    "flash_attn": (
+        "flash_attn_launch", (_P,) * 6 + (_I,) * 9 + (_P,)),
+    "decode_attn_dense": (
+        "decode_attn_dense_launch", (_P,) * 5 + (_I,) * 6 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -1,9 +1,12 @@
 """Decode attention: the CUDA kernels' launchers and, beside each, its
 plain PyTorch version.
 
-Two kernels share one body (``csrc/decode_attn.cuh``) and differ in
+Three kernels share one body (``csrc/decode_attn.cuh``) and differ in
 where a row's keys live:
 
+- ``decode_attn`` (``csrc/decode_attn_dense.cu``): a gathered batch
+  cache, row b reading cache row b, the port of
+  ``repro.kernels.decode_attn.decode_attn`` (the dense decode step);
 - ``decode_attn_paged`` (``csrc/decode_attn_paged.cu``): a page pool
   read through a page table, the port of
   ``repro.kernels.decode_attn.decode_attn_paged``;
@@ -24,6 +27,8 @@ import torch
 from repro_torch.kernels.ragged_prefill import (_DTYPES, check_kernel_inputs,
                                                 launch)
 from repro_torch.kernels.ref import \
+    ref_decode_attn as decode_attn_plain  # noqa: F401
+from repro_torch.kernels.ref import \
     ref_decode_attn_arena as decode_attn_arena_plain  # noqa: F401
 from repro_torch.kernels.ref import \
     ref_decode_attn_paged as decode_attn_paged_plain  # noqa: F401
@@ -34,6 +39,33 @@ def _refuse(window: Optional[int]) -> None:
         raise NotImplementedError(
             "windowed decode (ring tables, rolling slots) is not ported "
             "yet (ROADMAP Queue 1, item 10)")
+
+
+def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+    """Launch the batch-cache decode kernel on the current stream.
+
+    q: (B, Hq, D); k, v: (B, S, Hkv, D) gathered caches with each row's
+    new KV already written, row b reading cache row b; lengths: (B,)
+    int32 valid cache entries including the new row, all on the card.
+    Returns (B, Hq, D) in q's dtype, zeros on rows with ``lengths ==
+    0``.  Never synchronises.
+    """
+    check_kernel_inputs(q, k, v, lengths, max_rep=8)
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    if k.shape[0] != b or lengths.shape != (b,):
+        raise ValueError("k, v must be (B, S, Hkv, D) and lengths (B,) "
+                         "with q's B")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    launch("decode_attn_dense",
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+           out.data_ptr(), b, hq, hkv, d, s, _DTYPES[q.dtype],
+           torch.cuda.current_stream(q.device).cuda_stream)
+    decode_attn.launches += 1
+    return out
 
 
 def decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,5 +127,6 @@ def decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+decode_attn.launches = 0
 decode_attn_paged.launches = 0
 decode_attn_arena.launches = 0

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attn as _decode
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import ragged_prefill as _prefill
 from repro_torch.kernels import sampling as _sampling
 from repro_torch.kernels import ssd_scan as _ssd
@@ -20,6 +21,26 @@ from repro_torch.kernels.sampling import MAX_BIAS  # noqa: F401  (re-export)
 
 def _no_device(fn: str, dev: torch.device):
     return RuntimeError(f"{fn}: no implementation for tensors on {dev}")
+
+
+def mha(q, k, v, q_offsets=None, kv_lengths=None, *, causal=True,
+        window: Optional[int] = None) -> torch.Tensor:
+    """Dense prefill / re-prefill attention, and an encoder layer's.
+    q: (B, Lq, Hq, D); k, v: (B, S, Hkv, D); q_offsets: (B,) position of
+    each row's first query (None = 0); kv_lengths: (B,) valid KV entries
+    (None = S)."""
+    b, s = k.shape[0], k.shape[1]
+    if q_offsets is None:
+        q_offsets = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    if q.device.type == "cuda":
+        return _flash.flash_attn(q, k, v, q_offsets, kv_lengths,
+                                 causal=causal, window=window)
+    if q.device.type == "cpu":
+        return _flash.flash_attn_plain(q, k, v, q_offsets, kv_lengths,
+                                       causal=causal, window=window)
+    raise _no_device("mha", q.device)
 
 
 def ragged_mha(q, k, v, cu_seqlens, q_offsets=None, kv_lengths=None, *,
@@ -86,6 +107,17 @@ def ragged_mha_paged(q, k, v, page_table, cu_seqlens, q_offsets=None,
             q, k, v, page_table, cu_seqlens, q_offsets, kv_lengths,
             causal=causal, window=window)
     raise _no_device("ragged_mha_paged", q.device)
+
+
+def decode(q, k, v, lengths) -> torch.Tensor:
+    """Single-token decode attention over gathered caches.  q: (B, Hq,
+    D); k, v: (B, S, Hkv, D), row b reading cache row b; lengths: (B,)
+    valid KV entries."""
+    if q.device.type == "cuda":
+        return _decode.decode_attn(q, k, v, lengths)
+    if q.device.type == "cpu":
+        return _decode.decode_attn_plain(q, k, v, lengths)
+    raise _no_device("decode", q.device)
 
 
 def decode_arena(q, k, v, slot_map, lengths, *,

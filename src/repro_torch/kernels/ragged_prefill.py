@@ -20,7 +20,7 @@ same functions with plain tensor ops.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,12 +36,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *index: torch.Tensor, max_rep: int) -> None:
+                        *index: torch.Tensor, max_rep: int,
+                        head_dims: Tuple[int, ...] = (128,)) -> None:
     """Raise ValueError on anything the attention kernels do not take:
     tensors off the card or on two devices, dtypes other than fp32/bf16
     (int32 tables and index vectors), K/V storage that is not
-    (N, rows, Hkv, 128) alike, GQA groups wider than ``max_rep``,
-    non-contiguous memory, or K/V not 16-byte aligned."""
+    (N, rows, Hkv, D) alike with D in ``head_dims``, GQA groups wider
+    than ``max_rep``, non-contiguous memory, or K/V not 16-byte
+    aligned."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel called with a tensor on {dev}")
@@ -61,9 +63,9 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
     hq, d = q.shape[-2], q.shape[-1]
     hkv = k.shape[2]
-    if k.shape[3] != d or d != 128:
-        raise ValueError(f"head_dim {d} (K/V {k.shape[3]}): the kernels "
-                         "take 128, the head_dim of every config served")
+    if k.shape[3] != d or d not in head_dims:
+        raise ValueError(f"head_dim {d} (K/V {k.shape[3]}): the kernel "
+                         f"takes {' or '.join(map(str, head_dims))}")
     if hq % hkv or hq // hkv > max_rep:
         raise ValueError(f"{hq} query heads over {hkv} KV heads: needs "
                          f"Hq % Hkv == 0 and Hq / Hkv <= {max_rep}")

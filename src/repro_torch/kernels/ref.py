@@ -23,6 +23,48 @@ def _no_window(window: Optional[int]) -> None:
             "ported yet (ROADMAP Queue 1, item 10)")
 
 
+def ref_flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_offsets: Optional[torch.Tensor] = None,
+                   kv_lengths: Optional[torch.Tensor] = None, *,
+                   causal: bool = True,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """Dense (B, Lq) prefill / re-prefill attention, and the non-causal
+    attention of an encoder layer.
+
+    q: (B, Lq, Hq, D); k, v: (B, S, Hkv, D) — S may exceed Lq (a KV
+    cache).  q_offsets: (B,) position of each row's first query (the
+    history length), None = 0; query i of row b sits at q_offsets[b] +
+    i.  kv_lengths: (B,) valid KV entries, None = all S.  Key p of row b
+    is attended where p < kv_lengths[b], p <= the query's position
+    (causal) and p > the query's position - window.  Rows with no valid
+    key produce zeros (the JAX oracle averages junk there; the kernels,
+    Pallas and CUDA alike, write 0).
+    """
+    b, lq, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    dev = q.device
+    if q_offsets is None:
+        q_offsets = torch.zeros((b,), dtype=torch.int32, device=dev)
+    qpos = q_offsets.long()[:, None] + torch.arange(lq, device=dev)
+    kpos = torch.arange(s, device=dev)[None, None, :]
+    mask = torch.ones((b, lq, s), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos[:, :, None])
+    if window is not None:
+        mask = mask & (kpos > qpos[:, :, None] - window)
+    if kv_lengths is not None:
+        mask = mask & (kpos < kv_lengths.long()[:, None, None])
+    qg = q.reshape(b, lq, hkv, rep, d).float()
+    scores = torch.einsum("blgrd,bsgd->bglrs", qg, k.float())
+    scores = scores / math.sqrt(d)
+    scores = scores.masked_fill(~mask[:, None, :, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bglrs,bsgd->blgrd", probs, v.float())
+    out = out * mask.any(dim=2)[:, :, None, None, None]   # keyless → 0
+    return out.reshape(b, lq, hq, d).to(q.dtype)
+
+
 def ref_ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        cu_seqlens: torch.Tensor,
                        q_offsets: Optional[torch.Tensor] = None,
@@ -119,24 +161,14 @@ def ref_ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor,
 
 def ref_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
-    """Single-token decode attention.
+    """Single-token decode attention: a causal one-query step whose query
+    sits at position lengths[b] - 1.
 
     q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) valid KV entries.
     Rows with ``lengths == 0`` produce zeros, as the kernels give them.
     """
-    b, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    valid = (torch.arange(s, device=q.device)[None, :]
-             < lengths.long()[:, None])                          # (B, S)
-    qg = q.reshape(b, hkv, rep, d).float()
-    scores = torch.einsum("bgrd,bsgd->bgrs", qg, k.float())
-    scores = scores / math.sqrt(d)
-    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", probs, v.float())
-    out = out * valid.any(dim=1)[:, None, None, None]   # lengths 0 → 0
-    return out.reshape(b, hq, d).to(q.dtype)
+    lengths = lengths.long()
+    return ref_flash_attn(q[:, None], k, v, lengths - 1, lengths)[:, 0]
 
 
 def ref_decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

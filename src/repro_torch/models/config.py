@@ -3,8 +3,8 @@ with its dtype string mapped to a torch dtype.
 
 One dataclass describes every architecture family of the JAX package,
 so the fields stay the same; the port serves the dense full-attention
-and the SSM (mamba2) families, and the serving stack raises
-``NotImplementedError`` for the rest.
+and the SSM (mamba2) families, runs the encoder-only (audio) family
+through ``forward``, and raises ``NotImplementedError`` for the rest.
 """
 from __future__ import annotations
 

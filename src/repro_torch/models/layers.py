@@ -1,7 +1,8 @@
 """Transformer layers of the port, from ``repro.models.layers``: RMSNorm,
-RoPE, GQA attention (the dense path's, with or without a cache), SwiGLU,
-and the attention layers of the serving steps: over a gathered cache
-batch, over the slot arena and over the page pool.
+RoPE, GQA attention (the dense path's, with or without a cache, through
+``ops.mha`` and ``ops.decode``), SwiGLU, and the attention layers of the
+serving steps: over a gathered cache batch, over the slot arena and over
+the page pool.
 
 Parameters are plain nested dicts of tensors with the JAX package's
 names and layouts, so weights converted from its pytree compute the
@@ -10,7 +11,6 @@ it IN PLACE (``index_put_``) where the JAX layers return updated caches.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -56,58 +56,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # -------------------------------------------------------------- attention
 
 
-def attention_mask(q_positions: torch.Tensor, kv_len: int, *, causal: bool,
-                   window: Optional[int]) -> torch.Tensor:
-    """Boolean mask (B, Lq, S): True = attend.  Cache slot s holds
-    absolute position s, so the causal condition ``s <= qp`` also
-    excludes unwritten (junk) slots of a ragged cached batch."""
-    kv_pos = torch.arange(kv_len, device=q_positions.device)[None, None, :]
-    qp = q_positions[:, :, None]
-    mask = torch.ones(qp.shape[:2] + (kv_len,), dtype=torch.bool,
-                      device=q_positions.device)
-    if causal:
-        mask = mask & (kv_pos <= qp)
-    if window is not None:
-        mask = mask & (kv_pos > qp - window)
-    return mask
-
-
-def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
-    """Grouped-query attention without materializing repeated KV.
-
-    q: (B, Lq, Hq, D); k,v: (B, S, Hkv, D); mask: (B, Lq, S) bool.
-    Returns (B, Lq, Hq, D).  Softmax in fp32.
-    """
-    b, lq, hq, d = q.shape
-    hkv = k.shape[2]
-    rep = hq // hkv
-    qg = q.reshape(b, lq, hkv, rep, d)
-    scores = torch.einsum("blgrd,bsgd->bglrs", qg.float(),
-                          k.float()) / math.sqrt(d)
-    scores = scores.masked_fill(~mask[:, None, :, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bglrs,bsgd->blgrd", probs, v.float())
-    return out.reshape(b, lq, hq, d).to(q.dtype)
-
-
 ATTN_Q_CHUNK = 1024
 
 
 def attention_core(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
                    q_positions: torch.Tensor, *, causal: bool,
                    window: Optional[int],
+                   kv_valid_len: Optional[torch.Tensor] = None,
                    q_chunk: int = ATTN_Q_CHUNK) -> torch.Tensor:
-    """Attention in q-chunks so the (Lq × S) score matrix is never held
-    beyond one chunk (long dense prefills)."""
-    s = keys.shape[1]
-    outs = []
-    for c0 in range(0, q.shape[1], q_chunk):
-        qc = q[:, c0:c0 + q_chunk]
-        mask = attention_mask(q_positions[:, c0:c0 + q_chunk], s,
-                              causal=causal, window=window)
-        outs.append(gqa_attention(qc, keys, vals, mask))
-    return torch.cat(outs, dim=1)
+    """Dense attention of q (B, Lq, Hq, D) over keys / vals (B, S, Hkv,
+    D), cache slot s holding absolute position s, through ``ops.mha``.
+
+    Row b's queries sit at q_positions[b, 0] + arange(Lq): the dense
+    grid builds every real row so (pad tokens and dummy depth rows park
+    at S_max − 1, and their junk outputs and KV land only in the park
+    row, which nothing reads).  kv_valid_len (B,): valid keys per row
+    (None = all S).  On the card one kernel launch holds no score
+    matrix; on the CPU the plain version runs in q-chunks so the
+    (Lq × S) score matrix is never held beyond one chunk (long dense
+    prefills)."""
+    lq = q.shape[1]
+    offsets = q_positions[:, 0].to(torch.int32)
+    if kv_valid_len is not None:
+        kv_valid_len = kv_valid_len.to(torch.int32)
+    step = q_chunk if q.device.type == "cpu" else lq
+    outs = [kernel_ops.mha(q[:, c0:c0 + step], keys, vals, offsets + c0,
+                           kv_valid_len, causal=causal, window=window)
+            for c0 in range(0, lq, step)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -147,24 +123,44 @@ def write_kv_cache(cache: torch.Tensor, new: torch.Tensor,
 
 def attention_layer(p: Dict, x: torch.Tensor, *, cfg,
                     positions: torch.Tensor,
-                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> torch.Tensor:
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    kv_valid_len: Optional[torch.Tensor] = None,
+                    dense_cache_write: bool = False) -> torch.Tensor:
     """One attention mixer over x (B, L, d).
 
-    Without a cache (the dense oracle): self-attention over x.  With
-    ``kv=(K, V)`` cache tensors of shape (B, S, Hkv, D) (the dense
-    (L, B) grid step): the new tokens' KV is written at ``positions`` in
-    place and attention runs over the whole cache, masked causally by
-    position.  Returns (B, L, d)."""
+    Without a cache (the dense oracle, an encoder forward):
+    self-attention over x.  With ``kv=(K, V)`` cache tensors of shape
+    (B, S, Hkv, D) (the dense (L, B) grid step): the new tokens' KV is
+    written at ``positions`` in place and attention runs over the cache
+    through ``ops.mha``, masked by position; a causal one-token step
+    (L == 1, the dense decode step) runs ``ops.decode`` over each row's
+    first ``positions + 1`` keys.  ``dense_cache_write``: a fresh full
+    prefill covering the whole cache (L a multiple of S): the cache
+    takes the last S tokens' KV and attention runs over x.
+    ``kv_valid_len`` (B,) bounds each row's keys, and applies only with
+    a cache, as in the reference.  Returns (B, L, d)."""
     b, l, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     keys, vals = k, v
-    if kv is not None:
+    valid = kv_valid_len if kv is not None else None
+    if kv is not None and dense_cache_write:
+        s_cache = kv[0].shape[1]
+        assert s_cache == l or l % s_cache == 0, (kv[0].shape, l)
+        kv[0].copy_(k[:, l - s_cache:])
+        kv[1].copy_(v[:, l - s_cache:])
+    elif kv is not None:
         write_kv_cache(kv[0], k, positions)
         write_kv_cache(kv[1], v, positions)
         keys, vals = kv
+        if l == 1 and cfg.causal and cfg.sliding_window is None:
+            lengths = positions[:, 0] + 1
+            if valid is not None:
+                lengths = torch.minimum(lengths, valid.to(lengths.dtype))
+            out = kernel_ops.decode(q[:, 0].contiguous(), keys, vals,
+                                    lengths.to(torch.int32))
+            return out.reshape(b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
     out = attention_core(q, keys, vals, positions, causal=cfg.causal,
-                         window=cfg.sliding_window)
+                         window=cfg.sliding_window, kv_valid_len=valid)
     return out.reshape(b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
 
 

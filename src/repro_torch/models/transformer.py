@@ -1,7 +1,8 @@
 """Model assembly of the port, from ``repro.models.transformer``: the
-dense full-attention decoder stack and the attention-free SSM (mamba2)
-stack, their caches, the plain dense ``forward`` (the oracle the serving
-steps are held against, and with caches the dense (L, B) grid step),
+dense full-attention decoder stack, the encoder-only (audio) stack and
+the attention-free SSM (mamba2) stack, their caches, the dense
+``forward`` (the oracle the serving steps are held against, the encoder
+forward, and with caches the dense (L, B) grid and decode steps),
 and the flat-stream serving steps: packed prefill over gathered caches,
 over the slot arena and over the page pool, and decode over the slot
 arena and over the page pool.
@@ -41,7 +42,9 @@ def resolve_device(device) -> torch.device:
 
 def _check_slice(cfg: ModelConfig) -> None:
     """The port serves dense full-attention decoders and pure SSM
-    (mamba2) stacks."""
+    (mamba2) stacks, and runs the encoder-only (audio) stack through
+    :func:`forward`; the serving stack refuses encoder-only configs
+    where the reference does."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: hybrid attention/SSM stacks are not ported yet "
@@ -54,10 +57,6 @@ def _check_slice(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported yet "
             "(ROADMAP Queue 1, item 10)")
-    if not cfg.causal:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-only models have no serving path "
-            "(their dense path is ROADMAP Queue 1, item 14)")
 
 
 def pattern_period(cfg: ModelConfig) -> int:
@@ -183,29 +182,43 @@ def _lm_head_logits(params: Dict, cfg: ModelConfig,
     return logits
 
 
-def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+def forward(params: Dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[List[Dict[str, torch.Tensor]]] = None,
             logits_slice: Optional[str] = None,
-            seq_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+            seq_valid_len: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
+            kv_valid_len: Optional[torch.Tensor] = None,
+            dense_cache_write: bool = False) -> torch.Tensor:
     """The plain dense forward.
 
-    tokens: (B, L) int; positions: (B, L) absolute positions (default
-    arange).  Without ``caches`` it is the oracle the serving steps are
-    held against (an SSM layer scans from a zero state).  With
-    ``caches`` (from :func:`init_cache` with batch B, e.g. whole slots
-    gathered from the arena) each attention layer writes the new tokens'
-    KV at ``positions`` in place and attends over its whole cache,
-    masked by position, and each SSM layer carries its (ssm, conv) state
-    through the cache in place — a one-token step (L == 1) is a decode
-    step: the dense (L, B) grid step, prefill and re-prefill alike
+    tokens: (B, L) int — or embeds: (B, L, d), the frame or patch
+    embeddings of a stub frontend (hubert's audio encoder); positions:
+    (B, L) absolute positions (default arange).  Without ``caches`` it
+    is the oracle the serving steps are held against (an SSM layer scans
+    from a zero state) and the encoder forward.  With ``caches`` (from
+    :func:`init_cache` with batch B, e.g. whole slots gathered from the
+    arena) each attention layer writes the new tokens' KV at
+    ``positions`` in place and attends over its cache through the
+    kernels — row b's queries at positions[b, 0] + arange(L), a
+    one-token step (L == 1) over its first positions + 1 keys — and
+    each SSM layer carries its (ssm, conv) state through the cache in
+    place: the dense (L, B) grid step, prefill and re-prefill alike
     (positions carry the history offset), and the (B, 1) decode step.
-    seq_valid_len (B,): real tokens per row, read by SSM layers only
-    (padded positions become identities of the state).  logits_slice:
-    None → (B, L, V); "last" → (B, V) of the final position only."""
+    kv_valid_len (B,): valid cache entries per row (a padded encoder
+    batch), read only with caches.  dense_cache_write: a fresh full
+    prefill covering the whole cache (L == S): the KV write is a copy
+    and attention runs over the new tokens.  seq_valid_len (B,): real
+    tokens per row, read by SSM layers only (padded positions become
+    identities of the state).  logits_slice: None → (B, L, V); "last" →
+    (B, V) of the final position only."""
     _check_slice(cfg)
-    x = params["embed"][tokens.long()]
-    b, l = tokens.shape
+    if embeds is None:
+        x = params["embed"][tokens.long()]
+    else:
+        x = embeds.to(params["embed"].dtype)
+    b, l = x.shape[:2]
     if positions is None:
         positions = torch.arange(l, device=x.device)[None].expand(b, l)
     decode = l == 1 and caches is not None
@@ -216,8 +229,10 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             if cfg.layer_kind(j) == "attn":
                 kv = None if caches is None else (caches[j]["k"][g],
                                                   caches[j]["v"][g])
-                x = x + attention_layer(lp["mixer"], h, cfg=cfg,
-                                        positions=positions, kv=kv)
+                x = x + attention_layer(
+                    lp["mixer"], h, cfg=cfg, positions=positions, kv=kv,
+                    kv_valid_len=kv_valid_len,
+                    dense_cache_write=dense_cache_write)
             else:
                 cc = None if caches is None else (caches[j]["ssm"][g],
                                                   caches[j]["conv"][g])

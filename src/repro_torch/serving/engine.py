@@ -132,6 +132,11 @@ class Engine:
                        and (self.ecfg.packed or self.ecfg.arena_decode))
         self._paged = bool(self.ecfg.paged_kv)
         if self._paged:
+            if not cap.packed_ok:
+                raise ValueError(
+                    f"{cfg.name}: paged_kv needs a causal decoder stack "
+                    "(encoder-only models have no serving cache) — set "
+                    "paged_kv=False for the dense baseline")
             if not (self.ecfg.packed and self.ecfg.arena_prefill
                     and self.ecfg.arena_decode):
                 raise ValueError(
@@ -161,14 +166,15 @@ class Engine:
         # the gathered packed form is attention-only (an SSM state has no
         # gathered equivalent): without arena_prefill an SSM stack runs
         # the dense grid
-        if self.ecfg.packed and (cap.pure_attn or self.ecfg.arena_prefill):
+        if self.ecfg.packed and cap.packed_ok and (
+                cap.pure_attn or self.ecfg.arena_prefill):
             max_seqs = self.ecfg.packed_max_seqs or min(self.ecfg.num_slots,
                                                         16)
             self.packed_executor = PackedBucketExecutor(
                 cfg, token_buckets=self.ecfg.token_buckets,
                 max_seqs=min(max_seqs, self.ecfg.num_slots))
         self.decode_executor: Optional[DecodeBucketExecutor] = None
-        if self.ecfg.arena_decode:
+        if self.ecfg.arena_decode and cap.packed_ok:
             self.decode_executor = DecodeBucketExecutor(
                 cfg, decode_buckets=self.ecfg.decode_buckets,
                 max_seqs=self.ecfg.num_slots)

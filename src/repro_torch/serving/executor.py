@@ -31,7 +31,8 @@ def make_prefill_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens(B,L), positions(B,L), caches, sample_idx(B,)) →
     last_logits(B,V).  The dense (L, B) grid step: first prefill AND
     re-prefill (positions carry the history offset); the gathered
-    caches are written in place.  Each row's real length is
+    caches are written in place and each row attends from positions[b,
+    0] on (``ops.mha``).  Each row's real length is
     ``sample_idx + 1`` (SSM layers make the padding past it an identity
     of their state)."""
 
@@ -47,7 +48,8 @@ def make_prefill_fn(cfg: ModelConfig) -> Callable:
 
 def make_decode_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens(B,1), positions(B,1), caches) → logits(B,V).  The
-    dense (B, 1) decode step over gathered caches, written in place."""
+    dense (B, 1) decode step over gathered caches, written in place;
+    each row attends its first positions + 1 keys (``ops.decode``)."""
 
     @torch.no_grad()
     def decode_step(params, tokens, positions, caches):
@@ -354,6 +356,10 @@ class PackedBucketExecutor(_ExecutorBase):
                  token_buckets: Tuple[int, ...] = DEFAULT_TOKEN_BUCKETS,
                  max_seqs: int = 16):
         super().__init__()
+        if not tr.arena_capability(cfg).packed_ok:
+            raise ValueError(
+                f"{cfg.name}: packed serving needs a causal decoder "
+                "(encoder-only models have no serving decode loop)")
         self.cfg = cfg
         self.reserve_pad_row = tr.arena_capability(cfg).needs_scratch_slot
         if self.reserve_pad_row:
@@ -525,6 +531,10 @@ class DecodeBucketExecutor(_ExecutorBase):
                  decode_buckets: Tuple[int, ...] = DEFAULT_DECODE_BUCKETS,
                  max_seqs: Optional[int] = None):
         super().__init__()
+        if not tr.arena_capability(cfg).packed_ok:
+            raise ValueError(
+                f"{cfg.name}: arena-resident decode needs a causal "
+                "decoder (encoder-only models have no decode loop)")
         self.cfg = cfg
         self.ladder = DecodeBucketLadder(decode_buckets, max_seqs)
         self._decode = make_arena_decode_fn(cfg)

@@ -1,9 +1,10 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version at qwen3-4b's head shapes (fp32 with TF32 off, and
-bf16), the fused sampling kernel at qwen3-4b's vocabulary, the SSD scan
-kernel at mamba2-2.7b's head shapes, and the serving engine (qwen3-4b
-and mamba2-2.7b smoke configs) on the card against the same engine on
-the CPU.  Without a card every test skips inside its fixture.
+bf16), the dense ``flash_attn`` at head widths 64-128 and GQA groups 1,
+4 and 5, the fused sampling kernel at qwen3-4b's vocabulary, the SSD
+scan kernel at mamba2-2.7b's head shapes, and the serving engine
+(qwen3-4b and mamba2-2.7b smoke configs) and the hubert-xlarge smoke
+encoder on the card against the same on the CPU.  Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -27,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import decode_attn as dec  # noqa: E402
+from repro_torch.kernels import flash_attn as fl  # noqa: E402
 from repro_torch.kernels import ragged_prefill as rp  # noqa: E402
 from repro_torch.kernels import sampling as ks  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
@@ -228,7 +230,9 @@ def test_decode_attn_arena_kernel_matches_plain(card, dtype):
 
 @pytest.mark.parametrize("mode", [
     dict(paged_kv=False), dict(paged_kv=False, arena_prefill=False),
-    dict(packed=False, paged_kv=False)], ids=["arena", "gathered", "dense"])
+    dict(packed=False, paged_kv=False),
+    dict(packed=False, paged_kv=False, arena_decode=False)],
+    ids=["arena", "gathered", "dense", "dense_decode"])
 def test_slot_engine_on_card_matches_engine_on_cpu(card, mode):
     """Each slot mode through the CUDA kernels and through the plain
     versions: the same greedy tokens, logits within 1e-4 (fp32)."""
@@ -252,6 +256,99 @@ def test_slot_engine_on_card_matches_engine_on_cpu(card, mode):
         np.testing.assert_allclose(engines[1].last_logits[s],
                                    engines[0].last_logits[s], atol=1e-4,
                                    rtol=0)
+
+
+# the dense kernels' GQA groups: rep 1 (hubert-xlarge), 4 (qwen3-4b), 5
+# (qwen2.5-32b)
+DENSE_HEADS = [(16, 16), (32, 8), (40, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("hq,hkv", DENSE_HEADS)
+@pytest.mark.parametrize("case", [
+    # q_offsets, kv_lengths, causal, window
+    ([0, 90, 199], [37, 127, 200], True, None),
+    ([0, 0, 0], [200, 61, 0], False, None),
+    ([10, 150, 0], [47, 187, 0], True, 24),
+], ids=["causal_offsets", "noncausal", "window"])
+def test_flash_attn_kernel_matches_plain(card, dtype, d, hq, hkv, case):
+    import functools
+    offs, kvl, causal, window = case
+    g = torch.Generator(device=card).manual_seed(d + hq)
+    q = torch.randn((3, 37, hq, d), generator=g, device=card).to(dtype)
+    k = torch.randn((3, 200, hkv, d), generator=g, device=card)
+    v = torch.randn((3, 200, hkv, d), generator=g, device=card)
+    for i, n in enumerate(kvl):          # junk past each length
+        k[i, n:] = 1000.0
+        v[i, n:] = 1000.0
+    k, v = k.to(dtype), v.to(dtype)
+    idx = [_i32(offs, card), _i32(kvl, card)]
+    n0 = fl.flash_attn.launches
+    out = fl.flash_attn(q, k, v, *idx, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fl.flash_attn.launches == n0 + 1
+    plain = functools.partial(fl.flash_attn_plain, causal=causal,
+                              window=window)
+    _assert_held(out, plain, q, k, v, *idx)
+    assert (out[[i for i, n in enumerate(kvl) if n == 0]] == 0).all()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", DENSE_HEADS)
+def test_decode_attn_dense_kernel_matches_plain(card, dtype, hq, hkv):
+    g = torch.Generator(device=card).manual_seed(hq)
+    lengths = [0, 1, 17, 300, 512, 2]
+    q = torch.randn((6, hq, D), generator=g, device=card).to(dtype)
+    k = torch.randn((6, 512, hkv, D), generator=g, device=card)
+    v = torch.randn((6, 512, hkv, D), generator=g, device=card)
+    for i, n in enumerate(lengths):
+        k[i, n:] = 1000.0
+        v[i, n:] = 1000.0
+    k, v = k.to(dtype), v.to(dtype)
+    n0 = dec.decode_attn.launches
+    out = dec.decode_attn(q, k, v, _i32(lengths, card))
+    torch.cuda.synchronize()
+    assert dec.decode_attn.launches == n0 + 1
+    _assert_held(out, dec.decode_attn_plain, q, k, v, _i32(lengths, card))
+    assert (out[0] == 0).all()
+
+
+def test_dense_kernels_refuse_what_they_do_not_take(card):
+    idx = _i32([0, 0], card)
+    for d, hq, match in ((48, 4, "head_dim"), (64, 36, "Hq / Hkv")):
+        q = torch.zeros((2, 5, hq, d), device=card)
+        k = torch.zeros((2, 9, 4, d), device=card)
+        with pytest.raises(ValueError, match=match):
+            fl.flash_attn(q, k, k, idx, idx)
+    q = torch.zeros((2, 8, 80), device=card)
+    k = torch.zeros((2, 9, 2, 80), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        dec.decode_attn(q, k, k, idx)
+
+
+def test_encoder_forward_on_card_matches_cpu(card):
+    """The hubert-xlarge smoke encoder at head_dim 80 through
+    ``flash_attn`` (non-causal) against the same forward on the CPU,
+    with and without a cache and ``kv_valid_len``."""
+    cfg = get_smoke("hubert-xlarge").replace(head_dim=80)
+    params = tr.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, card)
+    emb = torch.randn((2, 70, cfg.d_model),
+                      generator=torch.Generator().manual_seed(3))
+    kvl = torch.tensor([70, 41], dtype=torch.int32)
+    for cached in (False, True):
+        kw = {}
+        if cached:
+            kw = dict(caches=tr.init_cache(cfg, 2, 96, device="cpu"),
+                      kv_valid_len=kvl)
+        want = tr.forward(params, cfg, embeds=emb, **kw)
+        n0 = fl.flash_attn.launches
+        got = tr.forward(on_card, cfg, embeds=emb.to(card), **_to(kw, card))
+        assert fl.flash_attn.launches == n0 + cfg.num_layers
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=0)
 
 
 # (temp, top_k, top_p, bias) cycled over the rows of a sampling batch:
