@@ -29,10 +29,16 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      views into one conv-output row, pad (dt = 0) and strong-decay rows,
      a random non-zero init state.  The dense kernels: ``flash_attn``
      at head widths 64, 80, 96 and 128 and ``decode_attn`` at 128, each
-     at GQA groups of 1, 4 and 5 (16/16, 32/8, 40/8 heads): causal with
-     per-row offsets, non-causal with kv lengths, a window, dummy rows
-     whose queries start at the park position S - 1, rows of length 0,
-     every row at and past each length poisoned;
+     at GQA groups of 1, 4, 5 and 8 (16/16, 32/8, 40/8, 64/8 heads):
+     causal with per-row offsets, non-causal with kv lengths, a window,
+     dummy rows whose queries start at the park position S - 1, rows of
+     length 0, every row at and past each length poisoned.  The three
+     ragged prefill kernels (the tensor-core tile core's ragged forms)
+     over one stream whose tiles would straddle segments — a 300-row
+     segment over many 64-key tiles and 16-token pages, 5-row verify
+     segments at history 2043, bands ending mid-tile, a keyless
+     segment, pad segments, tail rows — at GQA 32/8, 40/8, 8/8 and 32/4,
+     every page, arena and park row past a length NaN;
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -72,7 +78,8 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      per forward and no other kernel;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
-     the same function, the bound; fused_sample at a verify tick's
+     the same function, the bound, the kernel's achieved TFLOP/s; the
+     paged and arena prefill kernels also at 40 / 8 heads; fused_sample at a verify tick's
      40 x 151,936 bf16 rows; ragged_prefill_paged also at a verify
      tick's 8 x 5 rows; ``ssd_scan`` on a 2048-token prompt in 8 chunk
      steps, and a (64, 8) grid step and a packed step's (512, 8) bridge
@@ -414,10 +421,110 @@ def phase_slot_kernels(seed, errs):
             assert ok, f"decode_attn_arena {name} {dtype}"
 
 
+# the tile core's ragged cases: every GQA group a 128-vector bf16 tile
+# takes differently — qwen3-4b's 32 / 8 (32 rows a tile), qwen2.5-32b's
+# 40 / 8 (25 rows, 3 idle vectors), 8 / 8 (128 rows), 32 / 4 (16 rows)
+TILE_HEADS = ((32, 8), (40, 8), (8, 8), (32, 4))
+# segments: a long one over many 64-key tiles and 16-token pages, a
+# verify tick's 5-row segments at history 2043 (a tile of 32 rows across
+# them would walk four 2048-key bands), one at history 37, a decode
+# row, bands that start and end mid-tile, a keyless segment; then 2 pad
+# segments and 9 tail rows
+TILE_LENS = [300, 5, 5, 5, 5, 1, 70, 6]
+TILE_HISTS = [1000, 2043, 2043, 37, 100, 900, 61, 0]
+TILE_KEYLESS = 7
+TILE_S_MAX = 2100    # not a multiple of the 64-key tile
+
+
+def _nan_past(k, v, valid):
+    """K/V with every row where ``valid`` is False set to NaN (a kernel
+    that reads one shows it), and the same with 0 there for the plain
+    version."""
+    kp, vp = k.clone(), v.clone()
+    kp[~valid], vp[~valid] = float("nan"), float("nan")
+    k[~valid], v[~valid] = 0.0, 0.0
+    return kp, vp, k, v
+
+
+def phase_tile_kernels(seed, errs):
+    """The three ragged prefill kernels over one stream at each of
+    TILE_HEADS, fp32 and bf16: paged (16-token pages, a 64-key tile
+    spanning four; table entries past each length poisoned, pool rows
+    past each length NaN), the slot arena (rows past each length and the
+    park row S_max - 1 NaN, pad segments naming a live slot) and the
+    gathered slots."""
+    from repro_torch.kernels import ragged_prefill as rp
+    rng = np.random.default_rng(seed + 40)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 40)
+    n_pad, tail = 2, 9
+    lens, hists = TILE_LENS, TILE_HISTS
+    kvl = [h + n for h, n in zip(hists, lens)]
+    kvl[TILE_KEYLESS] = 0
+    total = sum(lens)
+    cu = [0] + [int(c) for c in np.cumsum(lens)] + [total] * n_pad
+    offs, kvl = hists + [0] * n_pad, kvl + [0] * n_pad
+    index = (_i32(cu), _i32(offs), _i32(kvl))
+    n_pages, p_max = 512, 160
+    tab, tab_c = _layout(rng, n_pages, p_max, kvl)
+    page_ok = torch.zeros((n_pages, PS), dtype=torch.bool, device=DEVICE)
+    for i, n in enumerate(kvl):
+        for p in range(0, n, PS):
+            page_ok[int(tab[i, p // PS]), :min(PS, n - p)] = True
+    n_slots = len(lens) + 1
+    slots = [int(x) for x in rng.permutation(n_slots)[:len(lens)]]
+    slot_map = slots + [slots[0]] * n_pad
+    slot_ok = torch.zeros((n_slots, TILE_S_MAX), dtype=torch.bool,
+                          device=DEVICE)
+    for slot, n in zip(slots, kvl):
+        slot_ok[slot, :min(n, TILE_S_MAX - 1)] = True
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in TILE_HEADS:
+            q = torch.randn((total + tail, hq, D), generator=gen,
+                            device=DEVICE).to(dtype)
+            pools = [torch.randn((n_pages, PS, hkv, D), generator=gen,
+                                 device=DEVICE) for _ in range(2)]
+            kp, vp, kpc, vpc = (a.to(dtype) for a in _nan_past(
+                *pools, page_ok))
+            arena = [torch.randn((n_slots, TILE_S_MAX, hkv, D),
+                                 generator=gen, device=DEVICE)
+                     for _ in range(2)]
+            ka, va, kac, vac = (a.to(dtype) for a in _nan_past(
+                *arena, slot_ok))
+            sm = _i32(slot_map).long()
+            for name, out, plain, args in (
+                    ("ragged_prefill_paged",
+                     rp.ragged_prefill_paged(q, kp, vp, _i32(tab), *index),
+                     rp.ragged_prefill_paged_plain,
+                     (q, kpc, vpc, _i32(tab_c)) + index),
+                    ("ragged_prefill_arena",
+                     rp.ragged_prefill_arena(q, ka, va, _i32(slot_map),
+                                             *index),
+                     rp.ragged_prefill_arena_plain,
+                     (q, kac, vac, _i32(slot_map)) + index),
+                    ("ragged_prefill_attn",
+                     rp.ragged_prefill_attn(q, ka[sm].contiguous(),
+                                            va[sm].contiguous(), *index),
+                     rp.ragged_prefill_attn_plain,
+                     (q, kac[sm], vac[sm]) + index)):
+                torch.cuda.synchronize()
+                err, worst, ok, ref = _held(out, plain, *args)
+                keyless = ref.abs().amax(dim=(1, 2)) == 0
+                zeros = bool((out[keyless] == 0).all().item()) and \
+                    bool(keyless[total:].all().item())
+                ok = ok and zeros and bool(torch.isfinite(out).all())
+                errs.setdefault((name, dtype), []).append(err)
+                log(f"[2] {name:20s} tiles {hq}/{hkv} {str(dtype):15s} "
+                    f"T={total + tail} max_abs_err={err:.3e} "
+                    f"err/bound={worst:.3f} tail_and_keyless_zero={zeros} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, f"{name} tiles {hq}/{hkv} {dtype}"
+
+
 # the dense kernels' GQA groups: hubert-xlarge's 16 / 16 (rep 1),
-# qwen3-4b's 32 / 8 (rep 4) and qwen2.5-32b's 40 / 8 (rep 5, the first
-# odd group on the card)
-DENSE_HEADS = ((16, 16), (32, 8), (40, 8))
+# qwen3-4b's 32 / 8 (rep 4), qwen2.5-32b's 40 / 8 (rep 5, 3 idle
+# vectors a 128-vector tile) and 64 / 8 (rep 8, the widest group)
+DENSE_HEADS = ((16, 16), (32, 8), (40, 8), (64, 8))
 FLASH_DIMS = (64, 80, 96, 128)
 FLASH_CASES = {
     # B, Lq, S, q_offsets, kv_lengths, causal, window
@@ -1487,7 +1594,8 @@ def phase_times(seed, errs):
     out = {}
 
     # prefill chunk: 512 rows at history 1536 over 2048 keys, in an
-    # 8-row stream (the other segments empty)
+    # 8-row stream (the other segments empty); at qwen3-4b's 32 / 8 heads
+    # and qwen2.5-32b's 40 / 8 (3 idle query vectors a 128-vector tile)
     rows, hist = 512, keys - 512
     tab, _ = _layout(rng, n_pages, p_max, [keys], None)
     table = np.full((b_rows, p_max), n_pages, np.int32)
@@ -1495,33 +1603,34 @@ def phase_times(seed, errs):
     cu = [0] + [rows] * b_rows
     q_off = [hist] + [0] * (b_rows - 1)
     kvl = [keys] + [0] * (b_rows - 1)
-    q = torch.randn((rows, HQ, D), generator=gen, device=DEVICE).to(dt)
-    args = (q, k, v, _i32(table), _i32(cu), _i32(q_off), _i32(kvl))
-    got = rp.ragged_prefill_paged(*args)
-    err, worst, ok, _ = _held(got, rp.ragged_prefill_paged_plain, *args)
-    errs.setdefault(("ragged_prefill_paged", dt), []).append(err)
-    log(f"[5] ragged_prefill_paged 512 rows over {keys} keys: max_abs_err="
-        f"{err:.3e} err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
-    assert ok, "ragged_prefill_paged at main-path shapes"
-    # the yardstick runs over pre-gathered, head-expanded K/V (the
-    # gather is not timed)
-    pages = table[0][:keys // PS].tolist()
-    kg = k[pages].reshape(keys, HKV, D).repeat_interleave(HQ // HKV, 1)
-    vg = v[pages].reshape(keys, HKV, D).repeat_interleave(HQ // HKV, 1)
-    qs, ks, vs = (q.transpose(0, 1)[None], kg.transpose(0, 1)[None],
-                  vg.transpose(0, 1)[None])
-    mask = (torch.arange(keys, device=DEVICE)[None, :]
-            <= hist + torch.arange(rows, device=DEVICE)[:, None])
-    attended = sum(hist + r + 1 for r in range(rows))
-    flops = 4 * attended * D * HQ
-    nbytes = (2 * rows * HQ * D + 2 * keys * HKV * D) * el \
-        + 4 * (table.size + 3 * b_rows + 1)
-    out["ragged_prefill_paged"] = dict(
-        ms=_time(lambda: rp.ragged_prefill_paged(*args)),
-        plain_ms=_time(lambda: rp.ragged_prefill_paged_plain(*args), 3),
-        library_ms=_time(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask)),
-        flops=flops, bytes=nbytes)
+    for hq, name in ((HQ, "ragged_prefill_paged"),
+                     (40, "ragged_prefill_paged (40/8)")):
+        q = torch.randn((rows, hq, D), generator=gen, device=DEVICE).to(dt)
+        args = (q, k, v, _i32(table), _i32(cu), _i32(q_off), _i32(kvl))
+        got = rp.ragged_prefill_paged(*args)
+        err, worst, ok, _ = _held(got, rp.ragged_prefill_paged_plain, *args)
+        errs.setdefault(("ragged_prefill_paged", dt), []).append(err)
+        log(f"[5] {name} 512 rows over {keys} keys: max_abs_err="
+            f"{err:.3e} err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
+        assert ok, f"{name} at main-path shapes"
+        # the yardstick runs over pre-gathered, head-expanded K/V (the
+        # gather is not timed)
+        pages = table[0][:keys // PS].tolist()
+        kg = k[pages].reshape(keys, HKV, D).repeat_interleave(hq // HKV, 1)
+        vg = v[pages].reshape(keys, HKV, D).repeat_interleave(hq // HKV, 1)
+        qs, ks, vs = (q.transpose(0, 1)[None], kg.transpose(0, 1)[None],
+                      vg.transpose(0, 1)[None])
+        mask = (torch.arange(keys, device=DEVICE)[None, :]
+                <= hist + torch.arange(rows, device=DEVICE)[:, None])
+        attended = sum(hist + r + 1 for r in range(rows))
+        out[name] = dict(
+            ms=_time(lambda: rp.ragged_prefill_paged(*args)),
+            plain_ms=_time(lambda: rp.ragged_prefill_paged_plain(*args), 3),
+            library_ms=_time(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)),
+            flops=4 * attended * D * hq,
+            bytes=(2 * rows * hq * D + 2 * keys * HKV * D) * el
+            + 4 * (table.size + 3 * b_rows + 1))
 
     # the same kernel at a speculative verify tick's layout: 8 segments
     # of k + 1 = 5 rows, each at history 2043 over 2048 keys (what a
@@ -1573,11 +1682,10 @@ def phase_times(seed, errs):
     # history 1536 beside a 17-row segment and a decode row, 5 pad
     # segments and 9 tail rows, in an 8-slot x 4096 arena; the gathered
     # baseline's kernel on the same stream over each row's slot copied
-    # out
+    # out; the arena kernel also at 40 / 8 heads
     slot_map, cu, hists, kvl, t, s_max, live = \
         _prefill_layout(rng, "main_path")
     ka, va = _arena(gen, s_max, dt, live)
-    qa = torch.randn((t, HQ, D), generator=gen, device=DEVICE).to(dt)
     index = (_i32(cu), _i32(hists), _i32(kvl))
     kg, vg = (a[_i32(slot_map).long()].contiguous() for a in (ka, va))
     real = [i for i in range(len(kvl)) if cu[i + 1] > cu[i]]
@@ -1599,30 +1707,32 @@ def phase_times(seed, errs):
         attended += int(torch.minimum(qpos + 1, torch.tensor(
             kvl[i], device=DEVICE)).sum().item())
         k0 += kvl[i]
-    qs = qa[:n_rows].transpose(0, 1)[None]
-    ks = kcat.repeat_interleave(HQ // HKV, 1).transpose(0, 1)[None]
-    vs = vcat.repeat_interleave(HQ // HKV, 1).transpose(0, 1)[None]
-    nbytes = (2 * t * HQ * D + 2 * sum(kvl) * HKV * D) * el \
-        + 4 * (4 * len(kvl) + 1)
-    for name, fn, plain, args in (
-            ("ragged_prefill_arena", rp.ragged_prefill_arena,
-             rp.ragged_prefill_arena_plain,
-             (qa, ka, va, _i32(slot_map)) + index),
-            ("ragged_prefill_attn", rp.ragged_prefill_attn,
-             rp.ragged_prefill_attn_plain, (qa, kg, vg) + index)):
-        got = fn(*args)
-        err, worst, ok, _ = _held(got, plain, *args)
-        errs.setdefault((name, dt), []).append(err)
-        log(f"[5] {name} {t} stream rows (512 over {kvl[0]} keys): "
-            f"max_abs_err={err:.3e} err/bound={worst:.3f} "
-            f"{'ok' if ok else 'FAIL'}")
-        assert ok, f"{name} at main-path shapes"
-        out[name] = dict(
-            ms=_time(lambda: fn(*args)),
-            plain_ms=_time(lambda: plain(*args), 3),
-            library_ms=_time(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=seg_mask)),
-            flops=4 * attended * D * HQ, bytes=nbytes)
+    for hq, suffix in ((HQ, ""), (40, " (40/8)")):
+        qa = torch.randn((t, hq, D), generator=gen, device=DEVICE).to(dt)
+        qs = qa[:n_rows].transpose(0, 1)[None]
+        ks = kcat.repeat_interleave(hq // HKV, 1).transpose(0, 1)[None]
+        vs = vcat.repeat_interleave(hq // HKV, 1).transpose(0, 1)[None]
+        nbytes = (2 * t * hq * D + 2 * sum(kvl) * HKV * D) * el \
+            + 4 * (4 * len(kvl) + 1)
+        kernels = [("ragged_prefill_arena", rp.ragged_prefill_arena,
+                    rp.ragged_prefill_arena_plain,
+                    (qa, ka, va, _i32(slot_map)) + index),
+                   ("ragged_prefill_attn", rp.ragged_prefill_attn,
+                    rp.ragged_prefill_attn_plain, (qa, kg, vg) + index)]
+        for name, fn, plain, args in kernels[:2 if hq == HQ else 1]:
+            got = fn(*args)
+            err, worst, ok, _ = _held(got, plain, *args)
+            errs.setdefault((name, dt), []).append(err)
+            log(f"[5] {name}{suffix} {t} stream rows (512 over {kvl[0]} "
+                f"keys): max_abs_err={err:.3e} err/bound={worst:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok, f"{name}{suffix} at main-path shapes"
+            out[name + suffix] = dict(
+                ms=_time(lambda: fn(*args)),
+                plain_ms=_time(lambda: plain(*args), 3),
+                library_ms=_time(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=seg_mask)),
+                flops=4 * attended * D * hq, bytes=nbytes)
 
     # slot-arena decode: 8 rows x 2048 keys, one slot each
     s_max, lengths, _ = ARENA_DECODE_CASES["main_path"]
@@ -1694,7 +1804,9 @@ def phase_times(seed, errs):
         log(f"[5] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, library {lib}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
-            f"{r['flops'] / 1e9:.2f} GFLOP)")
+            f"{r['flops'] / 1e9:.2f} GFLOP), kernel "
+            f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s against the bound's "
+            f"{r['flops'] / r['bound_ms'] / 1e9:.1f}")
     return out
 
 
@@ -1763,10 +1875,12 @@ def _time_dense(gen, errs):
         assert ok, f"flash_attn at {what}"
         k_ms = _time(lambda: fl.flash_attn(*cargs))
         p_ms = _time(lambda: fl.flash_attn_plain(*cargs), 3)
+        flops = 4 * cb * sum(chist + i + 1 for i in range(256)) * D * HQ
         log(f"[5] flash_attn at {what} (L, B) = (256, {cb}), history "
             f"{chist} over {s}-deep slots: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms a layer (x 36: {36 * k_ms:.1f} vs "
-            f"{36 * p_ms:.1f} ms a tick), max_abs_err={err:.3e} "
+            f"{36 * p_ms:.1f} ms a tick), {flops / 1e9:.2f} GFLOP, kernel "
+            f"{flops / k_ms / 1e9:.1f} TFLOP/s, max_abs_err={err:.3e} "
             f"err/bound={worst:.3f}")
 
     eb, ef, eh, ed = ENCODER_CLIPS, ENCODER_FRAMES, 16, 80
@@ -2123,6 +2237,7 @@ def main() -> int:
     if 2 in phases:
         phase_kernels(args.seed, errs)
         phase_slot_kernels(args.seed, errs)
+        phase_tile_kernels(args.seed, errs)
         phase_sample_kernel(args.seed, errs)
         phase_ssd_kernel(args.seed, errs)
         phase_dense_kernels(args.seed, errs)

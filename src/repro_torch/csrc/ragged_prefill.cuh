@@ -12,50 +12,59 @@
 // type before the PV product; rows past cu_seqlens[B] and rows with no
 // valid key write exactly 0.
 //
-// What bounds it: at the main-path shapes (a 512-row chunk over 2048
-// keys, 32 query heads, D = 128) the work is ~4·T·K·D·Hq ≈ 15 GFLOP
-// against ~16 MB of q, KV and output, so the card's operation rate
-// bounds it, far above the ~295 FLOP/byte ridge.  This first design is
-// simple and right rather than fast: scalar fp32 FMAs from shared memory
-// on the CUDA cores (67 TFLOP/s peak), no tensor cores; K/V tiles arrive
-// as 16-byte vector loads, several in flight per thread.  What it does
-// keep from the TPU design: each K/V tile loaded into shared memory is
-// used by every query row of the block times the rep = Hq / Hkv query
-// heads of its KV group, so KV bytes are read from device memory once
-// per block and not once per query head.  wgmma tiles are later work.
+// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): the
+// main-path chunk (512 rows at history 1536 over 2048 keys, 32/8 heads,
+// D = 128) is ~4·T·K·D·Hq ≈ 15 GFLOP against ~17 MB of q, KV and output,
+// ~900 FLOP/byte, far above the ~295 FLOP/byte ridge: the tensor cores
+// bound it, 0.0152 ms.  A speculative verify tick (8 segments of 5 rows
+// over 2048 keys each) is the other way round: 0.17 GFLOP over 67 MB of
+// KV, bound by bytes (0.020 ms), like a decode step.
 //
-// Layout of the work: one block per (tile of rows_per_block stream
-// rows, KV head g); the block holds rows_per_block · rep <= 32 query
-// vectors.  A tile that straddles segments walks each overlapping
-// segment in turn; a segment that owns no row of the tile (a pad
-// segment with cu[b] == cu[b+1]) costs one comparison.  For segment b
-// it streams key positions 0 .. min(kv_len, causal frontier of its last
-// row) - 1 in tiles of 32, so no row at or past kv_len is ever read:
-// page-table entries past the valid length, and an arena slot's park
-// row S_max - 1 that pad and tail rows write in the same step, may hold
-// anything.  Four threads share each query vector: each scores 8 keys
-// of a tile and owns D / 4 output columns.  Segment counts are small
-// (<= 16), so the per-block segment loop is short; nothing is sized by
-// T x B.
+// What the design does about it: the attention tile core of
+// attn_tiles.cuh.  In bf16 a block is two warpgroups on a tile of 128
+// query vectors — 128 / rep rows of one segment x the rep query heads of
+// one KV head g (32 rows at qwen3-4b's rep 4, 25 with 3 idle vectors at
+// qwen2.5-32b's rep 5) — each warpgroup running Q.K^T and P.V for its 64
+// vectors on the tensor cores (wgmma, bf16 in, fp32 accumulate), with
+// K/V tiles of 64 keys arriving by cp.async into a three-stage ring
+// while earlier tiles are multiplied; a warpgroup whose 64 vectors are
+// all past the tile's rows (a short segment) only loads.  Each key
+// row's address comes from the layout's row map, so one loader serves
+// the page pool (a 64-key tile spans four 16-token pages), the slot
+// arena and the gathered rows; each K/V tile is read from memory once
+// per tile and serves every row and head of it.  fp32, the checking
+// type, stays on the CUDA-core loop of the same core.
+//
+// Tiles never straddle segments.  A tile that held rows of two segments
+// would walk the keys of both, and at 32 rows a tile a verify tick's
+// 5-row segments would put seven 2048-key walks in one block.  So block x
+// finds its (segment, tile within the segment) by scanning cu_seqlens
+// (<= 16 segments, no host sync): segment b owns ceil(len_b / rows)
+// tiles, the rows past cu_seqlens[B] the tiles after them (written as
+// zeros), and the launch's ceil(T / rows) + B blocks bound that count;
+// blocks past it exit.  A pad segment (cu[b] == cu[b+1]) owns no tile.
+// Within segment b the key walk stops at min(kv_len, causal frontier of
+// the tile's last row), so no row at or past kv_len is ever read:
+// page-table entries past the valid length, and an arena slot's park row
+// S_max - 1 that pad and tail rows write in the same step, may hold
+// anything.
+//
+// Left for the next redesign: as in flash_attn.cu, the K/V stream from
+// L2 (TMA, a producer warp, multicast; a paged tile is four page gathers,
+// which TMA would take as four boxes), warpgroups that alternate softmax
+// and MMAs, and a split of the key walk for the few long tiles of a
+// verify tick (8 segments x 8 KV heads = 64 blocks over 2048 keys each).
 #pragma once
 
-#include "attn_common.cuh"
+#include "attn_tiles.cuh"
 
 namespace attn {
 namespace prefill {
 
-constexpr int kThreads = 128;
-constexpr int kMaxQ = kThreads / 4;   // query vectors per block
-constexpr int kKT = 32;               // keys per shared-memory tile
-
-template <int D>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kMaxQ * (D + 1) + kKT * (D + 1) + kKT * D + kMaxQ * (kKT + 1));
-}
+constexpr int kMaxRep = 32;           // query heads per KV group
 
 template <typename T, int D, typename Layout>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<T, D>::kThreads)
 ragged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       const T* __restrict__ vbuf, Layout layout,
                       const int* __restrict__ cu_seqlens,
@@ -63,112 +72,42 @@ ragged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       const int* __restrict__ kv_lengths,
                       T* __restrict__ out, int n_rows, int hq, int hkv,
                       int n_seqs, int rows_per_block) {
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [kMaxQ][D + 1]
-  float* ks = qs + kMaxQ * (D + 1);      // [kKT][D + 1]
-  float* vs = ks + kKT * (D + 1);        // [kKT][D]
-  float* ps = vs + kKT * D;              // [kMaxQ][kKT + 1]
-
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int g = blockIdx.y;
-  const int rep = hq / hkv;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r_end = min(r0 + rows_per_block, n_rows);
-  const int nq = rows_per_block * rep;
-  const float scale = rsqrtf(static_cast<float>(D));
-
-  for (int idx = tid; idx < kMaxQ * D; idx += kThreads) {
-    const int i = idx / D, d = idx % D;
-    const int row = r0 + i / rep;
-    float val = 0.f;
-    if (i < nq && row < n_rows) {
-      const int h = g * rep + i % rep;
-      val = to_f(q[(static_cast<size_t>(row) * hq + h) * D + d]);
-    }
-    qs[i * (D + 1) + d] = val;
-  }
-
-  const int qi = tid >> 2;               // this thread's query vector
-  const int sub = tid & 3;               // its quarter of keys and of D
-  const int my_row = r0 + qi / rep;
-  const bool live = qi < nq && my_row < n_rows;
-  float m_i = kNegInf, l_i = 0.f;
-  float acc[D / 4];
-#pragma unroll
-  for (int k = 0; k < D / 4; ++k) acc[k] = 0.f;
-
+  // this block's segment and tile within it (block-uniform)
+  int x = blockIdx.x, seg = n_seqs, s0 = cu_seqlens[n_seqs], s1 = n_rows;
   for (int b = 0; b < n_seqs; ++b) {
-    const int s0 = cu_seqlens[b], s1 = cu_seqlens[b + 1];
-    const int lo = max(s0, r0), hi = min(s1, r_end);
-    if (lo >= hi) continue;              // block-uniform
-    const int off = q_offsets[b];
-    const int kvl = min(kv_lengths[b], layout.capacity());
-    // keys past the causal frontier of the tile's last row of b, or
-    // past kv_len, are never loaded
-    const int n_keys = min(kvl, off + (hi - 1 - s0) + 1);
-    if (n_keys <= 0) continue;           // block-uniform
-    const bool mine = live && my_row >= lo && my_row < hi;
-    const int qpos = off + (my_row - s0);
-    const auto rows = layout.rows(b);
-
-    for (int base = 0; base < n_keys; base += kKT) {
-      __syncthreads();                   // previous tile fully consumed
-      load_kv_tile<T, D, kKT, kThreads>(kbuf, vbuf, rows, base, n_keys, hkv,
-                                        g, tid, ks, vs);
-      __syncthreads();
-
-      float s[kKT / 4];
-      float tmax = kNegInf;
-#pragma unroll
-      for (int m = 0; m < kKT / 4; ++m) {
-        const int j = sub + 4 * m;
-        const int pos = base + j;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d)
-          dot += qs[qi * (D + 1) + d] * ks[j * (D + 1) + d];
-        const bool ok = mine && pos < n_keys && pos <= qpos;
-        s[m] = ok ? dot * scale : kNegInf;
-        tmax = fmaxf(tmax, s[m]);
-      }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float m_new = fmaxf(m_i, tmax);
-      float psum = 0.f;
-#pragma unroll
-      for (int m = 0; m < kKT / 4; ++m) {
-        const int j = sub + 4 * m;
-        const int pos = base + j;
-        const bool ok = mine && pos < n_keys && pos <= qpos;
-        const float p = ok ? expf(s[m] - m_new) : 0.f;
-        psum += p;
-        ps[qi * (kKT + 1) + j] = round_p<T>(p);
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      const float alpha = expf(m_i - m_new);
-      l_i = alpha * l_i + psum;
-      m_i = m_new;
-      __syncwarp();                      // the 4 sharers of qi are one warp
-#pragma unroll
-      for (int k = 0; k < D / 4; ++k) {
-        const int d = sub + 4 * k;
-        float a = acc[k] * alpha;
-#pragma unroll 8
-        for (int j = 0; j < kKT; ++j)
-          a += ps[qi * (kKT + 1) + j] * vs[j * D + d];
-        acc[k] = a;
-      }
+    const int b0 = cu_seqlens[b], b1 = cu_seqlens[b + 1];
+    const int tiles = b1 > b0 ? (b1 - b0 + rows_per_block - 1) /
+                                    rows_per_block : 0;
+    if (x < tiles) {
+      seg = b;
+      s0 = b0;
+      s1 = b1;
+      break;
     }
+    x -= tiles;
   }
-
-  if (live) {
-    const int h = g * rep + qi % rep;
-    const float inv = 1.f / (l_i == 0.f ? 1.f : l_i);
-    T* o = out + (static_cast<size_t>(my_row) * hq + h) * D;
-#pragma unroll
-    for (int k = 0; k < D / 4; ++k) o[sub + 4 * k] = from_f<T>(acc[k] * inv);
+  const int r0 = s0 + x * rows_per_block;
+  if (r0 >= s1) return;               // past the last tile
+  const TileArgs<T> a{q + static_cast<size_t>(r0) * hq * D,
+                      out + static_cast<size_t>(r0) * hq * D,
+                      min(rows_per_block, s1 - r0),
+                      hq / hkv,
+                      hq,
+                      g,
+                      hkv,
+                      seg < n_seqs ? q_offsets[seg] + (r0 - s0) : 0,
+                      seg < n_seqs ? min(kv_lengths[seg], layout.capacity())
+                                   : 0,
+                      1,
+                      0};
+  if (seg == n_seqs) {                // rows past cu_seqlens[B]: zeros
+    for (int i = threadIdx.x; i < a.n_rows * a.rep * D; i += blockDim.x)
+      a.out[a.vec(i / D) * D + i % D] = from_f<T>(0.f);
+    return;
   }
+  Tile<T, D>::run(a, kbuf, vbuf, layout.rows(seg), smem);
 }
 
 template <typename T, int D, typename Layout>
@@ -177,14 +116,15 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
            const void* kv_lengths, void* out, int n_rows, int hq, int hkv,
            int n_seqs, cudaStream_t stream) {
   auto kern = ragged_prefill_kernel<T, D, Layout>;
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = Tile<T, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = kMaxQ / (hq / hkv);
-  dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, hkv);
-  kern<<<grid, kThreads, smem, stream>>>(
+  const int rows_per_block = Tile<T, D>::kM / (hq / hkv);
+  // segment-aligned tiles: at most ceil(T / rows) + B of them
+  dim3 grid((n_rows + rows_per_block - 1) / rows_per_block + n_seqs, hkv);
+  kern<<<grid, Tile<T, D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), layout, static_cast<const int*>(cu_seqlens),
       static_cast<const int*>(q_offsets), static_cast<const int*>(kv_lengths),
@@ -200,7 +140,8 @@ int entry(const void* q, const void* k, const void* v, Layout layout,
           const void* kv_lengths, void* out, int n_rows, int hq, int hkv,
           int head_dim, int n_seqs, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxQ || n_rows <= 0)
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxRep || n_rows <= 0 ||
+      n_seqs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (head_dim == 128 && dtype == 1)
     return launch<__nv_bfloat16, 128>(q, k, v, layout, cu_seqlens, q_offsets,

@@ -42,7 +42,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors off the card or on two devices, dtypes other than fp32/bf16
     (int32 tables and index vectors), K/V storage that is not
     (N, rows, Hkv, D) alike with D in ``head_dims``, GQA groups wider
-    than ``max_rep``, non-contiguous memory, or K/V not 16-byte
+    than ``max_rep``, non-contiguous memory, or q/K/V not 16-byte
     aligned."""
     dev = q.device
     if dev.type != "cuda":
@@ -72,9 +72,9 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in [("q", q)] + named:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("K/V must start on a 16-byte boundary "
-                         "(the kernels load 16-byte vectors)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("q, K and V must start on a 16-byte boundary "
+                         "(the kernels copy 16-byte vectors)")
 
 
 def _check_segments(n_seqs: int, cu_seqlens: torch.Tensor,

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version at qwen3-4b's head shapes (fp32 with TF32 off, and
-bf16), the dense ``flash_attn`` at head widths 64-128 and GQA groups 1,
-4 and 5, the fused sampling kernel at qwen3-4b's vocabulary, the SSD
+bf16), the three ragged prefill kernels over tile-straddling streams at
+GQA groups 1, 4, 5 and 8, the dense ``flash_attn`` at head widths 64-128
+and GQA groups 1, 4, 5 and 8, the fused sampling kernel at qwen3-4b's vocabulary, the SSD
 scan kernel at mamba2-2.7b's head shapes, and the serving engine
 (qwen3-4b and mamba2-2.7b smoke configs) and the hubert-xlarge smoke
 encoder on the card against the same on the CPU.  Without a card every test skips inside its fixture.
@@ -207,6 +208,74 @@ def test_slot_prefill_kernels_match_plain(card, dtype, s_max, lens, hists):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (40, 8), (8, 8), (32, 4)])
+def test_ragged_prefill_tiles_match_plain(card, dtype, hq, hkv):
+    """The three ragged kernels at each GQA group a 128-vector bf16 tile
+    takes differently (32, 25 with 3 idle vectors, 128 and 16 rows), over one
+    stream: a long segment across many 64-key tiles and 16-token pages,
+    four 5-row segments at history 2043 (a tile across them would walk
+    four bands), bands ending mid-tile, a keyless segment, two pad
+    segments and a tail.  Every page row, arena row and park row at or
+    past a segment's length holds NaN, and table entries past it point
+    nowhere, so any stray read shows."""
+    rng = np.random.default_rng(hq + hkv)
+    g = torch.Generator(device=card).manual_seed(hq + hkv)
+    lens, hists = [300, 5, 5, 5, 5, 1, 6], [1000, 2043, 2043, 37, 100, 900,
+                                             0]
+    kvl = [h + n for h, n in zip(hists, lens)]
+    kvl[-1] = 0
+    total, n_pad, tail = sum(lens), 2, 9
+    cu = [0] + list(np.cumsum(lens)) + [total] * n_pad
+    offs, kvl = hists + [0] * n_pad, kvl + [0] * n_pad
+    idx = [_i32(x, card) for x in (cu, offs, kvl)]
+    q = torch.randn((total + tail, hq, D), generator=g, device=card)
+    q = q.to(dtype)
+    n_pages = 512                       # 405 needed
+    table = np.full((len(kvl), PMAX), 1 << 30, np.int32)
+    free = list(rng.permutation(n_pages))
+    page_ok = torch.zeros((n_pages, PS), dtype=torch.bool, device=card)
+    for i, n in enumerate(kvl):
+        for p in range(0, n, PS):
+            table[i, p // PS] = free.pop()
+            page_ok[int(table[i, p // PS]), :min(PS, n - p)] = True
+    s_max, n_slots = 2100, len(lens) + 1
+    slots = [int(x) for x in rng.permutation(n_slots)[:len(lens)]]
+    slot_map = _i32(slots + [slots[0]] * n_pad, card)
+    slot_ok = torch.zeros((n_slots, s_max), dtype=torch.bool, device=card)
+    for slot, n in zip(slots, kvl):
+        slot_ok[slot, :n] = True
+
+    def storage(shape, ok):
+        kv = [torch.randn(shape, generator=g, device=card) for _ in range(2)]
+        clean = [a.masked_fill(~ok[..., None, None], 0.0).to(dtype)
+                 for a in kv]
+        junk = [a.masked_fill(~ok[..., None, None], float("nan")).to(dtype)
+                for a in kv]
+        return junk, clean
+
+    (kp, vp), (kpc, vpc) = storage((n_pages, PS, hkv, D), page_ok)
+    (ka, va), (kac, vac) = storage((n_slots, s_max, hkv, D), slot_ok)
+    sm = slot_map.long()
+    plain_table = _i32(np.where(table == 1 << 30, 0, table), card)
+    for fn, plain, args, plain_args in (
+            (rp.ragged_prefill_paged, rp.ragged_prefill_paged_plain,
+             (q, kp, vp, _i32(table, card)), (q, kpc, vpc, plain_table)),
+            (rp.ragged_prefill_arena, rp.ragged_prefill_arena_plain,
+             (q, ka, va, slot_map), (q, kac, vac, slot_map)),
+            (rp.ragged_prefill_attn, rp.ragged_prefill_attn_plain,
+             (q, ka[sm].contiguous(), va[sm].contiguous()),
+             (q, kac[sm], vac[sm]))):
+        n0 = fn.launches
+        out = fn(*args, *idx)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        _assert_held(out, plain, *plain_args, *idx)
+        assert torch.isfinite(out).all()
+        assert (out[cu[-2 - n_pad]:cu[-1 - n_pad]] == 0).all()  # keyless
+        assert (out[total:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attn_arena_kernel_matches_plain(card, dtype):
     """Live rows of 0 to 2053 keys and ladder pad rows (length 1 on the
     first row's slot) in a 192-deep and a 4096-deep arena."""
@@ -259,8 +328,8 @@ def test_slot_engine_on_card_matches_engine_on_cpu(card, mode):
 
 
 # the dense kernels' GQA groups: rep 1 (hubert-xlarge), 4 (qwen3-4b), 5
-# (qwen2.5-32b)
-DENSE_HEADS = [(16, 16), (32, 8), (40, 8)]
+# (qwen2.5-32b), 8 (the widest group the dense kernels take)
+DENSE_HEADS = [(16, 16), (32, 8), (40, 8), (64, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
