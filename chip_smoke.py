@@ -38,7 +38,11 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      segment over many 64-key tiles and 16-token pages, 5-row verify
      segments at history 2043, bands ending mid-tile, a keyless
      segment, pad segments, tail rows — at GQA 32/8, 40/8, 8/8 and 32/4,
-     every page, arena and park row past a length NaN;
+     every page, arena and park row past a length NaN.  The three decode
+     kernels' split key walk at the same four groups: rows of C - 1, C,
+     C + 1 and 2C keys at the chunk C the launcher plans, the capacity,
+     a long row beside short ones, a row of length 0, a decode-ladder
+     pad row, every page, arena, park and cache row past a length NaN;
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -85,14 +89,18 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      steps, and a (64, 8) grid step and a packed step's (512, 8) bridge
      as medians of 9 interleaved kernel / plain timings; ``flash_attn``
      at the (64, 8) grid step at history 256 over 4096-deep slots and at
-     hubert's (8, 1500, 16, 80) non-causal layer; ``decode_attn`` at 8
-     rows x 2048 keys), each kernel's output there held to its plain
+     hubert's (8, 1500, 16, 80) non-causal layer; the three decode
+     kernels at 8 rows x 2048 keys and at 40 / 8 heads,
+     ``decode_attn_paged`` also for one row and phase 4's uneven tick,
+     each with its achieved GB/s beside the bound's), each kernel's
+     output there held to its plain
      version, the parts of a dense grid tick (whole-slot copies, the
      kernel's attention beside its plain version over S_max), and
      ``torch.profiler`` over two qwen3-4b grid steps (eight 256-token
-     prompts; one 256-token re-prefill at history 1792) and a mamba2
-     packed prefill, grid prefill and decode tick (device time by
-     kernel, busy share);
+     prompts; one 256-token re-prefill at history 1792), one qwen3-4b
+     paged decode tick at phase 4's lengths (the decode kernels' share)
+     and a mamba2 packed prefill, grid prefill and decode tick (device
+     time by kernel, busy share);
   6. the serve launcher, its default and ``--packed``, for qwen3-4b and
      mamba2-2.7b, at the smoke config and at published widths cut to 4
      layers;
@@ -519,6 +527,100 @@ def phase_tile_kernels(seed, errs):
                     f"err/bound={worst:.3f} tail_and_keyless_zero={zeros} "
                     f"{'ok' if ok else 'FAIL'}")
                 assert ok, f"{name} tiles {hq}/{hkv} {dtype}"
+
+
+# the decode kernels' split walk at every GQA group of TILE_HEADS: rows
+# on the plan's chunk boundaries (C - 1, C, C + 1 and 2C keys at the
+# chunk C the launcher plans for these shapes), the capacity, one long
+# row beside short ones, a row of length 0 and a decode-ladder pad row
+# (length 1 on a live row's storage); NaN in every page, arena and cache
+# row past a length, the arena's park row included, and table entries
+# past a length poisoned
+DECODE_CAP = 2100          # arena S_max and cache S: not a chunk multiple
+DECODE_PAGES = 132         # page-table width: 2112 keys
+
+
+def _decode_lengths(chunk, cap):
+    return [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk, cap, cap - 5,
+            96, 256, 17]
+
+
+def phase_decode_groups(seed, errs):
+    """``decode_attn_paged``, ``decode_attn_arena`` and ``decode_attn``
+    against their plain versions at each of TILE_HEADS, fp32 and bf16,
+    over the split walk's chunk boundaries (``_decode_lengths``)."""
+    from repro_torch.kernels import decode_attn as dec
+    rng = np.random.default_rng(seed + 50)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 50)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_pages = 512
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in TILE_HEADS:
+            def rand(*shape):
+                return torch.randn(shape, generator=gen, device=DEVICE)
+            cases = []
+            # paged: pad row on row 1's first page
+            cap = DECODE_PAGES * PS
+            plan = dec.split_plan(12, hq, hkv, D, cap, n_sms)
+            lens = _decode_lengths(plan.chunk, cap)
+            tab, tab_c = _layout(rng, n_pages, DECODE_PAGES, lens + [0])
+            tab[-1, 0] = tab_c[-1, 0] = tab[1, 0]
+            lens = lens + [1]
+            page_ok = torch.zeros((n_pages, PS), dtype=torch.bool,
+                                  device=DEVICE)
+            for i, n in enumerate(lens):
+                for p in range(0, n, PS):
+                    page_ok[int(tab[i, p // PS]), :min(PS, n - p)] = True
+            kp, vp, kc, vc = (a.to(dtype) for a in _nan_past(
+                rand(n_pages, PS, hkv, D), rand(n_pages, PS, hkv, D),
+                page_ok))
+            cases.append(("decode_attn_paged", plan, lens,
+                          dec.decode_attn_paged, dec.decode_attn_paged_plain,
+                          (kp, vp, _i32(tab)), (kc, vc, _i32(tab_c))))
+            # arena: every row from each length on NaN, the park row
+            # S_max - 1 too; the pad row on row 1's slot
+            plan = dec.split_plan(12, hq, hkv, D, DECODE_CAP, n_sms)
+            lens = _decode_lengths(plan.chunk, DECODE_CAP - 1)
+            slots = [int(x) for x in rng.permutation(len(lens))]
+            slot_ok = torch.zeros((len(lens), DECODE_CAP), dtype=torch.bool,
+                                  device=DEVICE)
+            for slot, n in zip(slots, lens):
+                slot_ok[slot, :n] = True
+            slots, lens = slots + [slots[1]], lens + [1]
+            ka, va, kc, vc = (a.to(dtype) for a in _nan_past(
+                rand(len(slots) - 1, DECODE_CAP, hkv, D),
+                rand(len(slots) - 1, DECODE_CAP, hkv, D), slot_ok))
+            cases.append(("decode_attn_arena", plan, lens,
+                          dec.decode_attn_arena, dec.decode_attn_arena_plain,
+                          (ka, va, _i32(slots)), (kc, vc, _i32(slots))))
+            # batch cache: row b reads cache row b
+            plan = dec.split_plan(12, hq, hkv, D, DECODE_CAP, n_sms)
+            lens = _decode_lengths(plan.chunk, DECODE_CAP) + [1]
+            row_ok = torch.arange(DECODE_CAP, device=DEVICE)[None, :] \
+                < _i32(lens)[:, None]
+            kb, vb, kc, vc = (a.to(dtype) for a in _nan_past(
+                rand(len(lens), DECODE_CAP, hkv, D),
+                rand(len(lens), DECODE_CAP, hkv, D), row_ok))
+            cases.append(("decode_attn", plan, lens, dec.decode_attn,
+                          dec.decode_attn_plain, (kb, vb), (kc, vc)))
+            for name, plan, lens, fn, plain, args, plain_args in cases:
+                q = torch.randn((len(lens), hq, D), generator=gen,
+                                device=DEVICE).to(dtype)
+                out = fn(q, *args, _i32(lens))
+                torch.cuda.synchronize()
+                err, worst, ok, _ = _held(out, plain, q, *plain_args,
+                                          _i32(lens))
+                zeros = bool((out[0] == 0).all().item())
+                finite = bool(torch.isfinite(out).all().item())
+                ok = ok and zeros and finite
+                errs.setdefault((name, dtype), []).append(err)
+                log(f"[2] {name:17s} split {hq}/{hkv} {str(dtype):15s} "
+                    f"chunk {plan.chunk} x {plan.n_chunks} lengths {lens} "
+                    f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+                    f"zero_row_zero={zeros} finite={finite} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, f"{name} split {hq}/{hkv} {dtype}"
 
 
 # the dense kernels' GQA groups: hubert-xlarge's 16 / 16 (rep 1),
@@ -1580,6 +1682,81 @@ def _time(fn, iters=20):
     return a.elapsed_time(b) / iters
 
 
+def _time_graph(fn, iters=20):
+    """Device ms per call of ``fn``, a launch that reads nothing back:
+    ``iters`` calls captured in one CUDA graph and replayed between two
+    events, so the host's launch overhead, which exceeds a short decode
+    kernel's run, is not what is timed."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# phase 4's uneven decode tick: the long prompt's session beside the
+# seven short ones
+UNEVEN_TICK = [2100, 96, 128, 160, 192, 224, 256, 112]
+
+
+def _time_decode(name, fn, plain, args, kg, vg, lengths, errs, index_bytes):
+    """Hold one decode kernel call to its plain version, then time the
+    kernel and the library yardstick — one SDPA call over each row's keys
+    ``kg``, ``vg`` (B, max length, Hkv, D), gathered and head-expanded
+    beforehand (not timed), masked past each length — from a CUDA graph
+    (``_time_graph``), and the plain version launched eagerly.  The
+    kernel launched eagerly is logged too: the host's launch time.
+    Bytes: q and out, each row's keys and values once, and
+    ``index_bytes`` of tables and lengths.  Logs the achieved GB/s beside
+    the bound's; returns the phase-5 row."""
+    import torch.nn.functional as F
+    q = args[0]
+    got = fn(*args)
+    err, worst, ok, _ = _held(got, plain, *args)
+    errs.setdefault((name.split()[0], q.dtype), []).append(err)
+    log(f"[5] {name} {len(lengths)} rows x {lengths[:3]}.. keys: "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, f"{name} at main-path shapes"
+    b, hq, _ = q.shape
+    rep = hq // kg.shape[2]
+    ks, vs = (a.repeat_interleave(rep, 2).transpose(1, 2) for a in (kg, vg))
+    mask = None
+    if len(set(lengths)) > 1:
+        mask = (torch.arange(kg.shape[1], device=DEVICE)[None, :]
+                < _i32(lengths)[:, None])[:, None, None, :]
+    el = q.element_size()
+    row = dict(
+        ms=_time_graph(lambda: fn(*args)),
+        plain_ms=_time(lambda: plain(*args), 3),
+        library_ms=_time_graph(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], ks, vs, attn_mask=mask)),
+        flops=4 * sum(lengths) * D * hq,
+        bytes=(2 * b * hq * D + 2 * sum(lengths) * kg.shape[2] * D) * el
+        + index_bytes)
+    eager_ms = _time(lambda: fn(*args))
+    bound = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"[5] {name}: kernel {row['ms']:.4f} ms at "
+        f"{row['bytes'] / row['ms'] / 1e6:.0f} GB/s ({eager_ms:.4f} ms "
+        f"a call launched one by one), SDPA "
+        f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
+        f"bound {bound:.4f} ms at {HBM_BYTES_PER_S / 1e9:.0f} GB/s "
+        f"({row['bytes'] / 1e6:.2f} MB), kernel / bound "
+        f"{row['ms'] / bound:.2f}")
+    return row
+
+
 def phase_times(seed, errs):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as dec
@@ -1652,31 +1829,28 @@ def phase_times(seed, errs):
         f"max_abs_err={err:.3e} err/bound={worst:.3f} "
         f"(decode_attn_paged over the same keys: below)")
 
-    # decode: 8 rows x 2048 keys
-    lengths = [keys] * b_rows
-    tab, _ = _layout(rng, n_pages, p_max, lengths, None)
-    tab = np.where(tab == POISON, n_pages, tab).astype(np.int32)
-    qd = torch.randn((b_rows, HQ, D), generator=gen, device=DEVICE).to(dt)
-    dargs = (qd, k, v, _i32(tab), _i32(lengths))
-    got = dec.decode_attn_paged(*dargs)
-    err, worst, ok, _ = _held(got, dec.decode_attn_paged_plain, *dargs)
-    errs.setdefault(("decode_attn_paged", dt), []).append(err)
-    log(f"[5] decode_attn_paged {b_rows} rows x {keys} keys: max_abs_err="
-        f"{err:.3e} err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
-    assert ok, "decode_attn_paged at main-path shapes"
-    idx = torch.as_tensor(tab[:, :keys // PS], device=DEVICE).long()
-    kgd = k[idx].reshape(b_rows, keys, HKV, D).repeat_interleave(
-        HQ // HKV, 2).transpose(1, 2)
-    vgd = v[idx].reshape(b_rows, keys, HKV, D).repeat_interleave(
-        HQ // HKV, 2).transpose(1, 2)
-    out["decode_attn_paged"] = dict(
-        ms=_time(lambda: dec.decode_attn_paged(*dargs)),
-        plain_ms=_time(lambda: dec.decode_attn_paged_plain(*dargs), 3),
-        library_ms=_time(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kgd, vgd)),
-        flops=4 * b_rows * keys * D * HQ,
-        bytes=(2 * b_rows * HQ * D + 2 * b_rows * keys * HKV * D) * el
-        + 4 * (tab.size + b_rows))
+    # decode: 8 rows x 2048 keys (the JSON row), then the split walk's
+    # other shapes: qwen2.5-32b's 40 / 8 heads, one session decoding
+    # alone, and phase 4's uneven tick (one row at ~2100 keys beside
+    # seven at 96-256)
+    for what, hq, lengths in (("", HQ, [keys] * b_rows),
+                              (" (40/8)", 40, [keys] * b_rows),
+                              (" (1 row)", HQ, [keys]),
+                              (" (uneven tick)", HQ, UNEVEN_TICK)):
+        tab, _ = _layout(rng, n_pages, p_max, lengths, None)
+        tab = np.where(tab == POISON, n_pages, tab).astype(np.int32)
+        qd = torch.randn((len(lengths), hq, D), generator=gen,
+                         device=DEVICE).to(dt)
+        n = max(lengths)
+        idx = torch.as_tensor(tab[:, :-(-n // PS)], device=DEVICE).long()
+        kg, vg = (a[idx].reshape(len(lengths), -1, HKV, D)[:, :n]
+                  for a in (k, v))
+        pages = sum(-(-x // PS) for x in lengths)
+        out["decode_attn_paged" + what] = _time_decode(
+            "decode_attn_paged" + what, dec.decode_attn_paged,
+            dec.decode_attn_paged_plain,
+            (qd, k, v, _i32(tab), _i32(lengths)), kg, vg, lengths, errs,
+            4 * (pages + len(lengths)))
 
     # slot arena at phase 2's main-path layout: a 512-row chunk at
     # history 1536 beside a 17-row segment and a decode row, 5 pad
@@ -1734,32 +1908,20 @@ def phase_times(seed, errs):
                     qs, ks, vs, attn_mask=seg_mask)),
                 flops=4 * attended * D * hq, bytes=nbytes)
 
-    # slot-arena decode: 8 rows x 2048 keys, one slot each
+    # slot-arena decode: 8 rows x 2048 keys, one slot each; also at 40 /
+    # 8 heads
     s_max, lengths, _ = ARENA_DECODE_CASES["main_path"]
     slots = [int(x) for x in rng.permutation(ARENA_SLOTS)[:len(lengths)]]
     kd, vd = _arena(gen, s_max, dt, dict(zip(slots, lengths)))
-    qd = torch.randn((len(slots), HQ, D), generator=gen,
-                     device=DEVICE).to(dt)
-    dargs = (qd, kd, vd, _i32(slots), _i32(lengths))
-    got = dec.decode_attn_arena(*dargs)
-    err, worst, ok, _ = _held(got, dec.decode_attn_arena_plain, *dargs)
-    errs.setdefault(("decode_attn_arena", dt), []).append(err)
-    log(f"[5] decode_attn_arena {len(slots)} rows x {lengths[0]} keys: "
-        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
-        f"{'ok' if ok else 'FAIL'}")
-    assert ok, "decode_attn_arena at main-path shapes"
-    ksd = kd[slots, :lengths[0]].repeat_interleave(HQ // HKV, 2) \
-        .transpose(1, 2)
-    vsd = vd[slots, :lengths[0]].repeat_interleave(HQ // HKV, 2) \
-        .transpose(1, 2)
-    out["decode_attn_arena"] = dict(
-        ms=_time(lambda: dec.decode_attn_arena(*dargs)),
-        plain_ms=_time(lambda: dec.decode_attn_arena_plain(*dargs), 3),
-        library_ms=_time(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], ksd, vsd)),
-        flops=4 * sum(lengths) * D * HQ,
-        bytes=(2 * len(slots) * HQ * D + 2 * sum(lengths) * HKV * D) * el
-        + 4 * 2 * len(slots))
+    for what, hq in (("", HQ), (" (40/8)", 40)):
+        qd = torch.randn((len(slots), hq, D), generator=gen,
+                         device=DEVICE).to(dt)
+        out["decode_attn_arena" + what] = _time_decode(
+            "decode_attn_arena" + what, dec.decode_attn_arena,
+            dec.decode_attn_arena_plain,
+            (qd, kd, vd, _i32(slots), _i32(lengths)),
+            kd[slots, :max(lengths)], vd[slots, :max(lengths)], lengths,
+            errs, 4 * 2 * len(slots))
     # fused sampling at phase 4's verify tick: 8 stream rows x (k + 1)
     # = 40 rows over qwen3-4b's 151,936-column vocabulary in bf16, every
     # row sampled as phase 4's sampled sessions are (temperature 0.8,
@@ -1805,8 +1967,10 @@ def phase_times(seed, errs):
             f" ms, library {lib}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
             f"{r['flops'] / 1e9:.2f} GFLOP), kernel "
-            f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s against the bound's "
-            f"{r['flops'] / r['bound_ms'] / 1e9:.1f}")
+            f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s and "
+            f"{r['bytes'] / r['ms'] / 1e6:.0f} GB/s against the bound's "
+            f"{r['flops'] / r['bound_ms'] / 1e9:.1f} and "
+            f"{r['bytes'] / r['bound_ms'] / 1e6:.0f}")
     return out
 
 
@@ -1905,24 +2069,12 @@ def _time_dense(gen, errs):
 
     keys = 2048
     kd, vd = _batch_kv(gen, b, s, HKV, D, [keys] * b, dt)
-    qd = torch.randn((b, HQ, D), generator=gen, device=DEVICE).to(dt)
-    dargs = (qd, kd, vd, _i32([keys] * b))
-    got = dec.decode_attn(*dargs)
-    err, worst, ok, _ = _held(got, dec.decode_attn_plain, *dargs)
-    errs.setdefault(("decode_attn", dt), []).append(err)
-    log(f"[5] decode_attn {b} rows x {keys} keys in {s}-deep slots: "
-        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
-        f"{'ok' if ok else 'FAIL'}")
-    assert ok, "decode_attn at main-path shapes"
-    ksd = kd[:, :keys].repeat_interleave(rep, 2).transpose(1, 2)
-    vsd = vd[:, :keys].repeat_interleave(rep, 2).transpose(1, 2)
-    rows["decode_attn"] = dict(
-        ms=_time(lambda: dec.decode_attn(*dargs)),
-        plain_ms=_time(lambda: dec.decode_attn_plain(*dargs), 3),
-        library_ms=_time(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], ksd, vsd)),
-        flops=4 * b * keys * D * HQ,
-        bytes=(2 * b * HQ * D + 2 * b * keys * HKV * D) * el + 4 * b)
+    for what, hq in (("", HQ), (" (40/8)", 40)):
+        qd = torch.randn((b, hq, D), generator=gen, device=DEVICE).to(dt)
+        rows["decode_attn" + what] = _time_decode(
+            "decode_attn" + what, dec.decode_attn, dec.decode_attn_plain,
+            (qd, kd, vd, _i32([keys] * b)), kd[:, :keys], vd[:, :keys],
+            [keys] * b, errs, 4 * b)
     return rows
 
 
@@ -2012,7 +2164,8 @@ def _time_ssd(gen, errs):
 
 def _device_split(prof, wall_ms, what, card):
     """Log the device time of a profiled region by kernel (the top 8)
-    and the device-busy share of its wall time."""
+    and the device-busy share of its wall time.  Returns ({kernel:
+    device ms}, device-busy ms)."""
     def dev_us(e):
         return (getattr(e, "self_device_time_total", 0)
                 or getattr(e, "self_cuda_time_total", 0))
@@ -2024,6 +2177,7 @@ def _device_split(prof, wall_ms, what, card):
         f"{100 * (1 - busy / max(wall_ms, 1e-9)):.1f}%) (card {card})")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"[5]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return {e.key: dev_us(e) / 1e3 for e in kernels}, busy
 
 
 def phase_dense_profile(seed, card):
@@ -2068,6 +2222,56 @@ def phase_dense_profile(seed, card):
         if s == 17:
             _device_split(prof, wall, "slot_dense (256, 1) step at "
                           "history 1792", card)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_decode_profile(seed, card):
+    """Where a qwen3-4b paged decode tick's time goes (full width, bf16,
+    the engine default): ``torch.profiler`` over one decode tick of 8
+    sessions at phase 4's lengths (UNEVEN_TICK), after a warm-up tick;
+    the tick's wall time, the device's busy share and the decode
+    kernels' share (the split walk and its combine, ``attn::decode``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = get_config("qwen3-4b")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    engine = Engine(cfg, params, EngineConfig(
+        num_slots=8, max_len=4096, chunk_tokens=256, measure=False,
+        **MODES["paged"]), device=DEVICE)
+    rng = np.random.default_rng(seed + 7)
+    sess = list(range(len(UNEVEN_TICK)))
+    toks = []
+    for s, n in zip(sess, UNEVEN_TICK):
+        # two decode ticks follow: the profiled one reads n keys
+        prompt = rng.integers(1, cfg.vocab_size, n - 2)
+        toks.append(engine.prefill_long(s, prompt) if n > 256 else
+                    engine.prefill_batch([s], [prompt])[s])
+    warm = engine.decode_batch(sess, toks, 1)          # warm-up tick
+    toks = [warm[s][-1] for s in sess]
+    n0 = dec.decode_attn_paged.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.decode_batch(sess, toks, 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n = dec.decode_attn_paged.launches - n0
+    by_kernel, busy = _device_split(
+        prof, wall, f"paged decode tick of {len(sess)} rows at "
+        f"{UNEVEN_TICK} keys", card)
+    attn_ms = sum(ms for key, ms in by_kernel.items()
+                  if "attn::decode" in key)
+    log(f"[5] paged decode tick: {n} decode_attn_paged launches, the "
+        f"decode kernels {attn_ms:.3f} ms of the device's {busy:.2f} ms "
+        f"busy ({100 * attn_ms / max(busy, 1e-9):.1f}%) and of the "
+        f"tick's {wall:.2f} ms wall ({100 * attn_ms / wall:.1f}%) "
+        f"(card {card})")
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2238,6 +2442,7 @@ def main() -> int:
         phase_kernels(args.seed, errs)
         phase_slot_kernels(args.seed, errs)
         phase_tile_kernels(args.seed, errs)
+        phase_decode_groups(args.seed, errs)
         phase_sample_kernel(args.seed, errs)
         phase_ssd_kernel(args.seed, errs)
         phase_dense_kernels(args.seed, errs)
@@ -2264,6 +2469,7 @@ def main() -> int:
         times = phase_times(args.seed, errs)
         phase_dense_tick(card, times)
         phase_dense_profile(args.seed, card)
+        phase_decode_profile(args.seed, card)
         phase_ssm_profile(args.seed, card)
     if 6 in phases:
         phase_launcher(card)

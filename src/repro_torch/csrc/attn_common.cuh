@@ -86,7 +86,7 @@ struct SlotRows {
 struct PagedLayout {
   const int* page_table;   // (B, p_max)
   int page_size, p_max;
-  __device__ __forceinline__ int capacity() const {
+  __host__ __device__ __forceinline__ int capacity() const {
     return p_max * page_size;
   }
   __device__ __forceinline__ PagedRows rows(int b) const {
@@ -99,7 +99,9 @@ struct PagedLayout {
 struct SlotLayout {
   const int* slot_map;     // (B,); nullptr: segment b reads slot b
   int s_max;
-  __device__ __forceinline__ int capacity() const { return s_max; }
+  __host__ __device__ __forceinline__ int capacity() const {
+    return s_max;
+  }
   __device__ __forceinline__ SlotRows rows(int b) const {
     const int slot = slot_map != nullptr ? slot_map[b] : b;
     return {static_cast<size_t>(slot) * s_max};

@@ -1,9 +1,11 @@
-// Hopper tensor-core primitives of the bf16 attention tiles
-// (attn_tiles.cuh): 16-byte cp.async copies into shared memory, the
-// shared-memory matrix descriptor of wgmma, and wgmma.mma_async itself
-// in the two forms the tiles use — m64n64k16 with both operands in shared
-// memory (S = Q.K^T) and m64nDk16 with A in registers (O += P.V).  sm_90a
-// only: wgmma does not exist on plain sm_90.
+// Hopper tensor-core primitives of the bf16 attention kernels: 16-byte
+// cp.async copies into shared memory; for the prefill tiles
+// (attn_tiles.cuh) the shared-memory matrix descriptor of wgmma and
+// wgmma.mma_async itself in the two forms the tiles use — m64n64k16 with
+// both operands in shared memory (S = Q.K^T) and m64nDk16 with A in
+// registers (O += P.V); for the decode walk (decode_attn.cuh) the
+// warp-level ldmatrix and mma.sync m16n8k16.  sm_90a only: wgmma does
+// not exist on plain sm_90.
 //
 // Shared-memory operand layout.  Every operand tile is stored as 8 x 8
 // "core matrices" of bf16, each 8 rows of 16 contiguous bytes (128 bytes
@@ -35,6 +37,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool fill) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+// the same through L2 only (.cg): for bytes read once, as the decode
+// walk reads each cached key and value
+__device__ __forceinline__ void cp_async16_cg(uint32_t dst, const void* src,
+                                              bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(fill ? 16 : 0)
                : "memory");
 }
@@ -246,6 +256,45 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
     static_assert(N == 128, "head widths 64, 80, 96, 128");
     mma_rs_n128(d, a, db, acc);
   }
+}
+
+// --- mma.sync (warp level) ---------------------------------------------
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address
+// of row l % 8 of matrix l / 8; register i of every lane receives matrix
+// i, lane t holding row t / 4, columns 2 (t % 4) and + 1 — or, with
+// .trans, row 2 (t % 4) and + 1 of column t / 4.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, fp32 accumulate.  With
+// g = lane / 4 and t = lane % 4: a[0] holds A row g, columns 2t and + 1,
+// a[1] row g + 8 there, a[2] and a[3] the same at columns + 8; b[0] holds
+// B rows 2t and + 1 of column g, b[1] rows + 8; d[0], d[1] are D row g,
+// columns 2t and + 1, d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 }  // namespace tc

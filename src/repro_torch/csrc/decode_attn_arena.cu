@@ -7,14 +7,16 @@
 // lengths[b] rows, so a decode tick streams O(cached length) per row
 // and never the slot's park row S_max - 1.  Decode-ladder pad rows
 // (lengths 1, slot_map naming a live slot) read one key and their
-// output is discarded.  S_max need not be a multiple of the key tile.
+// output is discarded.  S_max need not be a multiple of the key tile;
+// the chunk plan spans S_max keys.
 #include "decode_attn.cuh"
 
 extern "C" int decode_attn_arena_launch(
     const void* q, const void* k, const void* v, const void* slot_map,
-    const void* lengths, void* out, int n_rows, int hq, int hkv,
-    int head_dim, int s_max, int dtype, void* stream) {
+    const void* lengths, void* out, void* ws, int n_rows, int hq, int hkv,
+    int head_dim, int s_max, int chunk, int n_chunks, int dtype,
+    void* stream) {
   const attn::SlotLayout layout{static_cast<const int*>(slot_map), s_max};
-  return attn::decode::entry(q, k, v, layout, lengths, out, n_rows, hq, hkv,
-                             head_dim, dtype, stream);
+  return attn::decode::entry(q, k, v, layout, lengths, out, ws, n_rows, hq,
+                             hkv, head_dim, chunk, n_chunks, dtype, stream);
 }

@@ -9,14 +9,14 @@
 // before the step and back after it: row b reads only its first
 // lengths[b] positions, so the step streams O(cached length) of each
 // row and never the rest of its S_max-deep copy.  S need not be a
-// multiple of the key tile.
+// multiple of the key tile; the chunk plan spans S keys.
 #include "decode_attn.cuh"
 
 extern "C" int decode_attn_dense_launch(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, int n_rows, int hq, int hkv, int head_dim, int s, int dtype,
-    void* stream) {
+    void* out, void* ws, int n_rows, int hq, int hkv, int head_dim, int s,
+    int chunk, int n_chunks, int dtype, void* stream) {
   const attn::SlotLayout layout{nullptr, s};
-  return attn::decode::entry(q, k, v, layout, lengths, out, n_rows, hq, hkv,
-                             head_dim, dtype, stream);
+  return attn::decode::entry(q, k, v, layout, lengths, out, ws, n_rows, hq,
+                             hkv, head_dim, chunk, n_chunks, dtype, stream);
 }

@@ -29,13 +29,13 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "ragged_prefill_paged": (
         "ragged_prefill_paged_launch", (_P,) * 8 + (_I,) * 8 + (_P,)),
     "decode_attn_paged": (
-        "decode_attn_paged_launch", (_P,) * 6 + (_I,) * 7 + (_P,)),
+        "decode_attn_paged_launch", (_P,) * 7 + (_I,) * 9 + (_P,)),
     "ragged_prefill_arena": (
         "ragged_prefill_arena_launch", (_P,) * 8 + (_I,) * 7 + (_P,)),
     "ragged_prefill_attn": (
         "ragged_prefill_attn_launch", (_P,) * 7 + (_I,) * 7 + (_P,)),
     "decode_attn_arena": (
-        "decode_attn_arena_launch", (_P,) * 6 + (_I,) * 6 + (_P,)),
+        "decode_attn_arena_launch", (_P,) * 7 + (_I,) * 8 + (_P,)),
     "fused_sample": (
         "fused_sample_launch", (_P,) * 12 + (_I,) * 3 + (_P,)),
     "ssd_scan": (
@@ -43,7 +43,7 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "flash_attn": (
         "flash_attn_launch", (_P,) * 6 + (_I,) * 9 + (_P,)),
     "decode_attn_dense": (
-        "decode_attn_dense_launch", (_P,) * 5 + (_I,) * 6 + (_P,)),
+        "decode_attn_dense_launch", (_P,) * 6 + (_I,) * 8 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

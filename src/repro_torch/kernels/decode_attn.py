@@ -14,13 +14,22 @@ where a row's keys live:
   read in place through a slot map, the port of
   ``repro.kernels.decode_attn.decode_attn_arena``.
 
+The body splits each row's key walk over the whole card: one block per
+(key chunk, KV head, row), fp32 partials in a workspace, and a combine
+kernel that merges them.  ``split_plan`` is where the chunks come from,
+for the three launchers alike and for the CPU rehearsal of the split
+(``tests/test_torch_decode_split.py``): it reads shapes and the SM count
+only, never ``lengths``, so a launch reads nothing back from the card
+and can be captured in a CUDA graph.
+
 Each launcher takes CUDA tensors only and raises on anything its kernel
 does not take; the ``*_plain`` functions (``kernels/ref.py``) compute the
 same functions with plain tensor ops.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +41,70 @@ from repro_torch.kernels.ref import \
     ref_decode_attn_arena as decode_attn_arena_plain  # noqa: F401
 from repro_torch.kernels.ref import \
     ref_decode_attn_paged as decode_attn_paged_plain  # noqa: F401
+
+
+WARP_KEYS = 16          # keys a warp scores per tile (csrc kKT)
+ROUND_KEYS = 64         # keys a block's 4 warps take per round (kRound)
+MAX_CHUNK = 512         # keys per chunk at most
+UNITS_PER_SM = 4        # (KV head, row, chunk) blocks asked of each SM
+
+
+class SplitPlan(NamedTuple):
+    chunk: int                    # keys per chunk, a multiple of ROUND_KEYS
+    n_chunks: int                 # chunks per (row, KV head)
+    workspace: Tuple[int, ...]    # fp32 partials, () with one chunk
+
+
+def split_plan(n_rows: int, hq: int, hkv: int, head_dim: int,
+               capacity: int, n_sms: int) -> SplitPlan:
+    """How the decode kernels split each row's keys over the card.
+
+    ``capacity`` is the most keys a row can hold (P_max * page_size, the
+    arena's S_max, the batch cache's S).  The chunk is the largest of
+    MAX_CHUNK, MAX_CHUNK / 2, ... ROUND_KEYS keys that still gives at
+    least UNITS_PER_SM blocks per SM over the full capacity, and no
+    larger than the capacity rounded up to ROUND_KEYS.  A block whose
+    chunk lies past its row's length writes an empty partial and exits,
+    so the plan spans the capacity without knowing the lengths.  The
+    workspace holds
+    (acc[D], m, l, two pad floats) of every (row, KV head, chunk, query
+    head of the group): (n_rows, hkv, n_chunks, hq // hkv, head_dim + 4);
+    with one chunk the blocks write the output directly and it is
+    ``()``."""
+    cap = max(int(capacity), 1)
+    chunk = MAX_CHUNK
+    while chunk > ROUND_KEYS and \
+            n_rows * hkv * -(-cap // chunk) < UNITS_PER_SM * n_sms:
+        chunk //= 2
+    chunk = min(chunk, -(-cap // ROUND_KEYS) * ROUND_KEYS)
+    n_chunks = -(-cap // chunk)
+    workspace = ((n_rows, hkv, n_chunks, hq // hkv, head_dim + 4)
+                 if n_chunks > 1 else ())
+    return SplitPlan(chunk, n_chunks, workspace)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_split(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, index: Tuple[torch.Tensor, ...],
+                  layout: Tuple[int, ...], capacity: int) -> torch.Tensor:
+    """Plan the split, allocate the output and the workspace on q's
+    device, and launch kernel ``name`` on the current stream."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    plan = split_plan(b, hq, hkv, d, capacity, _sm_count(q.device.index))
+    out = torch.empty_like(q)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
+          if plan.workspace else None)
+    launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           *(x.data_ptr() for x in index), out.data_ptr(),
+           None if ws is None else ws.data_ptr(), b, hq, hkv, d,
+           *layout, plan.chunk, plan.n_chunks, _DTYPES[q.dtype],
+           torch.cuda.current_stream(q.device).cuda_stream)
+    return out
 
 
 def _refuse(window: Optional[int]) -> None:
@@ -49,21 +122,18 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     new KV already written, row b reading cache row b; lengths: (B,)
     int32 valid cache entries including the new row, all on the card.
     Returns (B, Hq, D) in q's dtype, zeros on rows with ``lengths ==
-    0``.  Never synchronises.
+    0``.  Never synchronises and never reads a device tensor back to the
+    host.
     """
     check_kernel_inputs(q, k, v, lengths, max_rep=8)
-    b, hq, d = q.shape
-    _, s, hkv, _ = k.shape
+    b = q.shape[0]
+    s = k.shape[1]
     if k.shape[0] != b or lengths.shape != (b,):
         raise ValueError("k, v must be (B, S, Hkv, D) and lengths (B,) "
                          "with q's B")
-    out = torch.empty_like(q)
     if b == 0:
-        return out
-    launch("decode_attn_dense",
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-           out.data_ptr(), b, hq, hkv, d, s, _DTYPES[q.dtype],
-           torch.cuda.current_stream(q.device).cuda_stream)
+        return torch.empty_like(q)
+    out = _launch_split("decode_attn_dense", q, k, v, (lengths,), (s,), s)
     decode_attn.launches += 1
     return out
 
@@ -81,19 +151,16 @@ def decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _refuse(window)
     check_kernel_inputs(q, k, v, page_table, lengths, max_rep=8)
-    b, hq, d = q.shape
-    n_pages, ps, hkv, _ = k.shape
+    b = q.shape[0]
+    ps = k.shape[1]
     if page_table.dim() != 2 or page_table.shape[0] != b \
             or lengths.shape != (b,):
         raise ValueError("page_table must be (B, P_max) and lengths (B,)")
     p_max = page_table.shape[1]
-    out = torch.empty_like(q)
     if b == 0:
-        return out
-    launch("decode_attn_paged",
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
-           lengths.data_ptr(), out.data_ptr(), b, hq, hkv, d, ps, p_max,
-           _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        return torch.empty_like(q)
+    out = _launch_split("decode_attn_paged", q, k, v, (page_table, lengths),
+                        (ps, p_max), p_max * ps)
     decode_attn_paged.launches += 1
     return out
 
@@ -108,21 +175,18 @@ def decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32 arena slot of each row; lengths: (B,) int32 valid cache
     entries including the new row, all on the card.  Returns (B, Hq, D)
     in q's dtype, zeros on rows with ``lengths == 0``.  Never
-    synchronises.
+    synchronises and never reads a device tensor back to the host.
     """
     _refuse(window)
     check_kernel_inputs(q, k, v, slot_map, lengths, max_rep=8)
-    b, hq, d = q.shape
-    n_slots, s_max, hkv, _ = k.shape
+    b = q.shape[0]
+    s_max = k.shape[1]
     if slot_map.shape != (b,) or lengths.shape != (b,):
         raise ValueError("slot_map and lengths must be (B,)")
-    out = torch.empty_like(q)
     if b == 0:
-        return out
-    launch("decode_attn_arena",
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_map.data_ptr(),
-           lengths.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_max,
-           _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        return torch.empty_like(q)
+    out = _launch_split("decode_attn_arena", q, k, v, (slot_map, lengths),
+                        (s_max,), s_max)
     decode_attn_arena.launches += 1
     return out
 

@@ -1,0 +1,336 @@
+"""CPU rehearsal of the split key walk of the port's decode kernels
+(``csrc/decode_attn.cuh`` through ``csrc/decode_attn_{paged,arena,
+dense}.cu``), in plain PyTorch, against the plain versions
+(``repro_torch.kernels.ref``) and the JAX oracles (``repro.kernels.ref``).
+
+The rehearsal walks the kernels' own decomposition.
+``kernels.decode_attn.split_plan``, given a small SM count, fixes the
+chunk C and the chunk count over the layout's static capacity.  One
+block per (chunk, KV head, row): a block whose chunk starts at or past
+the row's length writes an empty partial (m = -1e30, l = 0) and reads
+nothing; in the others 4 warps walk 16-key tiles w, w + 4, ... of the
+chunk, each with its own online softmax in log2 units (p rounded to
+bf16 against the warp's running max in the bf16 form, l summing the
+unrounded p); the warps merge into the block's partial (acc, m, l); the
+combine merges a row's partials in chunk order, skipping the empty
+ones, and gives a row with no key 0; with one chunk the block writes
+the output itself.  Every key row is fetched through the layout's row
+map (page table, slot map, batch row) and positions at or past the
+row's length are never addressed: K/V rows and pages past each length
+hold NaN and table entries past them an index that faults, and the
+workspace starts as NaN, so a stray read shows.  Each (row, KV head)
+counts the (query head, key) pairs it attends, so a dropped chunk, a
+chunk boundary off by one key or a tile read twice fails before any
+chip time.  Rows: lengths 0, 1, C, C + 1, the capacity, one long row
+beside short ones, and a decode-ladder pad row (length 1 on a live
+row's storage).
+
+Tolerances: fp32 (no rounding of p) atol = rtol = 1e-5 against the plain
+versions and the JAX oracles — the same softmax in another summation
+order.  With q, K, V in bf16 and p rounded to bf16 before P.V, as the
+bf16 walk does, ``ref.kernel_error_bound``.  The JAX oracles average
+junk on rows with no key, where the kernels write 0: those rows are held
+to the plain versions only.
+"""
+import itertools
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attn as dec  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+NEG = -1e30              # the kernels' finite initial running max
+TOL = dict(atol=1e-5, rtol=1e-5)
+WARPS, KT = 4, dec.WARP_KEYS
+HKV, D, PS = 2, 32, 16
+CAP = 320                # every layout's capacity: 20 pages, S_max, S
+POISON = 1 << 30         # page-table entries past a length: fault if read
+# SM counts giving one chunk (the block writes out), two (256 + 64 keys)
+# and five (64 keys each) over the 320-key capacity at 8 rows x 2 heads
+SMS = (1, 8, 16)
+
+
+def _block(qg, rows, kbuf, vbuf, g, k0, k1, round_p, seen):
+    """One block of ``decode_split_kernel``: the group's query vectors qg
+    (rep, D) fp32 over keys [k0, k1) of the row map ``rows``; the warps'
+    walks, then their merge.  Returns the block's partial (m, l, acc)."""
+    rep, d = qg.shape
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    parts = []
+    for w in range(WARPS):
+        m = torch.full((rep,), NEG)
+        l = torch.zeros(rep)
+        acc = torch.zeros(rep, d)
+        for base in range(k0 + w * KT, k1, WARPS * KT):
+            pos = torch.arange(base, base + KT)
+            live = pos < k1                        # the rest zero-filled
+            kt = torch.zeros(KT, d)
+            vt = torch.zeros(KT, d)
+            idx = torch.tensor([rows(int(p)) for p in pos[live]],
+                               dtype=torch.long)
+            kt[live] = kbuf[idx, g].float()
+            vt[live] = vbuf[idx, g].float()
+            seen[:, pos[live]] += 1
+            s = torch.where(live, qg @ kt.T * sl2, torch.tensor(NEG))
+            mx = torch.maximum(m, s.max(dim=1).values)
+            p = torch.where(live, torch.exp2(s - mx[:, None]),
+                            torch.tensor(0.0))
+            alpha = torch.exp2(m - mx)
+            l = alpha * l + p.sum(dim=1)
+            if round_p:
+                p = p.to(torch.bfloat16).float()
+            acc = acc * alpha[:, None] + p @ vt
+            m = mx
+        parts.append((m, l, acc))
+    mx = torch.stack([p[0] for p in parts]).max(dim=0).values
+    e = [torch.exp2(p[0] - mx) for p in parts]
+    lsum = sum(ei * p[1] for ei, p in zip(e, parts))
+    a = sum(ei[:, None] * p[2] for ei, p in zip(e, parts))
+    return mx, lsum, a
+
+
+def _rows_map(n_keys, fn):
+    """A row map that refuses positions at or past the row's length: the
+    kernels never address them."""
+    def rows(pos):
+        assert 0 <= pos < n_keys, pos
+        return fn(pos)
+    return rows
+
+
+def split_decode(q, kbuf, vbuf, row_fn, lengths, capacity, n_sms, *,
+                 round_p=False):
+    """``decode_split_kernel`` then ``decode_combine_kernel`` over K/V
+    storage (rows, hkv, D) whose row b reads storage row ``row_fn(b,
+    pos)``.  Returns (out, the plan, the blocks that read keys)."""
+    b, hq, d = q.shape
+    hkv = kbuf.shape[1]
+    rep = hq // hkv
+    plan = dec.split_plan(b, hq, hkv, d, capacity, n_sms)
+    c_keys, n_chunks = plan.chunk, plan.n_chunks
+    out = torch.full((b, hq, d), float("nan"))
+    ws = torch.full(plan.workspace or (1,), float("nan"))   # acc, m, l, pad
+    live_blocks = 0
+    seen = torch.zeros(b, hkv, rep, capacity, dtype=torch.long)
+    # the grid (hkv, b, n_chunks), chunk slowest
+    for c, bi, g in itertools.product(range(n_chunks), range(b), range(hkv)):
+        n_keys = min(max(int(lengths[bi]), 0), capacity)
+        heads = slice(g * rep, (g + 1) * rep)
+        k0, k1 = c * c_keys, min((c + 1) * c_keys, n_keys)
+        if k0 >= n_keys:                           # an empty partial
+            if n_chunks == 1:
+                out[bi, heads] = 0.0
+            else:
+                ws[bi, g, c, :, d] = NEG
+                ws[bi, g, c, :, d + 1] = 0.0
+            continue
+        live_blocks += 1
+        rows = _rows_map(n_keys, lambda p, bi=bi: row_fn(bi, p))
+        m, lsum, a = _block(q[bi, heads].float(), rows, kbuf, vbuf, g, k0,
+                            k1, round_p, seen[bi, g])
+        if n_chunks == 1:
+            out[bi, heads] = a / lsum[:, None]
+        else:
+            ws[bi, g, c, :, :d] = a
+            ws[bi, g, c, :, d] = m
+            ws[bi, g, c, :, d + 1] = lsum
+    for bi in range(b):                            # each pair once
+        n_keys = min(max(int(lengths[bi]), 0), capacity)
+        want = torch.zeros(hkv, rep, capacity, dtype=torch.long)
+        want[..., :n_keys] = 1
+        assert torch.equal(seen[bi], want), bi
+    if n_chunks > 1:                               # the combine
+        part = ws                                  # (b, hkv, C, rep, d + 4)
+        live = part[..., d + 1] > 0
+        m = torch.where(live, part[..., d], torch.tensor(NEG))
+        mx = m.max(dim=2, keepdim=True).values
+        e = torch.where(live, torch.exp2(m - mx), torch.tensor(0.0))
+        lsum = (e * torch.where(live, part[..., d + 1],
+                                torch.tensor(0.0))).sum(dim=2)
+        a = (e[..., None] * torch.where(live[..., None], part[..., :d],
+                                        torch.tensor(0.0))).sum(dim=2)
+        o = torch.where(lsum[..., None] > 0,
+                        a / torch.where(lsum > 0, lsum,
+                                        torch.tensor(1.0))[..., None],
+                        torch.tensor(0.0))
+        out = o.reshape(b, hq, d)
+    return out.to(q.dtype), plan, live_blocks
+
+
+def _lengths(plan):
+    """0, 1, C, C + 1, the capacity, a long row beside two short ones,
+    and a decode-ladder pad row of length 1 (on row 1's storage)."""
+    c = plan.chunk
+    return [0, 1, c, min(c + 1, CAP), CAP, CAP - 7, 17, 1]
+
+
+def _inputs(seed, rep, layout, dtype, n_sms):
+    """q, the rehearsal's flat storage with NaN past every length, the
+    plain versions' storage with 1000 there, index arguments for the
+    plain versions, the row map and the lengths."""
+    rng = np.random.default_rng(seed)
+    hq, b = HKV * rep, 8
+    plan = dec.split_plan(b, hq, HKV, D, CAP, n_sms)
+    lens = _lengths(plan)
+    q = torch.from_numpy(rng.standard_normal(
+        (b, hq, D)).astype(np.float32)).to(dtype)
+    if layout == "paged":
+        n_pages, p_max = 160, CAP // PS
+        shape = (n_pages, PS, HKV, D)
+        table = np.full((b, p_max), POISON, np.int64)
+        free = list(rng.permutation(n_pages - 1))
+        valid = np.zeros((n_pages, PS), bool)
+        for i, n in enumerate(lens[:-1]):
+            need = -(-n // PS)
+            table[i, :need] = [free.pop() for _ in range(need)]
+            for p in range(n):
+                valid[table[i, p // PS], p % PS] = True
+        table[-1, 0] = table[1, 0]                 # the pad row
+        plain_index = [torch.tensor(np.where(table == POISON, n_pages - 1,
+                                             table), dtype=torch.int32)]
+
+        def row_fn(bi, pos):
+            return int(table[bi, pos // PS]) * PS + pos % PS
+    else:
+        n_slots = b
+        shape = (n_slots, CAP, HKV, D)
+        slots = [int(x) for x in rng.permutation(n_slots - 1)]
+        slot_map = slots + [slots[1]]              # the pad row
+        valid = np.zeros((n_slots, CAP), bool)
+        for s, n in zip(slots, lens[:-1]):
+            valid[s, :n] = True
+        plain_index = [torch.tensor(slot_map, dtype=torch.int32)]
+
+        def row_fn(bi, pos):
+            return slot_map[bi] * CAP + pos
+    k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    vmask = torch.from_numpy(valid)
+    kp, vp = k.clone(), v.clone()
+    kp[~vmask], vp[~vmask] = float("nan"), float("nan")
+    k[~vmask], v[~vmask] = 1000.0, 1000.0
+    if layout == "dense":
+        # row b reads cache row b: each row's slot copied out
+        sm = plain_index[0].long()
+        kp, vp, k, v = (a[sm].contiguous() for a in (kp, vp, k, v))
+        plain_index = []
+
+        def row_fn(bi, pos):                       # noqa: F811
+            return bi * CAP + pos
+    flat = [a.reshape(-1, HKV, D).to(dtype) for a in (kp, vp)]
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    return (q, flat, k.to(dtype), v.to(dtype), plain_index, row_fn,
+            lengths)
+
+
+PLAIN = {"paged": tref.ref_decode_attn_paged,
+         "arena": tref.ref_decode_attn_arena,
+         "dense": tref.ref_decode_attn}
+
+
+@pytest.mark.parametrize("n_sms", SMS)
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16_p"])
+@pytest.mark.parametrize("rep", [1, 4, 5, 8])
+@pytest.mark.parametrize("layout", list(PLAIN))
+def test_split_walk_matches_plain(layout, rep, bf16, n_sms):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, (kf, vf), k, v, index, row_fn, lengths = _inputs(
+        rep * 3 + n_sms, rep, layout, dtype, n_sms)
+    got, plan, live_blocks = split_decode(q, kf, vf, row_fn, lengths, CAP,
+                                          n_sms, round_p=bf16)
+    # a block reads keys iff its chunk starts below its row's length
+    assert live_blocks == HKV * sum(-(-int(n) // plan.chunk)
+                                    for n in lengths)
+    assert (got[0] == 0).all() and torch.isfinite(got).all()
+    args = (q, k, v, *index, lengths)
+    if not bf16:
+        torch.testing.assert_close(got, PLAIN[layout](*args), **TOL)
+        return
+    ref, bound = tref.kernel_error_bound(PLAIN[layout], dtype, *args)
+    assert ((got.float() - ref).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("rep", [1, 4, 5, 8])
+@pytest.mark.parametrize("layout", list(PLAIN))
+def test_split_walk_matches_jax_oracle(layout, rep):
+    q, (kf, vf), k, v, index, row_fn, lengths = _inputs(
+        rep, rep, layout, torch.float32, 16)
+    got, plan, _ = split_decode(q, kf, vf, row_fn, lengths, CAP, 16)
+    assert plan.n_chunks > 1
+    j = [jnp.asarray(x.numpy()) for x in (q, k, v, *index, lengths)]
+    if layout == "paged":
+        want = jref.ref_decode_attn_paged(*j)
+    elif layout == "arena":
+        want = jref.ref_decode_attn_arena(*j)
+    else:
+        want = jref.ref_decode_attn(*j)
+    keyed = (lengths > 0).numpy()                 # JAX averages junk else
+    np.testing.assert_allclose(got[keyed].numpy(),
+                               np.asarray(want)[keyed], **TOL)
+
+
+@pytest.mark.parametrize("n_sms", [1, 16, 66, 132])
+def test_split_plan_spans_the_capacity(n_sms):
+    """Over many shapes: the chunk is a multiple of the block's round and
+    at most MAX_CHUNK; the chunks cover the capacity with no chunk past
+    it; the blocks reach UNITS_PER_SM per SM unless the chunk is already
+    the smallest; the workspace holds (acc, m, l, pad) of every (row, KV head, chunk,
+    query head) and is empty with one chunk."""
+    rng = np.random.default_rng(n_sms)
+    for _ in range(200):
+        b = int(rng.integers(1, 65))
+        hkv = int(rng.choice([1, 2, 4, 8, 16]))
+        rep = int(rng.choice([1, 4, 5, 8]))
+        cap = int(rng.choice([1, 16, 64, 192, 200, 2560, 4096, 32768]))
+        plan = dec.split_plan(b, hkv * rep, hkv, 128, cap, n_sms)
+        assert plan.chunk % dec.ROUND_KEYS == 0
+        assert plan.chunk <= dec.MAX_CHUNK
+        assert (plan.n_chunks - 1) * plan.chunk < cap \
+            <= plan.n_chunks * plan.chunk
+        units = b * hkv * plan.n_chunks
+        assert plan.chunk == dec.ROUND_KEYS or plan.n_chunks == 1 or \
+            units >= dec.UNITS_PER_SM * n_sms
+        assert plan.workspace == ((b, hkv, plan.n_chunks, rep, 132)
+                                  if plan.n_chunks > 1 else ())
+        assert plan == dec.split_plan(b, hkv * rep, hkv, 128, cap, n_sms)
+
+
+@pytest.mark.parametrize("name,index,layout,capacity", [
+    ("decode_attn_paged", 2, (16, 40), 640),
+    ("decode_attn_arena", 2, (4096,), 4096),
+    ("decode_attn_dense", 1, (192,), 192),
+    ("decode_attn_dense", 1, (64,), 64),       # one chunk: no workspace
+])
+def test_launcher_passes_the_plan(monkeypatch, name, index, layout,
+                                  capacity):
+    """The launchers' shared glue hands the C entry point exactly the
+    arguments of its signature: the workspace (None with one chunk,
+    else an fp32 tensor of the plan's shape on q's device) and the
+    plan's chunk and count, read from shapes and the SM count alone."""
+    calls = []
+    monkeypatch.setattr(dec, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(dec, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=7))
+    q = torch.zeros((8, 40, 128))
+    k = torch.zeros((4, 16, 8, 128))
+    idx = tuple(torch.zeros(8, dtype=torch.int32) for _ in range(index))
+    out = dec._launch_split(name, q, k, k, idx, layout, capacity)
+    assert out.shape == q.shape
+    (args,) = calls
+    assert args[0] == name
+    assert len(args) - 1 == len(_build.SIGNATURES[name][1])
+    plan = dec.split_plan(8, 40, 8, 128, capacity, 132)
+    assert tuple(args[-4:]) == (plan.chunk, plan.n_chunks, 0, 7)
+    ws = args[5 + index]
+    assert (ws is None) == (plan.n_chunks == 1)
+    assert args[-4 - len(layout):-4] == layout

@@ -2,7 +2,9 @@
 PyTorch version at qwen3-4b's head shapes (fp32 with TF32 off, and
 bf16), the three ragged prefill kernels over tile-straddling streams at
 GQA groups 1, 4, 5 and 8, the dense ``flash_attn`` at head widths 64-128
-and GQA groups 1, 4, 5 and 8, the fused sampling kernel at qwen3-4b's vocabulary, the SSD
+and GQA groups 1, 4, 5 and 8, the three decode kernels' split key walk
+at GQA groups 1, 4, 5 and 8 over its chunk boundaries and one paged
+decode launch replayed from a CUDA graph, the fused sampling kernel at qwen3-4b's vocabulary, the SSD
 scan kernel at mamba2-2.7b's head shapes, and the serving engine
 (qwen3-4b and mamba2-2.7b smoke configs) and the hubert-xlarge smoke
 encoder on the card against the same on the CPU.  Without a card every test skips inside its fixture.
@@ -295,6 +297,110 @@ def test_decode_attn_arena_kernel_matches_plain(card, dtype):
                      _i32(slots, card), _i32(lengths, card))
         zero = [i for i, n in enumerate(lengths) if n == 0]
         assert (out[zero] == 0).all() and torch.isfinite(out).all()
+
+
+# the decode kernels' split walk at every GQA group, over its chunk
+# boundaries: rows of C - 1, C, C + 1 and 2C keys at the chunk C the
+# launcher plans, the capacity, a long row beside short ones, a row of
+# length 0 and a decode-ladder pad row (length 1 on row 1's storage)
+SPLIT_HEADS = [(32, 8), (40, 8), (8, 8), (32, 4)]
+SPLIT_CAP = 1056          # the arena's S_max, the cache's S
+
+
+def _split_case(card, dtype, g, layout, hq, hkv):
+    """(launcher, plain, kernel args, plain args, lengths) of one split
+    case, with NaN in every K/V row past a length (page, arena slot or
+    cache row) for the kernel and 0 there for the plain version."""
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    cap = PMAX * PS if layout == "paged" else SPLIT_CAP
+    plan = dec.split_plan(10, hq, hkv, D, cap, n_sms)
+    c = plan.chunk
+    lens = [0, 1, c - 1, c, c + 1, 2 * c, SPLIT_CAP - 1, 200, 33]
+    lens = [min(n, SPLIT_CAP - 1) for n in lens]
+    if layout == "paged":
+        rng = np.random.default_rng(hq + hkv)
+        table = _table(rng, lens)
+        table = np.concatenate([table, table[1:2]])       # the pad row
+        lens = lens + [1]
+        ok = torch.zeros((NPAGES, PS), dtype=torch.bool, device=card)
+        for i, n in enumerate(lens):
+            for p in range(n):
+                ok[int(table[i, p // PS]), p % PS] = True
+        shape, index = (NPAGES, PS, hkv, D), [_i32(table, card)]
+        fn, plain = dec.decode_attn_paged, dec.decode_attn_paged_plain
+    elif layout == "arena":
+        slots = list(range(len(lens)))[::-1]
+        ok = torch.zeros((len(lens), SPLIT_CAP), dtype=torch.bool,
+                         device=card)
+        for slot, n in zip(slots, lens):
+            ok[slot, :n] = True
+        slots, lens = slots + [slots[1]], lens + [1]
+        shape, index = (len(slots) - 1, SPLIT_CAP, hkv, D), \
+            [_i32(slots, card)]
+        fn, plain = dec.decode_attn_arena, dec.decode_attn_arena_plain
+    else:
+        lens = lens + [1]
+        ok = torch.arange(SPLIT_CAP, device=card)[None, :] \
+            < _i32(lens, card)[:, None]
+        shape, index = (len(lens), SPLIT_CAP, hkv, D), []
+        fn, plain = dec.decode_attn, dec.decode_attn_plain
+    k = torch.randn(shape, generator=g, device=card)
+    v = torch.randn(shape, generator=g, device=card)
+    kn, vn = k.clone(), v.clone()
+    kn[~ok], vn[~ok] = float("nan"), float("nan")
+    k[~ok], v[~ok] = 0.0, 0.0
+    q = torch.randn((len(lens), hq, D), generator=g, device=card).to(dtype)
+    idx = index + [_i32(lens, card)]
+    return (fn, plain, (q, kn.to(dtype), vn.to(dtype), *idx),
+            (q, k.to(dtype), v.to(dtype), *idx), lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", SPLIT_HEADS)
+@pytest.mark.parametrize("layout", ["paged", "arena", "dense"])
+def test_decode_split_matches_plain_at_every_group(card, layout, hq, hkv,
+                                                   dtype):
+    g = torch.Generator(device=card).manual_seed(hq * hkv)
+    fn, plain, args, plain_args, lens = _split_case(card, dtype, g, layout,
+                                                    hq, hkv)
+    assert lens[0] == 0 and lens[-1] == 1        # a keyless row, a pad row
+    n0 = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    _assert_held(out, plain, *plain_args)
+    assert (out[0] == 0).all() and torch.isfinite(out).all()
+
+
+def test_decode_attn_paged_replays_in_a_cuda_graph(card):
+    """One decode_attn_paged launch captured in a CUDA graph and replayed
+    after ``lengths`` is rewritten in place: each replay matches the
+    plain version at the new lengths, so the launch read nothing back
+    to the host (its split plan comes from shapes alone)."""
+    g = torch.Generator(device=card).manual_seed(11)
+    rng = np.random.default_rng(11)
+    first, later = [0, 1, 300, 2053, 17, 129], [5, 0, 2047, 2100, 600, 1]
+    table = _i32(_table(rng, [max(a, b) for a, b in zip(first, later)]),
+                 card)
+    q = torch.randn((6, HQ, D), generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn((NPAGES, PS, HKV, D), generator=g,
+                    device=card).to(torch.bfloat16)
+    v = torch.randn((NPAGES, PS, HKV, D), generator=g,
+                    device=card).to(torch.bfloat16)
+    lengths = _i32(first, card)
+    dec.decode_attn_paged(q, k, v, table, lengths)    # builds, warms up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dec.decode_attn_paged(q, k, v, table, lengths)
+    for lens in (later, first, later):
+        lengths.copy_(_i32(lens, card))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_held(out, dec.decode_attn_paged_plain, q, k, v, table,
+                     _i32(lens, card))
+        zero = [i for i, n in enumerate(lens) if n == 0]
+        assert (out[zero] == 0).all()
 
 
 @pytest.mark.parametrize("mode", [
