@@ -4,7 +4,10 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
 
   1. card and build — ``nvidia-smi`` name and power limit, the nvcc
      build of the nine kernels (seconds, ``-Xptxas -v`` registers /
-     shared memory / spills, ``ssd_scan``'s dynamic shared memory);
+     shared memory / spills), ``ssd_scan``'s launch plan at a prompt's
+     256-row step and at the packed bridge (each of its two CUDA
+     kernels' blocks, dynamic shared memory, registers and blocks per
+     SM; the walk must put work on every SM at B = 1);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128), fp32 and bf16.  Paged kernels: page
      size 16, fragmented, shared and COW-forked page tables, q_offsets
@@ -27,7 +30,11 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      128), B/C in group form (G = 1) and per head (G = NH), L = 1, 127,
      128, 129, 300 and 2048, B = 1 and 8, fp32 and bf16, x / B / C as
      views into one conv-output row, pad (dt = 0) and strong-decay rows,
-     a random non-zero init state.  The dense kernels: ``flash_attn``
+     a random non-zero init state; then the chunks it skips (dt = 0 for
+     every head) at G = 1 and NH: a zero chunk first, between two real
+     chunks and last, the packed bridge's rows of lengths 0, 1, 127,
+     128, 129 and 300, and a chunk with one non-zero dt, which must not
+     be skipped.  The dense kernels: ``flash_attn``
      at head widths 64, 80, 96 and 128 and ``decode_attn`` at 128, each
      at GQA groups of 1, 4, 5 and 8 (16/16, 32/8, 40/8, 64/8 heads):
      causal with per-row offsets, non-causal with kv lengths, a window,
@@ -86,8 +93,11 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      paged and arena prefill kernels also at 40 / 8 heads; fused_sample at a verify tick's
      40 x 151,936 bf16 rows; ragged_prefill_paged also at a verify
      tick's 8 x 5 rows; ``ssd_scan`` on a 2048-token prompt in 8 chunk
-     steps, and a (64, 8) grid step and a packed step's (512, 8) bridge
-     as medians of 9 interleaved kernel / plain timings; ``flash_attn``
+     steps (device time from a CUDA graph, its two CUDA kernels' share
+     by ``torch.profiler``), and a (64, 8) grid step, a packed step's
+     (512, 8) bridge with every row real and the bridge as phase 4 builds
+     it (the executor's stream rows and bucket, 7 prompts) as medians of
+     9 interleaved kernel / plain timings; ``flash_attn``
      at the (64, 8) grid step at history 256 over 4096-deep slots and at
      hubert's (8, 1500, 16, 80) non-causal layer; the three decode
      kernels at 8 rows x 2048 keys and at 40 / 8 heads,
@@ -133,6 +143,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -178,13 +189,25 @@ def phase_build():
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "smem", "bytes stack")):
                 log(f"[1] {name}: {line.strip()}")
-    # ssd_scan's shared memory is dynamic (csrc/ssd_scan.cu smem_floats):
-    # state and B padded to DS + 1, X, C, 16 rows of M, four row vectors
-    hd, ds, q = SSD_HD, SSD_DS, SSD_CHUNK
-    smem = 4 * (hd * (ds + 1) + q * hd + q * (ds + 1) + q * ds + 16 * q
-                + 4 * q)
-    log(f"[1] ssd_scan: dynamic shared memory {smem} bytes per block at "
-        f"mamba2's heads (HD {hd}, DS {ds}, chunk {q}) of 232448")
+    # ssd_scan's launch plan at a chunked prompt's step, B = 1, L = 256
+    # (the card must have work on every SM), and at the packed bridge
+    from repro_torch.kernels import ssd_scan as ssd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt in (torch.bfloat16, torch.float32):
+        for b, l in ((1, 256), (16, 512)):
+            pl = ssd.plan(b, l, SSD_NH, SSD_HD, SSD_DS, 1, dt, SSD_CHUNK)
+            log(f"[1] ssd_scan plan {str(dt)[6:]} B={b} L={l} (NH {SSD_NH}, "
+                f"HD {SSD_HD}, DS {SSD_DS}, G 1, chunk {SSD_CHUNK}): 2 "
+                f"kernels a call; C.B^T {pl['cb_blocks']} blocks, "
+                f"{pl['cb_smem']} B shared, {pl['cb_regs']} registers, "
+                f"{pl['cb_blocks_per_sm']} per SM; walk "
+                f"{pl['walk_blocks']} blocks ({pl['slices_per_head']} "
+                f"slices a head), {pl['walk_smem']} B shared, "
+                f"{pl['walk_regs']} registers, {pl['walk_blocks_per_sm']} "
+                f"per SM, on {sms} SMs")
+            if b == 1:
+                assert pl["walk_blocks"] >= sms, \
+                    f"ssd_scan leaves SMs idle at B = 1, L = 256: {pl}"
 
 
 # ------------------------------------------------------------ phase 2
@@ -853,9 +876,11 @@ def phase_sample_kernel(seed, errs):
 SSD_NH, SSD_HD, SSD_DS, SSD_CHUNK = 80, 64, 128, 128
 SSD_LENS = (1, 127, 128, 129, 300, 2048)
 SSD_PAIRS = 9   # interleaved kernel / plain timings at the grid and bridge
+# phase 5's packed mamba2 prefill: 7 prompts filling the 512-token bucket
+SSM_PROFILE_LENS = (120, 64, 96, 80, 100, 40, 12)
 
 
-def _ssd_inputs(gen, b, l, g, dtype):
+def _ssd_inputs(gen, b, l, g, dtype, zero=None, lens=None):
     """SSD scan inputs at mamba2's head shapes, shaped as the mamba layer
     passes them: x, B and C are views into one (B, L, NH·HD + 2·G·DS)
     conv-output row; dt = softplus(N(0, 1)) with dt = 0 on the last 5
@@ -863,7 +888,9 @@ def _ssd_inputs(gen, b, l, g, dtype):
     ~600, strong decay) on every 89th row from row 40; a =
     -linspace(1, 16, NH) (mamba2's A init); a random non-zero init
     state.  The conv row is N(0, 1/4) and the state N(0, 1/100), so y
-    stays O(1)-O(10) as in the served model."""
+    stays O(1)-O(10) as in the served model.  ``zero``: row ranges [r0,
+    r1) where dt is 0 for every head; ``lens``: each batch row's length,
+    dt = 0 past it (the packed step's bridge)."""
     import torch.nn.functional as F
     nh, hd, ds = SSD_NH, SSD_HD, SSD_DS
     xbc = 0.5 * torch.randn((b, l, nh * hd + 2 * g * ds), generator=gen,
@@ -878,6 +905,10 @@ def _ssd_inputs(gen, b, l, g, dtype):
     dt[:, rows % 97 == 5] = 0.0
     if l > 10:
         dt[:, l - 5:] = 0.0
+    for r0, r1 in zero or ():
+        dt[:, r0:r1] = 0.0
+    if lens is not None:
+        dt[rows[None, :] >= torch.tensor(lens, device=DEVICE)[:, None]] = 0.0
     a = -torch.linspace(1.0, 16.0, nh, device=DEVICE)
     h0 = 0.1 * torch.randn((b, nh, hd, ds), generator=gen, device=DEVICE)
     return x, dt.contiguous(), a, bm, cm, h0
@@ -902,26 +933,54 @@ def phase_ssd_kernel(seed, errs):
     """``ssd_scan`` against its plain version at mamba2's head shapes (NH
     80, HD 64, DS 128, chunk 128), B/C in group form (G = 1) and per head
     (G = NH), L = 1, 127, 128, 129, 300 and 2048, B = 1 and 8, fp32 and
-    bf16, with pad and strong-decay rows and a non-zero init state."""
+    bf16, with pad and strong-decay rows and a non-zero init state; then
+    the chunks the kernel skips (dt = 0 for every head): a zero chunk
+    first, between two and last, the bridge's rows of lengths 0, 1,
+    Q - 1, Q, Q + 1 and 300, and a chunk with one non-zero dt."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 5)
-    n = 0
+    n, ratios = 0, {}
     for g in (1, SSD_NH):
         for b in (1, 8):
             for l in SSD_LENS:
                 for dt in (torch.float32, torch.bfloat16):
                     err, worst, ok = _held_ssd(_ssd_inputs(gen, b, l, g, dt))
                     errs.setdefault(("ssd_scan", dt), []).append(err)
+                    ratios.setdefault(dt, []).append(worst)
                     n += 1
-                    if not ok or l in (1, 2048):
-                        log(f"[2] ssd_scan G={g} B={b} L={l} "
-                            f"{str(dt)[6:]}: max_abs_err={err:.3e} "
-                            f"err/bound={worst:.3f} "
-                            f"{'ok' if ok else 'FAIL'}")
+                    log(f"[2] ssd_scan G={g} B={b} L={l} "
+                        f"{str(dt)[6:]}: max_abs_err={err:.3e} "
+                        f"err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
                     assert ok, f"ssd_scan G={g} B={b} L={l} {dt}"
+    # chunks whose dt is 0 for every head, which the kernel skips: one
+    # zero chunk first, between two real chunks and last; the packed
+    # bridge's rows, dt = 0 past each row's length (0, 1, Q - 1, Q,
+    # Q + 1, 300); a chunk whose only non-zero dt is one row (not skipped)
+    q = SSD_CHUNK
+    for g in (1, SSD_NH):
+        for dt in (torch.float32, torch.bfloat16):
+            cases = [(f"zero chunk {k} of 3", [(k * q, (k + 1) * q)], 1,
+                      3 * q, None) for k in range(3)]
+            cases.append(("bridge rows", None, 6, 300,
+                          (0, 1, q - 1, q, q + 1, 300)))
+            cases.append(("one non-zero dt", [(0, 200), (201, 256)], 1,
+                          256, None))
+            for what, zero, b, l, lens in cases:
+                args = _ssd_inputs(gen, b, l, g, dt, zero=zero, lens=lens)
+                err, worst, ok = _held_ssd(args)
+                errs.setdefault(("ssd_scan", dt), []).append(err)
+                ratios.setdefault(dt, []).append(worst)
+                n += 1
+                log(f"[2] ssd_scan {what} G={g} B={b} L={l} "
+                    f"{str(dt)[6:]}: max_abs_err={err:.3e} "
+                    f"err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
+                assert ok, f"ssd_scan {what} G={g} {dt}"
     log(f"[2] ok: ssd_scan == plain on {n} cases (fp32 max_abs_err "
-        f"{max(errs[('ssd_scan', torch.float32)]):.3e}, bf16 "
-        f"{max(errs[('ssd_scan', torch.bfloat16)]):.3e})")
+        f"{max(errs[('ssd_scan', torch.float32)]):.3e}, err/bound "
+        f"{min(ratios[torch.float32]):.3f}-{max(ratios[torch.float32]):.3f};"
+        f" bf16 max_abs_err {max(errs[('ssd_scan', torch.bfloat16)]):.3e}, "
+        f"err/bound {min(ratios[torch.bfloat16]):.3f}-"
+        f"{max(ratios[torch.bfloat16]):.3f})")
 
 
 # ------------------------------------------------------------ phase 3
@@ -2078,31 +2137,96 @@ def _time_dense(gen, errs):
     return rows
 
 
-def _ssd_work(b, l, g, chunk=SSD_CHUNK, el=2):
+def _ssd_work(b, l, g, chunk=SSD_CHUNK, el=2, lens=None):
     """(operations, bytes) ``ssd_scan`` needs for one call at mamba2's
     heads: per chunk of n rows the lower triangle of C.B^T once per
     group, and per head the lower triangle of M X, the carried state's
     C state^T and the state update X^T (w B); bytes: x in and y out, B
-    and C, dt and a, the state in and out."""
+    and C, dt and a, the state in and out.  ``lens``: each batch row's
+    length, dt = 0 past it; a chunk wholly past it is an identity of the
+    state, whose y needs only C state^T, and neither its x nor its B."""
     nh, hd, ds = SSD_NH, SSD_HD, SSD_DS
-    flops = 0
-    for c0 in range(0, l, chunk):
-        n = min(chunk, l - c0)
-        tri = n * (n + 1) // 2
-        flops += b * (2 * tri * ds * g + nh * (2 * tri * hd
-                                               + 4 * n * hd * ds))
-    nbytes = (2 * b * l * nh * hd * el + 2 * b * l * g * ds * el
+    flops = live_rows = 0
+    for r in range(b):
+        n_r = l if lens is None else lens[r]
+        for c0 in range(0, l, chunk):
+            n = min(chunk, l - c0)
+            if c0 < n_r:
+                tri = n * (n + 1) // 2
+                flops += 2 * tri * ds * g + nh * (2 * tri * hd
+                                                  + 4 * n * hd * ds)
+                live_rows += n
+            else:
+                flops += nh * 2 * n * hd * ds
+    nbytes = (live_rows * nh * hd * el + b * l * nh * hd * el
+              + (live_rows + b * l) * g * ds * el
               + 4 * b * l * nh + 4 * nh + 2 * 4 * b * nh * hd * ds)
     return flops, nbytes
 
 
+def _ssd_pairs(what, args, lens=None):
+    """Time ``ssd_scan`` and its plain version in turns, SSD_PAIRS times
+    each, on the same inputs (held to the plain version first); log the
+    medians beside the bound.  Returns (kernel ms, plain ms)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    err, worst, ok = _held_ssd(args)
+    assert ok, f"ssd_scan at the {what}"
+    pairs = [(_time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK), 20),
+              _time(lambda: ssd.ssd_scan_plain(*args, chunk=SSD_CHUNK), 5))
+             for _ in range(SSD_PAIRS)]
+    k_ms, p_ms = (float(np.median([p[i] for p in pairs])) for i in (0, 1))
+    b, l = args[0].shape[:2]
+    flops, nbytes = _ssd_work(b, l, 1, lens=lens)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[5] ssd_scan {what} (L, B) = ({l}, {b}): kernel {k_ms:.4f} "
+        f"ms, plain {p_ms:.4f} ms (medians of {SSD_PAIRS} interleaved "
+        f"timings: kernel {[round(p[0], 4) for p in pairs]}, plain "
+        f"{[round(p[1], 4) for p in pairs]}), kernel / plain "
+        f"{k_ms / p_ms:.3f}, bound {max(t_bytes, flops / BF16_FLOPS * 1e3):.4f}"
+        f" ms ({flops / 1e9:.3f} GFLOP: {flops / BF16_FLOPS * 1e3:.4f} ms "
+        f"at bf16 tensor-core rate, {flops / FP32_FLOPS * 1e3:.4f} ms at "
+        f"fp32; {nbytes / 1e6:.2f} MB: {t_bytes:.4f} ms), "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f}")
+    return k_ms, p_ms
+
+
+def _trace_bridge():
+    """The packed step's dense bridge as phase 4 builds it for phase 5's
+    7-prompt dispatch: the packed executor's own stream rows and token
+    bucket (the mamba2 engine of ``phase_ssm_profile``, built at the
+    smoke config's widths: neither depends on them) and the prompts'
+    lengths, each prompt one row from position 0.  Returns (B, L,
+    lengths)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = get_smoke("mamba2-2.7b")
+    engine = Engine(cfg, tr.init_params(cfg, seed=0, device=DEVICE),
+                    EngineConfig(num_slots=16, max_len=4096,
+                                 chunk_tokens=256, measure=False,
+                                 **SSM_MODES["ssm_slot_arena"]),
+                    device=DEVICE)
+    ex = engine.packed_executor
+    b, l = ex.stream_rows, ex.bucket_for(sum(SSM_PROFILE_LENS))
+    return b, l, list(SSM_PROFILE_LENS) + [0] * (b - len(SSM_PROFILE_LENS))
+
+
 def _time_ssd(gen, errs):
-    """``ssd_scan`` at two main-path shapes of mamba2 in bf16: a
-    2048-token prompt as 8 chunk steps of 256 rows with the state
-    carried, B = 1 (the JSON row), and one dense grid step (L, B) =
-    (64, 8); each held to the plain version first.  The bound counts
-    fp32 operations at 67 TFLOP/s: the reference computes the scan in
-    fp32 (``preferred_element_type``), and so does the kernel."""
+    """``ssd_scan`` at main-path shapes of mamba2 in bf16: a 2048-token
+    prompt as 8 chunk steps of 256 rows with the state carried, B = 1
+    (the JSON row: its device time, from a CUDA graph of the 8 steps, as
+    ``_time_graph`` times the decode rows — launched one by one, the
+    Python launcher's host time exceeds the kernels'; the one-by-one
+    time and each of the call's two CUDA kernels' share, by
+    ``torch.profiler``, are logged); then, as medians of interleaved
+    kernel / plain timings,
+    one dense grid step (L, B) = (64, 8), the packed step's bridge with
+    every row real (512, 8), and the bridge as phase 4 builds it for
+    phase 5's 7-prompt dispatch (``_trace_bridge``); each held to the
+    plain version first.  The bf16 kernel multiplies on the tensor cores
+    (bf16 x, B, C exact; fp32 operands as split hi + lo pairs), so the
+    bound counts its operations at 989 TFLOP/s; the fp32 rate's bound is
+    logged beside it."""
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_error_bound
     dt_ = torch.bfloat16
@@ -2130,35 +2254,33 @@ def _time_ssd(gen, errs):
         f"{'ok' if worst <= 1 else 'FAIL'}")
     assert worst <= 1, "ssd_scan at the chunked-prompt shapes"
     work = [_ssd_work(1, 256, 1) for _ in steps]
-    row = dict(ms=_time(lambda: prompt(ssd.ssd_scan), 10),
+    flops, nbytes = (sum(w[i] for w in work) for i in (0, 1))
+    eager_ms = _time(lambda: prompt(ssd.ssd_scan), 10)
+    row = dict(ms=_time_graph(lambda: prompt(ssd.ssd_scan), 5),
                plain_ms=_time(lambda: prompt(ssd.ssd_scan_plain), 3),
                # no single PyTorch call computes the scan
-               library_ms=None, flops=sum(w[0] for w in work),
-               flops_rate=FP32_FLOPS, bytes=sum(w[1] for w in work))
-    # a dense grid step, and the packed step's dense bridge at the
-    # largest token bucket: 8 stream rows x 512 (mostly empty) rows; the
-    # kernel and the plain version timed in turns, SSD_PAIRS times each,
-    # and compared by their medians
+               library_ms=None, flops=flops, flops_rate=BF16_FLOPS,
+               bytes=nbytes)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prompt(ssd.ssd_scan)
+        torch.cuda.synchronize()
+    split = {re.search(r"ssd_\w+_kernel", e.key).group(0): round((
+        getattr(e, "self_device_time_total", 0)
+        or getattr(e, "self_cuda_time_total", 0)) / 1e3, 4)
+        for e in prof.key_averages() if re.search(r"ssd_\w+_kernel", e.key)}
+    log(f"[5] ssd_scan 2048-token prompt: from a CUDA graph {row['ms']:.4f}"
+        f" ms, launched one by one {eager_ms:.4f} ms; device ms of the 8 "
+        f"calls by kernel {split}; the bound at the fp32 rate (the old "
+        f"design's) {flops / FP32_FLOPS * 1e3:.4f} ms")
     for what, b, l in (("dense grid step", 8, 64),
-                       ("packed step's bridge", 8, 512)):
-        args = _ssd_inputs(gen, b, l, 1, dt_)
-        err, worst, ok = _held_ssd(args)
-        assert ok, f"ssd_scan at the {what}"
-        pairs = [(_time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK), 20),
-                  _time(lambda: ssd.ssd_scan_plain(*args, chunk=SSD_CHUNK),
-                        5))
-                 for _ in range(SSD_PAIRS)]
-        k_ms, p_ms = (float(np.median([p[i] for p in pairs]))
-                      for i in (0, 1))
-        flops, nbytes = _ssd_work(b, l, 1)
-        bound = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        log(f"[5] ssd_scan {what} (L, B) = ({l}, {b}): kernel {k_ms:.4f} "
-            f"ms, plain {p_ms:.4f} ms (medians of {SSD_PAIRS} interleaved "
-            f"timings: kernel {[round(p[0], 4) for p in pairs]}, plain "
-            f"{[round(p[1], 4) for p in pairs]}), kernel / plain "
-            f"{k_ms / p_ms:.3f}, bound {bound:.4f} ms "
-            f"({flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB), "
-            f"max_abs_err={err:.3e} err/bound={worst:.3f}")
+                       ("packed step's bridge, every row real", 8, 512)):
+        _ssd_pairs(what, _ssd_inputs(gen, b, l, 1, dt_))
+    b, l, lens = _trace_bridge()
+    _ssd_pairs(f"packed step's bridge as phase 4 builds it (lengths "
+               f"{lens[:len(SSM_PROFILE_LENS)]}, {b - len(SSM_PROFILE_LENS)}"
+               f" empty rows)", _ssd_inputs(gen, b, l, 1, dt_, lens=lens),
+               lens=lens)
     return row
 
 
@@ -2290,7 +2412,7 @@ def phase_ssm_profile(seed, card):
     cfg = get_config("mamba2-2.7b")
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
     rng = np.random.default_rng(seed + 6)
-    lens = (120, 64, 96, 80, 100, 40, 12)
+    lens = SSM_PROFILE_LENS
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for mode in ("ssm_slot_arena", "ssm_dense"):
         engine = Engine(cfg, params, EngineConfig(

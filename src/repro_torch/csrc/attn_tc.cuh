@@ -1,5 +1,6 @@
 // Hopper tensor-core primitives of the bf16 attention kernels: 16-byte
-// cp.async copies into shared memory; for the prefill tiles
+// cp.async copies into shared memory and 1-D bulk copies (ssd_scan.cu);
+// for the prefill tiles
 // (attn_tiles.cuh) the shared-memory matrix descriptor of wgmma and
 // wgmma.mma_async itself in the two forms the tiles use — m64n64k16 with
 // both operands in shared memory (S = Q.K^T) and m64nDk16 with A in
@@ -62,6 +63,42 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// --- bulk copies ---------------------------------------------------------
+
+// 1-D bulk copies (the TMA's copy of contiguous bytes, no tensor map):
+// one instruction moves a whole row; the transaction count of an
+// mbarrier in shared memory tells the block when every row has landed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// arrive once, expecting `bytes` more to land in this phase
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity) : "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from src to
+// dst, counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
 // --- wgmma --------------------------------------------------------------
 
 // Descriptor of a no-swizzle operand at shared address `addr`: `lbo` is

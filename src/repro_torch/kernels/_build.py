@@ -39,7 +39,7 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "fused_sample": (
         "fused_sample_launch", (_P,) * 12 + (_I,) * 3 + (_P,)),
     "ssd_scan": (
-        "ssd_scan_launch", (_P,) * 8 + (_I,) * 11 + (_P,)),
+        "ssd_scan_launch", (_P,) * 9 + (_I,) * 11 + (_P,)),
     "flash_attn": (
         "flash_attn_launch", (_P,) * 6 + (_I,) * 9 + (_P,)),
     "decode_attn_dense": (
@@ -47,6 +47,7 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -107,12 +108,21 @@ def launcher(name: str) -> ctypes._CFuncPtr:
     ``cudaGetLastError()``."""
     fn = _loaded.get(name)
     if fn is None:
+        fn = function(name, *SIGNATURES[name])
+        _loaded[name] = fn
+    return fn
+
+
+def function(name: str, symbol: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """C function ``symbol`` of kernel ``name``'s library, building the
+    library at first use; it returns an int."""
+    lib = _libs.get(name)
+    if lib is None:
         so = library_path(name)
         if not so.exists():
             build_all([name])
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(so)), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        lib = _libs[name] = ctypes.CDLL(str(so))
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
     return fn

@@ -5,21 +5,54 @@ PyTorch version.
 ``repro.kernels.ssd_scan.ssd_scan`` in the group-factored form of
 ``repro.models.mamba.ssd_chunked``: B and C stay (B, L, G, DS) and each
 head reads its group, so mamba2's single group is never repeated to its
-80 heads in device memory.  The launcher takes CUDA tensors only and
-raises on anything the kernel does not take; ``ssd_scan_plain``
-(``kernels/ref.py``) computes the same function with plain tensor ops.
+80 heads in device memory.  One call runs two CUDA kernels: C·Bᵀ once
+per (batch row, chunk, group) into a workspace, then the chunk walk of
+each (batch row, head, slice of the head's columns).  The launcher takes
+CUDA tensors only and raises on anything the kernel does not take;
+``ssd_scan_plain`` (``kernels/ref.py``) computes the same function with
+plain tensor ops.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ragged_prefill import _DTYPES, launch
 from repro_torch.kernels.ref import \
     ref_ssd_scan as ssd_scan_plain  # noqa: F401
 
 MAX_CHUNK = 128
+PLAN_KEYS = ("cb_blocks", "cb_smem", "cb_regs", "cb_blocks_per_sm",
+             "walk_blocks", "walk_smem", "walk_regs", "walk_blocks_per_sm",
+             "slices_per_head", "chunk_padded")
+
+
+def workspace_floats(b: int, l: int, g: int, chunk: int) -> int:
+    """Floats of the C·Bᵀ workspace of one call: a (Q16, Q16) fp32 block
+    per (batch row, chunk, group), Q16 the chunk rounded up to 16."""
+    q = min(chunk, l)
+    qp = -(-q // 16) * 16
+    return b * (-(-l // q)) * g * qp * qp
+
+
+def plan(b: int, l: int, nh: int, hd: int, ds: int, g: int,
+         dtype: torch.dtype, chunk: int = MAX_CHUNK) -> Dict[str, int]:
+    """The launch plan of one call at these shapes, from the built
+    kernel (``PLAN_KEYS``): each kernel's blocks per launch, dynamic
+    shared memory per block, registers per thread and blocks per SM on
+    this card, the slices a head's columns are cut into and the padded
+    chunk.  Needs the card."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    fn = _build.function("ssd_scan", "ssd_scan_info",
+                         (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
+    err = fn(b, l, nh, hd, ds, g, chunk, _DTYPES[dtype],
+             ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"ssd_scan_info failed: CUDA error {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _row_stride(name: str, t: torch.Tensor) -> int:
@@ -49,7 +82,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     float32 post-softplus; a: (NH,) float32, negative; init_state:
     (B, NH, HD, DS) float32; all on one card.  ``chunk``: rows per chunk,
     at most 128.  Returns (y (B, L, NH, HD) in x's dtype, final state
-    (B, NH, HD, DS) float32).  Never synchronises.
+    (B, NH, HD, DS) float32).  Never synchronises and allocates by shape
+    only, so a call replays from a CUDA graph.
     """
     dev = x.device
     if dev.type != "cuda":
@@ -88,10 +122,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if b == 0 or l == 0:
         state.copy_(init_state)
         return y, state
+    work = torch.empty(workspace_floats(b, l, g, chunk),
+                       dtype=torch.float32, device=dev)
     launch("ssd_scan", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
            bmat.data_ptr(), cmat.data_ptr(), init_state.data_ptr(),
-           y.data_ptr(), state.data_ptr(), b, l, nh, hd, ds, g, chunk,
-           *rs, _DTYPES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
+           y.data_ptr(), state.data_ptr(), work.data_ptr(), b, l, nh, hd,
+           ds, g, chunk, *rs, _DTYPES[x.dtype],
+           torch.cuda.current_stream(dev).cuda_stream)
     ssd_scan.launches += 1
     return y, state
 

@@ -5,7 +5,8 @@ GQA groups 1, 4, 5 and 8, the dense ``flash_attn`` at head widths 64-128
 and GQA groups 1, 4, 5 and 8, the three decode kernels' split key walk
 at GQA groups 1, 4, 5 and 8 over its chunk boundaries and one paged
 decode launch replayed from a CUDA graph, the fused sampling kernel at qwen3-4b's vocabulary, the SSD
-scan kernel at mamba2-2.7b's head shapes, and the serving engine
+scan kernel at mamba2-2.7b's head shapes (with the chunks it skips, and
+one call replayed from a CUDA graph), and the serving engine
 (qwen3-4b and mamba2-2.7b smoke configs) and the hubert-xlarge smoke
 encoder on the card against the same on the CPU.  Without a card every test skips inside its fixture.
 
@@ -645,6 +646,73 @@ def test_ssd_scan_kernel_matches_plain(card, dtype, b, l, g):
     assert y.dtype == dtype and st.dtype == torch.float32
     assert bool(((y.float() - yr).abs() <= yb).all())
     assert bool(((st - sr).abs() <= sb).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["zero_first", "zero_middle", "zero_last",
+                                  "bridge_rows", "one_dt"])
+def test_ssd_scan_kernel_skips_only_zero_chunks(card, dtype, case):
+    """Chunks whose dt is 0 for every head, which the kernel computes as
+    y = C state^T with the state passed on, held to the plain version:
+    a zero chunk first, between two real chunks and last; the packed
+    bridge's rows (dt = 0 past lengths 0, 1, 127, 128, 129, 300); a chunk
+    whose only non-zero dt is one row, which must not be skipped."""
+    b, l = (6, 300) if case == "bridge_rows" else (1, 384)
+    x, dt, a, bm, cm, h0 = _ssd_args(card, b, l, 1, dtype, seed=7)
+    rows = torch.arange(l, device=card)
+    if case == "bridge_rows":
+        lens = torch.tensor([0, 1, 127, 128, 129, 300], device=card)
+        dt = torch.where(rows[None, :, None] < lens[:, None, None], dt, 0.0)
+    elif case == "one_dt":
+        dt = torch.where((rows < 128)[None, :, None] | (rows == 200)[
+            None, :, None], dt, 0.0)
+    else:
+        k = ["zero_first", "zero_middle", "zero_last"].index(case)
+        dt = torch.where((rows // 128 == k)[None, :, None], 0.0, dt)
+    args = (x, dt.contiguous(), a, bm, cm, h0)
+    y, st = ssd.ssd_scan(*args, chunk=128)
+    torch.cuda.synchronize()
+    yr, yb, sr, sb = ssd_error_bound(*args, 128)
+    assert bool(((y.float() - yr).abs() <= yb).all())
+    assert bool(((st - sr).abs() <= sb).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,hd,g,ds,chunk", [(6, 40, 2, 20, 48),
+                                              (3, 10, 1, 17, 16),
+                                              (4, 24, 4, 200, 32)])
+def test_ssd_scan_kernel_takes_any_widths(card, dtype, nh, hd, g, ds,
+                                          chunk):
+    """Widths whose rows are not whole 16-byte units (plain loads in
+    place of bulk copies, C read element by element), a head's columns
+    past its last full slice, DS past 128 (the wider state instance),
+    chunks off the 16-row grid, held to the plain version."""
+    args = _ssd_args(card, 2, 150, g, dtype, seed=nh, nh=nh, hd=hd, ds=ds)
+    y, st = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    yr, yb, sr, sb = ssd_error_bound(*args, chunk)
+    assert bool(((y.float() - yr).abs() <= yb).all())
+    assert bool(((st - sr).abs() <= sb).all())
+
+
+def test_ssd_scan_replays_in_a_cuda_graph(card):
+    """One bf16 ssd_scan call captured in a CUDA graph: replays on new
+    inputs copied into the captured buffers match an eager call."""
+    static = [t.clone() for t in _ssd_args(card, 2, 300, 1, torch.bfloat16,
+                                           seed=3)]
+    ssd.ssd_scan(*static, chunk=128)           # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd.ssd_scan(*static, chunk=128)
+    for seed in (4, 5):
+        fresh = _ssd_args(card, 2, 300, 1, torch.bfloat16, seed=seed)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        y, st = ssd.ssd_scan(*fresh, chunk=128)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], y) and torch.equal(out[1], st)
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
