@@ -7,7 +7,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      shared memory / spills), ``ssd_scan``'s launch plan at a prompt's
      256-row step and at the packed bridge (each of its two CUDA
      kernels' blocks, dynamic shared memory, registers and blocks per
-     SM; the walk must put work on every SM at B = 1);
+     SM; the walk must put work on every SM at B = 1), ``fused_sample``'s
+     (cluster size, CTAs, shared bytes, registers, clusters resident at
+     once; a verify tick's 40 bf16 rows must fit one wave);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128), fp32 and bf16.  Paged kernels: page
      size 16, fragmented, shared and COW-forked page tables, q_offsets
@@ -20,9 +22,12 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      and the main path (a 512-row chunk at history 1536 beside a short
      segment and a decode row in an 8-slot x 4096 arena), with every
      row at and past each kv length holding a large finite value.
-     The fused sampling kernel: V = 151,936 (qwen3-4b's vocabulary, not
-     a multiple of the 1024-thread block) and 128, R = 40 and 1, fp32
-     and bf16 logits, rows for each trouble spot (a padded-vocab tail,
+     The fused sampling kernel: V = 151,936 (qwen3-4b's vocabulary),
+     152,064 (qwen2.5-32b's), 50,280 (mamba2-2.7b's) and 128, R = 40, 8
+     and 1, fp32 and bf16 logits, each row's path as predicted from the
+     inputs logged (greedy, drawn by the leader CTA's warp or block,
+     whole row), rows for each trouble
+     spot (a padded-vocab tail,
      a negative kth value, top_k off and 1, ties at the kth value, -0.0
      beside +0.0, top_p near 1 and tiny, u = 0 and just below 1, all 8
      bias slots with a repeated id and one past V, tied greedy maxima).
@@ -91,7 +96,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound, the kernel's achieved TFLOP/s; the
      paged and arena prefill kernels also at 40 / 8 heads; fused_sample at a verify tick's
-     40 x 151,936 bf16 rows; ragged_prefill_paged also at a verify
+     40 x 151,936 bf16 rows, one of them alone, all 40 down the
+     whole-row path (top-k off) and all 40 at top_k 1000 (the radix
+     select), from a CUDA graph of 20 launches; ragged_prefill_paged also at a verify
      tick's 8 x 5 rows; ``ssd_scan`` on a 2048-token prompt in 8 chunk
      steps (device time from a CUDA graph, its two CUDA kernels' share
      by ``torch.profiler``), and a (64, 8) grid step, a packed step's
@@ -208,6 +215,26 @@ def phase_build():
             if b == 1:
                 assert pl["walk_blocks"] >= sms, \
                     f"ssd_scan leaves SMs idle at B = 1, L = 256: {pl}"
+    # fused_sample's launch plan: one cluster a row; a verify tick's 40
+    # bf16 rows over qwen3-4b's vocabulary must be resident in one wave
+    from repro_torch.kernels import sampling as ks
+    for dt, r, v in ((torch.bfloat16, 40, 151936), (torch.bfloat16, 1, 151936),
+                     (torch.bfloat16, 40, 152064), (torch.bfloat16, 40, 50280),
+                     (torch.float32, 40, 151936)):
+        pl = ks.launch_plan(r, v, dt)
+        log(f"[1] fused_sample plan {str(dt)[6:]} R={r} V={v}: cluster "
+            f"{pl['cluster']} CTAs a row, {pl['ctas']} CTAs of "
+            f"{pl['threads']} threads, {pl['smem']} B dynamic + "
+            f"{pl['static_smem']} B static shared a CTA, {pl['regs']} "
+            f"registers, {pl['clusters_resident']} clusters resident at "
+            f"once ({'one wave' if r <= pl['clusters_resident'] else 'waves'}"
+            f"), slices of {pl['slice']} columns, compact capacity "
+            f"{pl['capacity']}")
+        # the C side's Layout against the Python plan's statement of it
+        assert pl["smem"] == ks.plan(v, dt)["smem"], pl
+        if dt == torch.bfloat16 and v == 151936:
+            assert r <= pl["clusters_resident"], \
+                f"fused_sample R={r} does not fit one wave: {pl}"
 
 
 # ------------------------------------------------------------ phase 2
@@ -836,7 +863,7 @@ def _held_draws(args, got):
     want = [x.cpu().numpy() for x in ks.fused_sample_plain(*args)]
     got = [x.cpu().numpy() for x in got]
     margin = ks.cdf_margin(*args).cpu().numpy()
-    greedy = np.asarray(args[1]) <= 0
+    greedy = torch.as_tensor(args[1]).cpu().numpy() <= 0
     ok = bool((got[0][greedy] == want[0][greedy]).all())
     moved = set()
     for k in (0, 2):
@@ -847,15 +874,39 @@ def _held_draws(args, got):
     return err, sorted(moved), ok and err <= 1e-5
 
 
+def _paths(logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft):
+    """Per row, the path ``fused_sample`` takes, predicted from the
+    inputs by the plain version's arithmetic (the kernel reports none):
+    ``greedy``; ``compact_warp`` / ``compact`` when top-k keeps at most
+    ``CAPACITY`` columns and the scaled max is above the mask value (at
+    most 32: one warp of the leader draws); else ``whole_row``."""
+    from repro_torch.kernels import sampling as ks
+    temp, top_k, top_p, bias_ids, bias_vals, u, draft = ks._as_inputs(
+        logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft)
+    x, _ = ks.filtered_probs_plain(logits, temp, top_k, top_p, bias_ids,
+                                   bias_vals)
+    scaled = x / torch.clamp(temp, min=1e-6)[:, None]
+    kept = ks._topk_keep(scaled, top_k).sum(-1).tolist()
+    do_k = ((top_k > 0) & (top_k < x.shape[-1])).tolist()
+    above = (scaled.max(-1).values > ks.NEG).tolist()
+    return ["greedy" if t <= 0 else
+            ("compact_warp" if n <= 32 else "compact")
+            if k and n <= ks.CAPACITY and a else "whole_row"
+            for t, k, n, a in zip(temp.tolist(), do_k, kept, above)]
+
+
 def phase_sample_kernel(seed, errs):
     """fused_sample against its plain version: V = 151,936 (qwen3-4b's
-    vocabulary, 148 blocks of 1024 + 384) and V = 128, R = 40 (phase 4's
-    verify tick: 8 stream rows x (k + 1)) and R = 1, fp32 and bf16
-    logits, the first rows the kernel's trouble spots."""
+    vocabulary), 152,064 (qwen2.5-32b's), 50,280 (mamba2-2.7b's) and
+    128, R = 40 (phase 4's verify tick: 8 stream rows x (k + 1)), 8 and
+    1, fp32 and bf16 logits, the first rows the kernel's trouble spots;
+    each row's path (greedy, compact by a warp or a block, whole row),
+    predicted from the inputs, is logged."""
     from repro_torch.kernels import sampling as ks
     rng = np.random.default_rng(seed + 20)
-    for v in (151936, 128):
-        for r in (40, 1):
+    for v, rows in ((151936, (40, 8, 1)), (152064, (40, 8)), (50280, (40, 8)),
+                    (128, (40, 1))):
+        for r in rows:
             host, names = _sample_batch(rng, r, v)
             for dtype in (torch.float32, torch.bfloat16):
                 logits = torch.as_tensor(host[0], device=DEVICE).to(dtype)
@@ -864,11 +915,17 @@ def phase_sample_kernel(seed, errs):
                 torch.cuda.synchronize()
                 err, moved, ok = _held_draws(args, got)
                 errs.setdefault(("fused_sample", dtype), []).append(err)
+                paths = _paths(*args)
+                counts = {p: paths.count(p) for p in sorted(set(paths))}
                 log(f"[2] fused_sample R={r:2d} V={v:6d} {str(dtype):15s} "
                     f"p_draft max_abs_err={err:.3e} (tol 1e-5) draws moved "
                     f"within {SAMPLE_MARGIN} of a CDF boundary: "
                     f"{len(moved)} {[names[i] for i in moved]} "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{'ok' if ok else 'FAIL'}; paths (predicted from "
+                    f"the inputs) {counts}")
+                if r == 40 and dtype == torch.bfloat16:
+                    log(f"[2]   rows: "
+                        f"{', '.join(f'{n}={p}' for n, p in zip(names, paths))}")
                 assert ok, f"fused_sample R={r} V={v} {dtype}"
 
 
@@ -1998,20 +2055,44 @@ def phase_times(seed, errs):
         f"{err:.3e}, draws moved within {SAMPLE_MARGIN}: {len(moved)} "
         f"{'ok' if ok else 'FAIL'}")
     assert ok, "fused_sample at main-path shapes"
-    # the per-row inputs as device tensors, as the kernel takes them
-    dargs = (logits,) + tuple(torch.as_tensor(x, device=DEVICE)
-                              for x in host[1:])
-    out["fused_sample"] = dict(
-        ms=_time(lambda: ks.fused_sample(*dargs)),
-        plain_ms=_time(lambda: ks.fused_sample_plain(*dargs), 3),
-        # no single PyTorch call computes this function
-        library_ms=None,
-        # bytes: the logits read once, the per-row inputs, the outputs;
-        # operations: 6 fp32 per logit (the temperature, and a subtract,
-        # an exp and a sum in each of the two softmaxes)
-        flops=6 * r_rows * vocab, flops_rate=FP32_FLOPS,
-        bytes=r_rows * vocab * el + r_rows * (4 * 5 + 2 * 4 * ks.MAX_BIAS)
-        + r_rows * 12)
+    # the same rows alone (R = 1), every row down the whole-row path
+    # (top-k off, top_p 0.9), and top_k 1000: past the thread-maxima
+    # filter (k <= 256), so the radix select and the block's draw
+    wide = tuple(np.array(x) for x in host)
+    wide[2][:], wide[3][:] = 0, 0.9
+    radix = tuple(np.array(x) for x in host)
+    radix[2][:] = 1000
+    for name, h, rows in (("fused_sample", host, r_rows),
+                          ("fused_sample (1 row)", host, 1),
+                          ("fused_sample (whole row)", wide, r_rows),
+                          ("fused_sample (top_k 1000)", radix, r_rows)):
+        # the per-row inputs as device tensors, as the kernel takes them
+        dargs = (logits[:rows],) + tuple(
+            torch.as_tensor(x[:rows], device=DEVICE) for x in h[1:])
+        if name != "fused_sample":
+            err, moved, ok = _held_draws(dargs, ks.fused_sample(*dargs))
+            errs.setdefault(("fused_sample", dt), []).append(err)
+            log(f"[5] {name}: p_draft max_abs_err={err:.3e}, draws moved "
+                f"within {SAMPLE_MARGIN}: {len(moved)} "
+                f"{'ok' if ok else 'FAIL'}; paths (predicted from the "
+                f"inputs) {sorted(set(_paths(*dargs)))}")
+            assert ok, f"{name} at main-path shapes"
+        eager = _time(lambda: ks.fused_sample(*dargs))
+        out[name] = dict(
+            # device time from a CUDA graph of 20 launches, as the decode
+            # rows: launched one by one the launcher's host time shows
+            ms=_time_graph(lambda: ks.fused_sample(*dargs)),
+            plain_ms=_time(lambda: ks.fused_sample_plain(*dargs), 3),
+            # no single PyTorch call computes this function
+            library_ms=None,
+            # bytes: the logits read once, the per-row inputs, the
+            # outputs; operations: 6 fp32 per logit (the temperature, and
+            # a subtract, an exp and a sum in each of the two softmaxes)
+            flops=6 * rows * vocab, flops_rate=FP32_FLOPS,
+            bytes=rows * vocab * el + rows * (4 * 5 + 2 * 4 * ks.MAX_BIAS)
+            + rows * 12)
+        log(f"[5] {name}: launched one by one {eager:.4f} ms a call, from "
+            f"a CUDA graph {out[name]['ms']:.4f} ms")
     out["ssd_scan"] = _time_ssd(gen, errs)
     out.update(_time_dense(gen, errs))
     for name, r in out.items():

@@ -37,7 +37,7 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "decode_attn_arena": (
         "decode_attn_arena_launch", (_P,) * 7 + (_I,) * 8 + (_P,)),
     "fused_sample": (
-        "fused_sample_launch", (_P,) * 12 + (_I,) * 3 + (_P,)),
+        "fused_sample_launch", (_P,) * 11 + (_I,) * 5 + (_P,)),
     "ssd_scan": (
         "ssd_scan_launch", (_P,) * 9 + (_I,) * 11 + (_P,)),
     "flash_attn": (

@@ -4,13 +4,25 @@ its plain PyTorch version.
 ``fused_sample`` (``csrc/fused_sample.cu``) is the port of
 ``repro.kernels.sampling.fused_sample``: per logits row an additive
 logit bias of up to ``MAX_BIAS`` entries, the temperature, EXACT top-k
-(the kth value found by a 31-step descent over monotone int32 keys, ties
+(every column whose monotone int32 key is >= the kth largest, ties
 kept), tie-inclusive top-p (a 31-step descent over the probability
 bits), then the inverse-CDF draw from one host-drawn uniform — plus the
 speculative-decoding outputs: the filtered probability of a draft token
 and the residual resample with the draft zeroed.  Greedy rows
 (``temp <= 0``) take the biased argmax.  Only the (R,) results leave the
 card.
+
+The kernel runs one thread-block cluster per row (``plan``: 8 CTAs, 16
+where a slice of 8 would not leave three CTAs an SM), each CTA holding
+its slice of the row in shared memory.  Top-k finds the kth largest
+logit key exactly: for k <= ``THREADS`` from the few candidates past a
+bound (the kth largest of each CTA's thread maxima), which the leader
+CTA gathers (at most ``MAX_CANDIDATES``), else by a radix select over
+the slices.  When at most ``CAPACITY`` columns are kept the leader runs
+the softmaxes, the top-p descent and both draws over them alone;
+otherwise the whole cluster-resident row does
+(``tests/test_torch_sample_select.py`` rehearses the schedule in plain
+PyTorch).
 
 ``fused_sample_plain`` computes the same function with plain tensor ops,
 vectorised over rows, op for op as the reference's ``_sample_core`` +
@@ -19,6 +31,7 @@ float sums (the softmax totals, the top-p masses, the CDF) may differ.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -31,6 +44,64 @@ MAX_BIAS = 8      # logit-bias entries per row (the engine samples on the
 #                   host past it)
 _SIGN_LOW = 0x7FFFFFFF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernel's launch shape (``csrc/fused_sample.cu``): threads a CTA,
+# kept columns the leader draws over, top-k candidates it refines, and
+# the dynamic shared memory a CTA may take so that three share an SM
+# (233,472 B / 3 less the 1 KB each reserves and its static share) or,
+# past that, at all.
+THREADS = 256
+CAPACITY = 4096
+MAX_CANDIDATES = 512
+_BINS = 256
+ONE_WAVE_SMEM = 76288
+MAX_SMEM = 232448 - 512
+CLUSTERS = (8, 16)
+PLAN_KEYS = ("cluster", "ctas", "threads", "smem", "static_smem", "regs",
+             "clusters_resident", "slice", "capacity")
+
+
+def _smem(n: int, el: int) -> int:
+    """A CTA's dynamic shared memory for a slice of ``n`` columns of
+    ``el`` bytes: the slice, two radix histograms and the compact
+    candidates, or the whole-row fp32 slice that overlays them.  The C
+    side's ``Layout`` computes the same total; ``chip_smoke.py`` phase 1
+    holds ``launch_plan``'s shared bytes to this."""
+    a16 = lambda x: (x + 15) // 16 * 16                      # noqa: E731
+    compact = a16(n * el) + 2 * _BINS * 4 + 2 * CAPACITY * 4
+    return a16(max(compact, 4 * n))
+
+
+def plan(v: int, dtype: torch.dtype) -> dict:
+    """The cluster size and slice of a row of ``v`` columns: the first of
+    8 and 16 CTAs whose slice leaves three CTAs an SM, else 16 CTAs if
+    their slices fit in shared memory at all.  Raises ValueError past
+    that (V > 788,480 in fp32, 927,744 in bf16)."""
+    el = 2 if dtype == torch.bfloat16 else 4
+    for limit, sizes in ((ONE_WAVE_SMEM, CLUSTERS), (MAX_SMEM, CLUSTERS[-1:])):
+        for cs in sizes:
+            n = (-(-v // cs) + 7) // 8 * 8    # ceil(V / cs), 8-aligned
+            if _smem(n, el) <= limit:
+                return dict(cluster=cs, slice=n, smem=_smem(n, el))
+    raise ValueError(f"a vocabulary of {v} columns does not fit the shared "
+                     f"memory of a {CLUSTERS[-1]}-CTA cluster")
+
+
+def launch_plan(r: int, v: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch at (R, V) from the built library
+    (``PLAN_KEYS``): cluster size, CTAs, threads, dynamic and static
+    shared bytes a CTA, registers a thread, clusters resident at once
+    (``cudaOccupancyMaxActiveClusters``), slice and compact capacity.
+    Needs the card."""
+    pl = plan(v, dtype)
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    fn = _build.function("fused_sample", "fused_sample_info",
+                         (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+    err = fn(r, v, _DTYPES[dtype], pl["cluster"], pl["slice"],
+             ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"fused_sample_info failed: CUDA error {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _float_key(x: torch.Tensor) -> torch.Tensor:
@@ -196,8 +267,10 @@ def fused_sample(logits: torch.Tensor, temp, top_k, top_p, bias_ids,
     logits: (R, V) float32 or bfloat16, contiguous, on the card; the
     seven per-row inputs may be host arrays or tensors (they are moved
     to the card as float32 / int32).  Returns (token (R,) int32,
-    p_draft (R,) float32, alt (R,) int32) on the card.  Allocates an
-    (R, V) float32 workspace; never synchronises.
+    p_draft (R,) float32, alt (R,) int32) on the card.  One launch of
+    R clusters (``plan``); allocates only the three outputs, never
+    synchronises, and replays from a CUDA graph when the per-row inputs
+    are tensors on the card.
     """
     if logits.device.type != "cuda":
         raise ValueError(f"CUDA kernel called with a tensor on "
@@ -222,11 +295,12 @@ def fused_sample(logits: torch.Tensor, temp, top_k, top_p, bias_ids,
         return token, p_draft, alt
     if v < 1:
         raise ValueError("empty vocabulary")
-    work = torch.empty((r, v), dtype=torch.float32, device=dev)
+    pl = plan(v, logits.dtype)
     err = _build.launcher("fused_sample")(
         logits.data_ptr(), *(x.data_ptr() for x in ins), token.data_ptr(),
-        p_draft.data_ptr(), alt.data_ptr(), work.data_ptr(), r, v,
-        _DTYPES[logits.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        p_draft.data_ptr(), alt.data_ptr(), r, v, _DTYPES[logits.dtype],
+        pl["cluster"], pl["slice"],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused_sample launch failed: CUDA error {err}")
     fused_sample.launches += 1

@@ -4,7 +4,10 @@ bf16), the three ragged prefill kernels over tile-straddling streams at
 GQA groups 1, 4, 5 and 8, the dense ``flash_attn`` at head widths 64-128
 and GQA groups 1, 4, 5 and 8, the three decode kernels' split key walk
 at GQA groups 1, 4, 5 and 8 over its chunk boundaries and one paged
-decode launch replayed from a CUDA graph, the fused sampling kernel at qwen3-4b's vocabulary, the SSD
+decode launch replayed from a CUDA graph, the fused sampling kernel at
+qwen3-4b's, qwen2.5-32b's and mamba2-2.7b's vocabularies (1 to 64 rows,
+every row on the whole-row path, kept sets on each side of the compact
+capacity, one call replayed from a CUDA graph, no (R, V) workspace), the SSD
 scan kernel at mamba2-2.7b's head shapes (with the chunks it skips, and
 one call replayed from a CUDA graph), and the serving engine
 (qwen3-4b and mamba2-2.7b smoke configs) and the hubert-xlarge smoke
@@ -579,6 +582,112 @@ def test_fused_sample_kernel_matches_plain(card, dtype, r, v):
         bad = got[k] != want[k]
         assert (margin[bad] < 1e-5).all(), (k, np.nonzero(bad), margin[bad])
     np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=0)
+
+
+def _held_sample(args, got):
+    got = [x.cpu().numpy() for x in got]
+    want = [x.cpu().numpy() for x in ks.fused_sample_plain(*args)]
+    margin = ks.cdf_margin(*args).cpu().numpy()
+    greedy = np.asarray(args[1]) <= 0
+    assert (got[0][greedy] == want[0][greedy]).all()
+    for k in (0, 2):
+        bad = got[k] != want[k]
+        assert (margin[bad] < 1e-5).all(), (k, np.nonzero(bad), margin[bad])
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [151936, 152064, 50280])
+@pytest.mark.parametrize("r", [1, 8, 40, 64])
+def test_fused_sample_at_vocab_widths(card, dtype, r, v):
+    """The cluster kernel at qwen3-4b's, qwen2.5-32b's and mamba2-2.7b's
+    vocabularies, 1 to 64 rows (64 clusters: more than one wave)."""
+    args = _sample_inputs(card, r, v, dtype, seed=3 * r + v)
+    n0 = ks.fused_sample.launches
+    got = ks.fused_sample(*args)
+    torch.cuda.synchronize()
+    assert ks.fused_sample.launches == n0 + 1
+    _held_sample(args, got)
+
+
+def _capacity_rows(card, v, dtype, ks_):
+    """Rows of ``C`` or ``C + 1`` distinct bf16-exact logits above a
+    floor of -10, top_k = C or C + 1: kept sets on each side of the
+    compact capacity."""
+    rng = np.random.default_rng(len(ks_))
+    r = len(ks_)
+    logits = np.full((r, v), -10.0, np.float32)
+    for i, k in enumerate(ks_):
+        bits = (0x3F80 + np.arange(k)).astype(np.uint32) << 16
+        logits[i, rng.permutation(v)[:k]] = bits.view(np.float32)
+    temp = np.full(r, 40.0, np.float32)
+    top_k = np.asarray(ks_, np.int32)
+    top_p = np.full(r, 0.97, np.float32)
+    bids = -np.ones((r, ks.MAX_BIAS), np.int32)
+    bvals = np.zeros((r, ks.MAX_BIAS), np.float32)
+    u = rng.random(r).astype(np.float32)
+    draft = rng.integers(0, v, r).astype(np.int32)
+    x = torch.as_tensor(logits, device=card).to(dtype)
+    return (x, temp, top_k, top_p, bids, bvals, u, draft)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sample_whole_row_and_capacity(card, dtype):
+    """A batch whose every row takes the whole-row path (top-k off, top_p
+    0.9), and one that straddles the compact capacity (kept sets of C - 1,
+    C, C + 1 and 2 C)."""
+    v = 151936
+    args = list(_sample_inputs(card, 40, v, dtype, seed=11))
+    args[1] = np.full(40, 0.8, np.float32)
+    args[2] = np.zeros(40, np.int32)
+    args[3] = np.full(40, 0.9, np.float32)
+    # top_k 0: every row takes the whole-row path
+    _held_sample(args, ks.fused_sample(*args))
+    c = ks.CAPACITY
+    args = _capacity_rows(card, v, dtype, [c - 1, c, c + 1, 2 * c])
+    # kept sets of C - 1 and C are drawn compact, C + 1 and 2 C whole-row
+    scaled = args[0].float().cpu() / torch.as_tensor(args[1])[:, None]
+    kept = ks._topk_keep(scaled, torch.as_tensor(args[2])).sum(-1)
+    assert kept.tolist() == [c - 1, c, c + 1, 2 * c]
+    _held_sample(args, ks.fused_sample(*args))
+
+
+def test_fused_sample_replays_in_a_cuda_graph(card):
+    """One bf16 fused_sample call captured in a CUDA graph: replays on
+    new inputs copied into the captured buffers equal eager calls."""
+    def inputs(seed):
+        a = _sample_inputs(card, 40, 151936, torch.bfloat16, seed)
+        return [a[0]] + [torch.as_tensor(x, device=card) for x in a[1:]]
+    static = [t.clone() for t in inputs(1)]
+    ks.fused_sample(*static)                  # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ks.fused_sample(*static)
+    for seed in (2, 3):
+        fresh = inputs(seed)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        want = ks.fused_sample(*fresh)
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+def test_fused_sample_allocates_no_workspace(card):
+    """A call allocates its three (R,) outputs and nothing of (R, V)."""
+    args = _sample_inputs(card, 40, 151936, torch.bfloat16, seed=5)
+    args = [args[0]] + [torch.as_tensor(x, device=card) for x in args[1:]]
+    ks.fused_sample(*args)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out = ks.fused_sample(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(card) - before
+    assert grown <= 3 * 512, grown
+    del out
 
 
 def test_sampled_spec_fused_matches_host_on_card(card):
