@@ -1093,20 +1093,31 @@ SPEC_K = 4
 
 def _launchers():
     """{kernel name: its launcher, whose ``launches`` counts launches}."""
-    from repro_torch.kernels import decode_attn as dec
-    from repro_torch.kernels import flash_attn as fl
-    from repro_torch.kernels import ragged_prefill as rp
-    from repro_torch.kernels import sampling as ks
-    from repro_torch.kernels import ssd_scan as ssd
-    return {"ragged_prefill_paged": rp.ragged_prefill_paged,
-            "decode_attn_paged": dec.decode_attn_paged,
-            "decode_attn_arena": dec.decode_attn_arena,
-            "ragged_prefill_arena": rp.ragged_prefill_arena,
-            "ragged_prefill_attn": rp.ragged_prefill_attn,
-            "fused_sample": ks.fused_sample,
-            "ssd_scan": ssd.ssd_scan,
-            "flash_attn": fl.flash_attn,
-            "decode_attn": dec.decode_attn}
+    from repro_torch.kernels.ops import LAUNCHERS
+    return LAUNCHERS
+
+
+def _graphs_replayed(engine, what):
+    """Every dispatch of ``engine``'s executors was a CUDA graph replay
+    (a capture at each shape's first dispatch, a replay at every one);
+    returns the engine's graph counts."""
+    gs = engine.graph_stats()
+    dispatches = sum(ex.dispatches for ex in engine.executors)
+    assert gs["replays"] == dispatches, \
+        f"{what}: {dispatches} dispatches, {gs['replays']} graph replays"
+    assert all(g.graph is not None for ex in engine.executors
+               for g in ex.graphs.values()), f"{what}: a step ran eagerly"
+    return gs
+
+
+def _warmup_launches(engine):
+    """{kernel: launches} of the engine's graph warm-ups (one run on
+    parked inputs before each capture)."""
+    out = {}
+    for ex in engine.executors:
+        for name, n in ex.warmup_launches().items():
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def _policy(engine, chunk_tokens, threshold):
@@ -1207,8 +1218,11 @@ def phase_oracle(seed, mode):
     if mode == "ssm_paged":
         assert st["state_checkpoints"] > 0 and st["prefix_hit_tokens"] > 0, \
             "ssm_paged: no prefix adopted through a state checkpoint"
-    log(f"[3] ok: {mode} engine == dense oracle (max_abs_err {worst:.3e}); "
-        f"prefix_hit_tokens {st['prefix_hit_tokens']}, state_checkpoints "
+    gs = _graphs_replayed(engine, mode)
+    log(f"[3] ok: {mode} engine == dense oracle (max_abs_err {worst:.3e}) "
+        f"through {gs['graphs']} captured step graphs, {gs['replays']} "
+        f"replays; prefix_hit_tokens {st['prefix_hit_tokens']}, "
+        f"state_checkpoints "
         f"{st['state_checkpoints']}, arena_gathers "
         f"{st['arena_gathers']}, dense_dispatches {st['dense_dispatches']} "
         f"{st['dense_dispatches_by_cause']}")
@@ -1327,9 +1341,11 @@ def phase_spec_oracle(seed, mode):
     calls = []
     inner = ops.fused_sample
 
-    def recorded(*args):
-        out = inner(*args)
-        calls.append((args, out))
+    def recorded(logits, *rest):
+        out = inner(logits, *rest)
+        # a copy: the logits are a step graph's output, which the next
+        # replay overwrites
+        calls.append(((logits.clone(), *rest), out))
         return out
 
     streams, stats = {}, {}
@@ -1479,9 +1495,9 @@ def _serve_once(cfg, params, seed, mode):
     dense_shapes, prefill_log = [], []
     inner_prefill = engine.executor.prefill
 
-    def dense_prefill(params, tokens, *rest):
+    def dense_prefill(params, tokens, *rest, **kw):
         dense_shapes.append(tuple(tokens.shape[::-1]))
-        return inner_prefill(params, tokens, *rest)
+        return inner_prefill(params, tokens, *rest, **kw)
 
     engine.executor.prefill = dense_prefill
     launchers = _launchers()
@@ -1490,10 +1506,18 @@ def _serve_once(cfg, params, seed, mode):
     # prefill dispatches those ticks ran
     ssd_split = {"prefill": 0, "decode": 0, "dispatches": 0}
 
+    # graph replays by tick kind
+    replays = {"prefill": 0, "decode": 0}
+
     def drive():
         while loop.has_work:
             pre0, dec0 = _dispatches(engine)
-            n_spec, n_ssd = spec_ticks["n"], ssd.launches
+            # a tick's own ssd_scan launches: those of its graphs'
+            # replays, not of a new graph's warm-up on parked inputs
+            n_spec = spec_ticks["n"]
+            n_ssd = ssd.launches - _warmup_launches(engine).get(
+                "ssd_scan", 0)
+            r0 = engine.graph_stats()["replays"]
             u0 = engine.executor.useful_tokens
             g0 = engine.arena.gather_calls
             s0 = len(dense_shapes)
@@ -1515,7 +1539,10 @@ def _serve_once(cfg, params, seed, mode):
                 time.sleep(0.0005)
             if kind is not None:
                 ticks.append((dt, kind))
-                ssd_split[kind] += ssd.launches - n_ssd
+                ssd_split[kind] += (ssd.launches - n_ssd
+                                    - _warmup_launches(engine).get(
+                                        "ssd_scan", 0))
+                replays[kind] += engine.graph_stats()["replays"] - r0
                 gathers[kind] += engine.arena.gather_calls - g0
                 if kind == "prefill":
                     prefill_log.append((dt, dense_shapes[s0:]))
@@ -1576,6 +1603,7 @@ def _serve_once(cfg, params, seed, mode):
         engine.arena.audit()
     assert rep.n == n_requests and rep.abandoned == 0, \
         f"{mode}: unanswered requests"
+    gs = _graphs_replayed(engine, mode)
     assert all(launches[k] > 0 for k in MODE_KERNELS[mode]), \
         f"{mode}: a kernel of its path never launched: {launches}"
     assert finite, f"{mode}: non-finite logits"
@@ -1634,6 +1662,10 @@ def _serve_once(cfg, params, seed, mode):
         "ssd_per_decode_tick": ssd_split["decode"] / max(1, n_dec),
         "state_checkpoints": st["state_checkpoints"],
         "prefill_log": prefill_log,
+        "graphs": gs["graphs"], "capture_s": gs["capture_seconds"],
+        "replays_per_prefill_tick": replays["prefill"] / max(1, n_pre),
+        "replays_per_decode_tick": replays["decode"] / max(1, n_dec),
+        "warmup_launches": _warmup_launches(engine),
         "schedule": (n_pre, n_dec, prefill_tokens, decode_rows,
                      st["prefix_hit_tokens"], st["arena_gathers"],
                      st["dense_dispatches"], policy.awd.graph_hits,
@@ -1680,6 +1712,13 @@ def phase_full(seed, card, arch, kept):
                 f"dense steps {dense} grid hits {graph_hits} prefix hits "
                 f"{hits}; peak {r['peak_gib']:.2f} GiB; launches {ran}"
                 f"{' (warm-up, not kept)' if i == 0 else ''}")
+            log(f"[4] {mode} run {i}: {r['graphs']} step graphs captured "
+                f"in {r['capture_s']:.2f} s (warm-up + capture), graph "
+                f"replays per prefill / decode tick "
+                f"{r['replays_per_prefill_tick']:.2f} / "
+                f"{r['replays_per_decode_tick']:.2f}, warm-up launches "
+                f"(in the counts above) {r['warmup_launches']}; peak "
+                f"{r['peak_gib']:.2f} GiB (card {card})")
             if mode in SSM_MODES:
                 log(f"[4] {mode} run {i}: ssd_scan launches per prefill "
                     f"tick {r['ssd_per_prefill_tick']:.2f}, per decode-only "
@@ -1716,6 +1755,7 @@ def phase_full(seed, card, arch, kept):
                           ("decode_s_per_tick", "s"),
                           ("gathers_per_prefill_tick", ""),
                           ("gathers_per_decode_tick", ""),
+                          ("capture_s", "s"), ("graphs", ""),
                           ("peak_gib", "GiB"), ("wall_s", "s")]:
             xs = [r[key] for r in results]
             log(f"[4] {mode} {key}: median {float(np.median(xs)):.4f} "
@@ -2365,22 +2405,105 @@ def _time_ssd(gen, errs):
     return row
 
 
-def _device_split(prof, wall_ms, what, card):
-    """Log the device time of a profiled region by kernel (the top 8)
-    and the device-busy share of its wall time.  Returns ({kernel:
-    device ms}, device-busy ms)."""
+# the executors' step methods (each the innermost of its kind, so a
+# nested call is timed once)
+STEP_METHODS = ("prefill", "decode", "prefill_packed", "prefill_packed_arena",
+                "mixed_step_paged", "verify_step_arena", "verify_step_paged",
+                "decode_paged")
+# the host's launch calls as the profiler names them
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _timed_steps(engine):
+    """Wrap every step method of ``engine``'s executors: each call's host
+    seconds, and its device span between CUDA events recorded on the
+    current stream before and after it, go into the returned list as
+    (seconds, start event, end event)."""
+    calls = []
+    for ex in (engine.executor, engine.packed_executor,
+               engine.decode_executor):
+        for name in STEP_METHODS if ex is not None else ():
+            fn = getattr(ex, name, None)
+            if fn is None:
+                continue
+
+            def timed(*args, _fn=fn, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                t = time.perf_counter()
+                out = _fn(*args, **kw)
+                calls.append((time.perf_counter() - t, *ev))
+                ev[1].record()
+                return out
+
+            setattr(ex, name, timed)
+    return calls
+
+
+def _device_split(prof, wall_ms, what, card, calls=None, engine=None):
+    """Log the device time of a profiled region by kernel (the top 8),
+    the device-busy share of its wall time, the host's launch calls
+    (kernels and graphs) and, given the region's timed step calls
+    (``_timed_steps``), the executor calls' host share of the wall time,
+    their device span and the graph replays.  Returns ({kernel: device
+    ms}, device-busy ms)."""
     def dev_us(e):
         return (getattr(e, "self_device_time_total", 0)
                 or getattr(e, "self_cuda_time_total", 0))
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev_us(e) for e in kernels) / 1e3
+    n_kernel = sum(e.count for e in events if e.key in KERNEL_LAUNCH_CALLS)
+    n_graph = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    n_copy = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
     log(f"[5] profile {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / max(wall_ms, 1e-9):.1f}%, idle "
-        f"{100 * (1 - busy / max(wall_ms, 1e-9)):.1f}%) (card {card})")
+        f"{100 * (1 - busy / max(wall_ms, 1e-9)):.1f}%); host launches "
+        f"{n_kernel + n_graph} ({n_kernel} kernels, {n_graph} graphs), "
+        f"{n_copy} async copies (card {card})")
+    if calls is not None:
+        torch.cuda.synchronize()
+        host = sum(c[0] for c in calls) * 1e3
+        span = sum(a.elapsed_time(b) for _, a, b in calls)
+        gs = getattr(engine, "graph_stats", None)
+        log(f"[5] profile {what}: {len(calls)} executor calls, host "
+            f"{host:.2f} ms ({100 * host / max(wall_ms, 1e-9):.1f}% of the "
+            f"wall), device span {span:.2f} ms; graph replays so far "
+            f"{gs()['replays'] if gs else 'none (eager)'} (card {card})")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"[5]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    # where the host's time goes: the host-side events by self time
+    host_ev = [e for e in events if e not in kernels]
+    for e in sorted(host_ev, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:6]:
+        log(f"[5]   host {e.self_cpu_time_total / 1e3:8.3f} ms "
+            f"{e.count:6d}x  {e.key[:80]}")
     return {e.key: dev_us(e) / 1e3 for e in kernels}, busy
+
+
+def _unprofiled(what, card, tick, calls, n=3):
+    """Wall ms of ``n`` more ticks of the profiled kind run without the
+    profiler (its tracing of every kernel adds host time to a tick), and
+    of the executor calls in them (``_timed_steps``' ``calls``): host ms
+    and device span."""
+    ms, host, span = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        calls.clear()
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        host.append(sum(c[0] for c in calls) * 1e3)
+        span.append(sum(a.elapsed_time(b) for _, a, b in calls))
+    med = float(np.median(ms))
+    log(f"[5] unprofiled {what}: wall {med:.2f} ms, median of {n} "
+        f"({', '.join(f'{x:.2f}' for x in ms)}); executor calls host "
+        f"{float(np.median(host)):.2f} ms "
+        f"({100 * float(np.median(host)) / max(med, 1e-9):.1f}% of the "
+        f"wall), device span {float(np.median(span)):.2f} ms (card {card})")
 
 
 def phase_dense_profile(seed, card):
@@ -2404,8 +2527,10 @@ def phase_dense_profile(seed, card):
     def prompts(n, length):
         return [rng.integers(1, cfg.vocab_size, length) for _ in range(n)]
 
+    calls = _timed_steps(engine)
     for base in (0, 8):                  # warm-up on 0..7, then profile
         sess = list(range(base, base + 8))
+        calls.clear()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             engine.prefill_batch(sess, prompts(8, 256))
@@ -2413,10 +2538,11 @@ def phase_dense_profile(seed, card):
             wall = (time.perf_counter() - t0) * 1e3
         if base:
             _device_split(prof, wall, "slot_dense (256, 8) grid step",
-                          card)
+                          card, calls, engine)
     for s in (16, 17):                   # warm-up on 16, then profile
         engine.prefill_batch([s], prompts(1, 1792))
         torch.cuda.synchronize()
+        calls.clear()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             engine.prefill_batch([s], prompts(1, 256))
@@ -2424,7 +2550,10 @@ def phase_dense_profile(seed, card):
             wall = (time.perf_counter() - t0) * 1e3
         if s == 17:
             _device_split(prof, wall, "slot_dense (256, 1) step at "
-                          "history 1792", card)
+                          "history 1792", card, calls, engine)
+            _unprofiled("slot_dense (256, 1) step at history 2048-2560",
+                        card, lambda: engine.prefill_batch(
+                            [17], prompts(1, 256)), calls)
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2457,6 +2586,7 @@ def phase_decode_profile(seed, card):
     warm = engine.decode_batch(sess, toks, 1)          # warm-up tick
     toks = [warm[s][-1] for s in sess]
     n0 = dec.decode_attn_paged.launches
+    calls = _timed_steps(engine)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2467,7 +2597,15 @@ def phase_decode_profile(seed, card):
     n = dec.decode_attn_paged.launches - n0
     by_kernel, busy = _device_split(
         prof, wall, f"paged decode tick of {len(sess)} rows at "
-        f"{UNEVEN_TICK} keys", card)
+        f"{UNEVEN_TICK} keys", card, calls, engine)
+    cur = [toks]
+
+    def tick():
+        out = engine.decode_batch(sess, cur[0], 1)
+        cur[0] = [out[s][-1] for s in sess]
+
+    _unprofiled(f"paged decode tick of {len(sess)} rows", card, tick,
+                calls)
     attn_ms = sum(ms for key, ms in by_kernel.items()
                   if "attn::decode" in key)
     log(f"[5] paged decode tick: {n} decode_attn_paged launches, the "
@@ -2499,10 +2637,12 @@ def phase_ssm_profile(seed, card):
         engine = Engine(cfg, params, EngineConfig(
             num_slots=16, max_len=4096, chunk_tokens=256, measure=False,
             **SSM_MODES[mode]), device=DEVICE)
+        calls = _timed_steps(engine)
         for base in (0, 8):              # warm-up on 0..6, then profile
             sess = list(range(base, base + 7))
             prompts = [rng.integers(1, cfg.vocab_size, n) for n in lens]
             torch.cuda.synchronize()
+            calls.clear()
             with profile(activities=acts) as prof:
                 t0 = time.perf_counter()
                 first = engine.prefill_batch(sess, prompts)
@@ -2510,12 +2650,13 @@ def phase_ssm_profile(seed, card):
                 wall = (time.perf_counter() - t0) * 1e3
             if base:
                 _device_split(prof, wall, f"{mode} prefill of 7 prompts "
-                              f"({sum(lens)} tokens)", card)
+                              f"({sum(lens)} tokens)", card, calls, engine)
             rows = sess + [base + 7]
             engine.prefill_batch([base + 7], [rng.integers(
                 1, cfg.vocab_size, 30)])
             toks = [first.get(r, 1) for r in rows]
             torch.cuda.synchronize()
+            calls.clear()
             with profile(activities=acts) as prof:
                 t0 = time.perf_counter()
                 engine.decode_batch(rows, toks)
@@ -2523,7 +2664,9 @@ def phase_ssm_profile(seed, card):
                 wall = (time.perf_counter() - t0) * 1e3
             if base:
                 _device_split(prof, wall, f"{mode} decode tick of 8 rows",
-                              card)
+                              card, calls, engine)
+                _unprofiled(f"{mode} decode tick of 8 rows", card,
+                            lambda: engine.decode_batch(rows, toks), calls)
         del engine
         gc.collect()
 
@@ -2629,19 +2772,20 @@ def main() -> int:
                          "spread); the paged mode keeps half as many, "
                          "the two packed slot modes one")
     ap.add_argument("--phases", default="1,2,3,4,5,6",
-                    help="comma-separated phases to run (default: all)")
+                    help="comma-separated phases to run (default: all); "
+                         "5p runs only phase 5's tick profiles")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phases = {int(p) for p in args.phases.split(",")}
+    phases = set(args.phases.split(","))
     card = card_line()
     errs, launches, times = {}, {}, {}
     t0 = time.perf_counter()
     phase_build()
-    if 2 in phases:
+    if "2" in phases:
         phase_kernels(args.seed, errs)
         phase_slot_kernels(args.seed, errs)
         phase_tile_kernels(args.seed, errs)
@@ -2649,13 +2793,13 @@ def main() -> int:
         phase_sample_kernel(args.seed, errs)
         phase_ssd_kernel(args.seed, errs)
         phase_dense_kernels(args.seed, errs)
-    if 3 in phases:
+    if "3" in phases:
         for mode in (*MODES, *SSM_MODES):
             phase_oracle(args.seed, mode)
         phase_encoder_oracle(args.seed)
         for mode in ("paged", "slot_arena"):
             phase_spec_oracle(args.seed, mode)
-    if 4 in phases:
+    if "4" in phases:
         runs = args.runs
         launches = phase_full(args.seed, card, "qwen3-4b", {
             "slot_dense": runs, "slot_dense_decode": max(1, runs // 2),
@@ -2668,13 +2812,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_encoder(args.seed, card)
-    if 5 in phases:
+    if "5" in phases:
         times = phase_times(args.seed, errs)
         phase_dense_tick(card, times)
+    if phases & {"5", "5p"}:
         phase_dense_profile(args.seed, card)
         phase_decode_profile(args.seed, card)
         phase_ssm_profile(args.seed, card)
-    if 6 in phases:
+    if "6" in phases:
         phase_launcher(card)
     rows = []
     for name, meta in KERNELS.items():

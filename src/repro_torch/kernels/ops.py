@@ -18,6 +18,21 @@ from repro_torch.kernels import sampling as _sampling
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.sampling import MAX_BIAS  # noqa: F401  (re-export)
 
+# every hand-written kernel by name → its launcher, whose ``launches``
+# counts the launches it made (a step graph adds its captured launches
+# at each replay, ``serving/graphs.py``)
+LAUNCHERS = {
+    "ragged_prefill_paged": _prefill.ragged_prefill_paged,
+    "decode_attn_paged": _decode.decode_attn_paged,
+    "decode_attn_arena": _decode.decode_attn_arena,
+    "ragged_prefill_arena": _prefill.ragged_prefill_arena,
+    "ragged_prefill_attn": _prefill.ragged_prefill_attn,
+    "fused_sample": _sampling.fused_sample,
+    "ssd_scan": _ssd.ssd_scan,
+    "flash_attn": _flash.flash_attn,
+    "decode_attn": _decode.decode_attn,
+}
+
 
 def _no_device(fn: str, dev: torch.device):
     return RuntimeError(f"{fn}: no implementation for tensors on {dev}")

@@ -4,8 +4,9 @@ under synthetic multi-turn traffic (CLI wrapper over
 
 Runs on the card, with the reference launcher's flags and defaults:
 the plain run serves the slot/dense baseline (``packed=False,
-paged_kv=False``: the dense (L, B) grid for prefill, run once per shape
-at init, and arena-resident bucketed decode); ``--packed`` serves the
+paged_kv=False``: the dense (L, B) grid for prefill, one step graph
+per shape captured at init, and arena-resident bucketed decode, its
+rungs captured at init too); ``--packed`` serves the
 default engine stack (packed token-bucket stream over the paged pool).
 The smoke config is used unless ``--full`` asks for the published width
 (random weights from ``--seed``; ``--layers`` cuts the depth).  On the
@@ -81,12 +82,12 @@ def main(argv=None):
     policy = make_policy(Variant(args.variant), H200_QWEN32B, threshold=48,
                          chunk_tokens=32, awd_cfg=awd_cfg)
     if engine.packed_executor is None:
-        # capture the (L, B) grid at system init: run each shape once
+        # capture the (L, B) grid at system init: one step graph a shape
         cap = engine.executor.precapture(
             params, engine.arena.gather, lengths=(8, 16, 32, 64),
             depths=(1, 2, 4))
-        print(f"[serve] captured {len(engine.executor.compile_times)} "
-              f"shapes in {cap:.1f}s at init")
+        print(f"[serve] captured {len(engine.executor.graphs)} grid step "
+              f"graphs in {cap:.1f}s at init")
     if engine.decode_executor is not None and not engine._paged:
         # and every decode-ladder rung, so no live decode tick is the
         # first of its shape (the paged engine's rungs meet theirs live)
@@ -94,8 +95,8 @@ def main(argv=None):
         # changes the state of the slot it reads)
         dcap = engine.decode_executor.precapture(
             params, engine.arena.arena, slot=engine.arena.scratch or 0)
-        print(f"[serve] captured {len(engine.decode_executor.compile_times)}"
-              f" decode rungs in {dcap:.1f}s at init")
+        print(f"[serve] captured {len(engine.decode_executor.graphs)} "
+              f"decode step graphs in {dcap:.1f}s at init")
     loop = ServeLoop(engine, policy, slo_ttft=args.slo)
 
     rng = np.random.default_rng(args.seed)

@@ -25,6 +25,11 @@ baseline) — with the step executors under the paper's primitives:
     with ``arena.truncate``;
   * runtime (T, L, H) samples feeding ``core.boundary.fit_total``.
 
+Every executor step is a replay of its shape's CUDA graph
+(``serving/graphs.py``): the engine hands the executors host int32
+arrays and copies what it keeps of a step's outputs, which the next
+replay overwrites.
+
 Dense attention stacks and pure SSM (mamba2) stacks are served.  An SSM
 stack keeps one recurrent-state slot per session — a slot of the slot
 arena plus a scratch slot that every pad row and pad segment targets,
@@ -63,6 +68,13 @@ from repro_torch.serving.executor import (BucketExecutor,
                                           PackedBucketExecutor)
 from repro_torch.serving.kvcache import KVArena, PagedKVArena
 from repro_torch.serving.sampling import SamplingParams
+
+
+def _host(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """A host copy of a step output: the outputs are a step graph's
+    static buffers, which its next replay overwrites (on the CPU a bare
+    ``.numpy()`` would alias them)."""
+    return t.to("cpu", dtype or t.dtype, copy=True).numpy()
 
 
 @dataclasses.dataclass
@@ -154,14 +166,21 @@ class Engine:
                 host_pool_bytes=self.ecfg.host_pool_bytes,
                 device=self.device)
         else:
+            # gathered steps read one static batch buffer: as deep as the
+            # deepest grid rung or the most sessions a step gathers
             self.arena = KVArena(cfg, self.ecfg.num_slots,
                                  self.ecfg.max_len, scratch_slot=scratch,
-                                 device=self.device)
+                                 device=self.device,
+                                 batch_rows=max(self.ecfg.num_slots,
+                                                *self.ecfg.grid_depths))
         # dense gather/scatter is a valid fallback on the slot arena; a
         # paged pool has no whole-sequence row to gather, so there
         # oversized work is split across packed steps
         self._dense_ok = not self._paged
-        self.executor = BucketExecutor(cfg)
+        # every step graph of the engine draws on one memory pool
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        self.executor = BucketExecutor(cfg, graph_pool=pool)
         self.packed_executor: Optional[PackedBucketExecutor] = None
         # the gathered packed form is attention-only (an SSM state has no
         # gathered equivalent): without arena_prefill an SSM stack runs
@@ -172,12 +191,13 @@ class Engine:
                                                         16)
             self.packed_executor = PackedBucketExecutor(
                 cfg, token_buckets=self.ecfg.token_buckets,
-                max_seqs=min(max_seqs, self.ecfg.num_slots))
+                max_seqs=min(max_seqs, self.ecfg.num_slots),
+                graph_pool=pool)
         self.decode_executor: Optional[DecodeBucketExecutor] = None
         if self.ecfg.arena_decode and cap.packed_ok:
             self.decode_executor = DecodeBucketExecutor(
                 cfg, decode_buckets=self.ecfg.decode_buckets,
-                max_seqs=self.ecfg.num_slots)
+                max_seqs=self.ecfg.num_slots, graph_pool=pool)
         self.grid = BucketGrid(self.ecfg.grid_lengths, self.ecfg.grid_depths,
                                mem_budget_tokens=self.ecfg.num_slots
                                * self.ecfg.max_len)
@@ -213,10 +233,19 @@ class Engine:
         self.spec_committed = 0
         self._spec_by_session: Dict[int, List[int]] = {}  # [drafted, acc.]
 
-    def _dev(self, arr: np.ndarray) -> torch.Tensor:
-        """Host int32 step inputs → the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(
-            self.device)
+    @property
+    def executors(self) -> List[Any]:
+        """The engine's step executors (each holds its step graphs)."""
+        return [ex for ex in (self.executor, self.packed_executor,
+                              self.decode_executor) if ex is not None]
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """Step graphs captured, their warm-up plus capture seconds and
+        replays, over the engine's executors."""
+        exs = self.executors
+        return {"graphs": sum(len(ex.graphs) for ex in exs),
+                "capture_seconds": sum(ex.capture_cost() for ex in exs),
+                "replays": sum(ex.replays for ex in exs)}
 
     # ------------------------------------------------------------ session
     def open_session(self, session: int) -> None:
@@ -395,11 +424,11 @@ class Engine:
         all_greedy = all(s not in self.sampling for s in sessions)
         if all_greedy and not self.ecfg.keep_last_logits:
             self.fused_greedy_steps += 1
-            return ids_dev[:n].cpu().numpy().astype(np.int64), None
+            return _host(ids_dev[:n]).astype(np.int64), None
         if (self.ecfg.fused_sampling and not self.ecfg.keep_last_logits
                 and self._fused_bias_ok(sessions)):
             return self._fused_sample_rows(sessions, logits_dev), None
-        logits_np = logits_dev.float().cpu().numpy()
+        logits_np = _host(logits_dev, torch.float32)
         self.logits_rows_shipped += int(logits_np.shape[0])
         return self._sample_rows(sessions, logits_np[:n]), logits_np
 
@@ -520,12 +549,12 @@ class Engine:
             sample_idx[i] = len(tl) - 1
         positions[n:] = park                        # dummy depth rows
 
-        caches = self.arena.gather(all_slots)
+        caches = self.arena.batch(pad_b)
         t0 = time.perf_counter()
-        last = self.executor.prefill(
-            self.params, self._dev(tokens), self._dev(positions), caches,
-            self._dev(sample_idx))
-        last_np = last.float().cpu().numpy()
+        last_np = _host(self.executor.prefill(
+            self.params, tokens, positions, caches, sample_idx,
+            fill=lambda: self.arena.gather(all_slots)),
+            torch.float32)
         toks = self._sample_rows(sessions, last_np)
         elapsed = time.perf_counter() - t0
         self.executor.note_padding(sum(lens), pad_l * pad_b)
@@ -797,24 +826,22 @@ class Engine:
         if self.ecfg.arena_prefill:
             seg_slots = slot_map[stream.seg_ids]   # per-token arena slot
             t0 = time.perf_counter()
-            last, ids = px.mixed_step_arena(
-                self.params, self._dev(stream.tokens),
-                self._dev(stream.positions), self._dev(seg_slots),
-                self._dev(slot_map), self._dev(stream.cu_seqlens),
-                self._dev(stream.q_offsets), self._dev(stream.kv_lengths),
-                self.arena.arena, self._dev(stream.last_idx),
-                n_decode=stream.decode_tokens)
-            toks, last_np = self._tokens_from_step(sessions, last, ids)
+            toks, last_np = self._tokens_from_step(
+                sessions, *px.mixed_step_arena(
+                    self.params, stream.tokens, stream.positions, seg_slots,
+                    slot_map, stream.cu_seqlens, stream.q_offsets,
+                    stream.kv_lengths, self.arena.arena, stream.last_idx,
+                    n_decode=stream.decode_tokens))
         else:
-            caches = self.arena.gather(slot_map.tolist())
+            caches = self.arena.batch(len(slot_map))
             t0 = time.perf_counter()
-            last = px.mixed_step(
-                self.params, self._dev(stream.tokens),
-                self._dev(stream.positions), self._dev(stream.seg_ids),
-                self._dev(stream.cu_seqlens), self._dev(stream.q_offsets),
-                self._dev(stream.kv_lengths), caches,
-                self._dev(stream.last_idx), n_decode=stream.decode_tokens)
-            last_np = last.float().cpu().numpy()
+            last_np = _host(px.mixed_step(
+                self.params, stream.tokens, stream.positions,
+                stream.seg_ids, stream.cu_seqlens, stream.q_offsets,
+                stream.kv_lengths, caches, stream.last_idx,
+                n_decode=stream.decode_tokens,
+                fill=lambda: self.arena.gather(slot_map.tolist())),
+                torch.float32)
             self.logits_rows_shipped += int(last_np.shape[0])
             toks = self._sample_rows(sessions, last_np[:n])
         elapsed = time.perf_counter() - t0
@@ -852,15 +879,12 @@ class Engine:
             segments, stream, bucket)
 
         t0 = time.perf_counter()
-        last, ids = px.mixed_step_paged(
-            self.params, self._dev(stream.tokens),
-            self._dev(stream.positions), self._dev(token_pages),
-            self._dev(token_offs), self._dev(page_table),
-            self._dev(stream.cu_seqlens), self._dev(stream.q_offsets),
-            self._dev(stream.kv_lengths), ar.arena,
-            self._dev(stream.last_idx), self._dev(state_map),
-            n_decode=stream.decode_tokens)
-        toks, last_np = self._tokens_from_step(sessions, last, ids)
+        toks, last_np = self._tokens_from_step(
+            sessions, *px.mixed_step_paged(
+                self.params, stream.tokens, stream.positions, token_pages,
+                token_offs, page_table, stream.cu_seqlens,
+                stream.q_offsets, stream.kv_lengths, ar.arena,
+                stream.last_idx, state_map, n_decode=stream.decode_tokens))
         elapsed = time.perf_counter() - t0
         px.note_padding(stream.total_tokens, bucket)
         for seg in segments:
@@ -909,22 +933,18 @@ class Engine:
                 segments, stream, bucket)
             t0 = time.perf_counter()
             logits, ids = px.verify_step_paged(
-                self.params, self._dev(stream.tokens),
-                self._dev(stream.positions), self._dev(token_pages),
-                self._dev(token_offs), self._dev(page_table),
-                self._dev(stream.cu_seqlens), self._dev(stream.q_offsets),
-                self._dev(stream.kv_lengths), self.arena.arena,
-                self._dev(gather))
+                self.params, stream.tokens, stream.positions, token_pages,
+                token_offs, page_table, stream.cu_seqlens,
+                stream.q_offsets, stream.kv_lengths, self.arena.arena,
+                gather)
         else:
             _, slot_map = self._slot_map(segments)
             seg_slots = slot_map[stream.seg_ids]
             t0 = time.perf_counter()
             logits, ids = px.verify_step_arena(
-                self.params, self._dev(stream.tokens),
-                self._dev(stream.positions), self._dev(seg_slots),
-                self._dev(slot_map), self._dev(stream.cu_seqlens),
-                self._dev(stream.q_offsets), self._dev(stream.kv_lengths),
-                self.arena.arena, self._dev(gather))
+                self.params, stream.tokens, stream.positions, seg_slots,
+                slot_map, stream.cu_seqlens, stream.q_offsets,
+                stream.kv_lengths, self.arena.arena, gather)
 
         # interleaved uniforms per verify session, drawn up front so the
         # fused kernel and the host oracle consume one rng stream layout
@@ -941,10 +961,12 @@ class Engine:
             frows = self._fused_verify_rows(segments, n_drafts, logits, L,
                                             draws)
         else:
-            logits_np = logits.float().cpu().numpy()
+            logits_np = _host(logits, torch.float32)
             self.logits_rows_shipped += int(logits_np.shape[0]
                                             * logits_np.shape[1])
-        ids_np = ids.cpu().numpy()
+        ids_np = _host(ids)
+        # the step's outputs are the graph's: done with them
+        del logits, ids
         elapsed = time.perf_counter() - t0
         px.note_padding(stream.total_tokens, bucket)
 
@@ -1182,15 +1204,15 @@ class Engine:
             rows = packing.pad_decode_rows(
                 slots, hists, cur, bucket, park_position=park,
                 pad_token=self.ecfg.pad_token, pad_slot=self.arena.scratch)
-            logits, ids = dx.decode(
-                self.params, self._dev(rows.tokens),
-                self._dev(rows.slot_map), self._dev(rows.write_pos),
-                self._dev(rows.kv_lengths), self.arena.arena)
+            out_dev = dx.decode(
+                self.params, rows.tokens, rows.slot_map, rows.write_pos,
+                rows.kv_lengths, self.arena.arena)
             dx.note_padding(n, bucket)
             if self.draft is not None:
                 for i, s in enumerate(sessions):
                     self.draft.observe(s, [int(cur[i])])
-            toks, logits_np = self._tokens_from_step(sessions, logits, ids)
+            toks, logits_np = self._tokens_from_step(sessions, *out_dev)
+            del out_dev     # the graph's outputs: done with them
             cur = toks.astype(np.int32)
             for i, s in enumerate(sessions):
                 self.arena.set_length(s, hists[i] + 1)
@@ -1237,11 +1259,9 @@ class Engine:
                 kv_lengths[i] = h + 1
                 if ar.state_slots:
                     state_map[i] = ar.state_pages[s]
-            logits, ids = dx.decode_paged(
-                self.params, self._dev(tok), self._dev(positions),
-                self._dev(write_pages), self._dev(write_offs),
-                self._dev(page_table), self._dev(kv_lengths), ar.arena,
-                self._dev(state_map))
+            out_dev = dx.decode_paged(
+                self.params, tok, positions, write_pages, write_offs,
+                page_table, kv_lengths, ar.arena, state_map)
             dx.note_padding(n, bucket)
             # the KV written this tick belongs to the INPUT token — the
             # radix index must see the ids whose keys occupy the pages
@@ -1249,7 +1269,8 @@ class Engine:
                 ar.commit(s, [int(cur[i])])
                 if self.draft is not None:
                     self.draft.observe(s, [int(cur[i])])
-            toks, logits_np = self._tokens_from_step(sessions, logits, ids)
+            toks, logits_np = self._tokens_from_step(sessions, *out_dev)
+            del out_dev     # the graph's outputs: done with them
             cur = toks.astype(np.int32)
             for i, s in enumerate(sessions):
                 out[s].append(int(cur[i]))
@@ -1276,13 +1297,13 @@ class Engine:
             for s, h in zip(sessions, hists):
                 self.arena.check_length(s, h + 1)
             positions = np.asarray(hists, np.int32)[:, None]
-            caches = self.arena.gather(slots)
-            logits = self.executor.decode(
-                self.params, self._dev(cur[:, None]), self._dev(positions),
-                caches)
+            caches = self.arena.batch(n)
+            logits_np = _host(self.executor.decode(
+                self.params, cur[:, None], positions, caches,
+                fill=lambda: self.arena.gather(slots)),
+                torch.float32)
             self.arena.scatter(slots, caches)
             self.executor.note_padding(n, n)
-            logits_np = logits.float().cpu().numpy()
             if self.draft is not None:
                 for i, s in enumerate(sessions):
                     self.draft.observe(s, [int(cur[i])])

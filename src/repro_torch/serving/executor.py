@@ -6,18 +6,20 @@ slot arena and the page pool (:class:`DecodeBucketExecutor`).
 
 The JAX package lowers and compiles one executable per bucket shape —
 its analogue of CUDA Graph capture, the paper's (L, B) grid captured at
-system init.  Here execution is eager: every step runs the PyTorch stack
-directly (CUDA-graph capture per bucket is a later slice).  The
-shape-keyed bookkeeping stays — the first step of a shape counts as a
-miss, later ones as hits — with the same counter names, because
-``Engine.stats()`` and the benches read them; ``precapture`` runs each
-grid shape once at init and records how long that took.
+system init.  Here every step shape is one CUDA graph
+(``serving/graphs.py``): captured at the shape's first dispatch, or
+earlier by a ``precapture*``, on parked inputs, and replayed by every
+dispatch.  The shape keys are the JAX executors', so hits, misses,
+``shapes_by_kind`` and ``dispatches`` are theirs.  Step inputs are host
+int32 arrays, staged by the graph; the state (parameters, arena,
+gathered caches) is read and written in place by address.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.buckets import (DEFAULT_DECODE_BUCKETS,
@@ -25,6 +27,7 @@ from repro_torch.core.buckets import (DEFAULT_DECODE_BUCKETS,
                                       DecodeBucketLadder, TokenBucketLadder)
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.graphs import StepGraph
 
 
 def make_prefill_fn(cfg: ModelConfig) -> Callable:
@@ -197,14 +200,32 @@ def make_paged_decode_fn(cfg: ModelConfig) -> Callable:
     return decode_step
 
 
-class _ExecutorBase:
-    """Shape-keyed dispatch accounting + padding-efficiency stats."""
+def _parked(args: Sequence[Any], values: Dict[int, int]) -> tuple:
+    """``args`` with every int32 input replaced by a constant array of
+    its shape: ``values[i]`` at position i, 0 elsewhere."""
+    return tuple(np.full(a.shape, values.get(i, 0), np.int32)
+                 if isinstance(a, np.ndarray) else a
+                 for i, a in enumerate(args))
 
-    def __init__(self) -> None:
-        # shape key → first-dispatch cost: the seconds its precapture
-        # run took, 0.0 for a shape first met while serving (eager
-        # execution compiles nothing)
+
+class _ExecutorBase:
+    """Shape-keyed step graphs, dispatch accounting and padding stats.
+
+    Every step goes through :meth:`_step`: the first dispatch of a shape
+    key is a miss and captures the shape's :class:`StepGraph` on parked
+    inputs (``compile_times`` gets the warm-up plus capture seconds),
+    every dispatch replays it.  The keys are the JAX executors' (kind,
+    then the shape and dtype of the inputs that fix the shape), so
+    hits, misses and ``shapes_by_kind`` stay theirs."""
+
+    def __init__(self, graph_pool: Optional[tuple] = None) -> None:
+        # shape key → warm-up plus capture seconds of its graph
         self.compile_times: Dict[Tuple, float] = {}
+        # shape key → its captured step
+        self.graphs: Dict[Tuple, StepGraph] = {}
+        # one memory pool for every graph of an engine (None: each graph
+        # its own)
+        self.graph_pool = graph_pool
         self.hits = 0
         self.misses = 0
         self.useful_tokens = 0     # real tokens executed
@@ -213,14 +234,14 @@ class _ExecutorBase:
         self.kind_misses: Dict[str, int] = {}
 
     @staticmethod
-    def _key(kind: str, *tensors: torch.Tensor) -> Tuple:
-        return (kind,) + tuple((tuple(t.shape), str(t.dtype))
-                               for t in tensors)
+    def _key(kind: str, *arrays) -> Tuple:
+        return (kind,) + tuple((tuple(a.shape), str(a.dtype))
+                               for a in arrays)
 
-    def _note_dispatch(self, kind: str, *tensors: torch.Tensor) -> Tuple:
+    def _note_dispatch(self, kind: str, *arrays) -> Tuple:
         """Count one dispatch of the step ``kind`` at the shapes of
-        ``tensors`` (a miss the first time); returns its key."""
-        key = self._key(kind, *tensors)
+        ``arrays`` (a miss the first time); returns its key."""
+        key = self._key(kind, *arrays)
         if key not in self.compile_times:
             self.misses += 1
             self.kind_misses[kind] = self.kind_misses.get(kind, 0) + 1
@@ -230,21 +251,60 @@ class _ExecutorBase:
             self.kind_hits[kind] = self.kind_hits.get(kind, 0) + 1
         return key
 
-    def _capture(self, kind: str, fn: Callable, args: tuple,
-                 *shaped: torch.Tensor) -> None:
-        """Precapture one shape: count it as a dispatch of ``kind`` (as
-        the JAX executors count the compile), run ``fn(*args)`` once and
-        record the seconds it took."""
-        key = self._note_dispatch(kind, *shaped)
-        t0 = time.perf_counter()
-        fn(*args)
-        if shaped[0].device.type == "cuda":
-            torch.cuda.synchronize(shaped[0].device)
-        self.compile_times[key] = time.perf_counter() - t0
+    def _graph(self, key: Tuple, fn: Callable, parked: tuple) -> StepGraph:
+        """The graph of shape ``key``, captured on ``parked`` at its
+        first use."""
+        g = self.graphs.get(key)
+        if g is None:
+            t0 = time.perf_counter()
+            g = StepGraph(fn, parked, pool=self.graph_pool)
+            if g.device.type == "cuda":
+                torch.cuda.synchronize(g.device)
+            self.compile_times[key] = time.perf_counter() - t0
+            self.graphs[key] = g
+        return g
+
+    def _step(self, kind: str, keyed: Tuple[int, ...], fn: Callable,
+              args: tuple, park: Dict[int, int],
+              fill: Optional[Callable[[], Any]] = None):
+        """One dispatch of step ``kind``: ``fn(*args)`` with the host
+        arrays of ``args`` as its int32 inputs, keyed by the shapes of
+        ``args[i]`` for i in ``keyed``.  A miss captures the graph on
+        ``args`` parked by ``park`` (position → value); then the graph
+        replays on ``args``, ``fill`` copying state in first.  Returns
+        the graph's static outputs."""
+        args = tuple(np.asarray(a, np.int32) if isinstance(a, np.ndarray)
+                     else a for a in args)
+        key = self._note_dispatch(kind, *(args[i] for i in keyed))
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self._graph(key, fn, _parked(args, park))
+        return graph.run(args, fill)
+
+    def _precapture(self, kind: str, keyed: Tuple[int, ...], fn: Callable,
+                    parked: tuple) -> None:
+        """Capture one shape at init on ``parked`` inputs, counted as a
+        dispatch of ``kind`` (as the JAX executors count the compile)."""
+        key = self._note_dispatch(kind, *(parked[i] for i in keyed))
+        self._graph(key, fn, parked)
 
     def capture_cost(self) -> float:
-        """Total precapture seconds."""
+        """Total warm-up plus capture seconds."""
         return sum(self.compile_times.values())
+
+    @property
+    def replays(self) -> int:
+        """Graph replays so far (every dispatch is one)."""
+        return sum(g.replays for g in self.graphs.values())
+
+    def warmup_launches(self) -> Dict[str, int]:
+        """{kernel: launches} of the graphs' warm-up runs, which ran on
+        parked inputs beside the dispatches."""
+        out: Dict[str, int] = {}
+        for g in self.graphs.values():
+            for name, n in g.warmup.items():
+                out[name] = out.get(name, 0) + n
+        return out
 
     # ------------------------------------------------------------- stats
     def note_padding(self, useful: int, total: int) -> None:
@@ -288,52 +348,83 @@ class _ExecutorBase:
         return self.hits + self.misses
 
 
-def _zeros(device, *shape: int) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.int32, device=device)
+def _zeros(*shape: int) -> np.ndarray:
+    return np.zeros(shape, np.int32)
+
+
+def _park_slot(arena: List[Dict[str, torch.Tensor]]) -> int:
+    """The slot or page a capture at a live miss parks on: the arena's
+    last, which is the scratch slot or page where the arena has one, and
+    otherwise a slot whose park row no session reaches."""
+    return next(iter(arena[0].values())).shape[1] - 1
 
 
 def _park(arena: List[Dict[str, torch.Tensor]]) -> int:
-    """The park row S_max − 1 of a slot arena's KV leaves (0 for a pure
+    """The park row S_max − 1 of a slot arena's or gathered caches' KV
+    leaves, the park offset page_size − 1 of a page pool's (0 for a pure
     SSM arena, whose layers read no positions)."""
     return next((leaves["k"].shape[2] - 1 for leaves in arena
                  if "k" in leaves), 0)
 
 
+def _arena_park(arena) -> Dict[int, int]:
+    """A packed arena-form step's parked inputs: every token on the park
+    row (positions 2) of the park slot, every segment there (seg_slots
+    3, slot_map 4)."""
+    slot = _park_slot(arena)
+    return {2: _park(arena), 3: slot, 4: slot}
+
+
+def _paged_park(arena) -> Dict[int, int]:
+    """A packed paged-form step's parked inputs: every token at the
+    scratch page's last offset (token_pages 3, token_offs 4), every
+    page-table entry the scratch page (5)."""
+    page = _park_slot(arena)
+    return {3: page, 4: _park(arena), 5: page}
+
+
 class BucketExecutor(_ExecutorBase):
     """The dense (L, B) bucket-grid executor: every batch is padded to a
-    grid (length, depth) shape, so the shape space is |L| × |B|."""
+    grid (length, depth) shape, so the shape space is |L| × |B|.  Its
+    steps read and write gathered caches: the leading rows of the slot
+    arena's one static batch buffer, which ``fill`` gathers the step's
+    slots into before each replay."""
 
-    def __init__(self, cfg: ModelConfig):
-        super().__init__()
+    def __init__(self, cfg: ModelConfig, graph_pool: Optional[tuple] = None):
+        super().__init__(graph_pool)
         self.cfg = cfg
         self._prefill = make_prefill_fn(cfg)
         self._decode = make_decode_fn(cfg)
 
-    def prefill(self, params, tokens, positions, caches, sample_idx):
-        self._note_dispatch("prefill", tokens)
-        return self._prefill(params, tokens, positions, caches, sample_idx)
+    def prefill(self, params, tokens, positions, caches, sample_idx,
+                fill: Optional[Callable[[], Any]] = None):
+        return self._step("prefill", (1,), self._prefill,
+                          (params, tokens, positions, caches, sample_idx),
+                          {2: _park(caches)}, fill)
 
-    def decode(self, params, tokens, positions, caches):
-        self._note_dispatch("decode", tokens)
-        return self._decode(params, tokens, positions, caches)
+    def decode(self, params, tokens, positions, caches,
+               fill: Optional[Callable[[], Any]] = None):
+        return self._step("decode", (1,), self._decode,
+                          (params, tokens, positions, caches),
+                          {2: _park(caches)}, fill)
 
     def precapture(self, params, arena_gather: Callable, lengths, depths
                    ) -> float:
-        """Run the (L, B) grid once at init (paper: graphs captured at
-        system initialization) on gathered copies of the first slots.
-        Returns total capture seconds."""
+        """Capture the (L, B) grid at init (paper: graphs captured at
+        system initialization) over the gathered first slots, every
+        write on the park row.  Returns total seconds."""
         t0 = time.perf_counter()
-        dev = params["embed"].device
         for b in depths:
             caches = arena_gather(list(range(b)))
+            park = _park(caches)
             for l in lengths:
-                tokens = _zeros(dev, b, l)
-                self._capture("prefill", self._prefill,
-                              (params, tokens, _zeros(dev, b, l), caches,
-                               _zeros(dev, b)), tokens)
-            tok1 = _zeros(dev, b, 1)
-            self._capture("decode", self._decode,
-                          (params, tok1, _zeros(dev, b, 1), caches), tok1)
+                self._precapture(
+                    "prefill", (1,), self._prefill,
+                    (params, _zeros(b, l), _zeros(b, l) + park, caches,
+                     _zeros(b)))
+            self._precapture("decode", (1,), self._decode,
+                             (params, _zeros(b, 1), _zeros(b, 1) + park,
+                              caches))
         return time.perf_counter() - t0
 
 
@@ -354,8 +445,8 @@ class PackedBucketExecutor(_ExecutorBase):
 
     def __init__(self, cfg: ModelConfig,
                  token_buckets: Tuple[int, ...] = DEFAULT_TOKEN_BUCKETS,
-                 max_seqs: int = 16):
-        super().__init__()
+                 max_seqs: int = 16, graph_pool: Optional[tuple] = None):
+        super().__init__(graph_pool)
         if not tr.arena_capability(cfg).packed_ok:
             raise ValueError(
                 f"{cfg.name}: packed serving needs a causal decoder "
@@ -406,29 +497,32 @@ class PackedBucketExecutor(_ExecutorBase):
             self.decode_tokens_fused += int(n_decode)
 
     def prefill_packed(self, params, tokens, positions, seg_ids, cu_seqlens,
-                       q_offsets, kv_lengths, caches, last_idx):
-        self._note_dispatch("packed_prefill", tokens)
-        return self._packed(params, tokens, positions, seg_ids, cu_seqlens,
-                            q_offsets, kv_lengths, caches, last_idx)
+                       q_offsets, kv_lengths, caches, last_idx,
+                       fill: Optional[Callable[[], Any]] = None):
+        return self._step("packed_prefill", (1,), self._packed,
+                          (params, tokens, positions, seg_ids, cu_seqlens,
+                           q_offsets, kv_lengths, caches, last_idx),
+                          {2: _park(caches)}, fill)
 
     def mixed_step(self, params, tokens, positions, seg_ids, cu_seqlens,
                    q_offsets, kv_lengths, caches, last_idx, *,
-                   n_decode: int = 0):
+                   n_decode: int = 0,
+                   fill: Optional[Callable[[], Any]] = None):
         """One continuous-batching step over GATHERED caches: prefill,
         chunk and decode segments in one flat stream; the caches are
         written in place.  Returns last_logits (B, V)."""
         self._note_mixed(n_decode)
         return self.prefill_packed(params, tokens, positions, seg_ids,
                                    cu_seqlens, q_offsets, kv_lengths,
-                                   caches, last_idx)
+                                   caches, last_idx, fill)
 
     def prefill_packed_arena(self, params, tokens, positions, seg_slots,
                              slot_map, cu_seqlens, q_offsets, kv_lengths,
                              arena, last_idx):
-        self._note_dispatch("packed_arena", tokens)
-        return self._packed_arena(params, tokens, positions, seg_slots,
-                                  slot_map, cu_seqlens, q_offsets,
-                                  kv_lengths, arena, last_idx)
+        return self._step("packed_arena", (1,), self._packed_arena,
+                          (params, tokens, positions, seg_slots, slot_map,
+                           cu_seqlens, q_offsets, kv_lengths, arena,
+                           last_idx), _arena_park(arena))
 
     def mixed_step_arena(self, params, tokens, positions, seg_slots,
                          slot_map, cu_seqlens, q_offsets, kv_lengths,
@@ -453,11 +547,11 @@ class PackedBucketExecutor(_ExecutorBase):
         (B,) (the scratch page for pads), and the pool is written in
         place.  Returns (last_logits (B, V), greedy_ids (B,))."""
         self._note_mixed(n_decode)
-        self._note_dispatch("packed_paged", tokens, page_table)
-        return self._packed_paged(params, tokens, positions, token_pages,
-                                  token_offs, page_table, cu_seqlens,
-                                  q_offsets, kv_lengths, arena, last_idx,
-                                  state_map)
+        park = {**_paged_park(arena), 11: _park_slot(arena)}
+        return self._step("packed_paged", (1, 5), self._packed_paged,
+                          (params, tokens, positions, token_pages,
+                           token_offs, page_table, cu_seqlens, q_offsets,
+                           kv_lengths, arena, last_idx, state_map), park)
 
     def verify_step_arena(self, params, tokens, positions, seg_slots,
                           slot_map, cu_seqlens, q_offsets, kv_lengths,
@@ -468,10 +562,10 @@ class PackedBucketExecutor(_ExecutorBase):
         the arena is written in place."""
         self.verify_steps += 1
         self.verify_rows += int(gather_idx.shape[0] * gather_idx.shape[1])
-        self._note_dispatch("verify_arena", tokens, gather_idx)
-        return self._verify_arena(params, tokens, positions, seg_slots,
-                                  slot_map, cu_seqlens, q_offsets,
-                                  kv_lengths, arena, gather_idx)
+        return self._step("verify_arena", (1, 9), self._verify_arena,
+                          (params, tokens, positions, seg_slots, slot_map,
+                           cu_seqlens, q_offsets, kv_lengths, arena,
+                           gather_idx), _arena_park(arena))
 
     def verify_step_paged(self, params, tokens, positions, token_pages,
                           token_offs, page_table, cu_seqlens, q_offsets,
@@ -480,44 +574,43 @@ class PackedBucketExecutor(_ExecutorBase):
         :meth:`verify_step_arena` over the shared page pool."""
         self.verify_steps += 1
         self.verify_rows += int(gather_idx.shape[0] * gather_idx.shape[1])
-        self._note_dispatch("verify_paged", tokens, page_table, gather_idx)
-        return self._verify_paged(params, tokens, positions, token_pages,
-                                  token_offs, page_table, cu_seqlens,
-                                  q_offsets, kv_lengths, arena, gather_idx)
+        return self._step("verify_paged", (1, 5, 10), self._verify_paged,
+                          (params, tokens, positions, token_pages,
+                           token_offs, page_table, cu_seqlens, q_offsets,
+                           kv_lengths, arena, gather_idx),
+                          _paged_park(arena))
 
     def precapture(self, params, arena_gather: Callable) -> float:
-        """Run every token bucket's gathered step once at init on copies
-        of the first ``max_seqs`` slots.  Returns total seconds."""
+        """Capture every token bucket's gathered step at init over the
+        gathered first ``max_seqs`` slots, every write on the park row.
+        Returns total seconds."""
         t0 = time.perf_counter()
         b = self.max_seqs
-        dev = params["embed"].device
         caches = arena_gather(list(range(b)))
+        park = _park(caches)
         for t in self.token_buckets:
-            tokens = _zeros(dev, t)
-            self._capture("packed_prefill", self._packed,
-                          (params, tokens, _zeros(dev, t), _zeros(dev, t),
-                           _zeros(dev, b + 1), _zeros(dev, b),
-                           _zeros(dev, b), caches, _zeros(dev, b)), tokens)
+            self._precapture("packed_prefill", (1,), self._packed,
+                             (params, _zeros(t), _zeros(t) + park,
+                              _zeros(t), _zeros(b + 1), _zeros(b),
+                              _zeros(b), caches, _zeros(b)))
         return time.perf_counter() - t0
 
     def precapture_arena(self, params, arena: List[Dict[str, torch.Tensor]],
                          slot: int = 0) -> float:
-        """Run every token bucket's arena-resident step once at init.
+        """Capture every token bucket's arena-resident step at init.
         Its stream has no segment (every kv length 0, so an SSM update
         is an identity) and parks every write on ``slot``'s park row —
         the scratch slot where the arena has one — so no cached row
         changes.  Returns total seconds."""
         t0 = time.perf_counter()
         b = self.stream_rows
-        dev = params["embed"].device
         park = _park(arena)
         for t in self.token_buckets:
-            tokens = _zeros(dev, t)
-            self._capture("packed_arena", self._packed_arena,
-                          (params, tokens, _zeros(dev, t) + park,
-                           _zeros(dev, t) + slot, _zeros(dev, b) + slot,
-                           _zeros(dev, b + 1), _zeros(dev, b),
-                           _zeros(dev, b), arena, _zeros(dev, b)), tokens)
+            self._precapture("packed_arena", (1,), self._packed_arena,
+                             (params, _zeros(t), _zeros(t) + park,
+                              _zeros(t) + slot, _zeros(b) + slot,
+                              _zeros(b + 1), _zeros(b), _zeros(b), arena,
+                              _zeros(b)))
         return time.perf_counter() - t0
 
 
@@ -529,8 +622,9 @@ class DecodeBucketExecutor(_ExecutorBase):
 
     def __init__(self, cfg: ModelConfig,
                  decode_buckets: Tuple[int, ...] = DEFAULT_DECODE_BUCKETS,
-                 max_seqs: Optional[int] = None):
-        super().__init__()
+                 max_seqs: Optional[int] = None,
+                 graph_pool: Optional[tuple] = None):
+        super().__init__(graph_pool)
         if not tr.arena_capability(cfg).packed_ok:
             raise ValueError(
                 f"{cfg.name}: arena-resident decode needs a causal "
@@ -552,27 +646,27 @@ class DecodeBucketExecutor(_ExecutorBase):
                arena):
         """One ARENA-RESIDENT decode tick: each row's new KV row is
         written in place at (slot, write_pos) and the arena read through
-        the slot map.  Returns (logits (B, V), greedy_ids (B,))."""
-        self._note_dispatch("arena_decode", tokens)
-        return self._decode(params, tokens, slot_map, write_pos,
-                            kv_lengths, arena)
+        the slot map.  Returns (logits (B, V), greedy_ids (B,)).  Parked,
+        every row writes the park slot's park row and reads its row 0,
+        as a ladder pad row does."""
+        return self._step("arena_decode", (1,), self._decode,
+                          (params, tokens, slot_map, write_pos, kv_lengths,
+                           arena),
+                          {2: _park_slot(arena), 3: _park(arena), 4: 1})
 
     def precapture(self, params, arena: List[Dict[str, torch.Tensor]],
                    slot: int = 0) -> float:
-        """Run every decode rung's arena-resident step once at init.
+        """Capture every decode rung's arena-resident step at init.
         Every row writes ``slot``'s park row and reads its row 0, as a
         ladder pad row does, so no cached KV row changes.  A decode step
         does change the recurrent state of the slot it reads, so an SSM
         arena passes its scratch slot.  Returns total seconds."""
         t0 = time.perf_counter()
-        dev = params["embed"].device
         park = _park(arena)
         for b in self.decode_buckets:
-            tokens = _zeros(dev, b)
-            self._capture("arena_decode", self._decode,
-                          (params, tokens, _zeros(dev, b) + slot,
-                           _zeros(dev, b) + park, _zeros(dev, b) + 1,
-                           arena), tokens)
+            self._precapture("arena_decode", (1,), self._decode,
+                             (params, _zeros(b), _zeros(b) + slot,
+                              _zeros(b) + park, _zeros(b) + 1, arena))
         return time.perf_counter() - t0
 
     def decode_paged(self, params, tokens, positions, write_pages,
@@ -580,8 +674,12 @@ class DecodeBucketExecutor(_ExecutorBase):
         """One PAGED decode tick: each row's KV is routed through its
         page-table row and its SSM state through ``state_map`` (B,), the
         pool written in place.  Returns (logits (B, V), greedy_ids
-        (B,))."""
-        self._note_dispatch("paged_decode", tokens, page_table)
-        return self._decode_paged(params, tokens, positions, write_pages,
-                                  write_offs, page_table, kv_lengths, arena,
-                                  state_map)
+        (B,)).  Parked, every row writes the scratch page and steps its
+        state, as a ladder pad row does."""
+        page = _park_slot(arena)
+        return self._step("paged_decode", (1, 5), self._decode_paged,
+                          (params, tokens, positions, write_pages,
+                           write_offs, page_table, kv_lengths, arena,
+                           state_map),
+                          {3: page, 4: _park(arena), 5: page, 6: 1,
+                           8: page})

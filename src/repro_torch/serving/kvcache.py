@@ -51,13 +51,16 @@ class KVArena:
     a slot map (there is no ``replace``: the JAX package's swap of the
     donated result is the identity here).  ``gather`` / ``scatter`` copy
     whole slots out and back for the dense (L, B) path and the gathered
-    packed baseline; ``gather_calls`` / ``scatter_calls`` count them, and
-    the arena-resident paths keep both at 0.
+    packed baseline, through one static batch buffer of ``batch_rows``
+    slots that their step graphs read by address; ``gather_calls`` /
+    ``scatter_calls`` count them, and the arena-resident paths keep both
+    at 0.
     """
 
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  dtype=None, swa_depth: Optional[int] = None,
-                 scratch_slot: bool = False, device="cuda"):
+                 scratch_slot: bool = False, device="cuda",
+                 batch_rows: Optional[int] = None):
         if swa_depth is not None:
             raise NotImplementedError(
                 "rolling window slots are not ported yet "
@@ -74,6 +77,9 @@ class KVArena:
         self.lengths: Dict[int, int] = {}          # session -> tokens cached
         self.gather_calls = 0
         self.scatter_calls = 0
+        # rows of the static batch buffer that gathers fill (``batch``)
+        self.batch_rows = num_slots if batch_rows is None else batch_rows
+        self._batch: Optional[List[Dict[str, torch.Tensor]]] = None
 
     # ----------------------------------------------------------- slots
     def alloc(self, session: int) -> int:
@@ -126,13 +132,44 @@ class KVArena:
         return len(self._free)
 
     # ---------------------------------------------------------- gather
+    def batch(self, n: int) -> List[Dict[str, torch.Tensor]]:
+        """The first ``n`` rows of the arena's one static batch buffer:
+        {"k"/"v": (G, n, S_max, Hkv, D), ...} per pattern position, each
+        leaf contiguous and starting at the buffer's address whatever
+        ``n``, so the step graphs of every grid depth read one buffer.
+        Allocated at first use, for ``batch_rows`` rows (one slot of
+        qwen3-4b at S_max 4096 is 604 MB: one buffer of the deepest
+        depth, not one per depth)."""
+        if n > self.batch_rows:
+            raise ValueError(f"{n} gathered rows: the batch buffer holds "
+                             f"{self.batch_rows}")
+        if self._batch is None:
+            self._batch = [{name: torch.empty(
+                a.numel() // a.shape[1] * self.batch_rows, dtype=a.dtype,
+                device=a.device) for name, a in leaves.items()}
+                for leaves in self.arena]
+        out = []
+        for leaves, flat in zip(self.arena, self._batch):
+            views = {}
+            for name, a in leaves.items():
+                shape = (a.shape[0], n) + tuple(a.shape[2:])
+                views[name] = flat[name][:a.numel() // a.shape[1] * n
+                                         ].view(shape)
+            out.append(views)
+        return out
+
     def gather(self, slots: Sequence[int]) -> List[Dict[str, torch.Tensor]]:
-        """Copy whole slots out: {"k"/"v": (G, len(slots), S_max, Hkv,
-        D)} per pattern position (a slot may repeat)."""
+        """Copy whole slots out into the first len(slots) rows of the
+        static batch buffer (:meth:`batch`), valid until the next gather:
+        {"k"/"v": (G, len(slots), S_max, Hkv, D)} per pattern position (a
+        slot may repeat)."""
         self.gather_calls += 1
         idx = self._index(slots)
-        return [{name: a.index_select(1, idx) for name, a in leaves.items()}
-                for leaves in self.arena]
+        out = self.batch(len(slots))
+        for leaves, dst in zip(self.arena, out):
+            for name, a in leaves.items():
+                torch.index_select(a, 1, idx, out=dst[name])
+        return out
 
     def scatter(self, slots: Sequence[int],
                 batch_cache: List[Dict[str, torch.Tensor]]) -> None:

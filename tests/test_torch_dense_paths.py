@@ -25,6 +25,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one torch thread per test process: the suite runs in parallel
+# workers, and torch's default of a thread per core in each of them
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -285,7 +289,8 @@ def _stepping_clock():
 def _drive_loop(side, stack, turns):
     """ServeLoop on the slot arena with the dense (L, B) grid and dense
     decode (``arena_decode=False``) over a multi-turn trace whose later
-    turns submit only their new tokens."""
+    turns submit only their new tokens.  ``shapes``: the dense
+    executor's shapes by kind (each one step graph in the port)."""
     cfg, tcfg, params, tp = stack
     kw = dict(num_slots=8, max_len=256, chunk_tokens=32, measure=False,
               packed=False, paged_kv=False, arena_decode=False)
@@ -314,6 +319,7 @@ def _drive_loop(side, stack, turns):
                 report=loop.tracker.report().as_dict(),
                 graph_hits=policy.awd.graph_hits,
                 counters={k: st.get(k) for k in KEYS},
+                shapes=engine.executor.shapes_by_kind(),
                 slots={s: engine.arena.slot_of(s) for s in loop.generated},
                 lengths={s: engine.history(s) for s in loop.generated}), last
 
@@ -323,7 +329,8 @@ def test_serve_loop_with_dense_decode_matches_jax(stacks, counted):
     JAX loop's greedy transcripts, TTFT report, grid hits and host
     counters (dense dispatches by cause, whole-slot copies, shapes),
     with logits within 1e-5; every grid step runs ``ops.mha`` and every
-    decode step ``ops.decode``."""
+    decode step ``ops.decode``, and so does the capture of each shape's
+    step graph (on the CPU its run on parked inputs)."""
     stack = stacks["qwen3-4b"]
     turns = gen_multiturn_sessions(MultiTurnConfig(
         vocab_size=stack[0].vocab_size, num_sessions=4, max_turns=3,
@@ -337,8 +344,11 @@ def test_serve_loop_with_dense_decode_matches_jax(stacks, counted):
     assert dense["prefill"]["requested"] > 0
     assert dense["decode"]["requested"] > 0
     layers = stack[0].num_layers
-    assert counted["mha"] == layers * dense["prefill"]["requested"]
-    assert counted["decode"] == layers * dense["decode"]["requested"]
+    shapes = got["shapes"]
+    assert counted["mha"] == layers * (dense["prefill"]["requested"]
+                                       + shapes["prefill"])
+    assert counted["decode"] == layers * (dense["decode"]["requested"]
+                                          + shapes["decode"])
 
 
 def test_hubert_config_and_params_from_numpy(stacks):

@@ -9,9 +9,13 @@ qwen3-4b's, qwen2.5-32b's and mamba2-2.7b's vocabularies (1 to 64 rows,
 every row on the whole-row path, kept sets on each side of the compact
 capacity, one call replayed from a CUDA graph, no (R, V) workspace), the SSD
 scan kernel at mamba2-2.7b's head shapes (with the chunks it skips, and
-one call replayed from a CUDA graph), and the serving engine
+one call replayed from a CUDA graph), the serving engine
 (qwen3-4b and mamba2-2.7b smoke configs) and the hubert-xlarge smoke
-encoder on the card against the same on the CPU.  Without a card every test skips inside its fixture.
+encoder on the card against the same on the CPU, and the executors'
+step graphs: one launch of each tile-core kernel replayed from a CUDA
+graph, every executor step kind replayed bit-identical to its eager
+step function (logits and every live arena, pool and state row), and a
+capture at a live miss leaving every live row unchanged.  Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -32,6 +36,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one torch thread per test process: the suite runs in parallel
+# workers, and torch's default of a thread per core in each of them
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import decode_attn as dec  # noqa: E402
@@ -863,3 +871,269 @@ def test_ssm_engine_on_card_matches_engine_on_cpu(card, mode):
         np.testing.assert_allclose(engines[1].last_logits[s],
                                    engines[0].last_logits[s], atol=1e-4,
                                    rtol=0)
+
+
+# ------------------------------------------------- step graphs on the card
+
+def _tile_inputs(card, name, seed):
+    """One bf16 launch of a tile-core kernel at qwen3-4b's heads: four
+    segments (or rows) whose lengths and histories change with
+    ``seed`` while every shape stays."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card).to(
+            torch.bfloat16)
+
+    lens, hists = (([37, 5, 1, 64], [0, 21, 40, 3]) if seed % 2 else
+                   ([64, 1, 5, 37], [300, 2000, 7, 0]))
+    kvl = [h + n for h, n in zip(hists, lens)]
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    idx = [_i32(x, card) for x in (cu, hists, kvl)]
+    q = randn(int(cu[-1]) + 7, HQ, D)
+    if name == "ragged_prefill_paged":
+        return (q, randn(NPAGES, PS, HKV, D), randn(NPAGES, PS, HKV, D),
+                _i32(_table(rng, kvl), card), *idx)
+    if name == "ragged_prefill_arena":
+        slots = [int(s) for s in rng.permutation(6)[:4]]
+        return (q, randn(6, 2100, HKV, D), randn(6, 2100, HKV, D),
+                _i32(slots, card), *idx)
+    if name == "ragged_prefill_attn":
+        return (q, randn(4, 2100, HKV, D), randn(4, 2100, HKV, D), *idx)
+    return (randn(4, 64, HQ, D), randn(4, 2100, HKV, D),
+            randn(4, 2100, HKV, D), _i32(hists, card),
+            _i32([h + 64 for h in hists], card))
+
+
+@pytest.mark.parametrize("name", ["ragged_prefill_paged",
+                                  "ragged_prefill_arena",
+                                  "ragged_prefill_attn", "flash_attn"])
+def test_tile_kernel_replays_in_a_cuda_graph(card, name):
+    """One bf16 launch of each kernel on the wgmma tile core (its
+    dynamic shared memory set at every launch) captured in a CUDA graph:
+    replays on new inputs copied into the captured buffers equal eager
+    launches bit for bit and hold the plain version."""
+    mod = fl if name == "flash_attn" else rp
+    fn, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    static = [t.clone() for t in _tile_inputs(card, name, 1)]
+    fn(*static)                                # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = fn.launches
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+    assert fn.launches == n0 + 1
+    for seed in (2, 3):
+        fresh = _tile_inputs(card, name, seed)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        want = fn(*fresh)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        _assert_held(out, plain, *fresh)
+
+
+def _on(args, dev):
+    return tuple(torch.as_tensor(np.asarray(a, np.int32), device=dev)
+                 if isinstance(a, np.ndarray) else a for a in args)
+
+
+def _eager_steps(engine):
+    """Run every step of ``engine``'s executors eagerly, as its step
+    graph would: the step on parked inputs at a shape's first dispatch
+    (the warm-up), then ``fill`` and the step on the real inputs."""
+    from repro_torch.serving import executor as tex
+
+    for ex in engine.executors:
+        seen = set()
+
+        def step(kind, keyed, fn, args, park, fill=None, ex=ex, seen=seen):
+            args = tuple(np.asarray(a, np.int32)
+                         if isinstance(a, np.ndarray) else a for a in args)
+            key = ex._note_dispatch(kind, *(args[i] for i in keyed))
+            if key not in seen:
+                seen.add(key)
+                fn(*_on(tex._parked(args, park), engine.device))
+            if fill is not None:
+                fill()
+            return fn(*_on(args, engine.device))
+
+        ex._step = step
+
+
+# (arch, engine options, speculation, the step kinds the schedule runs)
+GRAPH_MODES = {
+    "paged": ("qwen3-4b", dict(), False, ("packed_paged", "paged_decode")),
+    "arena": ("qwen3-4b", dict(paged_kv=False), False,
+              ("packed_arena", "arena_decode")),
+    "gathered": ("qwen3-4b", dict(paged_kv=False, arena_prefill=False),
+                 False, ("packed_prefill", "arena_decode")),
+    "grid": ("qwen3-4b", dict(packed=False, paged_kv=False,
+                              arena_decode=False), False,
+             ("prefill", "decode")),
+    "spec_paged": ("qwen3-4b", dict(), True, ("verify_paged",)),
+    "spec_arena": ("qwen3-4b", dict(paged_kv=False), True,
+                   ("verify_arena",)),
+    "ssm_paged": ("mamba2-2.7b", dict(), False,
+                  ("packed_paged", "paged_decode")),
+    "ssm_arena": ("mamba2-2.7b", dict(paged_kv=False), False,
+                  ("packed_arena", "arena_decode")),
+}
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_step_graphs_replay_bit_identical_to_eager(card, mode):
+    """Each executor step kind through its step graph and through the
+    eager step function on the same inputs (two engines on the card,
+    one schedule): the same tokens, bit-identical logits and arena,
+    pool and state contents (every row but the junk rows that pads write
+    in an undefined order: park rows, the scratch slot or page), every
+    kind replayed at least twice at one shape."""
+    arch, opts, spec, kinds = GRAPH_MODES[mode]
+    cfg = get_smoke(arch)
+    if cfg.family != "ssm":
+        cfg = cfg.replace(head_dim=128)
+    params = _to(tr.init_params(cfg, seed=0, device="cpu"), card)
+    rng = np.random.default_rng(5)
+    # two turns in one token bucket (64) or grid shape (64, 4)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (9, 30, 17)]
+    again = [rng.integers(1, cfg.vocab_size, n) for n in (20, 25, 12)]
+    script = list(rng.integers(1, cfg.vocab_size, 40))
+    outs, engines = [], []
+    for eager in (False, True):
+        e = Engine(cfg, params, EngineConfig(
+            num_slots=4, max_len=256, chunk_tokens=32, measure=False,
+            token_buckets=(16, 32, 64), **opts), device=card)
+        if eager:
+            _eager_steps(e)
+        if spec:
+            e.enable_spec(ScriptedDraft({s: script for s in range(3)},
+                                        accept=0.5, vocab=cfg.vocab_size),
+                          k=3)
+        bucket = (64, 4) if opts.get("packed") is False else None
+        r = e.prefill_batch([0, 1, 2], prompts, bucket=bucket)
+        r2 = e.prefill_batch([0, 1, 2], again, bucket=bucket)
+        toks = [r2[s] for s in range(3)]
+        if spec:
+            d = [e.spec_step([(s, toks[s]) for s in range(3)])
+                 for _ in range(3)]
+        else:
+            d = e.decode_batch([0, 1, 2], toks, 3)
+        torch.cuda.synchronize()
+        outs.append((r, r2, d))
+        engines.append(e)
+    assert outs[0] == outs[1]
+    graph_e, eager_e = engines
+    for s in range(3):
+        assert np.array_equal(graph_e.last_logits[s],
+                              eager_e.last_logits[s]), s
+    _assert_live_equal(graph_e, eager_e.arena.arena)
+    replays = {}
+    for ex in graph_e.executors:
+        for key, g in ex.graphs.items():
+            assert g.graph is not None
+            replays[key[0]] = max(replays.get(key[0], 0), g.replays)
+    assert all(replays.get(k, 0) >= 2 for k in kinds), replays
+
+
+@pytest.mark.parametrize("mode", ["paged", "arena", "gathered", "grid",
+                                  "ssm_paged", "ssm_arena"])
+def test_parked_capture_leaves_live_state_unchanged(card, mode):
+    """A step graph captured at a live miss — warm-up and capture on
+    parked inputs — changes no live KV row and no live SSM state: every
+    arena row but the park rows and the scratch slot or page is
+    bit-unchanged."""
+    from repro_torch.serving import graphs
+    arch, opts, _, _ = GRAPH_MODES[mode]
+    cfg = get_smoke(arch)
+    if cfg.family != "ssm":
+        cfg = cfg.replace(head_dim=128)
+    params = _to(tr.init_params(cfg, seed=0, device="cpu"), card)
+    e = Engine(cfg, params, EngineConfig(
+        num_slots=4, max_len=128, chunk_tokens=32, measure=False,
+        token_buckets=(16, 32, 64), decode_buckets=(1, 2, 4), **opts),
+        device=card)
+    rng = np.random.default_rng(6)
+    bucket = (16, 2) if opts.get("packed") is False else None
+    r = e.prefill_batch([0, 1], [rng.integers(1, cfg.vocab_size, n)
+                                 for n in (7, 11)], bucket=bucket)
+    e.decode_batch([0, 1], [r[0], r[1]], 2)
+    torch.cuda.synchronize()
+    before = [{k: v.clone() for k, v in leaves.items()}
+              for leaves in e.arena.arena]
+    shapes = sum(len(ex.graphs) for ex in e.executors)
+    run = graphs.StepGraph.run
+    graphs.StepGraph.run = lambda self, args, fill=None: self.outputs
+    try:
+        kinds = _capture_new_shapes(e)
+    finally:
+        graphs.StepGraph.run = run
+    torch.cuda.synchronize()
+    assert sum(len(ex.graphs) for ex in e.executors) == shapes + kinds
+    _assert_live_equal(e, before)
+
+
+def _capture_new_shapes(e) -> int:
+    """Dispatch each step kind of ``e`` once at a shape it has not met
+    (the largest token bucket and decode rung, a new grid shape), with
+    zero inputs.  Returns the dispatches made."""
+    z = lambda *shape: np.zeros(shape, np.int32)   # noqa: E731
+    p, ar = e.params, e.arena
+    px, dx = e.packed_executor, e.decode_executor
+    n = 0
+    if px is not None:
+        t, b = px.token_buckets[-1], px.stream_rows
+        if e._paged:
+            pm = ar.max_pages_per_seq
+            px.mixed_step_paged(p, z(t), z(t), z(t), z(t), z(b, pm),
+                                z(b + 1), z(b), z(b), ar.arena, z(b), z(b))
+            if e.capability.pure_attn:
+                px.verify_step_paged(p, z(t), z(t), z(t), z(t), z(b, pm),
+                                     z(b + 1), z(b), z(b), ar.arena,
+                                     z(b, 4))
+                n += 1
+        elif e.ecfg.arena_prefill:
+            px.mixed_step_arena(p, z(t), z(t), z(t), z(b), z(b + 1), z(b),
+                                z(b), ar.arena, z(b))
+            if e.capability.pure_attn:
+                px.verify_step_arena(p, z(t), z(t), z(t), z(b), z(b + 1),
+                                     z(b), z(b), ar.arena, z(b, 4))
+                n += 1
+        else:
+            px.mixed_step(p, z(t), z(t), z(t), z(b + 1), z(b), z(b),
+                          ar.batch(b), z(b))
+        n += 1
+    if dx is not None:
+        m = dx.decode_buckets[-1]
+        if e._paged:
+            dx.decode_paged(p, z(m), z(m), z(m), z(m),
+                            z(m, ar.max_pages_per_seq), z(m), ar.arena,
+                            z(m))
+        else:
+            dx.decode(p, z(m), z(m), z(m), z(m), ar.arena)
+        n += 1
+    if not e._paged:
+        caches = ar.batch(3)
+        e.executor.prefill(p, z(3, 24), z(3, 24), caches, z(3))
+        e.executor.decode(p, z(3, 1), z(3, 1), caches)
+        n += 2
+    return n
+
+
+def _assert_live_equal(e, other):
+    """``e``'s arena equals the arena tree ``other`` bit for bit on every
+    live row: all but the park rows and the scratch slot or page, where
+    pad rows write junk (their duplicate writes land in an undefined
+    order)."""
+    ar = e.arena
+    for leaves, old in zip(ar.arena, other):
+        for name, a in leaves.items():
+            keep = torch.ones(a.shape[1], dtype=torch.bool, device=a.device)
+            if ar.scratch is not None:
+                keep[ar.scratch] = False
+            a, o = a[:, keep], old[name][:, keep]
+            if name in ("k", "v") and not e._paged:
+                a, o = a[:, :, :-1], o[:, :, :-1]     # the park rows
+            assert torch.equal(a, o), name

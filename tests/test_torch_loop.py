@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one torch thread per test process: the suite runs in parallel
+# workers, and torch's default of a thread per core in each of them
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 import repro_torch.core as tcore  # noqa: E402
@@ -147,7 +151,7 @@ def test_port_imports_no_jax():
 
 def test_serve_launcher_runs_on_cpu(capsys):
     """The plain run serves the reference launcher's default, the
-    slot/dense baseline with its grid and decode rungs run at init;
+    slot/dense baseline with its grid and decode rungs captured at init;
     ``--packed`` the paged stack."""
     from repro_torch.launch import serve
     args = ["--device", "cpu", "--sessions", "2", "--turns", "2",
@@ -155,8 +159,8 @@ def test_serve_launcher_runs_on_cpu(capsys):
     serve.main(args)
     out = capsys.readouterr().out
     assert "requests=4" in out and "device=cpu" in out
-    assert "[serve] captured 15 shapes" in out
-    assert "[serve] captured 4 decode rungs" in out
+    assert "[serve] captured 15 grid step graphs" in out
+    assert "[serve] captured 4 decode step graphs" in out
     serve.main(args + ["--packed"])
     out = capsys.readouterr().out
     assert "requests=4" in out and "[serve] captured" not in out

@@ -18,6 +18,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one torch thread per test process: the suite runs in parallel
+# workers, and torch's default of a thread per core in each of them
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402

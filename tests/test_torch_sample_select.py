@@ -42,12 +42,17 @@ trouble spots of ``chip_smoke.py::_sample_batch``, kept sets of exactly
 ``CAPACITY`` and ``CAPACITY + 1`` columns (the path switch), random rows,
 at V = 128, 1,003, 50,280, 151,936 and 152,064 in fp32 and bf16; every
 path (greedy, compact by a warp and by a block, whole row) is taken.
-Serial time of the file: ~15 s.
+Time of the file in the whole suite's parallel run (6 xdist workers,
+``--dist loadfile``, one torch thread a worker): ~42–44 s.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one torch thread per test process: the suite runs in parallel
+# workers, and torch's default of a thread per core in each of them
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 from repro.kernels.sampling import fused_sample as pallas_sample  # noqa: E402

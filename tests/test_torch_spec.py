@@ -33,6 +33,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one torch thread per test process: the suite runs in parallel
+# workers, and torch's default of a thread per core in each of them
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 import repro.kernels.ops as jops  # noqa: E402
@@ -467,12 +471,13 @@ def _bench_spec(eng, draft, prompt, kvb, sampling=None):
 
 def _record(monkeypatch, module, calls):
     """Wrap ``module.fused_sample`` to keep each call's inputs and
-    outputs as numpy arrays."""
+    outputs as numpy arrays.  The logits are copied: they are a step
+    graph's output, which the next replay overwrites."""
     inner = module.fused_sample
 
     def wrapped(logits, *rest):
         out = inner(logits, *rest)
-        calls.append(([np.asarray(logits, np.float32)] +
+        calls.append(([np.array(logits, np.float32)] +
                       [np.asarray(x) for x in rest],
                       [np.asarray(x) for x in out]))
         return out

@@ -33,12 +33,18 @@ and the Pallas ``ssd_scan`` (interpret mode), except that against
 magnitude): it takes cum_t - cum_s, which after a 40x decay keeps fewer
 digits than the direct sums of ``ref_ssd_scan`` and the kernel; bf16
 within ``ssd_error_bound`` of the plain version run in fp32, as the
-kernel is held on the card.  Serial time of the file: ~25 s.
+kernel is held on the card.  Time of the file in the whole suite's
+parallel run (6 xdist workers, ``--dist loadfile``, one torch thread a
+worker): ~25–30 s.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one torch thread per test process: the suite runs in parallel
+# workers, and torch's default of a thread per core in each of them
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
