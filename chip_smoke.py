@@ -54,7 +54,16 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      kernels' split key walk at the same four groups: rows of C - 1, C,
      C + 1 and 2C keys at the chunk C the launcher plans, the capacity,
      a long row beside short ones, a row of length 0, a decode-ladder
-     pad row, every page, arena, park and cache row past a length NaN;
+     pad row, every page, arena, park and cache row past a length NaN.
+     The four windowed forms (the paged kernels over ring page tables,
+     the arena kernels over rolling slots) at mixtral-8x7b's layout (32
+     / 8 heads, D 128, fp32 and bf16, window 4096, page size 16, a ring
+     of 272 pages, slots of 4352 rows): kv 3000, 4352, 6000 and 12000
+     in one stream with a fresh prompt, pads and tail rows, decode rows
+     before, at and past the window and the depth; and a window of 100
+     (C_l 16) for the wrap edges (kv inside the window, rows straddling
+     the wrap, kv at exactly one and two depths, a segment longer than
+     the margin); every row no segment holds NaN;
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -73,7 +82,14 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      SSM family in its three modes (ssm_paged, ssm_slot_arena, ssm_dense)
      at mamba2-2.7b widths, 2 layers, fp32, against the dense forward
      (one ``ssd_scan`` from a zero state), with a prefix adopted
-     through a state checkpoint on the page pool;
+     through a state checkpoint on the page pool.  The windowed MoE
+     family in its three modes (swa_paged: ring tables; swa_slot_arena:
+     rolling slots; swa_dense: full-depth slots, the window masked) at
+     mixtral-8x7b widths, 2 layers, fp32, the window lowered to 128 so
+     sessions of a few hundred tokens wrap the ring and the rolling
+     slot several times, against the dense forward with the window
+     masked.  ``moe_layer`` against ``moe_dense_reference`` at mixtral
+     widths, 8192 rows, fp32, capacity factor 8, within 1e-4;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
      --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
      served in each mode after one warm-up run, each run on a fresh
@@ -91,7 +107,13 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      tick, state checkpoints and prefix hits, whole-slot copies.  Then
      hubert-xlarge (48 layers, bf16) over 8 clips of 1500 random frame
      embeddings: ms per batch, frames/s, ``flash_attn`` once per layer
-     per forward and no other kernel;
+     per forward and no other kernel.  Then mixtral-8x7b at full width
+     cut to 16 of its 32 layers (43.7 GiB of bf16 weights) in the three
+     windowed modes, max_len 8192, C_l 256: one 6144-token prompt (past
+     the 4096-token window and the 4352-row ring or slot) and seven of
+     80-256 tokens, 16 decode tokens each; turn 2 adds 1024 tokens to
+     the long session and 16-64 to the others; every attention launch
+     of the paged and arena modes a windowed form;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound, the kernel's achieved TFLOP/s; the
@@ -117,10 +139,17 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      prompts; one 256-token re-prefill at history 1792), one qwen3-4b
      paged decode tick at phase 4's lengths (the decode kernels' share)
      and a mamba2 packed prefill, grid prefill and decode tick (device
-     time by kernel, busy share);
+     time by kernel, busy share), and one mixtral-8x7b decode tick (16
+     layers, ring tables) beside its weight-read bound.  The four
+     windowed forms at mixtral's layout: the prefill kernels over phase
+     2's 4096 stream, the decode
+     kernels over an 8-row tick (WINDOW_DECODE_TICK), the bound over the
+     in-window keys only, the yardstick one SDPA call over the same
+     in-window keys gathered contiguously;
   6. the serve launcher, its default and ``--packed``, for qwen3-4b and
      mamba2-2.7b, at the smoke config and at published widths cut to 4
-     layers;
+     layers, and for mixtral-8x7b at its smoke config and at published
+     widths cut to 16 layers;
   7. one JSON line describing every kernel, then the card line and the
      result line.
 
@@ -763,6 +792,144 @@ def phase_dense_kernels(seed, errs):
         f"{max(errs[('flash_attn', torch.bfloat16)]):.3e})")
 
 
+# ------------------------------------------------------------ phase 2:
+# the windowed forms (ring page tables, rolling slots)
+
+# window: (margin C_l, prefill lens, their histories, decode lengths).
+# mixtral-8x7b's window and chunk: a ring of ceil((4096 + 256) / 16) =
+# 272 pages and rolling slots of 4352 rows; a stream with a 256-row
+# chunk before the window (kv 3000), a verify-sized segment ending at
+# the depth (4352), a decode row (6000), a chunk far past it (12000)
+# and a fresh 30-row prompt; decode rows before, at and past the window
+# and the depth.  A small odd window (100, C_l 16: an 8-page ring of 128
+# positions, slots of 116 rows) for the wrap edges: kv inside the window
+# with a partly valid last page, rows straddling the ring's wrap at 128,
+# two rolling depths (232), two ring depths (256), a segment longer than
+# the margin, and decode rows of 0, 1, 50, 100, 101, 116, 128, 232, 256
+# and 1000 keys.
+WINDOW_CASES = {
+    4096: (256, [256, 5, 1, 256, 30], [2744, 4347, 5999, 11744, 0],
+           [3000, 4352, 6000, 12000, 0, 1, 4096, 4097]),
+    100: (16, [16, 5, 1, 16, 10, 30], [84, 123, 231, 240, 3, 150],
+          [0, 1, 50, 100, 101, 116, 128, 232, 256, 1000]),
+}
+WINDOW_PADS, WINDOW_TAIL = 2, 9
+
+
+def _window_storage(gen, rng, layout, depth, kv_lens, dtype):
+    """K/V holding each row's newest positions in ``layout``: a ring of
+    ceil(depth / PS) pages a row (a page table (B, n_ring); entries past
+    a ring's allocated pages and pad rows name a spare page) or rolling
+    slots of ``depth`` rows (a slot map; pads name a spare slot).  Every
+    row no segment holds is NaN in the kernel's copy and 1000 in the
+    plain version's.  Returns (kernel K, V, plain K, V, index)."""
+    b = len(kv_lens)
+    if layout == "ring":
+        n_ring = -(-depth // PS)
+        n_pages = b * n_ring + 1
+        table = np.full((b, n_ring), n_pages - 1, np.int64)
+        free = list(rng.permutation(n_pages - 1))
+        for i, n in enumerate(kv_lens):
+            need = min(-(-n // PS), n_ring)
+            table[i, :need] = [free.pop() for _ in range(need)]
+        rows = (table[:, :, None] * PS + np.arange(PS)).reshape(b, -1)
+        shape, index = (n_pages, PS, HKV, D), table
+    else:
+        slots = rng.permutation(b + 1)[:b]
+        rows = slots[:, None] * depth + np.arange(depth)
+        shape, index = (b + 1, depth, HKV, D), slots
+    held = np.zeros(shape[0] * shape[1], bool)
+    for i, n in enumerate(kv_lens):
+        held[rows[i, :min(n, rows.shape[1])]] = True
+    unheld = torch.as_tensor(~held, device=DEVICE).reshape(shape[:2])
+    k = torch.randn(shape, generator=gen, device=DEVICE)
+    v = torch.randn(shape, generator=gen, device=DEVICE)
+    kp, vp = k.clone(), v.clone()
+    kp[unheld], vp[unheld] = float("nan"), float("nan")
+    k[unheld], v[unheld] = 1000.0, 1000.0
+    return (kp.to(dtype), vp.to(dtype), k.to(dtype), v.to(dtype),
+            _i32(index))
+
+
+def _window_stream(window, dtype, gen, rng, layout):
+    """Phase 2's windowed prefill stream for ``window``: (kernel args,
+    plain args) of the paged or arena kernel, pad segments (kv 0) and
+    tail rows included."""
+    margin, lens, hists, _ = WINDOW_CASES[window]
+    kvl = [h + n for h, n in zip(hists, lens)] + [0] * WINDOW_PADS
+    cu = [0] + list(np.cumsum(lens)) + [sum(lens)] * WINDOW_PADS
+    offs = hists + [0] * WINDOW_PADS
+    kp, vp, k, v, index = _window_storage(gen, rng, layout, window + margin,
+                                          kvl, dtype)
+    q = torch.randn((sum(lens) + WINDOW_TAIL, HQ, D), generator=gen,
+                    device=DEVICE).to(dtype)
+    seg = (_i32(cu), _i32(offs), _i32(kvl))
+    return (q, kp, vp, index) + seg, (q, k, v, index) + seg
+
+
+def _window_kernels(layout, window):
+    """(prefill launcher, its plain version, decode launcher, its plain
+    version) of ``layout``, each bound to ``window``."""
+    import functools
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels import ragged_prefill as rp
+    pre, dcd = (("ragged_prefill_paged", "decode_attn_paged")
+                if layout == "ring" else
+                ("ragged_prefill_arena", "decode_attn_arena"))
+    return tuple(functools.partial(f, window=window) for f in (
+        getattr(rp, pre), getattr(rp, pre + "_plain"), getattr(dec, dcd),
+        getattr(dec, dcd + "_plain"))), (pre, dcd)
+
+
+def phase_window_kernels(seed, errs):
+    """The four windowed forms against their plain versions at
+    mixtral-8x7b's heads (32 / 8, D 128), fp32 and bf16: the paged
+    kernels over ring page tables, the arena kernels over rolling slots,
+    at mixtral's window and at a small odd one (WINDOW_CASES); every
+    row no segment holds NaN, so a read outside a segment's held range
+    faults the comparison."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 40)
+    rng = np.random.default_rng(seed + 40)
+    for window, (margin, lens, hists, dlens) in WINDOW_CASES.items():
+        for layout in ("ring", "rolling"):
+            (pf, pplain, df, dplain), (pre, dcd) = _window_kernels(
+                layout, window)
+            for dtype in (torch.float32, torch.bfloat16):
+                args, pargs = _window_stream(window, dtype, gen, rng, layout)
+                out = pf(*args)
+                torch.cuda.synchronize()
+                err, worst, ok, _ = _held(out, pplain, *pargs)
+                tail = bool((out[sum(lens):] == 0).all().item())
+                ok = ok and tail and bool(torch.isfinite(out).all())
+                errs.setdefault((pre + "@window", dtype), []).append(err)
+                log(f"[2] {pre} window {window} ({layout}, depth "
+                    f"{window + margin}) {str(dtype):15s} kv "
+                    f"{[h + n for h, n in zip(hists, lens)]}: max_abs_err="
+                    f"{err:.3e} err/bound={worst:.3f} tail_zero={tail} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, f"{pre} window {window} {dtype}"
+                kp, vp, k, v, index = _window_storage(
+                    gen, rng, layout, window + margin, dlens, dtype)
+                q = torch.randn((len(dlens), HQ, D), generator=gen,
+                                device=DEVICE).to(dtype)
+                out = df(q, kp, vp, index, _i32(dlens))
+                torch.cuda.synchronize()
+                err, worst, ok, _ = _held(out, dplain, q, k, v, index,
+                                          _i32(dlens))
+                zero = bool((out[[i for i, n in enumerate(dlens)
+                                  if n == 0]] == 0).all().item())
+                ok = ok and zero and bool(torch.isfinite(out).all())
+                errs.setdefault((dcd + "@window", dtype), []).append(err)
+                log(f"[2] {dcd} window {window} ({layout}) "
+                    f"{str(dtype):15s} lengths {dlens}: max_abs_err="
+                    f"{err:.3e} err/bound={worst:.3f} zero_rows_zero={zero} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, f"{dcd} window {window} {dtype}"
+    log("[2] ok: the four windowed forms == plain at windows "
+        f"{sorted(WINDOW_CASES)}")
+
+
 SAMPLE_MARGIN = 1e-5   # a draw may move only where u is this close to a
 #                        non-zero cumulative mass of the plain version
 
@@ -1064,6 +1231,18 @@ SSM_MODES = {
     "ssm_slot_arena": dict(paged_kv=False),
     "ssm_dense": dict(packed=False, paged_kv=False),
 }
+# the windowed MoE family (mixtral-8x7b) through the reference engine's
+# three windowed layouts: ring page tables (the default), rolling slots
+# of depth window + C_l, and the dense baseline's full-depth slots with
+# the window masked (no decode executor: decode takes the dense step)
+WINDOW_MODES = {
+    "swa_paged": dict(),
+    "swa_slot_arena": dict(paged_kv=False),
+    "swa_dense": dict(packed=False, paged_kv=False),
+}
+# phase 3's window: mixtral's 4096 lowered so that a trace of a few
+# hundred tokens a session wraps its ring and rolling slot several times
+ORACLE_WINDOW = 128
 MODE_KERNELS = {
     "slot_dense": ("flash_attn", "decode_attn_arena"),
     "slot_dense_decode": ("flash_attn", "decode_attn"),
@@ -1072,6 +1251,11 @@ MODE_KERNELS = {
     "paged": ("ragged_prefill_paged", "decode_attn_paged"),
     "spec": ("ragged_prefill_paged", "fused_sample"),
     **{mode: ("ssd_scan",) for mode in SSM_MODES},
+    # every attention launch of a windowed stack is a windowed form
+    "swa_paged": ("ragged_prefill_paged@window", "decode_attn_paged@window"),
+    "swa_slot_arena": ("ragged_prefill_arena@window",
+                       "decode_attn_arena@window"),
+    "swa_dense": ("flash_attn",),
 }
 # phase 4 serves one more mode: the paged engine with speculation armed
 # (NGramDraft(n=3), k = SPEC_K) and fused sampling, half its sessions
@@ -1081,7 +1265,7 @@ MODE_KERNELS = {
 # decode_attn_paged only on a tick split for overflowing the ladder.
 SERVE_MODES = {**MODES, "spec": dict(fused_sampling=True,
                                      keep_last_logits=False),
-               **SSM_MODES}
+               **SSM_MODES, **WINDOW_MODES}
 # phase 4's mamba2 page pool: every page of a pure-SSM pool carries one
 # state slot of all 64 layers (~170 MB), token pages included, so the
 # reference's default of num_slots * max_len / page_size = 2048 pages
@@ -1089,6 +1273,10 @@ SERVE_MODES = {**MODES, "spec": dict(fused_sampling=True,
 # the trace beside the 5.7 GB of weights
 SSM_POOL = dict(page_size=64, num_pages=192)
 SPEC_K = 4
+# phase 4's mixtral-8x7b: 16 of its 32 layers (43.7 GiB of bf16 weights;
+# the 32 layers' 87.0 GiB exceed one 80 GB card) and a long prompt past
+# its 4096-token window and 4352-row ring / rolling slot
+WINDOW_LAYERS, WINDOW_PROMPT = 16, 6144
 
 
 def _launchers():
@@ -1142,11 +1330,20 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+# phase 3's windowed stack and its oracle's logits by cached ids, kept
+# across the three windowed modes (whose transcripts agree)
+_ORACLE = {}
+
+
 def phase_oracle(seed, mode):
     """The engine in ``mode`` against the plain dense forward over each
     session's cached ids, at full width cut to 2 layers, fp32: qwen3-4b
     in the attention modes, mamba2-2.7b in the SSM modes (whose oracle
-    scans each whole sequence once from a zero state).  The oracle runs
+    scans each whole sequence once from a zero state), mixtral-8x7b in
+    the windowed modes, its window lowered to ORACLE_WINDOW and the
+    chunked fifth session 600 tokens past the system prompt, so each
+    session's ring or rolling slot wraps (the oracle masks the window
+    over the whole sequence).  The oracle runs
     on a CPU copy of the parameters, so it takes the plain versions and
     passes through none of the kernels the engine launches.  The SSM system prompt is 64 tokens, one C_l chunk
     and four pages: a chunked prompt's first commit lands on its end and
@@ -1157,20 +1354,31 @@ def phase_oracle(seed, mode):
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.loop import ServeLoop
     ssm = mode in SSM_MODES
-    cfg = get_config("mamba2-2.7b" if ssm else "qwen3-4b").replace(
-        num_layers=2, dtype="float32")
-    params = tr.init_params(cfg, seed=seed, device=DEVICE)
-    cpu_params = _to_cpu(params)
+    swa = mode in WINDOW_MODES
+    arch = "mamba2-2.7b" if ssm else "mixtral-8x7b" if swa else "qwen3-4b"
+    cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+    if swa:
+        cfg = cfg.replace(sliding_window=ORACLE_WINDOW)
+    if swa and _ORACLE.get("seed") == seed:
+        params, cpu_params = _ORACLE["params"]
+    else:
+        params = tr.init_params(cfg, seed=seed, device=DEVICE)
+        cpu_params = _to_cpu(params)
+        if swa:
+            _ORACLE.clear()
+            _ORACLE.update(seed=seed, params=(params, cpu_params), logits={})
     engine = Engine(cfg, params, EngineConfig(
         num_slots=8, max_len=1024, chunk_tokens=64, measure=False,
-        **(SSM_MODES if ssm else MODES)[mode]), device=DEVICE)
+        **{**MODES, **SSM_MODES, **WINDOW_MODES}[mode]), device=DEVICE)
     loop = ServeLoop(engine, _policy(engine, 64, 96), slo_ttft=None)
     rng = np.random.default_rng(seed + 1)
     system = rng.integers(1, cfg.vocab_size, 64 if ssm else 40)
+    # a windowed session's prompt runs past the window
+    first_turn = (150, 400) if swa else (20, 160)
     for s in range(4):                       # turn 1: fresh sessions
         loop.submit(s, np.concatenate(
             [system, rng.integers(1, cfg.vocab_size,
-                                  int(rng.integers(20, 160)))]),
+                                  int(rng.integers(*first_turn)))]),
                     decode_tokens=2)
     loop.run_until_idle(max_wall=600.0)
     for s in range(4):                       # turn 2: the same sessions
@@ -1181,7 +1389,7 @@ def phase_oracle(seed, mode):
     # a fifth session prefilled through the chunked long path directly
     # (on the page pool it adopts the shared system prompt's pages)
     long_prompt = np.concatenate(
-        [system, rng.integers(1, cfg.vocab_size, 200)])
+        [system, rng.integers(1, cfg.vocab_size, 600 if swa else 200)])
     engine.open_session(4)
     engine.adopt_prefix(4, long_prompt)
     first = engine.prefill_long(4, long_prompt[engine.history(4):])
@@ -1201,10 +1409,16 @@ def phase_oracle(seed, mode):
         assert engine.history(s) == len(ids), (s, engine.history(s))
         if engine._paged:
             assert engine.arena._tokens[s] == ids, f"session {s} ids"
-        with torch.no_grad():
-            ref = tr.forward(cpu_params, cfg, torch.tensor([ids]),
-                             logits_slice="last")
-        ref_last = ref[0].numpy()
+        key = tuple(ids)
+        if swa and key in _ORACLE["logits"]:
+            ref_last = _ORACLE["logits"][key]
+        else:
+            with torch.no_grad():
+                ref = tr.forward(cpu_params, cfg, torch.tensor([ids]),
+                                 logits_slice="last")
+            ref_last = ref[0].numpy()
+            if swa:
+                _ORACLE["logits"][key] = ref_last
         got = engine.last_logits[s]
         err = float(np.abs(got - ref_last).max())
         same = int(np.argmax(got)) == int(np.argmax(ref_last))
@@ -1218,6 +1432,15 @@ def phase_oracle(seed, mode):
     if mode == "ssm_paged":
         assert st["state_checkpoints"] > 0 and st["prefix_hit_tokens"] > 0, \
             "ssm_paged: no prefix adopted through a state checkpoint"
+    if swa:
+        # every session past the window, the longest past three depths
+        # of its ring or rolling slot
+        depth = ORACLE_WINDOW + 64
+        assert min(engine.history(s) for s in range(5)) > ORACLE_WINDOW
+        assert engine.history(4) > 3 * depth, engine.history(4)
+        log(f"[3] {mode}: mixtral-8x7b full width, 2 layers, fp32, window "
+            f"lowered to {ORACLE_WINDOW} (C_l 64: ring / rolling depth "
+            f"{depth}); histories {[engine.history(s) for s in range(5)]}")
     gs = _graphs_replayed(engine, mode)
     log(f"[3] ok: {mode} engine == dense oracle (max_abs_err {worst:.3e}) "
         f"through {gs['graphs']} captured step graphs, {gs['replays']} "
@@ -1266,6 +1489,54 @@ def phase_encoder_oracle(seed):
         assert err <= 1e-3, f"hubert encoder ({name}) vs the CPU forward"
         assert launched == cfg.num_layers, f"hubert ({name}): {launched}"
     log("[3] ok: hubert-xlarge encoder on the card == CPU forward")
+
+
+MOE_TOKENS = 8192
+
+
+def phase_moe_check(seed):
+    """``moe_layer`` (capacity dispatch) against ``moe_dense_reference``
+    (every expert on every token) on the card at mixtral-8x7b's widths
+    (d_model 4096, 8 experts of d_ff 14336, top 2), T = MOE_TOKENS rows
+    in fp32 at capacity factor 8 (no pair dropped): the reference's own
+    check (tests/test_moe_mamba.py), outputs within 1e-4 and aux losses
+    within 1e-5 relative; at the reference's factor 1.25 it logs the
+    rows that dropped pairs move."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x7b")
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 50)
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device=DEVICE).mul_(scale)
+
+    p = {"router": randn(d, e, scale=d ** -0.5),
+         "wg": randn(e, d, f, scale=d ** -0.5),
+         "wi": randn(e, d, f, scale=d ** -0.5),
+         "wo": randn(e, f, d, scale=f ** -0.5)}
+    x = randn(1, MOE_TOKENS, d, scale=1.0)
+    k = cfg.num_experts_per_tok
+    with torch.no_grad():
+        want, aux_w = moe.moe_dense_reference(p, x, top_k=k)
+        got, aux_g = moe.moe_layer(p, x, top_k=k, capacity_factor=8.0)
+        dropped, _ = moe.moe_layer(p, x, top_k=k)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4))
+    rel = abs(float(aux_w) - float(aux_g)) / abs(float(aux_w))
+    moved = int(((dropped - want).abs().amax(dim=-1) > 1e-3).sum())
+    log(f"[3] moe_layer vs moe_dense_reference, mixtral widths, T = "
+        f"{MOE_TOKENS}, fp32, capacity factor 8: max_abs_err={err:.3e} "
+        f"(tol 1e-4 + 1e-4 rel) aux {float(aux_g):.6f} vs "
+        f"{float(aux_w):.6f} (rel {rel:.1e}); at factor 1.25 {moved} rows "
+        f"moved by dropped pairs {'ok' if ok and rel <= 1e-5 else 'FAIL'}")
+    assert ok and rel <= 1e-5, "moe_layer vs moe_dense_reference"
+    assert bool(torch.isfinite(dropped).all())
+    del p, x, want, got, dropped
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _spec_run(engine, prompt, n, sampling=None):
@@ -1441,14 +1712,21 @@ def _serve_once(cfg, params, seed, mode):
     top_p 0.95; session 1 with one bias) through the fused kernel; its
     decode ticks are the loop's speculative steps.  The SSM modes serve
     mamba2 (``ssm_paged`` on ``SSM_POOL``'s page pool) and count the
-    ``ssd_scan`` launches of prefill and decode-only ticks apart."""
+    ``ssd_scan`` launches of prefill and decode-only ticks apart.  The
+    windowed modes serve mixtral at max_len 8192: the long prompt is
+    WINDOW_PROMPT tokens (past the 4096-token window and the 4352-row
+    ring or rolling slot), turn 2 adds 1024 tokens to it and 16-64 to
+    the others in the same sessions (a ring keeps no radix index), and
+    there is no turn 3."""
     from repro_torch.serving.draft import NGramDraft
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.loop import ServeLoop
     from repro_torch.serving.sampling import SamplingParams
     ssm = mode in SSM_MODES
+    swa = mode in WINDOW_MODES
     engine = Engine(cfg, params, EngineConfig(
-        num_slots=8, max_len=4096, chunk_tokens=256, measure=False,
+        num_slots=8, max_len=8192 if swa else 4096, chunk_tokens=256,
+        measure=False,
         **SERVE_MODES[mode], **(SSM_POOL if mode == "ssm_paged" else {})),
         device=DEVICE)
     spec = mode == "spec"
@@ -1478,7 +1756,8 @@ def _serve_once(cfg, params, seed, mode):
     loop = ServeLoop(engine, policy, slo_ttft=None)
     rng = np.random.default_rng(seed + 2)
     system = rng.integers(1, cfg.vocab_size, 64)
-    prompts = {0: rng.integers(1, cfg.vocab_size, 2048)}
+    prompts = {0: rng.integers(1, cfg.vocab_size,
+                               WINDOW_PROMPT if swa else 2048)}
     for s in range(1, 8):
         prompts[s] = np.concatenate(
             [system, rng.integers(1, cfg.vocab_size,
@@ -1558,7 +1837,9 @@ def _serve_once(cfg, params, seed, mode):
     drive()
     for s in range(8):                       # turn 2
         new = rng.integers(1, cfg.vocab_size, int(rng.integers(16, 65)))
-        if engine._paged:
+        if swa and s == 0:                   # on past the window
+            new = rng.integers(1, cfg.vocab_size, 1024)
+        if engine._paged and engine.arena.index is not None:
             gen = loop.generated[s][:-1]     # tokens whose KV is cached
             loop.close_session(s)
             loop.submit(100 + s, np.concatenate([prompts[s], gen, new]),
@@ -1567,7 +1848,7 @@ def _serve_once(cfg, params, seed, mode):
             loop.submit(s, new, decode_tokens=16)
     drive()
     n_requests = 16
-    if not engine._paged:
+    if not engine._paged and not swa:
         for s in range(8):                   # turn 3: grid-sized turns
             loop.submit(s, rng.integers(1, cfg.vocab_size,
                                         int(rng.integers(24, 33))),
@@ -1586,7 +1867,7 @@ def _serve_once(cfg, params, seed, mode):
     # (the dense executor also counts the rows of dense decode steps,
     # which only slot_dense_decode runs)
     assert ("decode" in st["dense_dispatches_by_cause"]) == (
-        mode == "slot_dense_decode")
+        mode in ("slot_dense_decode", "swa_dense"))
     prefill_tokens = (st.get("packed_useful_tokens", 0) + st["useful_tokens"]
                       - dense_decode_rows[0])
     decode_rows = st.get("decode_useful_rows", 0) + dense_decode_rows[0]
@@ -1607,8 +1888,17 @@ def _serve_once(cfg, params, seed, mode):
     assert all(launches[k] > 0 for k in MODE_KERNELS[mode]), \
         f"{mode}: a kernel of its path never launched: {launches}"
     assert finite, f"{mode}: non-finite logits"
-    if engine._paged:
+    if engine._paged and engine.arena.index is not None:
         assert st["prefix_hit_tokens"] > 0, "no radix prefix hit"
+    if swa:
+        # the long session past the window and the depth; every launch
+        # of a windowed attention kernel its windowed form
+        assert engine.history(0) > cfg.sliding_window + 256
+        for name in MODE_KERNELS[mode]:
+            if name.endswith("@window"):
+                base = name.split("@")[0]
+                assert launches[name] == launches[base] > 0, \
+                    f"{mode}: {name} {launches[name]} of {launches[base]}"
     if ssm:
         # one scan per layer in every prefill dispatch, none in decode
         assert ssd_split["decode"] == 0, f"{mode}: ssd_scan in a decode tick"
@@ -1673,17 +1963,22 @@ def _serve_once(cfg, params, seed, mode):
     }
 
 
-def phase_full(seed, card, arch, kept):
+def phase_full(seed, card, arch, kept, layers=None):
     """Phase 4: ``arch`` at full width through each mode of ``kept``
-    ({mode: kept runs}).  Returns {kernel: (launches, ticks of its mode,
-    mode)} from each kernel's first mode's first kept run."""
+    ({mode: kept runs}), its depth cut to ``layers`` where given.
+    Returns {kernel: (launches, ticks of its mode, mode)} from each
+    kernel's first mode's first kept run."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
     cfg = get_config(arch)
+    cut = ""
+    if layers is not None:
+        cut = f" (depth cut from {cfg.num_layers})"
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
     torch.cuda.synchronize()
-    log(f"[4] {arch} {cfg.num_layers} layers d_model {cfg.d_model} "
+    log(f"[4] {arch} {cfg.num_layers} layers{cut} d_model {cfg.d_model} "
         f"{cfg.dtype}: weights ready in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     if "ssm_paged" in kept:
@@ -1913,6 +2208,115 @@ def _time_decode(name, fn, plain, args, kg, vg, lengths, errs, index_bytes):
     return row
 
 
+# phase 5's windowed decode tick at mixtral's layout: rows past the
+# window and the depth beside rows inside it
+WINDOW_DECODE_TICK = [7168, 4352, 6000, 12000, 3000, 4097, 200, 96]
+
+
+def _time_window(gen, rng, errs):
+    """The four windowed forms timed at phase 2's main-path shape for
+    mixtral (window 4096, C_l 256, bf16): the paged and arena prefill
+    kernels over the 4096 stream of WINDOW_CASES, the decode kernels
+    over WINDOW_DECODE_TICK.  The bound counts only the keys inside each
+    row's window; the yardstick is one SDPA call over the same in-window
+    keys gathered contiguously beforehand (not timed) and head-expanded
+    — a block mask for the stream, a length mask for the decode rows.
+    The port never calls it."""
+    import torch.nn.functional as F
+    dt, el = torch.bfloat16, 2
+    window = max(WINDOW_CASES)                       # mixtral's
+    margin, lens, hists, _ = WINDOW_CASES[window]
+    out = {}
+    for layout in ("ring", "rolling"):
+        (pf, pplain, df, dplain), (pre, dcd) = _window_kernels(layout,
+                                                               window)
+        args, _ = _window_stream(window, dt, gen, rng, layout)
+        q, kp, vp, index = args[:4]
+        depth = window + margin
+        if layout == "ring":
+            depth = -(-depth // PS) * PS
+
+        def phys(index, b, pos):
+            """Storage row of row b's positions ``pos`` (numpy)."""
+            idx = index.cpu().numpy()
+            if layout == "ring":
+                return idx[b, (pos // PS) % idx.shape[1]] * PS + pos % PS
+            return idx[b] * depth + pos % depth
+
+        kflat, vflat = kp.reshape(-1, HKV, D), vp.reshape(-1, HKV, D)
+        got = pf(*args)
+        plain_args = (q, kp.nan_to_num(1000.0), vp.nan_to_num(1000.0),
+                      index) + args[4:]
+        err, worst, ok, _ = _held(got, pplain, *plain_args)
+        errs.setdefault((pre + "@window", dt), []).append(err)
+        assert ok, f"{pre} window {window} at main-path shapes"
+        # each segment's in-window keys, contiguous, and each row's band
+        kcat, vcat, bands, k0 = [], [], [], 0
+        for b, (n, h) in enumerate(zip(lens, hists)):
+            kv = h + n
+            lo = max(0, kv - depth, h - window + 1)
+            rows = torch.as_tensor(phys(index, b, np.arange(lo, kv)),
+                                   device=DEVICE).long()
+            kcat.append(kflat[rows])
+            vcat.append(vflat[rows])
+            qpos = torch.arange(h, kv, device=DEVICE)[:, None]
+            kpos = torch.arange(lo, kv, device=DEVICE)[None, :]
+            bands.append((k0, kv - lo, (kpos <= qpos)
+                          & (kpos > qpos - window)))
+            k0 += kv - lo
+        n_rows = sum(lens)
+        mask = torch.zeros((n_rows, k0), dtype=torch.bool, device=DEVICE)
+        r0 = 0
+        for (c0, n_k, band), n in zip(bands, lens):
+            mask[r0:r0 + n, c0:c0 + n_k] = band
+            r0 += n
+        rep = HQ // HKV
+        qs = q[:n_rows].transpose(0, 1)[None]
+        ks = torch.cat(kcat).repeat_interleave(rep, 1).transpose(0, 1)[None]
+        vs = torch.cat(vcat).repeat_interleave(rep, 1).transpose(0, 1)[None]
+        t = q.shape[0]
+        # the yardstick computes the same function
+        lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        lib_err = float((lib[0].transpose(0, 1).float()
+                         - got[:n_rows].float()).abs().max())
+        assert lib_err <= TOL[dt], f"{pre}@window: SDPA {lib_err}"
+        log(f"[5] {pre}@window {t} stream rows, kv "
+            f"{[h + n for h, n in zip(hists, lens)]} over a {layout} of "
+            f"{depth} positions: max_abs_err={err:.3e} err/bound="
+            f"{worst:.3f}; {k0} in-window keys, SDPA over them within "
+            f"{lib_err:.3e} of the kernel")
+        out[pre + "@window"] = dict(
+            ms=_time(lambda: pf(*args)),
+            plain_ms=_time(lambda: pplain(*plain_args), 3),
+            library_ms=_time(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)),
+            flops=4 * int(mask.sum()) * D * HQ,
+            bytes=(2 * t * HQ * D + 2 * k0 * HKV * D) * el
+            + 4 * (index.numel() + 3 * len(lens) + 1))
+        # decode: each row's newest min(window, depth, length) keys
+        lengths = WINDOW_DECODE_TICK
+        kp, vp, k, v, index = _window_storage(gen, rng, layout, window
+                                              + margin, lengths, dt)
+        qd = torch.randn((len(lengths), HQ, D), generator=gen,
+                         device=DEVICE).to(dt)
+        inwin = [min(n, window, depth) for n in lengths]
+        kflat, vflat = k.reshape(-1, HKV, D), v.reshape(-1, HKV, D)
+        # each row's in-window positions, padded to the longest with
+        # positions the length mask drops
+        rows = torch.as_tensor(np.stack([
+            phys(index, b, np.arange(n - m, n - m + max(inwin)) % n)
+            for b, (n, m) in enumerate(zip(lengths, inwin))]),
+            device=DEVICE).long()
+        kg, vg = kflat[rows], vflat[rows]          # (B, max in-window, ...)
+        pages = sum(-(-m // PS) + 1 for m in inwin)
+        out[dcd + "@window"] = _time_decode(
+            dcd + "@window", df, dplain, (qd, k, v, index, _i32(lengths)),
+            kg, vg, inwin, errs,
+            4 * (pages if layout == "ring" else len(lengths)) + 4 * len(
+                lengths))
+    return out
+
+
 def phase_times(seed, errs):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as dec
@@ -2135,6 +2539,7 @@ def phase_times(seed, errs):
             f"a CUDA graph {out[name]['ms']:.4f} ms")
     out["ssd_scan"] = _time_ssd(gen, errs)
     out.update(_time_dense(gen, errs))
+    out.update(_time_window(gen, rng, errs))
     for name, r in out.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r.get("flops_rate", BF16_FLOPS) * 1e3
@@ -2618,6 +3023,78 @@ def phase_decode_profile(seed, card):
     torch.cuda.empty_cache()
 
 
+# phase 5's mixtral decode tick: one session past the window and the
+# ring's depth beside seven short ones (phase 4's shape)
+WINDOW_PROFILE_TICK = [7168, 300, 256, 200, 160, 128, 100, 80]
+
+
+def phase_window_profile(seed, card):
+    """Where a mixtral-8x7b decode tick's time goes (WINDOW_LAYERS
+    layers, bf16, swa_paged: ring tables): ``torch.profiler`` over one
+    8-row decode tick at WINDOW_PROFILE_TICK after a warm-up tick, then
+    3 unprofiled ticks.  The weight read alone bounds it: the MoE
+    reference reads every expert of every layer each tick."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = get_config("mixtral-8x7b").replace(num_layers=WINDOW_LAYERS)
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    weight_bytes = sum(a.numel() * a.element_size() for a in
+                       _leaves(params))
+    engine = Engine(cfg, params, EngineConfig(
+        num_slots=8, max_len=8192, chunk_tokens=256, measure=False,
+        **WINDOW_MODES["swa_paged"]), device=DEVICE)
+    rng = np.random.default_rng(seed + 8)
+    sess = list(range(len(WINDOW_PROFILE_TICK)))
+    toks = []
+    for s, n in zip(sess, WINDOW_PROFILE_TICK):
+        prompt = rng.integers(1, cfg.vocab_size, n - 2)
+        toks.append(engine.prefill_long(s, prompt) if n > 256 else
+                    engine.prefill_batch([s], [prompt])[s])
+    warm = engine.decode_batch(sess, toks, 1)          # warm-up tick
+    toks = [warm[s][-1] for s in sess]
+    calls = _timed_steps(engine)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.decode_batch(sess, toks, 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel, busy = _device_split(
+        prof, wall, f"mixtral swa_paged decode tick of {len(sess)} rows "
+        f"at {WINDOW_PROFILE_TICK} keys", card, calls, engine)
+    cur = [toks]
+
+    def tick():
+        out = engine.decode_batch(sess, cur[0], 1)
+        cur[0] = [out[s][-1] for s in sess]
+
+    _unprofiled(f"mixtral swa_paged decode tick of {len(sess)} rows",
+                card, tick, calls)
+    attn_ms = sum(ms for key, ms in by_kernel.items()
+                  if "attn::decode" in key)
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[5] mixtral decode tick: weights {weight_bytes / 2**30:.2f} GiB "
+        f"({weight_bytes / 1e9:.1f} GB), read once a tick: bound "
+        f"{bound:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; device "
+        f"busy {busy:.2f} ms; the windowed decode kernels "
+        f"{attn_ms:.3f} ms ({100 * attn_ms / max(busy, 1e-9):.1f}% of "
+        f"busy) (card {card})")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def phase_ssm_profile(seed, card):
     """Where a mamba2-2.7b tick's time goes (full width, bf16):
     ``torch.profiler`` over one packed prefill dispatch of 7 prompts
@@ -2743,17 +3220,28 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attn.py:103",
         jax="repro.kernels.flash_attn.flash_attn"),
 }
+# the windowed forms (ring page tables, rolling slots) of four of them:
+# the same libraries and TPU kernels, timed and counted on their own
+KERNELS.update({f"{name}@window": dict(KERNELS[name]) for name in (
+    "ragged_prefill_paged", "decode_attn_paged", "ragged_prefill_arena",
+    "decode_attn_arena")})
 
 
 def phase_launcher(card):
     """The serve launcher on the card: its default (the slot/dense
     baseline) and ``--packed``, for qwen3-4b (the smoke config at
     head_dim 128) and mamba2-2.7b (its smoke config's own SSD head
-    widths), each also at published widths cut to 4 layers."""
+    widths), each also at published widths cut to 4 layers, and for
+    mixtral-8x7b (the smoke config at head_dim 128, window 32, and its
+    published widths cut to WINDOW_LAYERS layers: the window-masked
+    dense baseline and the ring tables, traffic past the window)."""
     from repro_torch.launch import serve
     for extra in ([], ["--full", "--layers", "4"],
                   ["--arch", "mamba2-2.7b"],
-                  ["--arch", "mamba2-2.7b", "--full", "--layers", "4"]):
+                  ["--arch", "mamba2-2.7b", "--full", "--layers", "4"],
+                  ["--arch", "mixtral-8x7b"],
+                  ["--arch", "mixtral-8x7b", "--full", "--layers",
+                   str(WINDOW_LAYERS)]):
         for packed in ([], ["--packed"]):
             argv = extra + packed
             t0 = time.perf_counter()
@@ -2793,10 +3281,15 @@ def main() -> int:
         phase_sample_kernel(args.seed, errs)
         phase_ssd_kernel(args.seed, errs)
         phase_dense_kernels(args.seed, errs)
+        phase_window_kernels(args.seed, errs)
     if "3" in phases:
-        for mode in (*MODES, *SSM_MODES):
+        for mode in (*MODES, *SSM_MODES, *WINDOW_MODES):
             phase_oracle(args.seed, mode)
+        _ORACLE.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_encoder_oracle(args.seed)
+        phase_moe_check(args.seed)
         for mode in ("paged", "slot_arena"):
             phase_spec_oracle(args.seed, mode)
     if "4" in phases:
@@ -2812,6 +3305,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_encoder(args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a kernel's row keeps its first mode's count (flash_attn: the
+        # qwen3-4b grid's), the windowed forms take mixtral's
+        for name, row in phase_full(args.seed, card, "mixtral-8x7b",
+                                    {mode: 2 for mode in WINDOW_MODES},
+                                    layers=WINDOW_LAYERS).items():
+            launches.setdefault(name, row)
     if "5" in phases:
         times = phase_times(args.seed, errs)
         phase_dense_tick(card, times)
@@ -2819,6 +3320,7 @@ def main() -> int:
         phase_dense_profile(args.seed, card)
         phase_decode_profile(args.seed, card)
         phase_ssm_profile(args.seed, card)
+        phase_window_profile(args.seed, card)
     if "6" in phases:
         phase_launcher(card)
     rows = []

@@ -17,6 +17,8 @@ _MODULES = {
     "mamba2-2.7b": "mamba2_2_7b",
     # the encoder-only audio family: non-causal attention at head_dim 80
     "hubert-xlarge": "hubert_xlarge",
+    # the windowed and MoE family: a 4096-token sliding window, 8 experts
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 

@@ -1,8 +1,9 @@
 // Shared helpers of the attention kernels: element conversion for the
 // two storage types they take (fp32, bf16), the probability rounding the
-// TPU kernels apply before the PV product, the two KV layouts (a page
-// pool read through a page table, a slot arena read through a slot map)
-// and the K/V tile load into shared memory.
+// TPU kernels apply before the PV product, the KV layouts (a page
+// pool read through a page table, a slot arena read through a slot map,
+// and their windowed forms, a ring page table and rolling slots) and the
+// K/V tile load into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,7 +65,10 @@ struct Vec16<__nv_bfloat16> {
 // Where segment b's key position pos lives: row rows(pos) of K/V storage
 // laid out (rows, hkv, D).  A page pool (N_pages, page_size, hkv, D) maps
 // pos through the segment's page-table row; a slot arena (N_slots, S_max,
-// hkv, D) holds the segment's positions contiguously in one slot.
+// hkv, D) holds the segment's positions contiguously in one slot.  The
+// windowed forms hold only a segment's newest positions and wrap: a RING
+// page table maps pos to page-table entry (pos / page_size) % n_ring, a
+// ROLLING slot of depth rows holds pos at row pos % depth.
 struct PagedRows {
   const int* pt;
   int page_size;
@@ -81,13 +85,42 @@ struct SlotRows {
   }
 };
 
-// The KV layout a kernel reads: capacity() is the most positions a
-// segment can hold, rows(b) segment b's row map.
+struct RingRows {
+  const int* pt;
+  int page_size, n_ring;
+  __device__ __forceinline__ size_t operator()(int pos) const {
+    const int blk = pos / page_size;
+    return static_cast<size_t>(pt[blk % n_ring]) * page_size +
+           (pos - blk * page_size);
+  }
+};
+
+struct RollingRows {
+  size_t base;
+  int depth;
+  __device__ __forceinline__ size_t operator()(int pos) const {
+    return base + pos % depth;
+  }
+};
+
+// The KV layout a kernel reads.  depth() is the most positions a segment
+// holds at once; held(kv_len, lo, hi) the positions [lo, hi) it holds
+// when kv_len are cached — [0, min(kv_len, depth)) for the full-depth
+// layouts, the newest [max(0, kv_len - depth), kv_len) for the wrapping
+// ones, exactly the rows the TPU kernels reconstruct a position for
+// (slot s holding s + depth * floor((kv_len - 1 - s) / depth),
+// ragged_prefill.py:270-282); rows(b) is segment b's row map.  Kernels
+// walk logical positions inside [lo, hi) and map each to its row.
 struct PagedLayout {
   const int* page_table;   // (B, p_max)
   int page_size, p_max;
-  __host__ __device__ __forceinline__ int capacity() const {
+  __host__ __device__ __forceinline__ int depth() const {
     return p_max * page_size;
+  }
+  __device__ __forceinline__ void held(int kv_len, int& lo,
+                                       int& hi) const {
+    lo = 0;
+    hi = min(max(kv_len, 0), depth());
   }
   __device__ __forceinline__ PagedRows rows(int b) const {
     return {page_table + static_cast<size_t>(b) * p_max, page_size};
@@ -99,12 +132,48 @@ struct PagedLayout {
 struct SlotLayout {
   const int* slot_map;     // (B,); nullptr: segment b reads slot b
   int s_max;
-  __host__ __device__ __forceinline__ int capacity() const {
-    return s_max;
+  __host__ __device__ __forceinline__ int depth() const { return s_max; }
+  __device__ __forceinline__ void held(int kv_len, int& lo,
+                                       int& hi) const {
+    lo = 0;
+    hi = min(max(kv_len, 0), s_max);
   }
   __device__ __forceinline__ SlotRows rows(int b) const {
     const int slot = slot_map != nullptr ? slot_map[b] : b;
     return {static_cast<size_t>(slot) * s_max};
+  }
+};
+
+// A ring page table (B, n_ring): the windowed form of PagedLayout.
+struct RingLayout {
+  const int* page_table;   // (B, n_ring)
+  int page_size, n_ring;
+  __host__ __device__ __forceinline__ int depth() const {
+    return n_ring * page_size;
+  }
+  __device__ __forceinline__ void held(int kv_len, int& lo,
+                                       int& hi) const {
+    hi = max(kv_len, 0);
+    lo = max(0, hi - depth());
+  }
+  __device__ __forceinline__ RingRows rows(int b) const {
+    return {page_table + static_cast<size_t>(b) * n_ring, page_size,
+            n_ring};
+  }
+};
+
+// Rolling slots (N_slots, depth, hkv, D): the windowed form of SlotLayout.
+struct RollingLayout {
+  const int* slot_map;     // (B,)
+  int s_depth;
+  __host__ __device__ __forceinline__ int depth() const { return s_depth; }
+  __device__ __forceinline__ void held(int kv_len, int& lo,
+                                       int& hi) const {
+    hi = max(kv_len, 0);
+    lo = max(0, hi - s_depth);
+  }
+  __device__ __forceinline__ RollingRows rows(int b) const {
+    return {static_cast<size_t>(slot_map[b]) * s_depth, s_depth};
   }
 };
 

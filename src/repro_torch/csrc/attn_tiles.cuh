@@ -6,12 +6,14 @@
 // live; the core does the rest.
 //
 // What a tile computes.  Local row r (0 <= r < n_rows) sits at position
-// pos0 + r and attends key positions p of its row map with p < kv_hi,
-// p <= pos0 + r if causal, and p > pos0 + r - window if window > 0.  The
-// block walks the union of those intervals, [lo, hi), and loads no key
-// outside it: past kv_hi (a page-table entry or the park row there may
-// hold anything), past the causal frontier of the last row, before the
-// window of the first.  Softmax is online in fp32; p is rounded to the
+// pos0 + r and attends key positions p of its row map with kv_lo <= p <
+// kv_hi (the positions its layout holds), p <= pos0 + r if causal, and
+// p > pos0 + r - window if window > 0.  The block walks the union of
+// those intervals, [lo, hi), and loads no key outside it: past kv_hi (a
+// page-table entry or the park row there may hold anything), before
+// kv_lo (a ring page or rolling row a newer position has overwritten),
+// past the causal frontier of the last row, before the window of the
+// first.  Softmax is online in fp32; p is rounded to the
 // storage type before the PV product while the row sum l keeps the
 // unrounded p (attn_common.cuh round_p); a row with no key writes 0.
 //
@@ -60,11 +62,11 @@ struct TileArgs {
   const T* q;
   T* out;
   int n_rows, rep, hq, g, hkv;
-  int pos0, kv_hi, causal, window;
+  int pos0, kv_lo, kv_hi, causal, window;
 
   // the union [lo, hi) of the rows' key intervals
   __device__ __forceinline__ int lo() const {
-    return window > 0 ? max(0, pos0 - window + 1) : 0;
+    return window > 0 ? max(kv_lo, pos0 - window + 1) : kv_lo;
   }
   __device__ __forceinline__ int hi() const {
     return causal ? min(kv_hi, pos0 + n_rows) : kv_hi;
@@ -72,7 +74,7 @@ struct TileArgs {
   // the key interval [klo, khi) of local row r: empty for r >= n_rows
   __device__ __forceinline__ void row_band(int r, int& klo,
                                            int& khi) const {
-    klo = window > 0 ? max(0, pos0 + r - window + 1) : 0;
+    klo = window > 0 ? max(kv_lo, pos0 + r - window + 1) : kv_lo;
     khi = r < n_rows ? (causal ? min(kv_hi, pos0 + r + 1) : kv_hi) : 0;
   }
   // query vector i is (row i / rep, head g * rep + i % rep): its index

@@ -5,7 +5,11 @@
 //
 // Computes one query token per row b: the rep = Hq / Hkv query heads of
 // each KV group attend over the row's keys at positions < lengths[b]
-// (clamped to the layout's capacity).  Softmax is online in fp32, p is
+// (clamped to the layout's depth); with a window W > 0 (the ring and
+// rolling layouts of attn_common.cuh) over the newest min(W, depth) of
+// them, [lengths[b] - min(W, depth, lengths[b]), lengths[b]), which is
+// the window of its query at lengths[b] - 1 among the positions the
+// layout still holds.  Softmax is online in fp32, p is
 // rounded to the storage type before the PV product while l sums the
 // unrounded p (attn_common.cuh round_p), and a row with lengths == 0
 // writes 0.
@@ -19,13 +23,16 @@
 //
 // 1. A split key walk over the whole card (flash-decoding).  The unit of
 //    work is (KV head g, row b, key chunk c), one block of kWarps warps:
-//    keys [c·C, min((c + 1)·C, n_keys)).  The chunk size C (a multiple of
-//    kRound, the keys the block's warps take in one round) and the chunk
-//    count come from kernels/decode_attn.py split_plan, from the shapes,
-//    the layout's static capacity and the SM count alone, never from
+//    keys [lo + c·C, min(lo + (c + 1)·C, hi)) of the row's key range
+//    [lo, hi), which is [0, min(lengths[b], depth)) without a window.
+//    The chunk size C (a multiple of kRound, the keys the block's warps
+//    take in one round) and the chunk count come from
+//    kernels/decode_attn.py split_plan, from the shapes, the layout's
+//    static depth (windowed: min(window, depth), the most keys a row's
+//    range can span) and the SM count alone, never from
 //    lengths: the launcher reads nothing back, the grid depends only on
 //    shapes, and a launch can be captured in a CUDA graph.  A block whose
-//    chunk starts at or past n_keys writes an empty partial (m = kNegInf,
+//    chunk starts at or past hi writes an empty partial (m = kNegInf,
 //    l = 0) and exits, reading no K, V or page-table entry.  The others
 //    write fp32 partials (acc[rep][D], m, l) into a workspace the launcher
 //    allocates, and decode_combine_kernel, a second kernel launched from
@@ -34,7 +41,7 @@
 //    (b, g) behind an atomic counter: the counters would need zeroed
 //    memory at every launch (a memset, one more launch all the same) or a
 //    persistent buffer shared by every stream and every captured graph,
-//    and the combine reads only ~2 KB a chunk.  When the capacity fits one
+//    and the combine reads only ~2 KB a chunk.  When the span fits one
 //    chunk there is no workspace and the block writes out directly.
 // 2. bf16 tiles stay bf16, in an asynchronous ring.  In a chunk, warp w
 //    walks key tiles w, w + kWarps, ... of kKT keys with its own (m, l,
@@ -76,6 +83,8 @@
 //
 // No row at or past lengths[b] is ever read: page-table entries past the
 // valid length, and an arena slot's rows past it, may hold anything.
+// Windowed, no position below the row's range is read either: its ring
+// page or rolling row may already hold a newer position.
 #pragma once
 
 #include "attn_common.cuh"
@@ -378,19 +387,22 @@ __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                     const T* __restrict__ vbuf, Layout layout,
                     const int* __restrict__ lengths, T* __restrict__ out,
-                    float* __restrict__ ws, int hq, int hkv, int chunk) {
+                    float* __restrict__ ws, int hq, int hkv, int chunk,
+                    int window) {
   static_assert(sizeof(Merge<D>) <= Walk<T, D>::kSmem,
                 "the merge buffers must fit in the walk's shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
   const int n_chunks = gridDim.z;
   const int rep = hq / hkv;
-  const int n_keys = min(max(lengths[b], 0), layout.capacity());
-  const int k0 = c * chunk, k1 = min(k0 + chunk, n_keys);
+  int lo, hi;                            // the row's key range
+  layout.held(lengths[b], lo, hi);
+  if (window > 0) lo = max(lo, hi - window);
+  const int k0 = lo + c * chunk, k1 = min(k0 + chunk, hi);
   const size_t vec0 = static_cast<size_t>(b) * hq + g * rep;
   float* part = ws + ((static_cast<size_t>(b) * hkv + g) * n_chunks + c) *
                          rep * (D + 4);
-  if (k0 >= n_keys) {                    // block-uniform: nothing to read
+  if (k0 >= hi) {                        // block-uniform: nothing to read
     if (n_chunks == 1) {
       for (int idx = threadIdx.x; idx < rep * D; idx += kThreads)
         out[vec0 * D + idx] = from_f<T>(0.f);
@@ -500,7 +512,8 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
 template <typename T, int D, typename Layout>
 int launch(const void* q, const void* k, const void* v, Layout layout,
            const void* lengths, void* out, void* ws, int n_rows, int hq,
-           int hkv, int chunk, int n_chunks, cudaStream_t stream) {
+           int hkv, int chunk, int n_chunks, int window,
+           cudaStream_t stream) {
   auto split = decode_split_kernel<T, D, Layout>;
   constexpr size_t smem = Walk<T, D>::kSmem;
   // at every launch: a function-local static here would be one object
@@ -513,7 +526,8 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
   split<<<dim3(hkv, n_rows, n_chunks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), layout, static_cast<const int*>(lengths),
-      static_cast<T*>(out), static_cast<float*>(ws), hq, hkv, chunk);
+      static_cast<T*>(out), static_cast<float*>(ws), hq, hkv, chunk,
+      window);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
   decode_combine_kernel<T, D><<<dim3(hkv, n_rows), kMaxRep * 32, 0,
@@ -524,27 +538,32 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  chunk, n_chunks: the split plan
-// (kernels/decode_attn.py split_plan); ws: its fp32 workspace, unused
-// (may be null) when n_chunks == 1.  Returns the launches'
-// cudaGetLastError() (0 on success); never synchronises.
+// (kernels/decode_attn.py split_plan) over the span, the most keys a
+// row's range can hold — the layout's depth, or min(window, depth) with
+// a window > 0; ws: its fp32 workspace, unused (may be null) when
+// n_chunks == 1.  Returns the launches' cudaGetLastError() (0 on
+// success); never synchronises.
 template <typename Layout>
 int entry(const void* q, const void* k, const void* v, Layout layout,
           const void* lengths, void* out, void* ws, int n_rows, int hq,
-          int hkv, int head_dim, int chunk, int n_chunks, int dtype,
-          void* stream) {
+          int hkv, int head_dim, int chunk, int n_chunks, int window,
+          int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const int span = window > 0 ? min(window, layout.depth()) : layout.depth();
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxRep || n_rows <= 0 ||
       n_rows > 65535 || hkv > 65535 || chunk <= 0 || chunk % kRound != 0 ||
-      n_chunks <= 0 || n_chunks > 65535 ||
-      static_cast<long long>(chunk) * n_chunks < layout.capacity() ||
+      n_chunks <= 0 || n_chunks > 65535 || window < 0 ||
+      layout.depth() <= 0 ||
+      static_cast<long long>(chunk) * n_chunks < span ||
       (n_chunks > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (head_dim == 128 && dtype == 1)
     return launch<__nv_bfloat16, 128>(q, k, v, layout, lengths, out, ws,
-                                      n_rows, hq, hkv, chunk, n_chunks, s);
+                                      n_rows, hq, hkv, chunk, n_chunks,
+                                      window, s);
   if (head_dim == 128 && dtype == 0)
     return launch<float, 128>(q, k, v, layout, lengths, out, ws, n_rows, hq,
-                              hkv, chunk, n_chunks, s);
+                              hkv, chunk, n_chunks, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

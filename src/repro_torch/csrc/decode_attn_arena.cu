@@ -9,14 +9,26 @@
 // (lengths 1, slot_map naming a live slot) read one key and their
 // output is discarded.  S_max need not be a multiple of the key tile;
 // the chunk plan spans S_max keys.
+//
+// window > 0 selects the TPU kernel's window= form (body _arena_kernel,
+// decode_attn.py:146): each slot is a ROLLING cache of depth S_max
+// (attn_common.cuh RollingLayout), position p at row p % S_max, and each
+// row attends its newest min(window, S_max, lengths[b]) keys, so a tick
+// streams O(min(cached, window)) rows per row; the chunk plan spans
+// min(window, S_max) keys.  Pad rows name the scratch slot.
 #include "decode_attn.cuh"
 
 extern "C" int decode_attn_arena_launch(
     const void* q, const void* k, const void* v, const void* slot_map,
     const void* lengths, void* out, void* ws, int n_rows, int hq, int hkv,
-    int head_dim, int s_max, int chunk, int n_chunks, int dtype,
+    int head_dim, int s_max, int chunk, int n_chunks, int window, int dtype,
     void* stream) {
-  const attn::SlotLayout layout{static_cast<const int*>(slot_map), s_max};
-  return attn::decode::entry(q, k, v, layout, lengths, out, ws, n_rows, hq,
-                             hkv, head_dim, chunk, n_chunks, dtype, stream);
+  const int* sm = static_cast<const int*>(slot_map);
+  if (window > 0)
+    return attn::decode::entry(q, k, v, attn::RollingLayout{sm, s_max},
+                               lengths, out, ws, n_rows, hq, hkv, head_dim,
+                               chunk, n_chunks, window, dtype, stream);
+  return attn::decode::entry(q, k, v, attn::SlotLayout{sm, s_max}, lengths,
+                             out, ws, n_rows, hq, hkv, head_dim, chunk,
+                             n_chunks, 0, dtype, stream);
 }

@@ -18,5 +18,5 @@ extern "C" int decode_attn_dense_launch(
     int chunk, int n_chunks, int dtype, void* stream) {
   const attn::SlotLayout layout{nullptr, s};
   return attn::decode::entry(q, k, v, layout, lengths, out, ws, n_rows, hq,
-                             hkv, head_dim, chunk, n_chunks, dtype, stream);
+                             hkv, head_dim, chunk, n_chunks, 0, dtype, stream);
 }

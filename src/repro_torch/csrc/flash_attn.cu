@@ -74,6 +74,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       g,
                       hkv,
                       q_offsets[b] + r0,
+                      0,
                       min(max(kv_lengths[b], 0), s),
                       causal,
                       window};

@@ -7,10 +7,12 @@
 // Computes, for a packed flat token stream q (T, Hq, D) whose segments
 // are given by cu_seqlens (B+1,): every row of segment b attends its
 // segment's keys at positions < kv_lengths[b] and <= its own position
-// q_offsets[b] + (row - cu_seqlens[b]).  GQA maps query head h to KV
-// head h / rep; softmax is online in fp32; p is rounded to the storage
-// type before the PV product; rows past cu_seqlens[B] and rows with no
-// valid key write exactly 0.
+// q_offsets[b] + (row - cu_seqlens[b]); with a window W > 0 (the ring
+// and rolling layouts of attn_common.cuh) also > its position - W, and
+// only among the positions the layout still holds.  GQA maps query head
+// h to KV head h / rep; softmax is online in fp32; p is rounded to the
+// storage type before the PV product; rows past cu_seqlens[B] and rows
+// with no valid key write exactly 0.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): the
 // main-path chunk (512 rows at history 1536 over 2048 keys, 32/8 heads,
@@ -47,7 +49,13 @@
 // the tile's last row), so no row at or past kv_len is ever read:
 // page-table entries past the valid length, and an arena slot's park row
 // S_max - 1 that pad and tail rows write in the same step, may hold
-// anything.
+// anything.  Windowed, the walk starts at the window's lower edge for
+// the tile's first row, and never below the oldest position the ring or
+// rolling slot holds (kv_len - depth): the walk is over logical
+// positions, each mapped to its wrapped row, so a 64-key tile that
+// straddles the wrap reads the ring's last page and its first in one
+// cp.async round, and the grid, a function of T and B alone, is the
+// same at every kv_len (a captured step replays at any length).
 //
 // Left for the next redesign: as in flash_attn.cu, the K/V stream from
 // L2 (TMA, a producer warp, multicast; a paged tile is four page gathers,
@@ -71,7 +79,7 @@ ragged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       const int* __restrict__ q_offsets,
                       const int* __restrict__ kv_lengths,
                       T* __restrict__ out, int n_rows, int hq, int hkv,
-                      int n_seqs, int rows_per_block) {
+                      int n_seqs, int rows_per_block, int window) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = blockIdx.y;
   // this block's segment and tile within it (block-uniform)
@@ -90,6 +98,8 @@ ragged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
   }
   const int r0 = s0 + x * rows_per_block;
   if (r0 >= s1) return;               // past the last tile
+  int kv_lo = 0, kv_hi = 0;           // the positions the layout holds
+  if (seg < n_seqs) layout.held(kv_lengths[seg], kv_lo, kv_hi);
   const TileArgs<T> a{q + static_cast<size_t>(r0) * hq * D,
                       out + static_cast<size_t>(r0) * hq * D,
                       min(rows_per_block, s1 - r0),
@@ -98,10 +108,10 @@ ragged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       g,
                       hkv,
                       seg < n_seqs ? q_offsets[seg] + (r0 - s0) : 0,
-                      seg < n_seqs ? min(kv_lengths[seg], layout.capacity())
-                                   : 0,
+                      kv_lo,
+                      kv_hi,
                       1,
-                      0};
+                      window};
   if (seg == n_seqs) {                // rows past cu_seqlens[B]: zeros
     for (int i = threadIdx.x; i < a.n_rows * a.rep * D; i += blockDim.x)
       a.out[a.vec(i / D) * D + i % D] = from_f<T>(0.f);
@@ -114,7 +124,7 @@ template <typename T, int D, typename Layout>
 int launch(const void* q, const void* k, const void* v, Layout layout,
            const void* cu_seqlens, const void* q_offsets,
            const void* kv_lengths, void* out, int n_rows, int hq, int hkv,
-           int n_seqs, cudaStream_t stream) {
+           int n_seqs, int window, cudaStream_t stream) {
   auto kern = ragged_prefill_kernel<T, D, Layout>;
   const size_t smem = Tile<T, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -128,28 +138,31 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), layout, static_cast<const int*>(cu_seqlens),
       static_cast<const int*>(q_offsets), static_cast<const int*>(kv_lengths),
-      static_cast<T*>(out), n_rows, hq, hkv, n_seqs, rows_per_block);
+      static_cast<T*>(out), n_rows, hq, hkv, n_seqs, rows_per_block,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's
-// cudaGetLastError() (0 on success); never synchronises.
+// dtype: 0 = float32, 1 = bfloat16; window: the sliding window (0 =
+// none).  Returns the launch's cudaGetLastError() (0 on success); never
+// synchronises.
 template <typename Layout>
 int entry(const void* q, const void* k, const void* v, Layout layout,
           const void* cu_seqlens, const void* q_offsets,
           const void* kv_lengths, void* out, int n_rows, int hq, int hkv,
-          int head_dim, int n_seqs, int dtype, void* stream) {
+          int head_dim, int n_seqs, int window, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxRep || n_rows <= 0 ||
-      n_seqs < 0)
+      n_seqs < 0 || window < 0 || layout.depth() <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (head_dim == 128 && dtype == 1)
     return launch<__nv_bfloat16, 128>(q, k, v, layout, cu_seqlens, q_offsets,
                                       kv_lengths, out, n_rows, hq, hkv,
-                                      n_seqs, s);
+                                      n_seqs, window, s);
   if (head_dim == 128 && dtype == 0)
     return launch<float, 128>(q, k, v, layout, cu_seqlens, q_offsets,
-                              kv_lengths, out, n_rows, hq, hkv, n_seqs, s);
+                              kv_lengths, out, n_rows, hq, hkv, n_seqs,
+                              window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,5 +19,5 @@ extern "C" int ragged_prefill_attn_launch(
   const attn::SlotLayout layout{nullptr, s_max};
   return attn::prefill::entry(q, k, v, layout, cu_seqlens, q_offsets,
                               kv_lengths, out, n_rows, hq, hkv, head_dim,
-                              n_seqs, dtype, stream);
+                              n_seqs, 0, dtype, stream);
 }

@@ -7,16 +7,32 @@
 // D).  page_table[b, i] is read only for key positions < kv_lengths[b],
 // so it is never dereferenced for i >= ceil(kv_len_b / page_size)
 // (entries past the valid length may point anywhere).
+//
+// window > 0 selects the TPU kernel's window= form: the table is then a
+// RING over its P_max entries (attn_common.cuh RingLayout), position p
+// on entry (p / page_size) % P_max, so it holds the newest
+// min(kv_len, P_max * page_size) positions; each row attends those in
+// (its position - window, its position].  The walk covers logical
+// positions from the window's lower edge (and never below kv_len -
+// P_max * page_size) and reads each through the ring, so the entries it
+// dereferences are those of the ring's live pages only.
 #include "ragged_prefill.cuh"
 
 extern "C" int ragged_prefill_paged_launch(
     const void* q, const void* k, const void* v, const void* page_table,
     const void* cu_seqlens, const void* q_offsets, const void* kv_lengths,
     void* out, int n_rows, int hq, int hkv, int head_dim, int page_size,
-    int n_seqs, int p_max, int dtype, void* stream) {
-  const attn::PagedLayout layout{static_cast<const int*>(page_table),
-                                 page_size, p_max};
-  return attn::prefill::entry(q, k, v, layout, cu_seqlens, q_offsets,
-                              kv_lengths, out, n_rows, hq, hkv, head_dim,
-                              n_seqs, dtype, stream);
+    int n_seqs, int p_max, int window, int dtype, void* stream) {
+  const int* pt = static_cast<const int*>(page_table);
+  if (window > 0)
+    return attn::prefill::entry(q, k, v,
+                                attn::RingLayout{pt, page_size, p_max},
+                                cu_seqlens, q_offsets, kv_lengths, out,
+                                n_rows, hq, hkv, head_dim, n_seqs, window,
+                                dtype, stream);
+  return attn::prefill::entry(q, k, v,
+                              attn::PagedLayout{pt, page_size, p_max},
+                              cu_seqlens, q_offsets, kv_lengths, out,
+                              n_rows, hq, hkv, head_dim, n_seqs, 0, dtype,
+                              stream);
 }

@@ -22,9 +22,15 @@ for the three launchers alike and for the CPU rehearsal of the split
 only, never ``lengths``, so a launch reads nothing back from the card
 and can be captured in a CUDA graph.
 
+The paged and arena kernels also take ``window=``, the TPU kernels'
+windowed forms over a ring page table and rolling slots: each row's key
+walk covers its newest min(window, depth, length) keys, and the plan
+spans min(depth, window) keys.
+
 Each launcher takes CUDA tensors only and raises on anything its kernel
 does not take; the ``*_plain`` functions (``kernels/ref.py``) compute the
-same functions with plain tensor ops.
+same functions with plain tensor ops.  Each counts its launches in
+``launches``, and a windowed launch also in ``window.launches``.
 """
 from __future__ import annotations
 
@@ -33,8 +39,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ragged_prefill import (_DTYPES, check_kernel_inputs,
-                                                launch)
+from repro_torch.kernels.ragged_prefill import (_DTYPES, LaunchCount,
+                                                check_kernel_inputs, launch,
+                                                window_arg)
 from repro_torch.kernels.ref import \
     ref_decode_attn as decode_attn_plain  # noqa: F401
 from repro_torch.kernels.ref import \
@@ -59,8 +66,11 @@ def split_plan(n_rows: int, hq: int, hkv: int, head_dim: int,
                capacity: int, n_sms: int) -> SplitPlan:
     """How the decode kernels split each row's keys over the card.
 
-    ``capacity`` is the most keys a row can hold (P_max * page_size, the
-    arena's S_max, the batch cache's S).  The chunk is the largest of
+    ``capacity`` is the most keys a row's walk can span (P_max *
+    page_size, the arena's S_max, the batch cache's S; for a windowed
+    call min(that, window), the keys the window can touch, as the TPU
+    kernel streams (window − 1) // block_k + 2 blocks).  The chunk is
+    the largest of
     MAX_CHUNK, MAX_CHUNK / 2, ... ROUND_KEYS keys that still gives at
     least UNITS_PER_SM blocks per SM over the full capacity, and no
     larger than the capacity rounded up to ROUND_KEYS.  A block whose
@@ -90,11 +100,16 @@ def _sm_count(index: int) -> int:
 
 def _launch_split(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, index: Tuple[torch.Tensor, ...],
-                  layout: Tuple[int, ...], capacity: int) -> torch.Tensor:
+                  layout: Tuple[int, ...], capacity: int,
+                  window: Optional[int] = None) -> torch.Tensor:
     """Plan the split, allocate the output and the workspace on q's
-    device, and launch kernel ``name`` on the current stream."""
+    device, and launch kernel ``name`` on the current stream.
+    ``window``: the C launcher's window argument (0 = none; None: the
+    kernel takes none); a window > 0 spans min(capacity, window) keys."""
     b, hq, d = q.shape
     hkv = k.shape[2]
+    if window:
+        capacity = min(capacity, window)
     plan = split_plan(b, hq, hkv, d, capacity, _sm_count(q.device.index))
     out = torch.empty_like(q)
     ws = (torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
@@ -102,16 +117,10 @@ def _launch_split(name: str, q: torch.Tensor, k: torch.Tensor,
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            *(x.data_ptr() for x in index), out.data_ptr(),
            None if ws is None else ws.data_ptr(), b, hq, hkv, d,
-           *layout, plan.chunk, plan.n_chunks, _DTYPES[q.dtype],
+           *layout, plan.chunk, plan.n_chunks,
+           *(() if window is None else (window,)), _DTYPES[q.dtype],
            torch.cuda.current_stream(q.device).cuda_stream)
     return out
-
-
-def _refuse(window: Optional[int]) -> None:
-    if window is not None:
-        raise NotImplementedError(
-            "windowed decode (ring tables, rolling slots) is not ported "
-            "yet (ROADMAP Queue 1, item 10)")
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -146,10 +155,13 @@ def decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Hq, D); k, v: (N_pages, page_size, Hkv, D) page pools (one
     layer's slice of the stacked pool); page_table: (B, P_max) int32;
     lengths: (B,) int32 valid cache entries, all on the card.  Returns
-    (B, Hq, D) in q's dtype, zeros on rows with ``lengths == 0``.  Never
-    synchronises and never reads a device tensor back to the host.
+    (B, Hq, D) in q's dtype, zeros on rows with ``lengths == 0``.
+    ``window`` selects the ring-table form: each row attends its newest
+    min(window, P_max * page_size, length) keys through entry (p // ps)
+    % P_max.  Never synchronises and never reads a device tensor back to
+    the host.
     """
-    _refuse(window)
+    w = window_arg(window)
     check_kernel_inputs(q, k, v, page_table, lengths, max_rep=8)
     b = q.shape[0]
     ps = k.shape[1]
@@ -160,8 +172,9 @@ def decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0:
         return torch.empty_like(q)
     out = _launch_split("decode_attn_paged", q, k, v, (page_table, lengths),
-                        (ps, p_max), p_max * ps)
+                        (ps, p_max), p_max * ps, w)
     decode_attn_paged.launches += 1
+    decode_attn_paged.window.launches += bool(w)
     return out
 
 
@@ -174,10 +187,12 @@ def decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the arena, with each row's new KV already written; slot_map: (B,)
     int32 arena slot of each row; lengths: (B,) int32 valid cache
     entries including the new row, all on the card.  Returns (B, Hq, D)
-    in q's dtype, zeros on rows with ``lengths == 0``.  Never
-    synchronises and never reads a device tensor back to the host.
+    in q's dtype, zeros on rows with ``lengths == 0``.  ``window``
+    selects the rolling form: each slot a rolling cache of depth S_max,
+    each row attending its newest min(window, S_max, length) keys.
+    Never synchronises and never reads a device tensor back to the host.
     """
-    _refuse(window)
+    w = window_arg(window)
     check_kernel_inputs(q, k, v, slot_map, lengths, max_rep=8)
     b = q.shape[0]
     s_max = k.shape[1]
@@ -186,11 +201,14 @@ def decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0:
         return torch.empty_like(q)
     out = _launch_split("decode_attn_arena", q, k, v, (slot_map, lengths),
-                        (s_max,), s_max)
+                        (s_max,), s_max, w)
     decode_attn_arena.launches += 1
+    decode_attn_arena.window.launches += bool(w)
     return out
 
 
 decode_attn.launches = 0
 decode_attn_paged.launches = 0
+decode_attn_paged.window = LaunchCount()
 decode_attn_arena.launches = 0
+decode_attn_arena.window = LaunchCount()

@@ -31,6 +31,12 @@ LAUNCHERS = {
     "ssd_scan": _ssd.ssd_scan,
     "flash_attn": _flash.flash_attn,
     "decode_attn": _decode.decode_attn,
+    # the windowed forms (ring tables, rolling slots): each windowed
+    # launch counts here and in its kernel's own count
+    "ragged_prefill_paged@window": _prefill.ragged_prefill_paged.window,
+    "decode_attn_paged@window": _decode.decode_attn_paged.window,
+    "ragged_prefill_arena@window": _prefill.ragged_prefill_arena.window,
+    "decode_attn_arena@window": _decode.decode_attn_arena.window,
 }
 
 

@@ -14,9 +14,13 @@ where a segment's keys live:
   per-segment cache, segment b reading row b, the port of
   ``repro.kernels.ragged_prefill.ragged_prefill_attn``.
 
+The paged and arena kernels also take ``window=``, the TPU kernels'
+windowed forms over a ring page table and rolling slots.
+
 Each launcher takes CUDA tensors only and raises on anything its kernel
 does not take; the ``*_plain`` functions (``kernels/ref.py``) compute the
-same functions with plain tensor ops.
+same functions with plain tensor ops.  Each counts its launches in
+``launches``, and a windowed launch also in ``window.launches``.
 """
 from __future__ import annotations
 
@@ -86,14 +90,27 @@ def _check_segments(n_seqs: int, cu_seqlens: torch.Tensor,
                          "kv_lengths (B,)")
 
 
-def _refuse(causal: bool, window: Optional[int]) -> None:
-    if window is not None:
-        raise NotImplementedError(
-            "windowed prefill (ring tables, rolling slots) is not ported "
-            "yet (ROADMAP Queue 1, item 10)")
+def _refuse(causal: bool) -> None:
     if not causal:
         raise NotImplementedError(
             "non-causal (encoder-only) prefill is not on the serving path")
+
+
+def window_arg(window: Optional[int]) -> int:
+    """The C launchers' window argument: 0 for none, else the width,
+    which must be >= 1."""
+    if window is None:
+        return 0
+    if window < 1:
+        raise ValueError(f"window {window}: must be >= 1 (or None)")
+    return int(window)
+
+
+class LaunchCount:
+    """The launch counter of a kernel's windowed form."""
+
+    def __init__(self) -> None:
+        self.launches = 0
 
 
 def launch(name: str, *args) -> None:
@@ -116,10 +133,14 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layer's slice of the stacked pool); page_table: (B, P_max) int32;
     cu_seqlens: (B+1,), q_offsets, kv_lengths: (B,) int32, all on the
     card.  Returns (T, Hq, D) in q's dtype, zeros on rows past
-    cu_seqlens[-1].  Never synchronises and never reads a device tensor
-    back to the host.
+    cu_seqlens[-1].  ``window`` selects the ring-table form: the table
+    is a ring over its P_max entries, position p on entry (p // ps) %
+    P_max, and each row attends the held keys in (its position −
+    window, its position].  Never synchronises and never reads a device
+    tensor back to the host.
     """
-    _refuse(causal, window)
+    _refuse(causal)
+    w = window_arg(window)
     check_kernel_inputs(q, k, v, page_table, cu_seqlens, q_offsets,
                         kv_lengths, max_rep=32)
     if page_table.dim() != 2:
@@ -134,9 +155,10 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch("ragged_prefill_paged",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
            cu_seqlens.data_ptr(), q_offsets.data_ptr(), kv_lengths.data_ptr(),
-           out.data_ptr(), t, hq, hkv, d, ps, b, p_max, _DTYPES[q.dtype],
+           out.data_ptr(), t, hq, hkv, d, ps, b, p_max, w, _DTYPES[q.dtype],
            torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_paged.launches += 1
+    ragged_prefill_paged.window.launches += bool(w)
     return out
 
 
@@ -153,9 +175,13 @@ def ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     segments name any live slot); cu_seqlens: (B+1,), q_offsets,
     kv_lengths: (B,) int32, all on the card.  Returns (T, Hq, D) in q's
     dtype, zeros on rows past cu_seqlens[-1] and on rows of segments
-    with no valid key.  Never synchronises.
+    with no valid key.  ``window`` selects the rolling form: each slot a
+    rolling cache of depth S_max (position p at row p % S_max, pads on
+    the scratch slot), each row attending the held keys in (its
+    position − window, its position].  Never synchronises.
     """
-    _refuse(causal, window)
+    _refuse(causal)
+    w = window_arg(window)
     check_kernel_inputs(q, k, v, slot_map, cu_seqlens, q_offsets,
                         kv_lengths, max_rep=32)
     t, hq, d = q.shape
@@ -170,9 +196,10 @@ def ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch("ragged_prefill_arena",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_map.data_ptr(),
            cu_seqlens.data_ptr(), q_offsets.data_ptr(), kv_lengths.data_ptr(),
-           out.data_ptr(), t, hq, hkv, d, s_max, b, _DTYPES[q.dtype],
+           out.data_ptr(), t, hq, hkv, d, s_max, b, w, _DTYPES[q.dtype],
            torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_arena.launches += 1
+    ragged_prefill_arena.window.launches += bool(w)
     return out
 
 
@@ -189,7 +216,7 @@ def ragged_prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on rows past cu_seqlens[-1] and on rows of segments with no valid
     key.  Never synchronises.
     """
-    _refuse(causal, None)
+    _refuse(causal)
     check_kernel_inputs(q, k, v, cu_seqlens, q_offsets, kv_lengths,
                         max_rep=32)
     t, hq, d = q.shape
@@ -208,5 +235,7 @@ def ragged_prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 ragged_prefill_paged.launches = 0
+ragged_prefill_paged.window = LaunchCount()
 ragged_prefill_arena.launches = 0
+ragged_prefill_arena.window = LaunchCount()
 ragged_prefill_attn.launches = 0

@@ -16,11 +16,15 @@ import torch
 import torch.nn.functional as F
 
 
-def _no_window(window: Optional[int]) -> None:
-    if window is not None:
-        raise NotImplementedError(
-            "windowed attention (ring tables, rolling slots) is not "
-            "ported yet (ROADMAP Queue 1, item 10)")
+def _defaults(b: int, depth: int, device, q_offsets, kv_lengths):
+    """q_offsets (None = 0) and kv_lengths (None = ``depth``) as (B,)
+    int32 tensors."""
+    if q_offsets is None:
+        q_offsets = torch.zeros((b,), dtype=torch.int32, device=device)
+    if kv_lengths is None:
+        kv_lengths = torch.full((b,), depth, dtype=torch.int32,
+                                device=device)
+    return q_offsets, kv_lengths
 
 
 def ref_flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -113,6 +117,61 @@ def ref_ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(t, hq, d).to(q.dtype)
 
 
+def _rolling_kpos(kv_lengths: torch.Tensor, depth: int):
+    """Absolute position held by each row of a rolling cache.
+
+    Row s of a depth-D rolling cache (a rolling arena slot, or a ring of
+    pages gathered in ring order) holds the newest position < kv_len
+    congruent to s mod D: kpos = s + D·⌊max(kv_len − 1 − s, 0)/D⌋.
+    Returns (kpos (B, D), valid (B, D)) — valid is s < min(kv_len, D),
+    so the valid rows hold positions [max(0, kv_len − D), kv_len).
+    """
+    slots = torch.arange(depth, device=kv_lengths.device)[None, :]
+    kvl = kv_lengths.long()[:, None]
+    wraps = (kvl - 1 - slots).clamp(min=0) // depth
+    return slots + wraps * depth, slots < kvl.clamp(max=depth)
+
+
+def ref_ragged_prefill_rolling(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, cu_seqlens: torch.Tensor,
+                               q_offsets: torch.Tensor,
+                               kv_lengths: torch.Tensor, *, window: int,
+                               causal: bool = True) -> torch.Tensor:
+    """Windowed packed prefill over ROLLING per-segment caches.
+
+    q: (T, Hq, D) flat packed stream; k, v: (B, D_slot, Hkv, D), row s
+    of segment b holding the newest position congruent to s mod D_slot.
+    Each query row attends only the held keys whose position lies in
+    (qpos − window, qpos].  Rows past cu_seqlens[-1], and rows with no
+    such key, produce zeros, as the kernels give them.
+    """
+    t, hq, d = q.shape
+    b, s_depth, hkv = k.shape[0], k.shape[1], k.shape[2]
+    rep = hq // hkv
+    dev = q.device
+    cu = cu_seqlens.long()
+    rows = torch.arange(t, device=dev)
+    seg = (rows[:, None] >= cu[None, 1:]).sum(dim=1)            # (T,)
+    valid_row = rows < cu[-1]
+    segc = seg.clamp(0, b - 1)
+    qpos = q_offsets.long()[segc] + rows - cu[segc]              # (T,)
+    kpos, kvalid = _rolling_kpos(kv_lengths, s_depth)            # (B, D)
+    mask = segc[:, None, None] == torch.arange(b, device=dev)[None, :, None]
+    mask = mask & valid_row[:, None, None] & kvalid[None]
+    if causal:
+        mask = mask & (kpos[None] <= qpos[:, None, None])
+    mask = mask & (kpos[None] > qpos[:, None, None] - window)
+    qg = q.reshape(t, hkv, rep, d).float()
+    scores = torch.einsum("tgrd,bsgd->tgrbs", qg, k.float())
+    scores = scores / math.sqrt(d)
+    scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+    flat = scores.reshape(t, hkv, rep, b * s_depth)
+    probs = torch.softmax(flat, dim=-1).reshape(t, hkv, rep, b, s_depth)
+    out = torch.einsum("tgrbs,bsgd->tgrd", probs, v.float())
+    out = out * mask.flatten(1).any(dim=1)[:, None, None, None]
+    return out.reshape(t, hq, d).to(q.dtype)
+
+
 def ref_ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, page_table: torch.Tensor,
                              cu_seqlens: torch.Tensor,
@@ -127,13 +186,21 @@ def ref_ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor,
     page.  The gather here — materializing each segment's logical
     (P_max·ps)-deep cache from its pages — is this version's
     convenience; the kernel reads pages in place through the table.
+    ``window`` selects the ring-table form: position p lives on ring
+    page (p // ps) % P_max at offset p % ps, so the gathered pages form
+    a depth-(P_max·ps) rolling cache and the rolling version applies.
     """
-    _no_window(window)
     b, p_max = page_table.shape
     ps, hkv, d = k.shape[1], k.shape[2], k.shape[3]
     idx = page_table.long()
     kg = k[idx].reshape(b, p_max * ps, hkv, d)
     vg = v[idx].reshape(b, p_max * ps, hkv, d)
+    if window is not None:
+        q_offsets, kv_lengths = _defaults(b, p_max * ps, q.device,
+                                          q_offsets, kv_lengths)
+        return ref_ragged_prefill_rolling(q, kg, vg, cu_seqlens, q_offsets,
+                                          kv_lengths, window=window,
+                                          causal=causal)
     return ref_ragged_prefill(q, kg, vg, cu_seqlens, q_offsets=q_offsets,
                               kv_lengths=kv_lengths, causal=causal)
 
@@ -150,10 +217,16 @@ def ref_ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor,
     q: (T, Hq, D) flat packed stream; k, v: (N_slots, S_max, Hkv, D)
     full arenas; slot_map: (B,) arena slot per segment.  The gather here
     is this version's convenience; the kernel indexes the slot axis in
-    place.
+    place.  ``window`` selects the rolling form (each slot a depth-S_max
+    rolling cache, written at position % S_max).
     """
-    _no_window(window)
     idx = slot_map.long()
+    if window is not None:
+        q_offsets, kv_lengths = _defaults(idx.shape[0], k.shape[1], q.device,
+                                          q_offsets, kv_lengths)
+        return ref_ragged_prefill_rolling(q, k[idx], v[idx], cu_seqlens,
+                                          q_offsets, kv_lengths,
+                                          window=window, causal=causal)
     return ref_ragged_prefill(q, k[idx], v[idx], cu_seqlens,
                               q_offsets=q_offsets, kv_lengths=kv_lengths,
                               causal=causal)
@@ -171,6 +244,31 @@ def ref_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref_flash_attn(q[:, None], k, v, lengths - 1, lengths)[:, 0]
 
 
+def ref_decode_attn_rolling(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lengths: torch.Tensor, *,
+                            window: int) -> torch.Tensor:
+    """Windowed single-token decode over ROLLING per-row caches.
+
+    q: (B, Hq, D); k, v: (B, D_slot, Hkv, D) rolling cache rows;
+    lengths: (B,) cached entries including the new row.  The query at
+    position lengths − 1 attends the held keys whose position lies in
+    (qpos − window, qpos].  Rows with ``lengths == 0`` produce zeros.
+    """
+    b, hq, d = q.shape
+    s_depth, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    kpos, valid = _rolling_kpos(lengths, s_depth)                # (B, D)
+    qpos = lengths.long()[:, None] - 1
+    valid = valid & (kpos > qpos - window)
+    qg = q.reshape(b, hkv, rep, d).float()
+    scores = torch.einsum("bgrd,bsgd->bgrs", qg, k.float()) / math.sqrt(d)
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", probs, v.float())
+    out = out * valid.any(dim=1)[:, None, None, None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
 def ref_decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           page_table: torch.Tensor, lengths: torch.Tensor, *,
                           window: Optional[int] = None) -> torch.Tensor:
@@ -178,14 +276,16 @@ def ref_decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Hq, D); k, v: (N_pages, page_size, Hkv, D) full page pools;
     page_table: (B, P_max); lengths: (B,) valid KV entries.  Gathers
-    each row's pages into a contiguous logical cache and delegates.
+    each row's pages into a contiguous logical cache and delegates — to
+    the rolling version when ``window`` selects the ring-table form.
     """
-    _no_window(window)
     b, p_max = page_table.shape
     ps, hkv, d = k.shape[1], k.shape[2], k.shape[3]
     idx = page_table.long()
     kg = k[idx].reshape(b, p_max * ps, hkv, d)
     vg = v[idx].reshape(b, p_max * ps, hkv, d)
+    if window is not None:
+        return ref_decode_attn_rolling(q, kg, vg, lengths, window=window)
     return ref_decode_attn(q, kg, vg, lengths)
 
 
@@ -197,10 +297,13 @@ def ref_decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Hq, D); k, v: (N_slots, S_max, Hkv, D) full arenas; slot_map:
     (B,) arena slot per row; lengths: (B,) valid KV entries.  The gather
     here is this version's convenience; the kernel indexes the slot axis
-    in place.
+    in place.  ``window`` selects the rolling form (slots written at
+    position % S_max).
     """
-    _no_window(window)
     idx = slot_map.long()
+    if window is not None:
+        return ref_decode_attn_rolling(q, k[idx], v[idx], lengths,
+                                       window=window)
     return ref_decode_attn(q, k[idx], v[idx], lengths)
 
 

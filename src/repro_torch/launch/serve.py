@@ -13,13 +13,19 @@ The smoke config is used unless ``--full`` asks for the published width
 card an attention smoke config takes head_dim 128, the one head width
 the attention kernels take; the SSD scan kernel takes the SSM smoke
 config's own head widths.  ``--arch mamba2-2.7b`` serves the SSM family
-(a scratch slot on the slot arena, state pages on the paged pool).
+(a scratch slot on the slot arena, state pages on the paged pool);
+``--arch mixtral-8x7b`` the windowed MoE family (window-masked full
+slots in the default run, ring page tables with ``--packed``), whose
+long prompts run past the sliding window so every session's cache
+wraps.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --full --layers 4 --sessions 8 --turns 3 --variant pla_full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --packed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --full --layers 16 --packed
 """
 from __future__ import annotations
 
@@ -66,9 +72,11 @@ def main(argv=None):
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
     params = tr.init_params(cfg, seed=args.seed, device=args.device)
-    # each turn adds a prompt of < 96 tokens, its first token and the
-    # decoded ones to the session's cache
-    max_len = args.turns * (96 + 1 + args.decode_steps)
+    # a long prefill runs past the sliding window of a windowed config
+    long_lo = 48 + (cfg.sliding_window or 0)
+    # each turn adds a prompt shorter than a long one, its first token
+    # and the decoded ones to the session's cache
+    max_len = args.turns * (long_lo + 48 + 1 + args.decode_steps)
     # --packed rides the default stack (packed + paged pool); the plain
     # run keeps the explicit slot/dense baseline
     engine = Engine(cfg, params, EngineConfig(
@@ -104,7 +112,7 @@ def main(argv=None):
     for turn in range(args.turns):
         for s in range(args.sessions):
             if rng.random() < 0.2:
-                n = int(rng.integers(48, 96))     # long prefill
+                n = int(rng.integers(long_lo, long_lo + 48))  # long prefill
             else:
                 n = int(rng.integers(4, 32))      # short / re-prefill
             loop.submit(s, rng.integers(0, cfg.vocab_size, n))

@@ -2,9 +2,11 @@
 
 Both packages keep the same nested layout (``embed``, ``blocks`` — one
 dict per pattern position, leaves stacked over groups — ``final_norm``,
-``lm_head``) and leaf names (attention ``wq``..``wo``, ``ffn``; the mamba
-mixer's ``in_proj``, ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``,
-``D``, ``norm`` and ``out_proj``), so conversion is a tree map.  The caller passes the JAX
+``lm_head``) and leaf names (attention ``wq``..``wo``, ``ffn`` — dense
+``wg``, ``wi``, ``wo``, or an MoE FFN's ``router`` (d, E) and expert
+stacks ``wg``, ``wi`` (E, d, F), ``wo`` (E, F, d); the mamba mixer's
+``in_proj``, ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``, ``D``,
+``norm`` and ``out_proj``), so conversion is a tree map.  The caller passes the JAX
 tree as numpy arrays (``jax.tree.map(np.asarray, params)``); the port
 never imports JAX.
 """

@@ -214,10 +214,18 @@ def packed_arena_attention_layer(p: Dict, x: torch.Tensor, *, cfg,
     park row, never live data); slot_map: (B,) arena slot per segment.
     Only the step's new KV rows are written, in place; the arena kernel
     attends each stream row to its segment's valid cache prefix.  No
-    whole slot is copied.  Returns out (T, d)."""
+    whole slot is copied.  Returns out (T, d).
+
+    ``window``: the sliding-window width.  Each slot is then a ROLLING
+    cache of depth S_max = window + margin, written at position % S_max
+    (the wrap overwrites only positions that fell out of every query's
+    window while no segment writes more than the margin), tail rows
+    park on the scratch slot, and the kernel masks each query to
+    (qpos − window, qpos]."""
     t = x.shape[0]
     q, k, v = _qkv_flat(p, x, cfg, positions)
-    idx = (seg_slots.long(), positions.long())
+    write_pos = positions if window is None else positions % kv[0].shape[1]
+    idx = (seg_slots.long(), write_pos.long())
     kv[0].index_put_(idx, k.to(kv[0].dtype))
     kv[1].index_put_(idx, v.to(kv[1].dtype))
     out = kernel_ops.ragged_mha_arena(q, kv[0], kv[1], slot_map, cu_seqlens,
@@ -245,7 +253,10 @@ def packed_paged_attention_layer(p: Dict, x: torch.Tensor, *, cfg,
     each token in its sequence; token_pages/token_offs: (T,) physical
     (page, offset) each token's new KV is written to — pad/tail rows
     all target the reserved scratch page at offset page_size − 1, which
-    is harmless.  The write is in place; returns out (T, d).
+    is harmless.  ``window``: the page table is a RING over its P_max
+    entries, position p on entry (p // ps) % P_max; the engine computes
+    token_pages through it, so only the kernel's mask changes here.  The
+    write is in place; returns out (T, d).
     """
     t = x.shape[0]
     q, k, v = _qkv_flat(p, x, cfg, positions)
@@ -270,8 +281,9 @@ def paged_decode_layer(p: Dict, x: torch.Tensor, *, cfg,
     layer; positions: (B,) absolute position of the new token;
     write_pages/write_offs: (B,) physical (page, offset) its KV lands in
     (pad rows target the scratch page at offset page_size − 1);
-    kv_lengths: (B,) valid entries including the new row.  The write is
-    in place; returns out (B, d).
+    kv_lengths: (B,) valid entries including the new row.  ``window``
+    selects the ring-table form (write_pages already walk the ring).
+    The write is in place; returns out (B, d).
     """
     b = x.shape[0]
     q, k, v = _qkv(p, x[:, None], cfg, positions[:, None])
@@ -297,11 +309,14 @@ def arena_decode_layer(p: Dict, x: torch.Tensor, *, cfg,
     history; pad rows park at S_max − 1); kv_lengths: (B,) valid entries
     including the new row.  The single new KV row per session is written
     in place and the arena kernel attends each row over its own valid
-    prefix.  Returns out (B, d)."""
+    prefix.  ``window``: each slot a rolling cache written at position %
+    S_max (pad rows on the scratch slot), each row attending its newest
+    min(window, length) keys.  Returns out (B, d)."""
     b = x.shape[0]
     q, k, v = _qkv(p, x[:, None], cfg, positions[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    idx = (slot_map.long(), positions.long())
+    write_pos = positions if window is None else positions % kv[0].shape[1]
+    idx = (slot_map.long(), write_pos.long())
     kv[0].index_put_(idx, k.to(kv[0].dtype))
     kv[1].index_put_(idx, v.to(kv[1].dtype))
     out = kernel_ops.decode_arena(q.contiguous(), kv[0], kv[1], slot_map,

@@ -1,6 +1,7 @@
 """Model assembly of the port, from ``repro.models.transformer``: the
-dense full-attention decoder stack, the encoder-only (audio) stack and
-the attention-free SSM (mamba2) stack, their caches, the dense
+dense full-attention decoder stack (its FFNs dense or MoE, its attention
+full or windowed), the encoder-only (audio) stack and the attention-free
+SSM (mamba2) stack, their caches, the dense
 ``forward`` (the oracle the serving steps are held against, the encoder
 forward, and with caches the dense (L, B) grid and decode steps),
 and the flat-stream serving steps: packed prefill over gathered caches,
@@ -16,12 +17,14 @@ batch, slot arena, page pool) is updated in place.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_dense_reference, moe_layer
 from repro_torch.models.layers import (arena_decode_layer, attention_layer,
                                        packed_arena_attention_layer,
                                        packed_attention_layer,
@@ -41,22 +44,20 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_slice(cfg: ModelConfig) -> None:
-    """The port serves dense full-attention decoders and pure SSM
-    (mamba2) stacks, and runs the encoder-only (audio) stack through
-    :func:`forward`; the serving stack refuses encoder-only configs
-    where the reference does."""
+    """The port serves decoders of full or sliding-window attention
+    with dense or MoE FFNs, and pure SSM (mamba2) stacks, and runs the
+    encoder-only (audio) stack through :func:`forward`; the serving
+    stack refuses encoder-only configs where the reference does."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: hybrid attention/SSM stacks are not ported yet "
             "(ROADMAP Queue 1, item 10)")
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet "
-            "(ROADMAP Queue 1, item 10)")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet "
-            "(ROADMAP Queue 1, item 10)")
+
+
+# a weight whose fp32 draw would take more bytes is drawn one layer
+# group at a time (mixtral-8x7b's expert stacks: 30 GB in fp32 at 16
+# layers), so the draw never holds an fp32 copy of a whole stack
+_DRAW_BYTES = 8 << 30
 
 
 def pattern_period(cfg: ModelConfig) -> int:
@@ -76,7 +77,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     ``blocks`` layout, drawn from a ``torch.Generator`` on ``device``
     seeded with ``seed``.  Dense weights are N(0, 1/fan_in) (embed 0.02,
     lm_head d_model^-0.5), norms 1, biases 0, in ``cfg.dtype``.  An SSM
-    block is {"ln1", "mixer"}: mamba2 has no separate FFN."""
+    block is {"ln1", "mixer"}: mamba2 has no separate FFN.  An MoE FFN
+    is {"router" (d, E), "wg", "wi" (E, d, F), "wo" (E, F, d)}."""
     _check_slice(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -87,9 +89,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     def dense(shape, scale=None):
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
         scale = scale if scale is not None else fan_in ** -0.5
-        w = torch.randn(shape, generator=gen, device=dev,
-                        dtype=torch.float32)
-        return (w.mul_(scale)).to(dt)
+        if 4 * math.prod(shape) <= _DRAW_BYTES:
+            w = torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32)
+            return (w.mul_(scale)).to(dt)
+        # too large to draw in fp32 at once: one layer group at a time
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for i in range(shape[0]):
+            w = torch.randn(shape[1:], generator=gen, device=dev,
+                            dtype=torch.float32)
+            out[i] = w.mul_(scale)
+        return out
 
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=dev)
@@ -110,10 +120,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                          bv=zeros((g, kvd)))
         if cfg.qk_norm:
             mixer.update(q_norm=ones((g, hd)), k_norm=ones((g, hd)))
+        if cfg.layer_is_moe(0):
+            e, ff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+            ffn = {"router": dense((g, d, e)), "wg": dense((g, e, d, ff)),
+                   "wi": dense((g, e, d, ff)), "wo": dense((g, e, ff, d))}
+        else:
+            ffn = {"wg": dense((g, d, cfg.d_ff)),
+                   "wi": dense((g, d, cfg.d_ff)),
+                   "wo": dense((g, cfg.d_ff, d))}
         block = {"ln1": ones((g, d)), "mixer": mixer, "ln2": ones((g, d)),
-                 "ffn": {"wg": dense((g, d, cfg.d_ff)),
-                         "wi": dense((g, d, cfg.d_ff)),
-                         "wo": dense((g, cfg.d_ff, d))}}
+                 "ffn": ffn}
     return {"embed": dense((cfg.padded_vocab, d), scale=0.02),
             "blocks": [block],
             "final_norm": ones((d,)),
@@ -124,17 +140,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device="cuda") -> List[Dict[str, torch.Tensor]]:
+               device="cuda", swa_depth: Optional[int] = None
+               ) -> List[Dict[str, torch.Tensor]]:
     """Per-pattern-position cache stacked over groups:
 
-      attn position: {"k": (G, batch, max_len, Hkv, D), "v": ...}
+      attn position: {"k": (G, batch, S, Hkv, D), "v": ...}
       ssm  position: {"ssm": (G, batch, NH, HD, DS) fp32,
                       "conv": (G, batch, W-1, C)}
 
-    The slot arena passes batch = N_slots(+1 scratch); the paged arena
-    passes batch = N_pages + 1 and max_len = page_size, so each KV pool
-    is (G, N_pages + 1, page_size, Hkv, D) and the SSM leaves use the
-    page axis as the state-slot axis."""
+    S is max_len, and for a sliding-window config min(max_len,
+    swa_depth or window): the rolling slot arena passes window + margin,
+    the dense baseline max_len (it masks the window instead of
+    rolling), the page pool page_size.  The slot arena passes batch =
+    N_slots(+1 scratch); the paged arena passes batch = N_pages + 1 and
+    max_len = page_size, so each KV pool is (G, N_pages + 1, page_size,
+    Hkv, D) and the SSM leaves use the page axis as the state-slot
+    axis."""
     _check_slice(cfg)
     dev = resolve_device(device)
     g = num_groups(cfg)
@@ -142,7 +163,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     caches = []
     for j in range(pattern_period(cfg)):
         if cfg.layer_kind(j) == "attn":
-            shape = (g, batch, max_len, cfg.num_kv_heads, cfg.hdim)
+            s = max_len
+            if cfg.sliding_window is not None:
+                s = min(max_len, swa_depth if swa_depth is not None
+                        else cfg.sliding_window)
+            shape = (g, batch, s, cfg.num_kv_heads, cfg.hdim)
             caches.append({"k": torch.zeros(shape, dtype=dt, device=dev),
                            "v": torch.zeros(shape, dtype=dt, device=dev)})
         else:
@@ -162,12 +187,27 @@ def _layer(block: Dict, g: int) -> Dict:
             for k, v in block.items()}
 
 
-def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Post-mixer FFN residual for one layer (none in an SSM stack: the
-    mamba2 block already mixes channels)."""
+def _ffn(cfg: ModelConfig, j: int, lp: Dict, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Post-mixer FFN residual of pattern position ``j`` over x (..., d)
+    (none in an SSM stack: the mamba2 block already mixes channels), and
+    its MoE aux loss.  An MoE FFN takes the reference's rule: every
+    expert on every row (``moe_dense_reference``) for at most 8 experts
+    over at most 4096 rows of x — the padded step, bucket tail
+    included — else the capacity dispatch (``moe_layer``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        return x
-    return x + swiglu(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return x, aux
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.layer_is_moe(j):
+        k = cfg.num_experts_per_tok
+        if cfg.num_experts <= 8 and h.numel() // h.shape[-1] <= 4096:
+            y, aux = moe_dense_reference(lp["ffn"], h, top_k=k)
+        else:
+            y, aux = moe_layer(lp["ffn"], h, top_k=k)
+    else:
+        y = swiglu(lp["ffn"], h)
+    return x + y, aux
 
 
 def _lm_head_logits(params: Dict, cfg: ModelConfig,
@@ -190,7 +230,7 @@ def forward(params: Dict, cfg: ModelConfig,
             seq_valid_len: Optional[torch.Tensor] = None, *,
             embeds: Optional[torch.Tensor] = None,
             kv_valid_len: Optional[torch.Tensor] = None,
-            dense_cache_write: bool = False) -> torch.Tensor:
+            dense_cache_write: bool = False, return_aux: bool = False):
     """The plain dense forward.
 
     tokens: (B, L) int — or embeds: (B, L, d), the frame or patch
@@ -212,7 +252,10 @@ def forward(params: Dict, cfg: ModelConfig,
     and attention runs over the new tokens.  seq_valid_len (B,): real
     tokens per row, read by SSM layers only (padded positions become
     identities of the state).  logits_slice: None → (B, L, V); "last" →
-    (B, V) of the final position only."""
+    (B, V) of the final position only.  A sliding-window layer masks its
+    window over full-depth caches (the dense baseline's).
+    ``return_aux``: return (logits, the MoE load-balance aux loss summed
+    over layers), the reference's third result."""
     _check_slice(cfg)
     if embeds is None:
         x = params["embed"][tokens.long()]
@@ -222,6 +265,7 @@ def forward(params: Dict, cfg: ModelConfig,
     if positions is None:
         positions = torch.arange(l, device=x.device)[None].expand(b, l)
     decode = l == 1 and caches is not None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, block in enumerate(params["blocks"]):
         for g in range(num_groups(cfg)):
             lp = _layer(block, g)
@@ -243,11 +287,13 @@ def forward(params: Dict, cfg: ModelConfig,
                     cc[0].copy_(upd[0])
                     cc[1].copy_(upd[1])
                 x = x + mix
-            x = _ffn(cfg, lp, x)
+            x, a = _ffn(cfg, j, lp, x)
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1]
-    return _lm_head_logits(params, cfg, x)
+    logits = _lm_head_logits(params, cfg, x)
+    return (logits, aux) if return_aux else logits
 
 
 def _scan_serving_stack(params: Dict, cfg: ModelConfig,
@@ -267,7 +313,7 @@ def _scan_serving_stack(params: Dict, cfg: ModelConfig,
             cache_j = {name: pool[g] for name, pool in caches[j].items()}
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             x = x + mix_fn(j, lp["mixer"], h, cache_j)
-            x = _ffn(cfg, lp, x)
+            x = _ffn(cfg, j, lp, x)[0]
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -277,8 +323,9 @@ def _scan_serving_stack(params: Dict, cfg: ModelConfig,
 @dataclasses.dataclass(frozen=True)
 class LayerCapability:
     """Arena capability of ONE pattern position: "attn" (full-attention
-    KV slots or pages), "ssm" (a recurrent-state slot stepped in place)
-    or "attn_window" (not ported yet)."""
+    KV slots or pages), "attn_window" (rolling window-deep KV slots or
+    ring page tables, and the windowed kernels; ``window`` its width) or
+    "ssm" (a recurrent-state slot stepped in place)."""
     kind: str
     window: Optional[int] = None
 
@@ -304,6 +351,13 @@ class ArenaCapability:
     @property
     def has_ssm(self) -> bool:
         return any(c.kind == "ssm" for c in self.layers)
+
+    @property
+    def window(self) -> Optional[int]:
+        for c in self.layers:
+            if c.kind == "attn_window":
+                return c.window
+        return None
 
     @property
     def needs_scratch_slot(self) -> bool:
@@ -412,7 +466,8 @@ def forward_packed_arena(params: Dict, cfg: ModelConfig, *,
         return packed_arena_attention_layer(
             lp, h, cfg=cfg, positions=positions, seg_slots=seg_slots,
             slot_map=slot_map, cu_seqlens=cu_seqlens, q_offsets=q_offsets,
-            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]),
+            window=cap.layers[j].window)
 
     x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
     return _lm_head_logits(params, cfg, x[last_idx.long()])
@@ -443,7 +498,8 @@ def forward_decode_arena(params: Dict, cfg: ModelConfig, *,
                 lp, h, cfg=cfg, slot_map=slot_map, cache=cache_j)
         return arena_decode_layer(
             lp, h, cfg=cfg, slot_map=slot_map, positions=write_pos,
-            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]),
+            window=cap.layers[j].window)
 
     x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
     return _lm_head_logits(params, cfg, x)
@@ -523,7 +579,8 @@ def forward_packed_paged(params: Dict, cfg: ModelConfig, *,
             lp, h, cfg=cfg, positions=positions, token_pages=token_pages,
             token_offs=token_offs, page_table=page_table,
             cu_seqlens=cu_seqlens, q_offsets=q_offsets,
-            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]),
+            window=cap.layers[j].window)
 
     x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
     return _lm_head_logits(params, cfg, x[last_idx.long()])
@@ -583,7 +640,8 @@ def forward_decode_paged(params: Dict, cfg: ModelConfig, *,
         return paged_decode_layer(
             lp, h, cfg=cfg, positions=positions, write_pages=write_pages,
             write_offs=write_offs, page_table=page_table,
-            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]))
+            kv_lengths=kv_lengths, kv=(cache_j["k"], cache_j["v"]),
+            window=cap.layers[j].window)
 
     x = _scan_serving_stack(params, cfg, tokens, arena, mix_fn)
     return _lm_head_logits(params, cfg, x)

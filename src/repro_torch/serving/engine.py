@@ -30,21 +30,29 @@ Every executor step is a replay of its shape's CUDA graph
 arrays and copies what it keeps of a step's outputs, which the next
 replay overwrites.
 
-Dense attention stacks and pure SSM (mamba2) stacks are served.  An SSM
-stack keeps one recurrent-state slot per session — a slot of the slot
-arena plus a scratch slot that every pad row and pad segment targets,
-or a state page of the pool with boundary-state checkpoints on the
-radix index — and every sequence-mode layer runs the ``ssd_scan``
-kernel.  Its packed steps reserve one stream row for the scratch pad
-segment; speculation stays off for it (no rollback of recurrent state).
+Attention stacks (full or sliding-window, dense or MoE FFNs) and pure
+SSM (mamba2) stacks are served.  An SSM stack keeps one recurrent-state
+slot per session — a slot of the slot arena plus a scratch slot that
+every pad row and pad segment targets, or a state page of the pool with
+boundary-state checkpoints on the radix index — and every sequence-mode
+layer runs the ``ssd_scan`` kernel.  A sliding-window stack keeps its
+window in rolling slots of depth window + C_l on the packed slot arena
+(a scratch slot for pads; a segment longer than C_l is split, so one
+step's writes never wrap onto a key still in a query's window), in ring
+page tables of ceil((window + C_l) / page_size) pages on the pool (the
+radix index off, forks refused), and in full-depth slots with the
+window masked in the dense baseline, which has no decode executor.  The
+scratch-slot stacks' packed steps reserve one stream row for the pad
+segment; speculation stays off for them (no rollback of recurrent state
+or of a rolling slot).
 
 Sampling is greedy argmax on the device, the fused sampling kernel
 (``fused_sampling=True`` with ``keep_last_logits=False``: bias,
 temperature, top-k / top-p and the draw on the device, host-drawn
 uniforms in, (R,) ids out), or the numpy sampler on the host.  Not
-ported — session export/import, the host spill tier, and windowed,
-hybrid and MoE configs — every such entry raises
-``NotImplementedError`` naming its ROADMAP item.
+ported — session export/import, the host spill tier and hybrid
+configs — every such entry raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -138,9 +146,25 @@ class Engine:
         self.device = tr.resolve_device(device)
         tr._check_slice(cfg)
         self.capability = cap = tr.arena_capability(cfg)
-        # SSM state has no park position: pads target a dedicated
-        # scratch slot instead of aliasing a live one
-        scratch = bool(cap.needs_scratch_slot
+        # rolling mode: a sliding-window config serves from window-deep
+        # rolling slots (depth = window + margin) when both in-place
+        # paths run — a rolling slot cannot be gathered into the dense
+        # (L, B) step, whose writes are absolute.  Otherwise its slots
+        # are full depth and the dense path masks the window
+        self._rolling = bool(
+            cap.packed_ok and cap.has_window and self.ecfg.packed
+            and self.ecfg.arena_prefill and self.ecfg.arena_decode)
+        # the no-alias margin: the most new rows one segment may write
+        # into a rolling slot or ring in one step.  C_l bounds it —
+        # step_mixed splits a longer segment on a rolling arena
+        self._seg_margin = self.ecfg.chunk_tokens
+        swa_depth: Optional[int] = None
+        if cap.has_window:
+            swa_depth = (min(self.ecfg.max_len, cap.window + self._seg_margin)
+                         if self._rolling else self.ecfg.max_len)
+        # rolling KV slots and SSM state have no spare park row: pads
+        # target a dedicated scratch slot instead of aliasing a live one
+        scratch = bool(cap.packed_ok and cap.needs_scratch_slot
                        and (self.ecfg.packed or self.ecfg.arena_decode))
         self._paged = bool(self.ecfg.paged_kv)
         if self._paged:
@@ -159,9 +183,16 @@ class Engine:
             num_pages = self.ecfg.num_pages or (
                 self.ecfg.num_slots * self.ecfg.max_len
                 // self.ecfg.page_size)
+            # a sliding-window config gets RING tables: the rolling
+            # arena at page granularity, ceil((window + margin) / ps)
+            # pages a session
+            ring_pages = None
+            if cap.has_window:
+                depth = min(self.ecfg.max_len, cap.window + self._seg_margin)
+                ring_pages = -(-depth // self.ecfg.page_size)
             self.arena = PagedKVArena(
                 cfg, num_pages, self.ecfg.page_size, self.ecfg.max_len,
-                prefix_cache=self.ecfg.prefix_cache,
+                prefix_cache=self.ecfg.prefix_cache, ring_pages=ring_pages,
                 state_slots=cap.has_ssm,
                 host_pool_bytes=self.ecfg.host_pool_bytes,
                 device=self.device)
@@ -169,14 +200,15 @@ class Engine:
             # gathered steps read one static batch buffer: as deep as the
             # deepest grid rung or the most sessions a step gathers
             self.arena = KVArena(cfg, self.ecfg.num_slots,
-                                 self.ecfg.max_len, scratch_slot=scratch,
-                                 device=self.device,
+                                 self.ecfg.max_len, swa_depth=swa_depth,
+                                 scratch_slot=scratch, device=self.device,
                                  batch_rows=max(self.ecfg.num_slots,
                                                 *self.ecfg.grid_depths))
-        # dense gather/scatter is a valid fallback on the slot arena; a
-        # paged pool has no whole-sequence row to gather, so there
-        # oversized work is split across packed steps
-        self._dense_ok = not self._paged
+        # dense gather/scatter is a valid fallback on the slot arena
+        # except in rolling mode (absolute-position writes do not fit a
+        # rolling slot); a paged pool has no whole-sequence row to
+        # gather.  There oversized work is split across packed steps
+        self._dense_ok = not (self._rolling or self._paged)
         # every step graph of the engine draws on one memory pool
         pool = (torch.cuda.graph_pool_handle()
                 if self.device.type == "cuda" else None)
@@ -193,8 +225,11 @@ class Engine:
                 cfg, token_buckets=self.ecfg.token_buckets,
                 max_seqs=min(max_seqs, self.ecfg.num_slots),
                 graph_pool=pool)
+        # a windowed config that is not rolling (the dense baseline's
+        # full-depth slots) decodes through the dense step
         self.decode_executor: Optional[DecodeBucketExecutor] = None
-        if self.ecfg.arena_decode and cap.packed_ok:
+        if self.ecfg.arena_decode and cap.packed_ok and not (
+                cap.has_window and not self._rolling):
             self.decode_executor = DecodeBucketExecutor(
                 cfg, decode_buckets=self.ecfg.decode_buckets,
                 max_seqs=self.ecfg.num_slots, graph_pool=pool)
@@ -305,9 +340,10 @@ class Engine:
     def can_spec(self) -> bool:
         """Speculative verify/rollback is defined where ``arena.truncate``
         is: pure-attention, non-rolling layouts.  An SSM stack has no
-        rollback of its recurrent state, so speculation stays off
-        there."""
-        return self.capability.pure_attn
+        rollback of its recurrent state and a rolling slot or ring has
+        already overwritten the rows a rejected tail wrote over, so
+        speculation stays off there."""
+        return self.capability.pure_attn and not self._rolling
 
     def enable_spec(self, draft: Any, k: int = 4) -> None:
         """Attach a draft proposer (``serving.draft``): decode sessions
@@ -498,8 +534,8 @@ class Engine:
         :meth:`step_mixed` (which itself falls back to the dense path
         for off-ladder totals or over-depth batches on a slot arena).
         An explicit ``bucket`` pins the dense (L, B) grid path; it has
-        no meaning on a paged pool (no dense gather path exists), where
-        the batch rides the packed stream instead.
+        no meaning on a paged pool or a rolling arena (no dense gather
+        path exists), where the batch rides the packed stream instead.
         Returns {session: first_sampled_token}."""
         if self.packed_executor is not None and (
                 bucket is None or not self._dense_ok):
@@ -518,7 +554,8 @@ class Engine:
         grid path), else to the longest prompt; gathers whole arena
         slots and scatters them back.  ``cause`` records whether the
         config requested it or the packed path forced it (``stats()``)."""
-        assert self._dense_ok, "a paged pool has no dense gather path"
+        assert self._dense_ok, \
+            "a paged pool or a rolling arena has no dense gather path"
         assert len(sessions) == len(token_lists)
         self._note_dense("prefill", cause)
         n = len(sessions)
@@ -636,7 +673,12 @@ class Engine:
                                 for s, _ in decodes)
         px = self.packed_executor
         bucket = None
+        # a rolling slot adds the no-alias rule: no segment may write
+        # more than the margin in one step (a pinned token_bucket must
+        # not bypass it); longer segments take the split path
         fits = px is not None and n_p + n_d <= px.max_seqs
+        if fits and self._rolling and lens and max(lens) > self._seg_margin:
+            fits = False
         if fits:
             bucket = token_bucket or px.bucket_for(total)
             if bucket is not None and bucket < total:
@@ -702,11 +744,13 @@ class Engine:
 
     def _step_split(self, prefills: Sequence[Tuple[int, np.ndarray]],
                     decodes: Sequence[Tuple[int, int]]) -> MixedStepResult:
-        """Serve an off-ladder / over-depth mix on a paged pool, which
-        has no dense path: prefills advance in C_l-sized packed chunks
-        and the decode backlog drains in ladder-top groups."""
+        """Serve an off-ladder / over-depth mix on a paged pool or a
+        rolling arena, which have no dense path: prefills advance in
+        C_l-sized packed chunks (which also keeps a rolling slot's
+        no-alias margin) and the decode backlog drains in ladder-top
+        groups."""
         px = self.packed_executor
-        c = min(self.ecfg.chunk_tokens, px.ladder.max_tokens)
+        c = min(self._seg_margin, px.ladder.max_tokens)
         out: Dict[int, int] = {}
         for s, toks in prefills:
             toks = np.asarray(toks)
@@ -714,7 +758,8 @@ class Engine:
                 res = self.step_mixed([(s, toks[start:start + c])], [])
                 out[s] = res.tokens[s]
         if decodes:
-            m = self.decode_executor.ladder.max_seqs
+            dx = self.decode_executor
+            m = dx.ladder.max_seqs if dx is not None else 1
             decodes = list(decodes)
             for i in range(0, len(decodes), m):
                 grp = decodes[i:i + m]
@@ -764,8 +809,9 @@ class Engine:
         """Claim (or find) each segment's slot and check its write fits:
         (slots, slot map over every stream row).  Dummy segments and tail
         rows reuse the first segment's slot, confined to its park row
-        S_max − 1 by their positions — or, on an SSM arena (state has no
-        park position), target the scratch slot."""
+        S_max − 1 by their positions — or, on an SSM or rolling arena
+        (state has no park position, a rolling slot no spare row), target
+        the scratch slot."""
         slots = [self.arena.alloc(seg.session) for seg in segments]
         for seg in segments:
             self.arena.check_length(seg.session, seg.history + seg.length)
@@ -783,7 +829,9 @@ class Engine:
         (b_max, P_max), token pages (bucket,), token offsets (bucket,),
         state map (b_max,) — each segment's SSM state page).  Tail rows
         and dummy sequences park on the reserved scratch page at offset
-        page_size − 1, and step its state."""
+        page_size − 1, and step its state.  On a ring table position p
+        lives on ring page (p // ps) % n_ring, the host-side half of the
+        windowed kernels' ring walk."""
         ar = self.arena
         ps = ar.page_size
         b_max = self.packed_executor.stream_rows
@@ -797,8 +845,9 @@ class Engine:
             pages = ar.prepare_extend(seg.session, seg.length)
             page_table[i, :len(pages)] = pages
             pos = stream.positions[cu[i]:cu[i + 1]]
-            token_pages[cu[i]:cu[i + 1]] = np.asarray(pages, np.int32)[
-                pos // ps]
+            pidx = pos // ps if ar.ring_pages is None \
+                else (pos // ps) % ar.ring_pages
+            token_pages[cu[i]:cu[i + 1]] = np.asarray(pages, np.int32)[pidx]
             token_offs[cu[i]:cu[i + 1]] = pos % ps
             if ar.state_slots:
                 state_map[i] = ar.state_pages[seg.session]
@@ -1171,7 +1220,8 @@ class Engine:
         batch axis pads to a decode-ladder rung and the arena (slot or
         paged) is read in place.  A batch over the ladder top takes the
         dense gather path on a slot arena and splits into ladder-top
-        groups on a paged pool; without ``arena_decode`` every tick is
+        groups on a paged pool or a rolling arena; without
+        ``arena_decode`` (or on a windowed dense baseline) every tick is
         dense."""
         dx = self.decode_executor
         bucket = dx.bucket_for(len(sessions)) if dx is not None else None
@@ -1254,7 +1304,9 @@ class Engine:
                 pages = ar.prepare_extend(s, 1)
                 page_table[i, :len(pages)] = pages
                 positions[i] = h
-                write_pages[i] = pages[h // ps]
+                pidx = h // ps if ar.ring_pages is None \
+                    else (h // ps) % ar.ring_pages
+                write_pages[i] = pages[pidx]
                 write_offs[i] = h % ps
                 kv_lengths[i] = h + 1
                 if ar.state_slots:
@@ -1286,7 +1338,8 @@ class Engine:
         scatter the slots back — O(S_max) bytes per token and one shape
         per session count.  ``cause`` records whether the config
         requested it or the ladder forced it."""
-        assert self._dense_ok, "a paged pool has no dense gather path"
+        assert self._dense_ok, \
+            "a paged pool or a rolling arena has no dense gather path"
         n = len(sessions)
         slots = [self.arena.slot_of(s) for s in sessions]
         cur = np.asarray(tokens, np.int32)

@@ -4,6 +4,8 @@ scratch slot for SSM stacks), the radix prefix index over page-sized
 token chunks, and the page-pool arena with COW forks, LRU eviction,
 speculative rollback (``truncate``) and, for SSM stacks, one state page
 per session with boundary-state checkpoints on the radix index.
+Sliding-window configs get ROLLING slots on the slot arena
+(``swa_depth``) and RING page tables on the page pool (``ring_pages``).
 
 The bookkeeping (slots, lengths, page ids, refcounts, the trie) is the
 JAX package's, line for line, so a replay gives identical assignments.
@@ -12,8 +14,7 @@ difference: a session's recurrent state starts at zero — ``alloc`` and
 ``open`` zero the SSM leaves of the slot or state page they hand out,
 where the JAX arenas hand out a reused slot or page with the state its
 last owner left (ROADMAP Queue 3).  Not ported: the host spill tier
-(``host_pool_bytes > 0``), rolling slots and ring tables for
-sliding-window configs, and slot export/import; each raises
+(``host_pool_bytes > 0``) and slot export/import; each raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -47,6 +48,12 @@ class KVArena:
     pads target the extra SCRATCH slot ``N_slots``, which sessions never
     claim.
 
+    ``swa_depth``: the attention-slot depth of a sliding-window config
+    (None keeps ``min(max_len, window)``).  The rolling arena passes
+    window + margin: a slot holds a session's newest positions at
+    position % depth, every row cycles live, so it has a scratch slot
+    too; the dense baseline passes max_len and masks the window.
+
     The arena-resident steps read and write the tensors in place through
     a slot map (there is no ``replace``: the JAX package's swap of the
     donated result is the identity here).  ``gather`` / ``scatter`` copy
@@ -61,17 +68,15 @@ class KVArena:
                  dtype=None, swa_depth: Optional[int] = None,
                  scratch_slot: bool = False, device="cuda",
                  batch_rows: Optional[int] = None):
-        if swa_depth is not None:
-            raise NotImplementedError(
-                "rolling window slots are not ported yet "
-                "(ROADMAP Queue 1, item 10)")
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
+        self.swa_depth = swa_depth
         # None: pads park on a live slot's park row
         self.scratch: Optional[int] = num_slots if scratch_slot else None
         self.arena = tr.init_cache(cfg, num_slots + int(scratch_slot),
-                                   max_len, dtype, device=device)
+                                   max_len, dtype, device=device,
+                                   swa_depth=swa_depth)
         self._free: List[int] = list(range(num_slots))
         self._session_slot: Dict[int, int] = {}
         self.lengths: Dict[int, int] = {}          # session -> tokens cached
@@ -336,6 +341,14 @@ class PagedKVArena:
     zero; when the pool runs dry, LRU leaf pages held only by the index
     are evicted (with their state checkpoints).
 
+    ``ring_pages=n`` (sliding-window configs): RING tables.  A
+    session's page list is a ring of at most ``n`` pages; position p
+    lives on ring page (p // ps) % n (the engine maps it), so the ring
+    holds the newest n·ps positions and its pages are overwritten in
+    place as the window rolls.  They are never shareable: the radix
+    index is off, refcounts stay 1, ``truncate`` is length bookkeeping
+    and ``fork`` refuses.
+
     ``state_slots=True`` (SSM stacks): each session gets one STATE page
     from the same pool (the SSM leaves of the pool use the page axis as
     the state-slot axis).  ``commit`` checkpoints the live state into a
@@ -355,10 +368,6 @@ class PagedKVArena:
                  ring_pages: Optional[int] = None,
                  state_slots: bool = False,
                  host_pool_bytes: int = 0, device="cuda"):
-        if ring_pages is not None:
-            raise NotImplementedError(
-                "ring page tables are not ported yet "
-                "(ROADMAP Queue 1, item 10)")
         if host_pool_bytes > 0:
             raise NotImplementedError(
                 "the host spill tier is not ported yet "
@@ -368,9 +377,12 @@ class PagedKVArena:
         self.page_size = page_size
         self.max_len = max_len
         self.scratch: int = num_pages          # reserved, never allocated
+        self.ring_pages = ring_pages
         self.state_slots = state_slots
+        # swa_depth=page_size keeps a windowed pool's pages page_size
+        # deep: the ring table, not the page depth, carries the window
         self.arena = (tr.init_cache(cfg, num_pages + 1, page_size, dtype,
-                                    device=device)
+                                    device=device, swa_depth=page_size)
                       if cfg is not None else None)
         self._free: List[int] = list(range(num_pages))
         self._refcount: List[int] = [0] * num_pages
@@ -378,6 +390,8 @@ class PagedKVArena:
         self._tokens: Dict[int, List[int]] = {}    # session -> cached ids
         self.lengths: Dict[int, int] = {}          # session -> tokens cached
         self.state_pages: Dict[int, int] = {}      # session -> SSM state page
+        if ring_pages is not None:
+            prefix_cache = False               # ring pages are overwritten
         self.index: Optional[RadixPageIndex] = (
             RadixPageIndex(page_size) if prefix_cache else None)
         # proof counters (engine.stats())
@@ -474,6 +488,8 @@ class PagedKVArena:
 
     @property
     def max_pages_per_seq(self) -> int:
+        if self.ring_pages is not None:
+            return self.ring_pages
         return self.max_len // self.page_size
 
     # -------------------------------------------------------- prefix reuse
@@ -608,6 +624,14 @@ class PagedKVArena:
                 f"({h + n} > {self.max_len - 2})")
         ps = self.page_size
         pages = self._pages[session]
+        if self.ring_pages is not None:
+            # a ring table: pages are allocated until the ring is full;
+            # past that, writes wrap onto the ring's own pages, which are
+            # never shared, so no COW
+            last = (h + n - 1) // ps
+            while len(pages) <= last and len(pages) < self.ring_pages:
+                pages.append(self._alloc_page())
+            return pages
         if h % ps and self._refcount[pages[h // ps]] > 1:
             src = pages[h // ps]
             dst = self._alloc_page()
@@ -689,8 +713,9 @@ class PagedKVArena:
            ``n == length``.
         3. **Token trim** — the token ids and length shrink to ``n``.
 
-        ``audit()`` holds afterwards.  (Ring tables for windowed configs
-        are not ported: ROADMAP Queue 1, item 10.)
+        ``audit()`` holds afterwards.  On a ring table the rollback is
+        length bookkeeping: its pages hold wrapped history, rows past
+        ``n`` are masked out by length and overwritten in place.
         """
         h = self.lengths.get(session, 0)
         if not 0 <= n <= h:
@@ -700,6 +725,10 @@ class PagedKVArena:
         ps = self.page_size
         toks = self._tokens[session]
         pages = self._pages[session]
+        if self.ring_pages is not None:
+            del toks[n:]
+            self.lengths[session] = n
+            return
         new_full = n // ps
         keep_pages = -(-n // ps)
         if self.index is not None:
@@ -731,7 +760,10 @@ class PagedKVArena:
         """COW-fork: the child shares every page (and the token history)
         of the parent; diverging writes copy the partial boundary page
         on demand (prepare_extend).  With SSM state the parent's state
-        page is deep-copied (recurrent state diverges at once)."""
+        page is deep-copied (recurrent state diverges at once).  Ring
+        tables cannot fork: their pages are overwritten in place."""
+        assert self.ring_pages is None, \
+            "ring tables cannot fork (pages are overwritten in place)"
         assert child not in self._pages, f"fork onto live session {child}"
         self.open(child)
         for p in self._pages[parent]:

@@ -90,10 +90,11 @@ def _attend_tile(qv, rows, kbuf, vbuf, g, band, lo, hi, round_p, seen):
 
 
 def _tile(q, out, written, seen_all, rows, kbuf, vbuf, *, r0, n_rows, rep,
-          g, pos0, kv_hi, causal, window, round_p, vec_base):
+          g, pos0, kv_hi, causal, window, round_p, vec_base, kv_lo=0):
     """The tile core (``Tile::run``): stage the tile's query vectors
     (row r0 + i // rep, head g * rep + i % rep), derive the band and the
-    rows' intervals as ``TileArgs`` does, attend, write each vector."""
+    rows' intervals as ``TileArgs`` does — keys in [kv_lo, kv_hi), the
+    positions the layout holds — attend, write each vector."""
     hq, d = q.shape[-2], q.shape[-1]
     nv = n_rows * rep
     assert nv <= CORES[round_p][0]
@@ -101,11 +102,11 @@ def _tile(q, out, written, seen_all, rows, kbuf, vbuf, *, r0, n_rows, rep,
     r, h = i // rep, g * rep + i % rep
     qv = q[r0 + r, h].float()
     qpos = pos0 + r
-    klo = torch.clamp(qpos - window + 1, min=0) if window else \
-        torch.zeros(nv, dtype=torch.long)
+    klo = torch.clamp(qpos - window + 1, min=kv_lo) if window else \
+        torch.full((nv,), kv_lo, dtype=torch.long)
     khi = torch.clamp(qpos + 1, max=kv_hi) if causal else \
         torch.full((nv,), kv_hi)
-    lo = max(0, pos0 - window + 1) if window else 0
+    lo = max(kv_lo, pos0 - window + 1) if window else kv_lo
     hi = min(kv_hi, pos0 + n_rows) if causal else kv_hi
     seen = torch.zeros(nv, max(hi, 0), dtype=torch.long)
     o = _attend_tile(qv, rows, kbuf, vbuf, g, (klo, khi), lo, hi, round_p,
@@ -119,11 +120,11 @@ def _tile(q, out, written, seen_all, rows, kbuf, vbuf, *, r0, n_rows, rep,
     seen_all.append(int(seen.sum()))
 
 
-def _rows_map(kv_hi, fn):
-    """A row map that refuses positions at or past the band's kv limit:
-    the kernels never address them."""
+def _rows_map(kv_hi, fn, kv_lo=0):
+    """A row map that refuses positions outside the held range [kv_lo,
+    kv_hi): the kernels never address them."""
     def rows(pos):
-        assert 0 <= pos < kv_hi, pos
+        assert kv_lo <= pos < kv_hi, pos
         return fn(pos)
     return rows
 
@@ -177,10 +178,13 @@ def segment_tiles(cu, n_rows, rows_per):
 
 
 def tile_ragged(q, kbuf, vbuf, seg_rows, capacity, cu, q_offsets,
-                kv_lengths, *, round_p=False):
+                kv_lengths, *, round_p=False, window=0):
     """``ragged_prefill.cuh``'s schedule over storage (rows, hkv, D) whose
     segment b reads row ``seg_rows(b, pos)``; ``capacity`` is the most
-    positions a segment holds."""
+    positions a segment holds (the layout's depth).  ``window`` > 0: the
+    ring and rolling layouts, which hold a segment's newest positions
+    [max(0, kv_len − depth), kv_len) (``Layout::held``), and each row's
+    window."""
     t, hq, d = q.shape
     hkv = kbuf.shape[1]
     rep = hq // hkv
@@ -200,13 +204,16 @@ def tile_ragged(q, kbuf, vbuf, seg_rows, capacity, cu, q_offsets,
                 out[r0 + i // rep, g * rep + i % rep] = 0
                 written[r0 + i // rep, g * rep + i % rep] += 1
                 continue
-            kv_hi = min(int(kv_lengths[seg]), capacity)
-            rows = _rows_map(kv_hi, functools.partial(seg_rows, seg))
+            kv_len = max(int(kv_lengths[seg]), 0)
+            kv_lo, kv_hi = ((max(0, kv_len - capacity), kv_len) if window
+                            else (0, min(kv_len, capacity)))
+            rows = _rows_map(kv_hi, functools.partial(seg_rows, seg), kv_lo)
             s0 = cu[seg]
             _tile(q, out, written, seen, rows, kbuf, vbuf, r0=r0,
                   n_rows=r1 - r0, rep=rep, g=g,
                   pos0=int(q_offsets[seg]) + r0 - s0, kv_hi=kv_hi,
-                  causal=True, window=0, round_p=round_p, vec_base=(g, x))
+                  causal=True, window=window, round_p=round_p,
+                  vec_base=(g, x), kv_lo=kv_lo)
     assert (written == 1).all()          # every (row, head) once
     return out
 
@@ -433,3 +440,115 @@ def test_segment_tiles_cover_each_row_once(rep):
         assert (held == 1).all()
         used = sum(tile is not None for tile in tiles)
         assert all(tile is None for tile in tiles[used:])
+
+
+# ------------------------------------------------------------ windowed
+
+# the windowed forms (ring page tables, rolling slots): a window off the
+# page and key-tile grids, a margin C_l of 16, so a ring of
+# ceil((37 + 16) / 16) = 4 pages (64 positions) and rolling slots of
+# 53 rows.  Segments (length, history): kv at exactly one ring depth,
+# rows straddling the ring's wrap at 128, a decode row, kv inside the
+# window (a partly valid last page), kv at two ring depths, at two
+# rolling depths, rows straddling the rolling wrap at 106, a segment
+# longer than the margin (keys it overwrote are not held, as in the
+# TPU kernels), a keyless segment; then 2 pad segments and 9 tail rows
+W_WINDOW, W_MARGIN = 37, 16
+W_RING = -(-(W_WINDOW + W_MARGIN) // PS)
+W_DEPTH = {"ring": W_RING * PS, "rolling": W_WINDOW + W_MARGIN}
+W_LENS = [16, 5, 1, 10, 16, 13, 8, 30, 4]
+W_HISTS = [48, 125, 200, 10, 112, 93, 102, 150, 0]
+W_KEYLESS = 8
+W_PAGES, W_SLOTS = 48, 11
+
+
+def window_storage(rng, layout, kv_lens, d):
+    """Ring pages or rolling slots holding each segment's newest
+    positions, written in position order as the engine writes them:
+    (K, V with NaN on every row no segment holds, K, V with 1000 there,
+    the plain version's index — a page table, whose entries past a
+    ring's allocated pages name a spare page, or a slot map — and
+    seg_rows(seg, pos), the kernel's row map, which faults on an entry
+    past a ring's allocated pages)."""
+    b = len(kv_lens)
+    if layout == "ring":
+        shape = (W_PAGES, PS, HKV, d)
+        table = np.full((b, W_RING), 1 << 30, np.int64)   # faults if read
+        free = list(rng.permutation(W_PAGES - 1))
+        for i, n in enumerate(kv_lens):
+            need = min(-(-n // PS), W_RING)
+            table[i, :need] = [free.pop() for _ in range(need)]
+
+        def seg_rows(seg, pos):
+            return int(table[seg, (pos // PS) % W_RING]) * PS + pos % PS
+        index = np.where(table == 1 << 30, W_PAGES - 1, table)
+    else:
+        shape = (W_SLOTS, W_DEPTH["rolling"], HKV, d)
+        slots = [int(x) for x in rng.permutation(W_SLOTS - 1)[:b]]
+
+        def seg_rows(seg, pos):
+            return slots[seg] * W_DEPTH["rolling"] + pos % W_DEPTH["rolling"]
+        index = slots
+    k = torch.full((int(np.prod(shape[:2])), HKV, d), float("nan"))
+    v = k.clone()
+    for i, n in enumerate(kv_lens):
+        for p in range(n):                       # the newest write wins
+            r = seg_rows(i, p)
+            k[r] = torch.from_numpy(rng.standard_normal((HKV, d)).astype(
+                np.float32))
+            v[r] = torch.from_numpy(rng.standard_normal((HKV, d)).astype(
+                np.float32))
+    held = ~k.isnan().any(dim=-1).any(dim=-1)
+    kf, vf = k.clone(), v.clone()
+    kf[~held], vf[~held] = 1000.0, 1000.0
+    return (k, v, kf.reshape(shape), vf.reshape(shape),
+            torch.tensor(np.asarray(index), dtype=torch.int32), seg_rows)
+
+
+def _window_ragged_inputs(seed, rep, layout, dtype):
+    rng = np.random.default_rng(seed)
+    d = 128
+    kvl = [h + n for h, n in zip(W_HISTS, W_LENS)]
+    kvl[W_KEYLESS] = 0
+    n_pad, tail = 2, 9
+    cu = [0] + list(np.cumsum(W_LENS)) + [sum(W_LENS)] * n_pad
+    offs = W_HISTS + [0] * n_pad
+    kvl = kvl + [0] * n_pad
+    t = sum(W_LENS) + tail
+    q = torch.from_numpy(rng.standard_normal(
+        (t, HKV * rep, d)).astype(np.float32)).to(dtype)
+    kp, vp, k, v, index, seg_rows = window_storage(rng, layout, kvl, d)
+    if layout == "rolling":                 # pads name the scratch slot
+        index = torch.cat([index[:len(W_LENS)],
+                           torch.full((n_pad,), W_SLOTS - 1,
+                                      dtype=torch.int32)])
+    seg_idx = [torch.tensor(x, dtype=torch.int32) for x in (cu, offs, kvl)]
+    return (q, (kp.to(dtype), vp.to(dtype)), k.to(dtype), v.to(dtype),
+            index, seg_idx, seg_rows)
+
+
+W_PLAIN = {"ring": tref.ref_ragged_prefill_paged,
+           "rolling": tref.ref_ragged_prefill_arena}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16_p"])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("layout", list(W_PLAIN))
+def test_window_ragged_tiles_match_plain(layout, rep, bf16):
+    """The windowed ragged kernels' walk (``Layout::held``, the window's
+    lower edge, every position read through the ring or the rolling
+    slot) against the plain windowed versions; no position outside a
+    segment's held range is addressed and every unheld row is NaN."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, (kf, vf), k, v, index, seg_idx, seg_rows = \
+        _window_ragged_inputs(rep + 3, rep, layout, dtype)
+    got = tile_ragged(q, kf, vf, seg_rows, W_DEPTH[layout], *seg_idx,
+                      round_p=bf16, window=W_WINDOW)
+    plain = functools.partial(W_PLAIN[layout], window=W_WINDOW)
+    args = (q, k, v, index, *seg_idx)
+    assert (got[int(seg_idx[0][-1]):] == 0).all()
+    if not bf16:
+        torch.testing.assert_close(got, plain(*args), **TOL)
+        return
+    ref, bound = tref.kernel_error_bound(plain, dtype, *args)
+    assert ((got.float() - ref).abs() <= bound).all()

@@ -32,6 +32,7 @@ bf16 walk does, ``ref.kernel_error_bound``.  The JAX oracles average
 junk on rows with no key, where the kernels write 0: those rows are held
 to the plain versions only.
 """
+import functools
 import itertools
 import math
 from types import SimpleNamespace
@@ -102,34 +103,50 @@ def _block(qg, rows, kbuf, vbuf, g, k0, k1, round_p, seen):
     return mx, lsum, a
 
 
-def _rows_map(n_keys, fn):
-    """A row map that refuses positions at or past the row's length: the
-    kernels never address them."""
+def _rows_map(n_keys, fn, lo=0):
+    """A row map that refuses positions outside the row's key range [lo,
+    n_keys): the kernels never address them."""
     def rows(pos):
-        assert 0 <= pos < n_keys, pos
+        assert lo <= pos < n_keys, pos
         return fn(pos)
     return rows
 
 
+def key_range(length, capacity, window=0):
+    """A row's key range [lo, hi) (``Layout::held``, then the window):
+    [0, min(length, capacity)) without a window; with one, the newest
+    min(window, capacity, length) positions of a ring or rolling slot
+    of ``capacity`` positions."""
+    hi = max(int(length), 0)
+    if not window:
+        return 0, min(hi, capacity)
+    return max(0, hi - capacity, hi - window), hi
+
+
 def split_decode(q, kbuf, vbuf, row_fn, lengths, capacity, n_sms, *,
-                 round_p=False):
+                 round_p=False, window=0):
     """``decode_split_kernel`` then ``decode_combine_kernel`` over K/V
     storage (rows, hkv, D) whose row b reads storage row ``row_fn(b,
-    pos)``.  Returns (out, the plan, the blocks that read keys)."""
+    pos)``; ``window`` > 0 the ring / rolling form, its plan spanning
+    min(capacity, window) keys.  Returns (out, the plan, the blocks that
+    read keys)."""
     b, hq, d = q.shape
     hkv = kbuf.shape[1]
     rep = hq // hkv
-    plan = dec.split_plan(b, hq, hkv, d, capacity, n_sms)
+    span = min(capacity, window) if window else capacity
+    plan = dec.split_plan(b, hq, hkv, d, span, n_sms)
     c_keys, n_chunks = plan.chunk, plan.n_chunks
     out = torch.full((b, hq, d), float("nan"))
     ws = torch.full(plan.workspace or (1,), float("nan"))   # acc, m, l, pad
     live_blocks = 0
-    seen = torch.zeros(b, hkv, rep, capacity, dtype=torch.long)
+    n_pos = max([capacity] + [int(n) for n in lengths])
+    seen = torch.zeros(b, hkv, rep, n_pos, dtype=torch.long)
     # the grid (hkv, b, n_chunks), chunk slowest
     for c, bi, g in itertools.product(range(n_chunks), range(b), range(hkv)):
-        n_keys = min(max(int(lengths[bi]), 0), capacity)
+        lo, n_keys = key_range(lengths[bi], capacity, window)
         heads = slice(g * rep, (g + 1) * rep)
-        k0, k1 = c * c_keys, min((c + 1) * c_keys, n_keys)
+        k0 = lo + c * c_keys
+        k1 = min(k0 + c_keys, n_keys)
         if k0 >= n_keys:                           # an empty partial
             if n_chunks == 1:
                 out[bi, heads] = 0.0
@@ -138,7 +155,7 @@ def split_decode(q, kbuf, vbuf, row_fn, lengths, capacity, n_sms, *,
                 ws[bi, g, c, :, d + 1] = 0.0
             continue
         live_blocks += 1
-        rows = _rows_map(n_keys, lambda p, bi=bi: row_fn(bi, p))
+        rows = _rows_map(n_keys, lambda p, bi=bi: row_fn(bi, p), lo)
         m, lsum, a = _block(q[bi, heads].float(), rows, kbuf, vbuf, g, k0,
                             k1, round_p, seen[bi, g])
         if n_chunks == 1:
@@ -148,9 +165,9 @@ def split_decode(q, kbuf, vbuf, row_fn, lengths, capacity, n_sms, *,
             ws[bi, g, c, :, d] = m
             ws[bi, g, c, :, d + 1] = lsum
     for bi in range(b):                            # each pair once
-        n_keys = min(max(int(lengths[bi]), 0), capacity)
-        want = torch.zeros(hkv, rep, capacity, dtype=torch.long)
-        want[..., :n_keys] = 1
+        lo, n_keys = key_range(lengths[bi], capacity, window)
+        want = torch.zeros(hkv, rep, n_pos, dtype=torch.long)
+        want[..., lo:n_keys] = 1
         assert torch.equal(seen[bi], want), bi
     if n_chunks > 1:                               # the combine
         part = ws                                  # (b, hkv, C, rep, d + 4)
@@ -318,8 +335,9 @@ def test_launcher_passes_the_plan(monkeypatch, name, index, layout,
                                   capacity):
     """The launchers' shared glue hands the C entry point exactly the
     arguments of its signature: the workspace (None with one chunk,
-    else an fp32 tensor of the plan's shape on q's device) and the
-    plan's chunk and count, read from shapes and the SM count alone."""
+    else an fp32 tensor of the plan's shape on q's device), the plan's
+    chunk and count, read from shapes and the SM count alone, and for
+    the paged and arena kernels the window argument (0: none)."""
     calls = []
     monkeypatch.setattr(dec, "launch", lambda *a: calls.append(a))
     monkeypatch.setattr(dec, "_sm_count", lambda index: 132)
@@ -328,13 +346,139 @@ def test_launcher_passes_the_plan(monkeypatch, name, index, layout,
     q = torch.zeros((8, 40, 128))
     k = torch.zeros((4, 16, 8, 128))
     idx = tuple(torch.zeros(8, dtype=torch.int32) for _ in range(index))
-    out = dec._launch_split(name, q, k, k, idx, layout, capacity)
+    window = None if name == "decode_attn_dense" else 0
+    out = dec._launch_split(name, q, k, k, idx, layout, capacity, window)
     assert out.shape == q.shape
     (args,) = calls
     assert args[0] == name
     assert len(args) - 1 == len(_build.SIGNATURES[name][1])
     plan = dec.split_plan(8, 40, 8, 128, capacity, 132)
-    assert tuple(args[-4:]) == (plan.chunk, plan.n_chunks, 0, 7)
+    tail = (0, 7) if window is None else (0, 0, 7)
+    assert tuple(args[-2 - len(tail):]) == (plan.chunk, plan.n_chunks,
+                                            *tail)
     ws = args[5 + index]
     assert (ws is None) == (plan.n_chunks == 1)
-    assert args[-4 - len(layout):-4] == layout
+    assert args[-2 - len(tail) - len(layout):-2 - len(tail)] == layout
+
+
+@pytest.mark.parametrize("name,window,capacity", [
+    ("decode_attn_paged", 4096, 272 * 16),    # mixtral's ring
+    ("decode_attn_arena", 4096, 4096 + 256),  # its rolling slot
+    ("decode_attn_arena", 100, 116),          # a small odd window
+])
+def test_launcher_plans_the_window(monkeypatch, name, window, capacity):
+    """A windowed launch plans over min(capacity, window) keys and hands
+    the C entry point the window; the plan reads shapes only, so a CUDA
+    graph captured at one kv length replays the right plan at any
+    other."""
+    calls = []
+    monkeypatch.setattr(dec, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(dec, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=7))
+    q = torch.zeros((8, 32, 128))
+    k = torch.zeros((4, 16, 8, 128))
+    idx = tuple(torch.zeros(8, dtype=torch.int32) for _ in range(2))
+    layout = (16, capacity // 16) if name.endswith("paged") else (capacity,)
+    dec._launch_split(name, q, k, k, idx, layout, capacity, window)
+    (args,) = calls
+    assert len(args) - 1 == len(_build.SIGNATURES[name][1])
+    plan = dec.split_plan(8, 32, 8, 128, min(capacity, window), 132)
+    assert tuple(args[-5:]) == (plan.chunk, plan.n_chunks, window, 0, 7)
+    assert plan.n_chunks * plan.chunk >= min(capacity, window)
+
+
+# ------------------------------------------------------------ windowed
+
+# the windowed forms: a window of 150 (off the 16- and 64-key grids), a
+# margin of 16, so a ring of ceil(166 / 16) = 11 pages (176 positions)
+# and rolling slots of 166 rows.  Lengths: 0, 1, inside the window, at
+# it, one past it, the ring's depth, two rolling depths, far past both,
+# and a decode-ladder pad row of length 1
+W_WINDOW, W_MARGIN = 150, 16
+W_RING = -(-(W_WINDOW + W_MARGIN) // PS)
+W_DEPTH = {"ring": W_RING * PS, "rolling": W_WINDOW + W_MARGIN}
+W_LENGTHS = [0, 1, 100, 150, 151, 176, 332, 400, 1]
+
+
+def _window_inputs(seed, rep, layout, dtype):
+    """Ring pages or rolling slots written in position order (the newest
+    write wins): q, the rehearsal's flat storage with NaN on every row
+    no row holds, the plain version's storage with 1000 there, its index
+    (table entries past a ring's allocated pages name a spare page), the
+    row map (which faults on them) and the lengths."""
+    rng = np.random.default_rng(seed)
+    hq, b = HKV * rep, len(W_LENGTHS)
+    q = torch.from_numpy(rng.standard_normal(
+        (b, hq, D)).astype(np.float32)).to(dtype)
+    if layout == "ring":
+        n_pages = 100
+        shape = (n_pages, PS, HKV, D)
+        table = np.full((b, W_RING), POISON, np.int64)
+        free = list(rng.permutation(n_pages - 1))
+        for i, n in enumerate(W_LENGTHS[:-1]):
+            need = min(-(-n // PS), W_RING)
+            table[i, :need] = [free.pop() for _ in range(need)]
+        table[-1, 0] = table[1, 0]                 # the pad row
+        index = torch.tensor(np.where(table == POISON, n_pages - 1, table),
+                             dtype=torch.int32)
+
+        def row_fn(bi, pos):
+            return int(table[bi, (pos // PS) % W_RING]) * PS + pos % PS
+    else:
+        depth = W_DEPTH["rolling"]
+        shape = (b, depth, HKV, D)
+        slots = [int(x) for x in rng.permutation(b - 1)]
+        slot_map = slots + [slots[1]]              # the pad row
+        index = torch.tensor(slot_map, dtype=torch.int32)
+
+        def row_fn(bi, pos):
+            return slot_map[bi] * depth + pos % depth
+    k = torch.full((int(np.prod(shape[:2])), HKV, D), float("nan"))
+    v = k.clone()
+    for i, n in enumerate(W_LENGTHS[:-1]):
+        for p in range(n):
+            r = row_fn(i, p)
+            k[r] = torch.from_numpy(rng.standard_normal((HKV, D)).astype(
+                np.float32))
+            v[r] = torch.from_numpy(rng.standard_normal((HKV, D)).astype(
+                np.float32))
+    held = ~k.isnan().any(dim=-1).any(dim=-1)
+    kf, vf = k.clone(), v.clone()
+    kf[~held], vf[~held] = 1000.0, 1000.0
+    return (q, (k.to(dtype), v.to(dtype)), kf.reshape(shape).to(dtype),
+            vf.reshape(shape).to(dtype), index, row_fn,
+            torch.tensor(W_LENGTHS, dtype=torch.int32))
+
+
+W_PLAIN = {"ring": tref.ref_decode_attn_paged,
+           "rolling": tref.ref_decode_attn_arena}
+
+
+@pytest.mark.parametrize("n_sms", SMS)
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16_p"])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("layout", list(W_PLAIN))
+def test_window_split_walk_matches_plain(layout, rep, bf16, n_sms):
+    """The windowed decode kernels' split walk — the row's key range
+    [len − min(window, depth, len), len), chunked by a plan over
+    min(depth, window) keys, every position read through the ring or
+    the rolling slot — against the plain windowed versions; no position
+    outside the range is addressed, each (head, key) pair once."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, (kf, vf), k, v, index, row_fn, lengths = _window_inputs(
+        rep * 5 + n_sms, rep, layout, dtype)
+    got, plan, live_blocks = split_decode(
+        q, kf, vf, row_fn, lengths, W_DEPTH[layout], n_sms, round_p=bf16,
+        window=W_WINDOW)
+    spans = [key_range(n, W_DEPTH[layout], W_WINDOW) for n in W_LENGTHS]
+    assert live_blocks == HKV * sum(-(-(hi - lo) // plan.chunk)
+                                    for lo, hi in spans)
+    assert (got[0] == 0).all() and torch.isfinite(got).all()
+    plain = functools.partial(W_PLAIN[layout], window=W_WINDOW)
+    args = (q, k, v, index, lengths)
+    if not bf16:
+        torch.testing.assert_close(got, plain(*args), **TOL)
+        return
+    ref, bound = tref.kernel_error_bound(plain, dtype, *args)
+    assert ((got.float() - ref).abs() <= bound).all()

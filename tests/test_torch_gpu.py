@@ -15,7 +15,12 @@ encoder on the card against the same on the CPU, and the executors'
 step graphs: one launch of each tile-core kernel replayed from a CUDA
 graph, every executor step kind replayed bit-identical to its eager
 step function (logits and every live arena, pool and state row), and a
-capture at a live miss leaving every live row unchanged.  Without a card every test skips inside its fixture.
+capture at a live miss leaving every live row unchanged; the four
+windowed kernels (ring tables, rolling slots) at mixtral-8x7b's heads
+against their plain versions and replayed from a CUDA graph at other
+kv lengths, and the windowed MoE engine (the mixtral-8x7b smoke config)
+on the card against the same on the CPU in its three layouts.  Without
+a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -980,6 +985,11 @@ GRAPH_MODES = {
                   ("packed_paged", "paged_decode")),
     "ssm_arena": ("mamba2-2.7b", dict(paged_kv=False), False,
                   ("packed_arena", "arena_decode")),
+    # the windowed MoE stack: ring tables and rolling slots
+    "swa_paged": ("mixtral-8x7b", dict(), False,
+                  ("packed_paged", "paged_decode")),
+    "swa_arena": ("mixtral-8x7b", dict(paged_kv=False), False,
+                  ("packed_arena", "arena_decode")),
 }
 
 
@@ -1039,7 +1049,8 @@ def test_step_graphs_replay_bit_identical_to_eager(card, mode):
 
 
 @pytest.mark.parametrize("mode", ["paged", "arena", "gathered", "grid",
-                                  "ssm_paged", "ssm_arena"])
+                                  "ssm_paged", "ssm_arena", "swa_paged",
+                                  "swa_arena"])
 def test_parked_capture_leaves_live_state_unchanged(card, mode):
     """A step graph captured at a live miss — warm-up and capture on
     parked inputs — changes no live KV row and no live SSM state: every
@@ -1137,3 +1148,154 @@ def _assert_live_equal(e, other):
             if name in ("k", "v") and not e._paged:
                 a, o = a[:, :, :-1], o[:, :, :-1]     # the park rows
             assert torch.equal(a, o), name
+
+
+# ------------------------------------------------- windowed kernels
+
+# mixtral-8x7b's window, a ring of ceil((4096 + 256) / 16) = 272 pages,
+# rolling slots of 4352 rows; and a small odd window over a ring of
+# ceil((100 + 16) / 16) = 8 pages and slots of 116 rows
+WINDOWS = {4096: 256, 100: 16}
+
+
+def _window_case(card, dtype, window, layout, seed, lens, hists):
+    """A windowed launch's inputs: the stream of ``lens`` new rows at
+    ``hists`` over ring pages or rolling slots, every unheld row NaN,
+    and the plain version's copy with 1000 there."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=card).manual_seed(seed)
+    depth = window + WINDOWS[window]
+    kvl = [h + n for h, n in zip(hists, lens)]
+    b = len(kvl)
+    if layout == "ring":
+        n_ring = -(-depth // PS)
+        n_pages = b * n_ring + 1
+        table = np.full((b, n_ring), n_pages - 1, np.int64)
+        free = list(rng.permutation(n_pages - 1))
+        for i, n in enumerate(kvl):
+            need = min(-(-n // PS), n_ring)
+            table[i, :need] = [free.pop() for _ in range(need)]
+        rows = (table[:, None, :] * PS + np.arange(PS)[:, None]
+                ).transpose(0, 2, 1).reshape(b, -1)        # ring order
+        shape, index = (n_pages, PS, HKV, D), _i32(table, card)
+    else:
+        slots = rng.permutation(b + 1)[:b]
+        rows = slots[:, None] * depth + np.arange(depth)[None]
+        shape, index = (b + 1, depth, HKV, D), _i32(slots, card)
+    held = np.zeros(int(np.prod(shape[:2])), bool)
+    for i, n in enumerate(kvl):
+        held[rows[i, :min(n, rows.shape[1])]] = True
+    k = torch.randn(shape, generator=g, device=card)
+    v = torch.randn(shape, generator=g, device=card)
+    mask = torch.as_tensor(~held, device=card).reshape(shape[:2])
+    kp, vp = k.clone(), v.clone()
+    kp[mask], vp[mask] = float("nan"), float("nan")
+    k[mask], v[mask] = 1000.0, 1000.0
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    q = torch.randn((int(cu[-1]) + 5, HQ, D), generator=g, device=card)
+    seg = [_i32(x, card) for x in (cu, hists, kvl)]
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype), k.to(dtype),
+            v.to(dtype), index, seg)
+
+
+WINDOW_STREAMS = {
+    # lens, hists: kv before, at and far past the window and the depth,
+    # rows straddling the wrap, a decode row
+    4096: ([256, 5, 1, 256], [2744, 4340, 11999, 5744]),
+    100: ([16, 5, 1, 3, 16], [84, 111, 231, 0, 216]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+@pytest.mark.parametrize("layout", ["ring", "rolling"])
+def test_windowed_kernels_match_plain(card, layout, window, dtype):
+    """The windowed prefill and decode kernels of ``layout`` at
+    mixtral-8x7b's heads against their plain versions; no unheld row is
+    read (NaN there)."""
+    lens, hists = WINDOW_STREAMS[window]
+    q, kp, vp, k, v, index, seg = _window_case(card, dtype, window, layout,
+                                               3, lens, hists)
+    if layout == "ring":
+        pf, pplain = rp.ragged_prefill_paged, rp.ragged_prefill_paged_plain
+        df, dplain = dec.decode_attn_paged, dec.decode_attn_paged_plain
+    else:
+        pf, pplain = rp.ragged_prefill_arena, rp.ragged_prefill_arena_plain
+        df, dplain = dec.decode_attn_arena, dec.decode_attn_arena_plain
+    out = pf(q, kp, vp, index, *seg, window=window)
+    plain = lambda *a: pplain(*a, window=window)       # noqa: E731
+    _assert_held(out, plain, q, k, v, index, *seg)
+    lengths = seg[2]
+    qd = q[:len(lens)].contiguous()
+    out = df(qd, kp, vp, index, lengths, window=window)
+    dplain_w = lambda *a: dplain(*a, window=window)    # noqa: E731
+    _assert_held(out, dplain_w, qd, k, v, index, lengths)
+
+
+@pytest.mark.parametrize("layout", ["ring", "rolling"])
+def test_windowed_kernels_replay_in_a_cuda_graph(card, layout):
+    """A windowed prefill and decode launch captured in a CUDA graph at
+    one set of kv lengths and replayed at others (before the window,
+    past it, past two depths): each replay equals an eager launch at the
+    new lengths bit for bit — the split plan and the prefill grid read
+    shapes only."""
+    window = 4096
+    lens, first = [256, 5, 1, 256], [2744, 4340, 11999, 5744]
+    later = [[0, 4091, 8703, 300], [6000, 9, 4351, 12000]]
+    q, kp, vp, _, _, index, seg = _window_case(
+        card, torch.bfloat16, window, layout, 7, lens,
+        [max(x) for x in zip(first, *later)])
+    pf = rp.ragged_prefill_paged if layout == "ring" \
+        else rp.ragged_prefill_arena
+    df = dec.decode_attn_paged if layout == "ring" \
+        else dec.decode_attn_arena
+    kp, vp = kp.nan_to_num(0.0), vp.nan_to_num(0.0)
+    cu, offs, kvl = seg
+    offs.copy_(_i32(first, card))
+    kvl.copy_(_i32([h + n for h, n in zip(first, lens)], card))
+    qd = q[:len(lens)].contiguous()
+    pf(q, kp, vp, index, cu, offs, kvl, window=window)  # build, warm up
+    df(qd, kp, vp, index, kvl, window=window)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_p = pf(q, kp, vp, index, cu, offs, kvl, window=window)
+        out_d = df(qd, kp, vp, index, kvl, window=window)
+    for hists in later:
+        offs.copy_(_i32(hists, card))
+        kvl.copy_(_i32([h + n for h, n in zip(hists, lens)], card))
+        graph.replay()
+        want_p = pf(q, kp, vp, index, cu, offs, kvl, window=window)
+        want_d = df(qd, kp, vp, index, kvl, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(out_p, want_p) and torch.equal(out_d, want_d)
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(paged_kv=False),
+                                  dict(packed=False, paged_kv=False)],
+                         ids=["swa_paged", "swa_slot_arena", "swa_dense"])
+def test_window_engine_on_card_matches_engine_on_cpu(card, mode):
+    """The windowed MoE engine (mixtral-8x7b smoke, head_dim 128, window
+    32) through the CUDA kernels and through the plain versions, with
+    sessions several windows deep: the same greedy tokens, logits within
+    1e-4 (fp32)."""
+    cfg = get_smoke("mixtral-8x7b").replace(head_dim=128)
+    params = tr.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, card)
+    ecfg = dict(num_slots=4, max_len=256, chunk_tokens=16, measure=False,
+                **mode)
+    engines = [Engine(cfg, params, EngineConfig(**ecfg), device="cpu"),
+               Engine(cfg, on_card, EngineConfig(**ecfg), device=card)]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (70, 9, 33)]
+    outs = []
+    for e in engines:
+        r = {s: e.prefill_long(s, p) for s, p in enumerate(prompts)}
+        d = e.decode_batch([0, 1, 2], [r[i] for i in range(3)], 40)
+        r2 = e.prefill_batch([1], [prompts[1]])
+        outs.append((r, d, r2))
+    assert outs[0] == outs[1]
+    for s in range(3):
+        np.testing.assert_allclose(engines[1].last_logits[s],
+                                   engines[0].last_logits[s], atol=1e-4,
+                                   rtol=0)

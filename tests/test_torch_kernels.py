@@ -241,14 +241,19 @@ def test_ops_defaults_match_explicit_lengths():
 
 @pytest.mark.parametrize("fn", ["prefill", "decode"])
 def test_window_is_not_ported(fn):
+    """Once the port's refusal of ``window=``; the ring-table forms are
+    ported now, and on the CPU ``window=8`` gives the Pallas kernel's
+    windowed form (interpret mode) over the same table, read as a ring
+    of P_max pages."""
     if fn == "prefill":
         args, _ = _prefill_inputs("fragmented")
-        call = tops.ragged_mha_paged
+        call, jcall = tops.ragged_mha_paged, jops.ragged_mha_paged
     else:
         args, _ = _decode_inputs("fragmented")
-        call = tops.decode_paged
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(*(torch.from_numpy(a) for a in args), window=8)
+        call, jcall = tops.decode_paged, jops.decode_paged
+    got = call(*(torch.from_numpy(a) for a in args), window=8).numpy()
+    want = _pallas(lambda *a: jcall(*a, window=8), *args)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_build_key_follows_the_sources():

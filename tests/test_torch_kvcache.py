@@ -207,7 +207,11 @@ def test_cow_copy_moves_the_same_pool_content():
 
 
 def test_branches_outside_the_slice_raise():
+    """The host spill tier raises; ring tables are ported: as in the
+    reference, a ring arena keeps no radix index and refuses forks."""
     with pytest.raises(NotImplementedError, match="item 11"):
         TArena(None, 8, PS, 32, host_pool_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TArena(None, 8, PS, 32, ring_pages=4)
+    ring = TArena(None, 8, PS, 32, ring_pages=4)
+    assert ring.index is None and ring.max_pages_per_seq == 4
+    with pytest.raises(AssertionError, match="ring tables cannot fork"):
+        ring.fork(0, 1)

@@ -179,14 +179,21 @@ def test_forward_decode_paged_matches_jax(arch):
 
 
 def test_arena_capability_and_slice_guards():
+    """The capability descriptor, and the slice: windowed and MoE
+    configs build (the window reported per layer, as the reference's
+    ``arena_capability`` does); the hybrid family is refused."""
     tcfg = tget("qwen3-4b")
     cap = ttr.arena_capability(tcfg)
     assert cap.packed_ok and cap.pure_attn and not cap.has_window
-    for bad in (tcfg.replace(sliding_window=32),
-                tcfg.replace(num_experts=4, num_experts_per_tok=2),
-                tcfg.replace(family="hybrid", attn_layer_period=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.init_params(bad, device="cpu")
+    swa = ttr.arena_capability(tcfg.replace(sliding_window=32))
+    assert swa.has_window and swa.window == 32 and not swa.pure_attn
+    assert swa.needs_scratch_slot
+    moe = ttr.init_params(tcfg.replace(num_experts=4, num_experts_per_tok=2),
+                          device="cpu")
+    assert set(moe["blocks"][0]["ffn"]) == {"router", "wg", "wi", "wo"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttr.init_params(tcfg.replace(family="hybrid", attn_layer_period=2),
+                        device="cpu")
 
 
 def test_entry_points_default_to_the_card():

@@ -215,13 +215,19 @@ def test_ops_defaults_match_the_jax_wrappers():
 
 @pytest.mark.parametrize("fn", ["prefill", "decode"])
 def test_window_is_not_ported(fn):
+    """Once the port's refusal of ``window=``; the rolling-slot forms
+    are ported now, and on the CPU ``window=8`` gives the Pallas
+    kernel's windowed form (interpret mode) on the same arena."""
     if fn == "prefill":
         args, call = _prefill_inputs("pad_segments_s64")[0], \
             tops.ragged_mha_arena
+        jcall = jops.ragged_mha_arena
     else:
         args, call = _decode_inputs("pad_rows_s64")[0], tops.decode_arena
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call(*_t(args), window=8)
+        jcall = jops.decode_arena
+    got = call(*_t(args), window=8).numpy()
+    want = _pallas(lambda *a: jcall(*a, window=8), *args)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
