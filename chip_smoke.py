@@ -4,17 +4,20 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
 
   1. card and build — ``nvidia-smi`` name and power limit, the nvcc
      build of the nine kernels (seconds, ``-Xptxas -v`` registers /
-     shared memory / spills), ``ssd_scan``'s launch plan at a prompt's
+     shared memory / spills), the paged prefill and decode kernels'
+     shared memory, registers and blocks per SM at each head width,
+     ``ssd_scan``'s launch plan at a prompt's
      256-row step and at the packed bridge (each of its two CUDA
      kernels' blocks, dynamic shared memory, registers and blocks per
      SM; the walk must put work on every SM at B = 1), ``fused_sample``'s
      (cluster size, CTAs, shared bytes, registers, clusters resident at
      once; a verify tick's 40 bf16 rows must fit one wave);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
-     shapes (Hq 32, Hkv 8, D 128), fp32 and bf16.  Paged kernels: page
-     size 16, fragmented, shared and COW-forked page tables, q_offsets
-     > 0, length-1 decode segments inside a prefill stream, a bucket
-     tail past cu_seqlens[-1], empty segments, decode rows with lengths
+     shapes (Hq 32, Hkv 8, D 128) unless said otherwise, fp32 and
+     bf16.  Paged kernels: page size 16, fragmented, shared and
+     COW-forked page tables, q_offsets > 0, length-1 decode segments
+     inside a prefill stream, a bucket tail past cu_seqlens[-1], empty
+     segments, decode rows with lengths
      0, kv lengths off the page grid, 256- and 512-row chunks at
      histories of 1.5k-2k keys, and table entries past the valid length
      poisoned so a stray read faults.  Slot kernels: pad segments, tail
@@ -63,7 +66,15 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      before, at and past the window and the depth; and a window of 100
      (C_l 16) for the wrap edges (kv inside the window, rows straddling
      the wrap, kv at exactly one and two depths, a segment longer than
-     the margin); every row no segment holds NaN;
+     the margin); every row no segment holds NaN.  The six paged, arena
+     and gathered kernels at the head widths besides 128
+     (``WIDTH_HEADS``): 64 and 96 at stablelm-1.6b's and phi-3-vision's
+     32 / 32 heads, 80 at 16 / 16, each also at 32 / 8, over the same
+     tile-straddling stream and split-walk cases (every plan there
+     splits the walk, so the combine runs at D / 4 lanes), and the four
+     windowed forms at 64 and 96 (32 / 32) at the window of 100;
+     ``fused_sample`` also at stablelm's 100,352, phi-3's 32,064 padded
+     to 32,256 and minitron-8b's 256,000 columns;
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -89,7 +100,12 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      sessions of a few hundred tokens wrap the ring and the rolling
      slot several times, against the dense forward with the window
      masked.  ``moe_layer`` against ``moe_dense_reference`` at mixtral
-     widths, 8192 rows, fp32, capacity factor 8, within 1e-4;
+     widths, 8192 rows, fp32, capacity factor 8, within 1e-4.
+     stablelm-1.6b and phi-3-vision-4.2b (MHA at head_dim 64 and 96,
+     full width, 2 layers, fp32) in paged, slot_arena and slot_dense
+     against the dense oracle, every attention launch at the config's
+     width; phi-3-vision's ``forward(embeds=)`` over 1024 stub patch
+     embeddings then 32 text tokens against the same on the CPU;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
      --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
      served in each mode after one warm-up run, each run on a fresh
@@ -113,7 +129,13 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      the 4096-token window and the 4352-row ring or slot) and seven of
      80-256 tokens, 16 decode tokens each; turn 2 adds 1024 tokens to
      the long session and 16-64 to the others; every attention launch
-     of the paged and arena modes a windowed form;
+     of the paged and arena modes a windowed form.  Then stablelm-1.6b
+     (24 layers) and phi-3-vision-4.2b (32 layers) at full width and
+     depth, bf16, serve the qwen3-4b trace in the five attention modes
+     (one kept run each), every launch of the six paged, arena and
+     gathered kernels at width 64 or 96 (the ``@d64`` / ``@d96``
+     counters); qwen2.5-14b (48 layers) and minitron-8b (32 layers), at
+     head_dim 128, one kept paged run each;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound, the kernel's achieved TFLOP/s; the
@@ -145,11 +167,17 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      2's 4096 stream, the decode
      kernels over an 8-row tick (WINDOW_DECODE_TICK), the bound over the
      in-window keys only, the yardstick one SDPA call over the same
-     in-window keys gathered contiguously;
+     in-window keys gathered contiguously.  The six paged, arena and
+     gathered kernels at head widths 64 and 96 (32 / 32 heads): the
+     512-row chunk at history 1536 through each prefill kernel, decode
+     at 8 rows x 2048 keys through each decode kernel (from a CUDA
+     graph), each beside one SDPA call over the same keys, checked to
+     compute the same function;
   6. the serve launcher, its default and ``--packed``, for qwen3-4b and
      mamba2-2.7b, at the smoke config and at published widths cut to 4
      layers, and for mixtral-8x7b at its smoke config and at published
-     widths cut to 16 layers;
+     widths cut to 16 layers; stablelm-1.6b at full width and depth with
+     ``--packed``, phi-3-vision-4.2b at full width and depth;
   7. one JSON line describing every kernel, then the card line and the
      result line.
 
@@ -225,6 +253,17 @@ def phase_build():
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "smem", "bytes stack")):
                 log(f"[1] {name}: {line.strip()}")
+    # the attention kernels' launch facts at each head width (the
+    # prefill tile core: Q and 3 stages of K/V; the decode split walk:
+    # each warp's bf16 ring, rows padded to 8-slot groups)
+    from repro_torch.kernels import ragged_prefill as rp
+    for name in ("ragged_prefill_paged", "decode_attn_paged"):
+        for dt in (torch.bfloat16, torch.float32):
+            log(f"[1] {name} {str(dt)[6:]} by head width: " + "; ".join(
+                f"D={d} {f['smem']} B shared a block, {f['regs']} registers, "
+                f"{f['blocks_per_sm']} blocks per SM"
+                for d, f in ((d, rp.launch_info(name, d, dt))
+                             for d in rp.HEAD_DIMS)))
     # ssd_scan's launch plan at a chunked prompt's step, B = 1, L = 256
     # (the card must have work on every SM), and at the packed bridge
     from repro_torch.kernels import ssd_scan as ssd
@@ -521,6 +560,32 @@ TILE_LENS = [300, 5, 5, 5, 5, 1, 70, 6]
 TILE_HISTS = [1000, 2043, 2043, 37, 100, 900, 61, 0]
 TILE_KEYLESS = 7
 TILE_S_MAX = 2100    # not a multiple of the 64-key tile
+# the head widths besides 128: stablelm-1.6b's 64 and phi-3-vision-
+# 4.2b's 96 at their 32 / 32 heads (MHA: 128 rows of one head a bf16
+# tile, one query head a decode group), 80 at 16 / 16, and each at 32 /
+# 8; as (D, Hq, Hkv)
+WIDTH_HEADS = ((64, 32, 32), (96, 32, 32), (80, 16, 16), (64, 32, 8),
+               (80, 32, 8), (96, 32, 8))
+# the six paged, arena and gathered attention kernels: each takes every
+# width of HEAD_DIMS, as flash_attn does
+WIDTH_KERNELS = ("ragged_prefill_paged", "decode_attn_paged",
+                 "decode_attn_arena", "ragged_prefill_arena",
+                 "ragged_prefill_attn", "decode_attn")
+# the kernels line's own rows: the served MHA configs' widths
+ROW_WIDTHS = (64, 96)
+
+
+def _row(name, d):
+    """The kernels-line row that a result at head width ``d`` belongs
+    to: ``name@d64`` and ``name@d96`` rows of their own, 80 and 128 the
+    base row."""
+    return f"{name}@d{d}" if d in ROW_WIDTHS else name
+
+
+def _groups():
+    """(D, Hq, Hkv) of phase 2's tile and split cases: TILE_HEADS at D,
+    then WIDTH_HEADS."""
+    return [(D, hq, hkv) for hq, hkv in TILE_HEADS] + list(WIDTH_HEADS)
 
 
 def _nan_past(k, v, valid):
@@ -535,11 +600,11 @@ def _nan_past(k, v, valid):
 
 def phase_tile_kernels(seed, errs):
     """The three ragged prefill kernels over one stream at each of
-    TILE_HEADS, fp32 and bf16: paged (16-token pages, a 64-key tile
-    spanning four; table entries past each length poisoned, pool rows
-    past each length NaN), the slot arena (rows past each length and the
-    park row S_max - 1 NaN, pad segments naming a live slot) and the
-    gathered slots."""
+    TILE_HEADS and WIDTH_HEADS, fp32 and bf16: paged (16-token pages, a
+    64-key tile spanning four; table entries past each length poisoned,
+    pool rows past each length NaN), the slot arena (rows past each
+    length and the park row S_max - 1 NaN, pad segments naming a live
+    slot) and the gathered slots."""
     from repro_torch.kernels import ragged_prefill as rp
     rng = np.random.default_rng(seed + 40)
     gen = torch.Generator(device=DEVICE)
@@ -566,14 +631,14 @@ def phase_tile_kernels(seed, errs):
     for slot, n in zip(slots, kvl):
         slot_ok[slot, :min(n, TILE_S_MAX - 1)] = True
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv in TILE_HEADS:
-            q = torch.randn((total + tail, hq, D), generator=gen,
+        for d, hq, hkv in _groups():
+            q = torch.randn((total + tail, hq, d), generator=gen,
                             device=DEVICE).to(dtype)
-            pools = [torch.randn((n_pages, PS, hkv, D), generator=gen,
+            pools = [torch.randn((n_pages, PS, hkv, d), generator=gen,
                                  device=DEVICE) for _ in range(2)]
             kp, vp, kpc, vpc = (a.to(dtype) for a in _nan_past(
                 *pools, page_ok))
-            arena = [torch.randn((n_slots, TILE_S_MAX, hkv, D),
+            arena = [torch.randn((n_slots, TILE_S_MAX, hkv, d),
                                  generator=gen, device=DEVICE)
                      for _ in range(2)]
             ka, va, kac, vac = (a.to(dtype) for a in _nan_past(
@@ -600,12 +665,13 @@ def phase_tile_kernels(seed, errs):
                 zeros = bool((out[keyless] == 0).all().item()) and \
                     bool(keyless[total:].all().item())
                 ok = ok and zeros and bool(torch.isfinite(out).all())
-                errs.setdefault((name, dtype), []).append(err)
-                log(f"[2] {name:20s} tiles {hq}/{hkv} {str(dtype):15s} "
-                    f"T={total + tail} max_abs_err={err:.3e} "
-                    f"err/bound={worst:.3f} tail_and_keyless_zero={zeros} "
+                errs.setdefault((_row(name, d), dtype), []).append(err)
+                log(f"[2] {name:20s} tiles {hq}/{hkv} D={d} "
+                    f"{str(dtype):15s} T={total + tail} max_abs_err="
+                    f"{err:.3e} err/bound={worst:.3f} "
+                    f"tail_and_keyless_zero={zeros} "
                     f"{'ok' if ok else 'FAIL'}")
-                assert ok, f"{name} tiles {hq}/{hkv} {dtype}"
+                assert ok, f"{name} tiles {hq}/{hkv} D={d} {dtype}"
 
 
 # the decode kernels' split walk at every GQA group of TILE_HEADS: rows
@@ -626,8 +692,10 @@ def _decode_lengths(chunk, cap):
 
 def phase_decode_groups(seed, errs):
     """``decode_attn_paged``, ``decode_attn_arena`` and ``decode_attn``
-    against their plain versions at each of TILE_HEADS, fp32 and bf16,
-    over the split walk's chunk boundaries (``_decode_lengths``)."""
+    against their plain versions at each of TILE_HEADS and WIDTH_HEADS,
+    fp32 and bf16, over the split walk's chunk boundaries
+    (``_decode_lengths``); every plan splits the walk (n_chunks > 1), so
+    the combine runs at each width's D / 4 lanes."""
     from repro_torch.kernels import decode_attn as dec
     rng = np.random.default_rng(seed + 50)
     gen = torch.Generator(device=DEVICE)
@@ -635,13 +703,13 @@ def phase_decode_groups(seed, errs):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_pages = 512
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv in TILE_HEADS:
+        for d, hq, hkv in _groups():
             def rand(*shape):
                 return torch.randn(shape, generator=gen, device=DEVICE)
             cases = []
             # paged: pad row on row 1's first page
             cap = DECODE_PAGES * PS
-            plan = dec.split_plan(12, hq, hkv, D, cap, n_sms)
+            plan = dec.split_plan(12, hq, hkv, d, cap, n_sms)
             lens = _decode_lengths(plan.chunk, cap)
             tab, tab_c = _layout(rng, n_pages, DECODE_PAGES, lens + [0])
             tab[-1, 0] = tab_c[-1, 0] = tab[1, 0]
@@ -652,14 +720,14 @@ def phase_decode_groups(seed, errs):
                 for p in range(0, n, PS):
                     page_ok[int(tab[i, p // PS]), :min(PS, n - p)] = True
             kp, vp, kc, vc = (a.to(dtype) for a in _nan_past(
-                rand(n_pages, PS, hkv, D), rand(n_pages, PS, hkv, D),
+                rand(n_pages, PS, hkv, d), rand(n_pages, PS, hkv, d),
                 page_ok))
             cases.append(("decode_attn_paged", plan, lens,
                           dec.decode_attn_paged, dec.decode_attn_paged_plain,
                           (kp, vp, _i32(tab)), (kc, vc, _i32(tab_c))))
             # arena: every row from each length on NaN, the park row
             # S_max - 1 too; the pad row on row 1's slot
-            plan = dec.split_plan(12, hq, hkv, D, DECODE_CAP, n_sms)
+            plan = dec.split_plan(12, hq, hkv, d, DECODE_CAP, n_sms)
             lens = _decode_lengths(plan.chunk, DECODE_CAP - 1)
             slots = [int(x) for x in rng.permutation(len(lens))]
             slot_ok = torch.zeros((len(lens), DECODE_CAP), dtype=torch.bool,
@@ -668,23 +736,24 @@ def phase_decode_groups(seed, errs):
                 slot_ok[slot, :n] = True
             slots, lens = slots + [slots[1]], lens + [1]
             ka, va, kc, vc = (a.to(dtype) for a in _nan_past(
-                rand(len(slots) - 1, DECODE_CAP, hkv, D),
-                rand(len(slots) - 1, DECODE_CAP, hkv, D), slot_ok))
+                rand(len(slots) - 1, DECODE_CAP, hkv, d),
+                rand(len(slots) - 1, DECODE_CAP, hkv, d), slot_ok))
             cases.append(("decode_attn_arena", plan, lens,
                           dec.decode_attn_arena, dec.decode_attn_arena_plain,
                           (ka, va, _i32(slots)), (kc, vc, _i32(slots))))
             # batch cache: row b reads cache row b
-            plan = dec.split_plan(12, hq, hkv, D, DECODE_CAP, n_sms)
+            plan = dec.split_plan(12, hq, hkv, d, DECODE_CAP, n_sms)
             lens = _decode_lengths(plan.chunk, DECODE_CAP) + [1]
             row_ok = torch.arange(DECODE_CAP, device=DEVICE)[None, :] \
                 < _i32(lens)[:, None]
             kb, vb, kc, vc = (a.to(dtype) for a in _nan_past(
-                rand(len(lens), DECODE_CAP, hkv, D),
-                rand(len(lens), DECODE_CAP, hkv, D), row_ok))
+                rand(len(lens), DECODE_CAP, hkv, d),
+                rand(len(lens), DECODE_CAP, hkv, d), row_ok))
             cases.append(("decode_attn", plan, lens, dec.decode_attn,
                           dec.decode_attn_plain, (kb, vb), (kc, vc)))
             for name, plan, lens, fn, plain, args, plain_args in cases:
-                q = torch.randn((len(lens), hq, D), generator=gen,
+                assert plan.n_chunks > 1, (name, d, plan)
+                q = torch.randn((len(lens), hq, d), generator=gen,
                                 device=DEVICE).to(dtype)
                 out = fn(q, *args, _i32(lens))
                 torch.cuda.synchronize()
@@ -693,13 +762,13 @@ def phase_decode_groups(seed, errs):
                 zeros = bool((out[0] == 0).all().item())
                 finite = bool(torch.isfinite(out).all().item())
                 ok = ok and zeros and finite
-                errs.setdefault((name, dtype), []).append(err)
-                log(f"[2] {name:17s} split {hq}/{hkv} {str(dtype):15s} "
-                    f"chunk {plan.chunk} x {plan.n_chunks} lengths {lens} "
-                    f"max_abs_err={err:.3e} err/bound={worst:.3f} "
-                    f"zero_row_zero={zeros} finite={finite} "
-                    f"{'ok' if ok else 'FAIL'}")
-                assert ok, f"{name} split {hq}/{hkv} {dtype}"
+                errs.setdefault((_row(name, d), dtype), []).append(err)
+                log(f"[2] {name:17s} split {hq}/{hkv} D={d} "
+                    f"{str(dtype):15s} chunk {plan.chunk} x {plan.n_chunks} "
+                    f"lengths {lens} max_abs_err={err:.3e} "
+                    f"err/bound={worst:.3f} zero_row_zero={zeros} "
+                    f"finite={finite} {'ok' if ok else 'FAIL'}")
+                assert ok, f"{name} split {hq}/{hkv} D={d} {dtype}"
 
 
 # the dense kernels' GQA groups: hubert-xlarge's 16 / 16 (rep 1),
@@ -816,7 +885,8 @@ WINDOW_CASES = {
 WINDOW_PADS, WINDOW_TAIL = 2, 9
 
 
-def _window_storage(gen, rng, layout, depth, kv_lens, dtype):
+def _window_storage(gen, rng, layout, depth, kv_lens, dtype, hkv=HKV,
+                    d=D):
     """K/V holding each row's newest positions in ``layout``: a ring of
     ceil(depth / PS) pages a row (a page table (B, n_ring); entries past
     a ring's allocated pages and pad rows name a spare page) or rolling
@@ -833,11 +903,11 @@ def _window_storage(gen, rng, layout, depth, kv_lens, dtype):
             need = min(-(-n // PS), n_ring)
             table[i, :need] = [free.pop() for _ in range(need)]
         rows = (table[:, :, None] * PS + np.arange(PS)).reshape(b, -1)
-        shape, index = (n_pages, PS, HKV, D), table
+        shape, index = (n_pages, PS, hkv, d), table
     else:
         slots = rng.permutation(b + 1)[:b]
         rows = slots[:, None] * depth + np.arange(depth)
-        shape, index = (b + 1, depth, HKV, D), slots
+        shape, index = (b + 1, depth, hkv, d), slots
     held = np.zeros(shape[0] * shape[1], bool)
     for i, n in enumerate(kv_lens):
         held[rows[i, :min(n, rows.shape[1])]] = True
@@ -851,7 +921,7 @@ def _window_storage(gen, rng, layout, depth, kv_lens, dtype):
             _i32(index))
 
 
-def _window_stream(window, dtype, gen, rng, layout):
+def _window_stream(window, dtype, gen, rng, layout, hq=HQ, hkv=HKV, d=D):
     """Phase 2's windowed prefill stream for ``window``: (kernel args,
     plain args) of the paged or arena kernel, pad segments (kv 0) and
     tail rows included."""
@@ -860,8 +930,8 @@ def _window_stream(window, dtype, gen, rng, layout):
     cu = [0] + list(np.cumsum(lens)) + [sum(lens)] * WINDOW_PADS
     offs = hists + [0] * WINDOW_PADS
     kp, vp, k, v, index = _window_storage(gen, rng, layout, window + margin,
-                                          kvl, dtype)
-    q = torch.randn((sum(lens) + WINDOW_TAIL, HQ, D), generator=gen,
+                                          kvl, dtype, hkv, d)
+    q = torch.randn((sum(lens) + WINDOW_TAIL, hq, d), generator=gen,
                     device=DEVICE).to(dtype)
     seg = (_i32(cu), _i32(offs), _i32(kvl))
     return (q, kp, vp, index) + seg, (q, k, v, index) + seg
@@ -881,37 +951,49 @@ def _window_kernels(layout, window):
         getattr(dec, dcd + "_plain"))), (pre, dcd)
 
 
+# the windowed forms at the served MHA widths: the small odd window's
+# wrap edges at stablelm's and phi-3's 32 / 32 heads; as (window, D, Hq,
+# Hkv)
+WINDOW_WIDTH_CASES = ((100, 64, 32, 32), (100, 96, 32, 32))
+
+
 def phase_window_kernels(seed, errs):
     """The four windowed forms against their plain versions at
     mixtral-8x7b's heads (32 / 8, D 128), fp32 and bf16: the paged
     kernels over ring page tables, the arena kernels over rolling slots,
-    at mixtral's window and at a small odd one (WINDOW_CASES); every
-    row no segment holds NaN, so a read outside a segment's held range
-    faults the comparison."""
+    at mixtral's window and at a small odd one (WINDOW_CASES), then the
+    small one at D 64 and 96 (WINDOW_WIDTH_CASES); every row no segment
+    holds NaN, so a read outside a segment's held range faults the
+    comparison."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 40)
     rng = np.random.default_rng(seed + 40)
-    for window, (margin, lens, hists, dlens) in WINDOW_CASES.items():
+    cases = [(w, D, HQ, HKV) for w in WINDOW_CASES] + list(WINDOW_WIDTH_CASES)
+    for window, d, hq, hkv in cases:
+        margin, lens, hists, dlens = WINDOW_CASES[window]
         for layout in ("ring", "rolling"):
             (pf, pplain, df, dplain), (pre, dcd) = _window_kernels(
                 layout, window)
             for dtype in (torch.float32, torch.bfloat16):
-                args, pargs = _window_stream(window, dtype, gen, rng, layout)
+                args, pargs = _window_stream(window, dtype, gen, rng, layout,
+                                             hq, hkv, d)
                 out = pf(*args)
                 torch.cuda.synchronize()
                 err, worst, ok, _ = _held(out, pplain, *pargs)
                 tail = bool((out[sum(lens):] == 0).all().item())
                 ok = ok and tail and bool(torch.isfinite(out).all())
-                errs.setdefault((pre + "@window", dtype), []).append(err)
+                errs.setdefault((pre + "@window" if d == D else
+                                 _row(pre, d), dtype), []).append(err)
                 log(f"[2] {pre} window {window} ({layout}, depth "
-                    f"{window + margin}) {str(dtype):15s} kv "
+                    f"{window + margin}) {hq}/{hkv} D={d} "
+                    f"{str(dtype):15s} kv "
                     f"{[h + n for h, n in zip(hists, lens)]}: max_abs_err="
                     f"{err:.3e} err/bound={worst:.3f} tail_zero={tail} "
                     f"{'ok' if ok else 'FAIL'}")
-                assert ok, f"{pre} window {window} {dtype}"
+                assert ok, f"{pre} window {window} D={d} {dtype}"
                 kp, vp, k, v, index = _window_storage(
-                    gen, rng, layout, window + margin, dlens, dtype)
-                q = torch.randn((len(dlens), HQ, D), generator=gen,
+                    gen, rng, layout, window + margin, dlens, dtype, hkv, d)
+                q = torch.randn((len(dlens), hq, d), generator=gen,
                                 device=DEVICE).to(dtype)
                 out = df(q, kp, vp, index, _i32(dlens))
                 torch.cuda.synchronize()
@@ -920,14 +1002,15 @@ def phase_window_kernels(seed, errs):
                 zero = bool((out[[i for i, n in enumerate(dlens)
                                   if n == 0]] == 0).all().item())
                 ok = ok and zero and bool(torch.isfinite(out).all())
-                errs.setdefault((dcd + "@window", dtype), []).append(err)
-                log(f"[2] {dcd} window {window} ({layout}) "
-                    f"{str(dtype):15s} lengths {dlens}: max_abs_err="
+                errs.setdefault((dcd + "@window" if d == D else
+                                 _row(dcd, d), dtype), []).append(err)
+                log(f"[2] {dcd} window {window} ({layout}) {hq}/{hkv} "
+                    f"D={d} {str(dtype):15s} lengths {dlens}: max_abs_err="
                     f"{err:.3e} err/bound={worst:.3f} zero_rows_zero={zero} "
                     f"{'ok' if ok else 'FAIL'}")
-                assert ok, f"{dcd} window {window} {dtype}"
+                assert ok, f"{dcd} window {window} D={d} {dtype}"
     log("[2] ok: the four windowed forms == plain at windows "
-        f"{sorted(WINDOW_CASES)}")
+        f"{sorted(WINDOW_CASES)}, and window 100 at D 64 and 96")
 
 
 SAMPLE_MARGIN = 1e-5   # a draw may move only where u is this close to a
@@ -1064,17 +1147,23 @@ def _paths(logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft):
 
 def phase_sample_kernel(seed, errs):
     """fused_sample against its plain version: V = 151,936 (qwen3-4b's
-    vocabulary), 152,064 (qwen2.5-32b's), 50,280 (mamba2-2.7b's) and
-    128, R = 40 (phase 4's verify tick: 8 stream rows x (k + 1)), 8 and
-    1, fp32 and bf16 logits, the first rows the kernel's trouble spots;
-    each row's path (greedy, compact by a warp or a block, whole row),
-    predicted from the inputs, is logged."""
+    vocabulary), 152,064 (qwen2.5-32b's), 50,280 (mamba2-2.7b's),
+    100,352 (stablelm-1.6b's), 32,256 (phi-3-vision's 32,064 padded to
+    256 as ``padded_vocab`` pads it, the pad columns at -1e9 as the
+    model's head writes them), 256,000 (minitron-8b's) and 128, R = 40
+    (phase 4's verify tick: 8 stream rows x (k + 1)), 8 and 1, fp32 and
+    bf16 logits, the first rows the kernel's trouble spots; each row's
+    path (greedy, compact by a warp or a block, whole row), predicted
+    from the inputs, is logged."""
     from repro_torch.kernels import sampling as ks
     rng = np.random.default_rng(seed + 20)
     for v, rows in ((151936, (40, 8, 1)), (152064, (40, 8)), (50280, (40, 8)),
-                    (128, (40, 1))):
+                    (100352, (40, 8)), (32256, (40, 8)),
+                    (256000, (40, 8, 1)), (128, (40, 1))):
         for r in rows:
             host, names = _sample_batch(rng, r, v)
+            if v == 32256:                   # phi-3's pad columns
+                host[0][:, 32064:] = -1e9
             for dtype in (torch.float32, torch.bfloat16):
                 logits = torch.as_tensor(host[0], device=DEVICE).to(dtype)
                 args = (logits,) + host[1:]
@@ -1243,6 +1332,12 @@ WINDOW_MODES = {
 # phase 3's window: mixtral's 4096 lowered so that a trace of a few
 # hundred tokens a session wraps its ring and rolling slot several times
 ORACLE_WINDOW = 128
+# the MHA configs at the kernels' other widths, stablelm-1.6b (64) and
+# phi-3-vision-4.2b (96), each in the three layouts: the page pool, the
+# packed slot arena and the dense (L, B) grid with arena decode (phase
+# 3); phase 4 serves them in all five attention modes
+WIDTH_ARCHS = ("stablelm-1.6b", "phi-3-vision-4.2b")
+WIDTH_ORACLE_MODES = ("paged", "slot_arena", "slot_dense")
 MODE_KERNELS = {
     "slot_dense": ("flash_attn", "decode_attn_arena"),
     "slot_dense_decode": ("flash_attn", "decode_attn"),
@@ -1330,12 +1425,12 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-# phase 3's windowed stack and its oracle's logits by cached ids, kept
-# across the three windowed modes (whose transcripts agree)
+# phase 3's stack and its oracle's logits by cached ids, kept across the
+# modes of one windowed or WIDTH_ARCHS config (whose transcripts agree)
 _ORACLE = {}
 
 
-def phase_oracle(seed, mode):
+def phase_oracle(seed, mode, arch=None):
     """The engine in ``mode`` against the plain dense forward over each
     session's cached ids, at full width cut to 2 layers, fp32: qwen3-4b
     in the attention modes, mamba2-2.7b in the SSM modes (whose oracle
@@ -1345,7 +1440,9 @@ def phase_oracle(seed, mode):
     session's ring or rolling slot wraps (the oracle masks the window
     over the whole sequence).  The oracle runs
     on a CPU copy of the parameters, so it takes the plain versions and
-    passes through none of the kernels the engine launches.  The SSM system prompt is 64 tokens, one C_l chunk
+    passes through none of the kernels the engine launches.  ``arch``
+    (one of WIDTH_ARCHS) serves that config in an attention mode instead
+    of qwen3-4b.  The SSM system prompt is 64 tokens, one C_l chunk
     and four pages: a chunked prompt's first commit lands on its end and
     checkpoints the state there, which later sessions adopt on the page
     pool."""
@@ -1355,18 +1452,22 @@ def phase_oracle(seed, mode):
     from repro_torch.serving.loop import ServeLoop
     ssm = mode in SSM_MODES
     swa = mode in WINDOW_MODES
-    arch = "mamba2-2.7b" if ssm else "mixtral-8x7b" if swa else "qwen3-4b"
+    arch = arch or ("mamba2-2.7b" if ssm else "mixtral-8x7b" if swa
+                    else "qwen3-4b")
+    memo = swa or arch in WIDTH_ARCHS
     cfg = get_config(arch).replace(num_layers=2, dtype="float32")
     if swa:
         cfg = cfg.replace(sliding_window=ORACLE_WINDOW)
-    if swa and _ORACLE.get("seed") == seed:
+    if memo and _ORACLE.get("key") == (arch, seed):
         params, cpu_params = _ORACLE["params"]
     else:
+        _ORACLE.clear()
+        gc.collect()
         params = tr.init_params(cfg, seed=seed, device=DEVICE)
         cpu_params = _to_cpu(params)
-        if swa:
-            _ORACLE.clear()
-            _ORACLE.update(seed=seed, params=(params, cpu_params), logits={})
+        if memo:
+            _ORACLE.update(key=(arch, seed), params=(params, cpu_params),
+                           logits={})
     engine = Engine(cfg, params, EngineConfig(
         num_slots=8, max_len=1024, chunk_tokens=64, measure=False,
         **{**MODES, **SSM_MODES, **WINDOW_MODES}[mode]), device=DEVICE)
@@ -1410,20 +1511,20 @@ def phase_oracle(seed, mode):
         if engine._paged:
             assert engine.arena._tokens[s] == ids, f"session {s} ids"
         key = tuple(ids)
-        if swa and key in _ORACLE["logits"]:
+        if memo and key in _ORACLE["logits"]:
             ref_last = _ORACLE["logits"][key]
         else:
             with torch.no_grad():
                 ref = tr.forward(cpu_params, cfg, torch.tensor([ids]),
                                  logits_slice="last")
             ref_last = ref[0].numpy()
-            if swa:
+            if memo:
                 _ORACLE["logits"][key] = ref_last
         got = engine.last_logits[s]
         err = float(np.abs(got - ref_last).max())
         same = int(np.argmax(got)) == int(np.argmax(ref_last))
         worst = max(worst, err)
-        log(f"[3] {mode}: session {s}: {len(ids)} cached tokens, logits "
+        log(f"[3] {arch} {mode}: session {s}: {len(ids)} cached tokens, logits "
             f"max_abs_err={err:.3e} (tol 1e-3) greedy_match={same}")
         assert err <= 1e-3 and same, f"{mode} engine vs oracle, session {s}"
     st = engine.stats()
@@ -1442,13 +1543,63 @@ def phase_oracle(seed, mode):
             f"lowered to {ORACLE_WINDOW} (C_l 64: ring / rolling depth "
             f"{depth}); histories {[engine.history(s) for s in range(5)]}")
     gs = _graphs_replayed(engine, mode)
-    log(f"[3] ok: {mode} engine == dense oracle (max_abs_err {worst:.3e}) "
+    if arch in WIDTH_ARCHS:
+        # every attention launch at the config's width
+        launches = {k: f.launches for k, f in _launchers().items()}
+        for name in MODE_KERNELS[mode]:
+            if name in WIDTH_KERNELS:
+                assert launches[f"{name}@d{cfg.hdim}"] > 0, (name, launches)
+    log(f"[3] ok: {arch} {mode} engine == dense oracle (max_abs_err "
+        f"{worst:.3e}) "
         f"through {gs['graphs']} captured step graphs, {gs['replays']} "
         f"replays; prefix_hit_tokens {st['prefix_hit_tokens']}, "
         f"state_checkpoints "
         f"{st['state_checkpoints']}, arena_gathers "
         f"{st['arena_gathers']}, dense_dispatches {st['dense_dispatches']} "
         f"{st['dense_dispatches_by_cause']}")
+
+
+VLM_TEXT = 32       # text tokens after phi-3-vision's 1024 patches
+
+
+def phase_vlm_oracle(seed):
+    """phi-3-vision-4.2b's ``forward(embeds=)`` on the card (full width
+    cut to 2 layers, fp32): its stub frontend's ``frontend_tokens`` =
+    1024 random patch embeddings, then VLM_TEXT text tokens' embeddings,
+    causal through the backbone (``flash_attn`` at 32 / 32 heads of 96,
+    once per layer), against the same forward on a CPU copy of the
+    parameters.  Logits over the real vocabulary within 1e-3, the same
+    greedy token at every text position."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    cfg = get_config("phi-3-vision-4.2b").replace(num_layers=2,
+                                                  dtype="float32")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    cpu_params = _to_cpu(params)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 9)
+    patches = torch.randn((1, cfg.frontend_tokens, cfg.d_model),
+                          generator=gen, device=DEVICE)
+    text = torch.randint(1, cfg.vocab_size, (1, VLM_TEXT), generator=gen,
+                         device=DEVICE)
+    emb = torch.cat([patches, params["embed"][text]], dim=1)
+    fl = _launchers()["flash_attn"]
+    n0 = fl.launches
+    with torch.no_grad():
+        got = tr.forward(params, cfg, embeds=emb)
+        torch.cuda.synchronize()
+        n = fl.launches - n0
+        want = tr.forward(cpu_params, cfg, embeds=emb.cpu())
+    v = cfg.vocab_size
+    err = float((got[..., :v].cpu() - want[..., :v]).abs().max())
+    same = bool((got[0, -VLM_TEXT:, :v].argmax(-1).cpu()
+                 == want[0, -VLM_TEXT:, :v].argmax(-1)).all())
+    log(f"[3] phi-3-vision-4.2b forward(embeds=) of {cfg.frontend_tokens} "
+        f"patch embeddings + {VLM_TEXT} text tokens (full width, 2 layers, "
+        f"fp32): logits max_abs_err={err:.3e} (tol 1e-3), greedy tokens "
+        f"of the text rows match={same}, flash_attn launches {n}")
+    assert err <= 1e-3 and same, "phi-3-vision forward(embeds=) vs CPU"
+    assert n == cfg.num_layers, n
 
 
 def phase_encoder_oracle(seed):
@@ -1890,6 +2041,12 @@ def _serve_once(cfg, params, seed, mode):
     assert finite, f"{mode}: non-finite logits"
     if engine._paged and engine.arena.index is not None:
         assert st["prefix_hit_tokens"] > 0, "no radix prefix hit"
+    for name in WIDTH_KERNELS:
+        # every launch of an attention kernel at the config's head width
+        # (the @d counters, counted as the @window ones are)
+        at_width = launches.get(f"{name}@d{cfg.hdim}", 0)
+        assert at_width == launches[name], \
+            f"{mode}: {name}@d{cfg.hdim} {at_width} of {launches[name]}"
     if swa:
         # the long session past the window and the depth; every launch
         # of a windowed attention kernel its windowed form
@@ -2161,7 +2318,8 @@ def _time_graph(fn, iters=20):
 UNEVEN_TICK = [2100, 96, 128, 160, 192, 224, 256, 112]
 
 
-def _time_decode(name, fn, plain, args, kg, vg, lengths, errs, index_bytes):
+def _time_decode(name, fn, plain, args, kg, vg, lengths, errs, index_bytes,
+                 check_library=False):
     """Hold one decode kernel call to its plain version, then time the
     kernel and the library yardstick — one SDPA call over each row's keys
     ``kg``, ``vg`` (B, max length, Hkv, D), gathered and head-expanded
@@ -2169,8 +2327,9 @@ def _time_decode(name, fn, plain, args, kg, vg, lengths, errs, index_bytes):
     (``_time_graph``), and the plain version launched eagerly.  The
     kernel launched eagerly is logged too: the host's launch time.
     Bytes: q and out, each row's keys and values once, and
-    ``index_bytes`` of tables and lengths.  Logs the achieved GB/s beside
-    the bound's; returns the phase-5 row."""
+    ``index_bytes`` of tables and lengths.  ``check_library``: first hold
+    the SDPA call to the kernel's output (the same function).  Logs the
+    achieved GB/s beside the bound's; returns the phase-5 row."""
     import torch.nn.functional as F
     q = args[0]
     got = fn(*args)
@@ -2180,21 +2339,28 @@ def _time_decode(name, fn, plain, args, kg, vg, lengths, errs, index_bytes):
         f"max_abs_err={err:.3e} err/bound={worst:.3f} "
         f"{'ok' if ok else 'FAIL'}")
     assert ok, f"{name} at main-path shapes"
-    b, hq, _ = q.shape
+    b, hq, d = q.shape
     rep = hq // kg.shape[2]
     ks, vs = (a.repeat_interleave(rep, 2).transpose(1, 2) for a in (kg, vg))
     mask = None
     if len(set(lengths)) > 1:
         mask = (torch.arange(kg.shape[1], device=DEVICE)[None, :]
                 < _i32(lengths)[:, None])[:, None, None, :]
+    if check_library:
+        lib = F.scaled_dot_product_attention(q[:, :, None], ks, vs,
+                                             attn_mask=mask)[:, :, 0]
+        lib_err = float((lib.float() - got.float()).abs().max())
+        log(f"[5] {name}: SDPA over the same keys within {lib_err:.3e} of "
+            f"the kernel")
+        assert lib_err <= TOL[q.dtype], f"{name}: SDPA {lib_err}"
     el = q.element_size()
     row = dict(
         ms=_time_graph(lambda: fn(*args)),
         plain_ms=_time(lambda: plain(*args), 3),
         library_ms=_time_graph(lambda: F.scaled_dot_product_attention(
             q[:, :, None], ks, vs, attn_mask=mask)),
-        flops=4 * sum(lengths) * D * hq,
-        bytes=(2 * b * hq * D + 2 * sum(lengths) * kg.shape[2] * D) * el
+        flops=4 * sum(lengths) * d * hq,
+        bytes=(2 * b * hq * d + 2 * sum(lengths) * kg.shape[2] * d) * el
         + index_bytes)
     eager_ms = _time(lambda: fn(*args))
     bound = row["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2314,6 +2480,106 @@ def _time_window(gen, rng, errs):
             kg, vg, inwin, errs,
             4 * (pages if layout == "ring" else len(lengths)) + 4 * len(
                 lengths))
+    return out
+
+
+def _time_widths(gen, rng, errs):
+    """The six paged, arena and gathered attention kernels at
+    stablelm-1.6b's 64 and phi-3-vision's 96 (32 / 32 heads, bf16), at
+    the main path's shapes: the 512-row chunk at history 1536 over 2048
+    keys in an 8-row stream (the other segments empty) through each
+    prefill kernel (page pool, 8-slot x 4096 arena, the segment's slot
+    gathered), and decode at 8 rows x 2048 keys through each decode
+    kernel (from a CUDA graph).  Each is held to its plain version, and
+    the yardstick, one SDPA call over the same keys, to the kernel's
+    output.  Returns {"<kernel>@d<D>": phase-5 row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels import ragged_prefill as rp
+    dt, el, hq, hkv = torch.bfloat16, 2, 32, 32
+    b_rows, keys, rows = 8, 2048, 512
+    hist, p_max, s_max = keys - rows, 4096 // PS, 4096
+    out = {}
+    for d in ROW_WIDTHS:
+        n_pages = b_rows * p_max
+        kp = torch.randn((n_pages + 1, PS, hkv, d), generator=gen,
+                         device=DEVICE).to(dt)
+        vp = torch.randn((n_pages + 1, PS, hkv, d), generator=gen,
+                         device=DEVICE).to(dt)
+        tables = np.stack([rng.permutation(n_pages)[:p_max]
+                           for _ in range(b_rows)]).astype(np.int32)
+        # prefill: the chunk in segment 0, its keys on segment 0's pages,
+        # in slot 3 of the arena, and as row 0 of the gathered cache
+        cu = [0] + [rows] * b_rows
+        q_off = [hist] + [0] * (b_rows - 1)
+        kvl = [keys] + [0] * (b_rows - 1)
+        seg = (_i32(cu), _i32(q_off), _i32(kvl))
+        q = torch.randn((rows, hq, d), generator=gen, device=DEVICE).to(dt)
+        kpos = tables[0, :keys // PS]
+        kg = kp[kpos].reshape(keys, hkv, d)
+        vg = vp[kpos].reshape(keys, hkv, d)
+        ka = torch.zeros((b_rows, s_max, hkv, d), dtype=dt, device=DEVICE)
+        va = torch.zeros_like(ka)
+        ka[3, :keys], va[3, :keys] = kg, vg
+        slot_map = [3] + [0] * (b_rows - 1)
+        kc, vc = ka[slot_map].contiguous(), va[slot_map].contiguous()
+        qs, ks, vs = (q.transpose(0, 1)[None], kg.transpose(0, 1)[None],
+                      vg.transpose(0, 1)[None])
+        mask = (torch.arange(keys, device=DEVICE)[None, :]
+                <= hist + torch.arange(rows, device=DEVICE)[:, None])
+        attended = sum(hist + r + 1 for r in range(rows))
+        lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)[0]
+        lib = lib.transpose(0, 1)
+        for name, fn, plain, args, index_bytes in (
+                ("ragged_prefill_paged", rp.ragged_prefill_paged,
+                 rp.ragged_prefill_paged_plain,
+                 (q, kp, vp, _i32(tables)) + seg, 4 * tables.size),
+                ("ragged_prefill_arena", rp.ragged_prefill_arena,
+                 rp.ragged_prefill_arena_plain,
+                 (q, ka, va, _i32(slot_map)) + seg, 4 * b_rows),
+                ("ragged_prefill_attn", rp.ragged_prefill_attn,
+                 rp.ragged_prefill_attn_plain, (q, kc, vc) + seg, 0)):
+            got = fn(*args)
+            err, worst, ok, _ = _held(got, plain, *args)
+            lib_err = float((lib.float() - got.float()).abs().max())
+            errs.setdefault((f"{name}@d{d}", dt), []).append(err)
+            log(f"[5] {name}@d{d} {rows} rows at history {hist} over "
+                f"{keys} keys, {hq}/{hkv} heads: max_abs_err={err:.3e} "
+                f"err/bound={worst:.3f}; SDPA over the same keys within "
+                f"{lib_err:.3e} of the kernel {'ok' if ok else 'FAIL'}")
+            assert ok and lib_err <= TOL[dt], f"{name}@d{d} at main-path shapes"
+            out[f"{name}@d{d}"] = dict(
+                ms=_time(lambda: fn(*args)),
+                plain_ms=_time(lambda: plain(*args), 3),
+                library_ms=_time(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask)),
+                flops=4 * attended * d * hq,
+                bytes=(2 * rows * hq * d + 2 * keys * hkv * d) * el
+                + index_bytes + 4 * (3 * b_rows + 1))
+        # decode: 8 rows x 2048 keys, each row's keys on its own pages,
+        # in its own slot, in its own cache row
+        lengths = [keys] * b_rows
+        qd = torch.randn((b_rows, hq, d), generator=gen, device=DEVICE).to(dt)
+        kd = kp[tables[:, :keys // PS]].reshape(b_rows, keys, hkv, d)
+        vd = vp[tables[:, :keys // PS]].reshape(b_rows, keys, hkv, d)
+        ka, va = torch.zeros_like(ka), torch.zeros_like(va)
+        ka[:, :keys], va[:, :keys] = kd, vd
+        slots = list(range(b_rows))[::-1]
+        ka, va = ka[slots].contiguous(), va[slots].contiguous()
+        for name, fn, plain, args, index_bytes in (
+                ("decode_attn_paged", dec.decode_attn_paged,
+                 dec.decode_attn_paged_plain,
+                 (qd, kp, vp, _i32(tables), _i32(lengths)),
+                 4 * (b_rows * keys // PS + b_rows)),
+                ("decode_attn_arena", dec.decode_attn_arena,
+                 dec.decode_attn_arena_plain,
+                 (qd, ka, va, _i32(slots), _i32(lengths)), 4 * 2 * b_rows),
+                ("decode_attn", dec.decode_attn, dec.decode_attn_plain,
+                 (qd, kd.contiguous(), vd.contiguous(), _i32(lengths)),
+                 4 * b_rows)):
+            out[f"{name}@d{d}"] = _time_decode(
+                f"{name}@d{d}", fn, plain, args, kd, vd, lengths, errs,
+                index_bytes, check_library=True)
     return out
 
 
@@ -2540,6 +2806,7 @@ def phase_times(seed, errs):
     out["ssd_scan"] = _time_ssd(gen, errs)
     out.update(_time_dense(gen, errs))
     out.update(_time_window(gen, rng, errs))
+    out.update(_time_widths(gen, rng, errs))
     for name, r in out.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r.get("flops_rate", BF16_FLOPS) * 1e3
@@ -3225,30 +3492,41 @@ KERNELS = {
 KERNELS.update({f"{name}@window": dict(KERNELS[name]) for name in (
     "ragged_prefill_paged", "decode_attn_paged", "ragged_prefill_arena",
     "decode_attn_arena")})
+# the six at the served MHA widths, 64 (stablelm-1.6b) and 96
+# (phi-3-vision-4.2b): the same libraries and TPU kernels, checked,
+# timed and counted on their own (80's checks fold into the base row)
+KERNELS.update({f"{name}@d{d}": dict(KERNELS[name]) for name in WIDTH_KERNELS
+                for d in ROW_WIDTHS})
 
 
 def phase_launcher(card):
     """The serve launcher on the card: its default (the slot/dense
     baseline) and ``--packed``, for qwen3-4b (the smoke config at
-    head_dim 128) and mamba2-2.7b (its smoke config's own SSD head
+    head_dim 64) and mamba2-2.7b (its smoke config's own SSD head
     widths), each also at published widths cut to 4 layers, and for
-    mixtral-8x7b (the smoke config at head_dim 128, window 32, and its
+    mixtral-8x7b (the smoke config at head_dim 64, window 32, and its
     published widths cut to WINDOW_LAYERS layers: the window-masked
-    dense baseline and the ring tables, traffic past the window)."""
+    dense baseline and the ring tables, traffic past the window); then
+    stablelm-1.6b at full width and depth with ``--packed`` and
+    phi-3-vision-4.2b at full width and depth in the default."""
     from repro_torch.launch import serve
-    for extra in ([], ["--full", "--layers", "4"],
-                  ["--arch", "mamba2-2.7b"],
-                  ["--arch", "mamba2-2.7b", "--full", "--layers", "4"],
-                  ["--arch", "mixtral-8x7b"],
-                  ["--arch", "mixtral-8x7b", "--full", "--layers",
-                   str(WINDOW_LAYERS)]):
-        for packed in ([], ["--packed"]):
-            argv = extra + packed
-            t0 = time.perf_counter()
-            serve.main(argv)
-            torch.cuda.synchronize()
-            log(f"[6] launch.serve {' '.join(argv) or '(default)'}: "
-                f"finished in {time.perf_counter() - t0:.1f} s (card {card})")
+    runs = [extra + packed
+            for extra in ([], ["--full", "--layers", "4"],
+                          ["--arch", "mamba2-2.7b"],
+                          ["--arch", "mamba2-2.7b", "--full", "--layers",
+                           "4"],
+                          ["--arch", "mixtral-8x7b"],
+                          ["--arch", "mixtral-8x7b", "--full", "--layers",
+                           str(WINDOW_LAYERS)])
+            for packed in ([], ["--packed"])]
+    runs += [["--arch", "stablelm-1.6b", "--full", "--packed"],
+             ["--arch", "phi-3-vision-4.2b", "--full"]]
+    for argv in runs:
+        t0 = time.perf_counter()
+        serve.main(argv)
+        torch.cuda.synchronize()
+        log(f"[6] launch.serve {' '.join(argv) or '(default)'}: "
+            f"finished in {time.perf_counter() - t0:.1f} s (card {card})")
 
 
 def main() -> int:
@@ -3285,9 +3563,13 @@ def main() -> int:
     if "3" in phases:
         for mode in (*MODES, *SSM_MODES, *WINDOW_MODES):
             phase_oracle(args.seed, mode)
+        for arch in WIDTH_ARCHS:
+            for mode in WIDTH_ORACLE_MODES:
+                phase_oracle(args.seed, mode, arch)
         _ORACLE.clear()
         gc.collect()
         torch.cuda.empty_cache()
+        phase_vlm_oracle(args.seed)
         phase_encoder_oracle(args.seed)
         phase_moe_check(args.seed)
         for mode in ("paged", "slot_arena"):
@@ -3313,6 +3595,21 @@ def main() -> int:
                                     {mode: 2 for mode in WINDOW_MODES},
                                     layers=WINDOW_LAYERS).items():
             launches.setdefault(name, row)
+        # the MHA configs at full width and depth in the five attention
+        # modes: the @d64 / @d96 rows take their launches (every
+        # attention launch there at the config's width, _serve_once)
+        for arch, d in zip(WIDTH_ARCHS, ROW_WIDTHS):
+            gc.collect()
+            torch.cuda.empty_cache()
+            for name, row in phase_full(args.seed, card, arch,
+                                        {mode: 1 for mode in MODES}).items():
+                if name in WIDTH_KERNELS:
+                    launches[f"{name}@d{d}"] = row
+        # the other dense GQA configs at head_dim 128: one paged run each
+        for arch in ("qwen2.5-14b", "minitron-8b"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_full(args.seed, card, arch, {"paged": 1})
     if "5" in phases:
         times = phase_times(args.seed, errs)
         phase_dense_tick(card, times)

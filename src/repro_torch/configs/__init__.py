@@ -19,6 +19,12 @@ _MODULES = {
     "hubert-xlarge": "hubert_xlarge",
     # the windowed and MoE family: a 4096-token sliding window, 8 experts
     "mixtral-8x7b": "mixtral_8x7b",
+    # MHA at head_dim 64 and 96 (the vision frontend a stub)
+    "stablelm-1.6b": "stablelm_1_6b",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
+    # the other dense GQA configs at head_dim 128
+    "qwen2.5-14b": "qwen2_5_14b",
+    "minitron-8b": "minitron_8b",
 }
 
 

@@ -1,5 +1,6 @@
-// Shared helpers of the attention kernels: element conversion for the
-// two storage types they take (fp32, bf16), the probability rounding the
+// Shared helpers of the attention kernels: the forms they take (storage
+// type x head width) and the dispatch over them, element conversion for
+// the two storage types (fp32, bf16), the probability rounding the
 // TPU kernels apply before the PV product, the KV layouts (a page
 // pool read through a page table, a slot arena read through a slot map,
 // and their windowed forms, a ring page table and rolling slots) and the
@@ -12,6 +13,57 @@
 namespace attn {
 
 constexpr float kNegInf = -1e30f;   // masked score, as the TPU kernels use
+
+// One instantiation of an attention kernel: storage type T, head width D.
+template <typename T_, int D_>
+struct Form {
+  using T = T_;
+  static constexpr int D = D_;
+};
+
+// The forms every attention kernel takes: dtype 0 = float32, 1 =
+// bfloat16, head widths 64, 80, 96 and 128 (every head width of the
+// reference's configs).  Calls f(Form<T, D>{}) and returns its result,
+// or cudaErrorInvalidValue for any other dtype or width.
+template <typename T, typename F>
+int with_width(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 64: return f(Form<T, 64>{});
+    case 80: return f(Form<T, 80>{});
+    case 96: return f(Form<T, 96>{});
+    case 128: return f(Form<T, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename F>
+int with_form(int dtype, int head_dim, F&& f) {
+  if (dtype == 0) return with_width<float>(head_dim, f);
+  if (dtype == 1) return with_width<__nv_bfloat16>(head_dim, f);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A kernel's launch facts on this card, for a launch plan's log: out[0]
+// its dynamic shared bytes a block, out[1] registers a thread, out[2]
+// blocks resident per SM; its shared-memory attribute set first, as a
+// launch sets it.
+template <typename K>
+int kernel_info(K kern, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(smem);
+  out[1] = fa.numRegs;
+  out[2] = per_sm;
+  return 0;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

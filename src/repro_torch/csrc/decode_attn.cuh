@@ -54,8 +54,12 @@
 //    a key row of one KV head is a 256-byte run behind a page-table
 //    lookup, so a TMA descriptor per 16-row page would gain little over
 //    cp.async.  A tile row's 16-byte chunks are XOR-swizzled by the row
-//    (chunk c of row r at c ^ (r % 8)), so ldmatrix reads are free of
-//    bank conflicts.
+//    (chunk c of row r at slot c ^ (r % 8)), so ldmatrix reads are free
+//    of bank conflicts.  The swizzle permutes the slots of an aligned
+//    group of 8, so a row's slots are D / 8 chunks padded up to a
+//    multiple of 8: 8 at D = 64, 16 at D = 80, 96 and 128 (the 10 or 12
+//    chunks of D = 80 or 96 sit in a 16-slot row, which is the ring of
+//    D = 128, 96 KB a block; D = 64's is 48 KB).
 // 3. Tensor cores on the GQA group.  S = q.K^T and O += P.V run as
 //    mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the group's rep <=
 //    8 query heads as the M rows (rows rep..15 are zero): per 16-key tile
@@ -68,6 +72,9 @@
 // fp32, the checking type, stays on the CUDA cores: the same split walk
 // and warp tiles, each tile copied synchronously (attn_common.cuh
 // load_kv_tile) and scalar fp32 FMAs.
+//
+// Head widths: D = 64, 80, 96 and 128, every width of the reference's
+// configs (attn_common.cuh with_form), in fp32 and bf16.
 //
 // On the card (PERF.md §6): at 8 rows x 2048 keys the bytes bound it as
 // designed — throwaway builds with the K/V copies cut out ran several
@@ -115,12 +122,15 @@ struct Walk;
 
 template <int D>
 struct Walk<float, D> {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  // a lane's output columns lane + 32 k, k < kCols (the last one partly
+  // idle at D = 80 and 96)
+  static constexpr int kCols = (D + 31) / 32;
   static constexpr int kWarpFloats = kKT * (D + 1) + kKT * D + kMaxRep * kKT;
   static constexpr size_t kSmem =
       sizeof(float) * (kMaxRep * D + kWarps * kWarpFloats);
 
-  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][D / 32];
+  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][kCols];
 
   // q: the group's first query vector (its rep vectors are contiguous)
   template <typename Rows>
@@ -142,7 +152,7 @@ struct Walk<float, D> {
       m[i] = kNegInf;
       l[i] = 0.f;
 #pragma unroll
-      for (int k = 0; k < D / 32; ++k) acc[i][k] = 0.f;
+      for (int k = 0; k < kCols; ++k) acc[i][k] = 0.f;
     }
     // score phase: lane (j, half) dots key j of the tile with half of D;
     // half 1 walks its columns rotated by 16 so the two halves never hit
@@ -188,8 +198,9 @@ struct Walk<float, D> {
       for (int i = 0; i < kMaxRep; ++i) {
         if (i < rep) {
 #pragma unroll
-          for (int k = 0; k < D / 32; ++k) {
+          for (int k = 0; k < kCols; ++k) {
             const int d = lane + 32 * k;
+            if (D % 32 != 0 && d >= D) break;
             float a = acc[i][k] * alpha[i];
 #pragma unroll
             for (int jj = 0; jj < kKT; ++jj)
@@ -212,7 +223,9 @@ struct Walk<float, D> {
           mg.ml[warp][i][1] = l[i];
         }
 #pragma unroll
-        for (int k = 0; k < D / 32; ++k) mg.acc[warp][i][lane + 32 * k] = acc[i][k];
+        for (int k = 0; k < kCols; ++k)
+          if (D % 32 == 0 || lane + 32 * k < D)
+            mg.acc[warp][i][lane + 32 * k] = acc[i][k];
       }
     }
   }
@@ -227,13 +240,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <int D>
 struct Walk<__nv_bfloat16, D> {
-  static_assert(D % 64 == 0, "the swizzle needs rows of 8k 16-byte chunks");
+  static_assert(D % 16 == 0, "m16n8k16 takes 16 columns at a time");
   static constexpr int kChunks = D / 8;              // 16-byte chunks a row
-  static constexpr int kTileBytes = kKT * D * 2;     // one K or V tile
+  // a row's 16-byte slots in the ring: kChunks padded to the swizzle's
+  // group of 8, so chunk c ^ (r % 8) stays inside the row
+  static constexpr int kSlots = (kChunks + 7) / 8 * 8;
+  static constexpr int kTileBytes = kKT * kSlots * 16;  // one K or V tile
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr size_t kSmem =
       static_cast<size_t>(kWarps) * kStages * kStageBytes;
   static constexpr int kCopies = kKT * kChunks / 32;  // per lane, K and V
+  static_assert(kKT * kChunks % 32 == 0, "whole copy rounds");
+
+  // the ring offset of chunk c of tile row r
+  static __device__ __forceinline__ uint32_t slot(int r, int c) {
+    return (r * kSlots + (c ^ (r & 7))) * 16;
+  }
 
   // Lane (r = lane / 4, t = lane % 4) holds query head r of the group:
   // its running max m, its partial row sum l over the keys it scores
@@ -283,7 +305,7 @@ struct Walk<__nv_bfloat16, D> {
         const bool in = base + r < k1;
         const size_t off =
             in ? (rows(base + r) * hkv + g) * D + c * 8 : 0;
-        const uint32_t dst = st + (r * kChunks + (c ^ (r & 7))) * 16;
+        const uint32_t dst = st + slot(r, c);
         tc::cp_async16_cg(dst, kbuf + off, in);
         tc::cp_async16_cg(dst + kTileBytes, vbuf + off, in);
       }
@@ -310,7 +332,7 @@ struct Walk<__nv_bfloat16, D> {
       for (int kk = 0; kk < D / 16; ++kk) {
         const int r = ((mi >> 1) << 3) + mr, c = 2 * kk + (mi & 1);
         uint32_t b[4];
-        tc::ldsm_x4(ks + (r * kChunks + (c ^ (r & 7))) * 16, b);
+        tc::ldsm_x4(ks + slot(r, c), b);
         tc::mma_16816(s0, qa[kk][0], 0u, qa[kk][1], 0u, b[0], b[1]);
         tc::mma_16816(s1, qa[kk][0], 0u, qa[kk][1], 0u, b[2], b[3]);
       }
@@ -348,7 +370,7 @@ struct Walk<__nv_bfloat16, D> {
       for (int jj = 0; jj < D / 16; ++jj) {
         const int r = ((mi & 1) << 3) + mr, c = 2 * jj + (mi >> 1);
         uint32_t b[4];
-        tc::ldsm_x4_trans(vs + (r * kChunks + (c ^ (r & 7))) * 16, b);
+        tc::ldsm_x4_trans(vs + slot(r, c), b);
         tc::mma_16816(o[2 * jj], pa0, 0u, pa2, 0u, b[0], b[1]);
         tc::mma_16816(o[2 * jj + 1], pa0, 0u, pa2, 0u, b[2], b[3]);
       }
@@ -449,21 +471,24 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
 // One block per (KV head, row) and one warp per query head of the group.
 // The lanes fold the chunks' (m, l) side by side, online, and the warp
 // folds the lanes' into the row's max and sum; then, 32 chunks at a
-// time, lane j computes chunk j's weight and lane j merges columns
-// 4j..4j + 3 of acc (one float4) over the chunks in chunk order, each
-// chunk's weight taken from its lane by a shuffle, so the acc loads of 16
-// chunks are in flight at once.  Empty partials (l = 0) weigh nothing:
-// their acc, never written, is loaded and dropped by a select.  A row
-// with no key gets 0.
+// time, lane j computes chunk j's weight and each lane j < D / 4 (16,
+// 20, 24 or 32 of them) merges columns 4j..4j + 3 of acc (one float4)
+// over the chunks in chunk order, each chunk's weight taken from its
+// lane by a shuffle, so the acc loads of 16 chunks are in flight at
+// once; the other lanes take part in the folds and shuffles only.  Empty
+// partials (l = 0) weigh nothing: their acc, never written, is loaded
+// and dropped by a select.  A row with no key gets 0.
 template <typename T, int D>
 __global__ void __launch_bounds__(kMaxRep * 32)
 decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
                       int hq, int hkv, int n_chunks) {
-  static_assert(D == 128, "one float4 of acc per lane");
+  static_assert(D % 4 == 0 && D / 4 <= 32, "one float4 of acc per lane");
+  constexpr int kLanes = D / 4;
   const int g = blockIdx.x, b = blockIdx.y;
   const int rep = hq / hkv;
   const int i = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (i >= rep) return;                  // warp-uniform
+  const bool cols = lane < kLanes;       // this lane merges columns
   const int stride = rep * (D + 4);      // one chunk's partials
   const float* p = ws + (static_cast<size_t>(b) * hkv + g) * n_chunks *
                             stride + i * (D + 4);
@@ -496,14 +521,16 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
 #pragma unroll 16
     for (int j = 0; j < n; ++j) {
       const float wj = __shfl_sync(0xffffffffu, w, j);
-      const float4 v = *reinterpret_cast<const float4*>(
-          p + (c0 + j) * stride + 4 * lane);
+      const float4 v = cols ? *reinterpret_cast<const float4*>(
+                                  p + (c0 + j) * stride + 4 * lane)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
       a[0] += wj > 0.f ? wj * v.x : 0.f;
       a[1] += wj > 0.f ? wj * v.y : 0.f;
       a[2] += wj > 0.f ? wj * v.z : 0.f;
       a[3] += wj > 0.f ? wj * v.w : 0.f;
     }
   }
+  if (!cols) return;
   T* o = out + (static_cast<size_t>(b) * hq + g * rep + i) * D + 4 * lane;
 #pragma unroll
   for (int e = 0; e < 4; ++e) o[e] = from_f<T>(a[e]);
@@ -537,7 +564,8 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  chunk, n_chunks: the split plan
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 80, 96 or 128.
+// chunk, n_chunks: the split plan
 // (kernels/decode_attn.py split_plan) over the span, the most keys a
 // row's range can hold — the layout's depth, or min(window, depth) with
 // a window > 0; ws: its fp32 workspace, unused (may be null) when
@@ -557,14 +585,23 @@ int entry(const void* q, const void* k, const void* v, Layout layout,
       static_cast<long long>(chunk) * n_chunks < span ||
       (n_chunks > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (head_dim == 128 && dtype == 1)
-    return launch<__nv_bfloat16, 128>(q, k, v, layout, lengths, out, ws,
-                                      n_rows, hq, hkv, chunk, n_chunks,
-                                      window, s);
-  if (head_dim == 128 && dtype == 0)
-    return launch<float, 128>(q, k, v, layout, lengths, out, ws, n_rows, hq,
-                              hkv, chunk, n_chunks, window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_form(dtype, head_dim, [&](auto form) {
+    using F = decltype(form);
+    return launch<typename F::T, F::D>(q, k, v, layout, lengths, out, ws,
+                                       n_rows, hq, hkv, chunk, n_chunks,
+                                       window, s);
+  });
+}
+
+// The launch facts (attn_common.cuh kernel_info) of the split kernel of
+// this form over Layout.
+template <typename Layout>
+int info(int head_dim, int dtype, int* out) {
+  return with_form(dtype, head_dim, [&](auto form) {
+    using F = decltype(form);
+    return kernel_info(decode_split_kernel<typename F::T, F::D, Layout>,
+                       kThreads, Walk<typename F::T, F::D>::kSmem, out);
+  });
 }
 
 }  // namespace decode

@@ -33,3 +33,11 @@ extern "C" int decode_attn_paged_launch(
                              lengths, out, ws, n_rows, hq, hkv, head_dim,
                              chunk, n_chunks, 0, dtype, stream);
 }
+
+// The launch facts of the split kernel at head_dim and dtype over a page
+// table (attn_common.cuh kernel_info): out[0] shared bytes a block, out[1]
+// registers a thread, out[2] blocks resident per SM.
+extern "C" int decode_attn_paged_info(int head_dim, int dtype, void* out) {
+  return attn::decode::info<attn::PagedLayout>(head_dim, dtype,
+                                              static_cast<int*>(out));
+}

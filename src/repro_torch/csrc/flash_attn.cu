@@ -103,29 +103,6 @@ int launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int by_width(const void* q, const void* k, const void* v,
-             const void* q_offsets, const void* kv_lengths, void* out,
-             int n_batch, int lq, int s, int hq, int hkv, int head_dim,
-             int causal, int window, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch<T, 64>(q, k, v, q_offsets, kv_lengths, out, n_batch, lq,
-                           s, hq, hkv, causal, window, stream);
-    case 80:
-      return launch<T, 80>(q, k, v, q_offsets, kv_lengths, out, n_batch, lq,
-                           s, hq, hkv, causal, window, stream);
-    case 96:
-      return launch<T, 96>(q, k, v, q_offsets, kv_lengths, out, n_batch, lq,
-                           s, hq, hkv, causal, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, q_offsets, kv_lengths, out, n_batch,
-                            lq, s, hq, hkv, causal, window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace flash
 }  // namespace attn
 
@@ -143,12 +120,10 @@ extern "C" int flash_attn_launch(
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxRep || n_batch <= 0 ||
       n_batch > 65535 || lq <= 0 || s <= 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1)
-    return by_width<__nv_bfloat16>(q, k, v, q_offsets, kv_lengths, out,
-                                   n_batch, lq, s, hq, hkv, head_dim, causal,
-                                   window, st);
-  if (dtype == 0)
-    return by_width<float>(q, k, v, q_offsets, kv_lengths, out, n_batch, lq,
-                           s, hq, hkv, head_dim, causal, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return attn::with_form(dtype, head_dim, [&](auto form) {
+    using F = decltype(form);
+    return launch<typename F::T, F::D>(q, k, v, q_offsets, kv_lengths, out,
+                                       n_batch, lq, s, hq, hkv, causal,
+                                       window, st);
+  });
 }

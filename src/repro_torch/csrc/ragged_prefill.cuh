@@ -23,11 +23,12 @@
 // KV, bound by bytes (0.020 ms), like a decode step.
 //
 // What the design does about it: the attention tile core of
-// attn_tiles.cuh.  In bf16 a block is two warpgroups on a tile of 128
-// query vectors — 128 / rep rows of one segment x the rep query heads of
-// one KV head g (32 rows at qwen3-4b's rep 4, 25 with 3 idle vectors at
-// qwen2.5-32b's rep 5) — each warpgroup running Q.K^T and P.V for its 64
-// vectors on the tensor cores (wgmma, bf16 in, fp32 accumulate), with
+// attn_tiles.cuh, at head widths 64, 80, 96 and 128.  In bf16 a block is
+// two warpgroups on a tile of 128 query vectors — 128 / rep rows of one
+// segment x the rep query heads of one KV head g (32 rows at qwen3-4b's
+// rep 4, 25 with 3 idle vectors at qwen2.5-32b's rep 5, 128 rows of one
+// head at an MHA config's rep 1) — each warpgroup running Q.K^T and P.V
+// for its 64 vectors on the tensor cores (wgmma, bf16 in, fp32 accumulate), with
 // K/V tiles of 64 keys arriving by cp.async into a three-stage ring
 // while earlier tiles are multiplied; a warpgroup whose 64 vectors are
 // all past the tile's rows (a short segment) only loads.  Each key
@@ -143,9 +144,9 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16; window: the sliding window (0 =
-// none).  Returns the launch's cudaGetLastError() (0 on success); never
-// synchronises.
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 80, 96 or 128 (the
+// tile core's widths); window: the sliding window (0 = none).  Returns
+// the launch's cudaGetLastError() (0 on success); never synchronises.
 template <typename Layout>
 int entry(const void* q, const void* k, const void* v, Layout layout,
           const void* cu_seqlens, const void* q_offsets,
@@ -155,15 +156,24 @@ int entry(const void* q, const void* k, const void* v, Layout layout,
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxRep || n_rows <= 0 ||
       n_seqs < 0 || window < 0 || layout.depth() <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (head_dim == 128 && dtype == 1)
-    return launch<__nv_bfloat16, 128>(q, k, v, layout, cu_seqlens, q_offsets,
-                                      kv_lengths, out, n_rows, hq, hkv,
-                                      n_seqs, window, s);
-  if (head_dim == 128 && dtype == 0)
-    return launch<float, 128>(q, k, v, layout, cu_seqlens, q_offsets,
-                              kv_lengths, out, n_rows, hq, hkv, n_seqs,
-                              window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_form(dtype, head_dim, [&](auto form) {
+    using F = decltype(form);
+    return launch<typename F::T, F::D>(q, k, v, layout, cu_seqlens,
+                                       q_offsets, kv_lengths, out, n_rows,
+                                       hq, hkv, n_seqs, window, s);
+  });
+}
+
+// The launch facts (attn_common.cuh kernel_info) of the kernel of this
+// form over Layout.
+template <typename Layout>
+int info(int head_dim, int dtype, int* out) {
+  return with_form(dtype, head_dim, [&](auto form) {
+    using F = decltype(form);
+    using Core = Tile<typename F::T, F::D>;
+    return kernel_info(ragged_prefill_kernel<typename F::T, F::D, Layout>,
+                       Core::kThreads, Core::kSmem, out);
+  });
 }
 
 }  // namespace prefill

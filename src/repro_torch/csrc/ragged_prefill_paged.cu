@@ -36,3 +36,11 @@ extern "C" int ragged_prefill_paged_launch(
                               n_rows, hq, hkv, head_dim, n_seqs, 0, dtype,
                               stream);
 }
+
+// The launch facts of the kernel at head_dim and dtype over a page table
+// (attn_common.cuh kernel_info): out[0] shared bytes a block, out[1]
+// registers a thread, out[2] blocks resident per SM.
+extern "C" int ragged_prefill_paged_info(int head_dim, int dtype, void* out) {
+  return attn::prefill::info<attn::PagedLayout>(head_dim, dtype,
+                                               static_cast<int*>(out));
+}

@@ -30,7 +30,8 @@ spans min(depth, window) keys.
 Each launcher takes CUDA tensors only and raises on anything its kernel
 does not take; the ``*_plain`` functions (``kernels/ref.py``) compute the
 same functions with plain tensor ops.  Each counts its launches in
-``launches``, and a windowed launch also in ``window.launches``.
+``launches``, a windowed launch also in ``window.launches``, and a
+launch at head width d also in ``width[d].launches``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 
 from repro_torch.kernels.ragged_prefill import (_DTYPES, LaunchCount,
                                                 check_kernel_inputs, launch,
-                                                window_arg)
+                                                width_counts, window_arg)
 from repro_torch.kernels.ref import \
     ref_decode_attn as decode_attn_plain  # noqa: F401
 from repro_torch.kernels.ref import \
@@ -144,6 +145,7 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q)
     out = _launch_split("decode_attn_dense", q, k, v, (lengths,), (s,), s)
     decode_attn.launches += 1
+    decode_attn.width[q.shape[-1]].launches += 1
     return out
 
 
@@ -175,6 +177,7 @@ def decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         (ps, p_max), p_max * ps, w)
     decode_attn_paged.launches += 1
     decode_attn_paged.window.launches += bool(w)
+    decode_attn_paged.width[q.shape[-1]].launches += 1
     return out
 
 
@@ -204,11 +207,15 @@ def decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         (s_max,), s_max, w)
     decode_attn_arena.launches += 1
     decode_attn_arena.window.launches += bool(w)
+    decode_attn_arena.width[q.shape[-1]].launches += 1
     return out
 
 
 decode_attn.launches = 0
+decode_attn.width = width_counts()
 decode_attn_paged.launches = 0
 decode_attn_paged.window = LaunchCount()
+decode_attn_paged.width = width_counts()
 decode_attn_arena.launches = 0
 decode_attn_arena.window = LaunchCount()
+decode_attn_arena.width = width_counts()

@@ -16,12 +16,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ragged_prefill import (_DTYPES, check_kernel_inputs,
-                                                launch)
+from repro_torch.kernels.ragged_prefill import (_DTYPES, HEAD_DIMS,
+                                                check_kernel_inputs, launch)
 from repro_torch.kernels.ref import \
     ref_flash_attn as flash_attn_plain  # noqa: F401
 
-HEAD_DIMS = (64, 80, 96, 128)   # every head width of the reference configs
 MAX_REP = 8                     # query heads per KV group
 
 
@@ -40,8 +39,7 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key.  Never synchronises and never reads a device tensor back to the
     host.
     """
-    check_kernel_inputs(q, k, v, q_offsets, kv_lengths, max_rep=MAX_REP,
-                        head_dims=HEAD_DIMS)
+    check_kernel_inputs(q, k, v, q_offsets, kv_lengths, max_rep=MAX_REP)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Lq, Hq, D): {tuple(q.shape)}")
     b, lq, hq, d = q.shape

@@ -37,6 +37,13 @@ LAUNCHERS = {
     "decode_attn_paged@window": _decode.decode_attn_paged.window,
     "ragged_prefill_arena@window": _prefill.ragged_prefill_arena.window,
     "decode_attn_arena@window": _decode.decode_attn_arena.window,
+    # the six paged, arena and gathered attention kernels by head width:
+    # each launch at width d counts here and in its kernel's own count
+    **{f"{fn.__name__}@d{d}": fn.width[d]
+       for fn in (_prefill.ragged_prefill_paged, _decode.decode_attn_paged,
+                  _decode.decode_attn_arena, _prefill.ragged_prefill_arena,
+                  _prefill.ragged_prefill_attn, _decode.decode_attn)
+       for d in _prefill.HEAD_DIMS},
 }
 
 

@@ -20,11 +20,13 @@ windowed forms over a ring page table and rolling slots.
 Each launcher takes CUDA tensors only and raises on anything its kernel
 does not take; the ``*_plain`` functions (``kernels/ref.py``) compute the
 same functions with plain tensor ops.  Each counts its launches in
-``launches``, and a windowed launch also in ``window.launches``.
+``launches``, a windowed launch also in ``window.launches``, and a
+launch at head width d also in ``width[d].launches``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -37,15 +39,17 @@ from repro_torch.kernels.ref import \
     ref_ragged_prefill_paged as ragged_prefill_paged_plain  # noqa: F401
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head widths every attention kernel takes: every width of the
+# reference's configs
+HEAD_DIMS = (64, 80, 96, 128)
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *index: torch.Tensor, max_rep: int,
-                        head_dims: Tuple[int, ...] = (128,)) -> None:
+                        *index: torch.Tensor, max_rep: int) -> None:
     """Raise ValueError on anything the attention kernels do not take:
     tensors off the card or on two devices, dtypes other than fp32/bf16
     (int32 tables and index vectors), K/V storage that is not
-    (N, rows, Hkv, D) alike with D in ``head_dims``, GQA groups wider
+    (N, rows, Hkv, D) alike with D in ``HEAD_DIMS``, GQA groups wider
     than ``max_rep``, non-contiguous memory, or q/K/V not 16-byte
     aligned."""
     dev = q.device
@@ -67,9 +71,9 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
     hq, d = q.shape[-2], q.shape[-1]
     hkv = k.shape[2]
-    if k.shape[3] != d or d not in head_dims:
+    if k.shape[3] != d or d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} (K/V {k.shape[3]}): the kernel "
-                         f"takes {' or '.join(map(str, head_dims))}")
+                         f"takes {' or '.join(map(str, HEAD_DIMS))}")
     if hq % hkv or hq // hkv > max_rep:
         raise ValueError(f"{hq} query heads over {hkv} KV heads: needs "
                          f"Hq % Hkv == 0 and Hq / Hkv <= {max_rep}")
@@ -107,10 +111,32 @@ def window_arg(window: Optional[int]) -> int:
 
 
 class LaunchCount:
-    """The launch counter of a kernel's windowed form."""
+    """The launch counter of a kernel's windowed form or of one of its
+    head widths."""
 
     def __init__(self) -> None:
         self.launches = 0
+
+
+def width_counts() -> Dict[int, LaunchCount]:
+    """A launcher's counters by head width, one for each of HEAD_DIMS."""
+    return {d: LaunchCount() for d in HEAD_DIMS}
+
+
+def launch_info(name: str, head_dim: int,
+                dtype: torch.dtype) -> Dict[str, int]:
+    """The launch facts of the paged kernel ``name``
+    (``ragged_prefill_paged`` or ``decode_attn_paged``, the split
+    kernel) at ``head_dim`` and ``dtype`` on this card: shared bytes a
+    block, registers a thread, blocks resident per SM.  Needs the
+    card."""
+    out = (ctypes.c_int * 3)()
+    fn = _build.function(name, f"{name}_info",
+                         (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    err = fn(head_dim, _DTYPES[dtype], ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{name}_info failed: CUDA error {err}")
+    return dict(zip(("smem", "regs", "blocks_per_sm"), out))
 
 
 def launch(name: str, *args) -> None:
@@ -159,6 +185,7 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_paged.launches += 1
     ragged_prefill_paged.window.launches += bool(w)
+    ragged_prefill_paged.width[d].launches += 1
     return out
 
 
@@ -200,6 +227,7 @@ def ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_arena.launches += 1
     ragged_prefill_arena.window.launches += bool(w)
+    ragged_prefill_arena.width[d].launches += 1
     return out
 
 
@@ -231,11 +259,15 @@ def ragged_prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            t, hq, hkv, d, s, b, _DTYPES[q.dtype],
            torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_attn.launches += 1
+    ragged_prefill_attn.width[d].launches += 1
     return out
 
 
 ragged_prefill_paged.launches = 0
 ragged_prefill_paged.window = LaunchCount()
+ragged_prefill_paged.width = width_counts()
 ragged_prefill_arena.launches = 0
 ragged_prefill_arena.window = LaunchCount()
+ragged_prefill_arena.width = width_counts()
 ragged_prefill_attn.launches = 0
+ragged_prefill_attn.width = width_counts()

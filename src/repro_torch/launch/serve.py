@@ -10,9 +10,14 @@ rungs captured at init too); ``--packed`` serves the
 default engine stack (packed token-bucket stream over the paged pool).
 The smoke config is used unless ``--full`` asks for the published width
 (random weights from ``--seed``; ``--layers`` cuts the depth).  On the
-card an attention smoke config takes head_dim 128, the one head width
-the attention kernels take; the SSD scan kernel takes the SSM smoke
-config's own head widths.  ``--arch mamba2-2.7b`` serves the SSM family
+card an attention smoke config's head_dim of 16 is raised to 64, the
+narrowest of the widths the attention kernels take (64, 80, 96, 128);
+the SSD scan kernel takes the SSM smoke config's own head widths.
+``--arch`` names any registered config: qwen3-4b (the default),
+qwen2.5-32b, qwen2.5-14b and minitron-8b (GQA at head_dim 128),
+stablelm-1.6b and phi-3-vision-4.2b (MHA at head_dim 64 and 96; phi-3's
+vision frontend is a stub and its backbone serves tokens).
+``--arch mamba2-2.7b`` serves the SSM family
 (a scratch slot on the slot arena, state pages on the paged pool);
 ``--arch mixtral-8x7b`` the windowed MoE family (window-masked full
 slots in the default run, ring page tables with ``--packed``), whose
@@ -26,6 +31,10 @@ Example:
       --packed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --full --layers 16 --packed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
+      --full --packed
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi-3-vision-4.2b --full
 """
 from __future__ import annotations
 
@@ -68,7 +77,7 @@ def main(argv=None):
         cfg = get_smoke(args.arch)
         if torch.device(args.device).type == "cuda" \
                 and cfg.family != "ssm":
-            cfg = cfg.replace(head_dim=128)
+            cfg = cfg.replace(head_dim=64)
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
     params = tr.init_params(cfg, seed=args.seed, device=args.device)

@@ -45,9 +45,12 @@ def resolve_device(device) -> torch.device:
 
 def _check_slice(cfg: ModelConfig) -> None:
     """The port serves decoders of full or sliding-window attention
-    with dense or MoE FFNs, and pure SSM (mamba2) stacks, and runs the
-    encoder-only (audio) stack through :func:`forward`; the serving
-    stack refuses encoder-only configs where the reference does."""
+    with dense or MoE FFNs — the dense, moe and vlm families (a vlm's
+    backbone; its stub frontend's patch embeddings enter through
+    :func:`forward`'s ``embeds``) — and pure SSM (mamba2) stacks, and
+    runs the encoder-only (audio) stack through :func:`forward`; the
+    serving stack refuses encoder-only configs where the reference
+    does."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: hybrid attention/SSM stacks are not ported yet "
@@ -234,7 +237,8 @@ def forward(params: Dict, cfg: ModelConfig,
     """The plain dense forward.
 
     tokens: (B, L) int — or embeds: (B, L, d), the frame or patch
-    embeddings of a stub frontend (hubert's audio encoder); positions:
+    embeddings of a stub frontend (hubert's audio encoder, causal
+    through a vlm backbone such as phi-3-vision's); positions:
     (B, L) absolute positions (default arange).  Without ``caches`` it
     is the oracle the serving steps are held against (an SSM layer scans
     from a zero state) and the encoder forward.  With ``caches`` (from

@@ -301,13 +301,12 @@ RAGGED_KEYLESS = 6
 N_PAGES, P_MAX, N_SLOTS, S_MAX = 40, 12, 9, 192
 
 
-def _ragged_inputs(seed, rep, layout, dtype):
+def _ragged_inputs(seed, rep, layout, dtype, d=128):
     """The stream and one layout's storage: (q, storage poisoned with NaN
     past each length, the same with 1000 there, the kernel's index
     arguments, the plain version's index arguments, the row map,
     capacity)."""
     rng = np.random.default_rng(seed)
-    d = 128
     lens, hists = RAGGED_LENS, RAGGED_HISTS
     kvl = [h + n for h, n in zip(hists, lens)]
     kvl[RAGGED_KEYLESS] = 0
@@ -384,6 +383,27 @@ def test_ragged_tiles_match_plain(layout, rep, bf16):
     args = (q, k, v, *index, *seg_idx)
     total = int(seg_idx[0][-1])
     assert (got[total:] == 0).all()
+    if not bf16:
+        torch.testing.assert_close(got, plain(*args), **TOL)
+        return
+    ref, bound = tref.kernel_error_bound(plain, dtype, *args)
+    assert ((got.float() - ref).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16_p"])
+@pytest.mark.parametrize("d", [64, 80, 96])
+@pytest.mark.parametrize("layout", list(PLAIN))
+def test_ragged_tiles_at_head_widths_rep_1(layout, d, bf16):
+    """The ragged tiles at rep 1 (MHA: stablelm's 32 / 32 heads of 64,
+    phi-3's of 96; 80 too): 128 rows of one head a bf16 tile, 32 an
+    fp32 one, over the same stream."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, (kf, vf), k, v, index, seg_idx, seg_rows, cap = \
+        _ragged_inputs(d + 3, 1, layout, dtype, d)
+    got = tile_ragged(q, kf, vf, seg_rows, cap, *seg_idx, round_p=bf16)
+    plain = PLAIN[layout]
+    args = (q, k, v, *index, *seg_idx)
+    assert (got[int(seg_idx[0][-1]):] == 0).all()
     if not bf16:
         torch.testing.assert_close(got, plain(*args), **TOL)
         return

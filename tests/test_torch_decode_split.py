@@ -170,21 +170,56 @@ def split_decode(q, kbuf, vbuf, row_fn, lengths, capacity, n_sms, *,
         want[..., lo:n_keys] = 1
         assert torch.equal(seen[bi], want), bi
     if n_chunks > 1:                               # the combine
-        part = ws                                  # (b, hkv, C, rep, d + 4)
-        live = part[..., d + 1] > 0
-        m = torch.where(live, part[..., d], torch.tensor(NEG))
-        mx = m.max(dim=2, keepdim=True).values
-        e = torch.where(live, torch.exp2(m - mx), torch.tensor(0.0))
-        lsum = (e * torch.where(live, part[..., d + 1],
-                                torch.tensor(0.0))).sum(dim=2)
-        a = (e[..., None] * torch.where(live[..., None], part[..., :d],
-                                        torch.tensor(0.0))).sum(dim=2)
-        o = torch.where(lsum[..., None] > 0,
-                        a / torch.where(lsum > 0, lsum,
-                                        torch.tensor(1.0))[..., None],
-                        torch.tensor(0.0))
-        out = o.reshape(b, hq, d)
+        out = combine_lanes(ws, d).reshape(b, hq, d)
     return out.to(q.dtype), plan, live_blocks
+
+
+LANES = 32
+
+
+def combine_lanes(part, d):
+    """``decode_combine_kernel`` over the partials ``part`` (b, hkv,
+    chunks, rep, d + 4), lane by lane: lane j folds the (m, l) of chunks
+    j, j + 32, ... online (skipping empty ones, l = 0), a butterfly of
+    shuffles folds the 32 lanes' into the row's max and sum, then for
+    each chunk in order lane j < d / 4 adds the chunk's weight times its
+    4 columns 4j..4j + 3 of acc; the other lanes load nothing and write
+    nothing.  Returns (b, hkv, rep, d); a row with no key gets 0."""
+    b, hkv, n_chunks, rep, _ = part.shape
+    n_cols = d // 4
+    assert d % 4 == 0 and n_cols <= LANES
+    mx = torch.full((b, hkv, rep, LANES), NEG)
+    ls = torch.zeros(b, hkv, rep, LANES)
+    for c in range(n_chunks):                      # each lane's chunks
+        j, lc, mc = c % LANES, part[:, :, c, :, d + 1], part[:, :, c, :, d]
+        m_new = torch.maximum(mx[..., j], mc)
+        folded = ls[..., j] * torch.exp2(mx[..., j] - m_new) \
+            + lc * torch.exp2(mc - m_new)
+        ls[..., j] = torch.where(lc > 0, folded, ls[..., j])
+        mx[..., j] = torch.where(lc > 0, m_new, mx[..., j])
+    for w in (1, 2, 4, 8, 16):                     # __shfl_xor_sync
+        other = torch.arange(LANES) ^ w
+        mo, lo = mx[..., other], ls[..., other]
+        m_new = torch.maximum(mx, mo)
+        ls = ls * torch.exp2(mx - m_new) + lo * torch.exp2(mo - m_new)
+        mx = m_new
+    assert torch.equal(mx, mx[..., :1].expand_as(mx))   # every lane agrees
+    mx, ls = mx[..., 0], ls[..., 0]
+    inv = torch.where(ls > 0, 1.0 / torch.where(ls > 0, ls, 1.0),
+                      torch.tensor(0.0))
+    acc = torch.zeros(b, hkv, rep, LANES, 4)
+    for c in range(n_chunks):
+        lc = part[:, :, c, :, d + 1]
+        wc = torch.where(lc > 0, torch.exp2(part[:, :, c, :, d] - mx) * inv,
+                         torch.tensor(0.0))
+        cols = part[:, :, c, :, :4 * n_cols].reshape(b, hkv, rep, n_cols, 4)
+        acc[..., :n_cols, :] += torch.where(
+            wc[..., None, None] > 0, wc[..., None, None] * cols,
+            torch.tensor(0.0))
+    # lane j < d / 4 writes columns 4j..4j + 3: each column once
+    cols_written = sorted(4 * j + e for j in range(n_cols) for e in range(4))
+    assert cols_written == list(range(d))
+    return acc[..., :n_cols, :].reshape(b, hkv, rep, d)
 
 
 def _lengths(plan):
@@ -194,19 +229,19 @@ def _lengths(plan):
     return [0, 1, c, min(c + 1, CAP), CAP, CAP - 7, 17, 1]
 
 
-def _inputs(seed, rep, layout, dtype, n_sms):
+def _inputs(seed, rep, layout, dtype, n_sms, d=D):
     """q, the rehearsal's flat storage with NaN past every length, the
     plain versions' storage with 1000 there, index arguments for the
     plain versions, the row map and the lengths."""
     rng = np.random.default_rng(seed)
     hq, b = HKV * rep, 8
-    plan = dec.split_plan(b, hq, HKV, D, CAP, n_sms)
+    plan = dec.split_plan(b, hq, HKV, d, CAP, n_sms)
     lens = _lengths(plan)
     q = torch.from_numpy(rng.standard_normal(
-        (b, hq, D)).astype(np.float32)).to(dtype)
+        (b, hq, d)).astype(np.float32)).to(dtype)
     if layout == "paged":
         n_pages, p_max = 160, CAP // PS
-        shape = (n_pages, PS, HKV, D)
+        shape = (n_pages, PS, HKV, d)
         table = np.full((b, p_max), POISON, np.int64)
         free = list(rng.permutation(n_pages - 1))
         valid = np.zeros((n_pages, PS), bool)
@@ -223,7 +258,7 @@ def _inputs(seed, rep, layout, dtype, n_sms):
             return int(table[bi, pos // PS]) * PS + pos % PS
     else:
         n_slots = b
-        shape = (n_slots, CAP, HKV, D)
+        shape = (n_slots, CAP, HKV, d)
         slots = [int(x) for x in rng.permutation(n_slots - 1)]
         slot_map = slots + [slots[1]]              # the pad row
         valid = np.zeros((n_slots, CAP), bool)
@@ -247,7 +282,7 @@ def _inputs(seed, rep, layout, dtype, n_sms):
 
         def row_fn(bi, pos):                       # noqa: F811
             return bi * CAP + pos
-    flat = [a.reshape(-1, HKV, D).to(dtype) for a in (kp, vp)]
+    flat = [a.reshape(-1, HKV, d).to(dtype) for a in (kp, vp)]
     lengths = torch.tensor(lens, dtype=torch.int32)
     return (q, flat, k.to(dtype), v.to(dtype), plain_index, row_fn,
             lengths)
@@ -278,6 +313,122 @@ def test_split_walk_matches_plain(layout, rep, bf16, n_sms):
         return
     ref, bound = tref.kernel_error_bound(PLAIN[layout], dtype, *args)
     assert ((got.float() - ref).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16_p"])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("d", [64, 80, 96])
+@pytest.mark.parametrize("layout", list(PLAIN))
+def test_split_walk_at_head_widths(layout, d, rep, bf16):
+    """The split walk and the combine at D / 4 lanes (16, 20, 24) at
+    the head widths the kernels take besides 128 — stablelm's 64 and
+    phi-3's 96 at rep 1 (MHA), hubert's 80 — over several chunks."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, (kf, vf), k, v, index, row_fn, lengths = _inputs(
+        d + rep, rep, layout, dtype, 16, d)
+    got, plan, _ = split_decode(q, kf, vf, row_fn, lengths, CAP, 16,
+                                round_p=bf16)
+    assert plan.n_chunks > 1 and plan.workspace[-1] == d + 4
+    assert (got[0] == 0).all() and torch.isfinite(got).all()
+    args = (q, k, v, *index, lengths)
+    if not bf16:
+        torch.testing.assert_close(got, PLAIN[layout](*args), **TOL)
+        return
+    ref, bound = tref.kernel_error_bound(PLAIN[layout], dtype, *args)
+    assert ((got.float() - ref).abs() <= bound).all()
+
+
+# ------------------------------------------------------ the bf16 ring map
+
+RING_STAGES = 3                     # csrc/decode_attn.cuh kStages
+
+
+def ring_map(d):
+    """The bf16 walk's shared-memory map of one warp's stage (csrc/
+    decode_attn.cuh ``Walk<__nv_bfloat16, D>``): a tile of KT key rows,
+    each of d / 8 16-byte chunks; a row's slots are the chunks padded
+    to a multiple of 8, and chunk c of row r sits in slot c ^ (r % 8)
+    of its row.  Returns (chunks a row, the byte offset of (r, c) in a
+    K or V tile, the tile's bytes)."""
+    chunks = d // 8
+    slots = -(-chunks // 8) * 8
+
+    def offset(r, c):
+        return (r * slots + (c ^ (r & 7))) * 16
+    return chunks, offset, KT * slots * 16
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_bf16_ring_map(d):
+    """The copy puts each (key row, chunk) of a tile in its own 16-byte
+    slot inside the tile; every ldmatrix of S = q.K^T and of O += P.V
+    reads the (row, chunk) its fragment wants; and the 8 row addresses
+    of each ldmatrix phase fall in 8 distinct bank groups (16 bytes x 8
+    = the 32 banks), so no read is serialised.  At 128 this is the map
+    the kernels had before widths 64, 80 and 96."""
+    chunks, offset, tile_bytes = ring_map(d)
+    copies = KT * chunks // 32                     # kCopies: whole rounds
+    assert KT * chunks % 32 == 0
+    assert copies == {64: 4, 80: 5, 96: 6, 128: 8}[d]
+    held = {}                                      # byte offset -> (r, c)
+    for lane, u in itertools.product(range(32), range(copies)):
+        idx = lane + 32 * u
+        r, c = idx // chunks, idx % chunks
+        off = offset(r, c)
+        assert off % 16 == 0 and 0 <= off < tile_bytes
+        assert off not in held
+        held[off] = (r, c)
+    assert sorted(held.values()) == [(r, c) for r in range(KT)
+                                     for c in range(chunks)]
+    # the ring: 4 warps x 3 stages x a K and a V tile
+    assert WARPS * RING_STAGES * 2 * tile_bytes == \
+        {64: 48, 80: 96, 96: 96, 128: 96}[d] * 1024
+    for what in ("K", "V"):
+        for kk in range(d // 16):
+            addr = {}
+            for lane in range(32):
+                mi, mr = lane >> 3, lane & 7
+                if what == "K":    # (keys 0-7 | 8-15) x (chunk 2kk | +1)
+                    r, c = ((mi >> 1) << 3) + mr, 2 * kk + (mi & 1)
+                else:              # transposed: (keys 0-7 | 8-15) first
+                    r, c = ((mi & 1) << 3) + mr, 2 * kk + (mi >> 1)
+                addr[lane] = offset(r, c)
+                assert held[addr[lane]] == (r, c)
+            for mi in range(4):                    # one phase a matrix
+                groups = {(addr[8 * mi + j] // 16) % 8 for j in range(8)}
+                assert len(groups) == 8, (what, kk, mi)
+
+
+def test_combine_lanes_matches_a_direct_merge():
+    """The lane model of the combine against a direct merge of the
+    partials over the chunks, at D / 4 = 16, 20, 24 and 32 lanes, with
+    empty partials (l = 0, acc never written) and more than 32 chunks
+    (two rounds of chunk weights)."""
+    rng = np.random.default_rng(3)
+    for d in (64, 80, 96, 128):
+        b, hkv, n_chunks, rep = 2, 2, 37, 4
+        part = torch.from_numpy(rng.standard_normal(
+            (b, hkv, n_chunks, rep, d + 4)).astype(np.float32))
+        part[..., d + 1] = part[..., d + 1].abs()
+        empty = torch.from_numpy(rng.random((b, hkv, n_chunks, rep)) < 0.3)
+        empty[0, 0, :, 0] = True                   # a row with no key
+        part[..., d][empty] = NEG
+        part[..., d + 1][empty] = 0.0
+        acc = part[..., :d]
+        acc[empty] = float("nan")
+        live = part[..., d + 1] > 0
+        m = torch.where(live, part[..., d], torch.tensor(NEG))
+        mx = m.max(dim=2, keepdim=True).values
+        e = torch.where(live, torch.exp2(m - mx), torch.tensor(0.0))
+        lsum = (e * part[..., d + 1]).sum(dim=2)
+        a = (e[..., None] * torch.where(live[..., None], acc,
+                                        torch.tensor(0.0))).sum(dim=2)
+        want = torch.where(lsum[..., None] > 0,
+                           a / torch.where(lsum > 0, lsum, 1.0)[..., None],
+                           torch.tensor(0.0))
+        got = combine_lanes(part, d)
+        torch.testing.assert_close(got, want, **TOL)
+        assert (got[0, 0, 0] == 0).all()
 
 
 @pytest.mark.parametrize("rep", [1, 4, 5, 8])

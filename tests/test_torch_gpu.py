@@ -19,8 +19,12 @@ capture at a live miss leaving every live row unchanged; the four
 windowed kernels (ring tables, rolling slots) at mixtral-8x7b's heads
 against their plain versions and replayed from a CUDA graph at other
 kv lengths, and the windowed MoE engine (the mixtral-8x7b smoke config)
-on the card against the same on the CPU in its three layouts.  Without
-a card every test skips inside its fixture.
+on the card against the same on the CPU in its three layouts.  The six
+paged, arena and gathered attention kernels also at head widths 64, 80
+and 96 (32 / 32, 16 / 16 and 32 / 8 heads; the windowed forms at 64 and
+96), one decode launch at 96 replayed from a CUDA graph, and every
+launcher refusing widths 16, 32, 112 and 256.  Without a card every
+test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -147,12 +151,37 @@ def test_decode_attn_paged_kernel_matches_plain(card, dtype):
     assert (out[0] == 0).all()
 
 
+# head widths no reference config has: the launchers refuse them before
+# any launch
+REFUSED_WIDTHS = (16, 32, 112, 256)
+
+
 def test_kernel_refuses_what_it_does_not_take(card):
-    q = torch.zeros((4, HQ, 96), device=card)
-    k = torch.zeros((NPAGES, PS, HKV, 96), device=card)
-    with pytest.raises(ValueError, match="head_dim"):
-        dec.decode_attn_paged(q, k, k, _i32(np.zeros((4, PMAX)), card),
-                              _i32([1] * 4, card))
+    """``check_kernel_inputs`` refuses every width outside 64, 80, 96
+    and 128, for the six paged, arena and gathered launchers alike."""
+    assert rp.HEAD_DIMS == fl.HEAD_DIMS == (64, 80, 96, 128)
+    for d in REFUSED_WIDTHS:
+        q = torch.zeros((4, HQ, d), device=card)
+        k = torch.zeros((NPAGES, PS, HKV, d), device=card)
+        table, lens = _i32(np.zeros((4, PMAX)), card), _i32([1] * 4, card)
+        seg = [_i32([0, 1, 2, 3, 4], card), _i32([0] * 4, card), lens]
+        for call in (
+                lambda: dec.decode_attn_paged(q, k, k, table, lens),
+                lambda: dec.decode_attn_arena(q, k, k, lens, lens),
+                lambda: dec.decode_attn(q, k[:4], k[:4], lens),
+                lambda: rp.ragged_prefill_paged(q, k, k, table, *seg),
+                lambda: rp.ragged_prefill_arena(q, k, k, lens, *seg),
+                lambda: rp.ragged_prefill_attn(q, k[:4], k[:4], *seg)):
+            n0 = sum(f.launches for f in (
+                dec.decode_attn_paged, dec.decode_attn_arena,
+                dec.decode_attn, rp.ragged_prefill_paged,
+                rp.ragged_prefill_arena, rp.ragged_prefill_attn))
+            with pytest.raises(ValueError, match="head_dim"):
+                call()
+            assert n0 == sum(f.launches for f in (
+                dec.decode_attn_paged, dec.decode_attn_arena,
+                dec.decode_attn, rp.ragged_prefill_paged,
+                rp.ragged_prefill_arena, rp.ragged_prefill_attn))
 
 
 def test_engine_on_card_matches_engine_on_cpu(card):
@@ -229,6 +258,22 @@ def test_slot_prefill_kernels_match_plain(card, dtype, s_max, lens, hists):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv", [(32, 8), (40, 8), (8, 8), (32, 4)])
 def test_ragged_prefill_tiles_match_plain(card, dtype, hq, hkv):
+    _check_tiles(card, dtype, hq, hkv, D)
+
+
+# the head widths besides 128: stablelm-1.6b's 64 and phi-3-vision's 96
+# at their 32 / 32 heads (MHA, rep 1), 80 at 16 / 16, and each at 32 / 8
+WIDTH_HEADS = [(64, 32, 32), (96, 32, 32), (80, 16, 16), (64, 32, 8),
+               (80, 32, 8), (96, 32, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv", WIDTH_HEADS)
+def test_ragged_prefill_tiles_at_head_widths(card, dtype, d, hq, hkv):
+    _check_tiles(card, dtype, hq, hkv, d)
+
+
+def _check_tiles(card, dtype, hq, hkv, d):
     """The three ragged kernels at each GQA group a 128-vector bf16 tile
     takes differently (32, 25 with 3 idle vectors, 128 and 16 rows), over one
     stream: a long segment across many 64-key tiles and 16-token pages,
@@ -247,7 +292,7 @@ def test_ragged_prefill_tiles_match_plain(card, dtype, hq, hkv):
     cu = [0] + list(np.cumsum(lens)) + [total] * n_pad
     offs, kvl = hists + [0] * n_pad, kvl + [0] * n_pad
     idx = [_i32(x, card) for x in (cu, offs, kvl)]
-    q = torch.randn((total + tail, hq, D), generator=g, device=card)
+    q = torch.randn((total + tail, hq, d), generator=g, device=card)
     q = q.to(dtype)
     n_pages = 512                       # 405 needed
     table = np.full((len(kvl), PMAX), 1 << 30, np.int32)
@@ -272,8 +317,8 @@ def test_ragged_prefill_tiles_match_plain(card, dtype, hq, hkv):
                 for a in kv]
         return junk, clean
 
-    (kp, vp), (kpc, vpc) = storage((n_pages, PS, hkv, D), page_ok)
-    (ka, va), (kac, vac) = storage((n_slots, s_max, hkv, D), slot_ok)
+    (kp, vp), (kpc, vpc) = storage((n_pages, PS, hkv, d), page_ok)
+    (ka, va), (kac, vac) = storage((n_slots, s_max, hkv, d), slot_ok)
     sm = slot_map.long()
     plain_table = _i32(np.where(table == 1 << 30, 0, table), card)
     for fn, plain, args, plain_args in (
@@ -324,13 +369,14 @@ SPLIT_HEADS = [(32, 8), (40, 8), (8, 8), (32, 4)]
 SPLIT_CAP = 1056          # the arena's S_max, the cache's S
 
 
-def _split_case(card, dtype, g, layout, hq, hkv):
+def _split_case(card, dtype, g, layout, hq, hkv, d=D):
     """(launcher, plain, kernel args, plain args, lengths) of one split
     case, with NaN in every K/V row past a length (page, arena slot or
     cache row) for the kernel and 0 there for the plain version."""
     n_sms = torch.cuda.get_device_properties(card).multi_processor_count
     cap = PMAX * PS if layout == "paged" else SPLIT_CAP
-    plan = dec.split_plan(10, hq, hkv, D, cap, n_sms)
+    plan = dec.split_plan(10, hq, hkv, d, cap, n_sms)
+    assert plan.n_chunks > 1
     c = plan.chunk
     lens = [0, 1, c - 1, c, c + 1, 2 * c, SPLIT_CAP - 1, 200, 33]
     lens = [min(n, SPLIT_CAP - 1) for n in lens]
@@ -343,7 +389,7 @@ def _split_case(card, dtype, g, layout, hq, hkv):
         for i, n in enumerate(lens):
             for p in range(n):
                 ok[int(table[i, p // PS]), p % PS] = True
-        shape, index = (NPAGES, PS, hkv, D), [_i32(table, card)]
+        shape, index = (NPAGES, PS, hkv, d), [_i32(table, card)]
         fn, plain = dec.decode_attn_paged, dec.decode_attn_paged_plain
     elif layout == "arena":
         slots = list(range(len(lens)))[::-1]
@@ -352,21 +398,21 @@ def _split_case(card, dtype, g, layout, hq, hkv):
         for slot, n in zip(slots, lens):
             ok[slot, :n] = True
         slots, lens = slots + [slots[1]], lens + [1]
-        shape, index = (len(slots) - 1, SPLIT_CAP, hkv, D), \
+        shape, index = (len(slots) - 1, SPLIT_CAP, hkv, d), \
             [_i32(slots, card)]
         fn, plain = dec.decode_attn_arena, dec.decode_attn_arena_plain
     else:
         lens = lens + [1]
         ok = torch.arange(SPLIT_CAP, device=card)[None, :] \
             < _i32(lens, card)[:, None]
-        shape, index = (len(lens), SPLIT_CAP, hkv, D), []
+        shape, index = (len(lens), SPLIT_CAP, hkv, d), []
         fn, plain = dec.decode_attn, dec.decode_attn_plain
     k = torch.randn(shape, generator=g, device=card)
     v = torch.randn(shape, generator=g, device=card)
     kn, vn = k.clone(), v.clone()
     kn[~ok], vn[~ok] = float("nan"), float("nan")
     k[~ok], v[~ok] = 0.0, 0.0
-    q = torch.randn((len(lens), hq, D), generator=g, device=card).to(dtype)
+    q = torch.randn((len(lens), hq, d), generator=g, device=card).to(dtype)
     idx = index + [_i32(lens, card)]
     return (fn, plain, (q, kn.to(dtype), vn.to(dtype), *idx),
             (q, k.to(dtype), v.to(dtype), *idx), lens)
@@ -389,20 +435,46 @@ def test_decode_split_matches_plain_at_every_group(card, layout, hq, hkv,
     assert (out[0] == 0).all() and torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv", WIDTH_HEADS)
+@pytest.mark.parametrize("layout", ["paged", "arena", "dense"])
+def test_decode_split_at_head_widths(card, layout, d, hq, hkv, dtype):
+    """The split walk (more than one chunk) and the combine at D / 4
+    lanes at each width besides 128."""
+    g = torch.Generator(device=card).manual_seed(d + hq * hkv)
+    fn, plain, args, plain_args, lens = _split_case(card, dtype, g, layout,
+                                                    hq, hkv, d)
+    n0 = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    _assert_held(out, plain, *plain_args)
+    assert (out[0] == 0).all() and torch.isfinite(out).all()
+
+
 def test_decode_attn_paged_replays_in_a_cuda_graph(card):
     """One decode_attn_paged launch captured in a CUDA graph and replayed
     after ``lengths`` is rewritten in place: each replay matches the
     plain version at the new lengths, so the launch read nothing back
     to the host (its split plan comes from shapes alone)."""
+    _replay_decode(card, HQ, HKV, D)
+
+
+def test_decode_attn_paged_replays_at_d96_in_a_cuda_graph(card):
+    """The same at phi-3-vision's 32 / 32 heads of 96."""
+    _replay_decode(card, 32, 32, 96)
+
+
+def _replay_decode(card, hq, hkv, d):
     g = torch.Generator(device=card).manual_seed(11)
     rng = np.random.default_rng(11)
     first, later = [0, 1, 300, 2053, 17, 129], [5, 0, 2047, 2100, 600, 1]
     table = _i32(_table(rng, [max(a, b) for a, b in zip(first, later)]),
                  card)
-    q = torch.randn((6, HQ, D), generator=g, device=card).to(torch.bfloat16)
-    k = torch.randn((NPAGES, PS, HKV, D), generator=g,
+    q = torch.randn((6, hq, d), generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn((NPAGES, PS, hkv, d), generator=g,
                     device=card).to(torch.bfloat16)
-    v = torch.randn((NPAGES, PS, HKV, D), generator=g,
+    v = torch.randn((NPAGES, PS, hkv, d), generator=g,
                     device=card).to(torch.bfloat16)
     lengths = _i32(first, card)
     dec.decode_attn_paged(q, k, v, table, lengths)    # builds, warms up
@@ -514,10 +586,11 @@ def test_dense_kernels_refuse_what_they_do_not_take(card):
         k = torch.zeros((2, 9, 4, d), device=card)
         with pytest.raises(ValueError, match=match):
             fl.flash_attn(q, k, k, idx, idx)
-    q = torch.zeros((2, 8, 80), device=card)
-    k = torch.zeros((2, 9, 2, 80), device=card)
-    with pytest.raises(ValueError, match="head_dim"):
-        dec.decode_attn(q, k, k, idx)
+    for d in REFUSED_WIDTHS:
+        q = torch.zeros((2, 8, d), device=card)
+        k = torch.zeros((2, 9, 2, d), device=card)
+        with pytest.raises(ValueError, match="head_dim"):
+            dec.decode_attn(q, k, k, idx)
 
 
 def test_encoder_forward_on_card_matches_cpu(card):
@@ -1158,7 +1231,8 @@ def _assert_live_equal(e, other):
 WINDOWS = {4096: 256, 100: 16}
 
 
-def _window_case(card, dtype, window, layout, seed, lens, hists):
+def _window_case(card, dtype, window, layout, seed, lens, hists, d=D,
+                 hq=HQ, hkv=HKV):
     """A windowed launch's inputs: the stream of ``lens`` new rows at
     ``hists`` over ring pages or rolling slots, every unheld row NaN,
     and the plain version's copy with 1000 there."""
@@ -1177,11 +1251,11 @@ def _window_case(card, dtype, window, layout, seed, lens, hists):
             table[i, :need] = [free.pop() for _ in range(need)]
         rows = (table[:, None, :] * PS + np.arange(PS)[:, None]
                 ).transpose(0, 2, 1).reshape(b, -1)        # ring order
-        shape, index = (n_pages, PS, HKV, D), _i32(table, card)
+        shape, index = (n_pages, PS, hkv, d), _i32(table, card)
     else:
         slots = rng.permutation(b + 1)[:b]
         rows = slots[:, None] * depth + np.arange(depth)[None]
-        shape, index = (b + 1, depth, HKV, D), _i32(slots, card)
+        shape, index = (b + 1, depth, hkv, d), _i32(slots, card)
     held = np.zeros(int(np.prod(shape[:2])), bool)
     for i, n in enumerate(kvl):
         held[rows[i, :min(n, rows.shape[1])]] = True
@@ -1192,7 +1266,7 @@ def _window_case(card, dtype, window, layout, seed, lens, hists):
     kp[mask], vp[mask] = float("nan"), float("nan")
     k[mask], v[mask] = 1000.0, 1000.0
     cu = np.concatenate([[0], np.cumsum(lens)])
-    q = torch.randn((int(cu[-1]) + 5, HQ, D), generator=g, device=card)
+    q = torch.randn((int(cu[-1]) + 5, hq, d), generator=g, device=card)
     seg = [_i32(x, card) for x in (cu, hists, kvl)]
     return (q.to(dtype), kp.to(dtype), vp.to(dtype), k.to(dtype),
             v.to(dtype), index, seg)
@@ -1213,9 +1287,22 @@ def test_windowed_kernels_match_plain(card, layout, window, dtype):
     """The windowed prefill and decode kernels of ``layout`` at
     mixtral-8x7b's heads against their plain versions; no unheld row is
     read (NaN there)."""
+    _check_windowed(card, layout, window, dtype, D, HQ, HKV)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("layout", ["ring", "rolling"])
+def test_windowed_kernels_at_head_widths(card, layout, d, dtype):
+    """The same at stablelm's and phi-3's widths, 32 / 32 heads, over
+    the small odd window's wrap edges."""
+    _check_windowed(card, layout, 100, dtype, d, 32, 32)
+
+
+def _check_windowed(card, layout, window, dtype, d, hq, hkv):
     lens, hists = WINDOW_STREAMS[window]
     q, kp, vp, k, v, index, seg = _window_case(card, dtype, window, layout,
-                                               3, lens, hists)
+                                               3, lens, hists, d, hq, hkv)
     if layout == "ring":
         pf, pplain = rp.ragged_prefill_paged, rp.ragged_prefill_paged_plain
         df, dplain = dec.decode_attn_paged, dec.decode_attn_paged_plain
