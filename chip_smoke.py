@@ -9,7 +9,8 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      ``ssd_scan``'s launch plan at a prompt's
      256-row step and at the packed bridge (each of its two CUDA
      kernels' blocks, dynamic shared memory, registers and blocks per
-     SM; the walk must put work on every SM at B = 1), ``fused_sample``'s
+     SM; the walk must put work on every SM at B = 1; also at
+     jamba-v0.1-52b's 128 heads in 8 groups), ``fused_sample``'s
      (cluster size, CTAs, shared bytes, registers, clusters resident at
      once; a verify tick's 40 bf16 rows must fit one wave);
   2. each kernel against its plain PyTorch version at qwen3-4b's head
@@ -42,7 +43,10 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      every head) at G = 1 and NH: a zero chunk first, between two real
      chunks and last, the packed bridge's rows of lengths 0, 1, 127,
      128, 129 and 300, and a chunk with one non-zero dt, which must not
-     be skipped.  The dense kernels: ``flash_attn``
+     be skipped.  Then at jamba-v0.1-52b's layout (``ssd_scan@grouped``:
+     NH 128, B/C in G = 8 groups of 16 heads, so the C·Bᵀ pass runs 8
+     groups a chunk) at the same lengths, B = 1 and 8, fp32 and bf16,
+     with the bridge's rows.  The dense kernels: ``flash_attn``
      at head widths 64, 80, 96 and 128 and ``decode_attn`` at 128, each
      at GQA groups of 1, 4, 5 and 8 (16/16, 32/8, 40/8, 64/8 heads):
      causal with per-row offsets, non-causal with kv lengths, a window,
@@ -105,7 +109,19 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      full width, 2 layers, fp32) in paged, slot_arena and slot_dense
      against the dense oracle, every attention launch at the config's
      width; phi-3-vision's ``forward(embeds=)`` over 1024 stub patch
-     embeddings then 32 text tokens against the same on the CPU;
+     embeddings then 32 text tokens against the same on the CPU.
+     qwen3-moe-30b-a3b (full width, 2 layers, fp32; 32 / 4 heads, a GQA
+     group of 8) in paged / slot_arena / slot_dense and jamba-v0.1-52b
+     (full width, one pattern group of 8 layers: SSD at 128 heads in 8
+     groups, attention at layer 4, MoE on the odd layers; fp32) in the
+     three SSM modes, both with 8 experts so the engine and the oracle
+     take ``moe_dense_reference``, within 1e-4; jamba's prefix adopted
+     through a state checkpoint with its KV pages.  ``moe_layer``
+     against ``moe_dense_reference`` also at jamba's (16 experts top 2,
+     4096 rows) and qwen3-moe's widths (128 of 768 top 8, 4096 rows) at
+     capacity factor E / k (nothing dropped), and captured in a CUDA
+     graph at both widths (bf16, 512 rows, factor 1.25: pairs dropped),
+     each replay bit-identical to the eager call;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
      --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
      served in each mode after one warm-up run, each run on a fresh
@@ -135,7 +151,15 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      (one kept run each), every launch of the six paged, arena and
      gathered kernels at width 64 or 96 (the ``@d64`` / ``@d96``
      counters); qwen2.5-14b (48 layers) and minitron-8b (32 layers), at
-     head_dim 128, one kept paged run each;
+     head_dim 128, one kept paged run each; qwen3-moe-30b-a3b at full
+     width and depth (48 layers, 128 experts top 8 through the capacity
+     dispatch, 32 / 4 heads), one kept paged run; jamba-v0.1-52b at full
+     width cut to 16 of its 32 layers (2 of 4 pattern groups) in the
+     three SSM modes (ssm_paged on ``SSM_POOL``: every page carries 14
+     SSD layers' state and 2 attention layers' KV), one kept run each:
+     ``ssd_scan`` once per SSD layer in every prefill dispatch, every
+     launch at G = 8, state checkpoints adopted by prefix matches, the
+     attention launches per tick, peak memory;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound, the kernel's achieved TFLOP/s; the
@@ -161,8 +185,13 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      prompts; one 256-token re-prefill at history 1792), one qwen3-4b
      paged decode tick at phase 4's lengths (the decode kernels' share)
      and a mamba2 packed prefill, grid prefill and decode tick (device
-     time by kernel, busy share), and one mixtral-8x7b decode tick (16
-     layers, ring tables) beside its weight-read bound.  The four
+     time by kernel, busy share), and one decode tick each of
+     mixtral-8x7b (16 layers, ring tables), jamba-v0.1-52b (16 layers,
+     ssm_paged) and qwen3-moe-30b-a3b (48 layers, paged) beside its
+     weight-read bound, the expert stacks' bytes apart.  ``ssd_scan``
+     at jamba's layout on the 2048-token prompt (the
+     ``ssd_scan@grouped`` row); ``ragged_prefill_paged`` and
+     ``decode_attn_paged`` also at qwen3-moe's 32 / 4 heads.  The four
      windowed forms at mixtral's layout: the prefill kernels over phase
      2's 4096 stream, the decode
      kernels over an 8-row tick (WINDOW_DECODE_TICK), the bound over the
@@ -177,7 +206,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      mamba2-2.7b, at the smoke config and at published widths cut to 4
      layers, and for mixtral-8x7b at its smoke config and at published
      widths cut to 16 layers; stablelm-1.6b at full width and depth with
-     ``--packed``, phi-3-vision-4.2b at full width and depth;
+     ``--packed``, phi-3-vision-4.2b at full width and depth; the
+     jamba-v0.1-52b smoke config, default and ``--packed``, and
+     qwen3-moe-30b-a3b's with ``--packed``;
   7. one JSON line describing every kernel, then the card line and the
      result line.
 
@@ -268,11 +299,13 @@ def phase_build():
     # (the card must have work on every SM), and at the packed bridge
     from repro_torch.kernels import ssd_scan as ssd
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # (mamba2's heads in one group; jamba's 128 heads in 8 groups)
     for dt in (torch.bfloat16, torch.float32):
-        for b, l in ((1, 256), (16, 512)):
-            pl = ssd.plan(b, l, SSD_NH, SSD_HD, SSD_DS, 1, dt, SSD_CHUNK)
-            log(f"[1] ssd_scan plan {str(dt)[6:]} B={b} L={l} (NH {SSD_NH}, "
-                f"HD {SSD_HD}, DS {SSD_DS}, G 1, chunk {SSD_CHUNK}): 2 "
+        for b, l, nh, g in ((1, 256, SSD_NH, 1), (16, 512, SSD_NH, 1),
+                            (1, 256, JAMBA_NH, JAMBA_G)):
+            pl = ssd.plan(b, l, nh, SSD_HD, SSD_DS, g, dt, SSD_CHUNK)
+            log(f"[1] ssd_scan plan {str(dt)[6:]} B={b} L={l} (NH {nh}, "
+                f"HD {SSD_HD}, DS {SSD_DS}, G {g}, chunk {SSD_CHUNK}): 2 "
                 f"kernels a call; C.B^T {pl['cb_blocks']} blocks, "
                 f"{pl['cb_smem']} B shared, {pl['cb_regs']} registers, "
                 f"{pl['cb_blocks_per_sm']} per SM; walk "
@@ -327,9 +360,9 @@ def _layout(rng, n_pages, p_max, kv_lens, share=None):
     return table.astype(np.int32), clamped.astype(np.int32)
 
 
-def _pools(gen, n_pages, dtype):
-    k = torch.randn((n_pages, PS, HKV, D), generator=gen, device=DEVICE)
-    v = torch.randn((n_pages, PS, HKV, D), generator=gen, device=DEVICE)
+def _pools(gen, n_pages, dtype, hkv=HKV):
+    k = torch.randn((n_pages, PS, hkv, D), generator=gen, device=DEVICE)
+    v = torch.randn((n_pages, PS, hkv, D), generator=gen, device=DEVICE)
     return k.to(dtype), v.to(dtype)
 
 
@@ -1187,14 +1220,18 @@ def phase_sample_kernel(seed, errs):
 
 # mamba2-2.7b's SSD heads: 80 heads of 64, state 128, one group, chunk 128
 SSD_NH, SSD_HD, SSD_DS, SSD_CHUNK = 80, 64, 128, 128
+# jamba-v0.1-52b's SSD layout: 128 heads of the same widths, B/C in 8
+# groups of 16 heads (the ``ssd_scan@grouped`` row)
+JAMBA_NH, JAMBA_G = 128, 8
 SSD_LENS = (1, 127, 128, 129, 300, 2048)
 SSD_PAIRS = 9   # interleaved kernel / plain timings at the grid and bridge
 # phase 5's packed mamba2 prefill: 7 prompts filling the 512-token bucket
 SSM_PROFILE_LENS = (120, 64, 96, 80, 100, 40, 12)
 
 
-def _ssd_inputs(gen, b, l, g, dtype, zero=None, lens=None):
-    """SSD scan inputs at mamba2's head shapes, shaped as the mamba layer
+def _ssd_inputs(gen, b, l, g, dtype, zero=None, lens=None, nh=SSD_NH):
+    """SSD scan inputs at mamba2's head shapes (``nh`` heads: jamba's
+    128 with ``nh=JAMBA_NH``), shaped as the mamba layer
     passes them: x, B and C are views into one (B, L, NH·HD + 2·G·DS)
     conv-output row; dt = softplus(N(0, 1)) with dt = 0 on the last 5
     rows (right padding) and on every 97th row, and 40 x dt (|a·dt| up to
@@ -1205,7 +1242,7 @@ def _ssd_inputs(gen, b, l, g, dtype, zero=None, lens=None):
     r1) where dt is 0 for every head; ``lens``: each batch row's length,
     dt = 0 past it (the packed step's bridge)."""
     import torch.nn.functional as F
-    nh, hd, ds = SSD_NH, SSD_HD, SSD_DS
+    hd, ds = SSD_HD, SSD_DS
     xbc = 0.5 * torch.randn((b, l, nh * hd + 2 * g * ds), generator=gen,
                             device=DEVICE)
     xbc = xbc.to(dtype)
@@ -1294,6 +1331,33 @@ def phase_ssd_kernel(seed, errs):
         f" bf16 max_abs_err {max(errs[('ssd_scan', torch.bfloat16)]):.3e}, "
         f"err/bound {min(ratios[torch.bfloat16]):.3f}-"
         f"{max(ratios[torch.bfloat16]):.3f})")
+    # jamba's layout: 128 heads, B/C in 8 groups of 16 heads, so the
+    # C.B^T pass runs 8 groups a chunk; the same lengths, batch rows and
+    # dtypes, and the bridge's rows
+    n, worst_g = 0, {}
+    for b in (1, 8):
+        for l in SSD_LENS:
+            for dt in (torch.float32, torch.bfloat16):
+                lens = None
+                if l == 300 and b == 8:
+                    lens = (0, 1, q - 1, q, q + 1, 300, 17, 250)
+                args = _ssd_inputs(gen, b, l, JAMBA_G, dt, lens=lens,
+                                   nh=JAMBA_NH)
+                err, worst, ok = _held_ssd(args)
+                errs.setdefault(("ssd_scan@grouped", dt), []).append(err)
+                worst_g[dt] = max(worst_g.get(dt, 0.0), worst)
+                n += 1
+                log(f"[2] ssd_scan@grouped NH={JAMBA_NH} G={JAMBA_G} B={b} "
+                    f"L={l}{' bridge rows' if lens else ''} "
+                    f"{str(dt)[6:]}: max_abs_err={err:.3e} "
+                    f"err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
+                assert ok, f"ssd_scan G={JAMBA_G} B={b} L={l} {dt}"
+    log(f"[2] ok: ssd_scan at jamba's layout (NH {JAMBA_NH}, G {JAMBA_G}, "
+        f"16 heads a group) == plain on {n} cases (max_abs_err fp32 "
+        f"{max(errs[('ssd_scan@grouped', torch.float32)]):.3e}, bf16 "
+        f"{max(errs[('ssd_scan@grouped', torch.bfloat16)]):.3e}; worst "
+        f"err/bound {worst_g[torch.float32]:.3f} / "
+        f"{worst_g[torch.bfloat16]:.3f})")
 
 
 # ------------------------------------------------------------ phase 3
@@ -1372,6 +1436,38 @@ SPEC_K = 4
 # the 32 layers' 87.0 GiB exceed one 80 GB card) and a long prompt past
 # its 4096-token window and 4352-row ring / rolling slot
 WINDOW_LAYERS, WINDOW_PROMPT = 16, 6144
+# the hybrid family (jamba-v0.1-52b: SSD, attention and MoE layers
+# interleaved, period 8) and the last MoE config (qwen3-moe-30b-a3b: 128
+# experts top 8, 32 / 4 heads).  Phase 4 serves jamba cut to 16 of its 32
+# layers (2 of 4 pattern groups; the 32 layers' ~96 GiB of bf16 weights
+# exceed the card) in the three SSM modes, its SSD layers' state beside
+# its attention layers' KV, and qwen3-moe at full depth on the paged
+# default
+HYBRID, QWEN_MOE = "jamba-v0.1-52b", "qwen3-moe-30b-a3b"
+HYBRID_LAYERS = 16
+# a hybrid's SSM modes also run its attention layers, through the
+# kernels of the attention mode with the same layout
+HYBRID_ATTN_MODE = {"ssm_paged": "paged", "ssm_slot_arena": "slot_arena",
+                    "ssm_dense": "slot_dense"}
+# phase 3's cuts of the two: jamba one pattern group (8 layers), qwen3-moe
+# 2 layers, both with 8 experts, so the engine's steps and the dense
+# oracle take moe_dense_reference (every expert on every row) and must
+# agree to ORACLE_MOE_TOL; with more than 8 every step takes the capacity
+# dispatch, whose drops depend on each step's rows (phase_moe_check and
+# phase_moe_graph check it apart)
+ORACLE_CUTS = {HYBRID: dict(num_layers=8, num_experts=8),
+               QWEN_MOE: dict(num_layers=2, num_experts=8)}
+ORACLE_MOE_TOL = 1e-4
+
+
+def _mode_kernels(cfg, mode):
+    """The kernels ``mode``'s serving path must launch for ``cfg``: a
+    hybrid stack's SSM modes add its attention layers' kernels and the
+    SSD scan with B/C in several groups."""
+    names = MODE_KERNELS[mode]
+    if cfg.family == "hybrid":
+        names += MODE_KERNELS[HYBRID_ATTN_MODE[mode]] + ("ssd_scan@grouped",)
+    return names
 
 
 def _launchers():
@@ -1441,11 +1537,14 @@ def phase_oracle(seed, mode, arch=None):
     over the whole sequence).  The oracle runs
     on a CPU copy of the parameters, so it takes the plain versions and
     passes through none of the kernels the engine launches.  ``arch``
-    (one of WIDTH_ARCHS) serves that config in an attention mode instead
-    of qwen3-4b.  The SSM system prompt is 64 tokens, one C_l chunk
+    (one of WIDTH_ARCHS, or qwen3-moe-30b-a3b) serves that config in an
+    attention mode instead of qwen3-4b, and ``arch=HYBRID`` serves
+    jamba in an SSM mode instead of mamba2 (its attention layers through
+    the attention mode's kernels); both cut by ORACLE_CUTS and held to
+    ORACLE_MOE_TOL.  The SSM system prompt is 64 tokens, one C_l chunk
     and four pages: a chunked prompt's first commit lands on its end and
     checkpoints the state there, which later sessions adopt on the page
-    pool."""
+    pool, with a hybrid's KV pages."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -1454,8 +1553,10 @@ def phase_oracle(seed, mode, arch=None):
     swa = mode in WINDOW_MODES
     arch = arch or ("mamba2-2.7b" if ssm else "mixtral-8x7b" if swa
                     else "qwen3-4b")
-    memo = swa or arch in WIDTH_ARCHS
-    cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+    memo = swa or arch in WIDTH_ARCHS or arch in ORACLE_CUTS
+    cfg = get_config(arch).replace(**{"num_layers": 2, "dtype": "float32",
+                                      **ORACLE_CUTS.get(arch, {})})
+    tol = ORACLE_MOE_TOL if arch in ORACLE_CUTS else 1e-3
     if swa:
         cfg = cfg.replace(sliding_window=ORACLE_WINDOW)
     if memo and _ORACLE.get("key") == (arch, seed):
@@ -1472,6 +1573,7 @@ def phase_oracle(seed, mode, arch=None):
         num_slots=8, max_len=1024, chunk_tokens=64, measure=False,
         **{**MODES, **SSM_MODES, **WINDOW_MODES}[mode]), device=DEVICE)
     loop = ServeLoop(engine, _policy(engine, 64, 96), slo_ttft=None)
+    n0 = {k: f.launches for k, f in _launchers().items()}
     rng = np.random.default_rng(seed + 1)
     system = rng.integers(1, cfg.vocab_size, 64 if ssm else 40)
     # a windowed session's prompt runs past the window
@@ -1504,7 +1606,7 @@ def phase_oracle(seed, mode, arch=None):
     for s in range(5):
         toks = loop.decode(s, 4)
         cached[s] += [pending[s]] + toks[1:-1]
-    worst = 0.0
+    worst, t_oracle = 0.0, time.perf_counter()
     for s in range(5):
         ids = cached[s]
         assert engine.history(s) == len(ids), (s, engine.history(s))
@@ -1525,8 +1627,8 @@ def phase_oracle(seed, mode, arch=None):
         same = int(np.argmax(got)) == int(np.argmax(ref_last))
         worst = max(worst, err)
         log(f"[3] {arch} {mode}: session {s}: {len(ids)} cached tokens, logits "
-            f"max_abs_err={err:.3e} (tol 1e-3) greedy_match={same}")
-        assert err <= 1e-3 and same, f"{mode} engine vs oracle, session {s}"
+            f"max_abs_err={err:.3e} (tol {tol:g}) greedy_match={same}")
+        assert err <= tol and same, f"{mode} engine vs oracle, session {s}"
     st = engine.stats()
     if engine._paged:
         engine.arena.audit()
@@ -1543,6 +1645,16 @@ def phase_oracle(seed, mode, arch=None):
             f"lowered to {ORACLE_WINDOW} (C_l 64: ring / rolling depth "
             f"{depth}); histories {[engine.history(s) for s in range(5)]}")
     gs = _graphs_replayed(engine, mode)
+    ran = {k: f.launches - n0[k] for k, f in _launchers().items()}
+    assert all(ran[k] > 0 for k in _mode_kernels(cfg, mode)), (mode, ran)
+    if cfg.family == "hybrid":
+        # every scan at jamba's 8 groups; KV and state side by side
+        assert ran["ssd_scan@grouped"] == ran["ssd_scan"], ran
+        log(f"[3] {arch} {mode}: {cfg.num_layers} layers ("
+            f"{[cfg.layer_kind(i) for i in range(cfg.num_layers)]}), "
+            f"ssd_scan launches {ran['ssd_scan']} all at G "
+            f"{cfg.ssm_n_groups}, attention "
+            f"{ {k: ran[k] for k in MODE_KERNELS[HYBRID_ATTN_MODE[mode]]} }")
     if arch in WIDTH_ARCHS:
         # every attention launch at the config's width
         launches = {k: f.launches for k, f in _launchers().items()}
@@ -1550,7 +1662,8 @@ def phase_oracle(seed, mode, arch=None):
             if name in WIDTH_KERNELS:
                 assert launches[f"{name}@d{cfg.hdim}"] > 0, (name, launches)
     log(f"[3] ok: {arch} {mode} engine == dense oracle (max_abs_err "
-        f"{worst:.3e}) "
+        f"{worst:.3e}; the oracle's forwards and checks "
+        f"{time.perf_counter() - t_oracle:.1f} s) "
         f"through {gs['graphs']} captured step graphs, {gs['replays']} "
         f"replays; prefix_hit_tokens {st['prefix_hit_tokens']}, "
         f"state_checkpoints "
@@ -1642,52 +1755,138 @@ def phase_encoder_oracle(seed):
     log("[3] ok: hubert-xlarge encoder on the card == CPU forward")
 
 
-MOE_TOKENS = 8192
+# rows of phase 3's capacity-dispatch checks at each MoE config's widths
+# (fp32): mixtral's 8 experts, jamba's 16 and qwen3-moe's 128
+MOE_CHECKS = {"mixtral-8x7b": 8192, HYBRID: 4096, QWEN_MOE: 4096}
+# rows of the step captured in phase_moe_graph: a 512-token prefill
+# bucket
+MOE_GRAPH_ROWS = 512
+
+
+def _moe_ffn(cfg, gen, dtype=torch.float32):
+    """Random MoE FFN parameters at ``cfg``'s widths, drawn as
+    ``init_params`` draws them (N(0, 1/fan_in))."""
+    d, e = cfg.d_model, cfg.num_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen,
+                           device=DEVICE).mul_(scale).to(dtype)
+
+    return {"router": randn(d, e, scale=d ** -0.5),
+            "wg": randn(e, d, f, scale=d ** -0.5),
+            "wi": randn(e, d, f, scale=d ** -0.5),
+            "wo": randn(e, f, d, scale=f ** -0.5)}
+
+
+def _dropped_pairs(p, x, top_k, factor=1.25):
+    """(token, expert) pairs the capacity dispatch drops on x."""
+    from repro_torch.models import moe
+    x2d = x.reshape(-1, x.shape[-1])
+    e = p["router"].shape[-1]
+    _, experts, _ = moe._routing(p, x2d, top_k)
+    cap = max(1, int(np.ceil(x2d.shape[0] * top_k / e * factor)))
+    counts = torch.bincount(experts.reshape(-1), minlength=e)
+    return int((counts - cap).clamp(min=0).sum())
 
 
 def phase_moe_check(seed):
     """``moe_layer`` (capacity dispatch) against ``moe_dense_reference``
-    (every expert on every token) on the card at mixtral-8x7b's widths
-    (d_model 4096, 8 experts of d_ff 14336, top 2), T = MOE_TOKENS rows
-    in fp32 at capacity factor 8 (no pair dropped): the reference's own
-    check (tests/test_moe_mamba.py), outputs within 1e-4 and aux losses
-    within 1e-5 relative; at the reference's factor 1.25 it logs the
-    rows that dropped pairs move."""
+    (every expert on every token) on the card at each MoE config's
+    widths: mixtral-8x7b (d_model 4096, 8 experts of d_ff 14336, top 2),
+    jamba-v0.1-52b (16 of 14336, top 2) and qwen3-moe-30b-a3b (d_model
+    2048, 128 experts of 768, top 8), MOE_CHECKS rows in fp32 at
+    capacity factor E / k (C = T: no pair dropped; mixtral at 8): the
+    reference's own check (tests/test_moe_mamba.py), outputs within 1e-4
+    and aux losses within 1e-5 relative; at the reference's factor 1.25
+    it logs the pairs dropped and the rows they move."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
-    cfg = get_config("mixtral-8x7b")
-    d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 50)
+    for arch, t in MOE_CHECKS.items():
+        cfg = get_config(arch)
+        k = cfg.num_experts_per_tok
+        factor = max(8.0, cfg.num_experts / k)
+        p = _moe_ffn(cfg, gen)
+        x = torch.randn((1, t, cfg.d_model), generator=gen, device=DEVICE)
+        with torch.no_grad():
+            want, aux_w = moe.moe_dense_reference(p, x, top_k=k)
+            got, aux_g = moe.moe_layer(p, x, top_k=k, capacity_factor=factor)
+            dropped, _ = moe.moe_layer(p, x, top_k=k)
+            n_drop = _dropped_pairs(p, x, k)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4))
+        rel = abs(float(aux_w) - float(aux_g)) / abs(float(aux_w))
+        moved = int(((dropped - want).abs().amax(dim=-1) > 1e-3).sum())
+        log(f"[3] moe_layer vs moe_dense_reference, {arch} widths (d "
+            f"{cfg.d_model}, {cfg.num_experts} experts of "
+            f"{cfg.moe_d_ff or cfg.d_ff}, top {k}), T = {t}, fp32, "
+            f"capacity factor {factor:g}: max_abs_err={err:.3e} (tol 1e-4 "
+            f"+ 1e-4 rel) aux {float(aux_g):.6f} vs {float(aux_w):.6f} "
+            f"(rel {rel:.1e}); at factor 1.25 {n_drop} of {t * k} pairs "
+            f"dropped, {moved} rows moved "
+            f"{'ok' if ok and rel <= 1e-5 else 'FAIL'}")
+        assert ok and rel <= 1e-5, f"moe_layer vs moe_dense_reference {arch}"
+        assert bool(torch.isfinite(dropped).all())
+        del p, x, want, got, dropped
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    def randn(*shape, scale):
-        return torch.randn(shape, generator=gen, device=DEVICE).mul_(scale)
 
-    p = {"router": randn(d, e, scale=d ** -0.5),
-         "wg": randn(e, d, f, scale=d ** -0.5),
-         "wi": randn(e, d, f, scale=d ** -0.5),
-         "wo": randn(e, f, d, scale=f ** -0.5)}
-    x = randn(1, MOE_TOKENS, d, scale=1.0)
-    k = cfg.num_experts_per_tok
-    with torch.no_grad():
-        want, aux_w = moe.moe_dense_reference(p, x, top_k=k)
-        got, aux_g = moe.moe_layer(p, x, top_k=k, capacity_factor=8.0)
-        dropped, _ = moe.moe_layer(p, x, top_k=k)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    ok = bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4))
-    rel = abs(float(aux_w) - float(aux_g)) / abs(float(aux_w))
-    moved = int(((dropped - want).abs().amax(dim=-1) > 1e-3).sum())
-    log(f"[3] moe_layer vs moe_dense_reference, mixtral widths, T = "
-        f"{MOE_TOKENS}, fp32, capacity factor 8: max_abs_err={err:.3e} "
-        f"(tol 1e-4 + 1e-4 rel) aux {float(aux_g):.6f} vs "
-        f"{float(aux_w):.6f} (rel {rel:.1e}); at factor 1.25 {moved} rows "
-        f"moved by dropped pairs {'ok' if ok and rel <= 1e-5 else 'FAIL'}")
-    assert ok and rel <= 1e-5, "moe_layer vs moe_dense_reference"
-    assert bool(torch.isfinite(dropped).all())
-    del p, x, want, got, dropped
-    gc.collect()
-    torch.cuda.empty_cache()
+def phase_moe_graph(seed):
+    """The capacity dispatch inside a CUDA graph (a hybrid's and
+    qwen3-moe's every MoE step takes it on the card): ``moe_layer`` at
+    jamba-v0.1-52b's and qwen3-moe-30b-a3b's widths, bf16, a
+    MOE_GRAPH_ROWS-row step at the reference's factor 1.25, captured
+    once; replayed on two fresh inputs it gives the eager call's output
+    and aux loss bit for bit, pairs dropped and all."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 51)
+    bf = torch.bfloat16
+    for arch in (HYBRID, QWEN_MOE):
+        cfg = get_config(arch)
+        k = cfg.num_experts_per_tok
+        p = _moe_ffn(cfg, gen, bf)
+
+        def x_new():
+            # rows sharing one component route alike, so the experts
+            # they favour overflow their capacity
+            x = torch.randn((1, MOE_GRAPH_ROWS, cfg.d_model), generator=gen,
+                            device=DEVICE)
+            return (x + torch.randn((cfg.d_model,), generator=gen,
+                                    device=DEVICE)).to(bf)
+
+        static = x_new()
+        with torch.no_grad():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):            # the warm-up
+                moe.moe_layer(p, static, top_k=k)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out, aux = moe.moe_layer(p, static, top_k=k)
+            for trial in range(2):
+                x = x_new()
+                want, aux_w = moe.moe_layer(p, x, top_k=k)
+                static.copy_(x)
+                graph.replay()
+                torch.cuda.synchronize()
+                same = bool(torch.equal(out, want) and torch.equal(aux, aux_w))
+                n_drop = _dropped_pairs(p, x, k)
+                log(f"[3] moe_layer captured in a CUDA graph, {arch} widths "
+                    f"bf16, {MOE_GRAPH_ROWS} rows, factor 1.25 ({n_drop} "
+                    f"of {MOE_GRAPH_ROWS * k} pairs dropped): replay {trial} "
+                    f"bit-identical to eager={same}")
+                assert same, f"moe_layer replay vs eager, {arch}"
+                assert n_drop > 0, f"{arch}: no pair dropped"
+        del p, graph, static, out
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _spec_run(engine, prompt, n, sampling=None):
@@ -1862,8 +2061,9 @@ def _serve_once(cfg, params, seed, mode):
     SPEC_K armed and the odd sessions sampled (temperature 0.8, top_k 20,
     top_p 0.95; session 1 with one bias) through the fused kernel; its
     decode ticks are the loop's speculative steps.  The SSM modes serve
-    mamba2 (``ssm_paged`` on ``SSM_POOL``'s page pool) and count the
-    ``ssd_scan`` launches of prefill and decode-only ticks apart.  The
+    mamba2 or jamba (``ssm_paged`` on ``SSM_POOL``'s page pool) and count
+    the ``ssd_scan`` launches of prefill and decode-only ticks apart, and
+    the prefix matches that adopted a state checkpoint.  The
     windowed modes serve mixtral at max_len 8192: the long prompt is
     WINDOW_PROMPT tokens (past the 4096-token window and the 4352-row
     ring or rolling slot), turn 2 adds 1024 tokens to it and 16-64 to
@@ -1930,6 +2130,16 @@ def _serve_once(cfg, params, seed, mode):
         return inner_prefill(params, tokens, *rest, **kw)
 
     engine.executor.prefill = dense_prefill
+    # prefix matches that adopted pages and, on a state-page pool, a
+    # boundary-state checkpoint with them
+    adopted = [0]
+    if engine._paged and engine.arena.state_slots:
+        for name in ("match_prefix", "match_extend"):
+            def counted(*a, _fn=getattr(engine.arena, name), **kw):
+                n = _fn(*a, **kw)
+                adopted[0] += n > 0
+                return n
+            setattr(engine.arena, name, counted)
     launchers = _launchers()
     ssd = launchers["ssd_scan"]
     # ssd_scan launches in prefill and in decode-only ticks, and the
@@ -2036,7 +2246,7 @@ def _serve_once(cfg, params, seed, mode):
     assert rep.n == n_requests and rep.abandoned == 0, \
         f"{mode}: unanswered requests"
     gs = _graphs_replayed(engine, mode)
-    assert all(launches[k] > 0 for k in MODE_KERNELS[mode]), \
+    assert all(launches[k] > 0 for k in _mode_kernels(cfg, mode)), \
         f"{mode}: a kernel of its path never launched: {launches}"
     assert finite, f"{mode}: non-finite logits"
     if engine._paged and engine.arena.index is not None:
@@ -2057,10 +2267,16 @@ def _serve_once(cfg, params, seed, mode):
                 assert launches[name] == launches[base] > 0, \
                     f"{mode}: {name} {launches[name]} of {launches[base]}"
     if ssm:
-        # one scan per layer in every prefill dispatch, none in decode
+        # one scan per SSM layer in every prefill dispatch, none in decode
+        n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.num_layers))
         assert ssd_split["decode"] == 0, f"{mode}: ssd_scan in a decode tick"
-        assert ssd_split["prefill"] == cfg.num_layers * ssd_split[
+        assert ssd_split["prefill"] == n_ssm * ssd_split[
             "dispatches"], f"{mode}: ssd_scan launches {ssd_split}"
+        # a hybrid's every scan at its groups (jamba: 8)
+        assert launches["ssd_scan@grouped"] == (
+            launches["ssd_scan"] if cfg.family == "hybrid" else 0), launches
+        if engine._paged:
+            assert adopted[0] > 0, f"{mode}: no state checkpoint adopted"
     if mode in ("slot_dense", "slot_dense_decode"):
         assert policy.awd.graph_hits > 0, "the (L, B) grid was never hit"
     if mode == "slot_arena":
@@ -2107,7 +2323,12 @@ def _serve_once(cfg, params, seed, mode):
         "launches": launches,
         "ssd_per_prefill_tick": ssd_split["prefill"] / max(1, n_pre),
         "ssd_per_decode_tick": ssd_split["decode"] / max(1, n_dec),
+        "ssd_per_prefill_dispatch": ssd_split["prefill"]
+        / max(1, ssd_split["dispatches"]),
         "state_checkpoints": st["state_checkpoints"],
+        "checkpoints_adopted": adopted[0],
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "ticks": (n_pre, n_dec),
         "prefill_log": prefill_log,
         "graphs": gs["graphs"], "capture_s": gs["capture_seconds"],
         "replays_per_prefill_tick": replays["prefill"] / max(1, n_pre),
@@ -2145,7 +2366,8 @@ def phase_full(seed, card, arch, kept, layers=None):
                                        device=DEVICE) for a in c.values())
         log(f"[4] ssm_paged pool: {SSM_POOL['num_pages']} pages of "
             f"{SSM_POOL['page_size']} tokens + the scratch page, "
-            f"{page / 1e6:.1f} MB each (one state slot of every layer), "
+            f"{page / 1e6:.1f} MB each (one state slot of every SSM "
+            f"layer, a page of KV of every attention layer), "
             f"{(SSM_POOL['num_pages'] + 1) * page / 1e9:.2f} GB")
     launches = {}
     for mode, n_runs in kept.items():
@@ -2172,13 +2394,36 @@ def phase_full(seed, card, arch, kept, layers=None):
                 f"(in the counts above) {r['warmup_launches']}; peak "
                 f"{r['peak_gib']:.2f} GiB (card {card})")
             if mode in SSM_MODES:
-                log(f"[4] {mode} run {i}: ssd_scan launches per prefill "
-                    f"tick {r['ssd_per_prefill_tick']:.2f}, per decode-only "
-                    f"tick {r['ssd_per_decode_tick']:.2f}; state "
-                    f"checkpoints {r['state_checkpoints']}; whole-slot "
-                    f"gathers per prefill / decode tick "
+                grouped = r["launches"]["ssd_scan@grouped"]
+                log(f"[4] {arch} {mode} run {i}: ssd_scan launches per "
+                    f"prefill tick {r['ssd_per_prefill_tick']:.2f}, per "
+                    f"prefill dispatch {r['ssd_per_prefill_dispatch']:.2f} "
+                    f"({grouped} of {r['launches']['ssd_scan']} at G "
+                    f"{cfg.ssm_n_groups} > 1), per decode-only tick "
+                    f"{r['ssd_per_decode_tick']:.2f}; state checkpoints "
+                    f"{r['state_checkpoints']}, adopted by "
+                    f"{r['checkpoints_adopted']} prefix matches "
+                    f"({r['prefix_hit_tokens']} prefix-hit tokens); "
+                    f"whole-slot gathers per prefill / decode tick "
                     f"{r['gathers_per_prefill_tick']:.2f} / "
                     f"{r['gathers_per_decode_tick']:.2f}")
+            if cfg.family == "hybrid" or cfg.num_experts > 8:
+                # the attention launches per tick of the kernel's kind
+                # (a hybrid's few attention layers; qwen3-moe's GQA
+                # group of 8), the graphs' warm-ups taken out
+                n_pre, n_dec = r["ticks"]
+
+                def per_tick(name):
+                    n = (r["launches"][name]
+                         - r["warmup_launches"].get(name, 0))
+                    return n / max(1, n_dec if name.startswith("decode")
+                                   else n_pre)
+
+                attn = MODE_KERNELS[HYBRID_ATTN_MODE.get(mode, mode)]
+                log(f"[4] {arch} {mode} run {i}: attention launches per "
+                    f"tick of their kind, warm-ups aside: " + ", ".join(
+                        f"{name} {per_tick(name):.2f}" for name in attn)
+                    + f"; peak {r['peak_gib']:.2f} GiB (card {card})")
             if i == 1 and mode in ("slot_dense", "slot_dense_decode"):
                 log(f"[4] {mode} run {i}: prefill ticks, ms and the (L, B) "
                     f"of their dense grid steps: " + ", ".join(
@@ -2214,7 +2459,7 @@ def phase_full(seed, card, arch, kept, layers=None):
                 f"{unit}, min {min(xs):.4f} max {max(xs):.4f} over "
                 f"{n_runs} runs")
         n_pre, n_dec = results[0]["schedule"][:2]
-        for name in MODE_KERNELS[mode]:
+        for name in _mode_kernels(cfg, mode):
             if name not in launches:
                 n = results[0]["launches"][name]
                 ticks = (n_pre + n_dec if name == "fused_sample" else
@@ -2593,12 +2838,22 @@ def phase_times(seed, errs):
     dt = torch.bfloat16
     n_pages, p_max, b_rows, keys = 2048, 4096 // PS, 8, 2048
     k, v = _pools(gen, n_pages + 1, dt)
+    # pools at qwen3-moe-30b-a3b's 4 KV heads (a GQA group of 8), drawn
+    # at their first use
+    pools = {HKV: (k, v)}
+
+    def pools_at(hkv):
+        if hkv not in pools:
+            pools[hkv] = _pools(gen, n_pages + 1, dt, hkv=hkv)
+        return pools[hkv]
+
     el = 2                                           # bf16 bytes
     out = {}
 
     # prefill chunk: 512 rows at history 1536 over 2048 keys, in an
-    # 8-row stream (the other segments empty); at qwen3-4b's 32 / 8 heads
-    # and qwen2.5-32b's 40 / 8 (3 idle query vectors a 128-vector tile)
+    # 8-row stream (the other segments empty); at qwen3-4b's 32 / 8 heads,
+    # qwen2.5-32b's 40 / 8 (3 idle query vectors a 128-vector tile) and
+    # qwen3-moe's 32 / 4
     rows, hist = 512, keys - 512
     tab, _ = _layout(rng, n_pages, p_max, [keys], None)
     table = np.full((b_rows, p_max), n_pages, np.int32)
@@ -2606,10 +2861,12 @@ def phase_times(seed, errs):
     cu = [0] + [rows] * b_rows
     q_off = [hist] + [0] * (b_rows - 1)
     kvl = [keys] + [0] * (b_rows - 1)
-    for hq, name in ((HQ, "ragged_prefill_paged"),
-                     (40, "ragged_prefill_paged (40/8)")):
+    for hq, hkv, name in ((HQ, HKV, "ragged_prefill_paged"),
+                          (40, HKV, "ragged_prefill_paged (40/8)"),
+                          (32, 4, "ragged_prefill_paged (32/4)")):
+        kp, vp = pools_at(hkv)
         q = torch.randn((rows, hq, D), generator=gen, device=DEVICE).to(dt)
-        args = (q, k, v, _i32(table), _i32(cu), _i32(q_off), _i32(kvl))
+        args = (q, kp, vp, _i32(table), _i32(cu), _i32(q_off), _i32(kvl))
         got = rp.ragged_prefill_paged(*args)
         err, worst, ok, _ = _held(got, rp.ragged_prefill_paged_plain, *args)
         errs.setdefault(("ragged_prefill_paged", dt), []).append(err)
@@ -2619,8 +2876,8 @@ def phase_times(seed, errs):
         # the yardstick runs over pre-gathered, head-expanded K/V (the
         # gather is not timed)
         pages = table[0][:keys // PS].tolist()
-        kg = k[pages].reshape(keys, HKV, D).repeat_interleave(hq // HKV, 1)
-        vg = v[pages].reshape(keys, HKV, D).repeat_interleave(hq // HKV, 1)
+        kg = kp[pages].reshape(keys, hkv, D).repeat_interleave(hq // hkv, 1)
+        vg = vp[pages].reshape(keys, hkv, D).repeat_interleave(hq // hkv, 1)
         qs, ks, vs = (q.transpose(0, 1)[None], kg.transpose(0, 1)[None],
                       vg.transpose(0, 1)[None])
         mask = (torch.arange(keys, device=DEVICE)[None, :]
@@ -2632,7 +2889,7 @@ def phase_times(seed, errs):
             library_ms=_time(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask)),
             flops=4 * attended * D * hq,
-            bytes=(2 * rows * hq * D + 2 * keys * HKV * D) * el
+            bytes=(2 * rows * hq * D + 2 * keys * hkv * D) * el
             + 4 * (table.size + 3 * b_rows + 1))
 
     # the same kernel at a speculative verify tick's layout: 8 segments
@@ -2656,26 +2913,28 @@ def phase_times(seed, errs):
         f"(decode_attn_paged over the same keys: below)")
 
     # decode: 8 rows x 2048 keys (the JSON row), then the split walk's
-    # other shapes: qwen2.5-32b's 40 / 8 heads, one session decoding
-    # alone, and phase 4's uneven tick (one row at ~2100 keys beside
-    # seven at 96-256)
-    for what, hq, lengths in (("", HQ, [keys] * b_rows),
-                              (" (40/8)", 40, [keys] * b_rows),
-                              (" (1 row)", HQ, [keys]),
-                              (" (uneven tick)", HQ, UNEVEN_TICK)):
+    # other shapes: qwen2.5-32b's 40 / 8 heads, qwen3-moe's 32 / 4 (rep 8,
+    # the body's kMaxRep), one session decoding alone, and phase 4's
+    # uneven tick (one row at ~2100 keys beside seven at 96-256)
+    for what, hq, hkv, lengths in (("", HQ, HKV, [keys] * b_rows),
+                                   (" (40/8)", 40, HKV, [keys] * b_rows),
+                                   (" (32/4)", 32, 4, [keys] * b_rows),
+                                   (" (1 row)", HQ, HKV, [keys]),
+                                   (" (uneven tick)", HQ, HKV, UNEVEN_TICK)):
+        kp, vp = pools_at(hkv)
         tab, _ = _layout(rng, n_pages, p_max, lengths, None)
         tab = np.where(tab == POISON, n_pages, tab).astype(np.int32)
         qd = torch.randn((len(lengths), hq, D), generator=gen,
                          device=DEVICE).to(dt)
         n = max(lengths)
         idx = torch.as_tensor(tab[:, :-(-n // PS)], device=DEVICE).long()
-        kg, vg = (a[idx].reshape(len(lengths), -1, HKV, D)[:, :n]
-                  for a in (k, v))
+        kg, vg = (a[idx].reshape(len(lengths), -1, hkv, D)[:, :n]
+                  for a in (kp, vp))
         pages = sum(-(-x // PS) for x in lengths)
         out["decode_attn_paged" + what] = _time_decode(
             "decode_attn_paged" + what, dec.decode_attn_paged,
             dec.decode_attn_paged_plain,
-            (qd, k, v, _i32(tab), _i32(lengths)), kg, vg, lengths, errs,
+            (qd, kp, vp, _i32(tab), _i32(lengths)), kg, vg, lengths, errs,
             4 * (pages + len(lengths)))
 
     # slot arena at phase 2's main-path layout: a 512-row chunk at
@@ -2804,6 +3063,8 @@ def phase_times(seed, errs):
         log(f"[5] {name}: launched one by one {eager:.4f} ms a call, from "
             f"a CUDA graph {out[name]['ms']:.4f} ms")
     out["ssd_scan"] = _time_ssd(gen, errs)
+    out["ssd_scan@grouped"] = _ssd_prompt_row(gen, errs, "ssd_scan@grouped",
+                                              JAMBA_NH, JAMBA_G)
     out.update(_time_dense(gen, errs))
     out.update(_time_window(gen, rng, errs))
     out.update(_time_widths(gen, rng, errs))
@@ -2930,7 +3191,7 @@ def _time_dense(gen, errs):
     return rows
 
 
-def _ssd_work(b, l, g, chunk=SSD_CHUNK, el=2, lens=None):
+def _ssd_work(b, l, g, chunk=SSD_CHUNK, el=2, lens=None, nh=SSD_NH):
     """(operations, bytes) ``ssd_scan`` needs for one call at mamba2's
     heads: per chunk of n rows the lower triangle of C.B^T once per
     group, and per head the lower triangle of M X, the carried state's
@@ -2938,7 +3199,7 @@ def _ssd_work(b, l, g, chunk=SSD_CHUNK, el=2, lens=None):
     and C, dt and a, the state in and out.  ``lens``: each batch row's
     length, dt = 0 past it; a chunk wholly past it is an identity of the
     state, whose y needs only C state^T, and neither its x nor its B."""
-    nh, hd, ds = SSD_NH, SSD_HD, SSD_DS
+    hd, ds = SSD_HD, SSD_DS
     flops = live_rows = 0
     for r in range(b):
         n_r = l if lens is None else lens[r]
@@ -3020,10 +3281,30 @@ def _time_ssd(gen, errs):
     (bf16 x, B, C exact; fp32 operands as split hi + lo pairs), so the
     bound counts its operations at 989 TFLOP/s; the fp32 rate's bound is
     logged beside it."""
+    row = _ssd_prompt_row(gen, errs, "ssd_scan", SSD_NH, 1)
+    dt_ = torch.bfloat16
+    for what, b, l in (("dense grid step", 8, 64),
+                       ("packed step's bridge, every row real", 8, 512)):
+        _ssd_pairs(what, _ssd_inputs(gen, b, l, 1, dt_))
+    b, l, lens = _trace_bridge()
+    _ssd_pairs(f"packed step's bridge as phase 4 builds it (lengths "
+               f"{lens[:len(SSM_PROFILE_LENS)]}, {b - len(SSM_PROFILE_LENS)}"
+               f" empty rows)", _ssd_inputs(gen, b, l, 1, dt_, lens=lens),
+               lens=lens)
+    return row
+
+
+def _ssd_prompt_row(gen, errs, name, nh, g):
+    """The kernel row ``name``: ``ssd_scan`` at ``nh`` heads of 64, state
+    128, B/C in ``g`` groups, bf16, on a 2048-token prompt as 8 chunk
+    steps of 256 rows with the state carried, B = 1 — held to the plain
+    version, its device time from a CUDA graph of the 8 steps, the plain
+    version's, the bound, and (logged) the one-by-one time and each of
+    the call's two CUDA kernels' device share by ``torch.profiler``."""
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_error_bound
     dt_ = torch.bfloat16
-    x, dt, a, bm, cm, h0 = _ssd_inputs(gen, 1, 2048, 1, dt_)
+    x, dt, a, bm, cm, h0 = _ssd_inputs(gen, 1, 2048, g, dt_, nh=nh)
     steps = [(x[:, i:i + 256], dt[:, i:i + 256].contiguous(),
               bm[:, i:i + 256], cm[:, i:i + 256]) for i in range(0, 2048, 256)]
 
@@ -3041,12 +3322,12 @@ def _time_ssd(gen, errs):
     worst = max(float(((y - yr).abs() / yb).max()),
                 float(((st - sr).abs() / sb).max()))
     err = float((y - yr).abs().max())
-    errs.setdefault(("ssd_scan", dt_), []).append(err)
-    log(f"[5] ssd_scan 2048-token prompt in 8 steps of 256, state carried: "
-        f"max_abs_err={err:.3e} err/bound={worst:.3f} "
+    errs.setdefault((name, dt_), []).append(err)
+    log(f"[5] {name} (NH {nh}, G {g}) 2048-token prompt in 8 steps of 256, "
+        f"state carried: max_abs_err={err:.3e} err/bound={worst:.3f} "
         f"{'ok' if worst <= 1 else 'FAIL'}")
-    assert worst <= 1, "ssd_scan at the chunked-prompt shapes"
-    work = [_ssd_work(1, 256, 1) for _ in steps]
+    assert worst <= 1, f"{name} at the chunked-prompt shapes"
+    work = [_ssd_work(1, 256, g, nh=nh) for _ in steps]
     flops, nbytes = (sum(w[i] for w in work) for i in (0, 1))
     eager_ms = _time(lambda: prompt(ssd.ssd_scan), 10)
     row = dict(ms=_time_graph(lambda: prompt(ssd.ssd_scan), 5),
@@ -3062,18 +3343,10 @@ def _time_ssd(gen, errs):
         getattr(e, "self_device_time_total", 0)
         or getattr(e, "self_cuda_time_total", 0)) / 1e3, 4)
         for e in prof.key_averages() if re.search(r"ssd_\w+_kernel", e.key)}
-    log(f"[5] ssd_scan 2048-token prompt: from a CUDA graph {row['ms']:.4f}"
+    log(f"[5] {name} 2048-token prompt: from a CUDA graph {row['ms']:.4f}"
         f" ms, launched one by one {eager_ms:.4f} ms; device ms of the 8 "
         f"calls by kernel {split}; the bound at the fp32 rate (the old "
         f"design's) {flops / FP32_FLOPS * 1e3:.4f} ms")
-    for what, b, l in (("dense grid step", 8, 64),
-                       ("packed step's bridge, every row real", 8, 512)):
-        _ssd_pairs(what, _ssd_inputs(gen, b, l, 1, dt_))
-    b, l, lens = _trace_bridge()
-    _ssd_pairs(f"packed step's bridge as phase 4 builds it (lengths "
-               f"{lens[:len(SSM_PROFILE_LENS)]}, {b - len(SSM_PROFILE_LENS)}"
-               f" empty rows)", _ssd_inputs(gen, b, l, 1, dt_, lens=lens),
-               lens=lens)
     return row
 
 
@@ -3290,32 +3563,52 @@ def phase_decode_profile(seed, card):
     torch.cuda.empty_cache()
 
 
-# phase 5's mixtral decode tick: one session past the window and the
-# ring's depth beside seven short ones (phase 4's shape)
+# phase 5's MoE decode ticks: one session past mixtral's window and the
+# ring's depth beside seven short ones (phase 4's shape), and phase 4's
+# uneven tick for jamba and qwen3-moe
 WINDOW_PROFILE_TICK = [7168, 300, 256, 200, 160, 128, 100, 80]
+# (arch, layers, mode, pool, tick, max_len) of each profiled MoE tick
+MOE_PROFILES = (
+    ("mixtral-8x7b", WINDOW_LAYERS, "swa_paged", {}, WINDOW_PROFILE_TICK,
+     8192),
+    (HYBRID, HYBRID_LAYERS, "ssm_paged", SSM_POOL, UNEVEN_TICK, 4096),
+    (QWEN_MOE, None, "paged", {}, UNEVEN_TICK, 4096))
 
 
-def phase_window_profile(seed, card):
-    """Where a mixtral-8x7b decode tick's time goes (WINDOW_LAYERS
-    layers, bf16, swa_paged: ring tables): ``torch.profiler`` over one
-    8-row decode tick at WINDOW_PROFILE_TICK after a warm-up tick, then
-    3 unprofiled ticks.  The weight read alone bounds it: the MoE
-    reference reads every expert of every layer each tick."""
+def _is_expert_stack(path, a):
+    return "/ffn/" in path and a.dim() == 4
+
+
+def phase_moe_profile(seed, card, arch, layers, mode, pool, tick, max_len):
+    """Where an MoE decode tick's time goes (bf16, random weights from
+    the seed, ``layers`` cuts the depth where given): ``torch.profiler``
+    over one 8-row decode tick at ``tick`` keys after a warm-up tick,
+    then 3 unprofiled ticks.  The weight read alone bounds it: every
+    expert of every MoE layer is read each tick — mixtral's through
+    ``moe_dense_reference``, jamba's 16 and qwen3-moe's 128 through
+    ``moe_layer``, whose capacity of at least one row puts every expert
+    in the step — and the expert stacks' bytes are logged apart."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
+    from repro_torch.models.convert import _leaf_shapes
     from repro_torch.serving.engine import Engine, EngineConfig
-    cfg = get_config("mixtral-8x7b").replace(num_layers=WINDOW_LAYERS)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     params = tr.init_params(cfg, seed=seed, device=DEVICE)
-    weight_bytes = sum(a.numel() * a.element_size() for a in
-                       _leaves(params))
+    leaves = dict(zip(_leaf_shapes(params), _leaves(params)))
+    weight_bytes = sum(a.numel() * a.element_size() for a in leaves.values())
+    expert_bytes = sum(a.numel() * a.element_size()
+                       for path, a in leaves.items()
+                       if _is_expert_stack(path, a))
     engine = Engine(cfg, params, EngineConfig(
-        num_slots=8, max_len=8192, chunk_tokens=256, measure=False,
-        **WINDOW_MODES["swa_paged"]), device=DEVICE)
+        num_slots=8, max_len=max_len, chunk_tokens=256, measure=False,
+        **SERVE_MODES[mode], **pool), device=DEVICE)
     rng = np.random.default_rng(seed + 8)
-    sess = list(range(len(WINDOW_PROFILE_TICK)))
+    sess = list(range(len(tick)))
     toks = []
-    for s, n in zip(sess, WINDOW_PROFILE_TICK):
+    for s, n in zip(sess, tick):
         prompt = rng.integers(1, cfg.vocab_size, n - 2)
         toks.append(engine.prefill_long(s, prompt) if n > 256 else
                     engine.prefill_batch([s], [prompt])[s])
@@ -3330,26 +3623,28 @@ def phase_window_profile(seed, card):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_kernel, busy = _device_split(
-        prof, wall, f"mixtral swa_paged decode tick of {len(sess)} rows "
-        f"at {WINDOW_PROFILE_TICK} keys", card, calls, engine)
+        prof, wall, f"{arch} ({cfg.num_layers} layers) {mode} decode tick "
+        f"of {len(sess)} rows at {tick} keys", card, calls, engine)
     cur = [toks]
 
-    def tick():
+    def step():
         out = engine.decode_batch(sess, cur[0], 1)
         cur[0] = [out[s][-1] for s in sess]
 
-    _unprofiled(f"mixtral swa_paged decode tick of {len(sess)} rows",
-                card, tick, calls)
+    _unprofiled(f"{arch} {mode} decode tick of {len(sess)} rows", card,
+                step, calls)
     attn_ms = sum(ms for key, ms in by_kernel.items()
                   if "attn::decode" in key)
     bound = weight_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[5] mixtral decode tick: weights {weight_bytes / 2**30:.2f} GiB "
-        f"({weight_bytes / 1e9:.1f} GB), read once a tick: bound "
-        f"{bound:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; device "
-        f"busy {busy:.2f} ms; the windowed decode kernels "
+    log(f"[5] {arch} decode tick: weights {weight_bytes / 2**30:.2f} GiB "
+        f"({weight_bytes / 1e9:.1f} GB; the expert stacks "
+        f"{expert_bytes / 1e9:.1f} GB, {expert_bytes / HBM_BYTES_PER_S * 1e3:.2f}"
+        f" ms), read once a tick: bound {bound:.2f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; device busy {busy:.2f} ms "
+        f"({busy / bound:.2f}x the bound); the decode attention kernels "
         f"{attn_ms:.3f} ms ({100 * attn_ms / max(busy, 1e-9):.1f}% of "
         f"busy) (card {card})")
-    del engine, params
+    del engine, params, leaves
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3497,6 +3792,9 @@ KERNELS.update({f"{name}@window": dict(KERNELS[name]) for name in (
 # timed and counted on their own (80's checks fold into the base row)
 KERNELS.update({f"{name}@d{d}": dict(KERNELS[name]) for name in WIDTH_KERNELS
                 for d in ROW_WIDTHS})
+# the SSD scan at jamba's layout (128 heads, B/C in 8 groups of 16): the
+# same library and TPU kernel, checked, timed and counted on its own
+KERNELS["ssd_scan@grouped"] = dict(KERNELS["ssd_scan"])
 
 
 def phase_launcher(card):
@@ -3505,10 +3803,15 @@ def phase_launcher(card):
     head_dim 64) and mamba2-2.7b (its smoke config's own SSD head
     widths), each also at published widths cut to 4 layers, and for
     mixtral-8x7b (the smoke config at head_dim 64, window 32, and its
-    published widths cut to WINDOW_LAYERS layers: the window-masked
-    dense baseline and the ring tables, traffic past the window); then
-    stablelm-1.6b at full width and depth with ``--packed`` and
-    phi-3-vision-4.2b at full width and depth in the default."""
+    published widths cut to 4 layers: the window-masked dense baseline
+    and the ring tables, traffic past the window; phase 4 serves it at
+    WINDOW_LAYERS); then stablelm-1.6b at full width and depth with
+    ``--packed`` and phi-3-vision-4.2b at full width and depth in the
+    default; the jamba-v0.1-52b smoke config (attention at head_dim 64,
+    its SSD layers' own widths, 2 B/C groups) in the default and with
+    ``--packed``, jamba at published widths cut to one pattern group (8
+    layers) with ``--packed``, and qwen3-moe-30b-a3b's smoke config with
+    ``--packed``."""
     from repro_torch.launch import serve
     runs = [extra + packed
             for extra in ([], ["--full", "--layers", "4"],
@@ -3517,10 +3820,13 @@ def phase_launcher(card):
                            "4"],
                           ["--arch", "mixtral-8x7b"],
                           ["--arch", "mixtral-8x7b", "--full", "--layers",
-                           str(WINDOW_LAYERS)])
+                           "4"])
             for packed in ([], ["--packed"])]
     runs += [["--arch", "stablelm-1.6b", "--full", "--packed"],
-             ["--arch", "phi-3-vision-4.2b", "--full"]]
+             ["--arch", "phi-3-vision-4.2b", "--full"],
+             ["--arch", HYBRID], ["--arch", HYBRID, "--packed"],
+             ["--arch", HYBRID, "--full", "--layers", "8", "--packed"],
+             ["--arch", QWEN_MOE, "--packed"]]
     for argv in runs:
         t0 = time.perf_counter()
         serve.main(argv)
@@ -3532,7 +3838,7 @@ def phase_launcher(card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--runs", type=int, default=5,
+    ap.add_argument("--runs", type=int, default=3,
                     help="kept runs of phase 4's trace in the launcher's "
                          "default mode, after one warm-up (median and "
                          "spread); the paged mode keeps half as many, "
@@ -3560,20 +3866,25 @@ def main() -> int:
         phase_ssd_kernel(args.seed, errs)
         phase_dense_kernels(args.seed, errs)
         phase_window_kernels(args.seed, errs)
+    log(f"[t] build and phase 2 done at {time.perf_counter() - t0:.1f} s")
     if "3" in phases:
         for mode in (*MODES, *SSM_MODES, *WINDOW_MODES):
             phase_oracle(args.seed, mode)
-        for arch in WIDTH_ARCHS:
+        for arch in (*WIDTH_ARCHS, QWEN_MOE):
             for mode in WIDTH_ORACLE_MODES:
                 phase_oracle(args.seed, mode, arch)
+        for mode in SSM_MODES:
+            phase_oracle(args.seed, mode, HYBRID)
         _ORACLE.clear()
         gc.collect()
         torch.cuda.empty_cache()
         phase_vlm_oracle(args.seed)
         phase_encoder_oracle(args.seed)
         phase_moe_check(args.seed)
+        phase_moe_graph(args.seed)
         for mode in ("paged", "slot_arena"):
             phase_spec_oracle(args.seed, mode)
+    log(f"[t] phase 3 done at {time.perf_counter() - t0:.1f} s")
     if "4" in phases:
         runs = args.runs
         launches = phase_full(args.seed, card, "qwen3-4b", {
@@ -3592,7 +3903,7 @@ def main() -> int:
         # a kernel's row keeps its first mode's count (flash_attn: the
         # qwen3-4b grid's), the windowed forms take mixtral's
         for name, row in phase_full(args.seed, card, "mixtral-8x7b",
-                                    {mode: 2 for mode in WINDOW_MODES},
+                                    {mode: 1 for mode in WINDOW_MODES},
                                     layers=WINDOW_LAYERS).items():
             launches.setdefault(name, row)
         # the MHA configs at full width and depth in the five attention
@@ -3605,11 +3916,22 @@ def main() -> int:
                                         {mode: 1 for mode in MODES}).items():
                 if name in WIDTH_KERNELS:
                     launches[f"{name}@d{d}"] = row
-        # the other dense GQA configs at head_dim 128: one paged run each
-        for arch in ("qwen2.5-14b", "minitron-8b"):
+        # the other dense GQA configs at head_dim 128, and qwen3-moe at
+        # full depth (128 experts top 8 through the capacity dispatch,
+        # 32 / 4 heads): one paged run each
+        for arch in ("qwen2.5-14b", "minitron-8b", QWEN_MOE):
             gc.collect()
             torch.cuda.empty_cache()
             phase_full(args.seed, card, arch, {"paged": 1})
+        # jamba cut to HYBRID_LAYERS in the three SSM modes: the
+        # ssd_scan@grouped row takes its launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, row in phase_full(args.seed, card, HYBRID,
+                                    {mode: 1 for mode in SSM_MODES},
+                                    layers=HYBRID_LAYERS).items():
+            launches.setdefault(name, row)
+    log(f"[t] phase 4 done at {time.perf_counter() - t0:.1f} s")
     if "5" in phases:
         times = phase_times(args.seed, errs)
         phase_dense_tick(card, times)
@@ -3617,7 +3939,9 @@ def main() -> int:
         phase_dense_profile(args.seed, card)
         phase_decode_profile(args.seed, card)
         phase_ssm_profile(args.seed, card)
-        phase_window_profile(args.seed, card)
+        for prof in MOE_PROFILES:
+            phase_moe_profile(args.seed, card, *prof)
+    log(f"[t] phase 5 done at {time.perf_counter() - t0:.1f} s")
     if "6" in phases:
         phase_launcher(card)
     rows = []

@@ -25,6 +25,11 @@ _MODULES = {
     # the other dense GQA configs at head_dim 128
     "qwen2.5-14b": "qwen2_5_14b",
     "minitron-8b": "minitron_8b",
+    # the last MoE config: 128 experts top 8 through the capacity
+    # dispatch, GQA 32 / 4
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    # the hybrid family: attention, SSD and MoE layers interleaved
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 

@@ -37,6 +37,9 @@ LAUNCHERS = {
     "decode_attn_paged@window": _decode.decode_attn_paged.window,
     "ragged_prefill_arena@window": _prefill.ragged_prefill_arena.window,
     "decode_attn_arena@window": _decode.decode_attn_arena.window,
+    # the SSD scan with B/C in several groups of several heads each:
+    # each such launch counts here and in the kernel's own count
+    "ssd_scan@grouped": _ssd.ssd_scan.grouped,
     # the six paged, arena and gathered attention kernels by head width:
     # each launch at width d counts here and in its kernel's own count
     **{f"{fn.__name__}@d{d}": fn.width[d]

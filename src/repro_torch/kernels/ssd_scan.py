@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ragged_prefill import _DTYPES, launch
+from repro_torch.kernels.ragged_prefill import _DTYPES, LaunchCount, launch
 from repro_torch.kernels.ref import \
     ref_ssd_scan as ssd_scan_plain  # noqa: F401
 
@@ -130,7 +130,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
            ds, g, chunk, *rs, _DTYPES[x.dtype],
            torch.cuda.current_stream(dev).cuda_stream)
     ssd_scan.launches += 1
+    # B/C in several groups, each shared by several heads (jamba's 8)
+    ssd_scan.grouped.launches += 1 < g < nh
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.grouped = LaunchCount()

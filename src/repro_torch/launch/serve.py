@@ -22,7 +22,12 @@ vision frontend is a stub and its backbone serves tokens).
 ``--arch mixtral-8x7b`` the windowed MoE family (window-masked full
 slots in the default run, ring page tables with ``--packed``), whose
 long prompts run past the sliding window so every session's cache
-wraps.
+wraps; ``--arch qwen3-moe-30b-a3b`` 128 experts top 8 through the
+capacity dispatch; ``--arch jamba-v0.1-52b`` the hybrid family
+(attention, SSD and MoE layers interleaved: KV and recurrent state side
+by side in each session's slot or pages).  ``--layers`` must be a
+multiple of the config's layer pattern period (jamba: 8; its smoke
+config: 4); any other value is refused.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
@@ -35,6 +40,8 @@ Example:
       --full --packed
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch phi-3-vision-4.2b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-v0.1-52b --full --layers 16 --packed
 """
 from __future__ import annotations
 
@@ -79,6 +86,10 @@ def main(argv=None):
                 and cfg.family != "ssm":
             cfg = cfg.replace(head_dim=64)
     if args.layers is not None:
+        period = tr.pattern_period(cfg)
+        if args.layers <= 0 or args.layers % period:
+            ap.error(f"--layers {args.layers}: {cfg.name} takes a positive "
+                     f"multiple of its layer pattern period {period}")
         cfg = cfg.replace(num_layers=args.layers)
     params = tr.init_params(cfg, seed=args.seed, device=args.device)
     # a long prefill runs past the sliding window of a windowed config

@@ -3,9 +3,9 @@ with its dtype string mapped to a torch dtype.
 
 One dataclass describes every architecture family of the JAX package,
 so the fields stay the same; the port serves the dense, MoE and vlm
-(the backbone) decoder families and the SSM (mamba2) family, runs the
-encoder-only (audio) family through ``forward``, and raises
-``NotImplementedError`` for the hybrid one.
+(the backbone) decoder families, the SSM (mamba2) family and the hybrid
+(jamba) family, and runs the encoder-only (audio) family through
+``forward``.
 """
 from __future__ import annotations
 

@@ -12,21 +12,46 @@ never imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _check_slice, resolve_device
+from repro_torch.models.transformer import param_shapes, resolve_device
+
+
+def _leaf_shapes(tree: Any, path: str = "") -> Dict[str, Tuple[int, ...]]:
+    """{leaf path: shape} of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {path: tuple(tree.shape)}
+    out = {}
+    for k, v in items:
+        out.update(_leaf_shapes(v, f"{path}/{k}"))
+    return out
 
 
 def params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda") -> Any:
     """Convert a numpy param tree to torch tensors on ``device`` in
     ``cfg.dtype``.  Arrays go through float32, which holds every bf16
-    value exactly."""
-    _check_slice(cfg)
+    value exactly.  The tree must have the leaf paths and shapes of the
+    port's :func:`~repro_torch.models.transformer.init_params` for
+    ``cfg`` (every pattern position's block, each with its own leaves);
+    any other tree raises ``ValueError``."""
     dev = resolve_device(device)
+    want, got = _leaf_shapes(param_shapes(cfg)), _leaf_shapes(tree)
+    if got != want:
+        diff = sorted(k for k in want.keys() | got.keys()
+                      if want.get(k) != got.get(k))
+        raise ValueError(
+            f"{cfg.name}: the tree's leaves differ from the port's "
+            f"parameters at {diff[:6]} (want "
+            f"{[want.get(k) for k in diff[:6]]}, got "
+            f"{[got.get(k) for k in diff[:6]]})")
 
     def conv(x):
         if isinstance(x, dict):

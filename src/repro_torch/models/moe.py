@@ -22,6 +22,8 @@ probabilities, and so does the stable descending sort here;
 contributions in the order the reference's scatter-add meets them
 (expert-ascending) in the model dtype, with no atomics, so a step gives
 the same bits every run and replays from a CUDA graph bit for bit.
+Neither form syncs with the host: the capacity C is a function of the
+step's shape, so a captured step keeps it at every replay.
 """
 from __future__ import annotations
 
@@ -99,9 +101,10 @@ def moe_layer(p: Dict, x: torch.Tensor, *, top_k: int,
     buf[dest] = x2d[sorted_token]          # dropped pairs: the junk row
     dispatched = buf[:e * cap].reshape(e, cap, d)
 
-    h = torch.einsum("ecd,edf->ecf", dispatched, p["wg"])
-    g = F.silu(h) * torch.einsum("ecd,edf->ecf", dispatched, p["wi"])
-    y_exp = torch.einsum("ecf,efd->ecd", g, p["wo"])            # (E, C, d)
+    # batched matmuls over E: each reads its expert stack in place
+    h = torch.matmul(dispatched, p["wg"])                       # (E, C, F)
+    g = F.silu(h) * torch.matmul(dispatched, p["wi"])
+    y_exp = torch.matmul(g, p["wo"])                            # (E, C, d)
 
     y_flat = torch.cat([y_exp.reshape(e * cap, d),
                         torch.zeros((1, d), dtype=y_exp.dtype, device=dev)])

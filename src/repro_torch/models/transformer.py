@@ -1,7 +1,8 @@
 """Model assembly of the port, from ``repro.models.transformer``: the
 dense full-attention decoder stack (its FFNs dense or MoE, its attention
-full or windowed), the encoder-only (audio) stack and the attention-free
-SSM (mamba2) stack, their caches, the dense
+full or windowed), the encoder-only (audio) stack, the attention-free
+SSM (mamba2) stack and the hybrid (jamba) stack that interleaves
+attention, SSM, dense and MoE layers, their caches, the dense
 ``forward`` (the oracle the serving steps are held against, the encoder
 forward, and with caches the dense (L, B) grid and decode steps),
 and the flat-stream serving steps: packed prefill over gathered caches,
@@ -10,9 +11,11 @@ arena and over the page pool.
 
 Parameters keep the JAX package's layout: ``blocks`` is a list with one
 dict per layer-pattern position whose leaves are stacked over the
-``G = num_layers / period`` groups (a dense stack has period 1).  The
-layer scan becomes a Python loop over groups, and every cache (gathered
-batch, slot arena, page pool) is updated in place.
+``G = num_layers / period`` groups (a dense stack has period 1, a
+hybrid one lcm(attn_layer_period, moe_layer_period)).  The reference's
+layer scan over groups becomes a Python loop, its unrolled pattern
+positions an inner loop, so layer i is group i // p, position i % p.
+Every cache (gathered batch, slot arena, page pool) is updated in place.
 """
 from __future__ import annotations
 
@@ -43,20 +46,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_slice(cfg: ModelConfig) -> None:
-    """The port serves decoders of full or sliding-window attention
-    with dense or MoE FFNs — the dense, moe and vlm families (a vlm's
-    backbone; its stub frontend's patch embeddings enter through
-    :func:`forward`'s ``embeds``) — and pure SSM (mamba2) stacks, and
-    runs the encoder-only (audio) stack through :func:`forward`; the
-    serving stack refuses encoder-only configs where the reference
-    does."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid attention/SSM stacks are not ported yet "
-            "(ROADMAP Queue 1, item 10)")
-
-
 # a weight whose fp32 draw would take more bytes is drawn one layer
 # group at a time (mixtral-8x7b's expert stacks: 30 GB in fp32 at 16
 # layers), so the draw never holds an fp32 copy of a whole stack
@@ -64,30 +53,80 @@ _DRAW_BYTES = 8 << 30
 
 
 def pattern_period(cfg: ModelConfig) -> int:
+    """Layers in one pattern group: 1, or for a hybrid stack the least
+    common multiple of its attention and MoE periods (jamba: 8)."""
+    if cfg.family == "hybrid":
+        return math.lcm(cfg.attn_layer_period, cfg.moe_layer_period)
     return 1
 
 
 def num_groups(cfg: ModelConfig) -> int:
-    return cfg.num_layers // pattern_period(cfg)
+    p = pattern_period(cfg)
+    if cfg.num_layers % p:
+        raise ValueError(
+            f"{cfg.name}: num_layers {cfg.num_layers} is not a multiple of "
+            f"the layer pattern's period {p}")
+    return cfg.num_layers // p
 
 
 # ------------------------------------------------------------------- init
 
 
+def _param_tree(cfg: ModelConfig, dense, ones, zeros) -> Dict[str, Any]:
+    """The parameter tree built with the caller's makers: one block dict
+    per pattern position ``j`` — ``ln1``, the mixer (attention or mamba
+    by ``cfg.layer_kind(j)``) and, in every family but ``ssm`` (mamba2
+    has no separate FFN), ``ln2`` and an FFN, MoE where
+    ``cfg.layer_is_moe(j)`` ({"router" (d, E), "wg", "wi" (E, d, F),
+    "wo" (E, F, d)}) and a dense SwiGLU otherwise.  Each leaf is stacked
+    over the groups.  The blocks are drawn first, position by
+    position, then the embedding and the head."""
+    g = num_groups(cfg)
+    d, hd = cfg.d_model, cfg.hdim
+    blocks = []
+    for j in range(pattern_period(cfg)):
+        block = {"ln1": ones((g, d))}
+        if cfg.layer_kind(j) == "attn":
+            qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+            mixer = {"wq": dense((g, d, qd)), "wk": dense((g, d, kvd)),
+                     "wv": dense((g, d, kvd)), "wo": dense((g, qd, d))}
+            if cfg.qkv_bias:
+                mixer.update(bq=zeros((g, qd)), bk=zeros((g, kvd)),
+                             bv=zeros((g, kvd)))
+            if cfg.qk_norm:
+                mixer.update(q_norm=ones((g, hd)), k_norm=ones((g, hd)))
+        else:
+            mixer = mamba_mod.init_mamba(cfg, g, dense, zeros, ones)
+        block["mixer"] = mixer
+        if cfg.family != "ssm":
+            block["ln2"] = ones((g, d))
+            if cfg.layer_is_moe(j):
+                e, ff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+                block["ffn"] = {
+                    "router": dense((g, d, e)), "wg": dense((g, e, d, ff)),
+                    "wi": dense((g, e, d, ff)), "wo": dense((g, e, ff, d))}
+            else:
+                block["ffn"] = {"wg": dense((g, d, cfg.d_ff)),
+                                "wi": dense((g, d, cfg.d_ff)),
+                                "wo": dense((g, cfg.d_ff, d))}
+        blocks.append(block)
+    return {"embed": dense((cfg.padded_vocab, d), scale=0.02),
+            "blocks": blocks,
+            "final_norm": ones((d,)),
+            "lm_head": dense((d, cfg.padded_vocab), scale=d ** -0.5)}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters with the JAX package's shapes and stacked
-    ``blocks`` layout, drawn from a ``torch.Generator`` on ``device``
-    seeded with ``seed``.  Dense weights are N(0, 1/fan_in) (embed 0.02,
-    lm_head d_model^-0.5), norms 1, biases 0, in ``cfg.dtype``.  An SSM
-    block is {"ln1", "mixer"}: mamba2 has no separate FFN.  An MoE FFN
-    is {"router" (d, E), "wg", "wi" (E, d, F), "wo" (E, F, d)}."""
-    _check_slice(cfg)
+    ``blocks`` layout (:func:`_param_tree`), drawn from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``.  Dense
+    weights are N(0, 1/fan_in) (embed 0.02, lm_head d_model^-0.5), norms
+    1, biases 0, in ``cfg.dtype``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dt = cfg.torch_dtype
-    g = num_groups(cfg)
 
     def dense(shape, scale=None):
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
@@ -110,33 +149,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     def zeros(shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    d, hd = cfg.d_model, cfg.hdim
-    if cfg.family == "ssm":
-        block = {"ln1": ones((g, d)),
-                 "mixer": mamba_mod.init_mamba(cfg, g, dense, zeros, ones)}
-    else:
-        qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
-        mixer = {"wq": dense((g, d, qd)), "wk": dense((g, d, kvd)),
-                 "wv": dense((g, d, kvd)), "wo": dense((g, qd, d))}
-        if cfg.qkv_bias:
-            mixer.update(bq=zeros((g, qd)), bk=zeros((g, kvd)),
-                         bv=zeros((g, kvd)))
-        if cfg.qk_norm:
-            mixer.update(q_norm=ones((g, hd)), k_norm=ones((g, hd)))
-        if cfg.layer_is_moe(0):
-            e, ff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
-            ffn = {"router": dense((g, d, e)), "wg": dense((g, e, d, ff)),
-                   "wi": dense((g, e, d, ff)), "wo": dense((g, e, ff, d))}
-        else:
-            ffn = {"wg": dense((g, d, cfg.d_ff)),
-                   "wi": dense((g, d, cfg.d_ff)),
-                   "wo": dense((g, cfg.d_ff, d))}
-        block = {"ln1": ones((g, d)), "mixer": mixer, "ln2": ones((g, d)),
-                 "ffn": ffn}
-    return {"embed": dense((cfg.padded_vocab, d), scale=0.02),
-            "blocks": [block],
-            "final_norm": ones((d,)),
-            "lm_head": dense((d, cfg.padded_vocab), scale=d ** -0.5)}
+    return _param_tree(cfg, dense, ones, zeros)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of :func:`init_params` as shape-only ("meta")
+    tensors: its leaf paths, shapes and dtypes, nothing allocated."""
+    def meta(shape, scale=None):
+        return torch.empty(shape, dtype=cfg.torch_dtype, device="meta")
+
+    return _param_tree(cfg, meta, meta, meta)
 
 
 # ------------------------------------------------------------------ cache
@@ -159,7 +181,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     max_len = page_size, so each KV pool is (G, N_pages + 1, page_size,
     Hkv, D) and the SSM leaves use the page axis as the state-slot
     axis."""
-    _check_slice(cfg)
     dev = resolve_device(device)
     g = num_groups(cfg)
     dt = dtype or cfg.torch_dtype
@@ -193,7 +214,8 @@ def _layer(block: Dict, g: int) -> Dict:
 def _ffn(cfg: ModelConfig, j: int, lp: Dict, x: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Post-mixer FFN residual of pattern position ``j`` over x (..., d)
-    (none in an SSM stack: the mamba2 block already mixes channels), and
+    (none in a pure SSM stack: the mamba2 block already mixes channels;
+    a hybrid's SSM layers have theirs), and
     its MoE aux loss.  An MoE FFN takes the reference's rule: every
     expert on every row (``moe_dense_reference``) for at most 8 experts
     over at most 4096 rows of x — the padded step, bucket tail
@@ -260,7 +282,6 @@ def forward(params: Dict, cfg: ModelConfig,
     window over full-depth caches (the dense baseline's).
     ``return_aux``: return (logits, the MoE load-balance aux loss summed
     over layers), the reference's third result."""
-    _check_slice(cfg)
     if embeds is None:
         x = params["embed"][tokens.long()]
     else:
@@ -270,8 +291,8 @@ def forward(params: Dict, cfg: ModelConfig,
         positions = torch.arange(l, device=x.device)[None].expand(b, l)
     decode = l == 1 and caches is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j, block in enumerate(params["blocks"]):
-        for g in range(num_groups(cfg)):
+    for g in range(num_groups(cfg)):
+        for j, block in enumerate(params["blocks"]):
             lp = _layer(block, g)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             if cfg.layer_kind(j) == "attn":
@@ -311,8 +332,8 @@ def _scan_serving_stack(params: Dict, cfg: ModelConfig,
     layer's {"k", "v"} or {"ssm", "conv"} slice (views: mix_fn writes
     them in place).  Returns the final-normed activations."""
     x = params["embed"][tokens.long()]
-    for j, block in enumerate(params["blocks"]):
-        for g in range(num_groups(cfg)):
+    for g in range(num_groups(cfg)):
+        for j, block in enumerate(params["blocks"]):
             lp = _layer(block, g)
             cache_j = {name: pool[g] for name, pool in caches[j].items()}
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -422,7 +443,6 @@ def forward_packed(params: Dict, cfg: ModelConfig, *,
     last_idx: (B,) flat index of each segment's final token.  Returns
     last_logits (B, V).  Attention-only: an SSM state has no gathered
     form."""
-    _check_slice(cfg)
     assert arena_capability(cfg).pure_attn, \
         f"{cfg.name}: the gathered packed path is attention-only"
 
@@ -458,7 +478,6 @@ def forward_packed_arena(params: Dict, cfg: ModelConfig, *,
     positions step each segment's state slot at ``slot_map`` in place
     (pad segments point at the arena's scratch slot).  Returns
     last_logits (B, V)."""
-    _check_slice(cfg)
     cap = arena_capability(cfg)
     bridge = (_ssm_bridge(tokens.shape[0], cu_seqlens, slot_map.shape[0])
               if cap.has_ssm else None)
@@ -493,7 +512,6 @@ def forward_decode_arena(params: Dict, cfg: ModelConfig, *,
     valid entries INCLUDING the new row (pad rows 1).  SSM positions
     step each row's state slot in place (pad rows point at the scratch
     slot).  Returns logits (B, V).  B is a decode-ladder rung."""
-    _check_slice(cfg)
     cap = arena_capability(cfg)
 
     def mix_fn(j, lp, h, cache_j):
@@ -567,7 +585,6 @@ def forward_packed_paged(params: Dict, cfg: ModelConfig, *,
     N_pages + 1, NH, HD, DS), "conv": ...}) — and ``state_map (B,)``
     names each segment's state page (pads point at the scratch page).
     The pools are updated in place.  Returns last_logits (B, V)."""
-    _check_slice(cfg)
     cap = arena_capability(cfg)
     bridge = None
     if cap.has_ssm:
@@ -632,7 +649,6 @@ def forward_decode_paged(params: Dict, cfg: ModelConfig, *,
     valid entries INCLUDING the new row.  SSM positions step the state
     page named by ``state_map (B,)`` in place (pads point at the scratch
     page).  The pools are updated in place.  Returns logits (B, V)."""
-    _check_slice(cfg)
     cap = arena_capability(cfg)
     assert not cap.has_ssm or state_map is not None, \
         "paged SSM needs a state_map"

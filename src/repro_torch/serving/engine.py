@@ -30,12 +30,14 @@ Every executor step is a replay of its shape's CUDA graph
 arrays and copies what it keeps of a step's outputs, which the next
 replay overwrites.
 
-Attention stacks (full or sliding-window, dense or MoE FFNs) and pure
-SSM (mamba2) stacks are served.  An SSM stack keeps one recurrent-state
-slot per session — a slot of the slot arena plus a scratch slot that
-every pad row and pad segment targets, or a state page of the pool with
-boundary-state checkpoints on the radix index — and every sequence-mode
-layer runs the ``ssd_scan`` kernel.  A sliding-window stack keeps its
+Attention stacks (full or sliding-window, dense or MoE FFNs), pure SSM
+(mamba2) stacks and hybrid (jamba) stacks that interleave both are
+served.  A stack with SSM layers keeps one recurrent-state slot per
+session — a slot of the slot arena plus a scratch slot that every pad
+row and pad segment targets, or a state page of the pool with
+boundary-state checkpoints on the radix index, beside the session's KV
+pages or slot rows where it also has attention layers — and every
+sequence-mode SSM layer runs the ``ssd_scan`` kernel.  A sliding-window stack keeps its
 window in rolling slots of depth window + C_l on the packed slot arena
 (a scratch slot for pads; a segment longer than C_l is split, so one
 step's writes never wrap onto a key still in a query's window), in ring
@@ -50,9 +52,8 @@ Sampling is greedy argmax on the device, the fused sampling kernel
 (``fused_sampling=True`` with ``keep_last_logits=False``: bias,
 temperature, top-k / top-p and the draw on the device, host-drawn
 uniforms in, (R,) ids out), or the numpy sampler on the host.  Not
-ported — session export/import, the host spill tier and hybrid
-configs — every such entry raises ``NotImplementedError`` naming its
-ROADMAP item.
+ported — session export/import and the host spill tier — every such
+entry raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -144,7 +145,6 @@ class Engine:
         self.params = params
         self.ecfg = ecfg or EngineConfig()
         self.device = tr.resolve_device(device)
-        tr._check_slice(cfg)
         self.capability = cap = tr.arena_capability(cfg)
         # rolling mode: a sliding-window config serves from window-deep
         # rolling slots (depth = window + margin) when both in-place

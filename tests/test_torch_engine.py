@@ -23,6 +23,7 @@ from repro.models import transformer as jtr  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import EngineConfig as JConfig  # noqa: E402
 from repro_torch.configs import get_smoke as tget  # noqa: E402
+from repro_torch.models import transformer as ttr  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 
@@ -140,9 +141,8 @@ def test_engine_refuses_the_cpu_by_default():
 
 
 @pytest.mark.parametrize("cfg_kw,kw,item", [
-    # windowed and MoE configs are served; the hybrid family is not yet
-    (dict(family="hybrid", attn_layer_period=2), dict(paged_kv=False),
-     "item 10"),
+    # windowed, MoE and hybrid configs are served; the host spill tier
+    # is not yet
     ({}, dict(host_pool_bytes=1 << 20), "item 11"),
 ])
 def test_config_branches_outside_the_slice_raise(stacks, cfg_kw, kw, item):
@@ -152,14 +152,22 @@ def test_config_branches_outside_the_slice_raise(stacks, cfg_kw, kw, item):
 
 
 def test_method_branches_outside_the_slice_raise(stacks):
+    """Session export/import (item 13) raises; a hybrid config (item
+    10) builds an engine, and with the host spill tier asked for it
+    raises for item 11 only."""
     _, te = _pair(stacks["qwen3-4b"])
     with pytest.raises(NotImplementedError, match="item 13"):
         te.export_session(0)
     with pytest.raises(NotImplementedError, match="item 13"):
         te.import_session(0, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Engine(tget("qwen3-4b").replace(family="hybrid",
-                                        attn_layer_period=2), {},
+    hcfg = tget("jamba-v0.1-52b")
+    hp = ttr.init_params(hcfg, seed=0, device="cpu")
+    e = Engine(hcfg, hp, EngineConfig(num_slots=2, max_len=32),
+               device="cpu")
+    assert e._paged and e.arena.state_slots and not e.can_spec
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Engine(hcfg, hp, EngineConfig(num_slots=2, max_len=32,
+                                      host_pool_bytes=1 << 20),
                device="cpu")
 
 

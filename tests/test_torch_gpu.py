@@ -23,8 +23,13 @@ on the card against the same on the CPU in its three layouts.  The six
 paged, arena and gathered attention kernels also at head widths 64, 80
 and 96 (32 / 32, 16 / 16 and 32 / 8 heads; the windowed forms at 64 and
 96), one decode launch at 96 replayed from a CUDA graph, and every
-launcher refusing widths 16, 32, 112 and 256.  Without a card every
-test skips inside its fixture.
+launcher refusing widths 16, 32, 112 and 256.  The hybrid family: the
+SSD scan at jamba-v0.1-52b's layout (128 heads, B/C in 8 groups), the
+jamba smoke engine on the card against the CPU in its three SSM modes,
+its paged and slot steps replayed from their step graphs bit-identical
+to the eager steps and its parked captures; and ``moe_layer``'s
+capacity dispatch captured in a CUDA graph, bit-identical to eager.
+Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -910,6 +915,22 @@ def test_ssd_scan_replays_in_a_cuda_graph(card):
         assert torch.equal(out[0], y) and torch.equal(out[1], st)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l", [(1, 300), (2, 129), (8, 64)])
+def test_ssd_scan_at_jamba_groups(card, dtype, b, l):
+    """jamba-v0.1-52b's layout: 128 heads of 64, state 128, B/C in 8
+    groups of 16 heads, each launch counted as grouped."""
+    args = _ssd_args(card, b, l, 8, dtype, seed=l + b, nh=128)
+    n, ng = ssd.ssd_scan.launches, ssd.ssd_scan.grouped.launches
+    y, st = ssd.ssd_scan(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == n + 1
+    assert ssd.ssd_scan.grouped.launches == ng + 1
+    yr, yb, sr, sb = ssd_error_bound(*args, 128)
+    assert bool(((y.float() - yr).abs() <= yb).all())
+    assert bool(((st - sr).abs() <= sb).all())
+
+
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
     x, dt, a, bm, cm, h0 = _ssd_args(card, 1, 8, 1, torch.float32, seed=0)
     with pytest.raises(ValueError, match="chunk"):
@@ -920,14 +941,33 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
         ssd.ssd_scan(x, dt, a, bm[:, :, :0], cm[:, :, :0], h0)
 
 
-@pytest.mark.parametrize("mode", [
-    dict(), dict(paged_kv=False), dict(packed=False, paged_kv=False)],
-    ids=["paged", "arena", "dense"])
+SSM_ENGINE_MODES = [dict(), dict(paged_kv=False),
+                    dict(packed=False, paged_kv=False)]
+
+
+@pytest.mark.parametrize("mode", SSM_ENGINE_MODES,
+                         ids=["paged", "arena", "dense"])
 def test_ssm_engine_on_card_matches_engine_on_cpu(card, mode):
     """The mamba2 smoke config in each SSM mode through the ssd_scan
     kernel and through its plain version: the same greedy tokens,
     logits within 1e-4 (fp32)."""
-    cfg = get_smoke("mamba2-2.7b")
+    _engine_on_card_matches_cpu(card, get_smoke("mamba2-2.7b"), mode)
+
+
+@pytest.mark.parametrize("mode", SSM_ENGINE_MODES,
+                         ids=["paged", "arena", "dense"])
+def test_hybrid_engine_on_card_matches_engine_on_cpu(card, mode):
+    """jamba's smoke config (its attention at head_dim 64 beside its SSD
+    layers at 2 B/C groups) in each SSM mode through the attention and
+    ssd_scan kernels and through their plain versions: the same greedy
+    tokens, logits within 1e-4 (fp32), every scan grouped."""
+    ng = ssd.ssd_scan.grouped.launches
+    _engine_on_card_matches_cpu(
+        card, get_smoke("jamba-v0.1-52b").replace(head_dim=64), mode)
+    assert ssd.ssd_scan.grouped.launches > ng
+
+
+def _engine_on_card_matches_cpu(card, cfg, mode):
     params = tr.init_params(cfg, seed=0, device="cpu")
     on_card = _to(params, card)
     ecfg = dict(num_slots=4, max_len=256, chunk_tokens=32, measure=False,
@@ -1063,6 +1103,12 @@ GRAPH_MODES = {
                   ("packed_paged", "paged_decode")),
     "swa_arena": ("mixtral-8x7b", dict(paged_kv=False), False,
                   ("packed_arena", "arena_decode")),
+    # the hybrid stack: KV pages beside state pages, KV rows beside
+    # state in one slot
+    "hybrid_paged": ("jamba-v0.1-52b", dict(), False,
+                     ("packed_paged", "paged_decode")),
+    "hybrid_arena": ("jamba-v0.1-52b", dict(paged_kv=False), False,
+                     ("packed_arena", "arena_decode")),
 }
 
 
@@ -1123,7 +1169,8 @@ def test_step_graphs_replay_bit_identical_to_eager(card, mode):
 
 @pytest.mark.parametrize("mode", ["paged", "arena", "gathered", "grid",
                                   "ssm_paged", "ssm_arena", "swa_paged",
-                                  "swa_arena"])
+                                  "swa_arena", "hybrid_paged",
+                                  "hybrid_arena"])
 def test_parked_capture_leaves_live_state_unchanged(card, mode):
     """A step graph captured at a live miss — warm-up and capture on
     parked inputs — changes no live KV row and no live SSM state: every
@@ -1386,3 +1433,43 @@ def test_window_engine_on_card_matches_engine_on_cpu(card, mode):
         np.testing.assert_allclose(engines[1].last_logits[s],
                                    engines[0].last_logits[s], atol=1e-4,
                                    rtol=0)
+
+
+# ------------------------------------------------- the capacity dispatch
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,k", [(16, 2), (128, 8)])
+def test_moe_layer_replays_in_a_cuda_graph(card, dtype, e, k):
+    """The capacity dispatch, which every MoE step of a config with more
+    than 8 experts takes (jamba's 16 top 2, qwen3-moe's 128 top 8),
+    captured in a CUDA graph: replays on fresh inputs give the eager
+    call's output and aux loss bit for bit, dropped pairs included."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=card).manual_seed(e)
+    d, f, t = 256, 384, 96
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card)
+                * scale).to(dtype)
+
+    p = {"router": randn(d, e, scale=d ** -0.5),
+         "wg": randn(e, d, f, scale=d ** -0.5),
+         "wi": randn(e, d, f, scale=d ** -0.5),
+         "wo": randn(e, f, d, scale=f ** -0.5)}
+    static = randn(1, t, d)
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe.moe_layer(p, static, top_k=k)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, aux = moe.moe_layer(p, static, top_k=k)
+        for _ in range(2):
+            x = randn(1, t, d)
+            want, aux_w = moe.moe_layer(p, x, top_k=k)
+            static.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want) and torch.equal(aux, aux_w)

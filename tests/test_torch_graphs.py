@@ -283,6 +283,9 @@ PARKED_MODES = {
                               arena_decode=False)),
     "ssm_paged": ("mamba2-2.7b", dict()),
     "ssm_arena": ("mamba2-2.7b", dict(paged_kv=False)),
+    # KV and recurrent state side by side in one page pool or slot
+    "hybrid_paged": ("jamba-v0.1-52b", dict()),
+    "hybrid_arena": ("jamba-v0.1-52b", dict(paged_kv=False)),
 }
 
 

@@ -179,9 +179,10 @@ def test_forward_decode_paged_matches_jax(arch):
 
 
 def test_arena_capability_and_slice_guards():
-    """The capability descriptor, and the slice: windowed and MoE
-    configs build (the window reported per layer, as the reference's
-    ``arena_capability`` does); the hybrid family is refused."""
+    """The capability descriptor, and the slice: windowed, MoE and
+    hybrid configs build (the window and each position's kind reported
+    per layer, as the reference's ``arena_capability`` does); a hybrid
+    depth off its pattern period is refused."""
     tcfg = tget("qwen3-4b")
     cap = ttr.arena_capability(tcfg)
     assert cap.packed_ok and cap.pure_attn and not cap.has_window
@@ -191,9 +192,14 @@ def test_arena_capability_and_slice_guards():
     moe = ttr.init_params(tcfg.replace(num_experts=4, num_experts_per_tok=2),
                           device="cpu")
     assert set(moe["blocks"][0]["ffn"]) == {"router", "wg", "wi", "wo"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.init_params(tcfg.replace(family="hybrid", attn_layer_period=2),
-                        device="cpu")
+    hyb = tcfg.replace(family="hybrid", attn_layer_period=2)
+    hp = ttr.init_params(hyb, device="cpu")
+    assert [c.kind for c in ttr.arena_capability(hyb).layers] == \
+        ["attn", "ssm"]
+    assert "wq" in hp["blocks"][0]["mixer"]
+    assert "in_proj" in hp["blocks"][1]["mixer"]
+    with pytest.raises(ValueError, match="pattern's period 2"):
+        ttr.init_params(hyb.replace(num_layers=3), device="cpu")
 
 
 def test_entry_points_default_to_the_card():
