@@ -121,7 +121,15 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      4096 rows) and qwen3-moe's widths (128 of 768 top 8, 4096 rows) at
      capacity factor E / k (nothing dropped), and captured in a CUDA
      graph at both widths (bf16, 512 rows, factor 1.25: pairs dropped),
-     each replay bit-identical to the eager call;
+     each replay bit-identical to the eager call.  The multi-engine
+     cluster at the qwen3-4b smoke config (head_dim 128, fp32) on the
+     card against the same cluster on the CPU, both on a stepping
+     clock: bench_slo's 2-engine spatial cluster on the slot arena and
+     the page pool (6 answered, 2 sessions migrated, 80 tokens handed
+     off, 0 host bytes) and bench_faults' 4-engine failover (one engine
+     killed mid-decode: 8 finished, 0 lost, 2 sessions recovered
+     bit-identical to the fault-free cluster), with the same
+     transcripts, homes, stats and reports on both devices;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
      --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
      served in each mode after one warm-up run, each run on a fresh
@@ -159,7 +167,21 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      SSD layers' state and 2 attention layers' KV), one kept run each:
      ``ssd_scan`` once per SSD layer in every prefill dispatch, every
      launch at G = 8, state checkpoints adopted by prefix matches, the
-     attention launches per tick, peak memory;
+     attention launches per tick, peak memory.  Then the multi-engine
+     cluster: two qwen3-4b engines (full width and depth, bf16, one copy
+     of the weights) on both arena families over a trace of two
+     2048-token prompts among multi-turn shorts of 80-256 tokens (the
+     port's ``data.synthetic``), spatial (prefill + decode roles,
+     LengthAwareRouter at 512: the longs migrate to the decode engine,
+     the first handoff under ``torch.profiler`` with no device-to-host
+     copy) and round robin beside it: TTFT by class, migrations,
+     handoff tokens and host bytes (0), the migration gate's both
+     sides, ms per handoff, pool sizes and peak memory; and
+     bench_faults' 4-engine failover at full width (nothing lost, the
+     recovered tokens counted against the fault-free cluster's).  Last,
+     qwen2.5-32b (the paper's model: 64 layers, 40 / 8 heads, qkv
+     bias, 61 GiB of bf16 weights) at full width and depth on the paged
+     default over the qwen3-4b trace, one kept run;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound, the kernel's achieved TFLOP/s; the
@@ -236,6 +258,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import os
 import re
@@ -245,6 +268,8 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -2027,6 +2052,485 @@ def phase_spec_oracle(seed, mode):
     assert st["spec_dispatches"] > 0 and st["tokens_accepted"] > 0, \
         f"{mode}: the armed loop never speculated"
 
+
+# ---------------------------------------------- the cluster (phases 3, 4)
+
+# phase 3's cluster scenarios run the qwen3-4b smoke config at head_dim
+# 128 (the kernels take 64, 80, 96 and 128), fp32, on the card and on
+# the CPU; phase 4's at qwen3-4b's full width and depth, bf16
+CLUSTER_SMOKE = dict(head_dim=128, dtype="float32")
+CLUSTER_THRESHOLD = 512            # LengthAwareRouter's long / short cut
+CLUSTER_ECFG = dict(num_slots=8, max_len=4096, chunk_tokens=256,
+                    measure=False)
+CLUSTER_DECODE = 16                # decode budget of every request
+CLUSTER_LONG = 2048                # the trace's two long prompts
+FAILOVER_ECFG = dict(num_slots=8, max_len=1024, chunk_tokens=256,
+                     paged_kv=True, measure=False)
+
+
+def _stepping_clock():
+    """A clock that advances 1 ms a read: wall time then feeds no
+    decision of a loop or cluster, so the card and the CPU take one
+    schedule."""
+    c = itertools.count()
+    return lambda: next(c) * 1e-3
+
+
+def _cluster_loop(cfg, params, device, ecfg, pool=None, threshold=24,
+                  chunk=16, clock=None, awd=True):
+    """A ServeLoop over a fresh engine: ``PoolPolicy(pool)`` or, with no
+    pool, ``pla_full``; with the packed AWD configuration where ``awd``
+    (the bench scenarios of phase 3 run without, as the benches do)."""
+    from repro_torch.core import (H200_QWEN32B, PoolPolicy, Variant,
+                                  make_policy)
+    from repro_torch.core.awd import AWDConfig
+    from repro_torch.serving import Engine, EngineConfig, ServeLoop
+    eng = Engine(cfg, params, EngineConfig(**ecfg), device=device)
+    kw = dict(threshold=threshold, chunk_tokens=chunk)
+    if awd:
+        kw["awd_cfg"] = AWDConfig(
+            packed=True, token_buckets=eng.ecfg.token_buckets,
+            packed_max_seqs=eng.packed_executor.max_seqs)
+    pol = (PoolPolicy(H200_QWEN32B, pool=pool, **kw) if pool is not None
+           else make_policy(Variant("pla_full"), H200_QWEN32B, **kw))
+    return ServeLoop(eng, pol, slo_ttft=None,
+                     **({"clock": clock()} if clock else {}))
+
+
+def _cluster_state(cluster, sessions):
+    st = cluster.stats()
+    return dict(stats={k: v for k, v in st.items() if k != "per_engine"},
+                report=cluster.report().as_dict(),
+                generated={s: list(cluster.generated(s)) for s in sessions},
+                homes={s: cluster.engine_of(s) for s in sessions})
+
+
+def _slo_cluster(cfg, params, device, paged):
+    """``benchmarks/bench_slo.py::_engine_cluster`` with its seeds: two
+    engines (prefill + decode roles), the longs migrate to decode."""
+    from repro_torch.core import LengthAwareRouter
+    from repro_torch.serving import ServeCluster
+    ecfg = dict(num_slots=8, max_len=160, chunk_tokens=16, paged_kv=paged,
+                page_size=8, measure=False)
+    cluster = ServeCluster(
+        [_cluster_loop(cfg, params, device, ecfg, pool,
+                       clock=_stepping_clock, awd=False)
+         for pool in ("long", "short")],
+        LengthAwareRouter(threshold=24), roles=["prefill", "decode"])
+    rng = np.random.default_rng(5)
+    for s in range(6):
+        n = 40 if s % 3 == 0 else int(rng.integers(4, 16))
+        cluster.submit(s, rng.integers(0, cfg.vocab_size, n),
+                       decode_tokens=4)
+    cluster.run_until_idle(max_wall=1e9)
+    return _cluster_state(cluster, range(6))
+
+
+def _failover(cfg, params, device, ecfg, subs, threshold, chunk, awd,
+              victim=1, n_engines=4):
+    """``benchmarks/bench_faults.py::_engine_failover`` over ``subs``
+    ((session, prompt, decode budget)): a fault-free cluster of
+    ``n_engines`` round-robin engines, then the same cluster with
+    ``victim`` killed once it holds a decoding session.  Returns the
+    failover row, the faulted cluster's state and the fault-free
+    transcripts."""
+    from repro_torch.core import RoundRobinRouter
+    from repro_torch.core.faults import (CRASH, FaultEvent, FaultInjector,
+                                         FaultPlan)
+    from repro_torch.serving import ServeCluster
+
+    def build(faults):
+        return ServeCluster(
+            [_cluster_loop(cfg, params, device, ecfg, None, threshold,
+                           chunk, clock=_stepping_clock, awd=awd)
+             for _ in range(n_engines)], RoundRobinRouter(), faults=faults)
+
+    baseline = build(None)
+    for s, toks, d in subs:
+        baseline.submit(s, toks, decode_tokens=d)
+    baseline.run_until_idle(max_wall=1e9)
+    want = {s: list(baseline.generated(s)) for s, _, _ in subs}
+    del baseline
+    gc.collect()
+    cluster = build(FaultInjector(FaultPlan(events=(
+        FaultEvent(CRASH, at=1.0, engine=victim),))))
+    for s, toks, d in subs:
+        cluster.submit(s, toks, decode_tokens=d)
+    for _ in range(600):
+        if cluster.loops[victim].active_decodes:
+            break
+        for lp in cluster.loops:
+            if lp.has_work:
+                lp.tick()
+    assert cluster.loops[victim].active_decodes, \
+        "failover: the victim never reached its decode phase"
+    cluster.run_until_idle(max_wall=1e9)
+    for i in cluster.alive_engines():
+        cluster.loops[i].engine.arena.audit()
+    rep, st = cluster.report(), cluster.stats()
+    row = {
+        "n_submitted": len(subs), "n_finished": rep.n,
+        "lost": len(subs) - rep.n - rep.rejected - rep.abandoned,
+        "crashes": st["crashes"],
+        "recovered_sessions": st["recovered_sessions"],
+        "rerouted_requests": st["rerouted_requests"],
+        "abandoned": rep.abandoned,
+        "bit_identical": int(all(cluster.generated(s) == want[s]
+                                 for s, _, _ in subs)),
+        "transcripts_complete": int(all(
+            len(cluster.generated(s)) == d + 1 for s, _, d in subs)),
+        "health": st["health"],
+    }
+    return row, _cluster_state(cluster, [s for s, _, _ in subs]), want
+
+
+def phase_cluster_oracle(seed):
+    """Phase 3's cluster scenarios at the qwen3-4b smoke config
+    (``CLUSTER_SMOKE``, fp32) on the card against the same clusters on
+    the CPU, both on the stepping clock: ``bench_slo``'s 2-engine
+    spatial cluster on the slot arena and the page pool (the
+    ``BENCH_cluster.json`` engine rows: 2 sessions migrated, 80 tokens
+    handed off, 0 host bytes) and ``bench_faults``' 4-engine failover
+    (the ``engine/failover`` row: 8 finished, 0 lost, 2 sessions
+    recovered bit-identical to the fault-free cluster).  The same
+    transcripts, homes, stats and SLO reports on both devices, every
+    kernel of the paths launched on the card."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tr
+    cfg = get_smoke("qwen3-4b").replace(**CLUSTER_SMOKE)
+    params = tr.init_params(cfg, seed=seed + 7, device=DEVICE)
+    cpu_params = _to_cpu(params)
+    launchers = _launchers()
+    for paged in (False, True):
+        for fn in launchers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = _slo_cluster(cfg, params, DEVICE, paged)
+        torch.cuda.synchronize()
+        ran = {k: f.launches for k, f in launchers.items() if f.launches}
+        want = _slo_cluster(cfg, cpu_params, "cpu", paged)
+        st = got["stats"]
+        log(f"[3] cluster {'paged' if paged else 'slot'}: bench_slo's "
+            f"2-engine cluster, {got['report']['n']} answered, migrated "
+            f"{st['migrated_sessions']}, handoff sessions / tokens / host "
+            f"bytes {st['handoff_sessions']} / {st['handoff_tokens']} / "
+            f"{st['handoff_host_bytes']}, homes {got['homes']}; card == "
+            f"CPU (transcripts, stats, report): {got == want}; "
+            f"{time.perf_counter() - t0:.1f} s; launches {ran}")
+        assert got == want, "cluster: the card's run differs from the CPU's"
+        assert (got["report"]["n"], st["migrated_sessions"],
+                st["handoff_sessions"], st["handoff_tokens"],
+                st["handoff_host_bytes"]) == (6, 2, 2, 80, 0), st
+        assert all(len(g) == 5 for g in got["generated"].values())
+        for name in MODE_KERNELS["paged" if paged else "slot_arena"]:
+            assert ran.get(name, 0) > 0, f"cluster: {name} never launched"
+    rng = np.random.default_rng(11)
+    subs = [(s, rng.integers(0, cfg.vocab_size,
+                             40 if s % 3 == 0 else int(rng.integers(5, 16))),
+             6) for s in range(8)]
+    ecfg = dict(num_slots=8, max_len=160, chunk_tokens=16, paged_kv=True,
+                page_size=8, measure=False)
+    t0 = time.perf_counter()
+    row, got, _ = _failover(cfg, params, DEVICE, ecfg, subs, 24, 16, False)
+    row_cpu, want, _ = _failover(cfg, cpu_params, "cpu", ecfg, subs, 24, 16,
+                                 False)
+    log(f"[3] cluster failover: bench_faults' 4 engines, engine 1 killed "
+        f"mid-decode: {row}; card == CPU: {(row, got) == (row_cpu, want)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert (row, got) == (row_cpu, want), "failover: card differs from CPU"
+    assert row == {
+        "n_submitted": 8, "n_finished": 8, "lost": 0, "crashes": 1,
+        "recovered_sessions": 2, "rerouted_requests": 0, "abandoned": 0,
+        "bit_identical": 1, "transcripts_complete": 1,
+        "health": ["healthy", "dead", "healthy", "healthy"]}, row
+
+
+def _cluster_trace(cfg, seed):
+    """Phase 4's cluster trace, in waves by turn: the port's multi-turn
+    chat (6 sessions, a 64-token system prompt from a pool of 2, 16-64
+    new tokens a turn, up to 3 turns: turns of 80-256 tokens; a later
+    turn sends its new tokens to the same session) with two
+    CLUSTER_LONG-token prompts among the first wave's shorts."""
+    from repro_torch.data.synthetic import (MultiTurnConfig,
+                                            gen_multiturn_sessions)
+    turns = gen_multiturn_sessions(MultiTurnConfig(
+        vocab_size=cfg.vocab_size, num_sessions=6, system_len=64,
+        suffix_lo=16, suffix_hi=64, max_turns=3, seed=seed))
+    waves = {}
+    for u in turns:
+        toks = u.tokens if u.turn == 0 else u.tokens[-u.suffix:]
+        waves.setdefault(u.turn, []).append((u.session, toks))
+    rng = np.random.default_rng(seed + 3)
+    first = waves[0]
+    for i, at in enumerate((1, 4)):
+        first.insert(min(at, len(first)), (
+            100 + i, rng.integers(1, cfg.vocab_size, CLUSTER_LONG)))
+    return [waves[t] for t in sorted(waves)]
+
+
+def _kv_bytes(engine):
+    """Bytes of one token's K and V over every layer of ``engine``."""
+    return sum(a[:, 0, 0].numel() * a.element_size()
+               for leaves in engine.arena.arena for a in leaves.values())
+
+
+class _HostReads(TorchDispatchMode):
+    """Counts every aten op run inside it that reads a CUDA tensor, and
+    keeps by name each such op whose result is a host tensor or a Python
+    scalar: a device-to-host read seen at the dispatcher, whether or not
+    the profiler traces the device."""
+
+    def __init__(self):
+        super().__init__()
+        self.device_ops, self.d2h = 0, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if any(isinstance(t, torch.Tensor) and t.is_cuda
+               for t in tree_leaves((args, kwargs))):
+            self.device_ops += 1
+            if any(not (isinstance(t, torch.Tensor) and t.is_cuda)
+                   for t in tree_leaves(out) if t is not None):
+                self.d2h.append(str(func))
+        return out
+
+
+def _profile_handoff(fn):
+    """Run ``fn`` on an idle device under ``torch.profiler`` and
+    ``_HostReads``; fail on a device-to-host copy that either sees, or if
+    ``fn`` ran no op on the card.  Returns ``fn``'s result and the
+    profile's count of device events: 0 when CUPTI traced nothing in this
+    session (it happened in one whole run on an H100, with the ops on the
+    card all the same), and the caller then profiles another handoff."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            _HostReads() as reads:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e.name for e in events
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    d2h = [e.name for e in events
+           if "DtoH" in e.name or "Device -> Pageable" in e.name
+           or "Device -> Pinned" in e.name
+           or e.name in ("aten::_local_scalar_dense", "aten::item")]
+    assert reads.device_ops, "handoff profile: no op on the card"
+    assert not d2h and not reads.d2h, \
+        f"handoff: device-to-host copies {d2h} {reads.d2h}"
+    return out, len(device)
+
+
+def _cluster_run(cfg, params, paged, spatial, seed, card, kept=True):
+    """One cluster run of phase 4 over ``_cluster_trace``: two engines on
+    the card sharing one copy of the weights — prefill + decode roles
+    under ``LengthAwareRouter(CLUSTER_THRESHOLD)`` (``spatial``), or two
+    general engines under ``RoundRobinRouter``.  The kernel counters are
+    set to 0 just before the trace and read just after.  The first
+    migration runs under ``_profile_handoff`` (no device-to-host copy;
+    the next ones too while the profiles trace no device event), the
+    others between CUDA events; the gate's both sides are logged."""
+    from repro_torch.core import LengthAwareRouter, RoundRobinRouter
+    from repro_torch.core.slo import SLOTracker, percentile
+    from repro_torch.serving import Engine, EngineConfig, ServeCluster
+    ecfg = dict(CLUSTER_ECFG, paged_kv=paged)
+    roles = ["prefill", "decode"] if spatial else ["general", "general"]
+    pools = ("long", "short") if spatial else (None, None)
+    loops = [_cluster_loop(cfg, params, DEVICE, ecfg, pool,
+                           CLUSTER_THRESHOLD, ecfg["chunk_tokens"])
+             for pool in pools]
+    router = (LengthAwareRouter(threshold=CLUSTER_THRESHOLD) if spatial
+              else RoundRobinRouter())
+    cluster = ServeCluster(loops, router, roles=roles)
+    gate, handoff_ms, profiled = [], [], []
+    inner_worth, inner_migrate = (cluster._worth_migrating,
+                                  cluster._migrate_session)
+
+    def worth(lp, session):
+        ok = inner_worth(lp, session)
+        c = cluster.cost
+        gain = lp.active_decodes.get(session, 0) * (
+            c.beta + c.w_tok + c.decode_per_seq)
+        gate.append((session, lp.active_decodes.get(session, 0),
+                     lp.engine.history(session), gain,
+                     c.handoff_time(lp.engine.history(session)), ok))
+        return ok
+
+    def migrate(src, dst, session):
+        if not any(n for _, n in profiled):
+            _, n_dev = _profile_handoff(
+                lambda: inner_migrate(src, dst, session))
+            profiled.append((session, n_dev))
+            return
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        inner_migrate(src, dst, session)
+        ev[1].record()
+        torch.cuda.synchronize()
+        handoff_ms.append(ev[0].elapsed_time(ev[1]))
+
+    cluster._worth_migrating, cluster._migrate_session = worth, migrate
+    waves = _cluster_trace(cfg, seed)
+    launchers = _launchers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in launchers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    turns = {}
+    for wave in waves:
+        for s, toks in wave:
+            cluster.submit(s, toks, decode_tokens=CLUSTER_DECODE)
+            turns[s] = turns.get(s, 0) + 1
+        cluster.run_until_idle(max_wall=600.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = {k: f.launches for k, f in launchers.items() if f.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = cluster.stats()
+    rep = cluster.report()
+    merged = SLOTracker.merged([lp.tracker for lp in cluster.loops])
+    by_class = {}
+    for r in merged.finished:
+        cls = "long" if r.new_tokens >= CLUSTER_THRESHOLD else "short"
+        by_class.setdefault(cls, []).append(r.ttft() * 1e3)
+    what = (f"{'paged' if paged else 'slot'} "
+            f"{'spatial' if spatial else 'round_robin'}"
+            f"{'' if kept else ' (warm-up, not kept)'}")
+    n_req = sum(turns.values())
+    assert rep.n == n_req and rep.abandoned == 0, f"{what}: unanswered"
+    assert all(len(cluster.generated(s)) == n * (CLUSTER_DECODE + 1)
+               for s, n in turns.items()), f"{what}: short transcripts"
+    kernels = MODE_KERNELS["paged" if paged else "slot_arena"]
+    assert all(ran.get(k, 0) > 0 for k in kernels), f"{what}: {ran}"
+    assert st["handoff_host_bytes"] == 0
+    if spatial:
+        assert st["migrated_sessions"] >= 1 and profiled, \
+            f"{what}: no session migrated"
+        assert cluster.engine_of(100) == 1 and cluster.engine_of(101) == 1
+    else:
+        assert st["migrated_sessions"] == 0
+    pools_log = []
+    for lp in cluster.loops:
+        ar = lp.engine.arena
+        rows = (ar.num_pages * ar.page_size if paged
+                else ar.num_slots * ar.max_len)
+        pools_log.append(
+            f"{ar.num_pages} pages" if paged else f"{ar.num_slots} slots")
+        pools_log[-1] += f" ({rows * _kv_bytes(lp.engine) / 2**30:.2f} GiB)"
+    log(f"[4] cluster {what}: {n_req} requests in {len(waves)} waves, "
+        f"wall {wall:.2f} s; TTFT long mean "
+        f"{np.mean(by_class.get('long', [0])):.1f} ms p90 "
+        f"{percentile(by_class.get('long', [0]), 0.9):.1f} ms "
+        f"({len(by_class.get('long', []))}), short mean "
+        f"{np.mean(by_class['short']):.1f} ms p90 "
+        f"{percentile(by_class['short'], 0.9):.1f} ms "
+        f"({len(by_class['short'])}); migrated {st['migrated_sessions']}, "
+        f"handoff tokens {st['handoff_tokens']}, host bytes "
+        f"{st['handoff_host_bytes']}; homes of the longs "
+        f"{[cluster.engine_of(s) for s in (100, 101)]}; pools "
+        f"{pools_log}; peak {peak:.2f} GiB; launches {ran} (card {card})")
+    if spatial:
+        log(f"[4] cluster {what}: migration gate (session, decode tokens "
+            f"left, history, gain s, handoff s, moved): "
+            + "; ".join(f"{s} {left} {h} {g:.2e} {c:.2e} {ok}"
+                        for s, left, h, g, c, ok in gate))
+        # the copy alone: the migrated long exported from the decode
+        # engine into a fresh engine without a prefix index (nothing
+        # deduped), profiled while no profile of a migration traced the
+        # device (at most 5 times), then 5 times between CUDA events
+        a = cluster.loops[1].engine
+        b = Engine(cfg, params, EngineConfig(**ecfg, prefix_cache=False),
+                   device=DEVICE)
+        alone = []
+        while not any(n for _, n in profiled + alone) and len(alone) < 5:
+            _, n_dev = _profile_handoff(
+                lambda: b.import_session(800, a.export_session(100)))
+            b.close_session(800)
+            alone.append((100, n_dev))
+        assert any(n for _, n in profiled + alone), \
+            f"{what}: no handoff profile traced the device"
+        log(f"[4] cluster {what}: migrations profiled (session, device "
+            f"events) {profiled}, then export + import alone {alone}: no "
+            f"device-to-host copy in the profiles or at the dispatcher; "
+            f"the other migrations' ms between CUDA events around export "
+            f"+ import: {[round(x, 3) for x in handoff_ms]}")
+        ms = []
+        for i in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            b.import_session(900 + i, a.export_session(100))
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            b.close_session(900 + i)
+        assert b.handoff_host_bytes == 0
+        n = a.history(100)
+        moved = 4 * n * _kv_bytes(a)
+        log(f"[4] cluster {what}: export + import of a {n}-token session "
+            f"({n * _kv_bytes(a) / 2**20:.1f} MiB of KV, read and written "
+            f"by the export and again by the import): "
+            f"{[round(x, 3) for x in ms]} ms, median {np.median(ms):.3f} "
+            f"ms, {moved / (np.median(ms) * 1e-3) / 1e9:.0f} GB/s "
+            f"(card {card})")
+    return dict(ttft_long=by_class.get("long", []),
+                ttft_short=by_class["short"], stats=st, peak=peak,
+                handoff_ms=handoff_ms)
+
+
+def phase_cluster(seed, card):
+    """Phase 4's cluster: qwen3-4b at full width and depth (bf16), two
+    engines on the card over ``_cluster_trace`` on both arena families,
+    spatial (prefill + decode roles, ``LengthAwareRouter``) and round
+    robin beside it, after one warm-up run; then ``bench_faults``' 4-engine failover at full
+    width (one of four paged engines killed mid-decode: nothing lost,
+    the recovered sessions' tokens against the fault-free cluster's,
+    logged — bf16, so not asserted bit-identical)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    cfg = get_config("qwen3-4b")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    # a process's first profiler session initializes CUPTI, which took
+    # seconds: take it here, not inside the first cluster trace
+    t0 = time.perf_counter()
+    _, n_dev = _profile_handoff(lambda: params["embed"].sum())
+    log(f"[4] cluster: the profiler's first session took "
+        f"{time.perf_counter() - t0:.2f} s (outside the traces), "
+        f"{n_dev} device events")
+    torch.cuda.synchronize()
+    log(f"[4] cluster: qwen3-4b {cfg.num_layers} layers {cfg.dtype}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights "
+        f"shared by every engine")
+    # one warm-up run (the process's first full-width qwen3-4b work if
+    # phase 4 runs alone), then the four kept cells
+    for paged, spatial, kept in ((True, True, False), (True, True, True),
+                                 (True, False, True), (False, True, True),
+                                 (False, False, True)):
+        t0 = time.perf_counter()
+        _cluster_run(cfg, params, paged, spatial, seed, card, kept)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[4] cluster run took {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed + 11)
+    subs = [(s, rng.integers(1, cfg.vocab_size, 768 if s % 3 == 0
+                             else int(rng.integers(64, 257))), 16)
+            for s in range(8)]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    row, got, want = _failover(cfg, params, DEVICE, FAILOVER_ECFG, subs,
+                               CLUSTER_THRESHOLD, 256, True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = sum(a == b for s, _, _ in subs
+               for a, b in zip(got["generated"][s], want[s]))
+    total = sum(len(want[s]) for s, _, _ in subs)
+    log(f"[4] cluster failover at full width: {row}; tokens equal to the "
+        f"fault-free cluster's {same} of {total} (bf16: the recovery "
+        f"re-prefills what decode wrote row by row); peak {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s (card {card})")
+    assert row["lost"] == 0 and row["crashes"] == 1 and \
+        row["recovered_sessions"] >= 1 and row["transcripts_complete"] == 1
 
 # ------------------------------------------------------------ phase 4
 
@@ -3884,6 +4388,10 @@ def main() -> int:
         phase_moe_graph(args.seed)
         for mode in ("paged", "slot_arena"):
             phase_spec_oracle(args.seed, mode)
+        t3 = time.perf_counter()
+        phase_cluster_oracle(args.seed)
+        log(f"[t] phase 3 cluster scenarios took "
+            f"{time.perf_counter() - t3:.1f} s")
     log(f"[t] phase 3 done at {time.perf_counter() - t0:.1f} s")
     if "4" in phases:
         runs = args.runs
@@ -3931,6 +4439,16 @@ def main() -> int:
                                     {mode: 1 for mode in SSM_MODES},
                                     layers=HYBRID_LAYERS).items():
             launches.setdefault(name, row)
+        # the multi-engine cluster (qwen3-4b), then the paper's model,
+        # qwen2.5-32b, at full width and depth on the paged default
+        for what, fn in (("cluster", lambda: phase_cluster(args.seed, card)),
+                         ("qwen2.5-32b", lambda: phase_full(
+                             args.seed, card, "qwen2.5-32b", {"paged": 1}))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t4 = time.perf_counter()
+            fn()
+            log(f"[t] phase 4 {what} took {time.perf_counter() - t4:.1f} s")
     log(f"[t] phase 4 done at {time.perf_counter() - t0:.1f} s")
     if "5" in phases:
         times = phase_times(args.seed, errs)

@@ -1,4 +1,5 @@
-"""Serving stack of the port: paged KV arena, executors, engine, loop."""
+"""Serving stack of the port: paged KV arena, executors, engine, loop,
+multi-engine cluster."""
 from repro_torch.serving.kvcache import KVArena, PagedKVArena  # noqa: F401
 from repro_torch.serving.packing import (SegmentSpec,  # noqa: F401
                                          MixedStream, assemble_mixed_stream,
@@ -12,5 +13,6 @@ from repro_torch.serving.draft import (DraftProposer,  # noqa: F401
                                        NGramDraft, ScriptedDraft,
                                        SmallModelDraft)
 from repro_torch.serving.engine import (Engine, EngineConfig,  # noqa: F401
-                                        MixedStepResult)
+                                        MixedStepResult, SessionExport)
 from repro_torch.serving.loop import PendingRequest, ServeLoop  # noqa: F401
+from repro_torch.serving.cluster import ServeCluster  # noqa: F401

@@ -51,9 +51,16 @@ or of a rolling slot).
 Sampling is greedy argmax on the device, the fused sampling kernel
 (``fused_sampling=True`` with ``keep_last_logits=False``: bias,
 temperature, top-k / top-p and the draw on the device, host-drawn
-uniforms in, (R,) ids out), or the numpy sampler on the host.  Not
-ported — session export/import and the host spill tier — every such
-entry raises ``NotImplementedError`` naming its ROADMAP item.
+uniforms in, (R,) ids out), or the numpy sampler on the host.
+
+Sessions hand off between engines (``export_session`` /
+``import_session``, driven by ``serving.cluster.ServeCluster``): slot
+rows or page rows cross as device tensors, written into the
+destination's arena in place, and ``handoff_host_bytes`` counts any KV
+byte that would have crossed through the host (0 by construction).  A
+crashed engine is ``mark_dead``-ed and refuses every dispatch.  Not
+ported: the host spill tier (``host_pool_bytes > 0``, ROADMAP item 11),
+which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -98,6 +105,27 @@ class MixedStepResult:
     # dispatch; ``committed[s]`` is the full emitted list (``tokens[s]``
     # stays the LAST of them for non-spec callers)
     committed: Optional[Dict[int, List[int]]] = None
+
+
+@dataclasses.dataclass
+class SessionExport:
+    """Device-resident snapshot of one session's cached context for
+    arena-to-arena KV handoff.
+
+    ``kv`` stays on the device end to end: slot arenas export per-leaf
+    ``(G, length, Hkv, D)`` clones, paged arenas ``(G, n_pages,
+    page_size, Hkv, D)`` page gathers.  ``Engine.import_session`` counts
+    the bytes of any leaf that is not a device tensor of its own device
+    type into ``handoff_host_bytes`` — the proof counter benches assert
+    == 0."""
+
+    length: int
+    kv: Any
+    paged: bool
+    token_ids: Optional[List[int]] = None   # paged: committed ids
+    sampling: Optional[SamplingParams] = None
+    rng: Optional[np.random.Generator] = None
+    last_logits: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -267,6 +295,25 @@ class Engine:
         self.spec_dispatches = 0
         self.spec_committed = 0
         self._spec_by_session: Dict[int, List[int]] = {}  # [drafted, acc.]
+        # arena-to-arena handoff proof counters: sessions imported from a
+        # peer engine, tokens of KV that crossed, and the bytes of any
+        # host array among the crossing leaves (stays 0: the copy is
+        # device to device)
+        self.handoff_sessions = 0
+        self.handoff_tokens = 0
+        self.handoff_host_bytes = 0
+        # failure model: a crashed engine is never dispatched to again —
+        # the cluster marks it dead after evacuation and every compute
+        # entry point refuses (host-side bookkeeping like history() and
+        # sampling stays readable)
+        self.dead = False
+
+    def mark_dead(self) -> None:
+        self.dead = True
+
+    def _check_alive(self) -> None:
+        if self.dead:
+            raise RuntimeError("engine is dead: dispatch refused")
 
     @property
     def executors(self) -> List[Any]:
@@ -325,15 +372,83 @@ class Engine:
         assert self._paged, "fork_session requires paged_kv=True"
         self.arena.fork(parent, child)
 
-    def export_session(self, session: int):
-        raise NotImplementedError(
-            "session export/import is not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+    # ------------------------------------------------------------ handoff
+    @property
+    def can_handoff(self) -> bool:
+        """Arena-to-arena session handoff is defined for pure-attention,
+        non-rolling layouts: every cache leaf is a k/v tensor with the
+        sequence on one contiguous axis.  Rolling window slots write
+        modularly and SSM state is not a token sequence."""
+        return self.capability.pure_attn and not self._rolling
 
-    def import_session(self, session: int, payload) -> None:
-        raise NotImplementedError(
-            "session export/import is not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+    def export_session(self, session: int) -> SessionExport:
+        """Handoff source: snapshot the session's cached KV as device
+        tensors — slot rows cloned or page rows gathered, never copied
+        through the host — plus the sampling state a decode on the
+        destination needs (params, the replayable rng, last logits).
+        The source keeps the session; the cluster closes it after a
+        successful import."""
+        self._check_alive()
+        assert self.can_handoff, \
+            "KV handoff requires a pure-attention, non-rolling arena"
+        h = self.history(session)
+        if self._paged:
+            kv = self.arena.export_pages(session)
+            ids = list(self.arena._tokens.get(session, []))
+        else:
+            kv = self.arena.export_slot(session)
+            ids = None
+        return SessionExport(length=h, kv=kv, paged=self._paged,
+                             token_ids=ids,
+                             sampling=self.sampling.get(session),
+                             rng=self._rngs.get(session),
+                             last_logits=self.last_logits.get(session))
+
+    def _host_bytes(self, kv) -> int:
+        """Bytes of the KV leaves that are not tensors on this engine's
+        device type (a host array, or a CPU tensor into a CUDA arena)."""
+        n = 0
+        for leaves in kv:
+            for leaf in leaves.values():
+                if not isinstance(leaf, torch.Tensor):
+                    n += int(getattr(leaf, "nbytes", 0))
+                elif leaf.device.type != self.device.type:
+                    n += leaf.numel() * leaf.element_size()
+        return n
+
+    def import_session(self, session: int, payload: SessionExport) -> None:
+        """Handoff destination: write the exported KV into this arena
+        (a fresh slot or fresh pages) in place, device to device, and
+        restore the sampling state.  On a page pool the destination's
+        radix index is probed first: prefix pages it already holds are
+        adopted and only the suffix is copied."""
+        self._check_alive()
+        assert self.can_handoff, \
+            "KV handoff requires a pure-attention, non-rolling arena"
+        assert payload.paged == self._paged, \
+            "handoff between arena families (slot vs paged) not supported"
+        assert self.history(session) == 0, \
+            f"import into non-empty session {session}"
+        if payload.kv is not None:
+            self.handoff_host_bytes += self._host_bytes(payload.kv)
+        if self._paged:
+            toks = payload.token_ids or []
+            if toks and self.ecfg.prefix_cache:
+                self.arena.match_prefix(session, toks)
+            self.arena.import_session(session, toks, payload.kv,
+                                      payload.length)
+        else:
+            if session in self.arena._session_slot:
+                self.arena.free(session)
+            self.arena.import_slot(session, payload.kv, payload.length)
+        if payload.sampling is not None:
+            self.sampling[session] = payload.sampling
+            if payload.rng is not None:
+                self._rngs[session] = payload.rng
+        if payload.last_logits is not None:
+            self.last_logits[session] = payload.last_logits
+        self.handoff_sessions += 1
+        self.handoff_tokens += payload.length
 
     # ------------------------------------------------ speculative decode
     @property
@@ -537,6 +652,7 @@ class Engine:
         no meaning on a paged pool or a rolling arena (no dense gather
         path exists), where the batch rides the packed stream instead.
         Returns {session: first_sampled_token}."""
+        self._check_alive()
         if self.packed_executor is not None and (
                 bucket is None or not self._dense_ok):
             return self.step_mixed(list(zip(sessions, token_lists)),
@@ -642,6 +758,7 @@ class Engine:
         dispatches) and is SPLIT across packed steps on a paged pool.
         Returns a :class:`MixedStepResult`."""
         prefills, decodes = list(prefills), list(decodes)
+        self._check_alive()
         n_p, n_d = len(prefills), len(decodes)
         assert n_p + n_d > 0, "empty mixed step"
         sess_all = [s for s, _ in prefills] + [s for s, _ in decodes]
@@ -1223,6 +1340,7 @@ class Engine:
         groups on a paged pool or a rolling arena; without
         ``arena_decode`` (or on a windowed dense baseline) every tick is
         dense."""
+        self._check_alive()
         dx = self.decode_executor
         bucket = dx.bucket_for(len(sessions)) if dx is not None else None
         if bucket is None:
@@ -1400,8 +1518,20 @@ class Engine:
             "chunk_hit_tokens": getattr(ar, "chunk_hit_tokens", 0),
             "pages_cow_forked": getattr(ar, "pages_cow_forked", 0),
             "pages_evicted": getattr(ar, "pages_evicted", 0),
-            # SSM boundary-state checkpoints on the radix index
+            # host spill tier (ROADMAP item 11): 0 until it is ported
+            "pages_spilled": getattr(ar, "pages_spilled", 0),
+            "pages_promoted": getattr(ar, "pages_promoted", 0),
+            "host_pool_pages": getattr(ar, "host_pool_pages", 0),
+            "host_pages_dropped": getattr(ar, "host_pages_dropped", 0),
+            # SSM boundary-state checkpoints on the radix index, and
+            # handoff pages adopted from the destination's index
             "state_checkpoints": getattr(ar, "state_checkpoints", 0),
+            "handoff_pages_deduped": getattr(ar, "handoff_pages_deduped",
+                                             0),
+            # arena-to-arena handoff proof counters
+            "handoff_sessions": self.handoff_sessions,
+            "handoff_tokens": self.handoff_tokens,
+            "handoff_host_bytes": self.handoff_host_bytes,
         }
         if self._paged:
             out["free_pages"] = ar.free_pages

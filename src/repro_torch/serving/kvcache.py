@@ -13,9 +13,11 @@ The arenas are torch tensors updated in place by the serving steps.  One
 difference: a session's recurrent state starts at zero — ``alloc`` and
 ``open`` zero the SSM leaves of the slot or state page they hand out,
 where the JAX arenas hand out a reused slot or page with the state its
-last owner left (ROADMAP Queue 3).  Not ported: the host spill tier
-(``host_pool_bytes > 0``) and slot export/import; each raises
-``NotImplementedError``.
+last owner left (ROADMAP Queue 3).  Session handoff (``export_slot`` /
+``import_slot``, ``export_pages`` / ``import_session``) moves KV from
+arena to arena on the device, writing the destination's tensors in
+place.  Not ported: the host spill tier (``host_pool_bytes > 0``, ROADMAP
+item 11), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -191,15 +193,32 @@ class KVArena:
         return torch.as_tensor(list(slots), dtype=torch.long, device=dev)
 
     # ----------------------------------------------------------- handoff
-    def export_slot(self, session: int):
-        raise NotImplementedError(
-            "session export/import is not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+    def export_slot(self, session: int) -> List[Dict[str, torch.Tensor]]:
+        """Handoff source: a device snapshot of the session's cached rows,
+        ``(G, length, Hkv, D)`` per leaf — a clone, not a view, so a
+        payload held past ``free`` stays valid.  Only valid for
+        pure-attention, non-rolling layouts."""
+        slot = self._session_slot[session]
+        h = self.lengths[session]
+        return [{name: a[:, slot, :h].clone() for name, a in leaves.items()}
+                for leaves in self.arena]
 
-    def import_slot(self, session: int, kv, n_tokens: int) -> int:
-        raise NotImplementedError(
-            "session export/import is not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+    def import_slot(self, session: int, kv: List[Dict[str, torch.Tensor]],
+                    n_tokens: int) -> int:
+        """Handoff destination: allocate a slot and copy the exported rows
+        into it in place (the step graphs hold the arena's addresses).
+        Returns the slot."""
+        assert session not in self._session_slot, \
+            f"import into live session {session}"
+        self.check_length(session, n_tokens)
+        slot = self.alloc(session)
+        if n_tokens:
+            for leaves, src in zip(self.arena, kv):
+                for name, a in leaves.items():
+                    a[:, slot, :n_tokens].copy_(
+                        src[name].to(a.device, a.dtype, non_blocking=True))
+        self.set_length(session, n_tokens)
+        return slot
 
 
 class _RadixNode:
@@ -400,6 +419,7 @@ class PagedKVArena:
         self.pages_cow_forked = 0
         self.pages_evicted = 0
         self.state_checkpoints = 0
+        self.handoff_pages_deduped = 0
         # the paged paths never materialize whole sequences: kept for
         # stats() symmetry with the JAX package and asserted == 0
         self.gather_calls = 0
@@ -774,6 +794,66 @@ class PagedKVArena:
         if self.state_slots:
             self._copy_page(self.state_pages[parent],
                             self.state_pages[child])
+
+    # ------------------------------------------------------------- handoff
+    def export_pages(self, session: int
+                     ) -> Optional[List[Dict[str, torch.Tensor]]]:
+        """Handoff source: gather the session's page rows from the pool
+        on the device, ``(G, n_pages, page_size, Hkv, D)`` per leaf
+        (``index_select`` makes a snapshot, not a view)."""
+        pages = self._pages.get(session, [])
+        if self.arena is None or not pages:
+            return None
+        dev = next(iter(self.arena[0].values())).device
+        idx = torch.as_tensor(pages, dtype=torch.long, device=dev)
+        return [{name: torch.index_select(a, 1, idx)
+                 for name, a in leaves.items()} for leaves in self.arena]
+
+    def import_session(self, session: int, token_ids: Sequence[int],
+                       kv: Optional[List[Dict[str, torch.Tensor]]],
+                       n_tokens: int) -> List[int]:
+        """Handoff destination: allocate fresh pages, copy the exported
+        pool rows into them in place, rebuild the session bookkeeping,
+        and index every full page — the imported prefix becomes
+        shareable here exactly as if it had been prefilled locally.
+
+        Dedupe: the caller may ``match_prefix`` the incoming transcript
+        first — pages the destination's radix index already holds are
+        adopted, and only the suffix of the exported payload (``kv``
+        sliced past the matched pages) is copied in.  ``kv`` is always
+        the FULL export; the slicing happens here."""
+        self.open(session)
+        h = self.lengths[session]
+        ps = self.page_size
+        assert h % ps == 0, \
+            f"import into session {session} off a page boundary ({h})"
+        assert self._tokens[session] == [int(t) for t in token_ids[:h]], \
+            f"import into session {session} with mismatched history"
+        if n_tokens > self.max_len - 2:
+            raise RuntimeError(
+                f"imported session {session} overflows arena "
+                f"({n_tokens} > {self.max_len - 2})")
+        skip = h // ps
+        n_pages = -(-n_tokens // ps) - skip
+        pages = [self._alloc_page() for _ in range(n_pages)]
+        if self.arena is not None and kv is not None and pages:
+            dev = next(iter(self.arena[0].values())).device
+            idx = torch.as_tensor(pages, dtype=torch.long, device=dev)
+            for leaves, src in zip(self.arena, kv):
+                for name, a in leaves.items():
+                    a.index_copy_(1, idx, src[name][:, skip:].to(
+                        a.device, a.dtype, non_blocking=True))
+        self._pages[session].extend(pages)
+        self._tokens[session].extend(int(t) for t in token_ids[h:n_tokens])
+        self.lengths[session] = n_tokens
+        if skip:
+            self.handoff_pages_deduped += skip
+        if self.index is not None:
+            n_full = n_tokens // ps
+            for p in self.index.insert(self._tokens[session][:n_full * ps],
+                                       self._pages[session][:n_full]):
+                self._ref(p)
+        return self._pages[session]
 
     # ------------------------------------------------------------- tensors
     def _copy_page(self, src: int, dst: int) -> None:

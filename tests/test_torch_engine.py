@@ -152,19 +152,29 @@ def test_config_branches_outside_the_slice_raise(stacks, cfg_kw, kw, item):
 
 
 def test_method_branches_outside_the_slice_raise(stacks):
-    """Session export/import (item 13) raises; a hybrid config (item
-    10) builds an engine, and with the host spill tier asked for it
-    raises for item 11 only."""
-    _, te = _pair(stacks["qwen3-4b"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        te.export_session(0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        te.import_session(0, None)
+    """Session export/import (item 13) is ported: a qwen3-4b session
+    hands off between two engines as on the JAX engine.  A hybrid
+    config (item 10) builds an engine that refuses handoff, as the
+    reference's does (SSM state is no token sequence), and with the
+    host spill tier asked for it raises for item 11 only."""
+    je, te = _pair(stacks["qwen3-4b"])
+    _, te2 = _pair(stacks["qwen3-4b"])
+    prompt = np.arange(1, 20) % stacks["qwen3-4b"][0].vocab_size
+    assert je.prefill_batch([0], [prompt]) == te.prefill_batch([0], [prompt])
+    jp, tp_ = je.export_session(0), te.export_session(0)
+    assert (tp_.length, tp_.paged, tp_.token_ids) == \
+        (jp.length, jp.paged, jp.token_ids)
+    te2.import_session(0, tp_)
+    assert te2.history(0) == te.history(0) == 19
+    assert te2.arena.pages_of(0) == te.arena.pages_of(0)
     hcfg = tget("jamba-v0.1-52b")
     hp = ttr.init_params(hcfg, seed=0, device="cpu")
     e = Engine(hcfg, hp, EngineConfig(num_slots=2, max_len=32),
                device="cpu")
     assert e._paged and e.arena.state_slots and not e.can_spec
+    assert not e.can_handoff
+    with pytest.raises(AssertionError, match="handoff"):
+        e.export_session(0)
     with pytest.raises(NotImplementedError, match="item 11"):
         Engine(hcfg, hp, EngineConfig(num_slots=2, max_len=32,
                                       host_pool_bytes=1 << 20),

@@ -29,6 +29,10 @@ jamba smoke engine on the card against the CPU in its three SSM modes,
 its paged and slot steps replayed from their step graphs bit-identical
 to the eager steps and its parked captures; and ``moe_layer``'s
 capacity dispatch captured in a CUDA graph, bit-identical to eager.
+Session handoff between two engines on the card: no device-to-host copy
+in an export and import (``torch.profiler``), an imported session
+decoded through the destination's graphs captured before the import,
+bit-identical to an eager engine, and a dead engine refusing dispatch.
 Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -1473,3 +1477,87 @@ def test_moe_layer_replays_in_a_cuda_graph(card, dtype, e, k):
             graph.replay()
             torch.cuda.synchronize()
             assert torch.equal(out, want) and torch.equal(aux, aux_w)
+
+
+# ------------------------------------------------------ session handoff
+def _handoff_engines(card, paged, eager=False):
+    cfg = get_smoke("qwen3-4b").replace(head_dim=128)
+    params = _to(tr.init_params(cfg, seed=3, device="cpu"), card)
+
+    def make(eager_steps=False):
+        e = Engine(cfg, params, EngineConfig(
+            num_slots=4, max_len=256, chunk_tokens=32, measure=False,
+            paged_kv=paged, page_size=16), device=card)
+        if eager_steps:
+            _eager_steps(e)
+        return e
+    return cfg, make
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_handoff_copies_no_byte_through_the_host(card, paged):
+    """export_session -> import_session between two engines on the card
+    runs no device-to-host copy (``torch.profiler``), counts 0 host
+    bytes, and the destination decodes what the source decodes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg, make = _handoff_engines(card, paged)
+    a, b = make(), make()
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(1, cfg.vocab_size, 45)     # a partial page
+    first = a.prefill_batch([0], [prompt])[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        b.import_session(0, a.export_session(0))
+        torch.cuda.synchronize()
+    events = prof.events()
+    assert any(getattr(e, "device_type", None) == DeviceType.CUDA
+               for e in events), "the profiler traced no device activity"
+    d2h = [e.name for e in events if "DtoH" in e.name
+           or e.name in ("aten::_local_scalar_dense", "aten::item")]
+    assert not d2h, d2h
+    assert b.stats()["handoff_host_bytes"] == 0
+    assert b.history(0) == len(prompt)
+    assert b.decode_batch([0], [first], 4) == a.decode_batch([0], [first], 4)
+    np.testing.assert_allclose(b.last_logits[0], a.last_logits[0],
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_imported_session_decodes_through_captured_graphs(card, paged):
+    """The destination's decode graph is captured before the import (the
+    import writes the arena in place, so the graph still reads it): the
+    imported session's decode replays that graph and gives the eager
+    engine's tokens and logits bit for bit."""
+    cfg, make = _handoff_engines(card, paged)
+    a, b, eager = make(), make(), make(eager_steps=True)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(1, cfg.vocab_size, 37)
+    other = rng.integers(1, cfg.vocab_size, 20)
+    f5 = b.prefill_batch([5], [other])[5]
+    b.decode_batch([5], [f5], 2)                 # captures the 1-row step
+    b.close_session(5)
+    dx = b.decode_executor
+    graphs, replays = len(dx.graphs), dx.replays
+    first = a.prefill_batch([0], [prompt])[0]
+    b.import_session(0, a.export_session(0))
+    got = b.decode_batch([0], [first], 3)
+    fe = eager.prefill_batch([0], [prompt])[0]
+    want = eager.decode_batch([0], [fe], 3)
+    torch.cuda.synchronize()
+    assert first == fe and got == want
+    assert np.array_equal(b.last_logits[0], eager.last_logits[0])
+    assert len(dx.graphs) == graphs and dx.replays == replays + 3
+
+
+def test_dead_engine_refuses_dispatch_on_card(card):
+    cfg, make = _handoff_engines(card, True)
+    e = make()
+    first = e.prefill_batch([0], [np.arange(1, 9)])[0]
+    e.mark_dead()
+    for call in (lambda: e.prefill_batch([1], [np.arange(1, 5)]),
+                 lambda: e.decode_batch([0], [first], 1),
+                 lambda: e.export_session(0)):
+        with pytest.raises(RuntimeError, match="dead"):
+            call()
