@@ -656,20 +656,33 @@ def _nan_past(k, v, valid):
     return kp, vp, k, v
 
 
-def phase_tile_kernels(seed, errs):
+# the non-causal form (causal=False) of the three ragged kernels: at
+# every head width at qwen3-4b's 32 / 8 heads and at 32 / 32 (MHA), over
+# phase 2's ragged stream with each segment's kv length NC_EXTRA keys
+# past its rows, so every query has keys after its own position
+NC_GROUPS = tuple((d, hq, hkv) for d in (64, 80, 96, 128)
+                  for hq, hkv in ((32, 8), (32, 32)))
+NC_EXTRA = [37, 40, 9, 50, 3, 70, 11, 0]
+
+
+def phase_tile_kernels(seed, errs, causal=True):
     """The three ragged prefill kernels over one stream at each of
     TILE_HEADS and WIDTH_HEADS, fp32 and bf16: paged (16-token pages, a
     64-key tile spanning four; table entries past each length poisoned,
     pool rows past each length NaN), the slot arena (rows past each
     length and the park row S_max - 1 NaN, pad segments naming a live
-    slot) and the gathered slots."""
+    slot) and the gathered slots.  ``causal=False``: the non-causal form
+    at NC_GROUPS, each kv length NC_EXTRA keys past its segment's rows,
+    its errors on the ``<kernel>@nc`` rows."""
+    import functools
     from repro_torch.kernels import ragged_prefill as rp
-    rng = np.random.default_rng(seed + 40)
+    rng = np.random.default_rng(seed + 40 + (not causal))
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed + 40)
+    gen.manual_seed(seed + 40 + (not causal))
     n_pad, tail = 2, 9
     lens, hists = TILE_LENS, TILE_HISTS
-    kvl = [h + n for h, n in zip(hists, lens)]
+    extra = [0] * len(lens) if causal else NC_EXTRA
+    kvl = [h + n + e for h, n, e in zip(hists, lens, extra)]
     kvl[TILE_KEYLESS] = 0
     total = sum(lens)
     cu = [0] + [int(c) for c in np.cumsum(lens)] + [total] * n_pad
@@ -688,8 +701,9 @@ def phase_tile_kernels(seed, errs):
                           device=DEVICE)
     for slot, n in zip(slots, kvl):
         slot_ok[slot, :min(n, TILE_S_MAX - 1)] = True
+    form = "tiles" if causal else "tiles nc"
     for dtype in (torch.float32, torch.bfloat16):
-        for d, hq, hkv in _groups():
+        for d, hq, hkv in (_groups() if causal else NC_GROUPS):
             q = torch.randn((total + tail, hq, d), generator=gen,
                             device=DEVICE).to(dtype)
             pools = [torch.randn((n_pages, PS, hkv, d), generator=gen,
@@ -702,34 +716,108 @@ def phase_tile_kernels(seed, errs):
             ka, va, kac, vac = (a.to(dtype) for a in _nan_past(
                 *arena, slot_ok))
             sm = _i32(slot_map).long()
+            c = dict(causal=causal)
             for name, out, plain, args in (
                     ("ragged_prefill_paged",
-                     rp.ragged_prefill_paged(q, kp, vp, _i32(tab), *index),
+                     rp.ragged_prefill_paged(q, kp, vp, _i32(tab), *index,
+                                             **c),
                      rp.ragged_prefill_paged_plain,
                      (q, kpc, vpc, _i32(tab_c)) + index),
                     ("ragged_prefill_arena",
                      rp.ragged_prefill_arena(q, ka, va, _i32(slot_map),
-                                             *index),
+                                             *index, **c),
                      rp.ragged_prefill_arena_plain,
                      (q, kac, vac, _i32(slot_map)) + index),
                     ("ragged_prefill_attn",
                      rp.ragged_prefill_attn(q, ka[sm].contiguous(),
-                                            va[sm].contiguous(), *index),
+                                            va[sm].contiguous(), *index,
+                                            **c),
                      rp.ragged_prefill_attn_plain,
                      (q, kac[sm], vac[sm]) + index)):
                 torch.cuda.synchronize()
-                err, worst, ok, ref = _held(out, plain, *args)
+                err, worst, ok, ref = _held(
+                    out, functools.partial(plain, **c), *args)
                 keyless = ref.abs().amax(dim=(1, 2)) == 0
                 zeros = bool((out[keyless] == 0).all().item()) and \
                     bool(keyless[total:].all().item())
                 ok = ok and zeros and bool(torch.isfinite(out).all())
-                errs.setdefault((_row(name, d), dtype), []).append(err)
-                log(f"[2] {name:20s} tiles {hq}/{hkv} D={d} "
+                row = _row(name, d) if causal else f"{name}@nc"
+                errs.setdefault((row, dtype), []).append(err)
+                log(f"[2] {name:20s} {form} {hq}/{hkv} D={d} "
                     f"{str(dtype):15s} T={total + tail} max_abs_err="
                     f"{err:.3e} err/bound={worst:.3f} "
                     f"tail_and_keyless_zero={zeros} "
                     f"{'ok' if ok else 'FAIL'}")
-                assert ok, f"{name} tiles {hq}/{hkv} D={d} {dtype}"
+                assert ok, f"{name} {form} {hq}/{hkv} D={d} {dtype}"
+    if not causal:
+        # every query of a segment had keys past its own position: the
+        # non-causal form was really taken (each launch counted apart)
+        assert all(getattr(rp, n).noncausal.launches >= 2 * len(NC_GROUPS)
+                   for n in ("ragged_prefill_paged", "ragged_prefill_arena",
+                             "ragged_prefill_attn"))
+
+
+def phase_grad_check(seed):
+    """The nine dispatchers of ``kernels.ops`` on the card, each at small
+    qwen3-4b-headed shapes: under grad mode, with an input that requires
+    grad, each raises before launching (the kernels have no backward
+    kernel, as the Pallas kernels define no VJP); under ``no_grad`` the
+    same call launches its kernel once."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 90)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+
+    kv4, slots, pool = rand(1, 16, HKV, D), rand(2, 16, HKV, D), \
+        rand(4, PS, HKV, D)
+    seg = (_i32([0, 8]), _i32([4]), _i32([12]))
+    table, slot, lens = _i32([[0, 1]]), _i32([1]), _i32([12])
+    host, _ = _sample_batch(np.random.default_rng(seed + 90), 2, 128)
+    x, dt, a, bm, cm, h0 = _ssd_inputs(gen, 1, 64, 1, torch.bfloat16)
+    cases = (
+        ("mha", "flash_attn", rand(1, 8, HQ, D),
+         lambda q: ops.mha(q, kv4, kv4)),
+        ("ragged_mha", "ragged_prefill_attn", rand(8, HQ, D),
+         lambda q: ops.ragged_mha(q, slots[:1], slots[:1], *seg)),
+        ("ragged_mha_arena", "ragged_prefill_arena", rand(8, HQ, D),
+         lambda q: ops.ragged_mha_arena(q, slots, slots, slot, *seg)),
+        ("ragged_mha_paged", "ragged_prefill_paged", rand(8, HQ, D),
+         lambda q: ops.ragged_mha_paged(q, pool, pool, table, *seg)),
+        ("decode", "decode_attn", rand(1, HQ, D),
+         lambda q: ops.decode(q, kv4, kv4, lens)),
+        ("decode_arena", "decode_attn_arena", rand(1, HQ, D),
+         lambda q: ops.decode_arena(q, slots, slots, slot, lens)),
+        ("decode_paged", "decode_attn_paged", rand(1, HQ, D),
+         lambda q: ops.decode_paged(q, pool, pool, table, lens)),
+        ("fused_sample", "fused_sample",
+         torch.as_tensor(host[0], device=DEVICE),
+         lambda lg: ops.fused_sample(lg, *host[1:8])),
+        ("ssd_grouped", "ssd_scan", x,
+         lambda xx: ops.ssd_grouped(xx, dt, a, bm, cm, h0)))
+    launchers = _launchers()
+    for fn_name, kernel, base, call in cases:
+        counter = launchers[kernel]
+        n0 = counter.launches
+        leaf = base.detach().float().to(base.dtype).requires_grad_()
+        with torch.enable_grad():
+            try:
+                call(leaf)
+            except RuntimeError as err:
+                refused = "no backward kernel" in str(err)
+            else:
+                refused = False
+        n1 = counter.launches
+        with torch.no_grad():
+            call(leaf)
+        torch.cuda.synchronize()
+        ok = refused and n1 == n0 and counter.launches == n0 + 1
+        log(f"[2] grad check {fn_name:16s} -> {kernel}: refused under grad "
+            f"mode {refused} (launches {n1 - n0}), ran under no_grad "
+            f"(launches {counter.launches - n1}) {'ok' if ok else 'FAIL'}")
+        assert ok, f"grad check {fn_name}"
 
 
 # the decode kernels' split walk at every GQA group of TILE_HEADS: rows
@@ -2245,6 +2333,126 @@ def phase_cluster_oracle(seed):
         "health": ["healthy", "dead", "healthy", "healthy"]}, row
 
 
+def _watch_spills(arena):
+    """Snapshot every page as it spills (a device clone of each leaf) and
+    hold each promoted page to the snapshot of its key bit for bit, with
+    no host sync: mismatches accumulate in a device flag.  Returns
+    {"spilled", "promoted", "bad" (the flag)}."""
+    snaps = {}
+    seen = {"spilled": 0, "promoted": 0,
+            "bad": torch.zeros((), dtype=torch.bool, device=DEVICE)}
+    spill, promote = arena._spill, arena._promote
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    def watched_spill(key, page):
+        snaps[key] = [{n: a[:, page].clone() for n, a in leaves.items()}
+                      for leaves in arena.arena]
+        seen["spilled"] += 1
+        spill(key, page)
+
+    def watched_promote(key, parent, chunk):
+        node = promote(key, parent, chunk)
+        if node is not None:
+            for want, leaves in zip(snaps[key], arena.arena):
+                for n, a in leaves.items():
+                    seen["bad"] |= (bits(want[n])
+                                    != bits(a[:, node.page])).any()
+            seen["promoted"] += 1
+        return node
+
+    arena._spill, arena._promote = watched_spill, watched_promote
+    return seen
+
+
+def _drive_spill(cfg, params, device, spill):
+    """``benchmarks/bench_mix.py::_drive_paged_spill`` with its seed:
+    stateless turns over five conversations on an 8-page pool of 8-token
+    pages, then every conversation returns; with a 64 MiB host pool the
+    evicted prefix pages spill and are promoted on the return hit, without
+    one (drop-on-evict) the returns re-prefill.  Returns the bench row,
+    the host pool's keys in LRU order, the first tokens and the watch."""
+    from repro_torch.serving import Engine, EngineConfig
+    rng = np.random.default_rng(23)
+    eng = Engine(cfg, params, EngineConfig(
+        num_slots=2, max_len=64, num_pages=8, page_size=8, chunk_tokens=16,
+        token_buckets=(16, 32), decode_buckets=(1, 2),
+        host_pool_bytes=(64 << 20) if spill else 0, measure=False),
+        device=device)
+    watch = _watch_spills(eng.arena) if spill else None
+    prompts = [rng.integers(0, cfg.vocab_size, 24) for _ in range(5)]
+    sid, prompt_tokens, tokens = 100, 0, {}
+    for _ in range(2):                       # round 2 = the returns
+        for p in prompts:
+            eng.open_session(sid)
+            matched = eng.adopt_prefix(sid, p)
+            tokens[sid] = eng.step_mixed([(sid, p[matched:])],
+                                         []).tokens[sid]
+            eng.close_session(sid)
+            prompt_tokens += len(p)
+            sid += 1
+    st = eng.stats()
+    eng.arena.audit()
+    row = {"hit_rate": round(st["prefix_hit_tokens"] / prompt_tokens, 3),
+           **{k: st[k] for k in ("prefix_hit_tokens", "pages_evicted",
+                                 "pages_spilled", "pages_promoted",
+                                 "host_pages_dropped")}}
+    return row, list(eng.arena._host_pool), tokens, watch
+
+
+# BENCH_paged.json's spill and drop_on_evict rows
+SPILL_ROWS = {True: dict(hit_rate=0.333, prefix_hit_tokens=80,
+                         pages_evicted=22, pages_spilled=22,
+                         pages_promoted=10, host_pages_dropped=0),
+              False: dict(hit_rate=0.0, prefix_hit_tokens=0,
+                          pages_evicted=22, pages_spilled=0,
+                          pages_promoted=0, host_pages_dropped=0)}
+
+
+def phase_spill_oracle(seed):
+    """Phase 3's host spill tier at the qwen3-4b smoke config
+    (``CLUSTER_SMOKE``, fp32): ``bench_mix``'s eviction-pressure trace
+    with the host pool and drop-on-evict, on the card against the same
+    on the CPU.  Both arms give identical counters and host-pool keys on
+    both devices and the committed ``BENCH_paged.json`` rows; on the
+    card every promoted page equals, bit for bit, its snapshot taken
+    before it spilled, and the paged prefill kernel ran."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tr
+    cfg = get_smoke("qwen3-4b").replace(**CLUSTER_SMOKE)
+    params = tr.init_params(cfg, seed=seed + 8, device=DEVICE)
+    cpu_params = _to_cpu(params)
+    launchers = _launchers()
+    for spill in (True, False):
+        for fn in launchers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        row, keys, toks, watch = _drive_spill(cfg, params, DEVICE, spill)
+        torch.cuda.synchronize()
+        ran = {k: f.launches for k, f in launchers.items() if f.launches}
+        row_c, keys_c, toks_c, _ = _drive_spill(cfg, cpu_params, "cpu",
+                                                spill)
+        arm = "spill" if spill else "drop_on_evict"
+        log(f"[3] spill {arm}: bench_mix's eviction-pressure trace {row}; "
+            f"card == CPU (counters, host-pool keys): "
+            f"{(row, keys) == (row_c, keys_c)}, first tokens alike "
+            f"{toks == toks_c}; {time.perf_counter() - t0:.1f} s; "
+            f"launches {ran}")
+        assert (row, keys) == (row_c, keys_c), \
+            f"spill {arm}: the card's counters differ from the CPU's"
+        assert row == SPILL_ROWS[spill], f"spill {arm}: {row}"
+        # the trace's steps are prefills only (no decode tick)
+        assert ran.get("ragged_prefill_paged", 0) > 0, \
+            "spill: ragged_prefill_paged never launched"
+        if spill:
+            assert watch["promoted"] == row["pages_promoted"] > 0
+            assert not bool(watch["bad"].item()), \
+                "spill: a promoted page differs from its snapshot"
+            log(f"[3] spill: {watch['promoted']} promoted pages == their "
+                f"snapshots before the spill, bit for bit")
+
+
 def _cluster_trace(cfg, seed):
     """Phase 4's cluster trace, in waves by turn: the port's multi-turn
     chat (6 sessions, a 64-token system prompt from a pool of 2, 16-64
@@ -2533,6 +2741,211 @@ def phase_cluster(seed, card):
         row["recovered_sessions"] >= 1 and row["transcripts_complete"] == 1
 
 # ------------------------------------------------------------ phase 4
+
+# phase 4's host spill tier: the pinned host pool (large enough that no
+# page of the trace is dropped) and the decode budget of every request
+SPILL_HOST_BYTES = 2 << 30
+SPILL_DECODE = 16
+
+
+# the H100 SXM data sheet's host link: PCIe Gen5 x16, 128 GB/s both
+# ways together, the rate used where nvidia-smi cannot read the link
+DATASHEET_LINK_GBS = 64.0
+
+
+def _pcie_link():
+    """(what ``nvidia-smi`` reads of the host link's current generation
+    and width, GB/s each way).  The rate is the generation's (2.5 / 5
+    GT/s a lane for 1-2 at 8b/10b, 8, 16, 32 and 64 GT/s for 3-6 at
+    128b/130b) times the width; an idle link may sit below its maximum
+    generation.  Where the card reports no link (``[N/A]``), the data
+    sheet's ``DATASHEET_LINK_GBS``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    raw = out.splitlines()[0].strip()
+    try:
+        gen, width = (int(x) for x in raw.split(","))
+    except ValueError:
+        return f"{raw} (the data sheet's gen 5 x16)", DATASHEET_LINK_GBS
+    gt = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}[gen]
+    eff = 0.8 if gen <= 2 else 128 / 130
+    return f"gen {gen} x{width}", gt * eff * width / 8
+
+
+def _spill_trace(cfg, seed):
+    """Phase 4's paged multi-turn trace (``_serve_once``'s prompts and
+    turn-2 extensions, from the same seed): one 2048-token prompt and
+    seven 64-token-system-prompt prompts of 80-256 tokens, then each
+    conversation back with 16-64 new tokens."""
+    rng = np.random.default_rng(seed + 2)
+    system = rng.integers(1, cfg.vocab_size, 64)
+    prompts = {0: rng.integers(1, cfg.vocab_size, 2048)}
+    for s in range(1, 8):
+        prompts[s] = np.concatenate(
+            [system, rng.integers(1, cfg.vocab_size,
+                                  int(rng.integers(16, 193)))])
+    news = {s: rng.integers(1, cfg.vocab_size, int(rng.integers(16, 65)))
+            for s in range(8)}
+    return prompts, news
+
+
+def _spill_run(cfg, params, seed, host_bytes, num_pages):
+    """Phase 4's paged trace on a page pool of ``num_pages`` pages, with
+    a host pool of ``host_bytes`` (0: drop on evict), one conversation at
+    a time as a stateless client sends it (each session closed once its
+    answer is complete, so its pages stay only on the radix index): turn
+    1, then every conversation back as its whole transcript plus the new
+    tokens under a new session.  The host tier's copies are timed with
+    CUDA events around each spill's and promote's copies."""
+    from repro_torch.core.slo import percentile
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.loop import ServeLoop
+    engine = Engine(cfg, params, EngineConfig(
+        num_slots=8, max_len=4096, chunk_tokens=256, measure=False,
+        num_pages=num_pages, host_pool_bytes=host_bytes), device=DEVICE)
+    ar = engine.arena
+    watch = _watch_spills(ar) if host_bytes else None
+    events = {"store": [], "load": []}
+    for what in events:
+        def timed(slot, page, _fn=getattr(ar._host_slots, what),
+                  _ev=events[what]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _fn(slot, page)
+            b.record()
+            _ev.append((a, b))
+        setattr(ar._host_slots, what, timed)
+    loop = ServeLoop(engine, _policy(engine, 256, 512), slo_ttft=None)
+    prompts, news = _spill_trace(cfg, seed)
+    launchers = _launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    gen, graphs = {}, []
+
+    def serve(session, tokens):
+        loop.submit(session, tokens, decode_tokens=SPILL_DECODE)
+        while loop.has_work:
+            loop.tick()
+        torch.cuda.synchronize()
+        out = list(loop.generated[session])
+        loop.close_session(session)
+        return out
+
+    t0 = time.perf_counter()
+    for s in range(8):                           # turn 1
+        gen[s] = serve(s, prompts[s])
+    graphs.append(engine.graph_stats()["graphs"])
+    back = {}
+    for s in range(8):                           # the returns
+        back[s] = serve(100 + s, np.concatenate(
+            [prompts[s], gen[s][:-1], news[s]]))
+    graphs.append(engine.graph_stats()["graphs"])
+    wall = time.perf_counter() - t0
+    ttft = [r.ttft() * 1e3 for r in loop.tracker.finished
+            if r.session >= 100]
+    st = engine.stats()
+    ar.audit()
+    ms = {what: [a.elapsed_time(b) for a, b in ev]
+          for what, ev in events.items()}
+    assert len(ttft) == 8 and loop.tracker.report().n == 16
+    assert all(len(g) == SPILL_DECODE + 1 for g in (*gen.values(),
+                                                    *back.values()))
+    return {
+        "counters": {k: st[k] for k in (
+            "pages_evicted", "pages_spilled", "pages_promoted",
+            "host_pages_dropped", "host_pool_pages", "prefix_hit_tokens")},
+        "ttft_mean_ms": float(np.mean(ttft)),
+        "ttft_p90_ms": percentile(ttft, 0.9), "ttft_ms": ttft,
+        "spill_ms": ms["store"], "promote_ms": ms["load"],
+        "pinned_bytes": ar.host_pinned_bytes, "page_bytes": ar._page_bytes,
+        "watch": watch, "launches": {k: f.launches
+                                     for k, f in launchers.items()},
+        "graphs_turn2": graphs[1] - graphs[0], "wall_s": wall,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "back": back}
+
+
+def phase_spill(seed, card):
+    """Phase 4's ``paged_spill`` run: qwen3-4b at full width and depth
+    (36 layers, 32 / 8 heads of 128, bf16; a 16-token page is 2,359,296
+    B) serving phase 4's paged multi-turn trace on a page pool cut to
+    about half the pages turn 1's conversations need (never below what
+    the longest returning conversation holds at once), so turn 1's pages
+    are evicted before they return.  Beside it the same trace without a
+    host pool (drop on evict).  Logs each arm's pages evicted, spilled,
+    promoted and dropped, prefix-hit tokens and the returning turns'
+    TTFT; the tier's ms and GB/s per spill and promote against the host
+    link's rate; the pinned bytes.  Fails if nothing was promoted, a
+    page was dropped, or a promoted page differs from its snapshot."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    cfg = get_config("qwen3-4b")
+    params = tr.init_params(cfg, seed=seed, device=DEVICE)
+    prompts, news = _spill_trace(cfg, seed)
+    ps = 16
+
+    def pages(n):
+        return -(-n // ps)
+
+    turn1 = sum(pages(len(p) + SPILL_DECODE) for p in prompts.values())
+    longest = max(pages(len(prompts[s]) + SPILL_DECODE + len(news[s])
+                        + SPILL_DECODE) for s in prompts)
+    num_pages = max(turn1 // 2, longest + 8)
+    link_read, link = _pcie_link()
+    log(f"[4] paged_spill: qwen3-4b {cfg.num_layers} layers, turn 1's "
+        f"conversations hold {turn1} pages, the longest returning one "
+        f"{longest}; device pool {num_pages} pages "
+        f"({num_pages / turn1:.2f} of turn 1's); host link "
+        f"(pcie.link.gen.current, pcie.link.width.current) {link_read}, "
+        f"{link:.1f} GB/s each way (card {card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for arm, host in (("spill", SPILL_HOST_BYTES), ("drop_on_evict", 0)):
+        gc.collect()
+        r = runs[arm] = _spill_run(cfg, params, seed, host, num_pages)
+        c = r["counters"]
+        log(f"[4] paged_spill {arm}: evicted {c['pages_evicted']}, spilled "
+            f"{c['pages_spilled']}, promoted {c['pages_promoted']}, dropped "
+            f"{c['host_pages_dropped']}, host pool {c['host_pool_pages']} "
+            f"pages at the end, prefix-hit tokens {c['prefix_hit_tokens']}; "
+            f"returning turns' TTFT mean {r['ttft_mean_ms']:.2f} ms p90 "
+            f"{r['ttft_p90_ms']:.2f} ms (each: "
+            + ", ".join(f"{x:.1f}" for x in r["ttft_ms"])
+            + f" ms); step graphs captured in the returns "
+            f"{r['graphs_turn2']}; wall {r['wall_s']:.2f} s, peak "
+            f"{r['peak_gib']:.2f} GiB (card {card})")
+    sp = runs["spill"]
+    for what, key in (("spill", "spill_ms"), ("promote", "promote_ms")):
+        xs = sp[key]
+        med = float(np.median(xs))
+        log(f"[4] paged_spill: {len(xs)} {what}s of a {sp['page_bytes']} B "
+            f"page (CUDA events around the copies): median {med:.4f} ms, "
+            f"mean {float(np.mean(xs)):.4f} ms, min {min(xs):.4f}, max "
+            f"{max(xs):.4f}; {sp['page_bytes'] / med / 1e6:.2f} GB/s at the "
+            f"median against the link's {link:.1f} GB/s (card {card})")
+    log(f"[4] paged_spill: pinned host pool {sp['pinned_bytes']} B "
+        f"({sp['pinned_bytes'] / 2**30:.3f} GiB, "
+        f"{sp['pinned_bytes'] // sp['page_bytes']} page slots) for a "
+        f"budget of {SPILL_HOST_BYTES} B")
+    c = sp["counters"]
+    assert c["pages_promoted"] > 0, "paged_spill: no page promoted"
+    assert c["host_pages_dropped"] == 0, "paged_spill: a page was dropped"
+    assert sp["watch"]["promoted"] == c["pages_promoted"]
+    assert not bool(sp["watch"]["bad"].item()), \
+        "paged_spill: a promoted page differs from its snapshot"
+    assert runs["drop_on_evict"]["counters"]["pages_spilled"] == 0
+    for name in MODE_KERNELS["paged"]:
+        assert sp["launches"][name] > 0, f"paged_spill: {name} never ran"
+    firsts = [[r["back"][s][0] for s in range(8)] for r in runs.values()]
+    log(f"[4] paged_spill: {c['pages_promoted']} promoted pages == their "
+        f"snapshots before the spill, bit for bit; the returns' first "
+        f"tokens alike in both arms: {firsts[0] == firsts[1]}")
+    return runs
+
 
 def _dispatches(engine):
     """(prefill dispatches, decode dispatches) so far: packed and dense
@@ -2969,6 +3382,11 @@ def phase_full(seed, card, arch, kept, layers=None):
                 ticks = (n_pre + n_dec if name == "fused_sample" else
                          n_dec if name.startswith("decode") else n_pre)
                 launches[name] = (n, ticks, mode)
+            # a ragged kernel's non-causal launches in the same run: a
+            # causal model's path takes none
+            nc = f"{name}@nc"
+            if nc in results[0]["launches"] and nc not in launches:
+                launches[nc] = (results[0]["launches"][nc], n_pre, mode)
     return launches
 
 
@@ -3395,6 +3813,40 @@ def phase_times(seed, errs):
             flops=4 * attended * D * hq,
             bytes=(2 * rows * hq * D + 2 * keys * hkv * D) * el
             + 4 * (table.size + 3 * b_rows + 1))
+
+    # the non-causal form on the same chunk at qwen3-4b's heads: every
+    # row attends all 2048 held keys; the yardstick one SDPA call with
+    # is_causal=False over the same gathered keys (the same function)
+    kp, vp = pools_at(HKV)
+    q = torch.randn((rows, HQ, D), generator=gen, device=DEVICE).to(dt)
+    args = (q, kp, vp, _i32(table), _i32(cu), _i32(q_off), _i32(kvl))
+    nc = dict(causal=False)
+    got = rp.ragged_prefill_paged(*args, **nc)
+    err, worst, ok, _ = _held(
+        got, lambda *a: rp.ragged_prefill_paged_plain(*a, **nc), *args)
+    errs.setdefault(("ragged_prefill_paged@nc", dt), []).append(err)
+    pages = table[0][:keys // PS].tolist()
+    kg = kp[pages].reshape(keys, HKV, D).repeat_interleave(HQ // HKV, 1)
+    vg = vp[pages].reshape(keys, HKV, D).repeat_interleave(HQ // HKV, 1)
+    qs, ks, vs = (q.transpose(0, 1)[None], kg.transpose(0, 1)[None],
+                  vg.transpose(0, 1)[None])
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=False)
+    lib_err = (sdpa[0].transpose(0, 1).float() - got.float()).abs().max()
+    log(f"[5] ragged_prefill_paged@nc 512 rows over {keys} keys: "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f}; SDPA "
+        f"(is_causal=False) computes the same function: max diff "
+        f"{lib_err.item():.3e} {'ok' if ok else 'FAIL'}")
+    assert ok and lib_err.item() <= TOL[dt], \
+        "ragged_prefill_paged@nc at main-path shapes"
+    out["ragged_prefill_paged@nc"] = dict(
+        ms=_time(lambda: rp.ragged_prefill_paged(*args, **nc)),
+        plain_ms=_time(lambda: rp.ragged_prefill_paged_plain(*args, **nc),
+                       3),
+        library_ms=_time(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=False)),
+        flops=4 * rows * keys * D * HQ,
+        bytes=(2 * rows * HQ * D + 2 * keys * HKV * D) * el
+        + 4 * (table.size + 3 * b_rows + 1))
 
     # the same kernel at a speculative verify tick's layout: 8 segments
     # of k + 1 = 5 rows, each at history 2043 over 2048 keys (what a
@@ -4299,6 +4751,9 @@ KERNELS.update({f"{name}@d{d}": dict(KERNELS[name]) for name in WIDTH_KERNELS
 # the SSD scan at jamba's layout (128 heads, B/C in 8 groups of 16): the
 # same library and TPU kernel, checked, timed and counted on its own
 KERNELS["ssd_scan@grouped"] = dict(KERNELS["ssd_scan"])
+# the three ragged kernels, whose rows also carry their non-causal form
+RAGGED_KERNELS = ("ragged_prefill_paged", "ragged_prefill_arena",
+                  "ragged_prefill_attn")
 
 
 def phase_launcher(card):
@@ -4365,6 +4820,8 @@ def main() -> int:
         phase_kernels(args.seed, errs)
         phase_slot_kernels(args.seed, errs)
         phase_tile_kernels(args.seed, errs)
+        phase_tile_kernels(args.seed, errs, causal=False)
+        phase_grad_check(args.seed)
         phase_decode_groups(args.seed, errs)
         phase_sample_kernel(args.seed, errs)
         phase_ssd_kernel(args.seed, errs)
@@ -4391,6 +4848,10 @@ def main() -> int:
         t3 = time.perf_counter()
         phase_cluster_oracle(args.seed)
         log(f"[t] phase 3 cluster scenarios took "
+            f"{time.perf_counter() - t3:.1f} s")
+        t3 = time.perf_counter()
+        phase_spill_oracle(args.seed)
+        log(f"[t] phase 3 spill scenario took "
             f"{time.perf_counter() - t3:.1f} s")
     log(f"[t] phase 3 done at {time.perf_counter() - t0:.1f} s")
     if "4" in phases:
@@ -4442,6 +4903,8 @@ def main() -> int:
         # the multi-engine cluster (qwen3-4b), then the paper's model,
         # qwen2.5-32b, at full width and depth on the paged default
         for what, fn in (("cluster", lambda: phase_cluster(args.seed, card)),
+                         ("paged_spill", lambda: phase_spill(args.seed,
+                                                             card)),
                          ("qwen2.5-32b", lambda: phase_full(
                              args.seed, card, "qwen2.5-32b", {"paged": 1}))):
             gc.collect()
@@ -4468,7 +4931,7 @@ def main() -> int:
         n, ticks, mode = launches.get(name, (None, None, None))
         e16 = errs.get((name, torch.bfloat16))
         e32 = errs.get((name, torch.float32))
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "jax": meta["jax"],
             "launches": n, "launches_mode": mode,
@@ -4477,7 +4940,23 @@ def main() -> int:
             "max_abs_err_fp32": max(e32) if e32 else None,
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms")}
+        if name in RAGGED_KERNELS:
+            # the non-causal form: its launches on the main path (none:
+            # every served model is causal), its errors in phase 2 and
+            # 5, and, for the paged kernel, its phase-5 times
+            nc = f"{name}@nc"
+            tn = times.get(nc, {})
+            n16 = errs.get((nc, torch.bfloat16))
+            n32 = errs.get((nc, torch.float32))
+            row.update({
+                "launches_nc": launches.get(nc, (None,))[0],
+                "max_abs_err_nc": max(n16) if n16 else None,
+                "max_abs_err_nc_fp32": max(n32) if n32 else None,
+                **{f"{k}_nc": tn.get(k) for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}})
+        rows.append(row)
     log(f"[7] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": rows}))

@@ -1,18 +1,21 @@
-// Ragged (packed, padding-free) causal prefill flash attention for Hopper
-// (sm_90a), over any KV layout of attn_common.cuh.  Each of
+// Ragged (packed, padding-free) prefill flash attention for Hopper
+// (sm_90a), causal or not, over any KV layout of attn_common.cuh.  Each of
 // ragged_prefill_paged.cu, ragged_prefill_arena.cu and
 // ragged_prefill_attn.cu instantiates it for its layout and exports one C
 // entry point.
 //
 // Computes, for a packed flat token stream q (T, Hq, D) whose segments
 // are given by cu_seqlens (B+1,): every row of segment b attends its
-// segment's keys at positions < kv_lengths[b] and <= its own position
-// q_offsets[b] + (row - cu_seqlens[b]); with a window W > 0 (the ring
-// and rolling layouts of attn_common.cuh) also > its position - W, and
-// only among the positions the layout still holds.  GQA maps query head
-// h to KV head h / rep; softmax is online in fp32; p is rounded to the
-// storage type before the PV product; rows past cu_seqlens[B] and rows
-// with no valid key write exactly 0.
+// segment's keys at positions < kv_lengths[b] and, if causal, <= its own
+// position q_offsets[b] + (row - cu_seqlens[b]); with a window W > 0
+// (the ring and rolling layouts of attn_common.cuh) also > its position
+// - W, and only among the positions the layout still holds.  Non-causal
+// (causal == 0), each row attends every held key of its segment below
+// kv_lengths[b] (and above its position - W when windowed), as the TPU
+// kernels' causal=False form does.  GQA maps query head h to KV head h /
+// rep; softmax is online in fp32; p is rounded to the storage type
+// before the PV product; rows past cu_seqlens[B] and rows with no valid
+// key write exactly 0.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): the
 // main-path chunk (512 rows at history 1536 over 2048 keys, 32/8 heads,
@@ -47,7 +50,8 @@
 // zeros), and the launch's ceil(T / rows) + B blocks bound that count;
 // blocks past it exit.  A pad segment (cu[b] == cu[b+1]) owns no tile.
 // Within segment b the key walk stops at min(kv_len, causal frontier of
-// the tile's last row), so no row at or past kv_len is ever read:
+// the tile's last row) — at kv_len when non-causal — so no row at or
+// past kv_len is ever read:
 // page-table entries past the valid length, and an arena slot's park row
 // S_max - 1 that pad and tail rows write in the same step, may hold
 // anything.  Windowed, the walk starts at the window's lower edge for
@@ -80,7 +84,8 @@ ragged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       const int* __restrict__ q_offsets,
                       const int* __restrict__ kv_lengths,
                       T* __restrict__ out, int n_rows, int hq, int hkv,
-                      int n_seqs, int rows_per_block, int window) {
+                      int n_seqs, int rows_per_block, int causal,
+                      int window) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = blockIdx.y;
   // this block's segment and tile within it (block-uniform)
@@ -111,7 +116,7 @@ ragged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       seg < n_seqs ? q_offsets[seg] + (r0 - s0) : 0,
                       kv_lo,
                       kv_hi,
-                      1,
+                      causal,
                       window};
   if (seg == n_seqs) {                // rows past cu_seqlens[B]: zeros
     for (int i = threadIdx.x; i < a.n_rows * a.rep * D; i += blockDim.x)
@@ -125,7 +130,7 @@ template <typename T, int D, typename Layout>
 int launch(const void* q, const void* k, const void* v, Layout layout,
            const void* cu_seqlens, const void* q_offsets,
            const void* kv_lengths, void* out, int n_rows, int hq, int hkv,
-           int n_seqs, int window, cudaStream_t stream) {
+           int n_seqs, int causal, int window, cudaStream_t stream) {
   auto kern = ragged_prefill_kernel<T, D, Layout>;
   const size_t smem = Tile<T, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -140,27 +145,30 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
       static_cast<const T*>(v), layout, static_cast<const int*>(cu_seqlens),
       static_cast<const int*>(q_offsets), static_cast<const int*>(kv_lengths),
       static_cast<T*>(out), n_rows, hq, hkv, n_seqs, rows_per_block,
-      window);
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 80, 96 or 128 (the
-// tile core's widths); window: the sliding window (0 = none).  Returns
+// tile core's widths); causal: 1 or 0; window: the sliding window (0 =
+// none).  Returns
 // the launch's cudaGetLastError() (0 on success); never synchronises.
 template <typename Layout>
 int entry(const void* q, const void* k, const void* v, Layout layout,
           const void* cu_seqlens, const void* q_offsets,
           const void* kv_lengths, void* out, int n_rows, int hq, int hkv,
-          int head_dim, int n_seqs, int window, int dtype, void* stream) {
+          int head_dim, int n_seqs, int causal, int window, int dtype,
+          void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxRep || n_rows <= 0 ||
-      n_seqs < 0 || window < 0 || layout.depth() <= 0)
+      n_seqs < 0 || (causal != 0 && causal != 1) || window < 0 ||
+      layout.depth() <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return with_form(dtype, head_dim, [&](auto form) {
     using F = decltype(form);
     return launch<typename F::T, F::D>(q, k, v, layout, cu_seqlens,
                                        q_offsets, kv_lengths, out, n_rows,
-                                       hq, hkv, n_seqs, window, s);
+                                       hq, hkv, n_seqs, causal, window, s);
   });
 }
 

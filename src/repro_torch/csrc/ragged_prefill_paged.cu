@@ -1,12 +1,13 @@
 // Paged ragged prefill flash attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/ragged_prefill.py::
-// ragged_prefill_paged (pallas_call at :401): the packed causal prefill
-// of ragged_prefill.cuh with each segment reading its KV through a page
-// table (B, P_max) into shared page pools (N_pages + 1, page_size, Hkv,
-// D).  page_table[b, i] is read only for key positions < kv_lengths[b],
-// so it is never dereferenced for i >= ceil(kv_len_b / page_size)
-// (entries past the valid length may point anywhere).
+// ragged_prefill_paged (pallas_call at :401): the packed prefill of
+// ragged_prefill.cuh, causal or not (causal = 1 or 0), with each
+// segment reading its KV through a page table (B, P_max) into shared
+// page pools (N_pages + 1, page_size, Hkv, D).  page_table[b, i] is
+// read only for key positions < kv_lengths[b], so it is never
+// dereferenced for i >= ceil(kv_len_b / page_size) (entries past the
+// valid length may point anywhere).
 //
 // window > 0 selects the TPU kernel's window= form: the table is then a
 // RING over its P_max entries (attn_common.cuh RingLayout), position p
@@ -22,19 +23,20 @@ extern "C" int ragged_prefill_paged_launch(
     const void* q, const void* k, const void* v, const void* page_table,
     const void* cu_seqlens, const void* q_offsets, const void* kv_lengths,
     void* out, int n_rows, int hq, int hkv, int head_dim, int page_size,
-    int n_seqs, int p_max, int window, int dtype, void* stream) {
+    int n_seqs, int p_max, int causal, int window, int dtype,
+    void* stream) {
   const int* pt = static_cast<const int*>(page_table);
   if (window > 0)
     return attn::prefill::entry(q, k, v,
                                 attn::RingLayout{pt, page_size, p_max},
                                 cu_seqlens, q_offsets, kv_lengths, out,
-                                n_rows, hq, hkv, head_dim, n_seqs, window,
-                                dtype, stream);
+                                n_rows, hq, hkv, head_dim, n_seqs, causal,
+                                window, dtype, stream);
   return attn::prefill::entry(q, k, v,
                               attn::PagedLayout{pt, page_size, p_max},
                               cu_seqlens, q_offsets, kv_lengths, out,
-                              n_rows, hq, hkv, head_dim, n_seqs, 0, dtype,
-                              stream);
+                              n_rows, hq, hkv, head_dim, n_seqs, causal, 0,
+                              dtype, stream);
 }
 
 // The launch facts of the kernel at head_dim and dtype over a page table

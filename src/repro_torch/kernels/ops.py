@@ -4,6 +4,11 @@ The dispatch follows the tensor's device and nothing else: a CUDA tensor
 reaches the hand-written CUDA kernel (which raises on what it does not
 take), a CPU tensor the plain PyTorch version.  Nothing is caught and
 nothing falls back; there is no backend switch.
+
+The CUDA kernels have no backward kernels, as the Pallas kernels they
+port define no VJP: each CUDA branch first runs ``check_no_grad``, which
+raises where autograd would record the call, rather than return a result
+cut off from the graph.  The plain versions differentiate.
 """
 from __future__ import annotations
 
@@ -37,6 +42,11 @@ LAUNCHERS = {
     "decode_attn_paged@window": _decode.decode_attn_paged.window,
     "ragged_prefill_arena@window": _prefill.ragged_prefill_arena.window,
     "decode_attn_arena@window": _decode.decode_attn_arena.window,
+    # the non-causal form of the three ragged prefill kernels: each
+    # non-causal launch counts here and in its kernel's own count
+    "ragged_prefill_paged@nc": _prefill.ragged_prefill_paged.noncausal,
+    "ragged_prefill_arena@nc": _prefill.ragged_prefill_arena.noncausal,
+    "ragged_prefill_attn@nc": _prefill.ragged_prefill_attn.noncausal,
     # the SSD scan with B/C in several groups of several heads each:
     # each such launch counts here and in the kernel's own count
     "ssd_scan@grouped": _ssd.ssd_scan.grouped,
@@ -54,6 +64,21 @@ def _no_device(fn: str, dev: torch.device):
     return RuntimeError(f"{fn}: no implementation for tensors on {dev}")
 
 
+def check_no_grad(fn: str, *inputs) -> None:
+    """Raise RuntimeError when grad mode is on and any tensor of
+    ``inputs`` requires grad: kernel ``fn`` writes its output through a
+    raw pointer, so autograd would get a result with no ``grad_fn`` and
+    no error.  There is no backward kernel yet (ROADMAP item 15b); run
+    under ``torch.no_grad()`` or on tensors that do not require grad."""
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
+        raise RuntimeError(
+            f"{fn}: the CUDA kernel has no backward kernel yet (ROADMAP "
+            "item 15b), and an input requires grad; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+
+
 def mha(q, k, v, q_offsets=None, kv_lengths=None, *, causal=True,
         window: Optional[int] = None) -> torch.Tensor:
     """Dense prefill / re-prefill attention, and an encoder layer's.
@@ -66,6 +91,7 @@ def mha(q, k, v, q_offsets=None, kv_lengths=None, *, causal=True,
     if kv_lengths is None:
         kv_lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     if q.device.type == "cuda":
+        check_no_grad("mha", q, k, v)
         return _flash.flash_attn(q, k, v, q_offsets, kv_lengths,
                                  causal=causal, window=window)
     if q.device.type == "cpu":
@@ -85,6 +111,7 @@ def ragged_mha(q, k, v, cu_seqlens, q_offsets=None, kv_lengths=None, *,
     if kv_lengths is None:
         kv_lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     if q.device.type == "cuda":
+        check_no_grad("ragged_mha", q, k, v)
         return _prefill.ragged_prefill_attn(q, k, v, cu_seqlens, q_offsets,
                                             kv_lengths, causal=causal)
     if q.device.type == "cpu":
@@ -106,6 +133,7 @@ def ragged_mha_arena(q, k, v, slot_map, cu_seqlens, q_offsets=None,
         kv_lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
                                 device=q.device)
     if q.device.type == "cuda":
+        check_no_grad("ragged_mha_arena", q, k, v)
         return _prefill.ragged_prefill_arena(
             q, k, v, slot_map, cu_seqlens, q_offsets, kv_lengths,
             causal=causal, window=window)
@@ -130,6 +158,7 @@ def ragged_mha_paged(q, k, v, page_table, cu_seqlens, q_offsets=None,
         kv_lengths = torch.full((b,), k.shape[1] * p_max, dtype=torch.int32,
                                 device=q.device)
     if q.device.type == "cuda":
+        check_no_grad("ragged_mha_paged", q, k, v)
         return _prefill.ragged_prefill_paged(
             q, k, v, page_table, cu_seqlens, q_offsets, kv_lengths,
             causal=causal, window=window)
@@ -145,6 +174,7 @@ def decode(q, k, v, lengths) -> torch.Tensor:
     D); k, v: (B, S, Hkv, D), row b reading cache row b; lengths: (B,)
     valid KV entries."""
     if q.device.type == "cuda":
+        check_no_grad("decode", q, k, v)
         return _decode.decode_attn(q, k, v, lengths)
     if q.device.type == "cpu":
         return _decode.decode_attn_plain(q, k, v, lengths)
@@ -157,6 +187,7 @@ def decode_arena(q, k, v, slot_map, lengths, *,
     k, v: (N_slots, S_max, Hkv, D) full arenas; slot_map, lengths:
     (B,)."""
     if q.device.type == "cuda":
+        check_no_grad("decode_arena", q, k, v)
         return _decode.decode_attn_arena(q, k, v, slot_map, lengths,
                                          window=window)
     if q.device.type == "cpu":
@@ -171,6 +202,7 @@ def decode_paged(q, k, v, page_table, lengths, *,
     (N_pages, page_size, Hkv, D) page pools; page_table: (B, P_max);
     lengths: (B,)."""
     if q.device.type == "cuda":
+        check_no_grad("decode_paged", q, k, v)
         return _decode.decode_attn_paged(q, k, v, page_table, lengths,
                                          window=window)
     if q.device.type == "cpu":
@@ -186,6 +218,8 @@ def fused_sample(logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft):
     arrays.  Returns (token (R,) int32, p_draft (R,) float32, alt (R,)
     int32) on ``logits``' device."""
     if logits.device.type == "cuda":
+        check_no_grad("fused_sample", logits, temp, top_k, top_p, bias_ids,
+                      bias_vals, u, draft)
         return _sampling.fused_sample(logits, temp, top_k, top_p, bias_ids,
                                       bias_vals, u, draft)
     if logits.device.type == "cpu":
@@ -205,6 +239,7 @@ def ssd_grouped(x, dt, a, bg, cg, init_state=None, *, chunk=128):
         init_state = torch.zeros((b, nh, hd, bg.shape[-1]),
                                  dtype=torch.float32, device=x.device)
     if x.device.type == "cuda":
+        check_no_grad("ssd_grouped", x, dt, a, bg, cg, init_state)
         return _ssd.ssd_scan(x, dt.float().contiguous(),
                              a.float().contiguous(), bg, cg,
                              init_state.float().contiguous(), chunk=chunk)

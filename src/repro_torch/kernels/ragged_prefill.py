@@ -14,14 +14,18 @@ where a segment's keys live:
   per-segment cache, segment b reading row b, the port of
   ``repro.kernels.ragged_prefill.ragged_prefill_attn``.
 
-The paged and arena kernels also take ``window=``, the TPU kernels'
-windowed forms over a ring page table and rolling slots.
+Each takes ``causal=`` as the TPU kernels do: causal, every row attends
+its segment's keys up to its own position; non-causal, every held key of
+its segment below its kv length.  The paged and arena kernels also take
+``window=``, the TPU kernels' windowed forms over a ring page table and
+rolling slots.
 
 Each launcher takes CUDA tensors only and raises on anything its kernel
 does not take; the ``*_plain`` functions (``kernels/ref.py``) compute the
 same functions with plain tensor ops.  Each counts its launches in
-``launches``, a windowed launch also in ``window.launches``, and a
-launch at head width d also in ``width[d].launches``.
+``launches``, a windowed launch also in ``window.launches``, a
+non-causal launch also in ``noncausal.launches``, and a launch at head
+width d also in ``width[d].launches``.
 """
 from __future__ import annotations
 
@@ -94,12 +98,6 @@ def _check_segments(n_seqs: int, cu_seqlens: torch.Tensor,
                          "kv_lengths (B,)")
 
 
-def _refuse(causal: bool) -> None:
-    if not causal:
-        raise NotImplementedError(
-            "non-causal (encoder-only) prefill is not on the serving path")
-
-
 def window_arg(window: Optional[int]) -> int:
     """The C launchers' window argument: 0 for none, else the width,
     which must be >= 1."""
@@ -111,8 +109,8 @@ def window_arg(window: Optional[int]) -> int:
 
 
 class LaunchCount:
-    """The launch counter of a kernel's windowed form or of one of its
-    head widths."""
+    """The launch counter of a kernel's windowed or non-causal form or of
+    one of its head widths."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -159,13 +157,15 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layer's slice of the stacked pool); page_table: (B, P_max) int32;
     cu_seqlens: (B+1,), q_offsets, kv_lengths: (B,) int32, all on the
     card.  Returns (T, Hq, D) in q's dtype, zeros on rows past
-    cu_seqlens[-1].  ``window`` selects the ring-table form: the table
-    is a ring over its P_max entries, position p on entry (p // ps) %
-    P_max, and each row attends the held keys in (its position −
-    window, its position].  Never synchronises and never reads a device
-    tensor back to the host.
+    cu_seqlens[-1].  Causal, each row of segment b attends the keys at
+    positions <= its own (q_offsets[b] + its row in the segment) and <
+    kv_lengths[b]; non-causal (``causal=False``), every key < kv_lengths[b].
+    ``window`` selects the ring-table form: the table is a ring over its
+    P_max entries, position p on entry (p // ps) % P_max, and each row
+    attends the held keys in (its position − window, its position] —
+    non-causal, every held key above its position − window.  Never
+    synchronises and never reads a device tensor back to the host.
     """
-    _refuse(causal)
     w = window_arg(window)
     check_kernel_inputs(q, k, v, page_table, cu_seqlens, q_offsets,
                         kv_lengths, max_rep=32)
@@ -181,9 +181,10 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch("ragged_prefill_paged",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
            cu_seqlens.data_ptr(), q_offsets.data_ptr(), kv_lengths.data_ptr(),
-           out.data_ptr(), t, hq, hkv, d, ps, b, p_max, w, _DTYPES[q.dtype],
-           torch.cuda.current_stream(q.device).cuda_stream)
+           out.data_ptr(), t, hq, hkv, d, ps, b, p_max, int(causal), w,
+           _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_paged.launches += 1
+    ragged_prefill_paged.noncausal.launches += not causal
     ragged_prefill_paged.window.launches += bool(w)
     ragged_prefill_paged.width[d].launches += 1
     return out
@@ -202,12 +203,14 @@ def ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     segments name any live slot); cu_seqlens: (B+1,), q_offsets,
     kv_lengths: (B,) int32, all on the card.  Returns (T, Hq, D) in q's
     dtype, zeros on rows past cu_seqlens[-1] and on rows of segments
-    with no valid key.  ``window`` selects the rolling form: each slot a
-    rolling cache of depth S_max (position p at row p % S_max, pads on
-    the scratch slot), each row attending the held keys in (its
-    position − window, its position].  Never synchronises.
+    with no valid key.  Causal, each row attends its segment's keys up to
+    its own position; non-causal (``causal=False``), every key below its
+    segment's kv length.  ``window`` selects the rolling form: each slot
+    a rolling cache of depth S_max (position p at row p % S_max, pads on
+    the scratch slot), each row attending the held keys in (its position
+    − window, its position] — non-causal, every held key above its
+    position − window.  Never synchronises.
     """
-    _refuse(causal)
     w = window_arg(window)
     check_kernel_inputs(q, k, v, slot_map, cu_seqlens, q_offsets,
                         kv_lengths, max_rep=32)
@@ -223,9 +226,10 @@ def ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch("ragged_prefill_arena",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_map.data_ptr(),
            cu_seqlens.data_ptr(), q_offsets.data_ptr(), kv_lengths.data_ptr(),
-           out.data_ptr(), t, hq, hkv, d, s_max, b, w, _DTYPES[q.dtype],
-           torch.cuda.current_stream(q.device).cuda_stream)
+           out.data_ptr(), t, hq, hkv, d, s_max, b, int(causal), w,
+           _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_arena.launches += 1
+    ragged_prefill_arena.noncausal.launches += not causal
     ragged_prefill_arena.window.launches += bool(w)
     ragged_prefill_arena.width[d].launches += 1
     return out
@@ -242,9 +246,10 @@ def ragged_prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     segment b reading row b; cu_seqlens: (B+1,), q_offsets, kv_lengths:
     (B,) int32, all on the card.  Returns (T, Hq, D) in q's dtype, zeros
     on rows past cu_seqlens[-1] and on rows of segments with no valid
-    key.  Never synchronises.
+    key.  Causal, each row attends its segment's keys up to its own
+    position; non-causal (``causal=False``), every key below its
+    segment's kv length.  Never synchronises.
     """
-    _refuse(causal)
     check_kernel_inputs(q, k, v, cu_seqlens, q_offsets, kv_lengths,
                         max_rep=32)
     t, hq, d = q.shape
@@ -256,18 +261,22 @@ def ragged_prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch("ragged_prefill_attn",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), cu_seqlens.data_ptr(),
            q_offsets.data_ptr(), kv_lengths.data_ptr(), out.data_ptr(),
-           t, hq, hkv, d, s, b, _DTYPES[q.dtype],
+           t, hq, hkv, d, s, b, int(causal), _DTYPES[q.dtype],
            torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_attn.launches += 1
+    ragged_prefill_attn.noncausal.launches += not causal
     ragged_prefill_attn.width[d].launches += 1
     return out
 
 
 ragged_prefill_paged.launches = 0
+ragged_prefill_paged.noncausal = LaunchCount()
 ragged_prefill_paged.window = LaunchCount()
 ragged_prefill_paged.width = width_counts()
 ragged_prefill_arena.launches = 0
+ragged_prefill_arena.noncausal = LaunchCount()
 ragged_prefill_arena.window = LaunchCount()
 ragged_prefill_arena.width = width_counts()
 ragged_prefill_attn.launches = 0
+ragged_prefill_attn.noncausal = LaunchCount()
 ragged_prefill_attn.width = width_counts()

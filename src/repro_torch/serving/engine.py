@@ -58,9 +58,10 @@ Sessions hand off between engines (``export_session`` /
 rows or page rows cross as device tensors, written into the
 destination's arena in place, and ``handoff_host_bytes`` counts any KV
 byte that would have crossed through the host (0 by construction).  A
-crashed engine is ``mark_dead``-ed and refuses every dispatch.  Not
-ported: the host spill tier (``host_pool_bytes > 0``, ROADMAP item 11),
-which raises ``NotImplementedError``.
+crashed engine is ``mark_dead``-ed and refuses every dispatch.  With
+``host_pool_bytes > 0`` the page pool's host spill tier demotes the
+index's evicted pages to host memory and promotes them back on a prefix
+hit (``serving.kvcache.PagedKVArena``).
 """
 from __future__ import annotations
 
@@ -157,7 +158,10 @@ class EngineConfig:
     page_size: int = 16
     num_pages: Optional[int] = None  # None → num_slots·max_len/page_size
     prefix_cache: bool = True        # radix prefix index on/off
-    host_pool_bytes: int = 0         # host spill tier: not ported yet
+    # host spill tier of the page pool: evicted index pages demote to a
+    # host pool of this many bytes and promote back on a prefix hit
+    # (0 = drop on evict)
+    host_pool_bytes: int = 0
     # route sampled rows through the fused sampling kernel (bias +
     # temperature + top-k/top-p + the inverse-CDF draw on the device,
     # host uniforms shipped in): only the (R,) ids cross to host.  Takes
@@ -1518,7 +1522,7 @@ class Engine:
             "chunk_hit_tokens": getattr(ar, "chunk_hit_tokens", 0),
             "pages_cow_forked": getattr(ar, "pages_cow_forked", 0),
             "pages_evicted": getattr(ar, "pages_evicted", 0),
-            # host spill tier (ROADMAP item 11): 0 until it is ported
+            # host spill tier (0 on slot arenas and without a host pool)
             "pages_spilled": getattr(ar, "pages_spilled", 0),
             "pages_promoted": getattr(ar, "pages_promoted", 0),
             "host_pool_pages": getattr(ar, "host_pool_pages", 0),

@@ -16,11 +16,13 @@ where the JAX arenas hand out a reused slot or page with the state its
 last owner left (ROADMAP Queue 3).  Session handoff (``export_slot`` /
 ``import_slot``, ``export_pages`` / ``import_session``) moves KV from
 arena to arena on the device, writing the destination's tensors in
-place.  Not ported: the host spill tier (``host_pool_bytes > 0``, ROADMAP
-item 11), which raises ``NotImplementedError``.
+place.  The page pool's host spill tier (``host_pool_bytes > 0``) keeps
+pages the index evicts in page slots of host memory (pinned when the
+pool is on the card) and promotes them back into device pages in place.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -338,6 +340,70 @@ class RadixPageIndex:
         return self._n_pages
 
 
+class _HostSlots:
+    """Page slots in host memory for the page pool's spill tier.
+
+    ``capacity`` pages fit the byte budget; one slot more holds the entry
+    a promotion has taken out of the pool while the allocation that
+    receives it spills another page.  The slots are allocated once, with
+    the arena, pinned when the pool is on the card, each leaf ``(n, G,
+    *page)`` so that a slot's row is contiguous; no allocation runs on
+    the serving path.  ``store`` and ``load`` are one copy per leaf on
+    the current stream, asynchronous from pinned memory; no code reads a
+    slot on the host, and a released slot is written again only by a
+    later copy on the same stream, so in stream order.  Without tensors
+    (bookkeeping arenas) a slot is only a number.
+    """
+
+    def __init__(self, arena: Optional[List[Dict[str, torch.Tensor]]],
+                 capacity: int):
+        self.arena = arena
+        self.size = capacity + 1 if capacity > 0 else 0
+        self._free: List[int] = list(range(self.size - 1, -1, -1))
+        self._bufs: List[Dict[str, torch.Tensor]] = []
+        if arena is not None and self.size:
+            self._bufs = [{name: torch.empty(
+                (self.size, a.shape[0]) + tuple(a.shape[2:]),
+                dtype=a.dtype, pin_memory=a.is_cuda)
+                for name, a in leaves.items()} for leaves in arena]
+        self.nbytes = sum(b.numel() * b.element_size()
+                          for bufs in self._bufs for b in bufs.values())
+
+    @property
+    def free(self) -> int:
+        return len(self._free)
+
+    def take(self) -> int:
+        return self._free.pop()
+
+    def release(self, slot: int) -> None:
+        self._free.append(slot)
+
+    @staticmethod
+    def _check_not_capturing() -> None:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a host-tier copy inside a graph capture")
+
+    def store(self, slot: int, page: int) -> None:
+        """Copy device page ``page`` (every leaf) into ``slot``."""
+        if not self._bufs:
+            return
+        self._check_not_capturing()
+        for leaves, bufs in zip(self.arena, self._bufs):
+            for name, a in leaves.items():
+                bufs[name][slot].copy_(a[:, page], non_blocking=True)
+
+    def load(self, slot: int, page: int) -> None:
+        """Write ``slot`` back into device page ``page`` in place."""
+        if not self._bufs:
+            return
+        self._check_not_capturing()
+        for leaves, bufs in zip(self.arena, self._bufs):
+            for name, a in leaves.items():
+                a[:, page].copy_(bufs[name][slot], non_blocking=True)
+
+
 class PagedKVArena:
     """Paged KV cache: fixed-size pages in a shared pool + per-session
     page tables, with radix-tree prefix reuse, COW forks, and LRU
@@ -377,8 +443,23 @@ class PagedKVArena:
     checkpoint, copying it into the session's state page.  Every page,
     token pages included, carries a state slot's worth of SSM leaves.
 
+    ``host_pool_bytes > 0``: the host spill tier.  Eviction DEMOTES an
+    index-only LRU page to a bounded host pool instead of dropping it
+    (the oldest entries age out past the byte budget), and
+    ``match_prefix`` / ``match_extend`` promote host entries back into
+    fresh device pages on a hit.  Session-pinned pages (rc > 1) are never
+    spill candidates; a state checkpoint is released, not spilled (a
+    promoted page re-enters the index KV-only).  A page spills whole:
+    every leaf, the SSM leaves of a hybrid pool too, and ``_page_bytes``
+    counts them all.  The entries live in page slots of host memory,
+    pinned for a pool on the card (``_HostSlots``); a spill and a
+    promote are one asynchronous copy per leaf on the current stream,
+    and the device page is written in place, so the step graphs' captured
+    addresses stay valid.  Both run from host-side planning
+    (``_alloc_page``, the prefix walks), never inside a graph capture.
+
     ``cfg=None`` builds a bookkeeping-only arena (no tensors) for
-    property tests of the share/fork/evict/write state machine.
+    property tests of the share/fork/evict/spill/write state machine.
     """
 
     def __init__(self, cfg: Optional[ModelConfig], num_pages: int,
@@ -387,10 +468,6 @@ class PagedKVArena:
                  ring_pages: Optional[int] = None,
                  state_slots: bool = False,
                  host_pool_bytes: int = 0, device="cuda"):
-        if host_pool_bytes > 0:
-            raise NotImplementedError(
-                "the host spill tier is not ported yet "
-                "(ROADMAP Queue 1, item 11)")
         self.cfg = cfg
         self.num_pages = num_pages
         self.page_size = page_size
@@ -413,11 +490,27 @@ class PagedKVArena:
             prefix_cache = False               # ring pages are overwritten
         self.index: Optional[RadixPageIndex] = (
             RadixPageIndex(page_size) if prefix_cache else None)
+        # host spill tier: full-chunk-path key -> host page slot (an int
+        # in bookkeeping mode too); LRU = insertion order
+        self.host_pool_bytes = host_pool_bytes
+        self._host_pool: "OrderedDict[Tuple, int]" = OrderedDict()
+        self._host_bytes = 0
+        if self.arena is not None:
+            self._page_bytes = int(sum(
+                a[:, 0].numel() * a.element_size()
+                for leaves in self.arena for a in leaves.values()))
+        else:
+            self._page_bytes = 1               # bookkeeping: count pages
+        self._host_slots = _HostSlots(
+            self.arena, max(host_pool_bytes, 0) // self._page_bytes)
         # proof counters (engine.stats())
         self.prefix_hit_tokens = 0
         self.chunk_hit_tokens = 0
         self.pages_cow_forked = 0
         self.pages_evicted = 0
+        self.pages_spilled = 0
+        self.pages_promoted = 0
+        self.host_pages_dropped = 0
         self.state_checkpoints = 0
         self.handoff_pages_deduped = 0
         # the paged paths never materialize whole sequences: kept for
@@ -445,25 +538,102 @@ class PagedKVArena:
         return page
 
     def _evict(self, need: int) -> None:
-        """LRU-evict leaf pages held ONLY by the radix index."""
+        """LRU-evict leaf pages held ONLY by the radix index; with a
+        host tier the victim is DEMOTED (spilled) instead of dropped, and
+        its state checkpoint, if any, is released: checkpoints never
+        survive demotion."""
         if self.index is None:
             return
         freed = 0
         while freed < need:
             victim = None
             for leaf in self.index.leaves():
+                if leaf.page < 0:
+                    continue                   # mid-promotion placeholder
                 if self._refcount[leaf.page] != 1:
                     continue                   # pinned by a live session
                 if victim is None or leaf.last_use < victim.last_use:
                     victim = leaf
             if victim is None:
                 return
+            if self.host_pool_bytes > 0:
+                self._spill(self._node_key(victim), victim.page)
             if victim.state_page is not None:
                 self._unref(victim.state_page)
                 victim.state_page = None
             self._unref(self.index.remove(victim))
             self.pages_evicted += 1
             freed += 1
+
+    # ----------------------------------------------------------- host tier
+    @staticmethod
+    def _node_key(node: _RadixNode) -> Tuple[Tuple[int, ...], ...]:
+        """Full root→node chunk path — the host-pool key (content-
+        addressed, so promotion survives page-id recycling)."""
+        chunks: List[Tuple[int, ...]] = []
+        while node.parent is not None:
+            chunks.append(node.chunk)
+            node = node.parent
+        return tuple(reversed(chunks))
+
+    def _spill(self, key: Tuple, page: int) -> None:
+        """Demote device page ``page`` to the host pool under ``key``;
+        the oldest entries age out when the byte budget overflows."""
+        if key in self._host_pool:             # refreshed content: replace
+            self._host_slots.release(self._host_pool.pop(key))
+            self._host_bytes -= self._page_bytes
+        self.pages_spilled += 1
+        # the entry goes in, then the oldest go while the pool is over
+        # budget: at most the one oldest entry, or the new one itself
+        # when the budget holds no page
+        if self._host_bytes + self._page_bytes > self.host_pool_bytes:
+            if not self._host_pool:
+                self.host_pages_dropped += 1
+                return
+            self._host_slots.release(self._host_pool.popitem(last=False)[1])
+            self._host_bytes -= self._page_bytes
+            self.host_pages_dropped += 1
+        slot = self._host_slots.take()
+        self._host_slots.store(slot, page)
+        self._host_pool[key] = slot
+        self._host_bytes += self._page_bytes
+
+    def _promote(self, key: Tuple, parent: _RadixNode,
+                 chunk: Tuple[int, ...]) -> Optional[_RadixNode]:
+        """Promote a host-pool entry back into a fresh device page,
+        written in place, and re-link it under ``parent`` in the radix
+        index.  The node is linked (page = −1) BEFORE allocating so the
+        alloc's own eviction sweep can neither pick it nor orphan
+        ``parent``."""
+        if key not in self._host_pool:
+            return None
+        slot = self._host_pool.pop(key)
+        self._host_bytes -= self._page_bytes
+        node = _RadixNode(parent=parent, chunk=chunk, page=-1)
+        parent.children[chunk] = node
+        try:
+            page = self._alloc_page()          # ref owned by the index
+        except RuntimeError:
+            del parent.children[chunk]
+            self._host_pool[key] = slot        # put it back; no pool room
+            self._host_bytes += self._page_bytes
+            return None
+        node.page = page
+        self._host_slots.load(slot, page)
+        self._host_slots.release(slot)
+        node.last_use = self.index._tick()
+        self.index._n_pages += 1
+        self.pages_promoted += 1
+        return node
+
+    @property
+    def host_pool_pages(self) -> int:
+        return len(self._host_pool)
+
+    @property
+    def host_pinned_bytes(self) -> int:
+        """Bytes of host memory the spill tier's page slots hold."""
+        return self._host_slots.nbytes
 
     # ------------------------------------------------------------ sessions
     def open(self, session: int) -> None:
@@ -513,17 +683,24 @@ class PagedKVArena:
         return self.max_len // self.page_size
 
     # -------------------------------------------------------- prefix reuse
-    def _walk(self, start: _RadixNode, tokens: Sequence[int], limit: int,
-              *, pin: bool) -> List[_RadixNode]:
-        """Follow ``tokens`` chunk by chunk from ``start``.  ``pin=True``
-        refs every matched page (the caller owns the refs)."""
-        node = start
+    def _walk(self, start: _RadixNode, start_key: Tuple,
+              tokens: Sequence[int], limit: int, *, pin: bool,
+              promote: bool) -> List[_RadixNode]:
+        """Follow ``tokens`` chunk by chunk from ``start`` (whose host-pool
+        key is ``start_key``), promoting host-pool continuations when
+        ``promote``.  ``pin=True`` refs every matched page at once (the
+        caller owns the refs), so a later promotion's eviction sweep can
+        never free a page already matched on this walk."""
+        node, key = start, start_key
         out: List[_RadixNode] = []
         now = self.index._tick() if pin else self.index._clock
         ps = self.page_size
         for i in range(limit):
             chunk = tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+            key = key + (chunk,)
             child = node.children.get(chunk)
+            if child is None and promote:
+                child = self._promote(key, node, chunk)
             if child is None:
                 break
             if pin:
@@ -548,16 +725,34 @@ class PagedKVArena:
     def probe_prefix(self, tokens: Sequence[int]) -> int:
         """Tokens a fresh session with this prompt would NOT re-prefill
         (non-adopting; used by the serve loop for length-aware
-        scheduling of the true suffix)."""
+        scheduling of the true suffix).  Counts device-resident chunks
+        and host-pool continuations — a spilled page is still a hit, one
+        promotion away — except with SSM state, whose host entries carry
+        no checkpoints."""
         if self.index is None:
             return 0
-        limit = max(len(tokens) - 1, 0) // self.page_size
-        nodes = self._walk(self.index.root, tokens, limit, pin=False)
-        return self._adoptable(nodes) * self.page_size
+        ps = self.page_size
+        limit = max(len(tokens) - 1, 0) // ps
+        nodes = self._walk(self.index.root, (), tokens, limit, pin=False,
+                           promote=False)
+        d = self._adoptable(nodes)
+        if self.state_slots:
+            return d * ps
+        key = tuple(tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+                    for i in range(d))
+        while d < limit:
+            key = key + (tuple(int(t)
+                               for t in tokens[d * ps:(d + 1) * ps]),)
+            if key not in self._host_pool:
+                break
+            d += 1
+        return d * ps
 
     def match_prefix(self, session: int, tokens: Sequence[int]) -> int:
         """Map the longest indexed prefix of ``tokens`` onto existing
         pages; the session then only prefills ``tokens[matched:]``.
+        Host-pool continuations are promoted back to device pages on the
+        way.
 
         Only valid on an EMPTY session.  Returns the matched token count
         (multiple of page_size, ≤ len(tokens) − 1).
@@ -568,7 +763,8 @@ class PagedKVArena:
         if self.index is None:
             return 0
         limit = max(len(tokens) - 1, 0) // self.page_size
-        nodes = self._walk(self.index.root, tokens, limit, pin=True)
+        nodes = self._walk(self.index.root, (), tokens, limit, pin=True,
+                           promote=True)
         nodes = self._clamp(nodes)
         if not nodes:
             return 0
@@ -591,7 +787,7 @@ class PagedKVArena:
     def match_extend(self, session: int, tokens: Sequence[int]) -> int:
         """CHUNK-LEVEL prefix matching: mid-request, map the longest
         indexed continuation of the session's cached history onto
-        existing pages.
+        existing pages, promoting host-pool continuations on the way.
 
         ``tokens`` is the not-yet-cached remainder of the prompt.  Only
         valid when the session sits exactly on a page boundary.  Keeps
@@ -606,17 +802,20 @@ class PagedKVArena:
         toks = self._tokens[session]
         # locate the session's frontier node by CONTENT (the session may
         # hold private duplicate pages; the trie is keyed on token ids)
-        node = self.index.root
+        node, key = self.index.root, ()
         for i in range(h // ps):
-            child = node.children.get(tuple(toks[i * ps:(i + 1) * ps]))
+            chunk = tuple(toks[i * ps:(i + 1) * ps])
+            child = node.children.get(chunk)
             if child is None:
                 return 0                       # history not indexed
+            key = key + (chunk,)
             node = child
         limit = max(len(tokens) - 1, 0) // ps
         # with SSM state the session's live state covers exactly h
         # tokens: skipping ahead is sound only up to a checkpoint that
         # replaces it, so clamp as match_prefix does
-        nodes = self._clamp(self._walk(node, tokens, limit, pin=True))
+        nodes = self._clamp(self._walk(node, key, tokens, limit, pin=True,
+                                       promote=True))
         if not nodes:
             return 0
         matched = len(nodes) * ps
@@ -865,7 +1064,8 @@ class PagedKVArena:
 
     # --------------------------------------------------------------- audit
     def audit(self) -> None:
-        """Assert the refcount/free-list/scratch invariants (tests)."""
+        """Assert the refcount/free-list/scratch/host-tier invariants
+        (tests)."""
         rc = [0] * self.num_pages
         for pages in self._pages.values():
             for p in pages:
@@ -887,6 +1087,14 @@ class PagedKVArena:
                         assert nd.state_page != self.scratch
                         rc[nd.state_page] += 1
                 stack.extend(nd.children.values())
+        assert self._host_bytes == len(self._host_pool) * self._page_bytes, \
+            "host pool byte accounting drift"
+        assert self._host_bytes <= max(self.host_pool_bytes, 0) or \
+            not self._host_pool, "host pool over budget"
+        assert sorted(self._host_pool.values()) == \
+            sorted(set(self._host_pool.values())), "host slot held twice"
+        assert len(self._host_pool) + self._host_slots.free == \
+            self._host_slots.size, "host slot leaked"
         assert rc == self._refcount, \
             f"refcount drift: counted {rc} != tracked {self._refcount}"
         assert sorted(self._free) == sorted(set(self._free)), \

@@ -140,15 +140,17 @@ def test_engine_refuses_the_cpu_by_default():
         Engine(tcfg, {})
 
 
-@pytest.mark.parametrize("cfg_kw,kw,item", [
-    # windowed, MoE and hybrid configs are served; the host spill tier
-    # is not yet
-    ({}, dict(host_pool_bytes=1 << 20), "item 11"),
-])
-def test_config_branches_outside_the_slice_raise(stacks, cfg_kw, kw, item):
-    _, _, tcfg, tp = stacks["qwen3-4b"]
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(tcfg.replace(**cfg_kw), tp, EngineConfig(**kw), device="cpu")
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-32b"])
+def test_config_branches_outside_the_slice_raise(stacks, arch):
+    """No config branch is left outside the port: windowed, MoE and
+    hybrid configs are served, and the host spill tier constructs on the
+    page pool, its byte budget over pages of every leaf as the JAX
+    engine counts them."""
+    je, te = _pair(stacks[arch], host_pool_bytes=1 << 20)
+    assert te.arena.host_pool_bytes == je.arena.host_pool_bytes == 1 << 20
+    assert te.arena._page_bytes == je.arena._page_bytes > 1
+    st_ = te.stats()
+    assert st_["pages_spilled"] == st_["host_pool_pages"] == 0
 
 
 def test_method_branches_outside_the_slice_raise(stacks):
@@ -156,7 +158,7 @@ def test_method_branches_outside_the_slice_raise(stacks):
     hands off between two engines as on the JAX engine.  A hybrid
     config (item 10) builds an engine that refuses handoff, as the
     reference's does (SSM state is no token sequence), and with the
-    host spill tier asked for it raises for item 11 only."""
+    host spill tier asked for it constructs on the state-slot pool."""
     je, te = _pair(stacks["qwen3-4b"])
     _, te2 = _pair(stacks["qwen3-4b"])
     prompt = np.arange(1, 20) % stacks["qwen3-4b"][0].vocab_size
@@ -175,10 +177,10 @@ def test_method_branches_outside_the_slice_raise(stacks):
     assert not e.can_handoff
     with pytest.raises(AssertionError, match="handoff"):
         e.export_session(0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Engine(hcfg, hp, EngineConfig(num_slots=2, max_len=32,
+    e = Engine(hcfg, hp, EngineConfig(num_slots=2, max_len=32,
                                       host_pool_bytes=1 << 20),
                device="cpu")
+    assert e.arena.state_slots and e.arena.host_pool_bytes == 1 << 20
 
 
 @pytest.mark.parametrize("kw", [

@@ -33,6 +33,9 @@ Session handoff between two engines on the card: no device-to-host copy
 in an export and import (``torch.profiler``), an imported session
 decoded through the destination's graphs captured before the import,
 bit-identical to an eager engine, and a dead engine refusing dispatch.
+The host spill tier: a prefix spilled to the pinned host pool and
+promoted back in place, decoded through a graph captured before the
+spill, bit-identical to an eager engine.
 Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -1549,6 +1552,67 @@ def test_imported_session_decodes_through_captured_graphs(card, paged):
     assert first == fe and got == want
     assert np.array_equal(b.last_logits[0], eager.last_logits[0])
     assert len(dx.graphs) == graphs and dx.replays == replays + 3
+
+
+def test_promoted_prefix_decodes_through_captured_graphs(card):
+    """The host spill tier on the card: a conversation's pages spill to
+    the pinned host pool under pressure and are promoted back in place
+    when it returns; the engine whose decode graph was captured before
+    the spill decodes the returning session through that graph, giving
+    the eager engine's tokens and logits bit for bit on the same
+    schedule, and the promoted pages equal clones taken before the
+    spill."""
+    cfg = get_smoke("qwen3-4b").replace(head_dim=128)
+    params = _to(tr.init_params(cfg, seed=3, device="cpu"), card)
+
+    def make(eager_steps=False):
+        e = Engine(cfg, params, EngineConfig(
+            num_slots=2, max_len=128, chunk_tokens=32, measure=False,
+            page_size=16, num_pages=8, host_pool_bytes=64 << 20),
+            device=card)
+        if eager_steps:
+            _eager_steps(e)
+        return e
+
+    rng = np.random.default_rng(6)
+    prompt = rng.integers(1, cfg.vocab_size, 40)      # 2 full pages
+    filler = rng.integers(1, cfg.vocab_size, 120)     # the whole pool
+    extra = rng.integers(1, cfg.vocab_size, 9)
+    outs = []
+    for e in (make(), make(eager_steps=True)):
+        ar = e.arena
+        assert ar.host_pinned_bytes > 0
+        assert all(b.is_pinned() for bufs in ar._host_slots._bufs
+                   for b in bufs.values())
+        first = e.prefill_batch([0], [prompt])[0]
+        toks = e.decode_batch([0], [first], 2)[0]
+        snap = [[{n: a[:, p].clone() for n, a in leaves.items()}
+                 for leaves in ar.arena] for p in ar.pages_of(0)[:2]]
+        full = np.concatenate([prompt, [first] + toks[:-1], extra])
+        e.close_session(0)
+        dx = e.decode_executor
+        graphs, replays = len(dx.graphs), dx.replays
+        e.prefill_batch([1], [filler])
+        e.close_session(1)
+        assert ar.pages_spilled >= 2
+        e.open_session(2)
+        assert e.adopt_prefix(2, full) == 32 and ar.pages_promoted >= 2
+        for want, p in zip(snap, ar.pages_of(2)[:2]):
+            for wl, leaves in zip(want, ar.arena):
+                for n, a in leaves.items():
+                    assert torch.equal(wl[n], a[:, p])
+        t2 = e.step_mixed([(2, full[32:])], []).tokens[2]
+        got = e.decode_batch([2], [t2], 3)[2]
+        torch.cuda.synchronize()
+        ar.audit()
+        outs.append((first, toks, t2, got, e.last_logits[2].copy(),
+                     ar.pages_spilled, ar.pages_promoted))
+        if not outs[1:]:
+            # the decode replays the graph captured before the spill
+            assert len(dx.graphs) == graphs and dx.replays == replays + 3
+    (f0, d0, t0, g0, l0, *c0), (f1, d1, t1, g1, l1, *c1) = outs
+    assert (f0, d0, t0, g0, c0) == (f1, d1, t1, g1, c1)
+    assert np.array_equal(l0, l1)
 
 
 def test_dead_engine_refuses_dispatch_on_card(card):

@@ -266,3 +266,49 @@ def test_build_key_follows_the_sources():
     for name, (symbol, argtypes) in _build.SIGNATURES.items():
         assert (_build.CSRC / f"{name}.cu").read_text().count(
             f'extern "C" int {symbol}(') == 1
+
+
+# the nine dispatchers of ``ops`` whose CUDA branch launches a kernel
+CUDA_DISPATCH = ("mha", "ragged_mha", "ragged_mha_arena", "ragged_mha_paged",
+                 "decode", "decode_arena", "decode_paged", "fused_sample",
+                 "ssd_grouped")
+
+
+@pytest.mark.parametrize("grad_input", [0, 1, 2])
+def test_check_no_grad_refuses_inputs_that_require_grad(grad_input):
+    """The check every CUDA branch runs: under grad mode an input that
+    requires grad raises (the kernels have no backward kernel), naming
+    the kernel and ROADMAP item 15b; under ``no_grad``, or with no input
+    requiring grad, it passes."""
+    xs = [torch.zeros(3), torch.zeros(3), torch.zeros(2, dtype=torch.int32)]
+    tops.check_no_grad("decode_paged", *xs, None, 1.0)
+    xs[grad_input] = xs[grad_input].float().requires_grad_()
+    with pytest.raises(RuntimeError, match=r"decode_paged: .*no backward "
+                                           r"kernel yet \(ROADMAP item 15b\)"):
+        tops.check_no_grad("decode_paged", *xs)
+    with torch.no_grad():
+        tops.check_no_grad("decode_paged", *xs)
+    tops.check_no_grad("decode_paged", *(x.detach() for x in xs))
+
+
+@pytest.mark.parametrize("name", CUDA_DISPATCH)
+def test_every_cuda_branch_checks_grad_before_launching(name):
+    """Each dispatcher's CUDA branch runs ``check_no_grad`` on its tensor
+    inputs before it calls the launcher, and its CPU branch does not."""
+    import inspect
+    src = inspect.getsource(getattr(tops, name))
+    cuda = src.split('.device.type == "cuda":', 1)[1].split("if ", 1)[0]
+    cpu = src.split('.device.type == "cpu":', 1)[1]
+    assert f'check_no_grad("{name}", ' in cuda.split("return", 1)[0]
+    assert "check_no_grad" not in cpu
+
+
+def test_cpu_branches_still_differentiate():
+    """The plain versions on the CPU keep their autograd graph."""
+    args, _ = _prefill_inputs("fragmented")
+    t = [torch.from_numpy(a) for a in args]
+    q = t[0].clone().requires_grad_()
+    out = tops.ragged_mha_paged(q, *t[1:])
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()

@@ -207,10 +207,15 @@ def test_cow_copy_moves_the_same_pool_content():
 
 
 def test_branches_outside_the_slice_raise():
-    """The host spill tier raises; ring tables are ported: as in the
-    reference, a ring arena keeps no radix index and refuses forks."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TArena(None, 8, PS, 32, host_pool_bytes=1 << 20)
+    """No branch of the page pool is left outside the port: the host
+    spill tier constructs (bookkeeping: a budget in pages) on an
+    attention pool and a state-slot pool, and ring tables, as in the
+    reference, keep no radix index and refuse forks."""
+    for kw in ({}, dict(state_slots=True)):
+        spill = TArena(None, 8, PS, 32, host_pool_bytes=1 << 20, **kw)
+        assert spill.host_pool_bytes == 1 << 20 and spill._page_bytes == 1
+        assert spill.host_pool_pages == spill.pages_spilled == 0
+        spill.audit()
     ring = TArena(None, 8, PS, 32, ring_pages=4)
     assert ring.index is None and ring.max_pages_per_seq == 4
     with pytest.raises(AssertionError, match="ring tables cannot fork"):

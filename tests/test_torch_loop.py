@@ -132,7 +132,8 @@ def test_long_prompt_chunk_matching_matches_jax_loop(stack):
 
 def test_port_imports_no_jax():
     """Every repro_torch module imports without pulling in jax or any
-    module of the JAX package."""
+    module of the JAX package, the analytic modules (controller,
+    queueing model, workloads, simulator) among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -141,6 +142,9 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "new = ('core.controller', 'core.queueing', 'sim.workload',\n"
+        "       'sim.simulator')\n"
+        "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
                          capture_output=True, text=True, timeout=120,

@@ -5,13 +5,14 @@ stateless multi-turn chat of ``benchmarks/bench_mix.py``
 (``_drive_multiturn``: radix prefix reuse against the same paged engine
 re-prefilling every turn, the ``BENCH_multiturn.json`` rows), its
 chunk-level matching against the submit-only probe
-(``_drive_paged_chunk``) and its cold-miss coalescing
-(``_drive_paged_coalesce``), the ``chunk_matching`` / ``submit_only`` /
-``coalesce`` rows of ``BENCH_paged.json``.  The traffic is copied here
-with the bench's rng seeds; the loops run on a stepping clock with
+(``_drive_paged_chunk``), its cold-miss coalescing
+(``_drive_paged_coalesce``) and its eviction-pressure trace with and
+without the host spill tier (``_drive_paged_spill``), the
+``chunk_matching`` / ``submit_only`` / ``coalesce`` / ``spill`` /
+``drop_on_evict`` rows of ``BENCH_paged.json``.  The traffic is copied
+here with the bench's rng seeds; the loops run on a stepping clock with
 ``measure=False``.  The port's engine must count exactly what the JAX
-engine counts, and both must equal the committed rows.  The spill rows
-wait for the host spill tier (ROADMAP item 11).
+engine counts, and both must equal the committed rows.
 
 Also: the port's ``gen_multiturn_sessions`` and ``CostModel`` give the
 reference's outputs over a few seeds and shapes.
@@ -224,6 +225,54 @@ def test_bench_paged_coalesce_row(sides):
     assert got == _drive_paged_coalesce(cfg, s["jax"][1])
     bench = _rows("BENCH_paged.json")["coalesce"]
     assert got[0] == {k: bench[k] for k in got[0]}
+
+
+def _drive_paged_spill(cfg, make, spill, n_convos=5):
+    """``bench_mix._drive_paged_spill``: stateless turns over more
+    conversations than the 8-page device pool holds, then every
+    conversation returns; with a host pool the evicted prefix pages
+    spill and are promoted back on the return hit, without one the
+    returns re-prefill."""
+    rng = np.random.default_rng(23)
+    eng = make(num_slots=2, max_len=64, num_pages=8, page_size=8,
+               chunk_tokens=16, token_buckets=(16, 32), decode_buckets=(1, 2),
+               host_pool_bytes=(64 << 20) if spill else 0, measure=False)
+    prompts = [rng.integers(0, cfg.vocab_size, 24) for _ in range(n_convos)]
+    sid, prompt_tokens, tokens = 100, 0, {}
+    for _ in range(2):                       # round 2 = the returns
+        for p in prompts:
+            eng.open_session(sid)
+            matched = eng.adopt_prefix(sid, p)
+            tokens[sid] = eng.step_mixed([(sid, p[matched:])],
+                                         []).tokens[sid]
+            eng.close_session(sid)
+            prompt_tokens += len(p)
+            sid += 1
+    st = eng.stats()
+    eng.arena.audit()
+    return {
+        "hit_rate": round(st["prefix_hit_tokens"] / prompt_tokens, 3),
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "pages_evicted": st["pages_evicted"],
+        "pages_spilled": st["pages_spilled"],
+        "pages_promoted": st["pages_promoted"],
+    }, tokens, (list(eng.arena._host_pool), st["host_pages_dropped"])
+
+
+@pytest.mark.parametrize("spill", [True, False],
+                         ids=["spill", "drop_on_evict"])
+def test_bench_paged_spill_rows(sides, spill):
+    """Both engines count the committed rows exactly: 22 evicted, 22
+    spilled, 10 promoted and 80 hit tokens (hit rate 0.333) with the
+    host pool; 22 evicted and nothing else without it.  The host pools
+    hold the same keys in the same LRU order, and the first tokens
+    agree."""
+    cfg, s = sides
+    got = _drive_paged_spill(cfg, s["torch"][0], spill)
+    assert got == _drive_paged_spill(cfg, s["jax"][0], spill)
+    bench = _rows("BENCH_paged.json")["spill" if spill else "drop_on_evict"]
+    assert got[0] == {k: bench[k] for k in got[0]}
+    assert got[2][1] == 0                    # nothing aged out
 
 
 # ------------------------------------------------ trace and cost model
