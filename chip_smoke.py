@@ -13,6 +13,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      jamba-v0.1-52b's 128 heads in 8 groups), ``fused_sample``'s
      (cluster size, CTAs, shared bytes, registers, clusters resident at
      once; a verify tick's 40 bf16 rows must fit one wave);
+     ``flash_attn_bwd``'s three kernels at each head width (shared
+     bytes, registers, blocks per SM) and their grids at the training
+     shape;
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128) unless said otherwise, fp32 and
      bf16.  Paged kernels: page size 16, fragmented, shared and
@@ -78,7 +81,18 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      splits the walk, so the combine runs at D / 4 lanes), and the four
      windowed forms at 64 and 96 (32 / 32) at the window of 100;
      ``fused_sample`` also at stablelm's 100,352, phi-3's 32,064 padded
-     to 32,256 and minitron-8b's 256,000 columns;
+     to 32,256 and minitron-8b's 256,000 columns.  Training:
+     ``flash_attn`` with its log-sum-exp (lse within 1e-4 of the plain
+     logsumexp, -inf on exactly the keyless rows) and ``flash_attn_bwd``
+     (dq, dk, dv within ``ref.flash_attn_bwd_error_bound``) at
+     qwen3-4b's training shape (4, 1024, 32 / 8 x 128, causal), lengths
+     1, 63, 65 and 1000, qwen2.5-32b's 40 / 8, widths 64 / 80 / 96,
+     hubert's 16 x 80 non-causal, a 256 window over 1024 keys, offsets
+     with kv lengths below S and a keyless row, fp32 and bf16; two runs
+     bit-identical and two mutants (a dropped query tile, a dropped key
+     tile) outside the bound; ``ops.mha`` differentiating on the card
+     (one ``flash_attn_bwd`` launch, finite grads) while the eight
+     serving dispatchers refuse under grad mode;
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -129,7 +143,12 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      off, 0 host bytes) and bench_faults' 4-engine failover (one engine
      killed mid-decode: 8 finished, 0 lost, 2 sessions recovered
      bit-identical to the fault-free cluster), with the same
-     transcripts, homes, stats and reports on both devices;
+     transcripts, homes, stats and reports on both devices.  Training:
+     two train steps (accum 2, remat) of the qwen3-4b, mixtral-8x7b and
+     qwen3-moe (16 experts) smoke configs at head_dim 128, fp32, on the
+     card against the same steps on the CPU from one set of weights;
+     two bf16 ``TrainLoop`` runs bit-identical, and one checkpointed at
+     step 2 and resumed to 4 bit-identical to the continuous run;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
      --seed, 8 sessions under ``pla_full`` with one 2048-token prompt,
      served in each mode after one warm-up run, each run on a fresh
@@ -181,7 +200,13 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      recovered tokens counted against the fault-free cluster's).  Last,
      qwen2.5-32b (the paper's model: 64 layers, 40 / 8 heads, qkv
      bias, 61 GiB of bf16 weights) at full width and depth on the paged
-     default over the qwen3-4b trace, one kept run;
+     default over the qwen3-4b trace, one kept run.  Training (before
+     the cluster): qwen3-4b at full width cut to 12 of 36 layers, bf16,
+     remat, 10 ``TrainLoop`` steps of accum 2 x (4, 1024) synthetic
+     tokens: the loss per step (falling), ms per step split into the
+     microbatches' forward + backward and AdamW, tokens/s, model
+     TFLOP/s, ``flash_attn@lse`` / ``flash_attn_bwd`` launches per step,
+     peak GiB, and one profiled step's device share;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound, the kernel's achieved TFLOP/s; the
@@ -223,14 +248,17 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      512-row chunk at history 1536 through each prefill kernel, decode
      at 8 rows x 2048 keys through each decode kernel (from a CUDA
      graph), each beside one SDPA call over the same keys, checked to
-     compute the same function;
+     compute the same function.  ``flash_attn_bwd`` and the forward
+     with its log-sum-exp at the training shape, beside their plain
+     versions, SDPA's backward alone (its grads checked) and forward;
   6. the serve launcher, its default and ``--packed``, for qwen3-4b and
      mamba2-2.7b, at the smoke config and at published widths cut to 4
      layers, and for mixtral-8x7b at its smoke config and at published
      widths cut to 16 layers; stablelm-1.6b at full width and depth with
      ``--packed``, phi-3-vision-4.2b at full width and depth; the
      jamba-v0.1-52b smoke config, default and ``--packed``, and
-     qwen3-moe-30b-a3b's with ``--packed``;
+     qwen3-moe-30b-a3b's with ``--packed``; the training launcher's
+     smoke default for 20 steps and ``--full --layers 2`` for 3;
   7. one JSON line describing every kernel, then the card line and the
      result line.
 
@@ -320,6 +348,18 @@ def phase_build():
                 f"{f['blocks_per_sm']} blocks per SM"
                 for d, f in ((d, rp.launch_info(name, d, dt))
                              for d in rp.HEAD_DIMS)))
+    # flash_attn_bwd's launch plan: its three kernels at each head width,
+    # and their grids at the full-width training shape
+    from repro_torch.kernels import flash_attn as fl
+    for dt in (torch.bfloat16, torch.float32):
+        for d in rp.HEAD_DIMS:
+            info = fl.bwd_launch_info(d, dt)
+            log(f"[1] flash_attn_bwd {str(dt)[6:]} D={d}: " + "; ".join(
+                f"{k} {f['smem']} B shared a block, {f['regs']} registers, "
+                f"{f['blocks_per_sm']} blocks per SM"
+                for k, f in info.items()))
+    log(f"[1] flash_attn_bwd blocks at (B 4, L 1024, 32 / 8 heads): "
+        f"{fl.bwd_grid(4, 1024, 1024, HQ, HKV)} of 256 threads")
     # ssd_scan's launch plan at a chunked prompt's step, B = 1, L = 256
     # (the card must have work on every SM), and at the packed bridge
     from repro_torch.kernels import ssd_scan as ssd
@@ -759,10 +799,13 @@ def phase_tile_kernels(seed, errs, causal=True):
 
 def phase_grad_check(seed):
     """The nine dispatchers of ``kernels.ops`` on the card, each at small
-    qwen3-4b-headed shapes: under grad mode, with an input that requires
-    grad, each raises before launching (the kernels have no backward
-    kernel, as the Pallas kernels define no VJP); under ``no_grad`` the
-    same call launches its kernel once."""
+    qwen3-4b-headed shapes.  ``mha`` differentiates: under grad mode,
+    with q, k and v requiring grad, it launches ``flash_attn`` with its
+    log-sum-exp, the backward launches ``flash_attn_bwd`` once and q, k
+    and v get finite grads.  The other eight, the serving kernels, raise
+    before launching (no backward kernel, as the Pallas kernels define
+    no VJP; ``ssd_scan``'s is ROADMAP item 15b-ii).  Under ``no_grad``
+    each call launches its kernel once."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 90)
@@ -800,6 +843,31 @@ def phase_grad_check(seed):
     launchers = _launchers()
     for fn_name, kernel, base, call in cases:
         counter = launchers[kernel]
+        if fn_name == "mha":
+            leaves = [x.detach().clone().requires_grad_()
+                      for x in (base, kv4, kv4)]
+            names = ("flash_attn", "flash_attn@lse", "flash_attn_bwd")
+            n0 = [launchers[n].launches for n in names]
+            with torch.enable_grad():
+                ops.mha(*leaves).float().square().sum().backward()
+            torch.cuda.synchronize()
+            n1 = [launchers[n].launches for n in names]
+            with torch.no_grad():
+                ops.mha(*leaves)
+            torch.cuda.synchronize()
+            n2 = [launchers[n].launches for n in names]
+            grads = all(x.grad is not None and bool(torch.isfinite(
+                x.grad).all()) for x in leaves)
+            ok = (grads and [b - a for a, b in zip(n0, n1)] == [1, 1, 1]
+                  and [b - a for a, b in zip(n1, n2)] == [1, 0, 0])
+            log(f"[2] grad check {fn_name:16s} -> {kernel}: differentiates "
+                f"under grad mode (q, k, v grads finite {grads}; launches "
+                f"{dict(zip(names, (b - a for a, b in zip(n0, n1))))}), ran "
+                f"under no_grad (launches "
+                f"{dict(zip(names, (b - a for a, b in zip(n1, n2))))}) "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok, f"grad check {fn_name}"
+            continue
         n0 = counter.launches
         leaf = base.detach().float().to(base.dtype).requires_grad_()
         with torch.enable_grad():
@@ -4022,6 +4090,7 @@ def phase_times(seed, errs):
     out["ssd_scan@grouped"] = _ssd_prompt_row(gen, errs, "ssd_scan@grouped",
                                               JAMBA_NH, JAMBA_G)
     out.update(_time_dense(gen, errs))
+    out.update(_time_flash_bwd(gen, errs))
     out.update(_time_window(gen, rng, errs))
     out.update(_time_widths(gen, rng, errs))
     for name, r in out.items():
@@ -4698,6 +4767,478 @@ def phase_dense_tick(card, times):
         f"{gather_ms + scatter_ms:.1f} ms of slot copies (card {card})")
 
 
+# ------------------------------------------ training (phases 2 to 6)
+
+# phase 2's cases of flash_attn's backward: (what, B, Lq, S, Hq, Hkv, D,
+# causal, window, q_offsets, kv_lengths, dtypes)
+_BOTH = (torch.bfloat16, torch.float32)
+BWD_CASES = (
+    ("qwen3-4b's training shape", 4, 1024, 1024, 32, 8, 128, True, None,
+     [0] * 4, [1024] * 4, _BOTH),
+    ("L 1", 2, 1, 1, 32, 8, 128, True, None, [0, 0], [1, 1], _BOTH),
+    ("L 63", 2, 63, 63, 32, 8, 128, True, None, [0, 0], [63, 63], _BOTH),
+    ("L 65", 2, 65, 65, 32, 8, 128, True, None, [0, 0], [65, 65], _BOTH),
+    ("L 1000", 2, 1000, 1000, 32, 8, 128, True, None, [0, 0], [1000, 1000],
+     (torch.bfloat16,)),
+    ("qwen2.5-32b's 40 / 8 (rep 5)", 2, 300, 300, 40, 8, 128, True, None,
+     [0, 0], [300, 300], _BOTH),
+    ("D 64", 2, 200, 200, 32, 8, 64, True, None, [0, 0], [200, 200], _BOTH),
+    ("D 80", 2, 200, 200, 32, 8, 80, True, None, [0, 0], [200, 200], _BOTH),
+    ("D 96", 2, 200, 200, 32, 8, 96, True, None, [0, 0], [200, 200], _BOTH),
+    ("hubert's 16 x 80, non-causal", 2, 1500, 1500, 16, 16, 80, False, None,
+     [0, 0], [1500, 900], _BOTH),
+    ("window 256 over 1024 keys", 2, 1024, 1024, 32, 8, 128, True, 256,
+     [0, 0], [1024, 1024], _BOTH),
+    ("offsets > 0, kv lengths < S", 2, 300, 600, 32, 8, 128, True, None,
+     [100, 250], [400, 520], _BOTH),
+    ("a row with no key", 2, 100, 200, 32, 8, 128, True, None, [0, 0],
+     [150, 0], _BOTH),
+)
+LSE_TOL = 1e-4     # |lse - plain|: the same fp32 sums in another order
+
+
+def _bwd_case(gen, b, lq, s, hq, hkv, d, offs, lens, dt):
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+    return (rand(b, lq, hq, d), rand(b, s, hkv, d), rand(b, s, hkv, d),
+            rand(b, lq, hq, d), _i32(offs), _i32(lens))
+
+
+def _bwd_held(got, refs, bounds):
+    """(max abs error, the largest error over its bound) of dq, dk, dv."""
+    errs = [(g.float() - r).abs() for g, r in zip(got, refs)]
+    return (max(e.max().item() for e in errs),
+            max((e / bd).max().item() for e, bd in zip(errs, bounds)))
+
+
+def phase_flash_bwd(seed, errs):
+    """``flash_attn`` with its log-sum-exp and ``flash_attn_bwd`` against
+    their plain versions at ``BWD_CASES``: the forward's output within
+    ``kernel_error_bound``, its lse within ``LSE_TOL`` of the plain
+    logsumexp (-inf on exactly the keyless rows), and dq, dk, dv within
+    ``ref.flash_attn_bwd_error_bound``.  At the training shape in bf16,
+    two runs are bit-identical and the bound bites: the kernel run on a
+    dout whose 64-vector query tiles at rows 512.. are zeroed (a dropped
+    query tile), and its dk / dv with keys 512..575 zeroed (a dropped key
+    tile), each lie outside it."""
+    import functools
+
+    from repro_torch.kernels import flash_attn as fl
+    from repro_torch.kernels.ref import flash_attn_bwd_error_bound
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 27)
+    for what, b, lq, s, hq, hkv, d, causal, window, offs, lens, dts in \
+            BWD_CASES:
+        for dt in dts:
+            q, k, v, do, o, ln = _bwd_case(gen, b, lq, s, hq, hkv, d, offs,
+                                           lens, dt)
+            kw = dict(causal=causal, window=window)
+            out, lse = fl.flash_attn(q, k, v, o, ln, return_lse=True, **kw)
+            ferr, fworst, fok, _ = _held(
+                out, functools.partial(fl.flash_attn_plain, **kw), q, k, v,
+                o, ln)
+            lref = fl.flash_attn_lse_plain(q.float(), k.float(), o, ln, **kw)
+            fin = torch.isfinite(lref)
+            lerr = (lse[fin] - lref[fin]).abs().max().item() \
+                if fin.any() else 0.0
+            lok = torch.equal(torch.isfinite(lse), fin) and lerr <= LSE_TOL
+            got = fl.flash_attn_bwd(q, k, v, out, lse, do, o, ln, **kw)
+            refs, bounds = flash_attn_bwd_error_bound(q, k, v, out, lse, do,
+                                                      o, ln, **kw)
+            err, worst = _bwd_held(got, refs, bounds)
+            ok = fok and lok and worst <= 1.0
+            errs.setdefault(("flash_attn_bwd", dt), []).append(err)
+            errs.setdefault(("flash_attn@lse", dt), []).append(ferr)
+            log(f"[2] flash_attn_bwd {what} (B {b}, Lq {lq}, S {s}, {hq}/"
+                f"{hkv} x {d}, {'causal' if causal else 'non-causal'}"
+                f"{f', window {window}' if window else ''}) {str(dt)[6:]}: "
+                f"dq/dk/dv max_abs_err={err:.3e} err/bound={worst:.3f}; "
+                f"forward with lse err/bound={fworst:.3f}, lse max_abs_err="
+                f"{lerr:.2e}, {int((~fin).sum())} keyless rows "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok, f"flash_attn_bwd {what} {dt}"
+            if what == BWD_CASES[0][0] and dt == torch.bfloat16:
+                again = fl.flash_attn_bwd(q, k, v, out, lse, do, o, ln, **kw)
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                cut = do.clone()
+                cut[:, 512:512 + 64 // (hq // hkv)] = 0
+                dropped_q = _bwd_held(fl.flash_attn_bwd(
+                    q, k, v, out, lse, cut, o, ln, **kw), refs, bounds)[1]
+                dk, dv = got[1].clone(), got[2].clone()
+                dk[:, 512:576] = 0
+                dv[:, 512:576] = 0
+                dropped_k = _bwd_held((got[0], dk, dv), refs, bounds)[1]
+                log(f"[2] flash_attn_bwd {what}: two runs bit-identical "
+                    f"{same}; mutants: a dropped query tile err/bound="
+                    f"{dropped_q:.1f}, a dropped key tile err/bound="
+                    f"{dropped_k:.1f} (each must exceed 1)")
+                assert same and dropped_q > 1 and dropped_k > 1
+            del q, k, v, do, out, lse, got, refs, bounds
+    torch.cuda.empty_cache()
+
+
+TRAIN_SMOKE = dict(head_dim=128)         # the attention kernels' width
+# the smoke configs trained on the card against the CPU (qwen3-moe with
+# 16 experts: the capacity dispatch)
+TRAIN_ORACLE = (("qwen3-4b", {}), ("mixtral-8x7b", {}),
+                (QWEN_MOE, dict(num_experts=16)))
+TRAIN_BATCH = dict(seq_len=64, batch=4, accum=2)
+TRAIN_OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_GRAD_TOL = (1e-5, 1e-4)   # card vs CPU grads: atol (x the leaf's
+                                # largest |grad| where above 1), rtol
+TRAIN_LOSS_TOL = 1e-5           # relative
+# card vs CPU params after the steps: Adam's update m^ / (sqrt(v^) +
+# eps) is normalised, so where the steps' grads nearly cancel in m^ it
+# amplifies the grads' fp32 rounding; each element within 1e-5 + 5% of
+# lr a step, the 99.9th percentile within 1e-6
+
+
+def _tree_to(tree, device):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def _train_steps(cfg, params, device, n, seed):
+    """``n`` steps of ``make_train_step`` (accum 2, remat) from
+    ``params`` over ``SyntheticLM`` batches: (losses, params, state)."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seed=seed,
+                                       **TRAIN_BATCH))
+    state = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OCFG),
+                           accum=TRAIN_BATCH["accum"], remat=True)
+    losses = []
+    for _ in range(n):
+        params, state, m = step(params, state, data.next_batch())
+        losses.append(float(m["loss"]))
+    return losses, params, state
+
+
+def _train_loop(cfg, seed, steps, ckpt_dir=None, every=100):
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, TrainLoop
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seed=seed,
+                                       **TRAIN_BATCH))
+    return TrainLoop(cfg, AdamWConfig(**TRAIN_OCFG), data, TrainConfig(
+        steps=steps, ckpt_dir=ckpt_dir, ckpt_every=every, log_every=1,
+        accum=TRAIN_BATCH["accum"], remat=True),
+        log_fn=lambda s: None, device=DEVICE)
+
+
+def phase_train_oracle(seed):
+    """The train step on the card against the same steps on the CPU (the
+    plain path), from one set of weights: the qwen3-4b, mixtral-8x7b
+    (window 32, 4 experts) and qwen3-moe (16 experts: the capacity
+    dispatch) smoke configs at head_dim 128, fp32, two steps of accum 2
+    with remat.  The first microbatch's loss grads within
+    ``TRAIN_GRAD_TOL``, the losses within ``TRAIN_LOSS_TOL``, the params
+    as stated beside ``TRAIN_LOSS_TOL``; ``flash_attn_bwd`` once per layer
+    per microbatch.  Then
+    qwen3-4b's in bf16: two card runs of ``TrainLoop`` from one seed
+    bit-identical, and a run checkpointed at step 2 and resumed to 4
+    bit-identical to the continuous run."""
+    import shutil
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.training.train_step import make_loss_fn
+    launchers = _launchers()
+    steps, lr = 2, TRAIN_OCFG["lr"]
+    for arch, extra in TRAIN_ORACLE:
+        cfg = get_smoke(arch).replace(**TRAIN_SMOKE, **extra)
+        cpu = tr.init_params(cfg, seed=seed, device="cpu")
+        # the first microbatch's loss grads on both devices
+        first = SyntheticLM(SyntheticConfig(
+            vocab_size=cfg.vocab_size, seed=seed,
+            **TRAIN_BATCH)).next_batch()
+        grads = []
+        for dev in (DEVICE, "cpu"):
+            live = [p.detach().to(dev).requires_grad_()
+                    for p in tree_leaves(cpu)]
+            tot, _ = make_loss_fn(cfg)(
+                tree_unflatten(cpu, live),
+                torch.from_numpy(first["tokens"][0]).to(dev),
+                torch.from_numpy(first["labels"][0]).to(dev))
+            grads.append([torch.zeros_like(p) if g is None else g.cpu()
+                          for p, g in zip(live, torch.autograd.grad(
+                              tot, live, allow_unused=True))])
+        atol, rtol = TRAIN_GRAD_TOL
+        grad_worst = max(
+            ((a - b).abs() / (atol * max(1.0, b.abs().max().item())
+                              + rtol * b.abs())).max().item()
+            for a, b in zip(*grads))
+        n0 = launchers["flash_attn_bwd"].launches
+        lc, pc, sc = _train_steps(cfg, _tree_to(cpu, DEVICE), DEVICE, steps,
+                                  seed)
+        torch.cuda.synchronize()
+        n_bwd = launchers["flash_attn_bwd"].launches - n0
+        lh, ph, sh = _train_steps(cfg, cpu, "cpu", steps, seed)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        errs = torch.cat([(a.float().cpu() - b.float()).abs().flatten()
+                          for a, b in zip(tree_leaves(pc), tree_leaves(ph))])
+        worst = errs.max().item()
+        q999 = errs.quantile(0.999).item() if errs.numel() <= 1 << 24 \
+            else errs.sort().values[int(0.999 * (errs.numel() - 1))].item()
+        want_bwd = cfg.num_layers * TRAIN_BATCH["accum"] * steps
+        ok = (grad_worst <= 1.0 and loss_err <= TRAIN_LOSS_TOL
+              and worst <= 1e-5 + 0.05 * lr * steps and q999 <= 1e-6
+              and n_bwd == want_bwd)
+        log(f"[3] train step {arch} smoke (head_dim 128, fp32, accum 2, "
+            f"remat), card vs CPU: first microbatch's grads err/bound "
+            f"{grad_worst:.3f}; over {steps} steps losses "
+            f"{[round(x, 5) for x in lc]} vs {[round(x, 5) for x in lh]} "
+            f"(rel err {loss_err:.2e}), params max err {worst:.2e}, 99.9th "
+            f"percentile {q999:.2e}; flash_attn_bwd launches {n_bwd} "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, f"train step {arch}: card vs CPU"
+
+    cfg = get_smoke("qwen3-4b").replace(**TRAIN_SMOKE, dtype="bfloat16")
+    runs = [_train_loop(cfg, seed, 4).run(seed) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(list(runs[0])), tree_leaves(list(runs[1]))))
+    ckpt = os.path.join(HERE, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _train_loop(cfg, seed, 2, ckpt, 2).run(seed)
+    resumed = _train_loop(cfg, seed, 4, ckpt).run(seed)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    restart = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(list(runs[0])), tree_leaves(list(resumed))))
+    log(f"[3] TrainLoop qwen3-4b smoke bf16 on the card, 4 steps: two runs "
+        f"bit-identical {same}; checkpointed at step 2 and resumed to 4 "
+        f"bit-identical to the continuous run {restart}")
+    assert same and restart, "train loop on the card: not bit-identical"
+
+
+TRAIN_LAYERS = 12                 # of qwen3-4b's 36: full depth's state
+TRAIN_FULL = dict(seq_len=1024, batch=4, accum=2)    # (~88 GB) > 80 GB
+TRAIN_STEPS = 10
+TRAIN_FULL_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+
+def _matmul_params(tree, path=""):
+    """Parameters that enter a matrix product: not the embedding table
+    (a gather) nor the norms' scales."""
+    if isinstance(tree, dict):
+        return sum(_matmul_params(v, f"{path}/{k}") for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(_matmul_params(v, f"{path}/{i}")
+                   for i, v in enumerate(tree))
+    if path == "/embed" or path.split("/")[-1] in (
+            "ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+        return 0
+    return tree.numel()
+
+
+def phase_train(seed, card):
+    """qwen3-4b at full width (d_model 2560, 32 / 8 heads of 128, d_ff
+    9728, vocab 151,936) cut to ``TRAIN_LAYERS`` layers, bf16, trained
+    by ``TrainLoop`` for ``TRAIN_STEPS`` steps of accum 2 x (4, 1024)
+    tokens from ``SyntheticLM``, with remat: the loss per step (finite,
+    lower at the last step than the first), ms per step and its split
+    between the microbatches' forward + backward and AdamW (CUDA events
+    around each step and around its ``adamw_update``), tokens/s, model
+    TFLOP/s (6 N tokens + attention, remat's extra forward apart),
+    ``flash_attn@lse`` and ``flash_attn_bwd`` launches per step (every
+    count set to 0 before the run), peak GiB; then one more step under
+    ``torch.profiler``: the device-busy share and the attention
+    kernels' share of it.  Returns {kernel: (launches, steps, mode)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, TrainLoop
+    from repro_torch.training import train_step as tts
+    cfg = get_config("qwen3-4b")
+    full_layers = cfg.num_layers
+    cfg = cfg.replace(num_layers=TRAIN_LAYERS)
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seed=seed,
+                                       **TRAIN_FULL))
+    losses = []
+    loop = TrainLoop(cfg, AdamWConfig(**TRAIN_FULL_OCFG), data, TrainConfig(
+        steps=TRAIN_STEPS, log_every=1, accum=TRAIN_FULL["accum"],
+        remat=True), log_fn=lambda s: None, device=DEVICE)
+    marks, inner, adamw = [], loop._step, tts.adamw_update
+
+    def timed_step(params, state, batch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        marks.append(ev)
+        ev[0].record()
+        out = inner(params, state, batch)
+        ev[3].record()
+        return out
+
+    def timed_adamw(*a, **kw):
+        marks[-1][1].record()
+        out = adamw(*a, **kw)
+        marks[-1][2].record()
+        return out
+
+    launchers = _launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    loop._step, tts.adamw_update = timed_step, timed_adamw
+    t0 = time.perf_counter()
+    try:
+        params, state = loop.run(seed)
+        torch.cuda.synchronize()
+    finally:
+        tts.adamw_update = adamw
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in launchers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in loop.history]
+    step_ms = [a.elapsed_time(d) for a, _, _, d in marks]
+    adam_ms = [b.elapsed_time(c) for _, b, c, _ in marks]
+    steady = slice(1, None)                   # step 1 warms up
+    ms = float(np.median(step_ms[steady]))
+    am = float(np.median(adam_ms[steady]))
+    tokens = TRAIN_FULL["accum"] * TRAIN_FULL["batch"] * TRAIN_FULL["seq_len"]
+    n_mm = _matmul_params(params)
+    pairs = TRAIN_FULL["batch"] * sum(i + 1 for i in
+                                      range(TRAIN_FULL["seq_len"]))
+    attn_fwd = (4 * cfg.hdim * cfg.num_heads * pairs * TRAIN_LAYERS
+                * TRAIN_FULL["accum"])
+    model = 6 * n_mm * tokens + 3 * attn_fwd
+    remat = 2 * n_mm * tokens + attn_fwd
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items() if n}
+    log(f"[4] train qwen3-4b full width, {TRAIN_LAYERS} of {full_layers} "
+        f"layers, bf16, remat, accum {TRAIN_FULL['accum']} x "
+        f"({TRAIN_FULL['batch']}, {TRAIN_FULL['seq_len']}): "
+        f"{n_mm / 1e9:.3f} B matmul params; losses "
+        f"{[round(x, 4) for x in losses]}; step 1 {step_ms[0]:.1f} ms, then "
+        f"median {ms:.1f} ms (min {min(step_ms[steady]):.1f} max "
+        f"{max(step_ms[steady]):.1f}): forward + backward {ms - am:.1f} ms, "
+        f"AdamW {am:.1f} ms; {tokens / ms * 1e3:.0f} tokens/s; model "
+        f"{model / ms / 1e9:.1f} TFLOP/s (6 N T {6 * n_mm * tokens / 1e12:.2f}"
+        f" + attention {3 * attn_fwd / 1e12:.2f} TFLOP a step; remat's "
+        f"extra forward {remat / 1e12:.2f} TFLOP more, "
+        f"{(model + remat) / ms / 1e9:.1f} TFLOP/s with it); launches a "
+        f"step {per_step}; peak {peak:.2f} GiB; {wall:.1f} s in all "
+        f"(card {card})")
+    fwd = TRAIN_LAYERS * TRAIN_FULL["accum"] * TRAIN_STEPS
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert launches["flash_attn_bwd"] == fwd, launches
+    assert launches["flash_attn@lse"] == launches["flash_attn"] == 2 * fwd, \
+        launches
+    assert all(n == 0 for k, n in launches.items() if k not in (
+        "flash_attn", "flash_attn@lse", "flash_attn_bwd")), launches
+
+    # one more step under the profiler: the device's busy share and the
+    # attention kernels' share of it
+    from torch.profiler import ProfilerActivity, profile
+    batch = data.next_batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, state, _ = inner(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    by_kernel, busy = _device_split(prof, wall_ms, "qwen3-4b train step",
+                                    card)
+    bwd = sum(t for k, t in by_kernel.items() if "flash_bwd" in k)
+    fwd_k = sum(t for k, t in by_kernel.items()
+                if "flash_attn_kernel" in k)
+    log(f"[4] train step profile: device busy {busy:.1f} ms of "
+        f"{wall_ms:.1f} ms wall; flash_attn_bwd's kernels {bwd:.1f} ms "
+        f"({100 * bwd / max(busy, 1e-9):.1f}% of the busy time), "
+        f"flash_attn with lse {fwd_k:.1f} ms "
+        f"({100 * fwd_k / max(busy, 1e-9):.1f}%) (card {card})")
+    del params, state, loop
+    return {name: (n, TRAIN_STEPS, "train") for name, n in launches.items()
+            if name in ("flash_attn@lse", "flash_attn_bwd")}
+
+
+def _time_flash_bwd(gen, errs):
+    """``flash_attn_bwd`` and the forward with its log-sum-exp at the
+    full-width training shape (B 4, L 1024, 32 / 8 heads of 128, causal,
+    bf16), each held to its plain version first, beside their plain
+    versions and one library call: SDPA's backward alone
+    (``autograd.grad`` through ``scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)`` less its forward), checked to
+    compute the same gradients, and SDPA's forward.  Bounds: 5 products
+    (backward) and 2 (forward) of 2 D FLOPs for each (query, key) pair
+    of the band at the bf16 tensor-core peak, against each input read
+    and each output written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as fl
+    from repro_torch.kernels.ref import flash_attn_bwd_error_bound
+    b, l, hq, hkv, d, dt, el = 4, 1024, HQ, HKV, D, torch.bfloat16, 2
+    q, k, v, do, o, ln = _bwd_case(gen, b, l, l, hq, hkv, d, [0] * b,
+                                   [l] * b, dt)
+    out, lse = fl.flash_attn(q, k, v, o, ln, return_lse=True)
+    got = fl.flash_attn_bwd(q, k, v, out, lse, do, o, ln)
+    refs, bounds = flash_attn_bwd_error_bound(q, k, v, out, lse, do, o, ln)
+    err, worst = _bwd_held(got, refs, bounds)
+    errs.setdefault(("flash_attn_bwd", dt), []).append(err)
+    assert worst <= 1.0, "flash_attn_bwd at the training shape"
+    # SDPA's gradients, held to the plain ones (bf16 kernels of another
+    # schedule: u-relative, as the forward's SDPA checks)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_grads():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), do.transpose(1, 2))
+
+    lib = [x.transpose(1, 2).float() for x in sdpa_grads()]
+    lib_err = max(((x - r).abs().max() / r.abs().max()).item()
+                  for x, r in zip(lib, refs))
+    log(f"[5] flash_attn_bwd at ({b}, {l}) {hq}/{hkv} x {d} causal bf16: "
+        f"max_abs_err={err:.3e} err/bound={worst:.3f}; SDPA's grads within "
+        f"{lib_err:.2e} of the plain ones (relative to their largest)")
+    assert lib_err < 2e-2, "SDPA computes another function"
+    pairs = b * sum(i + 1 for i in range(l))
+    io = (3 * b * l * hq * d + 2 * b * l * hkv * d) * el
+    rows = {}
+    fwd_ms = _time(sdpa)          # with grad, as the backward's forward
+    rows["flash_attn_bwd"] = dict(
+        ms=_time(lambda: fl.flash_attn_bwd(q, k, v, out, lse, do, o, ln), 5),
+        plain_ms=_time(lambda: fl.flash_attn_bwd_plain(
+            q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+            o, ln), 2),
+        library_ms=_time(sdpa_grads, 5) - fwd_ms,
+        flops=5 * 2 * d * pairs * hq,
+        # q, k, v, out, dout and lse read; dq, dk, dv written
+        bytes=io + b * hq * l * 4 + (b * l * hq * d + 2 * b * l * hkv * d)
+        * el)
+    rows["flash_attn@lse"] = dict(
+        ms=_time(lambda: fl.flash_attn(q, k, v, o, ln, return_lse=True)),
+        plain_ms=_time(lambda: (fl.flash_attn_plain(q, k, v, o, ln),
+                                fl.flash_attn_lse_plain(q, k, o, ln)), 2),
+        library_ms=fwd_ms,
+        flops=2 * 2 * d * pairs * hq,
+        # q, k, v read; out and lse written
+        bytes=(2 * b * l * hq * d + 2 * b * l * hkv * d) * el
+        + b * hq * l * 4)
+    return rows
+
+
+def phase_train_launcher(card):
+    """The training launcher on the card: its smoke default (qwen3-4b's
+    smoke config at head_dim 64) for 20 steps, and published widths cut
+    to 2 layers for 3 steps."""
+    from repro_torch.launch import train
+    for argv in (["--steps", "20"],
+                 ["--full", "--layers", "2", "--steps", "3"]):
+        t0 = time.perf_counter()
+        loop = train.main(argv)
+        torch.cuda.synchronize()
+        losses = [h["loss"] for h in loop.history]
+        log(f"[6] launch.train {' '.join(argv)}: losses {losses}, finished "
+            f"in {time.perf_counter() - t0:.1f} s (card {card})")
+        assert all(np.isfinite(losses)), losses
+
+
 # ------------------------------------------------------------ main
 
 KERNELS = {
@@ -4738,6 +5279,16 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attn.py:103",
         jax="repro.kernels.flash_attn.flash_attn"),
 }
+# the training forms of flash_attn: the forward launch that writes the
+# log-sum-exp (the same library and TPU kernel), and the backward, which
+# ports no TPU kernel (the reference differentiates XLA attention,
+# src/repro/models/layers.py:157; its forward's TPU kernel is named)
+KERNELS["flash_attn@lse"] = dict(KERNELS["flash_attn"])
+KERNELS["flash_attn_bwd"] = dict(
+    source="src/repro_torch/csrc/flash_attn_bwd.cu",
+    replaces="src/repro/kernels/flash_attn.py:103",
+    jax="jax.vjp of repro.models.layers.attention_core (XLA; no Pallas "
+        "backward)")
 # the windowed forms (ring page tables, rolling slots) of four of them:
 # the same libraries and TPU kernels, timed and counted on their own
 KERNELS.update({f"{name}@window": dict(KERNELS[name]) for name in (
@@ -4827,6 +5378,10 @@ def main() -> int:
         phase_ssd_kernel(args.seed, errs)
         phase_dense_kernels(args.seed, errs)
         phase_window_kernels(args.seed, errs)
+        t2 = time.perf_counter()
+        phase_flash_bwd(args.seed, errs)
+        log(f"[t] phase 2 flash_attn_bwd took "
+            f"{time.perf_counter() - t2:.1f} s")
     log(f"[t] build and phase 2 done at {time.perf_counter() - t0:.1f} s")
     if "3" in phases:
         for mode in (*MODES, *SSM_MODES, *WINDOW_MODES):
@@ -4853,6 +5408,9 @@ def main() -> int:
         phase_spill_oracle(args.seed)
         log(f"[t] phase 3 spill scenario took "
             f"{time.perf_counter() - t3:.1f} s")
+        t3 = time.perf_counter()
+        phase_train_oracle(args.seed)
+        log(f"[t] phase 3 training took {time.perf_counter() - t3:.1f} s")
     log(f"[t] phase 3 done at {time.perf_counter() - t0:.1f} s")
     if "4" in phases:
         runs = args.runs
@@ -4900,6 +5458,13 @@ def main() -> int:
                                     {mode: 1 for mode in SSM_MODES},
                                     layers=HYBRID_LAYERS).items():
             launches.setdefault(name, row)
+        # training: qwen3-4b at full width, 12 layers; the flash_attn@lse
+        # and flash_attn_bwd rows take its launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        t4 = time.perf_counter()
+        launches.update(phase_train(args.seed, card))
+        log(f"[t] phase 4 training took {time.perf_counter() - t4:.1f} s")
         # the multi-engine cluster (qwen3-4b), then the paper's model,
         # qwen2.5-32b, at full width and depth on the paged default
         for what, fn in (("cluster", lambda: phase_cluster(args.seed, card)),
@@ -4925,6 +5490,10 @@ def main() -> int:
     log(f"[t] phase 5 done at {time.perf_counter() - t0:.1f} s")
     if "6" in phases:
         phase_launcher(card)
+        t6 = time.perf_counter()
+        phase_train_launcher(card)
+        log(f"[t] phase 6 training launcher took "
+            f"{time.perf_counter() - t6:.1f} s")
     rows = []
     for name, meta in KERNELS.items():
         t = times.get(name, {})

@@ -16,6 +16,9 @@
 // first.  Softmax is online in fp32; p is rounded to the
 // storage type before the PV product while the row sum l keeps the
 // unrounded p (attn_common.cuh round_p); a row with no key writes 0.
+// Where the caller asks (TileArgs::lse, the dense kernel's training
+// form), each query vector's log-sum-exp is written too, for the
+// backward (flash_attn_bwd.cu).
 //
 // Two cores, chosen at compile time by the storage type:
 //
@@ -63,6 +66,12 @@ struct TileArgs {
   T* out;
   int n_rows, rep, hq, g, hkv;
   int pos0, kv_lo, kv_hi, causal, window;
+  // where given (the dense kernel's training form), each vector's
+  // log-sum-exp of its scaled scores, -inf for a row with no key: lse
+  // points at the tile's first row of head 0 in a (heads, lse_rows)
+  // array; nullptr (serving) writes nothing
+  float* lse = nullptr;
+  int lse_rows = 0;
 
   // the union [lo, hi) of the rows' key intervals
   __device__ __forceinline__ int lo() const {
@@ -81,6 +90,11 @@ struct TileArgs {
   // in q and out, in vectors of D
   __device__ __forceinline__ size_t vec(int i) const {
     return static_cast<size_t>(i / rep) * hq + g * rep + i % rep;
+  }
+  // store query vector i's log-sum-exp where asked
+  __device__ __forceinline__ void put_lse(int i, float x) const {
+    if (lse != nullptr)
+      lse[static_cast<size_t>(g * rep + i % rep) * lse_rows + i / rep] = x;
   }
 };
 
@@ -179,6 +193,8 @@ struct Tile<float, D> {
       float* o = a.out + a.vec(qi) * D;
 #pragma unroll
       for (int k = 0; k < D / 4; ++k) o[sub + 4 * k] = acc[k] * inv;
+      if (sub == 0)
+        a.put_lse(qi, l_i > 0.f ? m_i + logf(l_i) : -INFINITY);
     }
   }
 };
@@ -381,6 +397,12 @@ struct Tile<__nv_bfloat16, D> {
       const int v = h ? v1 : v0;
       if (v >= nq) continue;
       const float inv = h ? inv1 : inv0;
+      if (quad == 0) {
+        // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2
+        const float l = h ? l1 : l0, m = h ? m1 : m0;
+        a.put_lse(v, l > 0.f ? (m + log2f(l)) * 0.6931471805599453f
+                             : -INFINITY);
+      }
       __nv_bfloat16* dst = a.out + a.vec(v) * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)

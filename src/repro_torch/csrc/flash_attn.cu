@@ -9,7 +9,10 @@
 // GQA maps query head h to KV head h / rep without duplicating KV;
 // softmax is online in fp32; p is rounded to the storage type before the
 // PV product, as `p.astype(v.dtype)` does (flash_attn.py:87); a row with
-// no valid key writes exactly 0.
+// no valid key writes exactly 0.  Where lse is given (training: the
+// forward of kernels/flash_attn.py FlashAttnFn), each query's log-sum-exp
+// of its scaled scores is written too, for flash_attn_bwd.cu; serving
+// passes nullptr and writes nothing more.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): ~4·K·D
 // FLOPs per query vector over its K keys, against q, the band of KV and
@@ -60,8 +63,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                   const T* __restrict__ vbuf,
                   const int* __restrict__ q_offsets,
                   const int* __restrict__ kv_lengths, T* __restrict__ out,
-                  int lq, int s, int hq, int hkv, int causal, int window,
-                  int rows_per_block) {
+                  float* __restrict__ lse, int lq, int s, int hq, int hkv,
+                  int causal, int window, int rows_per_block) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int g = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * rows_per_block;
@@ -77,7 +80,11 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                       0,
                       min(max(kv_lengths[b], 0), s),
                       causal,
-                      window};
+                      window,
+                      lse == nullptr ? nullptr
+                                     : lse + static_cast<size_t>(b) * hq * lq
+                                           + r0,
+                      lq};
   Tile<T, D>::run(a, kbuf, vbuf, SlotRows{static_cast<size_t>(b) * s},
                   smem);
 }
@@ -85,8 +92,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v,
            const void* q_offsets, const void* kv_lengths, void* out,
-           int n_batch, int lq, int s, int hq, int hkv, int causal,
-           int window, cudaStream_t stream) {
+           void* lse, int n_batch, int lq, int s, int hq, int hkv,
+           int causal, int window, cudaStream_t stream) {
   auto kern = flash_attn_kernel<T, D>;
   const size_t smem = Tile<T, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -98,8 +105,9 @@ int launch(const void* q, const void* k, const void* v,
   kern<<<grid, Tile<T, D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(q_offsets),
-      static_cast<const int*>(kv_lengths), static_cast<T*>(out), lq, s, hq,
-      hkv, causal, window, rows_per_block);
+      static_cast<const int*>(kv_lengths), static_cast<T*>(out),
+      static_cast<float*>(lse), lq, s, hq, hkv, causal, window,
+      rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -107,14 +115,16 @@ int launch(const void* q, const void* k, const void* v,
 }  // namespace attn
 
 // q: (B, Lq, Hq, D); k, v: (B, S, Hkv, D); q_offsets, kv_lengths: (B,)
-// int32; out: (B, Lq, Hq, D).  causal: 0 or 1; window: 0 for none, else
-// the band width.  dtype: 0 = float32, 1 = bfloat16.  Returns the
-// launch's cudaGetLastError() (0 on success); never synchronises.
+// int32; out: (B, Lq, Hq, D); lse: nullptr, or (B, Hq, Lq) fp32 for each
+// query's log-sum-exp (the training form; -inf on a row with no key).
+// causal: 0 or 1; window: 0 for none, else the band width.  dtype: 0 =
+// float32, 1 = bfloat16.  Returns the launch's cudaGetLastError() (0 on
+// success); never synchronises.
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, const void* q_offsets,
-    const void* kv_lengths, void* out, int n_batch, int lq, int s, int hq,
-    int hkv, int head_dim, int causal, int window, int dtype,
-    void* stream) {
+    const void* kv_lengths, void* out, void* lse, int n_batch, int lq,
+    int s, int hq, int hkv, int head_dim, int causal, int window,
+    int dtype, void* stream) {
   using namespace attn::flash;
   auto st = static_cast<cudaStream_t>(stream);
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxRep || n_batch <= 0 ||
@@ -123,7 +133,7 @@ extern "C" int flash_attn_launch(
   return attn::with_form(dtype, head_dim, [&](auto form) {
     using F = decltype(form);
     return launch<typename F::T, F::D>(q, k, v, q_offsets, kv_lengths, out,
-                                       n_batch, lq, s, hq, hkv, causal,
+                                       lse, n_batch, lq, s, hq, hkv, causal,
                                        window, st);
   });
 }

@@ -41,7 +41,9 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "ssd_scan": (
         "ssd_scan_launch", (_P,) * 9 + (_I,) * 11 + (_P,)),
     "flash_attn": (
-        "flash_attn_launch", (_P,) * 6 + (_I,) * 9 + (_P,)),
+        "flash_attn_launch", (_P,) * 7 + (_I,) * 9 + (_P,)),
+    "flash_attn_bwd": (
+        "flash_attn_bwd_launch", (_P,) * 12 + (_I,) * 9 + (_P,)),
     "decode_attn_dense": (
         "decode_attn_dense_launch", (_P,) * 6 + (_I,) * 8 + (_P,)),
 }

@@ -5,10 +5,14 @@ reaches the hand-written CUDA kernel (which raises on what it does not
 take), a CPU tensor the plain PyTorch version.  Nothing is caught and
 nothing falls back; there is no backend switch.
 
-The CUDA kernels have no backward kernels, as the Pallas kernels they
-port define no VJP: each CUDA branch first runs ``check_no_grad``, which
-raises where autograd would record the call, rather than return a result
-cut off from the graph.  The plain versions differentiate.
+The serving kernels have no backward kernels, as the Pallas kernels
+they port define no VJP: each of their CUDA branches first runs
+``check_no_grad``, which raises where autograd would record the call,
+rather than return a result cut off from the graph.  ``mha``, the
+attention of every layer of the training forward, has one: under grad
+its CUDA branch goes through ``flash_attn.FlashAttnFn`` (the forward
+kernel, then the ``flash_attn_bwd`` kernels).  The plain versions
+differentiate.
 """
 from __future__ import annotations
 
@@ -36,6 +40,11 @@ LAUNCHERS = {
     "ssd_scan": _ssd.ssd_scan,
     "flash_attn": _flash.flash_attn,
     "decode_attn": _decode.decode_attn,
+    # the training forms of flash_attn: a forward launch that writes the
+    # log-sum-exp (counts here and in flash_attn's own count) and the
+    # backward kernels' launches (one a call)
+    "flash_attn@lse": _flash.flash_attn.lse,
+    "flash_attn_bwd": _flash.flash_attn_bwd,
     # the windowed forms (ring tables, rolling slots): each windowed
     # launch counts here and in its kernel's own count
     "ragged_prefill_paged@window": _prefill.ragged_prefill_paged.window,
@@ -68,8 +77,9 @@ def check_no_grad(fn: str, *inputs) -> None:
     """Raise RuntimeError when grad mode is on and any tensor of
     ``inputs`` requires grad: kernel ``fn`` writes its output through a
     raw pointer, so autograd would get a result with no ``grad_fn`` and
-    no error.  There is no backward kernel yet (ROADMAP item 15b); run
-    under ``torch.no_grad()`` or on tensors that do not require grad."""
+    no error.  The serving kernels have no backward kernel yet (ROADMAP
+    item 15b: the SSD scan's is 15b-ii); run under ``torch.no_grad()``
+    or on tensors that do not require grad."""
     if not torch.is_grad_enabled():
         return
     if any(isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
@@ -84,14 +94,20 @@ def mha(q, k, v, q_offsets=None, kv_lengths=None, *, causal=True,
     """Dense prefill / re-prefill attention, and an encoder layer's.
     q: (B, Lq, Hq, D); k, v: (B, S, Hkv, D); q_offsets: (B,) position of
     each row's first query (None = 0); kv_lengths: (B,) valid KV entries
-    (None = S)."""
+    (None = S).  On the card, under grad mode with an input that
+    requires grad, the call goes through ``FlashAttnFn`` (the kernel
+    writes its log-sum-exp and the backward is the ``flash_attn_bwd``
+    kernels); otherwise it is the plain launch."""
     b, s = k.shape[0], k.shape[1]
     if q_offsets is None:
         q_offsets = torch.zeros((b,), dtype=torch.int32, device=q.device)
     if kv_lengths is None:
         kv_lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     if q.device.type == "cuda":
-        check_no_grad("mha", q, k, v)
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            return _flash.FlashAttnFn.apply(q, k, v, q_offsets, kv_lengths,
+                                            causal, window)
         return _flash.flash_attn(q, k, v, q_offsets, kv_lengths,
                                  causal=causal, window=window)
     if q.device.type == "cpu":

@@ -69,6 +69,92 @@ def ref_flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, lq, hq, d).to(q.dtype)
 
 
+def _flash_scores(q, k, q_offsets, kv_lengths, causal, window):
+    """Scaled scores (B, Hkv, Lq, rep, S) in fp32 and the (B, Lq, S) mask
+    of ``ref_flash_attn``."""
+    b, lq, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    if q_offsets is None:
+        q_offsets = torch.zeros((b,), dtype=torch.int32, device=dev)
+    qpos = q_offsets.long()[:, None] + torch.arange(lq, device=dev)
+    kpos = torch.arange(s, device=dev)[None, None, :]
+    mask = torch.ones((b, lq, s), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos[:, :, None])
+    if window is not None:
+        mask = mask & (kpos > qpos[:, :, None] - window)
+    if kv_lengths is not None:
+        mask = mask & (kpos < kv_lengths.long()[:, None, None])
+    qg = q.reshape(b, lq, hkv, hq // hkv, d).float()
+    scores = torch.einsum("blgrd,bsgd->bglrs", qg, k.float()) / math.sqrt(d)
+    return scores, mask
+
+
+def ref_flash_attn_lse(q: torch.Tensor, k: torch.Tensor,
+                       q_offsets: Optional[torch.Tensor] = None,
+                       kv_lengths: Optional[torch.Tensor] = None, *,
+                       causal: bool = True,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """The log-sum-exp (B, Hq, Lq) fp32 of each query's scaled scores
+    over the keys ``ref_flash_attn`` lets it attend; -inf for a row with
+    no valid key.  The ``flash_attn`` kernel writes it when asked, for
+    its backward."""
+    b, lq, hq, _ = q.shape
+    scores, mask = _flash_scores(q, k, q_offsets, kv_lengths, causal,
+                                 window)
+    scores = scores.masked_fill(~mask[:, None, :, None, :], -math.inf)
+    lse = torch.logsumexp(scores, dim=-1)                  # (B, G, L, R)
+    return lse.permute(0, 1, 3, 2).reshape(b, hq, lq)
+
+
+def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor,
+                         q_offsets: Optional[torch.Tensor] = None,
+                         kv_lengths: Optional[torch.Tensor] = None, *,
+                         causal: bool = True,
+                         window: Optional[int] = None, _abs: bool = False):
+    """The backward of ``ref_flash_attn`` from its saved tensors, by the
+    formulas the ``flash_attn_bwd`` kernels compute, in fp32: P =
+    exp(S·scale − lse) on each query's valid keys (0 elsewhere), Δ =
+    rowsum(dO ∘ O), dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ∘ (dP − Δ), dK =
+    dSᵀ·Q·scale, dQ = dS·K·scale, the GQA sum over each KV head's rep
+    query heads.  A row with no valid key gets dQ = 0 and adds nothing.
+    q, out, dout: (B, Lq, Hq, D); k, v: (B, S, Hkv, D); lse: (B, Hq, Lq)
+    fp32.  Returns (dq, dk, dv) in q's, k's and v's dtypes.
+
+    ``_abs``: the same sums over absolute values, the magnitudes
+    ``flash_attn_bwd_error_bound`` scales (fp32, never rounded)."""
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    scores, mask = _flash_scores(q, k, q_offsets, kv_lengths, causal,
+                                 window)
+    m = mask[:, None, :, None, :]
+    lse5 = lse.float().reshape(b, hkv, rep, lq).permute(0, 1, 3, 2)
+    p = torch.where(m, torch.exp(scores - lse5[..., None]),
+                    torch.zeros((), device=q.device))
+    og = out.reshape(b, lq, hkv, rep, d).float()
+    dog = dout.reshape(b, lq, hkv, rep, d).float()
+    qg = q.reshape(b, lq, hkv, rep, d).float()
+    kf, vf = k.float(), v.float()
+    delta = (dog * og).sum(-1).permute(0, 2, 1, 3)          # (B, G, L, R)
+    if _abs:
+        dog, og, qg, kf, vf = (x.abs() for x in (dog, og, qg, kf, vf))
+        delta = (dog * og).sum(-1).permute(0, 2, 1, 3)
+    dp = torch.einsum("blgrd,bsgd->bglrs", dog, vf)
+    ds = p * (dp + delta[..., None] if _abs else dp - delta[..., None])
+    dv = torch.einsum("bglrs,blgrd->bsgd", p, dog)
+    dk = torch.einsum("bglrs,blgrd->bsgd", ds, qg) * scale
+    dq = torch.einsum("bglrs,bsgd->blgrd", ds, kf) * scale
+    dq = dq.reshape(b, lq, hq, d)
+    if _abs:
+        return dq, dk, dv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ref_ragged_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        cu_seqlens: torch.Tensor,
                        q_offsets: Optional[torch.Tensor] = None,
@@ -404,6 +490,37 @@ def kernel_error_bound(plain, dtype: torch.dtype, q: torch.Tensor,
         return ref, torch.full_like(ref, FP32_TOL)
     absv = plain(qf, kf, vf.abs(), *index)
     return ref, U_BF16 * (absv + ref.abs()) + FP32_TOL
+
+
+BWD_REL_TOL = 1e-4     # fp32 backward vs plain version, of the |.| sums
+
+
+def flash_attn_bwd_error_bound(q, k, v, out, lse, dout, *index, causal=True,
+                               window=None):
+    """The plain backward run in fp32 on the ``flash_attn_bwd`` kernels'
+    inputs, and the elementwise bounds on how far the kernels' dq, dk
+    and dv (in the inputs' dtype) may lie from it.
+
+    The kernels compute in fp32 from the same inputs and the same lse,
+    so each gradient moves only by the order of its fp32 sums and by
+    expf: at most ``BWD_REL_TOL`` of the same sums taken over absolute
+    values (``flash_attn_bwd_plain(..., _abs=True)``, where dS's
+    magnitude is P·(|dO|·|V| + |dO|·|O|)).  In bf16 each output is
+    rounded once (u·|ref|, u = 2^-8), and dV's product takes P rounded
+    to bf16 (u·Pᵀ|dO|, the |.| sum of dV).  A dropped query or key tile
+    moves dq, dk or dv far past it.  Returns ((dq, dk, dv) refs,
+    (dq, dk, dv) bounds)."""
+    f = [x.float() for x in (q, k, v, out, dout)]
+    kw = dict(causal=causal, window=window)
+    ref = flash_attn_bwd_plain(f[0], f[1], f[2], f[3], lse, f[4], *index,
+                               **kw)
+    mag = flash_attn_bwd_plain(f[0], f[1], f[2], f[3], lse, f[4], *index,
+                               _abs=True, **kw)
+    bounds = [BWD_REL_TOL * a + 1e-6 for a in mag]
+    if q.dtype != torch.float32:
+        bounds = [bd + U_BF16 * r.abs() for bd, r in zip(bounds, ref)]
+        bounds[2] = bounds[2] + U_BF16 * mag[2]
+    return tuple(ref), tuple(bounds)
 
 
 SSD_REL_TOL = 1e-4     # fp32 SSD scan vs plain version, of max |out|

@@ -43,6 +43,11 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda") -> Any:
     ``cfg`` (every pattern position's block, each with its own leaves);
     any other tree raises ``ValueError``."""
     dev = resolve_device(device)
+    _check_tree(tree, cfg)
+    return _convert(tree, dev, cfg.torch_dtype)
+
+
+def _check_tree(tree: Any, cfg: ModelConfig) -> None:
     want, got = _leaf_shapes(param_shapes(cfg)), _leaf_shapes(tree)
     if got != want:
         diff = sorted(k for k in want.keys() | got.keys()
@@ -53,12 +58,28 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda") -> Any:
             f"{[want.get(k) for k in diff[:6]]}, got "
             f"{[got.get(k) for k in diff[:6]]})")
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
-        arr = np.array(x, dtype=np.float32)   # a writable copy
-        return torch.from_numpy(arr).to(device=dev, dtype=cfg.torch_dtype)
 
-    return conv(tree)
+def _convert(x: Any, dev: torch.device, dtype: torch.dtype) -> Any:
+    if isinstance(x, dict):
+        return {k: _convert(v, dev, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_convert(v, dev, dtype) for v in x]
+    arr = np.array(x, dtype=np.float32)   # a writable copy
+    return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+
+
+def opt_state_from_numpy(state: Any, cfg: ModelConfig,
+                         device="cuda") -> Dict[str, Any]:
+    """Convert the JAX package's AdamW state (``adamw_init`` /
+    ``adamw_update``: fp32 ``m``, ``v`` and ``master`` trees shaped like
+    the params, int ``count``), given as numpy arrays, to the port's:
+    fp32 trees on ``device`` and a 0-d int32 ``count``.  Each tree must
+    have the port's parameter leaves for ``cfg``, else ``ValueError``."""
+    dev = resolve_device(device)
+    out = {}
+    for name in ("m", "v", "master"):
+        _check_tree(state[name], cfg)
+        out[name] = _convert(state[name], dev, torch.float32)
+    out["count"] = torch.tensor(int(np.asarray(state["count"])),
+                                dtype=torch.int32, device=dev)
+    return out

@@ -24,6 +24,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
@@ -211,6 +212,17 @@ def _layer(block: Dict, g: int) -> Dict:
             for k, v in block.items()}
 
 
+def _groups(block: Dict) -> List[Dict]:
+    """Every group's slice of a stacked block dict, as views made by one
+    ``unbind`` per leaf: under autograd each leaf's grad is then one
+    stack of its groups' grads, where a select per group (``_layer``)
+    would add a zero-padded full-size grad per group."""
+    split = {k: (_groups(v) if isinstance(v, dict) else v.unbind(0))
+             for k, v in block.items()}
+    n = len(next(iter(split.values())))
+    return [{k: v[g] for k, v in split.items()} for g in range(n)]
+
+
 def _ffn(cfg: ModelConfig, j: int, lp: Dict, x: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Post-mixer FFN residual of pattern position ``j`` over x (..., d)
@@ -255,7 +267,8 @@ def forward(params: Dict, cfg: ModelConfig,
             seq_valid_len: Optional[torch.Tensor] = None, *,
             embeds: Optional[torch.Tensor] = None,
             kv_valid_len: Optional[torch.Tensor] = None,
-            dense_cache_write: bool = False, return_aux: bool = False):
+            dense_cache_write: bool = False, return_aux: bool = False,
+            remat: bool = False):
     """The plain dense forward.
 
     tokens: (B, L) int — or embeds: (B, L, d), the frame or patch
@@ -281,7 +294,14 @@ def forward(params: Dict, cfg: ModelConfig,
     (B, V) of the final position only.  A sliding-window layer masks its
     window over full-depth caches (the dense baseline's).
     ``return_aux``: return (logits, the MoE load-balance aux loss summed
-    over layers), the reference's third result."""
+    over layers), the reference's third result.  ``remat``: recompute
+    each layer group's activations in the backward instead of keeping
+    them (``torch.utils.checkpoint``, non-reentrant), and, when a group
+    holds several layers (a hybrid pattern), each layer's inside it, as
+    the reference nests ``jax.checkpoint``; training's forward, so it
+    takes no caches (a recompute would write them twice)."""
+    if remat and caches is not None:
+        raise ValueError("forward(remat=True) takes no caches")
     if embeds is None:
         x = params["embed"][tokens.long()]
     else:
@@ -290,30 +310,46 @@ def forward(params: Dict, cfg: ModelConfig,
     if positions is None:
         positions = torch.arange(l, device=x.device)[None].expand(b, l)
     decode = l == 1 and caches is not None
+    period = len(params["blocks"])
+    groups = [_groups(block) for block in params["blocks"]]
+
+    def layer(x, g, j):
+        lp = groups[j][g]
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.layer_kind(j) == "attn":
+            kv = None if caches is None else (caches[j]["k"][g],
+                                              caches[j]["v"][g])
+            x = x + attention_layer(
+                lp["mixer"], h, cfg=cfg, positions=positions, kv=kv,
+                kv_valid_len=kv_valid_len,
+                dense_cache_write=dense_cache_write)
+        else:
+            cc = None if caches is None else (caches[j]["ssm"][g],
+                                              caches[j]["conv"][g])
+            mix, upd = mamba_mod.mamba_layer(
+                lp["mixer"], h, cfg=cfg, cache=cc, decode=decode,
+                valid_len=seq_valid_len)
+            if upd is not None:
+                cc[0].copy_(upd[0])
+                cc[1].copy_(upd[1])
+            x = x + mix
+        return _ffn(cfg, j, lp, x)
+
+    def group(x, aux, g):
+        for j in range(period):
+            if remat and period > 1:
+                x, a = checkpoint(layer, x, g, j, use_reentrant=False)
+            else:
+                x, a = layer(x, g, j)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(num_groups(cfg)):
-        for j, block in enumerate(params["blocks"]):
-            lp = _layer(block, g)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            if cfg.layer_kind(j) == "attn":
-                kv = None if caches is None else (caches[j]["k"][g],
-                                                  caches[j]["v"][g])
-                x = x + attention_layer(
-                    lp["mixer"], h, cfg=cfg, positions=positions, kv=kv,
-                    kv_valid_len=kv_valid_len,
-                    dense_cache_write=dense_cache_write)
-            else:
-                cc = None if caches is None else (caches[j]["ssm"][g],
-                                                  caches[j]["conv"][g])
-                mix, upd = mamba_mod.mamba_layer(
-                    lp["mixer"], h, cfg=cfg, cache=cc, decode=decode,
-                    valid_len=seq_valid_len)
-                if upd is not None:
-                    cc[0].copy_(upd[0])
-                    cc[1].copy_(upd[1])
-                x = x + mix
-            x, a = _ffn(cfg, j, lp, x)
-            aux = aux + a
+        if remat:
+            x, aux = checkpoint(group, x, aux, g, use_reentrant=False)
+        else:
+            x, aux = group(x, aux, g)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1]

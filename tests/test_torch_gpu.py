@@ -35,7 +35,13 @@ decoded through the destination's graphs captured before the import,
 bit-identical to an eager engine, and a dead engine refusing dispatch.
 The host spill tier: a prefix spilled to the pinned host pool and
 promoted back in place, decoded through a graph captured before the
-spill, bit-identical to an eager engine.
+spill, bit-identical to an eager engine.  Training: ``flash_attn_bwd``
+against its plain version within ``ref.flash_attn_bwd_error_bound``
+(head widths 64-128, GQA 1, 4, 5, 8, a window, non-causal with a
+keyless row) with the forward's log-sum-exp, two runs bit-identical,
+the serving launch unchanged bit for bit by the lse form,
+``FlashAttnFn`` inside ``torch.utils.checkpoint``, and two runs of the
+smoke config's bf16 train step bit-identical.
 Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -1625,3 +1631,111 @@ def test_dead_engine_refuses_dispatch_on_card(card):
                  lambda: e.export_session(0)):
         with pytest.raises(RuntimeError, match="dead"):
             call()
+
+
+# ------------------------------------------- flash_attn's backward kernel
+
+def _bwd_inputs(dev, dtype, b, lq, s, hq, hkv, d, offs, lens, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (rand(b, lq, hq, d), rand(b, s, hkv, d), rand(b, s, hkv, d),
+            rand(b, lq, hq, d), _i32(offs, dev), _i32(lens, dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv,causal,window,offs,lens", [
+    (128, 32, 8, True, None, [0, 7], [300, 190]),
+    (64, 40, 8, True, 64, [0, 0], [257, 100]),
+    (80, 16, 16, False, None, [0, 0], [300, 0]),      # a row with no key
+    (96, 8, 1, True, None, [30, 0], [200, 120]),
+])
+def test_flash_attn_bwd_kernel_matches_plain(card, dtype, d, hq, hkv, causal,
+                                             window, offs, lens):
+    """dq, dk, dv of the backward kernels within the derived bound of
+    their plain version (``flash_attn_bwd_error_bound``), from the
+    forward kernel's output and log-sum-exp; the log-sum-exp equal to
+    the plain one (-inf on a keyless row); two runs bit-identical."""
+    from repro_torch.kernels.ref import (flash_attn_bwd_error_bound,
+                                         ref_flash_attn_lse)
+    q, k, v, do, o, ln = _bwd_inputs(card, dtype, 2, 190, 300, hq, hkv, d,
+                                     offs, lens)
+    kw = dict(causal=causal, window=window)
+    out, lse = fl.flash_attn(q, k, v, o, ln, return_lse=True, **kw)
+    want = ref_flash_attn_lse(q.float(), k.float(), o, ln, **kw)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - want[fin]).abs().max().item() <= 1e-4
+    got = fl.flash_attn_bwd(q, k, v, out, lse, do, o, ln, **kw)
+    again = fl.flash_attn_bwd(q, k, v, out, lse, do, o, ln, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    refs, bounds = flash_attn_bwd_error_bound(q, k, v, out, lse, do, o, ln,
+                                              **kw)
+    for x, r, bd in zip(got, refs, bounds):
+        assert ((x.float() - r).abs() <= bd).all()
+
+
+def test_flash_attn_serving_launch_unchanged_by_lse(card):
+    """The serving launch (no log-sum-exp) gives the same bits as the
+    training launch's output."""
+    q, k, v, _, o, ln = _bwd_inputs(card, torch.bfloat16, 2, 256, 300, HQ,
+                                    HKV, D, [0, 40], [256, 296])
+    n0, l0 = fl.flash_attn.launches, fl.flash_attn.lse.launches
+    plain = fl.flash_attn(q, k, v, o, ln)
+    out, _ = fl.flash_attn(q, k, v, o, ln, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, out)
+    assert fl.flash_attn.launches == n0 + 2
+    assert fl.flash_attn.lse.launches == l0 + 1
+
+
+def test_flash_attn_fn_inside_checkpoint(card):
+    """``ops.mha`` under grad through ``FlashAttnFn`` inside
+    ``torch.utils.checkpoint`` (the training forward's remat): the grads
+    equal those without the checkpoint bit for bit, and the backward
+    kernels ran once per backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import ops
+    q0, k0, v0, do, _, _ = _bwd_inputs(card, torch.bfloat16, 2, 128, 128,
+                                       HQ, HKV, D, [0, 0], [128, 128])
+    grads = []
+    for remat in (False, True):
+        q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+        n0 = fl.flash_attn_bwd.launches
+        fn = (lambda *a: checkpoint(ops.mha, *a, use_reentrant=False)) \
+            if remat else ops.mha
+        fn(q, k, v).backward(do)
+        torch.cuda.synchronize()
+        assert fl.flash_attn_bwd.launches == n0 + 1
+        grads.append((q.grad, k.grad, v.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_train_step_on_card_repeats_bit_for_bit(card):
+    """Two runs of the smoke config's train step (head_dim 64, bf16, 2
+    microbatches, remat) from one seed give the same loss and params bit
+    for bit: no float atomics on the path."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_smoke("qwen3-4b").replace(head_dim=64, dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2, 32)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 2, 32))}
+    runs = []
+    for _ in range(2):
+        params = tr.init_params(cfg, seed=3, device=card)
+        state = adamw_init(params)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1),
+                               accum=2)
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+        runs.append((float(m["loss"]), params))
+    (l0, p0), (l1, p1) = runs
+    assert l0 == l1
+    from repro_torch.optim.adamw import tree_leaves
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(p0), tree_leaves(p1)))

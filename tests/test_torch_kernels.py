@@ -294,13 +294,26 @@ def test_check_no_grad_refuses_inputs_that_require_grad(grad_input):
 @pytest.mark.parametrize("name", CUDA_DISPATCH)
 def test_every_cuda_branch_checks_grad_before_launching(name):
     """Each dispatcher's CUDA branch runs ``check_no_grad`` on its tensor
-    inputs before it calls the launcher, and its CPU branch does not."""
+    inputs before it calls the launcher, and its CPU branch does not —
+    but ``mha``, whose kernel has a backward: under grad mode with an
+    input that requires grad its CUDA branch goes through
+    ``FlashAttnFn`` (forward kernel with its log-sum-exp, then the
+    backward kernels), else the plain launch."""
     import inspect
     src = inspect.getsource(getattr(tops, name))
-    cuda = src.split('.device.type == "cuda":', 1)[1].split("if ", 1)[0]
+    body = src.split('.device.type == "cuda":', 1)[1]
     cpu = src.split('.device.type == "cpu":', 1)[1]
-    assert f'check_no_grad("{name}", ' in cuda.split("return", 1)[0]
     assert "check_no_grad" not in cpu
+    if name == "mha":
+        first = body.split("return", 1)[0]
+        assert "torch.is_grad_enabled()" in first and "requires_grad" in first
+        routed = body.split("return", 2)
+        assert "_flash.FlashAttnFn.apply(" in routed[1]
+        assert "_flash.flash_attn(" in routed[2]
+        assert "check_no_grad" not in body.split('.device.type == "cpu"')[0]
+        return
+    cuda = body.split("if ", 1)[0]
+    assert f'check_no_grad("{name}", ' in cuda.split("return", 1)[0]
 
 
 def test_cpu_branches_still_differentiate():

@@ -133,7 +133,9 @@ def test_long_prompt_chunk_matching_matches_jax_loop(stack):
 def test_port_imports_no_jax():
     """Every repro_torch module imports without pulling in jax or any
     module of the JAX package, the analytic modules (controller,
-    queueing model, workloads, simulator) among them."""
+    queueing model, workloads, simulator) and the training ones
+    (optimizer, checkpoints, train step and loop, launcher) among
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -143,7 +145,8 @@ def test_port_imports_no_jax():
         " or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "new = ('core.controller', 'core.queueing', 'sim.workload',\n"
-        "       'sim.simulator')\n"
+        "       'sim.simulator', 'optim.adamw', 'checkpoint.ckpt',\n"
+        "       'training.train_step', 'training.loop', 'launch.train')\n"
         "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
