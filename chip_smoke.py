@@ -15,7 +15,10 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      once; a verify tick's 40 bf16 rows must fit one wave);
      ``flash_attn_bwd``'s three kernels at each head width (shared
      bytes, registers, blocks per SM) and their grids at the training
-     shape;
+     shape; ``ssd_scan_bwd``'s launch plan at the training shape (4,
+     1024) at mamba2's layout (80 heads of 64, DS 128, G 1) and jamba's
+     (128 heads, G 8): blocks, shared bytes, registers and blocks per SM
+     of its C·Bᵀ and walk kernels, the sums' registers, the workspace;
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128) unless said otherwise, fp32 and
      bf16.  Paged kernels: page size 16, fragmented, shared and
@@ -90,9 +93,16 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      hubert's 16 x 80 non-causal, a 256 window over 1024 keys, offsets
      with kv lengths below S and a keyless row, fp32 and bf16; two runs
      bit-identical and two mutants (a dropped query tile, a dropped key
-     tile) outside the bound; ``ops.mha`` differentiating on the card
-     (one ``flash_attn_bwd`` launch, finite grads) while the eight
-     serving dispatchers refuse under grad mode;
+     tile) outside the bound; ``ops.mha`` and ``ops.ssd_grouped``
+     differentiating on the card (one ``flash_attn_bwd`` / one
+     ``ssd_scan_bwd`` launch, finite grads) while the seven serving
+     dispatchers refuse under grad mode.  ``ssd_scan``'s training form
+     and ``ssd_scan_bwd`` at B 2, L 1024 and 1000, with and without a
+     final-state gradient and with a chunk of zero dt, at mamba2's and
+     jamba's layouts, fp32 and bf16: the chunk states against the plain
+     recurrence, y and the state bit-identical to the serving launch's,
+     the six gradients within ``ref.ssd_bwd_error_bound``, two runs
+     bit-identical and a dropped chunk far outside the bound;
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -144,9 +154,12 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      killed mid-decode: 8 finished, 0 lost, 2 sessions recovered
      bit-identical to the fault-free cluster), with the same
      transcripts, homes, stats and reports on both devices.  Training:
-     two train steps (accum 2, remat) of the qwen3-4b, mixtral-8x7b and
-     qwen3-moe (16 experts) smoke configs at head_dim 128, fp32, on the
-     card against the same steps on the CPU from one set of weights;
+     two train steps (accum 2, remat) of the qwen3-4b, mixtral-8x7b,
+     qwen3-moe (16 experts), mamba2-2.7b and jamba-v0.1-52b smoke
+     configs at head_dim 128, fp32, on the card against the same steps
+     on the CPU from one set of weights, ``flash_attn_bwd`` once per
+     attention layer and ``ssd_scan_bwd`` once per SSD layer per
+     microbatch;
      two bf16 ``TrainLoop`` runs bit-identical, and one checkpointed at
      step 2 and resumed to 4 bit-identical to the continuous run;
   4. the full model: qwen3-4b, 36 layers, bf16, random weights from
@@ -206,7 +219,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      tokens: the loss per step (falling), ms per step split into the
      microbatches' forward + backward and AdamW, tokens/s, model
      TFLOP/s, ``flash_attn@lse`` / ``flash_attn_bwd`` launches per step,
-     peak GiB, and one profiled step's device share;
+     peak GiB, and one profiled step's device share; then mamba2-2.7b
+     at full width cut to 32 of 64 layers the same way, its SSD layers
+     through ``ssd_scan@states`` and ``ssd_scan_bwd``;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
      version, one PyTorch library call as a yardstick where one computes
      the same function, the bound, the kernel's achieved TFLOP/s; the
@@ -251,6 +266,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      compute the same function.  ``flash_attn_bwd`` and the forward
      with its log-sum-exp at the training shape, beside their plain
      versions, SDPA's backward alone (its grads checked) and forward;
+     ``ssd_scan_bwd`` and ``ssd_scan``'s training form at (4, 1024) at
+     mamba2's and jamba's layouts beside their plain versions and the
+     serving launch (no single PyTorch call computes either);
   6. the serve launcher, its default and ``--packed``, for qwen3-4b and
      mamba2-2.7b, at the smoke config and at published widths cut to 4
      layers, and for mixtral-8x7b at its smoke config and at published
@@ -258,7 +276,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      ``--packed``, phi-3-vision-4.2b at full width and depth; the
      jamba-v0.1-52b smoke config, default and ``--packed``, and
      qwen3-moe-30b-a3b's with ``--packed``; the training launcher's
-     smoke default for 20 steps and ``--full --layers 2`` for 3;
+     smoke default for 20 steps and ``--full --layers 2`` for 3, the
+     mamba2-2.7b and jamba-v0.1-52b smoke configs for 3, and mamba2
+     with ``--full --layers 2`` for 3;
   7. one JSON line describing every kernel, then the card line and the
      result line.
 
@@ -280,7 +300,10 @@ counted and printed); p_draft within 1e-5.  ssd_scan
 (``kernels.ref.ssd_error_bound``): y and the final state within 1e-4 of
 the largest magnitude in their (batch row, head) — sums of up to
 Q + DS products taken in another order — and a bf16 y also within its
-one rounding, u * |ref|.
+one rounding, u * |ref|.  ssd_scan_bwd
+(``kernels.ref.ssd_bwd_error_bound``): each gradient within 1e-4 of the
+same sums over absolute values plus 1e-6 of its largest magnitude, and
+a bf16 dx, dB or dC also within its one rounding, u * |ref|.
 """
 from __future__ import annotations
 
@@ -381,6 +404,23 @@ def phase_build():
             if b == 1:
                 assert pl["walk_blocks"] >= sms, \
                     f"ssd_scan leaves SMs idle at B = 1, L = 256: {pl}"
+    # ssd_scan_bwd's launch plan at the training shape (4, 1024), at
+    # mamba2's layout and jamba's
+    for dt in (torch.bfloat16, torch.float32):
+        for nh, g in ((SSD_NH, 1), (JAMBA_NH, JAMBA_G)):
+            shape = (*SSD_TRAIN, nh, SSD_HD, SSD_DS, g)
+            pl = ssd.bwd_plan(*shape, dt, SSD_CHUNK)
+            work = 4 * ssd.bwd_workspace_floats(*shape, SSD_CHUNK) / 2**20
+            log(f"[1] ssd_scan_bwd plan {str(dt)[6:]} (B, L) = {SSD_TRAIN} "
+                f"(NH {nh}, HD {SSD_HD}, DS {SSD_DS}, G {g}, chunk "
+                f"{SSD_CHUNK}): 6 launches a call; C.B^T {pl['cb_blocks']} "
+                f"blocks, {pl['cb_smem']} B shared, {pl['cb_regs']} "
+                f"registers, {pl['cb_blocks_per_sm']} per SM; walk "
+                f"{pl['walk_blocks']} blocks ({pl['slices_per_head']} slices"
+                f" a head), {pl['walk_smem']} B shared, {pl['walk_regs']} "
+                f"registers, {pl['walk_blocks_per_sm']} per SM; sums "
+                f"{pl['sum_regs']} registers; workspace {work:.0f} MiB; on "
+                f"{sms} SMs")
     # fused_sample's launch plan: one cluster a row; a verify tick's 40
     # bf16 rows over qwen3-4b's vocabulary must be resident in one wave
     from repro_torch.kernels import sampling as ks
@@ -799,13 +839,15 @@ def phase_tile_kernels(seed, errs, causal=True):
 
 def phase_grad_check(seed):
     """The nine dispatchers of ``kernels.ops`` on the card, each at small
-    qwen3-4b-headed shapes.  ``mha`` differentiates: under grad mode,
-    with q, k and v requiring grad, it launches ``flash_attn`` with its
-    log-sum-exp, the backward launches ``flash_attn_bwd`` once and q, k
-    and v get finite grads.  The other eight, the serving kernels, raise
-    before launching (no backward kernel, as the Pallas kernels define
-    no VJP; ``ssd_scan``'s is ROADMAP item 15b-ii).  Under ``no_grad``
-    each call launches its kernel once."""
+    qwen3-4b-headed shapes.  ``mha`` and ``ssd_grouped`` differentiate:
+    under grad mode, with their tensor inputs requiring grad, ``mha``
+    launches ``flash_attn`` with its log-sum-exp and the backward
+    ``flash_attn_bwd`` once, ``ssd_grouped`` launches ``ssd_scan``'s
+    training form and the backward ``ssd_scan_bwd`` once, and every
+    input gets a finite grad.  The other seven, the serving kernels,
+    raise before launching (no backward kernel, as the Pallas kernels
+    define no VJP).  Under ``no_grad`` each call launches its kernel
+    once."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 90)
@@ -820,9 +862,9 @@ def phase_grad_check(seed):
     table, slot, lens = _i32([[0, 1]]), _i32([1]), _i32([12])
     host, _ = _sample_batch(np.random.default_rng(seed + 90), 2, 128)
     x, dt, a, bm, cm, h0 = _ssd_inputs(gen, 1, 64, 1, torch.bfloat16)
+    q8 = rand(1, 8, HQ, D)
     cases = (
-        ("mha", "flash_attn", rand(1, 8, HQ, D),
-         lambda q: ops.mha(q, kv4, kv4)),
+        ("mha", "flash_attn", q8, None),
         ("ragged_mha", "ragged_prefill_attn", rand(8, HQ, D),
          lambda q: ops.ragged_mha(q, slots[:1], slots[:1], *seg)),
         ("ragged_mha_arena", "ragged_prefill_arena", rand(8, HQ, D),
@@ -838,22 +880,31 @@ def phase_grad_check(seed):
         ("fused_sample", "fused_sample",
          torch.as_tensor(host[0], device=DEVICE),
          lambda lg: ops.fused_sample(lg, *host[1:8])),
-        ("ssd_grouped", "ssd_scan", x,
-         lambda xx: ops.ssd_grouped(xx, dt, a, bm, cm, h0)))
+        ("ssd_grouped", "ssd_scan", x, None))
     launchers = _launchers()
+    # the two dispatchers with a backward: their differentiable inputs,
+    # the call, and the forward, training-form and backward counters
+    routed = {
+        "mha": ((q8, kv4, kv4),
+                lambda *t: ops.mha(*t).float().square().sum(),
+                ("flash_attn", "flash_attn@lse", "flash_attn_bwd")),
+        "ssd_grouped": ((x, dt, bm, cm, h0),
+                        lambda xx, d, b_, c_, h: sum(
+                            o.float().square().sum() for o in
+                            ops.ssd_grouped(xx, d, a, b_, c_, h)),
+                        ("ssd_scan", "ssd_scan@states", "ssd_scan_bwd"))}
     for fn_name, kernel, base, call in cases:
         counter = launchers[kernel]
-        if fn_name == "mha":
-            leaves = [x.detach().clone().requires_grad_()
-                      for x in (base, kv4, kv4)]
-            names = ("flash_attn", "flash_attn@lse", "flash_attn_bwd")
+        if fn_name in routed:
+            inputs, loss, names = routed[fn_name]
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
             n0 = [launchers[n].launches for n in names]
             with torch.enable_grad():
-                ops.mha(*leaves).float().square().sum().backward()
+                loss(*leaves).backward()
             torch.cuda.synchronize()
             n1 = [launchers[n].launches for n in names]
             with torch.no_grad():
-                ops.mha(*leaves)
+                loss(*leaves)
             torch.cuda.synchronize()
             n2 = [launchers[n].launches for n in names]
             grads = all(x.grad is not None and bool(torch.isfinite(
@@ -861,7 +912,8 @@ def phase_grad_check(seed):
             ok = (grads and [b - a for a, b in zip(n0, n1)] == [1, 1, 1]
                   and [b - a for a, b in zip(n1, n2)] == [1, 0, 0])
             log(f"[2] grad check {fn_name:16s} -> {kernel}: differentiates "
-                f"under grad mode (q, k, v grads finite {grads}; launches "
+                f"under grad mode (every input's grad finite {grads}; "
+                f"launches "
                 f"{dict(zip(names, (b - a for a, b in zip(n0, n1))))}), ran "
                 f"under no_grad (launches "
                 f"{dict(zip(names, (b - a for a, b in zip(n1, n2))))}) "
@@ -1404,6 +1456,8 @@ SSD_NH, SSD_HD, SSD_DS, SSD_CHUNK = 80, 64, 128, 128
 # jamba-v0.1-52b's SSD layout: 128 heads of the same widths, B/C in 8
 # groups of 16 heads (the ``ssd_scan@grouped`` row)
 JAMBA_NH, JAMBA_G = 128, 8
+# the training shape of the SSD backward's checks and times: (B, L)
+SSD_TRAIN = (4, 1024)
 SSD_LENS = (1, 127, 128, 129, 300, 2048)
 SSD_PAIRS = 9   # interleaved kernel / plain timings at the grid and bridge
 # phase 5's packed mamba2 prefill: 7 prompts filling the 512-token bucket
@@ -4091,6 +4145,7 @@ def phase_times(seed, errs):
                                               JAMBA_NH, JAMBA_G)
     out.update(_time_dense(gen, errs))
     out.update(_time_flash_bwd(gen, errs))
+    out.update(_time_ssd_bwd(gen, errs))
     out.update(_time_window(gen, rng, errs))
     out.update(_time_widths(gen, rng, errs))
     for name, r in out.items():
@@ -4877,11 +4932,115 @@ def phase_flash_bwd(seed, errs):
     torch.cuda.empty_cache()
 
 
+# phase 2's cases of ssd_scan's backward at the training shape's batch:
+# (what, L, zero-dt row ranges, with the final state's gradient), each at
+# mamba2's layout and jamba's, fp32 and bf16
+SSD_BWD_CASES = (
+    ("L 1024", 1024, None, True),
+    ("L 1000, off the chunk grid", 1000, None, True),
+    ("no final-state gradient", 1024, None, False),
+    ("a chunk of zero dt", 1024, [(256, 384)], True),
+)
+
+
+def _ssd_bwd_case(gen, b, l, nh, g, dt_, zero=None, dstate=True):
+    """``_ssd_inputs`` (pad and strong-decay rows, a non-zero init state)
+    with dy ~ N(0, 1) in x's dtype and, if asked, a final-state gradient
+    ~ N(0, 1/100)."""
+    args = _ssd_inputs(gen, b, l, g, dt_, zero=zero, nh=nh)
+    dy = torch.randn(args[0].shape, generator=gen, device=DEVICE).to(dt_)
+    dst = 0.1 * torch.randn(args[5].shape, generator=gen, device=DEVICE) \
+        if dstate else None
+    return args, dy, dst
+
+
+def _held_ssd_bwd(args, dy, dst, states, got):
+    """(max abs error, the largest error over its bound) of the six
+    gradients against ``ref.ssd_bwd_error_bound``; the refs and bounds."""
+    from repro_torch.kernels.ref import ssd_bwd_error_bound
+    refs, bounds = ssd_bwd_error_bound(*args, dy, dst, states, SSD_CHUNK)
+    errs = [(x.float() - r).abs() for x, r in zip(got, refs)]
+    worst = max(float(torch.nan_to_num(e / bd, nan=0.0).max())
+                for e, bd in zip(errs, bounds))
+    return max(float(e.max()) for e in errs), worst, refs, bounds
+
+
+def phase_ssd_bwd(seed, errs):
+    """``ssd_scan``'s training form and ``ssd_scan_bwd`` against their
+    plain versions at ``SSD_BWD_CASES``, B = 2, at mamba2's layout (80
+    heads of 64, DS 128, G 1) and jamba's (128 heads, G 8), fp32 and
+    bf16: the chunk states within 1e-4 of the largest state of their
+    (batch row, head) from the plain chunk-by-chunk recurrence, y and the
+    final state bit-identical to the serving launch's, and the six
+    gradients within ``ref.ssd_bwd_error_bound``.  At L 1024 in bf16 at
+    each layout: two runs bit-identical, and the kernel run on a dy whose
+    chunk 3 is zeroed (a dropped chunk) lies far past the bound."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import SSD_REL_TOL, ref_ssd_scan
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 28)
+    b, n, ratios = 2, 0, {}
+    for nh, g in ((SSD_NH, 1), (JAMBA_NH, JAMBA_G)):
+        for what, l, zero, with_dst in SSD_BWD_CASES:
+            for dt_ in (torch.float32, torch.bfloat16):
+                args, dy, dst = _ssd_bwd_case(gen, b, l, nh, g, dt_, zero,
+                                              with_dst)
+                y, st, states = ssd.ssd_scan(*args, chunk=SSD_CHUNK,
+                                             return_states=True)
+                y2, st2 = ssd.ssd_scan(*args, chunk=SSD_CHUNK)
+                serving = torch.equal(y, y2) and torch.equal(st, st2)
+                _, _, sref = ref_ssd_scan(*(t.float() for t in args),
+                                          chunk=SSD_CHUNK, return_states=True)
+                sbound = SSD_REL_TOL * sref.abs().amax((2, 3, 4), True)
+                s_err = float(((states - sref).abs() / sbound).max())
+                got = ssd.ssd_scan_bwd(*args[:5], states, dy, dst,
+                                       chunk=SSD_CHUNK)
+                torch.cuda.synchronize()
+                err, worst, refs, bounds = _held_ssd_bwd(args, dy, dst,
+                                                         states, got)
+                finite = all(bool(torch.isfinite(x.float()).all())
+                             for x in got)
+                ok = serving and s_err <= 1 and worst <= 1 and finite
+                errs.setdefault(("ssd_scan_bwd", dt_), []).append(err)
+                errs.setdefault(("ssd_scan@states", dt_), []).append(
+                    float((states - sref).abs().max()))
+                ratios[dt_] = max(ratios.get(dt_, 0.0), worst)
+                n += 1
+                log(f"[2] ssd_scan_bwd {what} (B {b}, NH {nh}, G {g}) "
+                    f"{str(dt_)[6:]}: dx/ddt/da/dB/dC/dinit max_abs_err="
+                    f"{err:.3e} err/bound={worst:.3f}; chunk states "
+                    f"err/bound={s_err:.3f}, y and state as the serving "
+                    f"launch's {serving} {'ok' if ok else 'FAIL'}")
+                assert ok, f"ssd_scan_bwd {what} NH {nh} {dt_}"
+                if what == SSD_BWD_CASES[0][0] and dt_ == torch.bfloat16:
+                    again = ssd.ssd_scan_bwd(*args[:5], states, dy, dst,
+                                             chunk=SSD_CHUNK)
+                    same = all(torch.equal(p, q) for p, q in zip(got, again))
+                    cut = dy.clone()
+                    cut[:, 3 * SSD_CHUNK:4 * SSD_CHUNK] = 0
+                    dropped = ssd.ssd_scan_bwd(*args[:5], states, cut, dst,
+                                               chunk=SSD_CHUNK)
+                    mutant = _held_ssd_bwd(args, dy, dst, states,
+                                           dropped)[1]
+                    log(f"[2] ssd_scan_bwd L 1024 (NH {nh}, G {g}) bf16: "
+                        f"two runs bit-identical {same}; a dropped chunk "
+                        f"err/bound={mutant:.1f} (must exceed 100)")
+                    assert same and mutant > 100
+                del args, dy, dst, y, st, states, got, refs, bounds
+    log(f"[2] ok: ssd_scan_bwd == plain on {n} cases (worst err/bound fp32 "
+        f"{ratios[torch.float32]:.3f}, bf16 {ratios[torch.bfloat16]:.3f}; "
+        f"max_abs_err fp32 {max(errs[('ssd_scan_bwd', torch.float32)]):.3e}"
+        f", bf16 {max(errs[('ssd_scan_bwd', torch.bfloat16)]):.3e})")
+    torch.cuda.empty_cache()
+
+
 TRAIN_SMOKE = dict(head_dim=128)         # the attention kernels' width
 # the smoke configs trained on the card against the CPU (qwen3-moe with
-# 16 experts: the capacity dispatch)
+# 16 experts: the capacity dispatch; mamba2 and jamba through the SSD
+# backward, their SSD layers at the smoke's own widths)
 TRAIN_ORACLE = (("qwen3-4b", {}), ("mixtral-8x7b", {}),
-                (QWEN_MOE, dict(num_experts=16)))
+                (QWEN_MOE, dict(num_experts=16)), ("mamba2-2.7b", {}),
+                (HYBRID, {}))
 TRAIN_BATCH = dict(seq_len=64, batch=4, accum=2)
 TRAIN_OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 TRAIN_GRAD_TOL = (1e-5, 1e-4)   # card vs CPU grads: atol (x the leaf's
@@ -4933,10 +5092,12 @@ def phase_train_oracle(seed):
     plain path), from one set of weights: the qwen3-4b, mixtral-8x7b
     (window 32, 4 experts) and qwen3-moe (16 experts: the capacity
     dispatch) smoke configs at head_dim 128, fp32, two steps of accum 2
-    with remat.  The first microbatch's loss grads within
-    ``TRAIN_GRAD_TOL``, the losses within ``TRAIN_LOSS_TOL``, the params
-    as stated beside ``TRAIN_LOSS_TOL``; ``flash_attn_bwd`` once per layer
-    per microbatch.  Then
+    with remat; and the mamba2-2.7b and jamba-v0.1-52b smoke configs, the
+    SSD layers through ``ssd_scan``'s training form and ``ssd_scan_bwd``.
+    The first microbatch's loss grads within ``TRAIN_GRAD_TOL``, the
+    losses within ``TRAIN_LOSS_TOL``, the params as stated beside
+    ``TRAIN_LOSS_TOL``; ``flash_attn_bwd`` once per attention layer and
+    ``ssd_scan_bwd`` once per SSD layer per microbatch.  Then
     qwen3-4b's in bf16: two card runs of ``TrainLoop`` from one seed
     bit-identical, and a run checkpointed at step 2 and resumed to 4
     bit-identical to the continuous run."""
@@ -4972,11 +5133,12 @@ def phase_train_oracle(seed):
             ((a - b).abs() / (atol * max(1.0, b.abs().max().item())
                               + rtol * b.abs())).max().item()
             for a, b in zip(*grads))
-        n0 = launchers["flash_attn_bwd"].launches
+        bwd = ("flash_attn_bwd", "ssd_scan_bwd")
+        n0 = [launchers[k].launches for k in bwd]
         lc, pc, sc = _train_steps(cfg, _tree_to(cpu, DEVICE), DEVICE, steps,
                                   seed)
         torch.cuda.synchronize()
-        n_bwd = launchers["flash_attn_bwd"].launches - n0
+        n_bwd = [launchers[k].launches - n for k, n in zip(bwd, n0)]
         lh, ph, sh = _train_steps(cfg, cpu, "cpu", steps, seed)
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
         errs = torch.cat([(a.float().cpu() - b.float()).abs().flatten()
@@ -4984,7 +5146,9 @@ def phase_train_oracle(seed):
         worst = errs.max().item()
         q999 = errs.quantile(0.999).item() if errs.numel() <= 1 << 24 \
             else errs.sort().values[int(0.999 * (errs.numel() - 1))].item()
-        want_bwd = cfg.num_layers * TRAIN_BATCH["accum"] * steps
+        ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.num_layers))
+        want_bwd = [n * TRAIN_BATCH["accum"] * steps
+                    for n in (cfg.num_layers - ssm, ssm)]
         ok = (grad_worst <= 1.0 and loss_err <= TRAIN_LOSS_TOL
               and worst <= 1e-5 + 0.05 * lr * steps and q999 <= 1e-6
               and n_bwd == want_bwd)
@@ -4993,8 +5157,8 @@ def phase_train_oracle(seed):
             f"{grad_worst:.3f}; over {steps} steps losses "
             f"{[round(x, 5) for x in lc]} vs {[round(x, 5) for x in lh]} "
             f"(rel err {loss_err:.2e}), params max err {worst:.2e}, 99.9th "
-            f"percentile {q999:.2e}; flash_attn_bwd launches {n_bwd} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"percentile {q999:.2e}; flash_attn_bwd / ssd_scan_bwd launches "
+            f"{n_bwd} (want {want_bwd}) {'ok' if ok else 'FAIL'}")
         assert ok, f"train step {arch}: card vs CPU"
 
     cfg = get_smoke("qwen3-4b").replace(**TRAIN_SMOKE, dtype="bfloat16")
@@ -5016,45 +5180,60 @@ def phase_train_oracle(seed):
 
 TRAIN_LAYERS = 12                 # of qwen3-4b's 36: full depth's state
 TRAIN_FULL = dict(seq_len=1024, batch=4, accum=2)    # (~88 GB) > 80 GB
+# of mamba2-2.7b's 64: at ~1.03 GiB a layer (params, Adam state,
+# remat's activations) full depth reckons ~72 GiB of the 80 GB card
+TRAIN_SSM_LAYERS = 32
+# each training form's forward and backward kernels: the counts phase 4
+# reports per step and the kernels line takes
+TRAIN_KERNELS = {"qwen3-4b": ("flash_attn", "flash_attn@lse",
+                              "flash_attn_bwd"),
+                 "mamba2-2.7b": ("ssd_scan", "ssd_scan@states",
+                                 "ssd_scan_bwd")}
 TRAIN_STEPS = 10
 TRAIN_FULL_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 
 
 def _matmul_params(tree, path=""):
     """Parameters that enter a matrix product: not the embedding table
-    (a gather) nor the norms' scales."""
+    (a gather) nor the norms' scales, nor an SSD mixer's depthwise
+    convolution and per-head vectors."""
     if isinstance(tree, dict):
         return sum(_matmul_params(v, f"{path}/{k}") for k, v in tree.items())
     if isinstance(tree, list):
         return sum(_matmul_params(v, f"{path}/{i}")
                    for i, v in enumerate(tree))
     if path == "/embed" or path.split("/")[-1] in (
-            "ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+            "ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm", "conv_w",
+            "conv_b", "dt_bias", "A_log", "D"):
         return 0
     return tree.numel()
 
 
-def phase_train(seed, card):
-    """qwen3-4b at full width (d_model 2560, 32 / 8 heads of 128, d_ff
-    9728, vocab 151,936) cut to ``TRAIN_LAYERS`` layers, bf16, trained
-    by ``TrainLoop`` for ``TRAIN_STEPS`` steps of accum 2 x (4, 1024)
-    tokens from ``SyntheticLM``, with remat: the loss per step (finite,
-    lower at the last step than the first), ms per step and its split
-    between the microbatches' forward + backward and AdamW (CUDA events
-    around each step and around its ``adamw_update``), tokens/s, model
-    TFLOP/s (6 N tokens + attention, remat's extra forward apart),
-    ``flash_attn@lse`` and ``flash_attn_bwd`` launches per step (every
-    count set to 0 before the run), peak GiB; then one more step under
-    ``torch.profiler``: the device-busy share and the attention
-    kernels' share of it.  Returns {kernel: (launches, steps, mode)}."""
+def phase_train(seed, card, arch="qwen3-4b", layers=TRAIN_LAYERS):
+    """``arch`` at full width cut to ``layers`` layers, bf16, trained by
+    ``TrainLoop`` for ``TRAIN_STEPS`` steps of accum 2 x (4, 1024) tokens
+    from ``SyntheticLM``, with remat: qwen3-4b (d_model 2560, 32 / 8
+    heads of 128, d_ff 9728, vocab 151,936) through the attention
+    kernels, mamba2-2.7b (d_model 2560, 80 SSD heads of 64, state 128,
+    vocab 50,280) through the SSD scan's.  Logs the loss per step
+    (finite, lower at the last step than the first), ms per step and its
+    split between the microbatches' forward + backward and AdamW (CUDA
+    events around each step and around its ``adamw_update``), tokens/s,
+    model TFLOP/s (6 N tokens + attention or the SSD scan's operations,
+    remat's extra forward apart), the training forms' forward and
+    backward launches per step (every count set to 0 before the run),
+    peak GiB; then one more step under ``torch.profiler``: the
+    device-busy share and the backward and forward kernels' share of
+    it.  Returns {kernel: (launches, steps, mode)} for the two training
+    forms."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
     from repro_torch.optim import AdamWConfig
     from repro_torch.training import TrainConfig, TrainLoop
     from repro_torch.training import train_step as tts
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(arch)
     full_layers = cfg.num_layers
-    cfg = cfg.replace(num_layers=TRAIN_LAYERS)
+    cfg = cfg.replace(num_layers=layers)
     data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seed=seed,
                                        **TRAIN_FULL))
     losses = []
@@ -5099,14 +5278,22 @@ def phase_train(seed, card):
     am = float(np.median(adam_ms[steady]))
     tokens = TRAIN_FULL["accum"] * TRAIN_FULL["batch"] * TRAIN_FULL["seq_len"]
     n_mm = _matmul_params(params)
-    pairs = TRAIN_FULL["batch"] * sum(i + 1 for i in
-                                      range(TRAIN_FULL["seq_len"]))
-    attn_fwd = (4 * cfg.hdim * cfg.num_heads * pairs * TRAIN_LAYERS
-                * TRAIN_FULL["accum"])
-    model = 6 * n_mm * tokens + 3 * attn_fwd
-    remat = 2 * n_mm * tokens + attn_fwd
+    fwd_k, lse_k, bwd_k = TRAIN_KERNELS[arch]
+    if cfg.family == "ssm":
+        # the SSD scan's forward operations a layer and microbatch
+        mixer = "the SSD scan"
+        mix_fwd = _ssd_work(TRAIN_FULL["batch"], TRAIN_FULL["seq_len"],
+                            cfg.ssm_n_groups, nh=cfg.ssm_nheads)[0]
+    else:
+        mixer = "attention"
+        pairs = TRAIN_FULL["batch"] * sum(i + 1 for i in
+                                          range(TRAIN_FULL["seq_len"]))
+        mix_fwd = 4 * cfg.hdim * cfg.num_heads * pairs
+    mix_fwd *= layers * TRAIN_FULL["accum"]
+    model = 6 * n_mm * tokens + 3 * mix_fwd
+    remat = 2 * n_mm * tokens + mix_fwd
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items() if n}
-    log(f"[4] train qwen3-4b full width, {TRAIN_LAYERS} of {full_layers} "
+    log(f"[4] train {arch} full width, {layers} of {full_layers} "
         f"layers, bf16, remat, accum {TRAIN_FULL['accum']} x "
         f"({TRAIN_FULL['batch']}, {TRAIN_FULL['seq_len']}): "
         f"{n_mm / 1e9:.3f} B matmul params; losses "
@@ -5115,21 +5302,20 @@ def phase_train(seed, card):
         f"{max(step_ms[steady]):.1f}): forward + backward {ms - am:.1f} ms, "
         f"AdamW {am:.1f} ms; {tokens / ms * 1e3:.0f} tokens/s; model "
         f"{model / ms / 1e9:.1f} TFLOP/s (6 N T {6 * n_mm * tokens / 1e12:.2f}"
-        f" + attention {3 * attn_fwd / 1e12:.2f} TFLOP a step; remat's "
+        f" + {mixer} {3 * mix_fwd / 1e12:.2f} TFLOP a step; remat's "
         f"extra forward {remat / 1e12:.2f} TFLOP more, "
         f"{(model + remat) / ms / 1e9:.1f} TFLOP/s with it); launches a "
         f"step {per_step}; peak {peak:.2f} GiB; {wall:.1f} s in all "
         f"(card {card})")
-    fwd = TRAIN_LAYERS * TRAIN_FULL["accum"] * TRAIN_STEPS
+    fwd = layers * TRAIN_FULL["accum"] * TRAIN_STEPS
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    assert launches["flash_attn_bwd"] == fwd, launches
-    assert launches["flash_attn@lse"] == launches["flash_attn"] == 2 * fwd, \
-        launches
+    assert launches[bwd_k] == fwd, launches
+    assert launches[lse_k] == launches[fwd_k] == 2 * fwd, launches
     assert all(n == 0 for k, n in launches.items() if k not in (
-        "flash_attn", "flash_attn@lse", "flash_attn_bwd")), launches
+        fwd_k, lse_k, bwd_k)), launches
 
     # one more step under the profiler: the device's busy share and the
-    # attention kernels' share of it
+    # training forms' kernels' share of it
     from torch.profiler import ProfilerActivity, profile
     batch = data.next_batch()
     torch.cuda.synchronize()
@@ -5139,19 +5325,22 @@ def phase_train(seed, card):
         params, state, _ = inner(params, state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-    by_kernel, busy = _device_split(prof, wall_ms, "qwen3-4b train step",
+    by_kernel, busy = _device_split(prof, wall_ms, f"{arch} train step",
                                     card)
-    bwd = sum(t for k, t in by_kernel.items() if "flash_bwd" in k)
-    fwd_k = sum(t for k, t in by_kernel.items()
-                if "flash_attn_kernel" in k)
-    log(f"[4] train step profile: device busy {busy:.1f} ms of "
-        f"{wall_ms:.1f} ms wall; flash_attn_bwd's kernels {bwd:.1f} ms "
+    # the backward's kernels and the forward kernel's, by name
+    bwd_pat, fwd_pat = (("flash_bwd", "flash_attn_kernel")
+                        if fwd_k == "flash_attn" else
+                        ("ssd_bwd_", "ssd_(?:cb|walk)_kernel"))
+    bwd = sum(t for k, t in by_kernel.items() if re.search(bwd_pat, k))
+    fwd_ms = sum(t for k, t in by_kernel.items() if re.search(fwd_pat, k))
+    log(f"[4] train step profile {arch}: device busy {busy:.1f} ms of "
+        f"{wall_ms:.1f} ms wall; {bwd_k}'s kernels {bwd:.1f} ms "
         f"({100 * bwd / max(busy, 1e-9):.1f}% of the busy time), "
-        f"flash_attn with lse {fwd_k:.1f} ms "
-        f"({100 * fwd_k / max(busy, 1e-9):.1f}%) (card {card})")
+        f"{lse_k} {fwd_ms:.1f} ms "
+        f"({100 * fwd_ms / max(busy, 1e-9):.1f}%) (card {card})")
     del params, state, loop
     return {name: (n, TRAIN_STEPS, "train") for name, n in launches.items()
-            if name in ("flash_attn@lse", "flash_attn_bwd")}
+            if name in (lse_k, bwd_k)}
 
 
 def _time_flash_bwd(gen, errs):
@@ -5223,13 +5412,100 @@ def _time_flash_bwd(gen, errs):
     return rows
 
 
+def _ssd_bwd_work(b, l, nh, g, chunk=SSD_CHUNK, el=2):
+    """(operations, bytes) ``ssd_scan_bwd`` needs for one call at
+    mamba2's head widths: per chunk of n rows and head the lower
+    triangles of G = dy·xᵀ and of Mᵀ·dy, and five rank-HD products over
+    the chunk (dH·Bᵀ, C·Hᵀ, dC's and dB's carried terms, dH's update);
+    per group C·Bᵀ, dC's and dB's intra-chunk products; nothing is
+    skipped.  Bytes: x, dy, B, C, dt, a, the chunk states and the final
+    state's gradient read once; dx, d dt, da, dB, dC and the initial
+    state's gradient written once."""
+    hd, ds = SSD_HD, SSD_DS
+    flops = 0
+    for c0 in range(0, l, chunk):
+        n = min(chunk, l - c0)
+        tri = n * (n + 1) // 2
+        flops += b * (nh * (2 * 2 * tri * hd + 5 * 2 * n * hd * ds)
+                      + g * 3 * 2 * tri * ds)
+    rows, nc = b * l, -(-l // chunk)
+    state = 4 * b * nh * hd * ds
+    nbytes = (3 * rows * nh * hd * el + 4 * rows * g * ds * el
+              + 2 * 4 * rows * nh + 2 * 4 * nh + state * nc + 2 * state)
+    return flops, nbytes
+
+
+def _time_ssd_bwd(gen, errs):
+    """``ssd_scan``'s training form and ``ssd_scan_bwd`` at the training
+    shape (B 4, L 1024, bf16) at mamba2's layout (the JSON rows) and
+    jamba's (logged), each held to its plain version first, beside their
+    plain versions.  No single PyTorch call computes either function.
+    Bounds: the bf16 tensor-core rate for their operations against each
+    input read and each output written once (``_ssd_work`` plus the
+    chunk states written, ``_ssd_bwd_work``)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    rows = {}
+    b, l = SSD_TRAIN
+    for nh, g in ((SSD_NH, 1), (JAMBA_NH, JAMBA_G)):
+        args, dy, dst = _ssd_bwd_case(gen, b, l, nh, g, torch.bfloat16)
+        y, st, states = ssd.ssd_scan(*args, chunk=SSD_CHUNK,
+                                     return_states=True)
+        got = ssd.ssd_scan_bwd(*args[:5], states, dy, dst, chunk=SSD_CHUNK)
+        err, worst, _, _ = _held_ssd_bwd(args, dy, dst, states, got)
+        errs.setdefault(("ssd_scan_bwd", torch.bfloat16), []).append(err)
+        assert worst <= 1.0, f"ssd_scan_bwd at the training shape, NH {nh}"
+        flops, nbytes = _ssd_work(b, l, g, nh=nh)
+        nc = -(-l // SSD_CHUNK)
+        fwd = dict(
+            ms=_time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK,
+                                          return_states=True), 10),
+            plain_ms=_time(lambda: ssd.ssd_scan_plain(
+                *args, chunk=SSD_CHUNK, return_states=True), 2),
+            library_ms=None, flops=flops, flops_rate=BF16_FLOPS,
+            bytes=nbytes + 4 * b * nh * nc * SSD_HD * SSD_DS)
+        flops, nbytes = _ssd_bwd_work(b, l, nh, g)
+        bwd = dict(
+            ms=_time(lambda: ssd.ssd_scan_bwd(*args[:5], states, dy, dst,
+                                              chunk=SSD_CHUNK), 5),
+            plain_ms=_time(lambda: ssd.ssd_scan_bwd_plain(
+                *(t.float() for t in args), dy.float(), dst,
+                chunk=SSD_CHUNK, states=states), 2),
+            library_ms=None, flops=flops, flops_rate=BF16_FLOPS,
+            bytes=nbytes)
+        serving = _time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK), 10)
+        log(f"[5] ssd_scan_bwd at (B, L) = {SSD_TRAIN} (NH {nh}, G {g}) "
+            f"bf16: max_abs_err={err:.3e} err/bound={worst:.3f}; kernel "
+            f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms; the "
+            f"training-form forward {fwd['ms']:.4f} ms (the serving launch "
+            f"{serving:.4f} ms), plain {fwd['plain_ms']:.4f} ms")
+        if g == 1:
+            rows["ssd_scan_bwd"], rows["ssd_scan@states"] = bwd, fwd
+        else:
+            for name, r in (("ssd_scan_bwd", bwd), ("ssd_scan@states", fwd)):
+                t_b = r["bytes"] / HBM_BYTES_PER_S * 1e3
+                t_o = r["flops"] / BF16_FLOPS * 1e3
+                log(f"[5] {name} at jamba's layout (NH {nh}, G {g}): kernel"
+                    f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                    f"bound {max(t_b, t_o):.4f} ms ({r['bytes'] / 1e6:.2f} "
+                    f"MB, {r['flops'] / 1e9:.2f} GFLOP)")
+        del args, dy, dst, y, st, states, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_launcher(card):
     """The training launcher on the card: its smoke default (qwen3-4b's
     smoke config at head_dim 64) for 20 steps, and published widths cut
-    to 2 layers for 3 steps."""
+    to 2 layers for 3 steps; the mamba2-2.7b and jamba-v0.1-52b smoke
+    configs for 3 steps, and mamba2 at published widths cut to 2
+    layers."""
     from repro_torch.launch import train
     for argv in (["--steps", "20"],
-                 ["--full", "--layers", "2", "--steps", "3"]):
+                 ["--full", "--layers", "2", "--steps", "3"],
+                 ["--arch", "mamba2-2.7b", "--steps", "3"],
+                 ["--arch", HYBRID, "--steps", "3"],
+                 ["--arch", "mamba2-2.7b", "--full", "--layers", "2",
+                  "--steps", "3"]):
         t0 = time.perf_counter()
         loop = train.main(argv)
         torch.cuda.synchronize()
@@ -5288,6 +5564,16 @@ KERNELS["flash_attn_bwd"] = dict(
     source="src/repro_torch/csrc/flash_attn_bwd.cu",
     replaces="src/repro/kernels/flash_attn.py:103",
     jax="jax.vjp of repro.models.layers.attention_core (XLA; no Pallas "
+        "backward)")
+# the training forms of ssd_scan: the forward launch that writes the
+# chunk states (the same library and TPU kernel), and the backward, which
+# ports no TPU kernel (the reference differentiates ssd_chunked through
+# XLA, src/repro/models/mamba.py:98; its forward's TPU kernel is named)
+KERNELS["ssd_scan@states"] = dict(KERNELS["ssd_scan"])
+KERNELS["ssd_scan_bwd"] = dict(
+    source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+    replaces="src/repro/kernels/ssd_scan.py:69",
+    jax="jax.vjp of repro.models.mamba.ssd_chunked (XLA; no Pallas "
         "backward)")
 # the windowed forms (ring page tables, rolling slots) of four of them:
 # the same libraries and TPU kernels, timed and counted on their own
@@ -5382,6 +5668,10 @@ def main() -> int:
         phase_flash_bwd(args.seed, errs)
         log(f"[t] phase 2 flash_attn_bwd took "
             f"{time.perf_counter() - t2:.1f} s")
+        t2 = time.perf_counter()
+        phase_ssd_bwd(args.seed, errs)
+        log(f"[t] phase 2 ssd_scan_bwd took "
+            f"{time.perf_counter() - t2:.1f} s")
     log(f"[t] build and phase 2 done at {time.perf_counter() - t0:.1f} s")
     if "3" in phases:
         for mode in (*MODES, *SSM_MODES, *WINDOW_MODES):
@@ -5458,13 +5748,18 @@ def main() -> int:
                                     {mode: 1 for mode in SSM_MODES},
                                     layers=HYBRID_LAYERS).items():
             launches.setdefault(name, row)
-        # training: qwen3-4b at full width, 12 layers; the flash_attn@lse
-        # and flash_attn_bwd rows take its launches
-        gc.collect()
-        torch.cuda.empty_cache()
-        t4 = time.perf_counter()
-        launches.update(phase_train(args.seed, card))
-        log(f"[t] phase 4 training took {time.perf_counter() - t4:.1f} s")
+        # training: qwen3-4b at full width, 12 layers, and mamba2-2.7b at
+        # full width, 32 layers; the flash_attn@lse and flash_attn_bwd
+        # rows take qwen3's launches, ssd_scan@states and ssd_scan_bwd
+        # mamba2's
+        for arch, layers in (("qwen3-4b", TRAIN_LAYERS),
+                             ("mamba2-2.7b", TRAIN_SSM_LAYERS)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t4 = time.perf_counter()
+            launches.update(phase_train(args.seed, card, arch, layers))
+            log(f"[t] phase 4 training {arch} took "
+                f"{time.perf_counter() - t4:.1f} s")
         # the multi-engine cluster (qwen3-4b), then the paper's model,
         # qwen2.5-32b, at full width and depth on the paged default
         for what, fn in (("cluster", lambda: phase_cluster(args.seed, card)),

@@ -480,14 +480,17 @@ ssd_cb_kernel(const float* __restrict__ dt, const T* __restrict__ bm,
 // --- 2. the chunk walk of one (batch row, head, HD slice) ---------------
 
 // kDs: the widest DS this instance takes (it sizes the state registers:
-// 128 for mamba2's heads, with no spills at 128 registers a thread)
-template <typename T, int kDs>
+// 128 for mamba2's heads, with no spills at 128 registers a thread);
+// kStates: the training form, which also writes each chunk's start state
+// (an instance of its own, so the serving form compiles as it did)
+template <typename T, int kDs, bool kStates = false>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_walk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a, const T* __restrict__ bm,
                 const T* __restrict__ cm, const float* __restrict__ cb,
                 const float* __restrict__ h0, T* __restrict__ y,
-                float* __restrict__ hout, Dims d) {
+                float* __restrict__ hout, float* __restrict__ states,
+                Dims d) {
   using S = typename Tr<T>::S;
   constexpr int P = Tr<T>::kSlice;
   constexpr int kNY = P / 8;                 // y: n-tiles of a warp's rows
@@ -572,6 +575,19 @@ ssd_walk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int c = 0; c < d.nc; ++c) {
     const int c0 = c * d.chunk, n = min(d.chunk, d.len - c0), np = pad16(n);
     const long long row0 = static_cast<long long>(b) * d.len + c0;
+    if constexpr (kStates) {                 // the training form
+      float* sc = states + ((static_cast<long long>(b) * d.nh + h) * d.nc +
+                            c) * d.hd * d.ds;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = p0 + 16 * mt + gq + 8 * (e >> 1);
+          const int k = 8 * tile(i) + 2 * tq + (e & 1);
+          if (p < d.hd && k < d.ds) sc[p * d.ds + k] = st[i][e];
+        }
+      }
+    }
     __syncthreads();                         // the last chunk's reads done
     const float dtv = dnext;
     if (tid < np) {
@@ -814,7 +830,7 @@ Dims make_dims(int len, int nh, int hd, int ds, int groups, int chunk,
 // raise both kernels' dynamic shared memory limit: at every launch, as
 // a once-only guard would be one object across the kernel libraries
 // loaded in one process
-template <typename T, int kDs>
+template <typename T, int kDs, bool kStates = false>
 cudaError_t set_smem(const Dims& d, size_t& s1, size_t& s2) {
   s1 = cb_smem<T>(d.qp, d.dsp);
   s2 = walk_smem<T>(d.qp, d.dsp);
@@ -823,17 +839,18 @@ cudaError_t set_smem(const Dims& d, size_t& s1, size_t& s2) {
       ssd_cb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s1));
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(ssd_walk_kernel<T, kDs>,
+  return cudaFuncSetAttribute(ssd_walk_kernel<T, kDs, kStates>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(s2));
 }
 
-template <typename T, int kDs>
-int launch(const void* x, const void* dt, const void* a, const void* bm,
-           const void* cm, const void* h0, void* y, void* hout, void* cb,
-           int batch, const Dims& d, cudaStream_t stream) {
+template <typename T, int kDs, bool kStates>
+int launch_form(const void* x, const void* dt, const void* a, const void* bm,
+                const void* cm, const void* h0, void* y, void* hout,
+                void* cb, void* states, int batch, const Dims& d,
+                cudaStream_t stream) {
   size_t s1, s2;
-  cudaError_t err = set_smem<T, kDs>(d, s1, s2);
+  cudaError_t err = set_smem<T, kDs, kStates>(d, s1, s2);
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_cb_kernel<T><<<dim3(d.nc * d.groups * (d.qp / 16), batch), kThreads,
                      s1, stream>>>(
@@ -841,14 +858,26 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
       static_cast<const T*>(cm), static_cast<float*>(cb), d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_walk_kernel<T, kDs><<<dim3(d.nh * d.nslice, batch), kThreads, s2,
-                            stream>>>(
+  ssd_walk_kernel<T, kDs, kStates><<<dim3(d.nh * d.nslice, batch), kThreads,
+                                      s2, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<const float*>(cb),
       static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(hout), d);
+      static_cast<float*>(hout), static_cast<float*>(states), d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the training form where a states pointer is given, else the serving one
+template <typename T, int kDs>
+int launch(const void* x, const void* dt, const void* a, const void* bm,
+           const void* cm, const void* h0, void* y, void* hout, void* cb,
+           void* states, int batch, const Dims& d, cudaStream_t stream) {
+  if (states != nullptr)
+    return launch_form<T, kDs, true>(x, dt, a, bm, cm, h0, y, hout, cb,
+                                     states, batch, d, stream);
+  return launch_form<T, kDs, false>(x, dt, a, bm, cm, h0, y, hout, cb,
+                                    nullptr, batch, d, stream);
 }
 
 template <typename T, int kDs>
@@ -898,10 +927,10 @@ template <typename T, int kDs>
 struct Launch {
   static int run(const void* x, const void* dt, const void* a,
                  const void* bm, const void* cm, const void* h0, void* y,
-                 void* hout, void* cb, int batch, int len, int nh, int hd,
-                 int ds, int groups, int chunk, int x_rs, int b_rs, int c_rs,
-                 cudaStream_t stream, int slice) {
-    return launch<T, kDs>(x, dt, a, bm, cm, h0, y, hout, cb, batch,
+                 void* hout, void* cb, void* states, int batch, int len,
+                 int nh, int hd, int ds, int groups, int chunk, int x_rs,
+                 int b_rs, int c_rs, cudaStream_t stream, int slice) {
+    return launch<T, kDs>(x, dt, a, bm, cm, h0, y, hout, cb, states, batch,
                           make_dims(len, nh, hd, ds, groups, chunk, x_rs,
                                     b_rs, c_rs, slice),
                           stream);
@@ -923,21 +952,24 @@ struct Info {
 // inner dims contiguous; dt: (B, L, NH) and a: (NH,) float32; h0 and
 // hout: (B, NH, HD, DS) float32 (they may alias); y: (B, L, NH, HD)
 // contiguous; cb: a float32 workspace of B * ceil(L / Q) * G * Q16^2
-// floats, Q = min(chunk, L) and Q16 it rounded up to 16.  chunk: rows
+// floats, Q = min(chunk, L) and Q16 it rounded up to 16; states: null
+// (serving), or the training form's (B, NH, ceil(L / Q), HD, DS) float32
+// output, the state at the start of each chunk.  chunk: rows
 // per chunk, 1..128; DS at most 256 (and the shared memory within 227
 // KB).  Launches the two kernels and returns the first failing launch's
 // cudaGetLastError() (0 on success); never synchronises.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm,
                                const void* h0, void* y, void* hout, void* cb,
-                               int batch, int len, int nh, int hd, int ds,
-                               int groups, int chunk, int x_rs, int b_rs,
-                               int c_rs, int dtype, void* stream) {
+                               void* states, int batch, int len, int nh,
+                               int hd, int ds, int groups, int chunk,
+                               int x_rs, int b_rs, int c_rs, int dtype,
+                               void* stream) {
   if (refused(batch, len, nh, hd, ds, groups, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Launch>(dtype, ds, x, dt, a, bm, cm, h0, y, hout, cb,
-                          batch, len, nh, hd, ds, groups, chunk, x_rs, b_rs,
-                          c_rs, static_cast<cudaStream_t>(stream));
+                          states, batch, len, nh, hd, ds, groups, chunk, x_rs,
+                          b_rs, c_rs, static_cast<cudaStream_t>(stream));
 }
 
 // The launch plan of one call: out[0..9] = the cb kernel's blocks,

@@ -39,7 +39,9 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "fused_sample": (
         "fused_sample_launch", (_P,) * 11 + (_I,) * 5 + (_P,)),
     "ssd_scan": (
-        "ssd_scan_launch", (_P,) * 9 + (_I,) * 11 + (_P,)),
+        "ssd_scan_launch", (_P,) * 10 + (_I,) * 11 + (_P,)),
+    "ssd_scan_bwd": (
+        "ssd_scan_bwd_launch", (_P,) * 15 + (_I,) * 11 + (_P,)),
     "flash_attn": (
         "flash_attn_launch", (_P,) * 7 + (_I,) * 9 + (_P,)),
     "flash_attn_bwd": (

@@ -8,11 +8,13 @@ nothing falls back; there is no backend switch.
 The serving kernels have no backward kernels, as the Pallas kernels
 they port define no VJP: each of their CUDA branches first runs
 ``check_no_grad``, which raises where autograd would record the call,
-rather than return a result cut off from the graph.  ``mha``, the
-attention of every layer of the training forward, has one: under grad
-its CUDA branch goes through ``flash_attn.FlashAttnFn`` (the forward
-kernel, then the ``flash_attn_bwd`` kernels).  The plain versions
-differentiate.
+rather than return a result cut off from the graph.  The two kernels of
+the training forward have one: under grad with an input that requires
+grad, ``mha`` (every attention layer) goes through
+``flash_attn.FlashAttnFn`` (the forward kernel, then the
+``flash_attn_bwd`` kernels) and ``ssd_grouped`` (every SSD layer)
+through ``ssd_scan.SSDScanFn`` (the forward's training form, then the
+``ssd_scan_bwd`` kernels).  The plain versions differentiate.
 """
 from __future__ import annotations
 
@@ -45,6 +47,11 @@ LAUNCHERS = {
     # backward kernels' launches (one a call)
     "flash_attn@lse": _flash.flash_attn.lse,
     "flash_attn_bwd": _flash.flash_attn_bwd,
+    # the training forms of ssd_scan: a forward launch that writes the
+    # chunk states (counts here and in ssd_scan's own count) and the
+    # backward kernels' launches (one a call)
+    "ssd_scan@states": _ssd.ssd_scan.states,
+    "ssd_scan_bwd": _ssd.ssd_scan_bwd,
     # the windowed forms (ring tables, rolling slots): each windowed
     # launch counts here and in its kernel's own count
     "ragged_prefill_paged@window": _prefill.ragged_prefill_paged.window,
@@ -77,9 +84,8 @@ def check_no_grad(fn: str, *inputs) -> None:
     """Raise RuntimeError when grad mode is on and any tensor of
     ``inputs`` requires grad: kernel ``fn`` writes its output through a
     raw pointer, so autograd would get a result with no ``grad_fn`` and
-    no error.  The serving kernels have no backward kernel yet (ROADMAP
-    item 15b: the SSD scan's is 15b-ii); run under ``torch.no_grad()``
-    or on tensors that do not require grad."""
+    no error.  The serving kernels have no backward kernel; run under
+    ``torch.no_grad()`` or on tensors that do not require grad."""
     if not torch.is_grad_enabled():
         return
     if any(isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
@@ -249,16 +255,22 @@ def ssd_grouped(x, dt, a, bg, cg, init_state=None, *, chunk=128):
     x: (B, L, NH, HD); dt: (B, L, NH) float32 post-softplus; a: (NH,)
     negative; bg, cg: (B, L, G, DS), NH % G == 0; init_state: (B, NH, HD,
     DS) float32 or None (zeros).  Returns (y (B, L, NH, HD) in x's dtype,
-    final state (B, NH, HD, DS) float32)."""
+    final state (B, NH, HD, DS) float32).  On the card, under grad mode
+    with an input that requires grad, the call goes through
+    ``SSDScanFn`` (the kernel writes its chunk states and the backward
+    is the ``ssd_scan_bwd`` kernels); otherwise it is the plain
+    launch."""
     if init_state is None:
         b, _, nh, hd = x.shape
         init_state = torch.zeros((b, nh, hd, bg.shape[-1]),
                                  dtype=torch.float32, device=x.device)
     if x.device.type == "cuda":
-        check_no_grad("ssd_grouped", x, dt, a, bg, cg, init_state)
-        return _ssd.ssd_scan(x, dt.float().contiguous(),
-                             a.float().contiguous(), bg, cg,
-                             init_state.float().contiguous(), chunk=chunk)
+        args = (x, dt.float().contiguous(), a.float().contiguous(), bg, cg,
+                init_state.float().contiguous())
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, a, bg, cg, init_state)):
+            return _ssd.SSDScanFn.apply(*args, chunk)
+        return _ssd.ssd_scan(*args, chunk=chunk)
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, a, bg, cg, init_state,
                                    chunk=chunk)

@@ -396,7 +396,7 @@ def ref_decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def ref_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  bmat: torch.Tensor, cmat: torch.Tensor,
                  init_state: Optional[torch.Tensor] = None, *,
-                 chunk: int = 128):
+                 chunk: int = 128, return_states: bool = False):
     """Chunked Mamba2 SSD scan, group-factored (``ssd_chunked``).
 
     x: (B, L, NH, HD); dt: (B, L, NH) post-softplus; a: (NH,) negative;
@@ -416,6 +416,9 @@ def ref_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     sum here adds terms of one sign.  seg is masked to -inf above the
     diagonal BEFORE exp (exp overflows there).  L off the chunk grid is
     zero-padded: dt = 0 rows are exact identities of the state.
+    ``return_states``: also the state at the start of each chunk, (B,
+    NH, n_chunks, HD, DS) fp32, which the kernel's training form writes
+    for its backward.
     """
     b, l, nh, hd = x.shape
     g, ds = bmat.shape[2], bmat.shape[3]
@@ -443,8 +446,9 @@ def ref_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ones = torch.ones((q, q), dtype=torch.bool, device=x.device)
     tri = ones.tril()[None, :, :, None, None]          # s <= t
     later = ones.tril(-1)[None, :, :, None, None]      # r > s
-    ys = []
+    ys, starts = [], []
     for c in range(nc):
+        starts.append(h)
         xq, dq = xc[:, c].to(f32), dtc[:, c].to(f32)
         bq, cq = bc[:, c].to(f32), cc[:, c].to(f32)
         la = dq * ag                                         # (b,q,g,hpg)
@@ -464,7 +468,138 @@ def ref_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         h = torch.exp(cum[:, -1])[..., None, None] * h + dstate
         ys.append(y.to(x.dtype))
     y = torch.stack(ys, dim=1).reshape(b, l, nh, hd)[:, :orig_l]
+    if return_states:
+        states = torch.stack(starts, dim=3).reshape(b, nh, nc, hd, ds)
+        return y, h.reshape(b, nh, hd, ds), states
     return y, h.reshape(b, nh, hd, ds)
+
+
+def ref_ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     bmat: torch.Tensor, cmat: torch.Tensor,
+                     init_state: Optional[torch.Tensor], dy: torch.Tensor,
+                     dstate: Optional[torch.Tensor] = None, *,
+                     chunk: int = 128,
+                     states: Optional[torch.Tensor] = None,
+                     _abs: bool = False):
+    """The backward of ``ref_ssd_scan``, by the reverse chunk walk the
+    ``ssd_scan_bwd`` kernel computes, in fp32.
+
+    Inputs as ``ref_ssd_scan`` takes them, with dy (B, L, NH, HD) the
+    gradient of y, ``dstate`` (B, NH, HD, DS) that of the final state
+    (None = zeros) and ``states`` the forward's chunk states (B, NH,
+    n_chunks, HD, DS) fp32 (None = computed here by ``ref_ssd_scan``).
+    Returns (dx, ddt, da, dbmat, dcmat, dinit) like (x,
+    dt, a, bmat, cmat, init_state): dx, dbmat and dcmat in x's dtype,
+    the rest fp32.
+
+    Per chunk of n <= Q rows, last chunk first, with dH the gradient of
+    the state at the chunk's end (seeded by ``dstate``), H the state at
+    its start (the forward's chunk states), e_t = exp(cum_t), E[t, s] =
+    exp(seg(t, s)) for s <= t, M = E (C_t . B_s) dt_s and w_s =
+    E[last, s] dt_s:
+      G[t, s] = dy_t . x_s (over the head's columns);
+      dx_s = sum_{t >= s} M[t, s] dy_t + w_s (dH B_s);
+      dCB[t, s] = G E dt_s, so dC_t = sum_s dCB[t, s] B_s + e_t (dy_t H)
+        and dB_s = sum_t dCB[t, s] C_t + w_s (x_s dH), summed over the
+        heads of the group;
+      d dt_s = sum_t G E (C_t . B_s) + (x_s . dH B_s) E[last, s] + dla_s a;
+      dla_r = sum_{t >= r} D_t with D_t = dcum_t + rowsum_t - colsum_t:
+        dcum_t = e_t (dy_t . H C_t), plus e_last (dH . H) at the last row;
+        dseg[t, s] = G E (C_t . B_s) dt_s for s < t, plus (x_s . dH B_s)
+        w_s on the last row, and rowsum / colsum its sums over s < t and
+        over t > s.  The suffix sum of rowsum - colsum is the sum of dseg
+        over the pairs s < r <= t whose seg holds la_r;
+      da = sum dla_r dt_r;  dH <- e_last dH + sum_t e_t dy_t^T C_t, which
+      is the initial state's gradient after the first chunk.
+    Rows past L get no gradient; a zero-dt chunk has no x or B gradient
+    and a full dt gradient.
+
+    ``_abs``: the same sums over absolute values (|x|, |B|, |C|, |dy|,
+    |dstate|, |a|, rowsum + colsum, and the states of the scan run on
+    |x|, |B|, |init_state|, which bound |states|), the magnitudes
+    ``ssd_bwd_error_bound`` scales (fp32, never rounded)."""
+    b, l, nh, hd = x.shape
+    g, ds = bmat.shape[2], bmat.shape[3]
+    hpg = nh // g
+    q = min(chunk, l)
+    nc = -(-l // q)
+    f32 = torch.float32
+    dev = x.device
+    xf, bf, cf, dyf = (t.to(f32) for t in (x, bmat, cmat, dy))
+    h0 = (torch.zeros((b, nh, hd, ds), dtype=f32, device=dev)
+          if init_state is None else init_state.to(f32))
+    dh = (torch.zeros((b, nh, hd, ds), dtype=f32, device=dev)
+          if dstate is None else dstate.to(f32))
+    ag = a.to(f32).reshape(g, hpg)
+    if _abs:
+        xf, bf, cf, dyf, h0, dh = (t.abs() for t in (xf, bf, cf, dyf, h0,
+                                                      dh))
+    if states is None or _abs:
+        _, _, states = ref_ssd_scan(xf, dt.to(f32), a.to(f32), bf, cf, h0,
+                                    chunk=q, return_states=True)
+    states = states.to(f32).reshape(b, g, hpg, nc, hd, ds)
+    dh = dh.reshape(b, g, hpg, hd, ds)
+    dxs, ddts, dbs, dcs = [], [], [], []
+    da = torch.zeros((g, hpg), dtype=f32, device=dev)
+    sign = 1.0 if _abs else -1.0
+    a_mul = ag.abs() if _abs else ag
+    for c in reversed(range(nc)):
+        r0, n = c * q, min(q, l - c * q)
+        xq = xf[:, r0:r0 + n].reshape(b, n, g, hpg, hd)
+        dyq = dyf[:, r0:r0 + n].reshape(b, n, g, hpg, hd)
+        dq = dt[:, r0:r0 + n].to(f32).reshape(b, n, g, hpg)
+        bq, cq = bf[:, r0:r0 + n], cf[:, r0:r0 + n]          # (b, n, g, ds)
+        hs = states[:, :, :, c]                              # (b,g,h,p,k)
+        la = dq * ag
+        e = torch.exp(torch.cumsum(la, dim=1))               # (b, n, g, h)
+        ones = torch.ones((n, n), dtype=torch.bool, device=dev)
+        tri = ones.tril()[None, :, :, None, None]
+        strict = ones.tril(-1)[None, :, :, None, None]
+        seg = torch.cumsum(la[:, :, None].expand(b, n, n, g, hpg)
+                           .masked_fill(~strict, 0.0), dim=1)
+        es = torch.exp(seg.masked_fill(~tri, -math.inf))     # (b,t,s,g,h)
+        cb = torch.einsum("btgk,bsgk->btsg", cq, bq)[..., None]
+        gm = torch.einsum("btghp,bsghp->btsgh", dyq, xq)
+        m = es * cb * dq[:, None]
+        dcb = gm * es * dq[:, None]
+        u = gm * es * cb
+        dseg = (u * dq[:, None]).masked_fill(~strict, 0.0)
+        esl = es[:, -1]                                      # (b, s, g, h)
+        w = esl * dq
+        dxa = torch.einsum("bghpk,bsgk->bsghp", dh, bq)
+        dx = torch.einsum("btsgh,btghp->bsghp", m, dyq) + w[..., None] * dxa
+        dw = (xq * dxa).sum(-1)
+        ch = torch.einsum("btgk,bghpk->btghp", cq, hs)
+        dcum = e * (dyq * ch).sum(-1)
+        dlast = e[:, -1] * (dh * hs).sum((-1, -2))            # (b, g, h)
+        edy = e[..., None] * dyq
+        dcs.append(torch.einsum("btsgh,bsgk->btgk", dcb, bq)
+                   + torch.einsum("btghp,bghpk->btgk", edy, hs))
+        dbs.append(torch.einsum("btsgh,btgk->bsgk", dcb, cq)
+                   + torch.einsum("bsgh,bsghp,bghpk->bsgk", w, xq, dh))
+        dsw = dw * w
+        dsw[:, -1] = 0.0                                      # seg(last, last)
+        rowsum = dseg.sum(2)
+        rowsum[:, -1] += dsw.sum(1)
+        colsum = dseg.sum(1) + dsw
+        d = dcum + rowsum + sign * colsum
+        d[:, -1] += dlast
+        dla = torch.flip(torch.cumsum(torch.flip(d, (1,)), 1), (1,))
+        ddts.append(u.sum(1) + dw * esl + dla * a_mul)
+        da = da + (dla * dq).sum((0, 1))
+        dxs.append(dx)
+        dh = e[:, -1][..., None, None] * dh + torch.einsum(
+            "btghp,btgk->bghpk", edy, cq)
+    cat = [torch.cat(t[::-1], dim=1) for t in (dxs, ddts, dbs, dcs)]
+    dx = cat[0].reshape(b, l, nh, hd)
+    ddt = cat[1].reshape(b, l, nh)
+    dbm, dcm = cat[2], cat[3]
+    dinit = dh.reshape(b, nh, hd, ds)
+    da = da.reshape(nh)
+    if _abs:
+        return dx, ddt, da, dbm, dcm, dinit
+    return (dx.to(x.dtype), ddt, da, dbm.to(bmat.dtype), dcm.to(cmat.dtype),
+            dinit)
 
 
 FP32_TOL = 1e-4        # fp32 kernel vs plain version: summation order
@@ -556,3 +691,34 @@ def ssd_error_bound(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         y_bound = y_bound + U_BF16 * (y_ref.abs() + y_bound)
     s_bound = scale(s_ref, (2, 3), (b, nh, 1, 1)).expand_as(s_ref)
     return y_ref, y_bound, s_ref, s_bound
+
+
+SSD_BWD_REL_TOL = 1e-4  # fp32 SSD backward vs plain version, of the |.| sums
+
+
+def ssd_bwd_error_bound(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        bmat: torch.Tensor, cmat: torch.Tensor,
+                        init_state: torch.Tensor, dy: torch.Tensor,
+                        dstate: Optional[torch.Tensor],
+                        states: torch.Tensor, chunk: int):
+    """The plain backward run in fp32 on the ``ssd_scan_bwd`` kernel's
+    inputs (the forward's chunk states among them), and the elementwise
+    bounds on how far the kernel's six gradients may lie from it.
+
+    The kernel computes in fp32 from the same inputs and the same
+    states, so each gradient moves only by the order of its fp32 sums
+    and by expf: at most ``SSD_BWD_REL_TOL`` of the same sums taken over
+    absolute values (``ref_ssd_scan_bwd(..., _abs=True)``), plus 1e-6 of
+    that gradient's largest magnitude for the terms that underflow.  In
+    bf16, dx, dB and dC are rounded once more (u·|ref|, u = 2^-8).  A
+    dropped chunk moves them far past it.  Returns (refs, bounds), each
+    (dx, ddt, da, dB, dC, dinit)."""
+    f = [t.float() for t in (x, dt, a, bmat, cmat, init_state, dy)]
+    ds_ = None if dstate is None else dstate.float()
+    ref = ref_ssd_scan_bwd(*f, ds_, chunk=chunk, states=states)
+    mag = ref_ssd_scan_bwd(*f, ds_, chunk=chunk, _abs=True)
+    bounds = [SSD_BWD_REL_TOL * m + 1e-6 * m.max() for m in mag]
+    if x.dtype != torch.float32:
+        for i in (0, 3, 4):
+            bounds[i] = bounds[i] + U_BF16 * ref[i].abs()
+    return tuple(ref), tuple(bounds)

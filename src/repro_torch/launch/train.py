@@ -11,16 +11,19 @@ serve launcher does.  The reference's ``--smoke`` flag is not copied:
 it is ``store_true`` with ``default=True``, so it can never be turned
 off and the reference's launcher never reaches a published config.
 
-On the card the attention families train through the ``flash_attn``
-kernel and its backward kernels; an SSM or hybrid config (mamba2,
-jamba) reaches ``ssd_scan``, which has no backward kernel yet, and is
-refused there: train it with ``--device cpu``.
+On the card every family trains through the hand-written kernels: the
+attention layers through ``flash_attn`` and its backward kernels, the
+SSD layers of the SSM and hybrid configs (mamba2, jamba) through
+``ssd_scan``'s training form and the ``ssd_scan_bwd`` kernels.  On the
+CPU they differentiate through the plain versions.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --full --layers 2 --steps 3 --ckpt-dir build/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --full --layers 2 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
       --device cpu --steps 20
 """
 from __future__ import annotations
@@ -56,11 +59,6 @@ def main(argv=None) -> TrainLoop:
 
     on_card = torch.device(args.device).type == "cuda"
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    if on_card and cfg.family in ("ssm", "hybrid"):
-        ap.error(f"{cfg.name}: its SSD layers' ssd_scan kernel has no "
-                 "backward kernel yet (ROADMAP item 15b-ii), so the "
-                 f"{cfg.family} family trains on the CPU only: pass "
-                 "--device cpu")
     if on_card and not args.full:
         cfg = cfg.replace(head_dim=64)
     if args.layers is not None:

@@ -16,9 +16,9 @@ are no-ops at world size 1.  They wait for the sharding item (ROADMAP
 
 On the card every attention layer's forward is the ``flash_attn``
 kernel and its backward the ``flash_attn_bwd`` kernels
-(``kernels.flash_attn.FlashAttnFn``); an SSM layer's ``ssd_scan`` has
-no backward kernel yet, so an SSM or hybrid config trains on the CPU
-only.
+(``kernels.flash_attn.FlashAttnFn``); every SSD layer's forward is
+``ssd_scan``'s training form and its backward the ``ssd_scan_bwd``
+kernels (``kernels.ssd_scan.SSDScanFn``).
 """
 from __future__ import annotations
 

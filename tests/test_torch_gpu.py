@@ -41,7 +41,14 @@ against its plain version within ``ref.flash_attn_bwd_error_bound``
 keyless row) with the forward's log-sum-exp, two runs bit-identical,
 the serving launch unchanged bit for bit by the lse form,
 ``FlashAttnFn`` inside ``torch.utils.checkpoint``, and two runs of the
-smoke config's bf16 train step bit-identical.
+smoke config's bf16 train step bit-identical; ``ssd_scan``'s training
+form (chunk states against the plain recurrence, y and state as the
+serving launch's) and ``ssd_scan_bwd`` within
+``ref.ssd_bwd_error_bound`` at mamba2's and jamba's layouts, the smoke
+widths, widths off every tile and DS past 128, two runs bit-identical;
+``ops.ssd_grouped`` differentiating on the card against the CPU, also
+inside ``torch.utils.checkpoint``; and two runs of the mamba2 and jamba
+smoke configs' bf16 train step bit-identical.
 Without a card every test skips inside its fixture.
 
 Run on the card:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -1737,5 +1744,119 @@ def test_train_step_on_card_repeats_bit_for_bit(card):
     (l0, p0), (l1, p1) = runs
     assert l0 == l1
     from repro_torch.optim.adamw import tree_leaves
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(p0), tree_leaves(p1)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,nh,hd,g,ds,chunk", [
+    (2, 300, 80, 64, 1, 128, 128),      # mamba2's heads, off the chunk grid
+    (1, 257, 128, 64, 8, 128, 128),     # jamba's 8 groups of 16 heads
+    (2, 37, 16, 8, 2, 16, 8),           # the smoke configs' SSD widths
+    (2, 150, 6, 40, 2, 20, 48),         # widths off every tile
+    (1, 64, 4, 24, 4, 200, 32),         # DS past 128, per-head B / C
+])
+def test_ssd_scan_bwd_kernel_matches_plain(card, dtype, b, l, nh, hd, g, ds,
+                                           chunk):
+    """The training form's chunk states against the plain recurrence, its
+    y and final state bit-identical to the serving launch's; the six
+    gradients of ``ssd_scan_bwd`` within ``ssd_bwd_error_bound``, with
+    and without the final state's gradient; two runs bit-identical."""
+    from repro_torch.kernels.ref import (SSD_REL_TOL, ref_ssd_scan,
+                                         ssd_bwd_error_bound)
+    args = _ssd_args(card, b, l, g, dtype, seed=l + nh, nh=nh, hd=hd, ds=ds)
+    n0, s0 = ssd.ssd_scan.launches, ssd.ssd_scan.states.launches
+    y, st, states = ssd.ssd_scan(*args, chunk=chunk, return_states=True)
+    y2, st2 = ssd.ssd_scan(*args, chunk=chunk)
+    assert ssd.ssd_scan.launches == n0 + 2
+    assert ssd.ssd_scan.states.launches == s0 + 1
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _, _, sref = ref_ssd_scan(*(t.float() for t in args), chunk=chunk,
+                              return_states=True)
+    assert bool(((states - sref).abs()
+                 <= SSD_REL_TOL * sref.abs().amax((2, 3, 4), True)).all())
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b * l)
+    dy = torch.randn(y.shape, generator=gen, device=card).to(dtype)
+    for dst in (0.1 * torch.randn(st.shape, generator=gen, device=card),
+                None):
+        n = ssd.ssd_scan_bwd.launches
+        got = ssd.ssd_scan_bwd(*args[:5], states, dy, dst, chunk=chunk)
+        again = ssd.ssd_scan_bwd(*args[:5], states, dy, dst, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd.ssd_scan_bwd.launches == n + 2
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+        refs, bounds = ssd_bwd_error_bound(*args, dy, dst, states, chunk)
+        for x, r, bd in zip(got, refs, bounds):
+            assert x.shape == r.shape
+            assert bool(((x.float() - r).abs() <= bd).all())
+
+
+def test_ssd_grouped_differentiates_on_card(card):
+    """``ops.ssd_grouped`` under grad on the card goes through
+    ``SSDScanFn``: one training-form launch and one backward launch, and
+    every input's gradient equal to autograd of the plain version on the
+    CPU (fp32; atol 1e-5 x the leaf's largest |grad| above 1, rtol
+    1e-4); inside ``torch.utils.checkpoint`` (training's remat) the
+    same gradients bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import ops
+    base = _ssd_args(card, 2, 200, 2, torch.float32, seed=9, nh=8, hd=64,
+                     ds=32)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(10)
+    dy = torch.randn(base[0].shape, generator=gen, device=card)
+    dst = torch.randn(base[5].shape, generator=gen, device=card)
+
+    def grads(dev, remat=False):
+        leaves = [t.detach().to(dev).contiguous().requires_grad_()
+                  for t in base]
+        fn = (lambda *a: checkpoint(ops.ssd_grouped, *a, chunk=64,
+                                    use_reentrant=False)) if remat else \
+            (lambda *a: ops.ssd_grouped(*a, chunk=64))
+        y, st = fn(*leaves)
+        ((y * dy.to(dev)).sum() + (st * dst.to(dev)).sum()).backward()
+        return [t.grad for t in leaves]
+
+    n = [ssd.ssd_scan.states.launches, ssd.ssd_scan_bwd.launches]
+    on_card = grads(card)
+    torch.cuda.synchronize()
+    assert [ssd.ssd_scan.states.launches - n[0],
+            ssd.ssd_scan_bwd.launches - n[1]] == [1, 1]
+    for g, w in zip(on_card, grads("cpu")):
+        atol = 1e-5 * max(1.0, w.abs().max().item())
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=atol)
+    assert all(torch.equal(a, b) for a, b in zip(on_card,
+                                                  grads(card, remat=True)))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_ssm_train_step_on_card_repeats_bit_for_bit(card, arch):
+    """Two runs of the SSM and hybrid smoke configs' train step (bf16, 2
+    microbatches, remat; the SSD layers through the training form and
+    ``ssd_scan_bwd``) from one seed give the same loss and params bit
+    for bit: no float atomics on the path."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_smoke(arch).replace(head_dim=64, dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 2, 32)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 2, 32))}
+    runs = []
+    for _ in range(2):
+        n = ssd.ssd_scan_bwd.launches
+        params = tr.init_params(cfg, seed=3, device=card)
+        state = adamw_init(params)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1),
+                               accum=2)
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+        ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.num_layers))
+        assert ssd.ssd_scan_bwd.launches - n == ssm * 2 * 2
+        runs.append((float(m["loss"]), params))
+    (l0, p0), (l1, p1) = runs
+    assert np.isfinite(l0) and l0 == l1
     assert all(torch.equal(a, b)
                for a, b in zip(tree_leaves(p0), tree_leaves(p1)))

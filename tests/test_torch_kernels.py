@@ -291,25 +291,32 @@ def test_check_no_grad_refuses_inputs_that_require_grad(grad_input):
     tops.check_no_grad("decode_paged", *(x.detach() for x in xs))
 
 
+# the dispatchers whose kernel has a backward: (the autograd function's
+# call under grad, the plain launch)
+ROUTED = {"mha": ("_flash.FlashAttnFn.apply(", "_flash.flash_attn("),
+          "ssd_grouped": ("_ssd.SSDScanFn.apply(", "_ssd.ssd_scan(")}
+
+
 @pytest.mark.parametrize("name", CUDA_DISPATCH)
 def test_every_cuda_branch_checks_grad_before_launching(name):
     """Each dispatcher's CUDA branch runs ``check_no_grad`` on its tensor
     inputs before it calls the launcher, and its CPU branch does not —
-    but ``mha``, whose kernel has a backward: under grad mode with an
-    input that requires grad its CUDA branch goes through
-    ``FlashAttnFn`` (forward kernel with its log-sum-exp, then the
-    backward kernels), else the plain launch."""
+    but ``mha`` and ``ssd_grouped``, whose kernels have a backward: under
+    grad mode with an input that requires grad their CUDA branch goes
+    through ``FlashAttnFn`` (forward kernel with its log-sum-exp, then
+    the backward kernels) or ``SSDScanFn`` (forward kernel with its
+    chunk states, then the backward kernels), else the plain launch."""
     import inspect
     src = inspect.getsource(getattr(tops, name))
     body = src.split('.device.type == "cuda":', 1)[1]
     cpu = src.split('.device.type == "cpu":', 1)[1]
     assert "check_no_grad" not in cpu
-    if name == "mha":
+    if name in ROUTED:
         first = body.split("return", 1)[0]
         assert "torch.is_grad_enabled()" in first and "requires_grad" in first
         routed = body.split("return", 2)
-        assert "_flash.FlashAttnFn.apply(" in routed[1]
-        assert "_flash.flash_attn(" in routed[2]
+        assert ROUTED[name][0] in routed[1]
+        assert ROUTED[name][1] in routed[2]
         assert "check_no_grad" not in body.split('.device.type == "cpu"')[0]
         return
     cuda = body.split("if ", 1)[0]

@@ -425,12 +425,30 @@ def test_launcher_trains_the_ssm_family_on_the_cpu():
     assert np.isfinite(loop.history[-1]["loss"])
 
 
-def test_launcher_refuses_the_ssm_family_on_the_card():
-    """mamba2 and jamba reach ``ssd_scan``, which has no backward kernel
-    yet: refused on the card before anything is allocated."""
-    for arch in ("mamba2-2.7b", "jamba-v0.1-52b"):
-        with pytest.raises(SystemExit):
-            tlaunch.main(["--arch", arch, "--steps", "1"])
+@pytest.mark.parametrize("argv", [[], ["--full", "--layers", "8"]],
+                         ids=["smoke", "full"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_launcher_takes_the_ssm_family_on_the_card(arch, argv, monkeypatch):
+    """mamba2 and jamba train on the default device, the card, through
+    ``ssd_scan``'s backward kernel: the launcher no longer refuses them
+    and hands their config to the loop on "cuda" (the loop is stubbed
+    here, so nothing is allocated)."""
+    seen = {}
+
+    class Loop:
+        def __init__(self, cfg, ocfg, data, tcfg, device):
+            seen.update(cfg=cfg, device=device)
+            self.history = []
+
+        def run(self, seed):
+            seen["ran"] = seed
+
+    monkeypatch.setattr(tlaunch, "TrainLoop", Loop)
+    tlaunch.main(["--arch", arch, "--steps", "1", *argv])
+    assert seen["device"] == "cuda" and seen["ran"] == 0
+    assert seen["cfg"].family in ("ssm", "hybrid")
+    if argv:
+        assert seen["cfg"].num_layers == 8
 
 
 def test_launcher_refuses_a_layer_count_off_the_pattern():
