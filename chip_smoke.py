@@ -279,7 +279,19 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      smoke default for 20 steps and ``--full --layers 2`` for 3, the
      mamba2-2.7b and jamba-v0.1-52b smoke configs for 3, and mamba2
      with ``--full --layers 2`` for 3;
-  7. one JSON line describing every kernel, then the card line and the
+  7. sharding (ROADMAP item 15c): qwen3-4b at full width and depth with
+     its params as DTensors placed by SERVE_RULES on a world-size-1 NCCL
+     mesh — a prefill (B 4, S 4096) and 16 greedy decode steps against
+     the same steps on plain tensors, the kernels launched on the local
+     shards; one train step of phase 4's qwen3-4b cell and of the
+     mamba2-2.7b smoke config under TRAIN_RULES against the plain step;
+     the dry run's predicted peak bytes of that prefill and train step
+     (meta tensors, a host mesh) against ``max_memory_allocated`` of
+     the real steps; and the production-mesh dry run (fake process
+     groups of 256 and 512) of qwen2.5-32b's prefill_32k and decode_32k
+     and qwen3-4b's four shapes on 16 x 16 and 2 x 16 x 16, each a
+     subprocess started at the phase's start;
+  8. one JSON line describing every kernel, then the card line and the
      result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -308,6 +320,7 @@ a bf16 dx, dB or dC also within its one rounding, u * |ref|.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -5631,6 +5644,346 @@ def phase_launcher(card):
             f"finished in {time.perf_counter() - t0:.1f} s (card {card})")
 
 
+# ------------------------------------- sharding and the dry run (phase 7)
+
+SHARD_PREFILL = dict(batch=4, seq_len=4096)     # (a): B 4, S 4096
+SHARD_DECODE = 16                               # (a): decode steps after it
+SHARD_SSM_TRAIN = dict(seq_len=64, batch=4, accum=2)
+MEM_RATIO = (0.8, 1.25)       # (c): predicted / measured peak bytes
+# (d): the dry-run cells, each CLI call a process of its own, all
+# started together
+DRYRUN_CALLS = (("qwen2.5-32b", "prefill_32k", "single"),
+                ("qwen2.5-32b", "decode_32k", "single"),
+                ("qwen3-4b", "all", "single"),
+                ("qwen3-4b", "all", "multi"))
+DRYRUN_TIMEOUT = 400          # seconds a dry-run call may take
+
+
+def _dryrun_start():
+    """Start the production-mesh dry runs (phase 7d): one process per
+    ``DRYRUN_CALLS`` entry, each over a fake process group of its mesh's
+    size (a process's default group), its output in a temporary file."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    calls = []
+    for arch, shape, mesh in DRYRUN_CALLS:
+        out = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             os.path.join(HERE, "chiprun_out", "dryrun")],
+            cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT,
+            text=True)
+        calls.append(((arch, shape, mesh), proc, out))
+    return calls
+
+
+def _dryrun_finish(calls, t_start):
+    """Wait for the dry runs and print each cell's line (per-device
+    bytes, collective bytes by kind, the three roofline terms and the
+    bottleneck); fail unless every call printed ALL CELLS PASSED."""
+    try:
+        for what, proc, out in calls:
+            left = DRYRUN_TIMEOUT - (time.perf_counter() - t_start)
+            proc.wait(timeout=max(left, 1))
+            out.seek(0)
+            text = out.read()
+            for line in text.splitlines():
+                if line.startswith("[dryrun]"):
+                    log(f"[7d] {line}")
+            if proc.returncode or "[dryrun] ALL CELLS PASSED" not in text:
+                raise RuntimeError(f"dry run {what} failed (exit "
+                                   f"{proc.returncode}):\n{text[-3000:]}")
+    finally:
+        for _, proc, out in calls:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+
+
+def _predicted_peaks(seed):
+    """Phase 7c's predictions: the dry run's peak device bytes of (a)'s
+    prefill step and (b)'s train step, traced on meta tensors on a host
+    mesh over a fake world of one (no card memory)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeSpec
+    out = {}
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh("cpu")
+        cells = (
+            ("prefill", get_config("qwen3-4b"),
+             ShapeSpec("prefill", SHARD_PREFILL["seq_len"],
+                       SHARD_PREFILL["batch"], "prefill"), None),
+            ("train", get_config("qwen3-4b").replace(num_layers=TRAIN_LAYERS),
+             ShapeSpec("train", TRAIN_FULL["seq_len"],
+                       TRAIN_FULL["batch"] * TRAIN_FULL["accum"], "train"),
+             TRAIN_FULL["accum"]))
+        for name, cfg, shape, accum in cells:
+            rules, _ = dryrun.cell_rules(shape, mesh, False)
+            t0 = time.perf_counter()
+            rec = dryrun.trace_cell(cfg, shape, mesh, rules,
+                                    accum_override=accum)
+            out[name] = rec["memory"]
+            log(f"[7c] predicted {name}: peak "
+                f"{rec['memory']['peak_device_bytes'] / 2**30:.3f} GiB "
+                f"(arguments {rec['memory']['argument_bytes'] / 2**30:.3f}, "
+                f"outputs {rec['memory']['output_bytes'] / 2**30:.3f}) "
+                f"traced in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _measured(b0):
+    """Peak bytes the card held during the step, less what it held
+    before the step's arguments were made."""
+    return torch.cuda.max_memory_allocated() - b0
+
+
+def _ratio(name, predicted, measured):
+    r = predicted / measured
+    log(f"[7c] {name}: predicted {predicted / 2**30:.3f} GiB, measured "
+        f"{measured / 2**30:.3f} GiB (max_memory_allocated after "
+        f"reset_peak_memory_stats), ratio {r:.3f}")
+    if not MEM_RATIO[0] <= r <= MEM_RATIO[1]:
+        raise AssertionError(f"{name}: predicted / measured {r:.3f} "
+                             f"outside {MEM_RATIO}")
+    return r
+
+
+def _world1():
+    """A real process group of one: NCCL on the card (gloo on the CPU)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            rank=0, world_size=1, store=dist.HashStore())
+
+
+def phase_shard_steps(seed, predicted):
+    """Phase 7a: qwen3-4b at full width and depth (36 layers, bf16,
+    random weights from ``seed``), its params as DTensors placed by
+    ``SERVE_RULES`` on a world-size-1 NCCL mesh (``make_host_mesh``;
+    ``DTensor.from_local``: no copy of the weights): a prefill step
+    (``dense_cache_write``, B 4, S 4096, last logits) and 16 greedy
+    decode steps, against the same steps on plain tensors on the card.
+    The same greedy tokens, every step's logits within u = 2^-8 of the
+    largest reference logit, and whether the bits are identical; the
+    ``flash_attn`` and ``decode_attn`` counts (set to 0 before) rise:
+    the kernels ran on the local shards.  7c: the sharded prefill's peak
+    against the dry run's prediction."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tr
+    cfg = get_config("qwen3-4b")
+    b, s = SHARD_PREFILL["batch"], SHARD_PREFILL["seq_len"]
+    _world1()
+    try:
+        mesh = make_host_mesh(DEVICE)
+        gc.collect()
+        b0 = torch.cuda.memory_allocated()
+        params = tr.init_params(cfg, seed=seed, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        prompt = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
+                               generator=gen)
+
+        def run(p, caches, measure=False):
+            pos = torch.arange(s, device=DEVICE)[None].expand(b, s)
+            with torch.no_grad():
+                if measure:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                logits = [tr.forward(p, cfg, tokens=prompt, positions=pos,
+                                     caches=caches, logits_slice="last",
+                                     dense_cache_write=True)]
+                if measure:
+                    torch.cuda.synchronize()
+                    peak = _measured(b0)
+                for i in range(SHARD_DECODE):
+                    last = logits[-1]
+                    last = last.full_tensor() if hasattr(
+                        last, "full_tensor") else last
+                    tok = last.argmax(-1)[:, None].to(torch.int32)
+                    q = torch.full((b, 1), s + i, dtype=torch.int32,
+                                   device=DEVICE)
+                    logits.append(tr.forward(p, cfg, tokens=tok,
+                                             positions=q, caches=caches,
+                                             logits_slice="last"))
+            logits = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                      for x in logits]
+            return logits, (peak if measure else None)
+
+        t0 = time.perf_counter()
+        want, _ = run(params, tr.init_cache(cfg, b, s + SHARD_DECODE,
+                                            device=DEVICE))
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        gc.collect()
+        launchers = _launchers()
+        for fn in launchers.values():
+            fn.launches = 0
+        rules = sh.ShardingRules(mesh, dict(sh.SERVE_RULES))
+        t0 = time.perf_counter()
+        with sh.use_rules(rules):
+            dp = sh.shard_tree(params, tr.param_axes(cfg), rules)
+            dc = sh.shard_tree(tr.init_cache(cfg, b, s + SHARD_DECODE,
+                                             device=DEVICE),
+                               tr.cache_logical_axes(cfg), rules)
+            got, peak = run(dp, dc, measure=True)
+        torch.cuda.synchronize()
+        t_shard = time.perf_counter() - t0
+        ran = {k: f.launches for k, f in launchers.items() if f.launches}
+        for name in ("flash_attn", "decode_attn"):
+            if not ran.get(name):
+                raise AssertionError(f"7a: {name} never launched under "
+                                     f"DTensor ({ran})")
+        u = 2.0 ** -8
+        worst, same_bits = 0.0, True
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g.argmax(-1), w.argmax(-1)):
+                raise AssertionError(f"7a: step {i}: greedy tokens differ")
+            err = float((g.float() - w.float()).abs().max())
+            bound = u * float(w.float().abs().max())
+            if err > bound:
+                raise AssertionError(f"7a: step {i}: logits differ by "
+                                     f"{err:.3g} > {bound:.3g}")
+            worst = max(worst, err / bound)
+            same_bits &= torch.equal(g, w)
+        log(f"[7a] qwen3-4b 36 layers bf16 under SERVE_RULES on a "
+            f"world-size-1 {'NCCL' if DEVICE == 'cuda' else 'gloo'} mesh: "
+            f"prefill B {b} x S {s} + {SHARD_DECODE} decode steps, greedy "
+            f"tokens equal, logits err/bound {worst:.3f}, bits identical "
+            f"{same_bits}; launches {ran}; plain {t_plain:.2f} s, "
+            f"sharded {t_shard:.2f} s")
+        ratio = _ratio("prefill", predicted["prefill"]["peak_device_bytes"],
+                       peak)
+        del params, dp, dc, got, want
+        return {"launches": ran, "same_bits": same_bits, "ratio": ratio}
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_once(cfg, params, batch, rules=None, measure_from=None):
+    """One train step of ``cfg`` (accum from the batch, remat) from
+    ``params``, sharded under ``rules`` when given.  Returns (params,
+    first moments, metrics, measured peak or None)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.train_step import make_train_step
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OCFG),
+                           accum=batch["tokens"].shape[0],
+                           constrain_grads=True)
+    ctx = sh.use_rules(rules) if rules is not None else contextlib.nullcontext()
+    with ctx:
+        p = params if rules is None else sh.shard_tree(
+            params, tr.param_axes(cfg), rules)
+        state = adamw_init(p)
+        if measure_from is not None:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        p2, s2, m = step(p, state, batch)
+        peak = None
+        if measure_from is not None:
+            torch.cuda.synchronize()
+            peak = _measured(measure_from)
+        local = (lambda x: x.to_local() if hasattr(x, "to_local") else x)
+        out = ([local(x) for x in tree_leaves(p2)],
+               [local(x) for x in tree_leaves(s2["m"])],
+               {k: float(local(v)) for k, v in m.items()}, peak)
+    return out
+
+
+def phase_shard_train(seed, predicted):
+    """Phase 7b: one train step of phase 4's cell (qwen3-4b at full
+    width, 12 layers, bf16, accum 2 x (4, 1024), remat) under
+    ``TRAIN_RULES`` with ``constrain_grads`` on a world-size-1 mesh,
+    against the same step without rules; then the mamba2-2.7b smoke
+    config (fp32, accum 2 x (4, 64)).  Loss, grads (Adam's first moment
+    after one step: a tenth of the clipped grads) and params within the
+    card-vs-CPU margins of phase 3's training (``TRAIN_GRAD_TOL``,
+    ``TRAIN_LOSS_TOL``, params within 1e-5 + 5% of lr), whether the
+    bits are identical, and the training forms' counts (set to 0
+    before) above 0 under DTensor.  7c: the sharded step's peak against
+    the dry run's prediction."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tr
+    res = {}
+    _world1()
+    try:
+        mesh = make_host_mesh(DEVICE)
+        rules = sh.ShardingRules(mesh, dict(sh.TRAIN_RULES))
+        rng = np.random.default_rng(seed + 2)
+        for arch, cfg, dims in (
+                ("qwen3-4b",
+                 get_config("qwen3-4b").replace(num_layers=TRAIN_LAYERS),
+                 TRAIN_FULL),
+                ("mamba2-2.7b", get_smoke("mamba2-2.7b"), SHARD_SSM_TRAIN)):
+            shape = (dims["accum"], dims["batch"], dims["seq_len"])
+            batch = {k: rng.integers(0, cfg.vocab_size, shape)
+                     for k in ("tokens", "labels")}
+            gc.collect()
+            params = tr.init_params(cfg, seed=seed + 3, device=DEVICE)
+            want = _train_once(cfg, params, batch)
+            gc.collect()
+            big = arch == "qwen3-4b"
+            b0 = torch.cuda.memory_allocated() - sum(
+                x.nbytes for x in _leaves(params))
+            launchers = _launchers()
+            for fn in launchers.values():
+                fn.launches = 0
+            got = _train_once(cfg, params, batch, rules,
+                              measure_from=b0 if big else None)
+            ran = {k: f.launches for k, f in launchers.items()
+                   if f.launches}
+            need = (("flash_attn@lse", "flash_attn_bwd") if big else
+                    ("ssd_scan@states", "ssd_scan_bwd"))
+            for name in need:
+                if not ran.get(name):
+                    raise AssertionError(f"7b {arch}: {name} never "
+                                         f"launched under DTensor ({ran})")
+            lw, lg = want[2]["loss"], got[2]["loss"]
+            if abs(lg - lw) > TRAIN_LOSS_TOL * abs(lw):
+                raise AssertionError(f"7b {arch}: loss {lg} vs {lw}")
+            atol, rtol = TRAIN_GRAD_TOL
+            lr = want[2]["lr"]
+            same = lg == lw
+            worst_m = worst_p = 0.0
+            for g, w in zip(got[1], want[1]):
+                # m = a tenth of the clipped grads: TRAIN_GRAD_TOL / 10
+                lim = 0.1 * atol * max(1.0, 10 * float(w.abs().max())) \
+                    + rtol * w.abs()
+                if not ((g - w).abs() <= lim).all():
+                    raise AssertionError(f"7b {arch}: grads differ by "
+                                         f"{float((g - w).abs().max())}")
+                worst_m = max(worst_m, float((g - w).abs().max()))
+                same &= torch.equal(g, w)
+            for g, w in zip(got[0], want[0]):
+                e = float((g.float() - w.float()).abs().max())
+                if e > 1e-5 + 0.05 * lr:
+                    raise AssertionError(f"7b {arch}: params differ by {e}")
+                worst_p = max(worst_p, e)
+                same &= torch.equal(g, w)
+            log(f"[7b] {arch} train step under TRAIN_RULES "
+                f"(constrain_grads) vs plain: loss {lg:.6f} / {lw:.6f}, "
+                f"first-moment max diff {worst_m:.3g}, params max diff "
+                f"{worst_p:.3g}, bits identical {same}; launches {ran}")
+            res[arch] = {"launches": ran, "same_bits": same}
+            if big:
+                res["ratio"] = _ratio(
+                    "train", predicted["train"]["peak_device_bytes"], got[3])
+            del params, want, got
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5639,7 +5992,7 @@ def main() -> int:
                          "default mode, after one warm-up (median and "
                          "spread); the paged mode keeps half as many, "
                          "the two packed slot modes one")
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all); "
                          "5p runs only phase 5's tick profiles")
     args = ap.parse_args()
@@ -5789,6 +6142,30 @@ def main() -> int:
         phase_train_launcher(card)
         log(f"[t] phase 6 training launcher took "
             f"{time.perf_counter() - t6:.1f} s")
+    sharded = {}
+    if "7" in phases:
+        t7 = time.perf_counter()
+        calls = _dryrun_start()
+        try:
+            predicted = _predicted_peaks(args.seed)
+            log(f"[t] phase 7c predictions took "
+                f"{time.perf_counter() - t7:.1f} s")
+            t = time.perf_counter()
+            sharded["steps"] = phase_shard_steps(args.seed, predicted)
+            log(f"[t] phase 7a sharded steps took "
+                f"{time.perf_counter() - t:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            sharded["train"] = phase_shard_train(args.seed, predicted)
+            log(f"[t] phase 7b sharded train steps took "
+                f"{time.perf_counter() - t:.1f} s")
+        finally:
+            t = time.perf_counter()
+            _dryrun_finish(calls, t7)
+            log(f"[t] phase 7d dry runs waited {time.perf_counter() - t:.1f}"
+                f" s more")
+        log(f"[t] phase 7 took {time.perf_counter() - t7:.1f} s")
     rows = []
     for name, meta in KERNELS.items():
         t = times.get(name, {})
@@ -5805,6 +6182,13 @@ def main() -> int:
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms")}
+        if sharded:
+            # phase 7's launches under DTensor (counts set to 0 before
+            # each run): the dense steps, then the train steps
+            row["launches_sharded"] = (
+                sharded["steps"]["launches"].get(name, 0)
+                + sum(sharded["train"][a]["launches"].get(name, 0)
+                      for a in ("qwen3-4b", "mamba2-2.7b")))
         if name in RAGGED_KERNELS:
             # the non-causal form: its launches on the main path (none:
             # every served model is causal), its errors in phase 2 and
@@ -5821,7 +6205,7 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}})
         rows.append(row)
-    log(f"[7] all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(f"[8] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

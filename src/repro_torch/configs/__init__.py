@@ -6,6 +6,7 @@ reduced same-family config for CPU tests), as in ``repro.configs``.
 from __future__ import annotations
 
 import importlib
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -33,6 +34,11 @@ _MODULES = {
 }
 
 
+# every config but the paper's own serving model, as the reference's
+# ``ASSIGNED``: the dry run's default set of architectures
+ASSIGNED: List[str] = [k for k in _MODULES if k != "qwen2.5-32b"]
+
+
 def get_config(name: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.FULL
@@ -41,3 +47,7 @@ def get_config(name: str) -> ModelConfig:
 def get_smoke(name: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.smoke()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {k: get_config(k) for k in _MODULES}

@@ -94,6 +94,11 @@ def split_plan(n_rows: int, hq: int, hkv: int, head_dim: int,
     return SplitPlan(chunk, n_chunks, workspace)
 
 
+# the SMs of an H100 SXM: the split a card would plan, for a launcher
+# called on meta tensors
+H100_SMS = 132
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -111,10 +116,13 @@ def _launch_split(name: str, q: torch.Tensor, k: torch.Tensor,
     hkv = k.shape[2]
     if window:
         capacity = min(capacity, window)
-    plan = split_plan(b, hq, hkv, d, capacity, _sm_count(q.device.index))
+    n_sms = H100_SMS if q.is_meta else _sm_count(q.device.index)
+    plan = split_plan(b, hq, hkv, d, capacity, n_sms)
     out = torch.empty_like(q)
     ws = (torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
           if plan.workspace else None)
+    if q.is_meta:
+        return out
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            *(x.data_ptr() for x in index), out.data_ptr(),
            None if ws is None else ws.data_ptr(), b, hq, hkv, d,
@@ -144,6 +152,8 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0:
         return torch.empty_like(q)
     out = _launch_split("decode_attn_dense", q, k, v, (lengths,), (s,), s)
+    if q.is_meta:
+        return out
     decode_attn.launches += 1
     decode_attn.width[q.shape[-1]].launches += 1
     return out
@@ -175,6 +185,8 @@ def decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q)
     out = _launch_split("decode_attn_paged", q, k, v, (page_table, lengths),
                         (ps, p_max), p_max * ps, w)
+    if q.is_meta:
+        return out
     decode_attn_paged.launches += 1
     decode_attn_paged.window.launches += bool(w)
     decode_attn_paged.width[q.shape[-1]].launches += 1
@@ -205,6 +217,8 @@ def decode_attn_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q)
     out = _launch_split("decode_attn_arena", q, k, v, (slot_map, lengths),
                         (s_max,), s_max, w)
+    if q.is_meta:
+        return out
     decode_attn_arena.launches += 1
     decode_attn_arena.window.launches += bool(w)
     decode_attn_arena.width[q.shape[-1]].launches += 1

@@ -78,7 +78,7 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    if b and lq:
+    if b and lq and not q.is_meta:
         launch("flash_attn",
                q.data_ptr(), k.data_ptr(), v.data_ptr(),
                q_offsets.data_ptr(), kv_lengths.data_ptr(), out.data_ptr(),
@@ -121,6 +121,8 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or lq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        return dq, dk, dv
     launch("flash_attn_bwd",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            dout.data_ptr(), lse.data_ptr(), q_offsets.data_ptr(),

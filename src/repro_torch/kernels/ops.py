@@ -15,12 +15,20 @@ grad, ``mha`` (every attention layer) goes through
 ``flash_attn_bwd`` kernels) and ``ssd_grouped`` (every SSD layer)
 through ``ssd_scan.SSDScanFn`` (the forward's training form, then the
 ``ssd_scan_bwd`` kernels).  The plain versions differentiate.
+
+A meta tensor takes the CUDA branch: each launcher allocates the
+outputs and workspace it would on the card, by shape, and launches
+nothing (the dry run's footprint is the kernels', not the plain
+versions' score matrices).  DTensors (a step under sharding rules) go
+to ``distributed.local``: ``mha``, ``decode`` and ``ssd_grouped`` run
+the same dispatch on each rank's local shards through ``local_map``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import flash_attn as _flash
@@ -104,12 +112,16 @@ def mha(q, k, v, q_offsets=None, kv_lengths=None, *, causal=True,
     requires grad, the call goes through ``FlashAttnFn`` (the kernel
     writes its log-sum-exp and the backward is the ``flash_attn_bwd``
     kernels); otherwise it is the plain launch."""
+    if isinstance(q, DTensor):
+        from repro_torch.distributed import local
+        return local.mha(q, k, v, q_offsets, kv_lengths, causal=causal,
+                         window=window)
     b, s = k.shape[0], k.shape[1]
     if q_offsets is None:
         q_offsets = torch.zeros((b,), dtype=torch.int32, device=q.device)
     if kv_lengths is None:
         kv_lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
-    if q.device.type == "cuda":
+    if q.is_meta or q.device.type == "cuda":
         if torch.is_grad_enabled() and any(
                 x.requires_grad for x in (q, k, v)):
             return _flash.FlashAttnFn.apply(q, k, v, q_offsets, kv_lengths,
@@ -132,7 +144,7 @@ def ragged_mha(q, k, v, cu_seqlens, q_offsets=None, kv_lengths=None, *,
         q_offsets = torch.zeros((b,), dtype=torch.int32, device=q.device)
     if kv_lengths is None:
         kv_lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
-    if q.device.type == "cuda":
+    if q.is_meta or q.device.type == "cuda":
         check_no_grad("ragged_mha", q, k, v)
         return _prefill.ragged_prefill_attn(q, k, v, cu_seqlens, q_offsets,
                                             kv_lengths, causal=causal)
@@ -154,7 +166,7 @@ def ragged_mha_arena(q, k, v, slot_map, cu_seqlens, q_offsets=None,
     if kv_lengths is None:
         kv_lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
                                 device=q.device)
-    if q.device.type == "cuda":
+    if q.is_meta or q.device.type == "cuda":
         check_no_grad("ragged_mha_arena", q, k, v)
         return _prefill.ragged_prefill_arena(
             q, k, v, slot_map, cu_seqlens, q_offsets, kv_lengths,
@@ -179,7 +191,7 @@ def ragged_mha_paged(q, k, v, page_table, cu_seqlens, q_offsets=None,
     if kv_lengths is None:
         kv_lengths = torch.full((b,), k.shape[1] * p_max, dtype=torch.int32,
                                 device=q.device)
-    if q.device.type == "cuda":
+    if q.is_meta or q.device.type == "cuda":
         check_no_grad("ragged_mha_paged", q, k, v)
         return _prefill.ragged_prefill_paged(
             q, k, v, page_table, cu_seqlens, q_offsets, kv_lengths,
@@ -195,7 +207,10 @@ def decode(q, k, v, lengths) -> torch.Tensor:
     """Single-token decode attention over gathered caches.  q: (B, Hq,
     D); k, v: (B, S, Hkv, D), row b reading cache row b; lengths: (B,)
     valid KV entries."""
-    if q.device.type == "cuda":
+    if isinstance(q, DTensor):
+        from repro_torch.distributed import local
+        return local.decode(q, k, v, lengths)
+    if q.is_meta or q.device.type == "cuda":
         check_no_grad("decode", q, k, v)
         return _decode.decode_attn(q, k, v, lengths)
     if q.device.type == "cpu":
@@ -208,7 +223,7 @@ def decode_arena(q, k, v, slot_map, lengths, *,
     """Slot-arena single-token decode attention.  q: (B, Hq, D);
     k, v: (N_slots, S_max, Hkv, D) full arenas; slot_map, lengths:
     (B,)."""
-    if q.device.type == "cuda":
+    if q.is_meta or q.device.type == "cuda":
         check_no_grad("decode_arena", q, k, v)
         return _decode.decode_attn_arena(q, k, v, slot_map, lengths,
                                          window=window)
@@ -223,7 +238,7 @@ def decode_paged(q, k, v, page_table, lengths, *,
     """Paged single-token decode attention.  q: (B, Hq, D); k, v:
     (N_pages, page_size, Hkv, D) page pools; page_table: (B, P_max);
     lengths: (B,)."""
-    if q.device.type == "cuda":
+    if q.is_meta or q.device.type == "cuda":
         check_no_grad("decode_paged", q, k, v)
         return _decode.decode_attn_paged(q, k, v, page_table, lengths,
                                          window=window)
@@ -239,7 +254,7 @@ def fused_sample(logits, temp, top_k, top_p, bias_ids, bias_vals, u, draft):
     p(draft) and the residual resample.  The per-row inputs may be host
     arrays.  Returns (token (R,) int32, p_draft (R,) float32, alt (R,)
     int32) on ``logits``' device."""
-    if logits.device.type == "cuda":
+    if logits.is_meta or logits.device.type == "cuda":
         check_no_grad("fused_sample", logits, temp, top_k, top_p, bias_ids,
                       bias_vals, u, draft)
         return _sampling.fused_sample(logits, temp, top_k, top_p, bias_ids,
@@ -260,11 +275,16 @@ def ssd_grouped(x, dt, a, bg, cg, init_state=None, *, chunk=128):
     ``SSDScanFn`` (the kernel writes its chunk states and the backward
     is the ``ssd_scan_bwd`` kernels); otherwise it is the plain
     launch."""
+    if isinstance(x, DTensor):
+        from repro_torch.distributed import local
+        return local.heads_local(
+            lambda *t: ssd_grouped(*t, chunk=chunk), x, dt, a, bg, cg,
+            init_state)
     if init_state is None:
         b, _, nh, hd = x.shape
         init_state = torch.zeros((b, nh, hd, bg.shape[-1]),
                                  dtype=torch.float32, device=x.device)
-    if x.device.type == "cuda":
+    if x.is_meta or x.device.type == "cuda":
         args = (x, dt.float().contiguous(), a.float().contiguous(), bg, cg,
                 init_state.float().contiguous())
         if torch.is_grad_enabled() and any(

@@ -48,6 +48,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 96, 128)
 
 
+# the devices a launcher takes: the card, and the meta device, on which
+# it allocates its outputs and workspace by shape and launches nothing
+ON_CARD = ("cuda", "meta")
+
+
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *index: torch.Tensor, max_rep: int) -> None:
     """Raise ValueError on anything the attention kernels do not take:
@@ -55,9 +60,10 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (int32 tables and index vectors), K/V storage that is not
     (N, rows, Hkv, D) alike with D in ``HEAD_DIMS``, GQA groups wider
     than ``max_rep``, non-contiguous memory, or q/K/V not 16-byte
-    aligned."""
+    aligned.  Meta tensors pass: on them a launcher allocates what it
+    would on the card and launches nothing (the dry run's footprint)."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ON_CARD:
         raise ValueError(f"CUDA kernel called with a tensor on {dev}")
     named = [("k", k), ("v", v)] + [(f"index{i}", x)
                                     for i, x in enumerate(index)]
@@ -176,7 +182,7 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, p_max = page_table.shape
     _check_segments(b, cu_seqlens, q_offsets, kv_lengths)
     out = torch.empty_like(q)
-    if t == 0:
+    if t == 0 or q.is_meta:
         return out
     launch("ragged_prefill_paged",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
@@ -221,7 +227,7 @@ def ragged_prefill_arena(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("slot_map must be (B,)")
     _check_segments(b, cu_seqlens, q_offsets, kv_lengths)
     out = torch.empty_like(q)
-    if t == 0:
+    if t == 0 or q.is_meta:
         return out
     launch("ragged_prefill_arena",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_map.data_ptr(),
@@ -256,7 +262,7 @@ def ragged_prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, hkv, _ = k.shape
     _check_segments(b, cu_seqlens, q_offsets, kv_lengths)
     out = torch.empty_like(q)
-    if t == 0:
+    if t == 0 or q.is_meta:
         return out
     launch("ragged_prefill_attn",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), cu_seqlens.data_ptr(),

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ragged_prefill import ON_CARD
 
 NEG = -1e30       # masked logit, as the reference kernel uses
 MAX_BIAS = 8      # logit-bias entries per row (the engine samples on the
@@ -272,7 +273,7 @@ def fused_sample(logits: torch.Tensor, temp, top_k, top_p, bias_ids,
     synchronises, and replays from a CUDA graph when the per-row inputs
     are tensors on the card.
     """
-    if logits.device.type != "cuda":
+    if logits.device.type not in ON_CARD:
         raise ValueError(f"CUDA kernel called with a tensor on "
                          f"{logits.device}")
     if logits.dtype not in _DTYPES:
@@ -291,7 +292,7 @@ def fused_sample(logits: torch.Tensor, temp, top_k, top_p, bias_ids,
     token = torch.empty((r,), dtype=torch.int32, device=dev)
     p_draft = torch.empty((r,), dtype=torch.float32, device=dev)
     alt = torch.empty((r,), dtype=torch.int32, device=dev)
-    if r == 0:
+    if r == 0 or dev.type == "meta":
         return token, p_draft, alt
     if v < 1:
         raise ValueError("empty vocabulary")

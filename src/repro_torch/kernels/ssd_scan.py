@@ -30,7 +30,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ragged_prefill import _DTYPES, LaunchCount, launch
+from repro_torch.kernels.ragged_prefill import (_DTYPES, ON_CARD,
+                                                LaunchCount, launch)
 from repro_torch.kernels.ref import \
     ref_ssd_scan as ssd_scan_plain  # noqa: F401
 from repro_torch.kernels.ref import \
@@ -91,9 +92,9 @@ def _check(x, dt, a, bmat, cmat, chunk, state, state_name):
     """Raise on inputs the kernels do not take (see ``ssd_scan``);
     ``state``: the forward's init_state or the backward's dstate (None
     allowed), (B, NH, HD, DS) float32.  Return the row strides of x,
-    bmat and cmat."""
+    bmat and cmat.  Meta tensors pass (``ragged_prefill.ON_CARD``)."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in ON_CARD:
         raise ValueError(f"CUDA kernel called with a tensor on {dev}")
     named = (("dt", dt), ("a", a), ("bmat", bmat), ("cmat", cmat),
              (state_name, state))
@@ -158,6 +159,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return (y, state, states) if return_states else (y, state)
     work = torch.empty(workspace_floats(b, l, g, chunk),
                        dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return (y, state, states) if return_states else (y, state)
     launch("ssd_scan", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
            bmat.data_ptr(), cmat.data_ptr(), init_state.data_ptr(),
            y.data_ptr(), state.data_ptr(), work.data_ptr(),
@@ -252,6 +255,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return dx, ddt, da, dbm, dcm, dinit.copy_(dstate)
     work = torch.empty(bwd_workspace_floats(b, l, nh, hd, ds, g, chunk),
                        dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return dx, ddt, da, dbm, dcm, dinit
     launch("ssd_scan_bwd", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
            bmat.data_ptr(), cmat.data_ptr(), dy.data_ptr(),
            dstate.data_ptr() if dstate is not None else None,

@@ -2,7 +2,8 @@
 with its dtype string mapped to a torch dtype.
 
 One dataclass describes every architecture family of the JAX package,
-so the fields stay the same; the port serves the dense, MoE and vlm
+so the fields stay the same (with the dry run's input-shape cells,
+``SHAPES``); the port serves the dense, MoE and vlm
 (the backbone) decoder families, the SSM (mamba2) family and the hybrid
 (jamba) family, and runs the encoder-only (audio) family through
 ``forward``.
@@ -10,7 +11,7 @@ so the fields stay the same; the port serves the dense, MoE and vlm
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -85,6 +86,19 @@ class ModelConfig:
     def is_encoder_only(self) -> bool:
         return not self.causal
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: SSM, hybrid, or sliding-window attention."""
+        return self.family in ("ssm", "hybrid") or \
+            self.sliding_window is not None
+
+    @property
+    def activated_params_ratio(self) -> float:
+        """Fraction of FFN params active per token (MoE top-k / E)."""
+        if self.num_experts > 0:
+            return self.num_experts_per_tok / self.num_experts
+        return 1.0
+
     def layer_kind(self, i: int) -> str:
         """'attn' or 'ssm' for mixer of layer i."""
         if self.family == "ssm":
@@ -134,11 +148,22 @@ class ModelConfig:
                 e, ff = self.num_experts, (self.moe_d_ff or self.d_ff)
                 total += d * e                          # router
                 total += e * (3 * d * ff)               # gate/up/down
-            elif self.family != "ssm":
-                # mamba2 blocks have no separate FFN; dense blocks do
+            elif self.layer_kind(i) == "attn":
+                # a dense FFN is counted beside attention mixers only, as
+                # the reference counts it (mamba2 blocks have none, and
+                # the reference counts none for a hybrid's SSM layers)
                 total += 3 * d * self.d_ff
         total += d                                      # final norm
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only the top-k experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        e, k = self.num_experts, self.num_experts_per_tok
+        ff = self.moe_d_ff or self.d_ff
+        n_moe = sum(1 for i in range(self.num_layers) if self.layer_is_moe(i))
+        return self.param_count() - n_moe * (e - k) * 3 * self.d_model * ff
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -146,3 +171,40 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell of the dry run."""
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeSpec:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; the reason when not."""
+    if shape.kind == "decode" and cfg.is_encoder_only:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "full quadratic attention cannot serve 500k context"
+    return True, ""

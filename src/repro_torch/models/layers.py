@@ -8,6 +8,11 @@ Parameters are plain nested dicts of tensors with the JAX package's
 names and layouts, so weights converted from its pytree compute the
 same function.  Every layer with a cache writes the step's new KV into
 it IN PLACE (``index_put_``) where the JAX layers return updated caches.
+
+The dense layers take DTensors too (a step under sharding rules):
+``constrain`` pins the reference's layouts at the reference's sites (a
+no-op without rules), and the cache write and the kernels run on each
+rank's shards (``distributed.local``).
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.sharding import constrain, reshape
 from repro_torch.kernels import ops as kernel_ops
 
 # ------------------------------------------------------------------ norms
@@ -86,6 +93,24 @@ def attention_core(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _split_heads(x: torch.Tensor, h: int, hd: int) -> torch.Tensor:
+    """(B, L, H·D) → (B, L, H, D).  A DTensor whose H·D dim is sharded
+    over more devices than divide H (8 KV heads of 128 on a 16-way axis:
+    1024 columns divide, 8 heads do not) is gathered over those first,
+    as the reference's partitioner would reshard it."""
+    b, l = x.shape[:2]
+    if isinstance(x, DTensor):
+        split = [i for i, pl in enumerate(x.placements) if pl == Shard(2)]
+        n = 1
+        for i in split:
+            n *= x.device_mesh.shape[i]
+        if h % n:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if i in split else pl
+                for i, pl in enumerate(x.placements)])
+    return x.reshape(b, l, h, hd)
+
+
 def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     """Shared projection → (qk-norm) → rope of the attention layers.
     x: (B, L, d); positions: (B, L).  Returns q (B, L, Hq, D) and k, v
@@ -99,9 +124,9 @@ def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, l, cfg.num_heads, hd)
-    k = k.reshape(b, l, cfg.num_kv_heads, hd)
-    v = v.reshape(b, l, cfg.num_kv_heads, hd)
+    q = _split_heads(q, cfg.num_heads, hd)
+    k = _split_heads(k, cfg.num_kv_heads, hd)
+    v = _split_heads(v, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -115,17 +140,35 @@ def write_kv_cache(cache: torch.Tensor, new: torch.Tensor,
                    positions: torch.Tensor) -> None:
     """Write new KV rows into the cache at per-token absolute positions,
     in place.  cache: (B, S, Hkv, D); new: (B, L, Hkv, D); positions:
-    (B, L)."""
+    (B, L).  A DTensor cache is written on the shards that hold the
+    positions (``distributed.local.write_rows``)."""
+    if isinstance(cache, DTensor):
+        from repro_torch.distributed import local
+        local.write_rows(cache, new, positions)
+        return
     rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
     cache.index_put_((rows.expand_as(positions), positions.long()),
                      new.to(cache.dtype))
+
+
+def write_kv_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """Write new KV (B, L, Hkv, D) into rows [0, L) of every row of the
+    cache (B, S, Hkv, D), S >= L, in place: a fresh prefill from
+    position 0.  A DTensor cache is written on the shards that hold the
+    rows (``distributed.local.write_prefix``)."""
+    if isinstance(cache, DTensor):
+        from repro_torch.distributed import local
+        local.write_prefix(cache, new)
+        return
+    cache[:, :new.shape[1]].copy_(new)
 
 
 def attention_layer(p: Dict, x: torch.Tensor, *, cfg,
                     positions: torch.Tensor,
                     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     kv_valid_len: Optional[torch.Tensor] = None,
-                    dense_cache_write: bool = False) -> torch.Tensor:
+                    dense_cache_write: bool = False,
+                    rolling: bool = False) -> torch.Tensor:
     """One attention mixer over x (B, L, d).
 
     Without a cache (the dense oracle, an encoder forward):
@@ -135,33 +178,53 @@ def attention_layer(p: Dict, x: torch.Tensor, *, cfg,
     through ``ops.mha``, masked by position; a causal one-token step
     (L == 1, the dense decode step) runs ``ops.decode`` over each row's
     first ``positions + 1`` keys.  ``dense_cache_write``: a fresh full
-    prefill covering the whole cache (L a multiple of S): the cache
-    takes the last S tokens' KV and attention runs over x.
+    prefill from position 0 (L a multiple of S: the cache takes the last
+    S tokens' KV; S > L: its first L rows) and attention runs over x.
     ``kv_valid_len`` (B,) bounds each row's keys, and applies only with
-    a cache, as in the reference.  Returns (B, L, d)."""
+    a cache, as in the reference.  ``rolling``: the legacy window-deep
+    cache of a sliding-window config (S == window), one token a step:
+    position p is written at slot p % S and attends the slots below
+    min(p + 1, S) — the reference's ``rolling_mask`` — through
+    ``ops.decode``.  Returns (B, L, d)."""
     b, l, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
     keys, vals = k, v
     valid = kv_valid_len if kv is not None else None
     if kv is not None and dense_cache_write:
         s_cache = kv[0].shape[1]
-        assert s_cache == l or l % s_cache == 0, (kv[0].shape, l)
-        kv[0].copy_(k[:, l - s_cache:])
-        kv[1].copy_(v[:, l - s_cache:])
+        assert s_cache >= l or l % s_cache == 0, (kv[0].shape, l)
+        for c, new in zip(kv, (k, v)):
+            if s_cache > l:
+                # a fresh prefill into a deeper cache: its first L rows
+                write_kv_prefix(c, new)
+                continue
+            # a layout change into the cache's sharding, then a local copy
+            c.copy_(constrain(new[:, l - s_cache:], "batch", "cache_seq",
+                              "kv_heads", "head_dim"))
     elif kv is not None:
-        write_kv_cache(kv[0], k, positions)
-        write_kv_cache(kv[1], v, positions)
+        depth = kv[0].shape[1]
+        if rolling and l != 1:
+            raise ValueError("a rolling cache takes one-token steps")
+        write_pos = positions % depth if rolling else positions
+        write_kv_cache(kv[0], k, write_pos)
+        write_kv_cache(kv[1], v, write_pos)
         keys, vals = kv
-        if l == 1 and cfg.causal and cfg.sliding_window is None:
+        if l == 1 and cfg.causal and (cfg.sliding_window is None
+                                      or rolling):
             lengths = positions[:, 0] + 1
-            if valid is not None:
+            if rolling:
+                lengths = torch.clamp(lengths, max=depth)
+            elif valid is not None:
                 lengths = torch.minimum(lengths, valid.to(lengths.dtype))
             out = kernel_ops.decode(q[:, 0].contiguous(), keys, vals,
                                     lengths.to(torch.int32))
-            return out.reshape(b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
+            out = reshape(out, b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
+            return constrain(out, "batch", "seq", "embed_act")
     out = attention_core(q, keys, vals, positions, causal=cfg.causal,
                          window=cfg.sliding_window, kv_valid_len=valid)
-    return out.reshape(b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
+    out = reshape(out, b, l, cfg.num_heads * cfg.hdim) @ p["wo"]
+    return constrain(out, "batch", "seq", "embed_act")
 
 
 def _qkv_flat(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -329,4 +392,5 @@ def arena_decode_layer(p: Dict, x: torch.Tensor, *, cfg,
 
 def swiglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    h = constrain(h, "batch", "seq", "mlp")
+    return constrain(h @ p["wo"], "batch", "seq", "embed_act")

@@ -18,7 +18,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import rms_norm
 
@@ -27,23 +29,26 @@ def conv_channels(cfg) -> int:
     return cfg.ssm_d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state_size
 
 
-def init_mamba(cfg, g: int, dense, zeros, ones) -> Dict[str, torch.Tensor]:
-    """One mixer's parameters stacked over ``g`` groups, drawn with the
-    caller's ``dense`` / ``zeros`` / ``ones`` makers (``init_params``);
-    ``A_log`` is log(linspace(1, 16, nheads)), as in the reference."""
+def init_mamba(cfg, dense, zeros, ones) -> Dict[str, torch.Tensor]:
+    """One mixer's parameters, drawn with the caller's ``dense`` /
+    ``zeros`` / ``ones`` makers (``transformer._param_tree``: each takes
+    the leaf's shape and logical axes); ``A_log`` is log(linspace(1, 16,
+    nheads)), as in the reference."""
     di, ds, nh = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_nheads
     w, c = cfg.ssm_conv_width, conv_channels(cfg)
     proj_out = 2 * di + 2 * cfg.ssm_n_groups * ds + nh   # z, x, B, C, dt
-    a_log = torch.log(torch.linspace(1.0, 16.0, nh))
-    a_rows = ones((g, nh))
-    return {"in_proj": dense((g, cfg.d_model, proj_out)),
-            "conv_w": dense((g, w, c), scale=w ** -0.5),
-            "conv_b": zeros((g, c)),
-            "dt_bias": zeros((g, nh)),
-            "A_log": a_rows.mul_(a_log.to(a_rows.device)),
-            "D": ones((g, nh)),
-            "norm": ones((g, di)),
-            "out_proj": dense((g, di, cfg.d_model))}
+    a_rows = ones((nh,), ("ssm_heads",))
+    if isinstance(a_rows, torch.Tensor):
+        a_log = torch.log(torch.linspace(1.0, 16.0, nh))
+        a_rows = a_rows.mul_(a_log.to(a_rows.device))
+    return {"in_proj": dense((cfg.d_model, proj_out), ("embed", "ssm_inner")),
+            "conv_w": dense((w, c), (None, "conv_ch"), scale=w ** -0.5),
+            "conv_b": zeros((c,), ("conv_ch",)),
+            "dt_bias": zeros((nh,), ("ssm_heads",)),
+            "A_log": a_rows,
+            "D": ones((nh,), ("ssm_heads",)),
+            "norm": ones((di,), (None,)),
+            "out_proj": dense((di, cfg.d_model), ("ssm_inner", "embed"))}
 
 
 def _causal_conv_seq(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -130,9 +135,12 @@ def mamba_layer(p: Dict, x: torch.Tensor, *, cfg,
     padded positions get dt = 0, an exact identity of the SSD step.
     """
     a = -torch.exp(p["A_log"].float())
-    proj = x @ p["in_proj"]
+    # a DTensor is split along its columns only once they are whole on
+    # every rank (DTensor would otherwise gather its batch too)
+    proj = constrain(x @ p["in_proj"], "batch", "seq", None)
     z, xs, bmat, cmat, dt_raw = _split_proj(cfg, proj)
     xbc = torch.cat([xs, bmat, cmat], dim=-1)
+    xbc = constrain(xbc, "batch", "seq", "conv_ch")
 
     ssm_state = conv_state = None
     if cache is not None:
@@ -147,6 +155,7 @@ def mamba_layer(p: Dict, x: torch.Tensor, *, cfg,
 
     di, ds, g = cfg.ssm_d_inner, cfg.ssm_state_size, cfg.ssm_n_groups
     bsz, l = x.shape[0], x.shape[1]
+    xbc = constrain(xbc, "batch", "seq", None)
     xs, bmat, cmat = torch.split(xbc, [di, g * ds, g * ds], dim=-1)
     # views into the conv output: the kernel reads them in place
     xh = xs.reshape(bsz, l, cfg.ssm_nheads, cfg.ssm_head_dim)
@@ -157,8 +166,13 @@ def mamba_layer(p: Dict, x: torch.Tensor, *, cfg,
         keep = (torch.arange(l, device=x.device)[None, :]
                 < valid_len.long()[:, None])
         dt = torch.where(keep[:, :, None], dt, 0.0)
+    xh = constrain(xh, "batch", "seq", "ssm_heads", None)
 
-    if decode:
+    if decode and isinstance(xh, DTensor):
+        from repro_torch.distributed import local
+        y, ssm_state = local.heads_local(ssd_step, xh, dt, a, bg, cg,
+                                         ssm_state)
+    elif decode:
         y, ssm_state = ssd_step(xh, dt, a, bg, cg, ssm_state)
     else:
         y, ssm_state = kernel_ops.ssd_grouped(xh, dt, a, bg, cg, ssm_state,
@@ -168,7 +182,7 @@ def mamba_layer(p: Dict, x: torch.Tensor, *, cfg,
     y = y.reshape(bsz, l, di)
     # gated norm: silu stays in model dtype (rms_norm is fp32 inside)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], "batch", "seq", "embed_act")
     new_cache = (ssm_state, conv_state) if cache is not None else None
     return out, new_cache
 

@@ -24,8 +24,10 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain, unshard
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import moe_dense_reference, moe_layer
@@ -74,47 +76,70 @@ def num_groups(cfg: ModelConfig) -> int:
 
 
 def _param_tree(cfg: ModelConfig, dense, ones, zeros) -> Dict[str, Any]:
-    """The parameter tree built with the caller's makers: one block dict
-    per pattern position ``j`` — ``ln1``, the mixer (attention or mamba
-    by ``cfg.layer_kind(j)``) and, in every family but ``ssm`` (mamba2
-    has no separate FFN), ``ln2`` and an FFN, MoE where
+    """The parameter tree built with the caller's makers, each called as
+    ``maker(shape, axes)`` (``dense`` also with ``scale=``): ``axes``
+    names each dim's logical axis where the leaf is declared, as the
+    reference's ``ParamBuilder`` records it.  One block dict per pattern
+    position ``j`` — ``ln1``, the mixer (attention or mamba by
+    ``cfg.layer_kind(j)``) and, in every family but ``ssm`` (mamba2 has
+    no separate FFN), ``ln2`` and an FFN, MoE where
     ``cfg.layer_is_moe(j)`` ({"router" (d, E), "wg", "wi" (E, d, F),
-    "wo" (E, F, d)}) and a dense SwiGLU otherwise.  Each leaf is stacked
-    over the groups.  The blocks are drawn first, position by
-    position, then the embedding and the head."""
+    "wo" (E, F, d)}) and a dense SwiGLU otherwise.  Each block leaf is
+    stacked over the groups: a leading dim of G, logical axis None.  The
+    blocks are drawn first, position by position, then the embedding and
+    the head."""
     g = num_groups(cfg)
     d, hd = cfg.d_model, cfg.hdim
+
+    def stacked(make):
+        return lambda shape, axes, **kw: make((g,) + tuple(shape),
+                                              (None,) + tuple(axes), **kw)
+
+    bdense, bones, bzeros = stacked(dense), stacked(ones), stacked(zeros)
     blocks = []
     for j in range(pattern_period(cfg)):
-        block = {"ln1": ones((g, d))}
+        block = {"ln1": bones((d,), (None,))}
         if cfg.layer_kind(j) == "attn":
             qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
-            mixer = {"wq": dense((g, d, qd)), "wk": dense((g, d, kvd)),
-                     "wv": dense((g, d, kvd)), "wo": dense((g, qd, d))}
+            mixer = {"wq": bdense((d, qd), ("embed", "heads")),
+                     "wk": bdense((d, kvd), ("embed", "kv_heads")),
+                     "wv": bdense((d, kvd), ("embed", "kv_heads")),
+                     "wo": bdense((qd, d), ("heads", "embed"))}
             if cfg.qkv_bias:
-                mixer.update(bq=zeros((g, qd)), bk=zeros((g, kvd)),
-                             bv=zeros((g, kvd)))
+                mixer.update(bq=bzeros((qd,), ("heads",)),
+                             bk=bzeros((kvd,), ("kv_heads",)),
+                             bv=bzeros((kvd,), ("kv_heads",)))
             if cfg.qk_norm:
-                mixer.update(q_norm=ones((g, hd)), k_norm=ones((g, hd)))
+                mixer.update(q_norm=bones((hd,), (None,)),
+                             k_norm=bones((hd,), (None,)))
         else:
-            mixer = mamba_mod.init_mamba(cfg, g, dense, zeros, ones)
+            mixer = mamba_mod.init_mamba(cfg, bdense, bzeros, bones)
         block["mixer"] = mixer
         if cfg.family != "ssm":
-            block["ln2"] = ones((g, d))
+            block["ln2"] = bones((d,), (None,))
             if cfg.layer_is_moe(j):
                 e, ff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+                # expert weights get their own FSDP axis ("expert_embed")
                 block["ffn"] = {
-                    "router": dense((g, d, e)), "wg": dense((g, e, d, ff)),
-                    "wi": dense((g, e, d, ff)), "wo": dense((g, e, ff, d))}
+                    "router": bdense((d, e), ("embed", None)),
+                    "wg": bdense((e, d, ff),
+                                 ("experts", "expert_embed", "expert_mlp")),
+                    "wi": bdense((e, d, ff),
+                                 ("experts", "expert_embed", "expert_mlp")),
+                    "wo": bdense((e, ff, d),
+                                 ("experts", "expert_mlp", "expert_embed"))}
             else:
-                block["ffn"] = {"wg": dense((g, d, cfg.d_ff)),
-                                "wi": dense((g, d, cfg.d_ff)),
-                                "wo": dense((g, cfg.d_ff, d))}
+                block["ffn"] = {
+                    "wg": bdense((d, cfg.d_ff), ("embed", "mlp")),
+                    "wi": bdense((d, cfg.d_ff), ("embed", "mlp")),
+                    "wo": bdense((cfg.d_ff, d), ("mlp", "embed"))}
         blocks.append(block)
-    return {"embed": dense((cfg.padded_vocab, d), scale=0.02),
+    return {"embed": dense((cfg.padded_vocab, d), ("vocab", "embed"),
+                           scale=0.02),
             "blocks": blocks,
-            "final_norm": ones((d,)),
-            "lm_head": dense((d, cfg.padded_vocab), scale=d ** -0.5)}
+            "final_norm": ones((d,), (None,)),
+            "lm_head": dense((d, cfg.padded_vocab), ("embed", "vocab"),
+                             scale=d ** -0.5)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -129,7 +154,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     gen.manual_seed(seed)
     dt = cfg.torch_dtype
 
-    def dense(shape, scale=None):
+    def dense(shape, axes, scale=None):
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
         scale = scale if scale is not None else fan_in ** -0.5
         if 4 * math.prod(shape) <= _DRAW_BYTES:
@@ -144,10 +169,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             out[i] = w.mul_(scale)
         return out
 
-    def ones(shape):
+    def ones(shape, axes):
         return torch.ones(shape, dtype=dt, device=dev)
 
-    def zeros(shape):
+    def zeros(shape, axes):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     return _param_tree(cfg, dense, ones, zeros)
@@ -156,10 +181,20 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree of :func:`init_params` as shape-only ("meta")
     tensors: its leaf paths, shapes and dtypes, nothing allocated."""
-    def meta(shape, scale=None):
+    def meta(shape, axes, scale=None):
         return torch.empty(shape, dtype=cfg.torch_dtype, device="meta")
 
     return _param_tree(cfg, meta, meta, meta)
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical-axes tree of the parameters (a tuple of names per
+    leaf, ``None`` for the group stack), as the reference's
+    ``param_axes``."""
+    def axes(shape, names, scale=None):
+        return tuple(names)
+
+    return _param_tree(cfg, axes, axes, axes)
 
 
 # ------------------------------------------------------------------ cache
@@ -201,6 +236,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                            "conv": conv.reshape((g, batch)
                                                 + conv.shape[1:])})
     return caches
+
+
+def cache_logical_axes(cfg: ModelConfig) -> List[Dict[str, Tuple]]:
+    """Logical axes of the cache tree of :func:`init_cache` (the serve
+    rules shard a KV cache's sequence)."""
+    out: List[Dict[str, Tuple]] = []
+    for j in range(pattern_period(cfg)):
+        if cfg.layer_kind(j) == "attn":
+            ax = (None, "batch", "cache_seq", "kv_heads", "head_dim")
+            out.append({"k": ax, "v": ax})
+        else:
+            out.append({"ssm": (None, "batch", "ssm_heads", None, None),
+                        "conv": (None, "batch", None, "conv_ch")})
+    return out
 
 
 # ---------------------------------------------------------------- forward
@@ -251,12 +300,39 @@ def _lm_head_logits(params: Dict, cfg: ModelConfig,
                     x: torch.Tensor) -> torch.Tensor:
     """Final-norm'd rows → logits with the padded-vocab columns masked
     (argmax/softmax safety).  One implementation shared by every
-    serving step and the dense oracle."""
-    logits = x @ params["lm_head"]
+    serving step and the dense oracle.  Vocab-sharded DTensor logits
+    take the reference's mask row, added out of place (a slice of a
+    sharded dim cannot be written in place)."""
+    logits = x @ unshard(params["lm_head"])
     vpad = cfg.padded_vocab - cfg.vocab_size
+    if isinstance(logits, DTensor):
+        names = ("batch", "seq", "vocab")[3 - logits.dim():]
+        logits = constrain(logits, *names)
+        if vpad:
+            neg = torch.zeros((cfg.padded_vocab,), dtype=logits.dtype,
+                              device=logits.device)
+            neg[cfg.vocab_size:] = -1e9
+            logits = logits + neg
+        return logits
     if vpad:
         logits[..., cfg.vocab_size:] += -1e9
     return logits
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding: a row gather, over a DTensor table (its vocab
+    sharded) on each vocab shard (``distributed.local.embed``)."""
+    if isinstance(table, DTensor):
+        from repro_torch.distributed import local
+        return local.embed(unshard(table), tokens)
+    return table[tokens.long()]
+
+
+def _unshard_tree(tree: Dict) -> Dict:
+    """Every weight of a layer's dict gathered over the batch's mesh
+    axes (``unshard``: FSDP), under sharding rules."""
+    return {k: (_unshard_tree(v) if isinstance(v, dict) else unshard(v))
+            for k, v in tree.items()}
 
 
 def forward(params: Dict, cfg: ModelConfig,
@@ -268,7 +344,7 @@ def forward(params: Dict, cfg: ModelConfig,
             embeds: Optional[torch.Tensor] = None,
             kv_valid_len: Optional[torch.Tensor] = None,
             dense_cache_write: bool = False, return_aux: bool = False,
-            remat: bool = False):
+            remat: bool = False, rolling: bool = False):
     """The plain dense forward.
 
     tokens: (B, L) int — or embeds: (B, L, d), the frame or patch
@@ -299,22 +375,35 @@ def forward(params: Dict, cfg: ModelConfig,
     them (``torch.utils.checkpoint``, non-reentrant), and, when a group
     holds several layers (a hybrid pattern), each layer's inside it, as
     the reference nests ``jax.checkpoint``; training's forward, so it
-    takes no caches (a recompute would write them twice)."""
+    takes no caches (a recompute would write them twice).  ``rolling``:
+    the legacy window-deep cache of a sliding-window config (from
+    :func:`init_cache` with its default depth, the window), one token a
+    step, each written at position % window (the reference's
+    ``rolling=True``; the dry run's long decode cells).
+
+    Under sharding rules (``distributed.use_rules`` with a mesh) the
+    params, caches and inputs are DTensors: ``constrain`` pins the
+    reference's layouts at its sites and the kernels run on each rank's
+    shards.  The caches are written in place, so they keep their
+    placements, where the reference re-constrains its carried caches."""
     if remat and caches is not None:
         raise ValueError("forward(remat=True) takes no caches")
     if embeds is None:
-        x = params["embed"][tokens.long()]
+        x = _embed(params["embed"], tokens)
     else:
         x = embeds.to(params["embed"].dtype)
     b, l = x.shape[:2]
     if positions is None:
         positions = torch.arange(l, device=x.device)[None].expand(b, l)
+    x = constrain(x, "batch", "seq", "embed_act")
     decode = l == 1 and caches is not None
     period = len(params["blocks"])
     groups = [_groups(block) for block in params["blocks"]]
 
     def layer(x, g, j):
         lp = groups[j][g]
+        if isinstance(lp["ln1"], DTensor):
+            lp = _unshard_tree(lp)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if cfg.layer_kind(j) == "attn":
             kv = None if caches is None else (caches[j]["k"][g],
@@ -322,7 +411,7 @@ def forward(params: Dict, cfg: ModelConfig,
             x = x + attention_layer(
                 lp["mixer"], h, cfg=cfg, positions=positions, kv=kv,
                 kv_valid_len=kv_valid_len,
-                dense_cache_write=dense_cache_write)
+                dense_cache_write=dense_cache_write, rolling=rolling)
         else:
             cc = None if caches is None else (caches[j]["ssm"][g],
                                               caches[j]["conv"][g])

@@ -90,10 +90,10 @@ def adamw_init(params: Any) -> Dict:
     (a copy, never a view, also for fp32 params) and ``count`` 0."""
     dev = tree_leaves(params)[0].device
     return {
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                      params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                      params),
         "master": tree_map(lambda p: p.detach().to(torch.float32,
                                                    copy=True), params),
         "count": torch.zeros((), dtype=torch.int32, device=dev),

@@ -9,10 +9,13 @@ kept) and adds its grads into an accumulator of ``grad_dtype``, then the
 sum is divided by the number of microbatches and AdamW updates the
 state.  Activations exist for one microbatch at a time.
 
-The reference pins the accumulator's and the grads' sharding
-(``constrain_tree`` over ``param_axes``): sharding annotations, which
-are no-ops at world size 1.  They wait for the sharding item (ROADMAP
-15c); nothing here shards.
+Under sharding rules (``distributed.use_rules`` with a mesh) params,
+optimizer state and batch are DTensors and so are the accumulators
+(``zeros_like``); ``constrain_grads`` pins the accumulator to the
+params' placements after each microbatch (``constrain_tree`` over
+``param_axes``), or once after the loop when False, as the reference.
+The loss over vocab-sharded logits takes each shard's log-sum-exp terms
+and gold logit (``cross_entropy``).
 
 On the card every attention layer's forward is the ``flash_attn``
 kernel and its backward the ``flash_attn_bwd`` kernels
@@ -26,7 +29,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import constrain_tree
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
@@ -37,8 +42,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross-entropy; logits (B, L, V) any dtype, fp32 math:
     the logsumexp minus the gold logit, averaged over ``mask`` where
-    given."""
+    given.  Over DTensor logits whose vocab is sharded, each shard takes
+    its part of the log-sum-exp and the gold logit and the backward stays
+    on the shards (``distributed.local.token_nll``)."""
     logits = logits.to(torch.float32)
+    if isinstance(logits, DTensor):
+        from repro_torch.distributed import local
+        nll = local.token_nll(logits, labels)
+        # per-shard sums: the backward keeps each shard's gradient local
+        if mask is None:
+            return local.total(nll) / nll.numel()
+        mask = local.as_dtensor(mask.to(torch.float32), nll.device_mesh)
+        return local.total(nll * mask) / torch.clamp(local.total(mask),
+                                                     min=1.0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
@@ -74,7 +90,8 @@ def _on(x, device) -> torch.Tensor:
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     accum: int = 1, remat: bool = True,
                     with_embeds: bool = False,
-                    grad_dtype=torch.float32) -> Callable:
+                    grad_dtype=torch.float32,
+                    constrain_grads: bool = True) -> Callable:
     """Returns train_step(params, opt_state, batch) → (params, opt_state,
     metrics).  batch: {"tokens": (A, B, L) or "embeds": (A, B, L, D),
     "labels": (A, B, L)} (numpy arrays or tensors) with A = accumulation
@@ -83,14 +100,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
     grad_dtype: the accumulator's dtype (the update still runs in
     fp32).  The optimizer state is updated in place
-    (``adamw_update``); the params come back as new tensors."""
+    (``adamw_update``); the params come back as new tensors.
+    constrain_grads: pin the accumulator to the params' placements
+    inside the microbatch loop (False: once after it); a no-op without
+    sharding rules."""
     loss_fn = make_loss_fn(cfg, remat=remat)
+    axes = tr.param_axes(cfg)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         dev = leaves[0].device
-        acc = [torch.zeros(p.shape, dtype=grad_dtype, device=dev)
-               for p in leaves]
+        acc = [torch.zeros_like(p, dtype=grad_dtype) for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         labels = _on(batch["labels"], dev)
         xs = _on(batch["embeds" if with_embeds else "tokens"], dev)
@@ -111,8 +131,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             for s, g in zip(acc, grads):
                 if g is not None:
                     s.add_(g)             # upcast inside the add
+            if constrain_grads:
+                acc = _pin(params, acc, axes)
             loss_sum = loss_sum + loss.detach()
             del live, live_leaves, grads, tot, loss
+        if not constrain_grads:
+            acc = _pin(params, acc, axes)
         for s in acc:
             s.div_(accum)
         grads = tree_unflatten(params, acc)
@@ -121,6 +145,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         return params, opt_state, {"loss": loss_sum / accum, **om}
 
     return train_step
+
+
+def _pin(params, acc, axes):
+    """The accumulator leaves pinned to the params' logical placements
+    (``constrain_tree``; the same list back without rules)."""
+    pinned = constrain_tree(tree_unflatten(params, acc), axes)
+    return tree_leaves(pinned)
 
 
 def init_train_state(cfg: ModelConfig, seed: int = 0,

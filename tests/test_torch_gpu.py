@@ -1860,3 +1860,168 @@ def test_ssm_train_step_on_card_repeats_bit_for_bit(card, arch):
     assert np.isfinite(l0) and l0 == l1
     assert all(torch.equal(a, b)
                for a, b in zip(tree_leaves(p0), tree_leaves(p1)))
+
+
+# ------------------------------------------------------------- sharding
+
+
+def test_sharded_steps_on_a_world_size_1_nccl_mesh(card):
+    """The smoke config (head_dim 64) with params and caches as DTensors
+    placed by ``SERVE_RULES`` on a real NCCL mesh of one card: a prefill
+    (``dense_cache_write``) and two decode steps give the plain tensors'
+    logits and greedy tokens, through the kernels on the local shards
+    (``flash_attn`` and ``decode_attn`` counts rise)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = make_host_mesh()
+        cfg = get_smoke("qwen3-4b").replace(head_dim=64)
+        params = tr.init_params(cfg, seed=0, device=card)
+        b, l = 2, 24
+        tok = torch.randint(0, cfg.vocab_size, (b, l + 2), device=card,
+                            generator=torch.Generator(card).manual_seed(1))
+        pos = torch.arange(l + 2, device=card)[None].expand(b, l + 2)
+
+        def steps(p, caches):
+            with torch.no_grad():
+                out = [tr.forward(p, cfg, tokens=tok[:, :l],
+                                  positions=pos[:, :l], caches=caches,
+                                  logits_slice="last",
+                                  dense_cache_write=True)]
+                for i in range(l, l + 2):
+                    out.append(tr.forward(p, cfg, tokens=tok[:, i:i + 1],
+                                          positions=pos[:, i:i + 1],
+                                          caches=caches,
+                                          logits_slice="last"))
+            return out
+
+        want = steps(params, tr.init_cache(cfg, b, l + 4, device=card))
+        rules = sh.ShardingRules(mesh, dict(sh.SERVE_RULES))
+        before = (ops.LAUNCHERS["flash_attn"].launches,
+                  ops.LAUNCHERS["decode_attn"].launches)
+        with sh.use_rules(rules):
+            dp = sh.shard_tree(params, tr.param_axes(cfg), rules)
+            dc = sh.shard_tree(tr.init_cache(cfg, b, l + 4, device=card),
+                               tr.cache_logical_axes(cfg), rules)
+            got = [x.to_local() for x in steps(dp, dc)]
+        assert ops.LAUNCHERS["flash_attn"].launches > before[0]
+        assert ops.LAUNCHERS["decode_attn"].launches > before[1]
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+            assert torch.equal(g.argmax(-1), w.argmax(-1))
+    finally:
+        dist.destroy_process_group()
+
+
+def _alloc(fn, device):
+    """The most bytes ``fn(device, args)``'s allocations hold at once
+    (the dry run's watch: outputs and workspace), its inputs made by
+    ``fn(device, None)`` before the watch."""
+    from repro_torch.launch.dryrun import Watch
+    args = fn(device, None)
+    w = Watch()
+    with w:
+        fn(device, args)
+    return w.peak
+
+
+def _t(device, *shape, dtype=torch.bfloat16, fill=None):
+    if fill is not None:
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    if device.type == "meta" or not dtype.is_floating_point:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return torch.randn(shape, dtype=dtype, device=device) * 0.1
+
+
+def _meta_case(name):
+    from repro_torch.kernels import ops
+    b, lq, s, hq, hkv, d = 2, 64, 512, 32, 8, 128
+    i32 = torch.int32
+
+    def case(dev, args):
+        if args is None:
+            if name in ("mha", "flash_fn"):
+                return (_t(dev, b, lq, hq, d), _t(dev, b, s, hkv, d),
+                        _t(dev, b, s, hkv, d), _t(dev, b, dtype=i32),
+                        _t(dev, b, dtype=i32, fill=s))
+            if name.startswith("decode"):
+                pool = _t(dev, 16, 64, hkv, d)
+                return (_t(dev, b, hq, d), _t(dev, b, s, hkv, d), pool,
+                        _t(dev, b, 8, dtype=i32),
+                        _t(dev, b, dtype=i32, fill=300),
+                        _t(dev, b, dtype=i32))
+            if name.startswith("ragged"):
+                pool = _t(dev, 16, 64, hkv, d)
+                cu = torch.tensor([0, 40, 96], dtype=i32,
+                                  device=dev if dev.type != "meta" else "cpu"
+                                  ).to(dev)
+                return (_t(dev, 96, hq, d), _t(dev, b, s, hkv, d), pool,
+                        _t(dev, b, 8, dtype=i32), cu,
+                        _t(dev, b, dtype=i32), _t(dev, b, dtype=i32,
+                                                  fill=100),
+                        _t(dev, b, dtype=i32))
+            if name == "fused_sample":
+                r = 8
+                return (_t(dev, r, 151936, dtype=torch.float32),
+                        _t(dev, r, dtype=torch.float32, fill=1.0),
+                        _t(dev, r, dtype=i32, fill=50),
+                        _t(dev, r, dtype=torch.float32, fill=0.9),
+                        _t(dev, r, ops.MAX_BIAS, dtype=i32, fill=-1),
+                        _t(dev, r, ops.MAX_BIAS, dtype=torch.float32,
+                           fill=0.0),
+                        _t(dev, r, dtype=torch.float32, fill=0.5),
+                        _t(dev, r, dtype=i32, fill=-1))
+            x = _t(dev, b, 256, 16, 64, dtype=torch.float32)
+            dt = _t(dev, b, 256, 16, dtype=torch.float32, fill=0.01)
+            a = _t(dev, 16, dtype=torch.float32, fill=-1.0)
+            bc = _t(dev, b, 256, 1, 128, dtype=torch.float32)
+            return (x, dt, a, bc, bc.clone(),
+                    _t(dev, b, 16, 64, 128, dtype=torch.float32))
+        if name == "mha":
+            ops.mha(*args)
+        elif name == "decode":
+            ops.decode(args[0], args[1], args[1], args[4])
+        elif name == "decode_arena":
+            ops.decode_arena(args[0], args[1], args[1], args[5], args[4])
+        elif name == "decode_paged":
+            ops.decode_paged(args[0], args[2], args[2], args[3], args[4])
+        elif name == "ragged_mha":
+            ops.ragged_mha(args[0], args[1], args[1], *args[4:7])
+        elif name == "ragged_mha_arena":
+            ops.ragged_mha_arena(args[0], args[1], args[1], args[7],
+                                 *args[4:7])
+        elif name == "ragged_mha_paged":
+            ops.ragged_mha_paged(args[0], args[2], args[2], args[3],
+                                 *args[4:7])
+        elif name == "fused_sample":
+            ops.fused_sample(*args)
+        elif name == "ssd_grouped":
+            ops.ssd_grouped(*args)
+        elif name == "flash_fn":
+            q = args[0].detach().requires_grad_()
+            fl.FlashAttnFn.apply(q, *args[1:], True, None).sum().backward()
+        elif name == "ssd_fn":
+            x = args[0].detach().requires_grad_()
+            y, _ = ssd.SSDScanFn.apply(x, *args[1:], 128)
+            y.sum().backward()
+    return case
+
+
+@pytest.mark.parametrize("name", [
+    "mha", "decode", "decode_arena", "decode_paged", "ragged_mha",
+    "ragged_mha_arena", "ragged_mha_paged", "fused_sample", "ssd_grouped",
+    "flash_fn", "ssd_fn"])
+def test_meta_branches_allocate_what_the_launchers_do(card, name):
+    """Each of the nine dispatchers and the two training forms (forward
+    and backward) on meta tensors allocates, by shape, the bytes its CUDA
+    launchers allocate on the card at the same shapes: outputs and
+    workspace (the decode split plan at this card's SM count, which the
+    meta branch takes as an H100 SXM's 132)."""
+    from repro_torch.kernels.decode_attn import H100_SMS, _sm_count
+    assert _sm_count(card.index or 0) == H100_SMS
+    case = _meta_case(name)
+    assert _alloc(case, torch.device("meta")) == _alloc(case, card)

@@ -133,9 +133,10 @@ def test_long_prompt_chunk_matching_matches_jax_loop(stack):
 def test_port_imports_no_jax():
     """Every repro_torch module imports without pulling in jax or any
     module of the JAX package, the analytic modules (controller,
-    queueing model, workloads, simulator) and the training ones
-    (optimizer, checkpoints, train step and loop, launcher) among
-    them."""
+    queueing model, workloads, simulator), the training ones
+    (optimizer, checkpoints, train step and loop, launcher) and the
+    sharding layer and the dry run (rules, shard-local steps, meshes,
+    cell specs, the dry run) among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -146,7 +147,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "new = ('core.controller', 'core.queueing', 'sim.workload',\n"
         "       'sim.simulator', 'optim.adamw', 'checkpoint.ckpt',\n"
-        "       'training.train_step', 'training.loop', 'launch.train')\n"
+        "       'training.train_step', 'training.loop', 'launch.train',\n"
+        "       'distributed.sharding', 'distributed.local', 'launch.mesh',\n"
+        "       'launch.specs', 'launch.dryrun')\n"
         "assert all('repro_torch.' + m in sys.modules for m in new)\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
