@@ -13,12 +13,14 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      jamba-v0.1-52b's 128 heads in 8 groups), ``fused_sample``'s
      (cluster size, CTAs, shared bytes, registers, clusters resident at
      once; a verify tick's 40 bf16 rows must fit one wave);
-     ``flash_attn_bwd``'s three kernels at each head width (shared
-     bytes, registers, blocks per SM) and their grids at the training
-     shape; ``ssd_scan_bwd``'s launch plan at the training shape (4,
-     1024) at mamba2's layout (80 heads of 64, DS 128, G 1) and jamba's
-     (128 heads, G 8): blocks, shared bytes, registers and blocks per SM
-     of its C·Bᵀ and walk kernels, the sums' registers, the workspace;
+     ``flash_attn_bwd``'s three kernels at each head width and dtype
+     (the bf16 dK/dV and dQ kernels on the tensor cores, fp32 on the
+     CUDA cores: shared bytes, registers, bytes spilled, blocks per SM)
+     and their grids at the training shape; ``ssd_scan_bwd``'s launch
+     plan at the training shape (4, 1024) at mamba2's layout (80 heads
+     of 64, DS 128, G 1) and jamba's (128 heads, G 8): blocks, shared
+     bytes, registers and blocks per SM of its C·Bᵀ and walk kernels,
+     the sums' registers, the workspace;
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128) unless said otherwise, fp32 and
      bf16.  Paged kernels: page size 16, fragmented, shared and
@@ -87,7 +89,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      to 32,256 and minitron-8b's 256,000 columns.  Training:
      ``flash_attn`` with its log-sum-exp (lse within 1e-4 of the plain
      logsumexp, -inf on exactly the keyless rows) and ``flash_attn_bwd``
-     (dq, dk, dv within ``ref.flash_attn_bwd_error_bound``) at
+     (dq, dk, dv within ``ref.flash_attn_bwd_error_bound``, which in
+     bf16 carries P and dS rounded to bf16 at the tensor cores'
+     operands) at
      qwen3-4b's training shape (4, 1024, 32 / 8 x 128, causal), lengths
      1, 63, 65 and 1000, qwen2.5-32b's 40 / 8, widths 64 / 80 / 96,
      hubert's 16 x 80 non-causal, a 256 window over 1024 keys, offsets
@@ -219,7 +223,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      tokens: the loss per step (falling), ms per step split into the
      microbatches' forward + backward and AdamW, tokens/s, model
      TFLOP/s, ``flash_attn@lse`` / ``flash_attn_bwd`` launches per step,
-     peak GiB, and one profiled step's device share; then mamba2-2.7b
+     peak GiB, and one profiled step's device share (the backward
+     kernels' share of it), the losses at seed 0 beside the CUDA-core
+     backward's; then mamba2-2.7b
      at full width cut to 32 of 64 layers the same way, its SSD layers
      through ``ssd_scan@states`` and ``ssd_scan_bwd``;
   5. kernel times at main-path shapes with CUDA events (kernel, plain
@@ -265,7 +271,8 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      graph), each beside one SDPA call over the same keys, checked to
      compute the same function.  ``flash_attn_bwd`` and the forward
      with its log-sum-exp at the training shape, beside their plain
-     versions, SDPA's backward alone (its grads checked) and forward;
+     versions, SDPA's backward alone (its grads checked) and forward,
+     the backward's three kernels' device times apart;
      ``ssd_scan_bwd`` and ``ssd_scan``'s training form at (4, 1024) at
      mamba2's and jamba's layouts beside their plain versions and the
      serving launch (no single PyTorch call computes either);
@@ -359,6 +366,26 @@ def card_line() -> str:
 
 # ------------------------------------------------------------ phase 1
 
+def _bwd_spills(text):
+    """{(kernel, dtype, D): spill-store bytes} of flash_attn_bwd's
+    kernels from its ``-Xptxas -v`` log (the tensor-core kernels are the
+    bf16 instances)."""
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '[^']*?(delta|dkdv|dq)"
+                      r"(_tc)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E", line)
+        if m:
+            dt = torch.bfloat16 if m.group(2) or m.group(3) != "f" \
+                else torch.float32
+            key = (m.group(1), dt, int(m.group(4)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and key is not None:
+            out[key] = int(m.group(1))
+            key = None
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
     log(f"[1] card: {card_line()}")
@@ -384,18 +411,22 @@ def phase_build():
                 f"{f['blocks_per_sm']} blocks per SM"
                 for d, f in ((d, rp.launch_info(name, d, dt))
                              for d in rp.HEAD_DIMS)))
-    # flash_attn_bwd's launch plan: its three kernels at each head width,
-    # and their grids at the full-width training shape
+    # flash_attn_bwd's launch plan: its three kernels at each head width
+    # (bf16 on the tensor cores, fp32 on the CUDA cores), with the bytes
+    # ptxas spilled, and their grids at the full-width training shape
     from repro_torch.kernels import flash_attn as fl
+    spills = _bwd_spills(logs.get("flash_attn_bwd", ""))
     for dt in (torch.bfloat16, torch.float32):
         for d in rp.HEAD_DIMS:
             info = fl.bwd_launch_info(d, dt)
             log(f"[1] flash_attn_bwd {str(dt)[6:]} D={d}: " + "; ".join(
                 f"{k} {f['smem']} B shared a block, {f['regs']} registers, "
+                f"{spills.get((k, dt, d), 'n/a')} B spilled, "
                 f"{f['blocks_per_sm']} blocks per SM"
                 for k, f in info.items()))
-    log(f"[1] flash_attn_bwd blocks at (B 4, L 1024, 32 / 8 heads): "
-        f"{fl.bwd_grid(4, 1024, 1024, HQ, HKV)} of 256 threads")
+        log(f"[1] flash_attn_bwd {str(dt)[6:]} blocks at (B 4, L 1024, "
+            f"32 / 8 heads): {fl.bwd_grid(4, 1024, 1024, HQ, HKV, dt)} of "
+            f"256 threads")
     # ssd_scan's launch plan at a chunked prompt's step, B = 1, L = 256
     # (the card must have work on every SM), and at the packed bridge
     from repro_torch.kernels import ssd_scan as ssd
@@ -5204,6 +5235,12 @@ TRAIN_KERNELS = {"qwen3-4b": ("flash_attn", "flash_attn@lse",
                                  "ssd_scan_bwd")}
 TRAIN_STEPS = 10
 TRAIN_FULL_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# qwen3-4b's losses at --seed 0 (4 decimals) with the bf16 backward on
+# the CUDA cores in fp32, dS unrounded (an NVIDIA H100 80GB HBM3 at
+# 700 W): phase 4 logs the tensor-core backward's trajectory beside it
+TRAIN_LOSSES_CUDA_CORE = {"qwen3-4b": (
+    12.436, 12.1104, 14.4494, 18.856, 11.5926, 10.5961, 9.0737, 7.4805,
+    6.4744, 6.4217)}
 
 
 def _matmul_params(tree, path=""):
@@ -5320,6 +5357,11 @@ def phase_train(seed, card, arch="qwen3-4b", layers=TRAIN_LAYERS):
         f"{(model + remat) / ms / 1e9:.1f} TFLOP/s with it); launches a "
         f"step {per_step}; peak {peak:.2f} GiB; {wall:.1f} s in all "
         f"(card {card})")
+    before = TRAIN_LOSSES_CUDA_CORE.get(arch)
+    if seed == 0 and before is not None and layers == TRAIN_LAYERS:
+        log(f"[4] train {arch} losses beside the CUDA-core backward's "
+            f"(seed 0): " + ", ".join(
+                f"{x:.4f} ({x - y:+.4f})" for x, y in zip(losses, before)))
     fwd = layers * TRAIN_FULL["accum"] * TRAIN_STEPS
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert launches[bwd_k] == fwd, launches
@@ -5363,10 +5405,11 @@ def _time_flash_bwd(gen, errs):
     versions and one library call: SDPA's backward alone
     (``autograd.grad`` through ``scaled_dot_product_attention(...,
     is_causal=True, enable_gqa=True)`` less its forward), checked to
-    compute the same gradients, and SDPA's forward.  Bounds: 5 products
-    (backward) and 2 (forward) of 2 D FLOPs for each (query, key) pair
-    of the band at the bf16 tensor-core peak, against each input read
-    and each output written once."""
+    compute the same gradients, and SDPA's forward; the backward's three
+    kernels' device times apart.  Bounds: 5 products (backward) and 2
+    (forward) of 2 D FLOPs for each (query, key) pair of the band at the
+    bf16 tensor-core peak, against each input read and each output
+    written once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as fl
@@ -5413,6 +5456,22 @@ def _time_flash_bwd(gen, errs):
         # q, k, v, out, dout and lse read; dq, dk, dv written
         bytes=io + b * hq * l * 4 + (b * l * hq * d + 2 * b * l * hkv * d)
         * el)
+    # the three kernels' device time (torch.profiler over 5 calls), and
+    # the rate over the 7 products the design runs (S and dP twice)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fl.flash_attn_bwd(q, k, v, out, lse, do, o, ln)
+        torch.cuda.synchronize()
+    split = {e.key.split("<")[0].split("::")[-1]:
+             e.device_time_total / e.count / 1e3
+             for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0)}
+    ms = rows["flash_attn_bwd"]["ms"]
+    log(f"[5] flash_attn_bwd's kernels at ({b}, {l}): " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in sorted(split.items())) +
+        f"; {7 * 2 * d * pairs * hq / ms / 1e9:.1f} TFLOP/s over the "
+        f"{7 * 2 * d * pairs * hq / 1e9:.1f} GFLOP of 7 products it runs")
     rows["flash_attn@lse"] = dict(
         ms=_time(lambda: fl.flash_attn(q, k, v, o, ln, return_lse=True)),
         plain_ms=_time(lambda: (fl.flash_attn_plain(q, k, v, o, ln),

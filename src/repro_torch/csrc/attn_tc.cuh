@@ -1,12 +1,15 @@
 // Hopper tensor-core primitives of the bf16 attention kernels: 16-byte
-// cp.async copies into shared memory and 1-D bulk copies (ssd_scan.cu);
-// for the prefill tiles
-// (attn_tiles.cuh) the shared-memory matrix descriptor of wgmma and
-// wgmma.mma_async itself in the two forms the tiles use — m64n64k16 with
-// both operands in shared memory (S = Q.K^T) and m64nDk16 with A in
-// registers (O += P.V); for the decode walk (decode_attn.cuh) the
-// warp-level ldmatrix and mma.sync m16n8k16.  sm_90a only: wgmma does
-// not exist on plain sm_90.
+// cp.async copies into shared memory (and 4-byte ones, for the
+// backward's per-vector log-sum-exp and delta) and 1-D bulk copies
+// (ssd_scan.cu); for the prefill tiles (attn_tiles.cuh) and the bf16
+// backward (flash_attn_bwd.cu) the shared-memory matrix descriptor of
+// wgmma and wgmma.mma_async itself in the two forms they use —
+// m64n64k16 with both operands in shared memory (S = Q.K^T, and the
+// backward's S^T = K.Q^T and dP^T = V.dO^T) and m64nDk16 with A in
+// registers (O += P.V, and the backward's dV += P^T.dO, dK += dS^T.Q,
+// dQ += dS.K); for the decode walk (decode_attn.cuh) the warp-level
+// ldmatrix and mma.sync m16n8k16.  sm_90a only: wgmma does not exist on
+// plain sm_90.
 //
 // Shared-memory operand layout.  Every operand tile is stored as 8 x 8
 // "core matrices" of bf16, each 8 rows of 16 contiguous bytes (128 bytes
@@ -14,7 +17,9 @@
 // elements lies at byte ((r / 8) * (C / 8) + c / 8) * 128 + (r % 8) * 16
 // + (c % 8) * 2.  A K or Q tile (rows = keys or query vectors, C = D) is
 // the K-major operand of Q.K^T; a V tile stored the same way (rows =
-// keys, C = D) is the MN-major (transposed) B operand of P.V.  This
+// keys, C = D) is the MN-major (transposed) B operand of P.V, as the
+// backward's dO and Q tiles are of dV and dK, and its K tile of dQ
+// (one tile, two descriptors: K-major for S, MN-major for dQ).  This
 // layout takes any D that is a multiple of 16, so widths 80 and 96 run
 // through wgmma with no padding, and a cp.async of 16-byte chunk i of a
 // tile lands at byte 16 * i, so the copies are free of bank conflicts.
@@ -47,6 +52,14 @@ __device__ __forceinline__ void cp_async16_cg(uint32_t dst, const void* src,
                                               bool fill) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared (.ca; .cg takes only 16); with fill false they
+// are zeroed and src is not read
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(fill ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -105,8 +118,9 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 // the byte step between core matrices along K, `sbo` along M or N (the
 // PTX "leading" and "stride" byte offsets), for the K-major and the
 // transposed (MN-major) operand alike.  So a Q or K tile of width D has
-// lbo 128 and sbo 16 D, a V tile lbo 16 D and sbo 128.  Fields are in
-// 16-byte units.
+// lbo 128 and sbo 16 D as a K-major operand, and any such tile (V; the
+// backward's dO, Q and K) lbo 16 D and sbo 128 as an MN-major one.
+// Fields are in 16-byte units.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |

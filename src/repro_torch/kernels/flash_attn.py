@@ -11,7 +11,11 @@ log-sum-exp, which its backward reads.
 
 ``flash_attn_bwd`` (``csrc/flash_attn_bwd.cu``) is that backward: dq,
 dk and dv from q, k, v, the output, its log-sum-exp and the output's
-gradient.  It ports no TPU kernel: the reference differentiates XLA
+gradient, in three kernels (delta, dK/dV per key tile, dQ per query
+tile) with no float atomics, so two runs give the same bits.  In bf16
+every product runs on the tensor cores (wgmma, P and dS rounded to
+bf16 as their operands); fp32, the checking type, keeps CUDA-core
+kernels.  It ports no TPU kernel: the reference differentiates XLA
 attention, and the port's forward of the same layers is the kernel
 above.  ``FlashAttnFn`` joins the two for autograd; ``ops.mha`` takes it
 on the card when an input requires grad.
@@ -138,7 +142,9 @@ flash_attn_bwd.launches = 0
 
 
 BWD_KERNELS = ("delta", "dkdv", "dq")
-BWD_TILE = 64                   # query vectors, and keys, a block
+# keys a dK/dV block and query vectors a dQ block: bf16 (two warpgroups
+# of 64 on the tensor cores), fp32 (the CUDA-core kernels)
+BWD_TILE = {torch.bfloat16: 128, torch.float32: 64}
 
 
 def bwd_launch_info(head_dim: int, dtype: torch.dtype
@@ -158,13 +164,16 @@ def bwd_launch_info(head_dim: int, dtype: torch.dtype
             for i, k in enumerate(BWD_KERNELS)}
 
 
-def bwd_grid(b: int, lq: int, s: int, hq: int, hkv: int) -> Dict[str, int]:
-    """Blocks of each backward kernel for a (B, Lq, Hq) x (S, Hkv) call:
-    a warp per query vector, a block per (64-key tile, KV head, row),
-    a block per (64 / rep-row tile, KV head, row)."""
-    rows = BWD_TILE // (hq // hkv)
+def bwd_grid(b: int, lq: int, s: int, hq: int, hkv: int,
+             dtype: torch.dtype) -> Dict[str, int]:
+    """Blocks of each backward kernel (256 threads each) for a (B, Lq,
+    Hq) x (S, Hkv) call in ``dtype``: a warp per query vector, a block
+    per (tile of ``BWD_TILE`` keys, KV head, row), a block per (tile of
+    ``BWD_TILE`` / rep rows, KV head, row)."""
+    tile = BWD_TILE[dtype]
+    rows = tile // (hq // hkv)
     return {"delta": -(-b * lq * hq // 8),
-            "dkdv": -(-s // BWD_TILE) * hkv * b,
+            "dkdv": -(-s // tile) * hkv * b,
             "dq": -(-lq // rows) * hkv * b}
 
 

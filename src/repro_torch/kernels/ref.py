@@ -636,15 +636,19 @@ def flash_attn_bwd_error_bound(q, k, v, out, lse, dout, *index, causal=True,
     inputs, and the elementwise bounds on how far the kernels' dq, dk
     and dv (in the inputs' dtype) may lie from it.
 
-    The kernels compute in fp32 from the same inputs and the same lse,
-    so each gradient moves only by the order of its fp32 sums and by
-    expf: at most ``BWD_REL_TOL`` of the same sums taken over absolute
+    The kernels accumulate in fp32 from the same inputs and the same
+    lse, so each gradient moves only by the order of its fp32 sums and
+    by exp: at most ``BWD_REL_TOL`` of the same sums taken over absolute
     values (``flash_attn_bwd_plain(..., _abs=True)``, where dS's
     magnitude is P·(|dO|·|V| + |dO|·|O|)).  In bf16 each output is
-    rounded once (u·|ref|, u = 2^-8), and dV's product takes P rounded
-    to bf16 (u·Pᵀ|dO|, the |.| sum of dV).  A dropped query or key tile
-    moves dq, dk or dv far past it.  Returns ((dq, dk, dv) refs,
-    (dq, dk, dv) bounds)."""
+    rounded once (u·|ref|, u = 2^-8), and the tensor cores take bf16
+    operands: dV's product takes P rounded to bf16 (the forward's own
+    rounding of p), so it moves by at most u·Pᵀ|dO|, the |.| sum of dV;
+    dK's and dQ's products take dS rounded to bf16, |dS - bf16(dS)| <=
+    u·|dS| <= u·P·(|dO|·|V| + |dO|·|O|), so they move by at most
+    u·|dS|ᵀ|Q|·scale and u·|dS|·|K|·scale, the |.| sums of dk and dq.
+    A dropped query or key tile moves dq, dk or dv far past it.
+    Returns ((dq, dk, dv) refs, (dq, dk, dv) bounds)."""
     f = [x.float() for x in (q, k, v, out, dout)]
     kw = dict(causal=causal, window=window)
     ref = flash_attn_bwd_plain(f[0], f[1], f[2], f[3], lse, f[4], *index,
@@ -653,8 +657,8 @@ def flash_attn_bwd_error_bound(q, k, v, out, lse, dout, *index, causal=True,
                                _abs=True, **kw)
     bounds = [BWD_REL_TOL * a + 1e-6 for a in mag]
     if q.dtype != torch.float32:
-        bounds = [bd + U_BF16 * r.abs() for bd, r in zip(bounds, ref)]
-        bounds[2] = bounds[2] + U_BF16 * mag[2]
+        bounds = [bd + U_BF16 * (r.abs() + m)
+                  for bd, r, m in zip(bounds, ref, mag)]
     return tuple(ref), tuple(bounds)
 
 

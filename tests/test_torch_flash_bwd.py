@@ -160,12 +160,39 @@ def test_plain_lse_is_the_logsumexp_of_the_band(case):
                                            atol=1e-5)
 
 
+def _kernel_rounding(q, k, v, out, lse, do, o, ln, causal):
+    """The backward by the bf16 kernels' arithmetic: fp32 sums of the
+    storage values, P rounded to bf16 before dV's product and dS rounded
+    to bf16 before dK's and dQ's (the tensor cores' operands)."""
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    scores, mask = tref._flash_scores(q.float(), k.float(), o, ln, causal,
+                                      None)
+    lse5 = lse.reshape(b, hkv, rep, lq).permute(0, 1, 3, 2)
+    p = torch.where(mask[:, None, :, None, :],
+                    torch.exp(scores - lse5[..., None]), torch.zeros(()))
+    og, dog, qg = (x.float().reshape(b, lq, hkv, rep, d)
+                   for x in (out, do, q))
+    delta = (dog * og).sum(-1).permute(0, 2, 1, 3)
+    dp = torch.einsum("blgrd,bsgd->bglrs", dog, v.float())
+    ds = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    pb = p.to(torch.bfloat16).float()
+    dv = torch.einsum("bglrs,blgrd->bsgd", pb, dog)
+    dk = torch.einsum("bglrs,blgrd->bsgd", ds, qg) / math.sqrt(d)
+    dq = torch.einsum("bglrs,bsgd->blgrd", ds, k.float()) / math.sqrt(d)
+    return dq.reshape(b, lq, hq, d), dk, dv
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_error_bound_holds_for_the_plain_version_and_bites(dtype):
     """The bound the card's kernels are held to: the plain version run
-    on the storage values lies inside it (fp32, and bf16 rounded once);
-    a dropped 64-vector query tile (its dout unseen) or a dropped 64-key
-    tile (its dk, dv never written) lies outside it."""
+    on the storage values lies inside it (fp32, and bf16 rounded once),
+    and in bf16 so does the kernels' arithmetic (P and dS rounded to
+    bf16 at the tensor cores' operands); a dropped 64-vector query tile
+    (its dout unseen) or a dropped 64-key tile (its dk, dv never
+    written) lies outside it, for the plain version and, in bf16, for
+    the kernels' arithmetic."""
     s, offs, lens, causal, window = 130, [0, 2], [130, 120], True, None
     rng = np.random.default_rng(5)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(
@@ -177,25 +204,29 @@ def test_error_bound_holds_for_the_plain_version_and_bites(dtype):
     lse = tref.ref_flash_attn_lse(q.float(), k.float(), o, ln, causal=causal)
     refs, bounds = tref.flash_attn_bwd_error_bound(q, k, v, out, lse, do, o,
                                                    ln, causal=causal)
-    got = tref.flash_attn_bwd_plain(q.float(), k.float(), v.float(),
-                                    out.float(), lse, do.float(), o, ln,
-                                    causal=causal)
-    for g, r, bd in zip(got, refs, bounds):
-        assert ((g.to(dtype).float() - r).abs() <= bd).all()
-    # a dropped query tile: rows 32..47 of every head (16 rows x rep 4 =
-    # 64 vectors of one KV group), their dout never read
-    do_cut = do.clone()
-    do_cut[:, 32:48] = 0
-    cut = tref.flash_attn_bwd_plain(q.float(), k.float(), v.float(),
-                                    out.float(), lse, do_cut.float(), o, ln,
-                                    causal=causal)
-    assert any(((c.to(dtype).float() - r).abs() > bd).any()
-               for c, r, bd in zip(cut, refs, bounds))
-    # a dropped key tile: keys 64..127's dk and dv left at 0
-    for i in (1, 2):
-        c = got[i].clone()
-        c[:, 64:128] = 0
-        assert ((c.to(dtype).float() - refs[i]).abs() > bounds[i]).any()
+    runs = {"plain": lambda d_: tref.flash_attn_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), lse, d_.float(), o, ln,
+        causal=causal)}
+    if dtype == torch.bfloat16:
+        runs["kernel rounding"] = lambda d_: _kernel_rounding(
+            q, k, v, out, lse, d_, o, ln, causal)
+    for name, run in runs.items():
+        got = run(do)
+        for g, r, bd in zip(got, refs, bounds):
+            assert ((g.to(dtype).float() - r).abs() <= bd).all(), name
+        # a dropped query tile: rows 32..47 of every head (16 rows x rep
+        # 4 = 64 vectors of one KV group), their dout never read
+        do_cut = do.clone()
+        do_cut[:, 32:48] = 0
+        cut = run(do_cut)
+        assert any(((c.to(dtype).float() - r).abs() > bd).any()
+                   for c, r, bd in zip(cut, refs, bounds)), name
+        # a dropped key tile: keys 64..127's dk and dv left at 0
+        for i in (1, 2):
+            c = got[i].clone()
+            c[:, 64:128] = 0
+            assert ((c.to(dtype).float() - refs[i]).abs() >
+                    bounds[i]).any(), name
 
 
 def test_launchers_refuse_cpu_tensors():
