@@ -18,9 +18,10 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      CUDA cores: shared bytes, registers, bytes spilled, blocks per SM)
      and their grids at the training shape; ``ssd_scan_bwd``'s launch
      plan at the training shape (4, 1024) at mamba2's layout (80 heads
-     of 64, DS 128, G 1) and jamba's (128 heads, G 8): blocks, shared
-     bytes, registers and blocks per SM of its C·Bᵀ and walk kernels,
-     the sums' registers, the workspace;
+     of 64, DS 128, G 1) and jamba's (128 heads, G 8): the blocks of
+     its five kernels, shared bytes and registers of the dH-term, head
+     and group kernels and blocks per SM of the last two, the head
+     ranges, the workspace;
   2. each kernel against its plain PyTorch version at qwen3-4b's head
      shapes (Hq 32, Hkv 8, D 128) unless said otherwise, fp32 and
      bf16.  Paged kernels: page size 16, fragmented, shared and
@@ -106,7 +107,10 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      jamba's layouts, fp32 and bf16: the chunk states against the plain
      recurrence, y and the state bit-identical to the serving launch's,
      the six gradients within ``ref.ssd_bwd_error_bound``, two runs
-     bit-identical and a dropped chunk far outside the bound;
+     bit-identical and a dropped chunk far outside the bound.  The dense
+     decode kernel's lse against ``ref_flash_attn_lse`` and the keys split
+     in two parts merged by ``distributed.local.merge_partials`` against
+     one call (``phase_decode_lse``);
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -275,7 +279,8 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      the backward's three kernels' device times apart;
      ``ssd_scan_bwd`` and ``ssd_scan``'s training form at (4, 1024) at
      mamba2's and jamba's layouts beside their plain versions and the
-     serving launch (no single PyTorch call computes either);
+     serving launch (no single PyTorch call computes either), the
+     backward's kernels' device times apart;
   6. the serve launcher, its default and ``--packed``, for qwen3-4b and
      mamba2-2.7b, at the smoke config and at published widths cut to 4
      layers, and for mixtral-8x7b at its smoke config and at published
@@ -454,17 +459,25 @@ def phase_build():
         for nh, g in ((SSD_NH, 1), (JAMBA_NH, JAMBA_G)):
             shape = (*SSD_TRAIN, nh, SSD_HD, SSD_DS, g)
             pl = ssd.bwd_plan(*shape, dt, SSD_CHUNK)
+            assert tuple(pl) == ssd.BWD_PLAN_KEYS
+            assert (pl["head_ranges"], pl["heads_per_range"]) == \
+                ssd.bwd_ranges(SSD_TRAIN[0], SSD_TRAIN[1], nh, SSD_DS, g,
+                               SSD_CHUNK)
             work = 4 * ssd.bwd_workspace_floats(*shape, SSD_CHUNK) / 2**20
+            launches = 5 + (2 if pl["head_ranges"] > 1 else 0) + 1
             log(f"[1] ssd_scan_bwd plan {str(dt)[6:]} (B, L) = {SSD_TRAIN} "
                 f"(NH {nh}, HD {SSD_HD}, DS {SSD_DS}, G {g}, chunk "
-                f"{SSD_CHUNK}): 6 launches a call; C.B^T {pl['cb_blocks']} "
-                f"blocks, {pl['cb_smem']} B shared, {pl['cb_regs']} "
-                f"registers, {pl['cb_blocks_per_sm']} per SM; walk "
-                f"{pl['walk_blocks']} blocks ({pl['slices_per_head']} slices"
-                f" a head), {pl['walk_smem']} B shared, {pl['walk_regs']} "
-                f"registers, {pl['walk_blocks_per_sm']} per SM; sums "
-                f"{pl['sum_regs']} registers; workspace {work:.0f} MiB; on "
-                f"{sms} SMs")
+                f"{SSD_CHUNK}): {launches} launches a call; (B.C^T)^T "
+                f"{pl['cb_blocks']} blocks; dH terms {pl['dstate_blocks']} "
+                f"blocks, {pl['dstate_smem']} B shared, "
+                f"{pl['dstate_regs']} registers; head {pl['head_blocks']} "
+                f"blocks, {pl['head_smem']} B shared, {pl['head_regs']} "
+                f"registers, {pl['head_blocks_per_sm']} per SM; group "
+                f"{pl['group_blocks']} blocks ({pl['head_ranges']} ranges "
+                f"of {pl['heads_per_range']} heads), {pl['group_smem']} B "
+                f"shared, {pl['group_regs']} registers, "
+                f"{pl['group_blocks_per_sm']} per SM; workspace "
+                f"{work:.0f} MiB; on {sms} SMs")
     # fused_sample's launch plan: one cluster a row; a verify tick's 40
     # bf16 rows over qwen3-4b's vocabulary must be resident in one wave
     from repro_torch.kernels import sampling as ks
@@ -1169,6 +1182,81 @@ def phase_dense_kernels(seed, errs):
     log(f"[2] ok: flash_attn == plain on {n} cases (fp32 max_abs_err "
         f"{max(errs[('flash_attn', torch.float32)]):.3e}, bf16 "
         f"{max(errs[('flash_attn', torch.bfloat16)]):.3e})")
+
+
+def phase_decode_lse(seed, errs):
+    """The dense decode kernel's lse (``decode_attn(..., return_lse=True)``,
+    the partial a sequence-sharded cache's shards merge) at the decode
+    shapes of ``phase_dense_kernels`` (S = 256 at ``DENSE_HEADS``,
+    ``DENSE_DECODE_LENGTHS``: a keyless row and uneven rows), fp32 and
+    bf16: the output as the launch without lse (bit for bit), the lse
+    within 1e-4 (natural-log units; the scores' fp32 sums in another
+    order) of ``ref_flash_attn_lse`` on the same inputs, -inf on the
+    keyless row.  Then the keys split in two parts on this one card,
+    [0, 192) and [192, 256), each part's output and lse from the kernel,
+    merged by ``distributed.local.merge_partials`` (``_combine``'s
+    arithmetic): the merged output within the decode bound
+    (``ref.kernel_error_bound``) of the plain version over all keys, its
+    lse within 1e-4 of one call's.  The 64-key part plans one chunk (the
+    split kernel writes the lse, -inf on its keyless rows) where the
+    others plan several (the combine kernel writes it)."""
+    from repro_torch.distributed.local import merge_partials
+    from repro_torch.kernels import decode_attn as dec
+    from repro_torch.kernels.ref import ref_flash_attn_lse
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 31)
+    lengths = DENSE_DECODE_LENGTHS
+    s, cut = 256, 192
+    lens = _i32(lengths)
+    worst_lse = worst_merge = 0.0
+    chunks = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in DENSE_HEADS:
+            k, v = _batch_kv(gen, len(lengths), s, hkv, D, lengths, dtype)
+            q = torch.randn((len(lengths), hq, D), generator=gen,
+                            device=DEVICE).to(dtype)
+            out, lse = dec.decode_attn(q, k, v, lens, return_lse=True)
+            same = torch.equal(out, dec.decode_attn(q, k, v, lens))
+            ll = lens.long()
+            want = ref_flash_attn_lse(
+                q[:, None].float(), torch.nan_to_num(k.float()), ll - 1,
+                ll)[..., 0]
+            keyless = ll == 0
+            real = ~keyless[:, None].expand_as(lse)
+            e_lse = float((lse - want)[real].abs().max())
+            neginf = bool(torch.isneginf(lse[keyless]).all())
+            parts = []
+            for lo, hi in ((0, cut), (cut, s)):
+                hl = _i32((ll - lo).clamp(0, hi - lo).cpu().numpy())
+                parts.append(dec.decode_attn(
+                    q, k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous(),
+                    hl, return_lse=True))
+            m_out, m_lse = merge_partials(
+                torch.stack([p[0] for p in parts]),
+                torch.stack([p[1] for p in parts]))
+            torch.cuda.synchronize()
+            err, worst, ok, _ = _held(m_out, dec.decode_attn_plain, q, k, v,
+                                      lens)
+            e_mlse = float((m_lse - lse)[real].abs().max())
+            ok = ok and same and neginf and e_lse <= 1e-4 \
+                and e_mlse <= 1e-4 and not m_out[keyless].any()
+            for span in (s, cut, s - cut):
+                chunks.add(dec.split_plan(len(lengths), hq, hkv, D, span,
+                                          dec._sm_count(0)).n_chunks)
+            errs.setdefault(("decode_attn@lse", dtype), []).append(e_lse)
+            worst_lse = max(worst_lse, e_lse)
+            worst_merge = max(worst_merge, worst)
+            log(f"[2] decode_attn lse {hq}/{hkv} {str(dtype)[6:]}: lse "
+                f"max_abs_err={e_lse:.2e}, keyless -inf {neginf}, output as"
+                f" without lse {same}; two parts merged: err/bound="
+                f"{worst:.3f}, lse err {e_mlse:.2e} "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok, f"decode_attn lse {hq}/{hkv} {dtype}"
+    assert chunks >= {1} and max(chunks) > 1, chunks
+    log(f"[2] ok: decode_attn's lse within {worst_lse:.2e} of "
+        f"ref_flash_attn_lse, the two-part merge within its bound "
+        f"(worst err/bound {worst_merge:.3f}); n_chunks taken "
+        f"{sorted(chunks)}")
 
 
 # ------------------------------------------------------------ phase 2:
@@ -2824,6 +2912,10 @@ def _cluster_run(cfg, params, paged, spatial, seed, card, kept=True):
                 lambda: b.import_session(800, a.export_session(100)))
             b.close_session(800)
             alone.append((100, n_dev))
+        traced = sum(1 for _, n in profiled + alone if n)
+        log(f"[4] cluster {what}: {traced} of {len(profiled + alone)} "
+            f"handoff profiles traced the device, "
+            f"{len(profiled + alone) - traced} came back blind")
         assert any(n for _, n in profiled + alone), \
             f"{what}: no handoff profile traced the device"
         log(f"[4] cluster {what}: migrations profiled (session, device "
@@ -5547,9 +5639,28 @@ def _time_ssd_bwd(gen, errs):
         serving = _time(lambda: ssd.ssd_scan(*args, chunk=SSD_CHUNK), 10)
         log(f"[5] ssd_scan_bwd at (B, L) = {SSD_TRAIN} (NH {nh}, G {g}) "
             f"bf16: max_abs_err={err:.3e} err/bound={worst:.3f}; kernel "
-            f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms; the "
-            f"training-form forward {fwd['ms']:.4f} ms (the serving launch "
-            f"{serving:.4f} ms), plain {fwd['plain_ms']:.4f} ms")
+            f"{bwd['ms']:.4f} ms ({flops / bwd['ms'] / 1e9:.1f} TFLOP/s of "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / bwd['ms'] / 1e6:.0f} GB/s "
+            f"of {nbytes / 1e6:.2f} MB), plain {bwd['plain_ms']:.4f} ms; "
+            f"the training-form forward {fwd['ms']:.4f} ms (the serving "
+            f"launch {serving:.4f} ms), plain {fwd['plain_ms']:.4f} ms")
+        # each of the backward's kernels: device ms a call (torch.profiler
+        # over 5 calls; the sum kernel's launches together)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                ssd.ssd_scan_bwd(*args[:5], states, dy, dst, chunk=SSD_CHUNK)
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            m = re.search(r"ssd_bwd_\w+_kernel", e.key)
+            t = getattr(e, "device_time_total", 0) or getattr(
+                e, "cuda_time_total", 0)
+            if m and t:
+                split[m.group(0)] = split.get(m.group(0), 0.0) + t / 5 / 1e3
+        log(f"[5] ssd_scan_bwd's kernels at (NH {nh}, G {g}), device ms a "
+            f"call: " + ", ".join(f"{k} {t:.4f}" for k, t in split.items())
+            + f"; sum {sum(split.values()):.4f} ms")
         if g == 1:
             rows["ssd_scan_bwd"], rows["ssd_scan@states"] = bwd, fwd
         else:
@@ -6075,6 +6186,7 @@ def main() -> int:
         phase_sample_kernel(args.seed, errs)
         phase_ssd_kernel(args.seed, errs)
         phase_dense_kernels(args.seed, errs)
+        phase_decode_lse(args.seed, errs)
         phase_window_kernels(args.seed, errs)
         t2 = time.perf_counter()
         phase_flash_bwd(args.seed, errs)

@@ -86,7 +86,12 @@
 // about twice its bytes' time.
 //
 // Scores are kept in log2 units (scaled by log2(e) / sqrt(D)), the
-// partials' m too, and the merges use exp2 as the walk does.
+// partials' m too, and the merges use exp2 as the walk does.  Asked for
+// (a non-null lse, the dense export only), each query head's
+// log-sum-exp of its scaled scores in natural-log units, (m + log2 l)
+// ln 2, is written beside its output, -inf on a row with no key: the
+// partial a sequence-sharded cache's shards merge (distributed/local.py
+// decode).  A null lse leaves every launch as it was.
 //
 // No row at or past lengths[b] is ever read: page-table entries past the
 // valid length, and an arena slot's rows past it, may hold anything.
@@ -117,6 +122,15 @@ struct Merge {
 
 template <typename T, int D>
 struct Walk;
+
+// the natural-log log-sum-exp of a head's scores from its log2-unit max m
+// and sum l > 0; a head with no key gets -inf (kNegInf is finite)
+__device__ __forceinline__ float to_lse(float m, float l) {
+  return (m + log2f(l)) * 0.6931471805599453f;
+}
+__device__ __forceinline__ float no_lse() {
+  return __int_as_float(0xff800000);
+}
 
 // ------------------------------------------------------------ fp32 walk
 
@@ -403,14 +417,15 @@ struct Walk<__nv_bfloat16, D> {
 // dispatched first whatever the lengths and the empty ones (half of the
 // chunks of 8 rows x 2048 keys over a 4096-key capacity) come last.  ws
 // holds (n_rows, hkv, n_chunks, rep, D + 4) fp32: acc, then m and l (the
-// two floats after them pad a head's partial to 16 bytes).
+// two floats after them pad a head's partial to 16 bytes).  With one
+// chunk the block writes out, and lse (n_rows, hq) where it is asked.
 template <typename T, int D, typename Layout>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                     const T* __restrict__ vbuf, Layout layout,
                     const int* __restrict__ lengths, T* __restrict__ out,
-                    float* __restrict__ ws, int hq, int hkv, int chunk,
-                    int window) {
+                    float* __restrict__ ws, float* __restrict__ lse, int hq,
+                    int hkv, int chunk, int window) {
   static_assert(sizeof(Merge<D>) <= Walk<T, D>::kSmem,
                 "the merge buffers must fit in the walk's shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -428,6 +443,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
     if (n_chunks == 1) {
       for (int idx = threadIdx.x; idx < rep * D; idx += kThreads)
         out[vec0 * D + idx] = from_f<T>(0.f);
+      if (lse != nullptr)
+        for (int i = threadIdx.x; i < rep; i += kThreads)
+          lse[vec0 + i] = no_lse();
     } else {
       for (int i = threadIdx.x; i < rep; i += kThreads) {
         part[i * (D + 4) + D] = kNegInf;
@@ -458,6 +476,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
     }
     if (n_chunks == 1) {                 // lsum > 0: the chunk has a key
       out[(vec0 + i) * D + d] = from_f<T>(a / lsum);
+      if (lse != nullptr && d == 0) lse[vec0 + i] = to_lse(mx, lsum);
     } else {
       part[i * (D + 4) + d] = a;
       if (d == 0) {
@@ -477,11 +496,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
 // lane by a shuffle, so the acc loads of 16 chunks are in flight at
 // once; the other lanes take part in the folds and shuffles only.  Empty
 // partials (l = 0) weigh nothing: their acc, never written, is loaded
-// and dropped by a select.  A row with no key gets 0.
+// and dropped by a select.  A row with no key gets 0 (and an lse of
+// -inf where it is asked).
 template <typename T, int D>
 __global__ void __launch_bounds__(kMaxRep * 32)
 decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                      int hq, int hkv, int n_chunks) {
+                      float* __restrict__ lse, int hq, int hkv,
+                      int n_chunks) {
   static_assert(D % 4 == 0 && D / 4 <= 32, "one float4 of acc per lane");
   constexpr int kLanes = D / 4;
   const int g = blockIdx.x, b = blockIdx.y;
@@ -510,6 +531,9 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
     mx = m_new;
   }
   const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+  if (lse != nullptr && lane == 0)
+    lse[static_cast<size_t>(b) * hq + g * rep + i] =
+        lsum > 0.f ? to_lse(mx, lsum) : no_lse();
   float a[4] = {0.f, 0.f, 0.f, 0.f};
   for (int c0 = 0; c0 < n_chunks; c0 += 32) {
     float w = 0.f;                       // lane j: chunk c0 + j's weight
@@ -538,8 +562,8 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
 
 template <typename T, int D, typename Layout>
 int launch(const void* q, const void* k, const void* v, Layout layout,
-           const void* lengths, void* out, void* ws, int n_rows, int hq,
-           int hkv, int chunk, int n_chunks, int window,
+           const void* lengths, void* out, void* ws, void* lse, int n_rows,
+           int hq, int hkv, int chunk, int n_chunks, int window,
            cudaStream_t stream) {
   auto split = decode_split_kernel<T, D, Layout>;
   constexpr size_t smem = Walk<T, D>::kSmem;
@@ -553,14 +577,14 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
   split<<<dim3(hkv, n_rows, n_chunks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), layout, static_cast<const int*>(lengths),
-      static_cast<T*>(out), static_cast<float*>(ws), hq, hkv, chunk,
-      window);
+      static_cast<T*>(out), static_cast<float*>(ws),
+      static_cast<float*>(lse), hq, hkv, chunk, window);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
   decode_combine_kernel<T, D><<<dim3(hkv, n_rows), kMaxRep * 32, 0,
                                 stream>>>(
-      static_cast<const float*>(ws), static_cast<T*>(out), hq, hkv,
-      n_chunks);
+      static_cast<const float*>(ws), static_cast<T*>(out),
+      static_cast<float*>(lse), hq, hkv, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -569,12 +593,13 @@ int launch(const void* q, const void* k, const void* v, Layout layout,
 // (kernels/decode_attn.py split_plan) over the span, the most keys a
 // row's range can hold — the layout's depth, or min(window, depth) with
 // a window > 0; ws: its fp32 workspace, unused (may be null) when
-// n_chunks == 1.  Returns the launches' cudaGetLastError() (0 on
+// n_chunks == 1; lse: null, or (n_rows, hq) fp32 for each query head's
+// log-sum-exp.  Returns the launches' cudaGetLastError() (0 on
 // success); never synchronises.
 template <typename Layout>
 int entry(const void* q, const void* k, const void* v, Layout layout,
-          const void* lengths, void* out, void* ws, int n_rows, int hq,
-          int hkv, int head_dim, int chunk, int n_chunks, int window,
+          const void* lengths, void* out, void* ws, void* lse, int n_rows,
+          int hq, int hkv, int head_dim, int chunk, int n_chunks, int window,
           int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const int span = window > 0 ? min(window, layout.depth()) : layout.depth();
@@ -588,7 +613,7 @@ int entry(const void* q, const void* k, const void* v, Layout layout,
   return with_form(dtype, head_dim, [&](auto form) {
     using F = decltype(form);
     return launch<typename F::T, F::D>(q, k, v, layout, lengths, out, ws,
-                                       n_rows, hq, hkv, chunk, n_chunks,
+                                       lse, n_rows, hq, hkv, chunk, n_chunks,
                                        window, s);
   });
 }

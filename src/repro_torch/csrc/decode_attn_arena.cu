@@ -26,9 +26,10 @@ extern "C" int decode_attn_arena_launch(
   const int* sm = static_cast<const int*>(slot_map);
   if (window > 0)
     return attn::decode::entry(q, k, v, attn::RollingLayout{sm, s_max},
-                               lengths, out, ws, n_rows, hq, hkv, head_dim,
-                               chunk, n_chunks, window, dtype, stream);
+                               lengths, out, ws, nullptr, n_rows, hq, hkv,
+                               head_dim, chunk, n_chunks, window, dtype,
+                               stream);
   return attn::decode::entry(q, k, v, attn::SlotLayout{sm, s_max}, lengths,
-                             out, ws, n_rows, hq, hkv, head_dim, chunk,
-                             n_chunks, 0, dtype, stream);
+                             out, ws, nullptr, n_rows, hq, hkv, head_dim,
+                             chunk, n_chunks, 0, dtype, stream);
 }

@@ -10,13 +10,19 @@
 // lengths[b] positions, so the step streams O(cached length) of each
 // row and never the rest of its S_max-deep copy.  S need not be a
 // multiple of the key tile; the chunk plan spans S keys.
+//
+// lse: null, or (n_rows, hq) fp32, each query head's log-sum-exp of its
+// scaled scores (-inf on a row with no key): a shard of a KV cache
+// sharded over its sequence attends its own keys and the shards'
+// partials are merged by their lse (distributed/local.py decode).
 #include "decode_attn.cuh"
 
 extern "C" int decode_attn_dense_launch(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* ws, int n_rows, int hq, int hkv, int head_dim, int s,
-    int chunk, int n_chunks, int dtype, void* stream) {
+    void* out, void* ws, void* lse, int n_rows, int hq, int hkv,
+    int head_dim, int s, int chunk, int n_chunks, int dtype, void* stream) {
   const attn::SlotLayout layout{nullptr, s};
-  return attn::decode::entry(q, k, v, layout, lengths, out, ws, n_rows, hq,
-                             hkv, head_dim, chunk, n_chunks, 0, dtype, stream);
+  return attn::decode::entry(q, k, v, layout, lengths, out, ws, lse, n_rows,
+                             hq, hkv, head_dim, chunk, n_chunks, 0, dtype,
+                             stream);
 }

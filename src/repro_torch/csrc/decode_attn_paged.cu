@@ -27,11 +27,12 @@ extern "C" int decode_attn_paged_launch(
   if (window > 0)
     return attn::decode::entry(q, k, v,
                                attn::RingLayout{pt, page_size, p_max},
-                               lengths, out, ws, n_rows, hq, hkv, head_dim,
-                               chunk, n_chunks, window, dtype, stream);
+                               lengths, out, ws, nullptr, n_rows, hq, hkv,
+                               head_dim, chunk, n_chunks, window, dtype,
+                               stream);
   return attn::decode::entry(q, k, v, attn::PagedLayout{pt, page_size, p_max},
-                             lengths, out, ws, n_rows, hq, hkv, head_dim,
-                             chunk, n_chunks, 0, dtype, stream);
+                             lengths, out, ws, nullptr, n_rows, hq, hkv,
+                             head_dim, chunk, n_chunks, 0, dtype, stream);
 }
 
 // The launch facts of the split kernel at head_dim and dtype over a page

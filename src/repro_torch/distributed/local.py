@@ -180,28 +180,37 @@ def mha(q: DTensor, k, v, q_offsets, kv_lengths, *, causal: bool,
 
 def _decode_partial(q, k, v, lengths):
     """A shard's decode partial: (out (B, Hq, D), lse (B, Hq) fp32) over
-    its keys [0, lengths); -inf lse and zero out on a keyless row."""
+    its keys [0, lengths); -inf lse and zero out on a keyless row (the
+    dense decode kernel's lse on the card, the plain one's on the CPU)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ref_flash_attn_lse
-    if q.device.type == "cpu":
-        lens = lengths.long()
-        lse = ref_flash_attn_lse(q[:, None], k, lens - 1, lens)[..., 0]
-        return ops.decode(q, k, v, lengths), lse
-    out = ops.decode(q, k, v, lengths)
-    return out, torch.empty(q.shape[:2], dtype=torch.float32,
-                            device=q.device)
+    return ops.decode(q, k, v, lengths, return_lse=True)
+
+
+def merge_partials(out, lse, reduce=None):
+    """The log-sum-exp merge of decode partials: ``out`` (B, Hq, D) and
+    ``lse`` (B, Hq) fp32 of each partial, stacked on a leading dim that
+    ``reduce(t, "max" | "sum")`` reduces (default: the local stack's dim
+    0; ``_combine`` passes an all-reduce over a mesh dim): w = exp(lse -
+    max), out = sum(w out) / sum(w), lse = max + log(sum(w)).  Returns
+    (merged out in the partials' dtype, merged lse); a head with no key
+    in any partial gets 0 and -inf."""
+    if reduce is None:
+        def reduce(t, op):
+            return t.amax(0) if op == "max" else t.sum(0)
+    m = reduce(lse, "max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)
+    num = reduce(out.float() * w[..., None], "sum")
+    den = reduce(w, "sum")
+    merged = torch.where(den[..., None] > 0,
+                         num / den.clamp(min=1e-30)[..., None], 0.0)
+    return merged.to(out.dtype), m + torch.log(den)
 
 
 def _combine(out, lse, group):
     """Merge decode partials over ``group`` by their log-sum-exp."""
-    m = funcol.all_reduce(lse, "max", group)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    w = torch.exp(lse - m)
-    num = funcol.all_reduce(out.float() * w[..., None], "sum", group)
-    den = funcol.all_reduce(w, "sum", group)
-    merged = torch.where(den[..., None] > 0,
-                         num / den.clamp(min=1e-30)[..., None], 0.0)
-    return merged.to(out.dtype), m + torch.log(den)
+    return merge_partials(
+        out, lse, lambda t, op: funcol.all_reduce(t, op, group))
 
 
 def decode(q: DTensor, k, v, lengths) -> DTensor:
@@ -240,12 +249,6 @@ def decode(q: DTensor, k, v, lengths) -> DTensor:
             kl, vl = kl[:, :, s].contiguous(), vl[:, :, s].contiguous()
         if not spread:
             return ops.decode(ql, kl, vl, lens)
-        if ql.device.type == "cuda":
-            raise RuntimeError(
-                "decode over a KV cache whose sequence is sharded over "
-                f"{[mesh.shape[i] for i in spread]} devices needs each "
-                "shard's log-sum-exp, and the decode_attn kernel has no "
-                "lse output")
         lens = (lens.long() - s0).clamp(0, kl.shape[1]).to(torch.int32)
         out, lse = _decode_partial(ql, kl, vl, lens)
         for i in spread:
@@ -258,9 +261,8 @@ def decode(q: DTensor, k, v, lengths) -> DTensor:
 
 def write_rows(cache: DTensor, new, positions) -> None:
     """``layers.write_kv_cache`` into a DTensor cache (B, S, Hkv, D), in
-    place: each row's new KV (B, L, Hkv, D) at ``positions`` (B, L), on
-    the shard that holds the position.  A sequence-sharded cache takes
-    one-token steps only."""
+    place: each row's new KV (B, L, Hkv, D) at ``positions`` (B, L), each
+    token on the shard that holds its position."""
     mesh = cache.device_mesh
     cp, np_, pp = [], [], []
     for pc in cache.placements:
@@ -274,22 +276,29 @@ def write_rows(cache: DTensor, new, positions) -> None:
     cp, np_, pp = tuple(cp), tuple(np_), tuple(pp)
     s0, s_l = _local_range(cache, 1, cp)
     seq_split = s_l != cache.shape[1]
-    if seq_split and positions.shape[1] != 1:
-        raise NotImplementedError(
-            "a sequence-sharded KV cache takes one-token writes only")
 
     def local(cl, nl, pl):
         from repro_torch.models.layers import write_kv_cache
         if not seq_split:
             write_kv_cache(cl, nl, pl)
             return
-        p = pl[:, 0].long() - s0
+        # token (b, i) is held here if its position falls in [s0, s0 +
+        # s_l); every token writes the slot it clamps to, with the value
+        # of the held token that writes that slot, or the slot's own
+        # where none does, so writes that share a slot agree
+        p = pl.long() - s0
         held = (p >= 0) & (p < s_l)
         p = p.clamp(0, s_l - 1)
-        rows = torch.arange(cl.shape[0], device=cl.device)
-        keep = cl[rows, p]
-        cl[rows, p] = torch.where(held[:, None, None],
-                                  nl[:, 0].to(cl.dtype), keep)
+        rows = torch.arange(cl.shape[0], device=cl.device)[:, None] \
+            .expand_as(p)
+        tok = torch.arange(p.shape[1], device=cl.device).expand_as(p)
+        writer = torch.full((p.shape[0], s_l + 1), -1, dtype=torch.long,
+                            device=cl.device)
+        writer.scatter_(1, torch.where(held, p, s_l), tok)
+        w = writer[rows, p]
+        cl[rows, p] = torch.where((w >= 0)[..., None, None],
+                                  nl[rows, w.clamp(min=0)].to(cl.dtype),
+                                  cl[rows, p])
 
     run_local(local, mesh, (cache, as_dtensor(new, mesh),
                             as_dtensor(positions, mesh)),

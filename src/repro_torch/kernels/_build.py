@@ -47,7 +47,7 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "flash_attn_bwd": (
         "flash_attn_bwd_launch", (_P,) * 12 + (_I,) * 9 + (_P,)),
     "decode_attn_dense": (
-        "decode_attn_dense_launch", (_P,) * 6 + (_I,) * 8 + (_P,)),
+        "decode_attn_dense_launch", (_P,) * 7 + (_I,) * 8 + (_P,)),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -104,14 +104,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the kernels whose C entry point takes an lse pointer after the workspace
+_LSE_ARG = ("decode_attn_dense",)
+
+
 def _launch_split(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, index: Tuple[torch.Tensor, ...],
                   layout: Tuple[int, ...], capacity: int,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  window: Optional[int] = None,
+                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plan the split, allocate the output and the workspace on q's
     device, and launch kernel ``name`` on the current stream.
     ``window``: the C launcher's window argument (0 = none; None: the
-    kernel takes none); a window > 0 spans min(capacity, window) keys."""
+    kernel takes none); a window > 0 spans min(capacity, window) keys.
+    ``lse``: a (B, Hq) fp32 tensor the kernel writes each query head's
+    log-sum-exp into (kernels in ``_LSE_ARG`` only; None: not asked)."""
     b, hq, d = q.shape
     hkv = k.shape[2]
     if window:
@@ -123,9 +130,11 @@ def _launch_split(name: str, q: torch.Tensor, k: torch.Tensor,
           if plan.workspace else None)
     if q.is_meta:
         return out
+    lse_arg = (None if lse is None else lse.data_ptr(),) \
+        if name in _LSE_ARG else ()
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            *(x.data_ptr() for x in index), out.data_ptr(),
-           None if ws is None else ws.data_ptr(), b, hq, hkv, d,
+           None if ws is None else ws.data_ptr(), *lse_arg, b, hq, hkv, d,
            *layout, plan.chunk, plan.n_chunks,
            *(() if window is None else (window,)), _DTYPES[q.dtype],
            torch.cuda.current_stream(q.device).cuda_stream)
@@ -133,15 +142,18 @@ def _launch_split(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                lengths: torch.Tensor) -> torch.Tensor:
+                lengths: torch.Tensor, *, return_lse: bool = False):
     """Launch the batch-cache decode kernel on the current stream.
 
     q: (B, Hq, D); k, v: (B, S, Hkv, D) gathered caches with each row's
     new KV already written, row b reading cache row b; lengths: (B,)
     int32 valid cache entries including the new row, all on the card.
     Returns (B, Hq, D) in q's dtype, zeros on rows with ``lengths ==
-    0``.  Never synchronises and never reads a device tensor back to the
-    host.
+    0``; with ``return_lse`` also (B, Hq) fp32, each query head's
+    log-sum-exp of its scaled scores (``ref_flash_attn_lse``'s), -inf on
+    rows with ``lengths == 0`` — the partial that a sequence-sharded
+    cache's shards merge.  Never synchronises and never reads a device
+    tensor back to the host.
     """
     check_kernel_inputs(q, k, v, lengths, max_rep=8)
     b = q.shape[0]
@@ -149,14 +161,17 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or lengths.shape != (b,):
         raise ValueError("k, v must be (B, S, Hkv, D) and lengths (B,) "
                          "with q's B")
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if b == 0:
-        return torch.empty_like(q)
-    out = _launch_split("decode_attn_dense", q, k, v, (lengths,), (s,), s)
-    if q.is_meta:
-        return out
-    decode_attn.launches += 1
-    decode_attn.width[q.shape[-1]].launches += 1
-    return out
+        out = torch.empty_like(q)
+        return (out, lse) if return_lse else out
+    out = _launch_split("decode_attn_dense", q, k, v, (lengths,), (s,), s,
+                        lse=lse)
+    if not q.is_meta:
+        decode_attn.launches += 1
+        decode_attn.width[q.shape[-1]].launches += 1
+    return (out, lse) if return_lse else out
 
 
 def decode_attn_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

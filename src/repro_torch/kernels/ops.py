@@ -33,6 +33,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import ragged_prefill as _prefill
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sampling as _sampling
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.sampling import MAX_BIAS  # noqa: F401  (re-export)
@@ -203,18 +204,27 @@ def ragged_mha_paged(q, k, v, page_table, cu_seqlens, q_offsets=None,
     raise _no_device("ragged_mha_paged", q.device)
 
 
-def decode(q, k, v, lengths) -> torch.Tensor:
+def decode(q, k, v, lengths, *, return_lse: bool = False):
     """Single-token decode attention over gathered caches.  q: (B, Hq,
     D); k, v: (B, S, Hkv, D), row b reading cache row b; lengths: (B,)
-    valid KV entries."""
+    valid KV entries.  ``return_lse``: also each query head's
+    log-sum-exp of its scaled scores, (B, Hq) fp32, -inf on a row with
+    no key (a local call's; not over DTensors)."""
     if isinstance(q, DTensor):
+        if return_lse:
+            raise ValueError("decode over DTensors returns no lse")
         from repro_torch.distributed import local
         return local.decode(q, k, v, lengths)
     if q.is_meta or q.device.type == "cuda":
         check_no_grad("decode", q, k, v)
-        return _decode.decode_attn(q, k, v, lengths)
+        return _decode.decode_attn(q, k, v, lengths, return_lse=return_lse)
     if q.device.type == "cpu":
-        return _decode.decode_attn_plain(q, k, v, lengths)
+        out = _decode.decode_attn_plain(q, k, v, lengths)
+        if not return_lse:
+            return out
+        lens = lengths.long()
+        lse = _ref.ref_flash_attn_lse(q[:, None], k, lens - 1, lens)[..., 0]
+        return out, lse
     raise _no_device("decode", q.device)
 
 

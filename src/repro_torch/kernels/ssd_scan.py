@@ -179,31 +179,64 @@ ssd_scan.grouped = LaunchCount()
 ssd_scan.states = LaunchCount()
 
 
-BWD_SLICE = 32                  # HD columns of a backward walk block
-BWD_PLAN_KEYS = ("cb_blocks", "cb_smem", "cb_regs", "cb_blocks_per_sm",
-                 "walk_blocks", "walk_smem", "walk_regs",
-                 "walk_blocks_per_sm", "sum_regs", "slices_per_head")
+BWD_MAX_HD = 64                 # head widths the backward takes
+BWD_MAX_DS = 256                # state widths the backward takes
+BWD_KT = 64                     # DS columns of a group block
+BWD_SMS = 132                   # group blocks resident at once: an H100's
+BWD_BLOCK_HEADS = 2             # a group block's own work, in heads' worth
+BWD_PLAN_KEYS = ("cb_blocks", "dstate_blocks", "dstate_smem",
+                 "dstate_regs", "head_blocks", "head_smem", "head_regs",
+                 "head_blocks_per_sm", "group_blocks", "group_smem",
+                 "group_regs", "group_blocks_per_sm", "head_ranges",
+                 "heads_per_range")
+
+
+def bwd_ranges(b: int, l: int, nh: int, ds: int, g: int,
+               chunk: int) -> tuple:
+    """(ranges, heads a range) of the backward's group blocks, from the
+    shapes alone: each group's heads are cut into ranges of ``heads``
+    consecutive heads, one block per (batch row, chunk, group, 64 DS
+    columns, range).  A group block holds an SM and walks its heads one
+    after another, so a call takes about (its waves of ``BWD_SMS``
+    blocks) x (``heads`` + ``BWD_BLOCK_HEADS``, the block's own staging
+    and products): the fewest ranges that minimise that.  mamba2's one
+    group of 80 heads at (4, 1024) takes 2 ranges of 40 (128 blocks, one
+    wave); jamba's 8 groups of 16 one range."""
+    hpg = nh // g
+    base = b * n_chunks(l, chunk) * g * -(-ds // BWD_KT)
+    best, heads = None, hpg
+    for want in range(1, hpg + 1):
+        per = -(-hpg // want)
+        cost = -(-base * -(-hpg // per) // BWD_SMS) * (per + BWD_BLOCK_HEADS)
+        if best is None or cost < best:
+            best, heads = cost, per
+    return -(-hpg // heads), heads
 
 
 def bwd_workspace_floats(b: int, l: int, nh: int, hd: int, ds: int, g: int,
                          chunk: int) -> int:
     """Floats of the backward's workspace (``csrc/ssd_scan_bwd.cu``
-    ``carve``): C·Bᵀ (B, n_chunks, G, Q, Q), the dB and dC partials (B,
-    L, NH·n_slices, DS) each, the d dt partials (B, L, NH, n_slices) and
-    the da partials (NH, B, n_chunks, n_slices)."""
+    ``carve``): C·Bᵀ's upper band (B, n_chunks, G, Q16, Q16), each
+    chunk's end-state gradient (B, NH, n_chunks, HD, DS), the chunks'
+    decays exp(cum_last) (B, NH, n_chunks), the da partials (NH, B,
+    n_chunks) and, with more than one head range, the dB and dC partials
+    (ranges, B, L, G, DS) each.  Q16: the chunk rounded up to 16."""
     q, nc = min(chunk, l), n_chunks(l, chunk)
-    ns = -(-hd // BWD_SLICE)
-    return (b * nc * g * q * q + 2 * b * l * nh * ns * ds + b * l * nh * ns
-            + nh * b * nc * ns)
+    qp = -(-q // 16) * 16
+    ranges, _ = bwd_ranges(b, l, nh, ds, g, chunk)
+    parts = 2 * ranges * b * l * g * ds if ranges > 1 else 0
+    return (b * nc * g * qp * qp + b * nh * nc * hd * ds + 2 * b * nh * nc
+            + parts)
 
 
 def bwd_plan(b: int, l: int, nh: int, hd: int, ds: int, g: int,
              dtype: torch.dtype, chunk: int = MAX_CHUNK) -> Dict[str, int]:
     """The backward's launch plan at these shapes, from the built kernels
-    (``BWD_PLAN_KEYS``): the C·Bᵀ and walk kernels' blocks, dynamic
-    shared memory per block, registers per thread and blocks per SM, the
-    sum kernel's registers and the slices a head's columns are cut into.
-    Needs the card."""
+    (``BWD_PLAN_KEYS``): the (B·Cᵀ)ᵀ kernel's blocks; the dH terms'
+    blocks, dynamic shared memory per block and registers per thread;
+    the head and group kernels' blocks, shared memory, registers and
+    blocks per SM; the head ranges a group and the heads a range.  Needs
+    the card."""
     out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
     fn = _build.function("ssd_scan_bwd", "ssd_scan_bwd_info",
                          (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
@@ -240,6 +273,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          "contiguous")
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("dy must be like x, contiguous")
+    if hd > BWD_MAX_HD or ds > BWD_MAX_DS:
+        raise ValueError(f"HD {hd}, DS {ds}: the backward takes HD <= "
+                         f"{BWD_MAX_HD} and DS <= {BWD_MAX_DS}")
     for name, t in (("states", states), ("dy", dy)):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, x on {dev}")

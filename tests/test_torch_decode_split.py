@@ -633,3 +633,59 @@ def test_window_split_walk_matches_plain(layout, rep, bf16, n_sms):
         return
     ref, bound = tref.kernel_error_bound(plain, dtype, *args)
     assert ((got.float() - ref).abs() <= bound).all()
+
+
+def test_dense_launcher_passes_the_lse(monkeypatch):
+    """Asked for the lse, the dense launcher hands the C entry point a
+    (B, Hq) fp32 tensor's pointer right after the workspace (None when
+    not asked); the paged and arena entry points take no lse."""
+    calls = []
+    monkeypatch.setattr(dec, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(dec, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=7))
+    q = torch.zeros((8, 40, 128))
+    k = torch.zeros((8, 192, 8, 128))
+    lens = torch.zeros(8, dtype=torch.int32)
+    lse = torch.empty((8, 40))
+    dec._launch_split("decode_attn_dense", q, k, k, (lens,), (192,), 192,
+                      lse=lse)
+    dec._launch_split("decode_attn_dense", q, k, k, (lens,), (192,), 192)
+    (with_lse, without) = calls
+    assert with_lse[7] == lse.data_ptr() and without[7] is None
+    assert len(with_lse) - 1 == len(_build.SIGNATURES["decode_attn_dense"][1])
+    assert dec._LSE_ARG == ("decode_attn_dense",)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_decode_lse_and_the_two_half_merge(rep):
+    """``ops.decode(return_lse=True)`` on the CPU: the lse is
+    ``ref_flash_attn_lse``'s at each row's last position (-inf on a
+    keyless row), and the keys split into two halves, each half's output
+    and lse merged by ``local.merge_partials`` (the arithmetic of a
+    sequence-sharded cache's merge), give one call's output and lse
+    (1e-5)."""
+    from repro_torch.distributed import local
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(rep)
+    b, s, hkv, d = 4, 96, 2, 64
+    q = torch.from_numpy(rng.standard_normal((b, hkv * rep, d),
+                                             dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    lens = torch.tensor([96, 40, 0, 49], dtype=torch.int32)
+    out, lse = ops.decode(q, k, v, lens, return_lse=True)
+    want = tref.ref_flash_attn_lse(q[:, None], k, lens.long() - 1,
+                                   lens.long())[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), **TOL)
+    assert torch.isneginf(lse[2]).all() and not out[2].any()
+    half = 48
+    first = ops.decode(q, k[:, :half], v[:, :half], lens.clamp(max=half),
+                       return_lse=True)
+    second = ops.decode(q, k[:, half:], v[:, half:],
+                        (lens - half).clamp(min=0), return_lse=True)
+    m_out, m_lse = local.merge_partials(torch.stack([first[0], second[0]]),
+                                        torch.stack([first[1], second[1]]))
+    np.testing.assert_allclose(m_out.numpy(), out.numpy(), **TOL)
+    np.testing.assert_allclose(m_lse.numpy(), lse.numpy(), **TOL)

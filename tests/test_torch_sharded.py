@@ -5,8 +5,10 @@ reference run under the same rules on a (2, 2) mesh of 4 host devices
 in one module-scoped subprocess (params from the reference's init,
 converted with ``params_from_numpy``).
 
-- the dense ``forward``'s logits, and a prefill (``dense_cache_write``)
-  then a decode step over the sharded caches, for the fp32 smoke configs
+- the dense ``forward``'s logits, and a prefill (``dense_cache_write``,
+  and for the attention configs under ``SERVE_RULES`` also written at
+  its positions, L tokens a row, into the sequence-sharded caches) then
+  a decode step over the sharded caches, for the fp32 smoke configs
   of qwen3-4b, qwen3-moe-30b-a3b (16 experts: the capacity dispatch)
   and mamba2-2.7b: within 1e-4, the same greedy tokens (the reference's
   own sharded and unsharded forwards differ by up to 1.3e-5: an
@@ -215,6 +217,23 @@ def _worker(rank, init, inp_path, out_path):
                                              for x in (logits, l1, l2)]
                     res[f"{arch}|{name}|cache"] = str(
                         next(iter(caches[0].values())).placements)
+                    if name != "serve" or arch == "mamba2-2.7b":
+                        continue
+                    # the prefill written token by token at its positions
+                    # (write_rows) into the sequence-sharded caches
+                    caches = sh.shard_tree(
+                        tr.init_cache(cfg, B, L + 2, device="cpu"),
+                        tr.cache_logical_axes(cfg), rules)
+                    r1 = tr.forward(dp, cfg, tokens=tok[:, :L],
+                                    positions=pos[:, :L], caches=caches,
+                                    logits_slice="last")
+                    r2 = tr.forward(dp, cfg, tokens=tok[:, L:],
+                                    positions=pos[:, L:], caches=caches,
+                                    logits_slice="last")
+                    res[f"{arch}|rows"] = [x.full_tensor().numpy()
+                                           for x in (r1, r2)]
+                    res[f"{arch}|rows|cache"] = str(
+                        next(iter(caches[0].values())).placements)
 
         cfg = smoke("qwen3-moe-30b-a3b")
         ffn = tree_map(torch.from_numpy, inp["moe"]["ffn"])
@@ -296,6 +315,21 @@ def test_sharded_steps_match_the_reference(results, arch, rules):
         assert (got.argmax(-1) == want.argmax(-1)).all(), key
     if arch != "mamba2-2.7b" and rules == "serve":
         assert "Shard(dim=2)" in port[key + "|cache"]   # (G, B, S, ...)
+
+
+@pytest.mark.parametrize("arch", ARCHS[:2])
+def test_multi_token_write_into_a_sequence_sharded_cache(results, arch):
+    """Under SERVE_RULES a prefill written at its positions (L tokens a
+    row, each on the shard that holds its position) into caches whose
+    sequence is sharded over "model", then a decode step merging the two
+    shards' partials by their lse: the logits of both within 1e-4 of the
+    reference's unsharded-cache steps, the same greedy tokens."""
+    ref, port = results
+    for got, want in zip(port[f"{arch}|rows"], ref[f"{arch}|serve"][1:]):
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() < TOL, arch
+        assert (got.argmax(-1) == want.argmax(-1)).all(), arch
+    assert "Shard(dim=2)" in port[f"{arch}|rows|cache"]
 
 
 def test_moe_layer_follows_the_shard_local_drops(results):

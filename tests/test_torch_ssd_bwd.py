@@ -221,13 +221,39 @@ def test_ssd_grouped_on_cpu_differentiates_through_the_plain_version(dstate):
 
 
 def test_backward_workspace_covers_its_parts():
-    """``bwd_workspace_floats`` is the sum of the parts the kernel's
-    workspace is carved into, at mamba2's training shape (80 heads of
-    64 in 2 slices, DS 128, one group)."""
+    """``bwd_workspace_floats`` is the sum of the parts the kernels'
+    workspace is carved into: at mamba2's training shape (80 heads of 64,
+    DS 128, one group, 2 head ranges of 40) (B·Cᵀ)ᵀ's band, each chunk's
+    end-state gradient, the chunks' decays, the da partials and the 2
+    ranges' dB and dC partials; at jamba's (128 heads in 8 groups, one
+    range) no range partials; no (B, L, NH·slices, DS) partials at all."""
     b, l, nh, hd, ds, g, chunk = 4, 1024, 80, 64, 128, 1, 128
-    nc, ns = 8, 2
-    assert tssd.n_chunks(l, chunk) == nc and -(-hd // tssd.BWD_SLICE) == ns
+    nc = 8
+    assert tssd.n_chunks(l, chunk) == nc
+    assert tssd.bwd_ranges(b, l, nh, ds, g, chunk) == (2, 40)
     assert tssd.bwd_workspace_floats(b, l, nh, hd, ds, g, chunk) == (
-        b * nc * g * chunk * chunk + 2 * b * l * nh * ns * ds
-        + b * l * nh * ns + nh * b * nc * ns)
+        b * nc * g * chunk * chunk + b * nh * nc * hd * ds + b * nh * nc
+        + nh * b * nc + 2 * 2 * b * l * g * ds)
+    nh, g = 128, 8
+    assert tssd.bwd_ranges(b, l, nh, ds, g, chunk) == (1, 16)
+    assert tssd.bwd_workspace_floats(b, l, nh, hd, ds, g, chunk) == (
+        b * nc * g * chunk * chunk + b * nh * nc * hd * ds + 2 * b * nh * nc)
+    # an L off the chunk grid and a chunk off 16: the band is Q16 square
+    assert tssd.bwd_workspace_floats(2, 37, 16, 8, 16, 2, 8) == (
+        2 * 5 * 2 * 16 * 16 + 2 * 16 * 5 * 8 * 16 + 2 * 2 * 16 * 5
+        + 2 * tssd.bwd_ranges(2, 37, 16, 16, 2, 8)[0] * 2 * 37 * 2 * 16)
     assert tssd.n_chunks(1000, 128) == 8 and tssd.n_chunks(5, 128) == 1
+
+
+@pytest.mark.parametrize("hd,ds", [(65, 128), (64, 257)])
+def test_backward_refuses_widths_past_its_tiles(hd, ds):
+    """The backward's blocks hold a head of at most 64 columns and a
+    state of at most 256: wider inputs raise before any launch (meta
+    tensors, which pass the device check)."""
+    m = dict(device="meta")
+    x = torch.empty((1, 8, 2, hd), **m)
+    args = (x, torch.empty((1, 8, 2), **m), torch.empty((2,), **m),
+            torch.empty((1, 8, 1, ds), **m), torch.empty((1, 8, 1, ds), **m))
+    states = torch.empty((1, 2, 1, hd, ds), **m)
+    with pytest.raises(ValueError, match="the backward takes"):
+        tssd.ssd_scan_bwd(*args, states, torch.empty_like(x))
