@@ -44,6 +44,10 @@ class Request:
     # runtime bookkeeping (filled by scheduler/engine/sim)
     swap_time: float = 0.0               # host→device promotion delay billed
     dispatch_time: Optional[float] = None
+    # seconds of its wait in the short queue that the policy held that
+    # queue open for the AWD window, from its own enqueue on
+    # (TemporalDisaggPolicy); None for a request never queued as short
+    awd_hold_s: Optional[float] = None
     finish_time: Optional[float] = None
     instance: Optional[int] = None
     padded_to: Optional[int] = None      # bucket length it was padded to

@@ -185,11 +185,31 @@ class TemporalDisaggPolicy(BasePolicy):
         # interference: one chunk ≈ C_l·β, the paper's temporal phases)
         self.max_short_streak = max_short_streak
         self._short_streak = 0
+        # the AWD hold the last answer began (its time), and the shorts
+        # enqueued since, by rid: credited to Request.awd_hold_s at the
+        # next answer
+        self._hold_since: Optional[float] = None
+        self._joined: dict = {}
 
     def enqueue(self, r: Request, now: float) -> None:
         cls = self.dq.push(r)
         if cls == "short" and self.awd is not None:
             self.awd.on_arrival(now)
+            if r.awd_hold_s is None:
+                r.awd_hold_s = 0.0
+            if self._hold_since is not None:
+                self._joined[r.rid] = now
+
+    def _end_hold(self, now: float) -> None:
+        """Credit each queued short with the part of the last answer's
+        hold since its own enqueue."""
+        t0 = self._hold_since
+        if t0 is None:
+            return
+        self._hold_since = None
+        for r in self.dq.short:
+            r.awd_hold_s += now - self._joined.get(r.rid, t0)
+        self._joined.clear()
 
     def note_decode_backlog(self, n: int, tokens_per_decode: int = 1) -> None:
         if self.awd is not None:
@@ -236,6 +256,7 @@ class TemporalDisaggPolicy(BasePolicy):
                          is_last=(done + chunk >= r.new_tokens))
 
     def next_work(self, now: float):
+        self._end_hold(now)
         if self._short_streak >= self.max_short_streak and self.dq.long:
             self._short_streak = 0
             return self._long_work(), None
@@ -248,6 +269,7 @@ class TemporalDisaggPolicy(BasePolicy):
             # (the "short phase" of temporal disaggregation) instead of
             # starting a long chunk that would outlive the window —
             # otherwise long work de-facto preempts short SLAs.
+            self._hold_since = now
             return None, wake
         long_work = self._long_work()
         if long_work is not None:

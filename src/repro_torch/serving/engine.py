@@ -80,6 +80,7 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import packing
 from repro_torch.serving import sampling as sampling_mod
+from repro_torch.serving import trace
 from repro_torch.serving.executor import (BucketExecutor,
                                           DecodeBucketExecutor,
                                           PackedBucketExecutor)
@@ -577,13 +578,14 @@ class Engine:
         host.  Returns (tokens (n,), logits_np or None)."""
         n = len(sessions)
         all_greedy = all(s not in self.sampling for s in sessions)
-        if all_greedy and not self.ecfg.keep_last_logits:
-            self.fused_greedy_steps += 1
-            return _host(ids_dev[:n]).astype(np.int64), None
-        if (self.ecfg.fused_sampling and not self.ecfg.keep_last_logits
-                and self._fused_bias_ok(sessions)):
-            return self._fused_sample_rows(sessions, logits_dev), None
-        logits_np = _host(logits_dev, torch.float32)
+        with trace.span("engine.wait"):
+            if all_greedy and not self.ecfg.keep_last_logits:
+                self.fused_greedy_steps += 1
+                return _host(ids_dev[:n]).astype(np.int64), None
+            if (self.ecfg.fused_sampling and not self.ecfg.keep_last_logits
+                    and self._fused_bias_ok(sessions)):
+                return self._fused_sample_rows(sessions, logits_dev), None
+            logits_np = _host(logits_dev, torch.float32)
         self.logits_rows_shipped += int(logits_np.shape[0])
         return self._sample_rows(sessions, logits_np[:n]), logits_np
 
@@ -768,6 +770,28 @@ class Engine:
         sess_all = [s for s, _ in prefills] + [s for s, _ in decodes]
         assert len(set(sess_all)) == len(sess_all), \
             f"session appears twice in one step: {sess_all}"
+        with trace.span("engine.prepare"):
+            plan = self._plan_mixed(prefills, decodes, token_bucket, max_new)
+        if plan is None:
+            return self._step_unpacked(prefills, decodes)
+        segments, bucket, spec = plan
+        if spec:
+            return self._run_spec(segments, bucket,
+                                  {s: len(d) for s, d in spec.items()})
+        if self._paged:
+            return self._run_packed_paged(segments, bucket)
+        return self._run_packed(segments, bucket)
+
+    def _plan_mixed(self, prefills: List[Tuple[int, np.ndarray]],
+                    decodes: List[Tuple[int, int]],
+                    token_bucket: Optional[int],
+                    max_new: Optional[Dict[int, int]]
+                    ) -> Optional[Tuple[List[packing.SegmentSpec], int,
+                                        Dict[int, List[int]]]]:
+        """(segments, token bucket, {session: drafts}) of the packed step
+        for a mix, after radix prefix adoption, which rewrites
+        ``prefills`` in place; None when the mix fits no packed step."""
+        n_p, n_d = len(prefills), len(decodes)
         if self._paged:
             # radix prefix adoption: a FRESH session's prompt maps its
             # longest indexed prefix onto existing pages BEFORE the
@@ -781,7 +805,7 @@ class Engine:
                     if matched:
                         toks = toks[matched:]
                 rewritten.append((s, toks))
-            prefills = rewritten
+            prefills[:] = rewritten
         lens = [len(t) for _, t in prefills]
         # speculative planning: with a draft attached, each eligible
         # decode session's segment grows from 1 token to 1 + k (pending
@@ -814,20 +838,7 @@ class Engine:
                 if bucket is not None and bucket < total:
                     bucket = None
         if bucket is None:
-            if not self._dense_ok:
-                return self._step_split(prefills, decodes)
-            out: Dict[int, int] = {}
-            if prefills:
-                out.update(self._prefill_batch_dense(
-                    [s for s, _ in prefills], [t for _, t in prefills],
-                    cause="forced" if px is not None else "requested"))
-            if decodes:
-                dec = self.decode_batch([s for s, _ in decodes],
-                                        [t for _, t in decodes])
-                out.update({s: toks[0] for s, toks in dec.items()})
-            return MixedStepResult(tokens=out, fused=False,
-                                   n_prefill=n_p, n_decode=n_d)
-
+            return None
         segments: List[packing.SegmentSpec] = []
         for s, toks in prefills:
             # arena.length is 0 for a session without a slot yet; the
@@ -856,12 +867,27 @@ class Engine:
                 segments.append(packing.SegmentSpec(
                     s, np.asarray([tok], np.int32), self.arena.length(s),
                     kind="decode"))
-        if spec:
-            return self._run_spec(segments, bucket,
-                                  {s: len(d) for s, d in spec.items()})
-        if self._paged:
-            return self._run_packed_paged(segments, bucket)
-        return self._run_packed(segments, bucket)
+        return segments, bucket, spec
+
+    def _step_unpacked(self, prefills: List[Tuple[int, np.ndarray]],
+                       decodes: List[Tuple[int, int]]) -> MixedStepResult:
+        """A mix that fits no packed step: split across packed steps on a
+        paged pool or a rolling arena, else the dense path."""
+        if not self._dense_ok:
+            return self._step_split(prefills, decodes)
+        out: Dict[int, int] = {}
+        if prefills:
+            out.update(self._prefill_batch_dense(
+                [s for s, _ in prefills], [t for _, t in prefills],
+                cause="forced" if self.packed_executor is not None
+                else "requested"))
+        if decodes:
+            dec = self.decode_batch([s for s, _ in decodes],
+                                    [t for _, t in decodes])
+            out.update({s: toks[0] for s, toks in dec.items()})
+        return MixedStepResult(tokens=out, fused=False,
+                               n_prefill=len(prefills),
+                               n_decode=len(decodes))
 
     def _step_split(self, prefills: Sequence[Tuple[int, np.ndarray]],
                     decodes: Sequence[Tuple[int, int]]) -> MixedStepResult:
@@ -986,11 +1012,12 @@ class Engine:
         and the real rows scattered back after it."""
         px = self.packed_executor
         n = len(segments)
-        slots, slot_map = self._slot_map(segments)
-        stream = packing.assemble_mixed_stream(
-            segments, bucket, px.stream_rows,
-            park_position=self.arena.max_len - 1,
-            pad_token=self.ecfg.pad_token)
+        with trace.span("engine.prepare"):
+            slots, slot_map = self._slot_map(segments)
+            stream = packing.assemble_mixed_stream(
+                segments, bucket, px.stream_rows,
+                park_position=self.arena.max_len - 1,
+                pad_token=self.ecfg.pad_token)
         sessions = [seg.session for seg in segments]
 
         if self.ecfg.arena_prefill:
@@ -1016,12 +1043,14 @@ class Engine:
             toks = self._sample_rows(sessions, last_np[:n])
         elapsed = time.perf_counter() - t0
         px.note_padding(stream.total_tokens, bucket)
-        if not self.ecfg.arena_prefill:
-            self.arena.scatter(slots, [{k: a[:, :n] for k, a in c.items()}
-                                       for c in caches])
-        for seg in segments:
-            self.arena.set_length(seg.session, seg.history + seg.length)
-        out = self._record_packed(segments, toks, last_np, elapsed)
+        with trace.span("engine.commit"):
+            if not self.ecfg.arena_prefill:
+                self.arena.scatter(slots, [{k: a[:, :n]
+                                            for k, a in c.items()}
+                                           for c in caches])
+            for seg in segments:
+                self.arena.set_length(seg.session, seg.history + seg.length)
+            out = self._record_packed(segments, toks, last_np, elapsed)
         n_d = stream.decode_tokens
         return MixedStepResult(tokens=out, fused=True, bucket=bucket,
                                n_prefill=n - n_d, n_decode=n_d)
@@ -1041,12 +1070,13 @@ class Engine:
         px = self.packed_executor
         ar = self.arena
         n = len(segments)
-        stream = packing.assemble_mixed_stream(
-            segments, bucket, px.stream_rows, park_position=ar.max_len - 1,
-            pad_token=self.ecfg.pad_token)
+        with trace.span("engine.prepare"):
+            stream = packing.assemble_mixed_stream(
+                segments, bucket, px.stream_rows,
+                park_position=ar.max_len - 1, pad_token=self.ecfg.pad_token)
+            page_table, token_pages, token_offs, state_map = \
+                self._page_tables(segments, stream, bucket)
         sessions = [seg.session for seg in segments]
-        page_table, token_pages, token_offs, state_map = self._page_tables(
-            segments, stream, bucket)
 
         t0 = time.perf_counter()
         toks, last_np = self._tokens_from_step(
@@ -1057,9 +1087,10 @@ class Engine:
                 stream.last_idx, state_map, n_decode=stream.decode_tokens))
         elapsed = time.perf_counter() - t0
         px.note_padding(stream.total_tokens, bucket)
-        for seg in segments:
-            ar.commit(seg.session, seg.tokens)
-        out = self._record_packed(segments, toks, last_np, elapsed)
+        with trace.span("engine.commit"):
+            for seg in segments:
+                ar.commit(seg.session, seg.tokens)
+            out = self._record_packed(segments, toks, last_np, elapsed)
         n_d = stream.decode_tokens
         return MixedStepResult(tokens=out, fused=True, bucket=bucket,
                                n_prefill=n - n_d, n_decode=n_d)
@@ -1370,12 +1401,14 @@ class Engine:
         cur = np.asarray(tokens, np.int32)
         out = {s: [] for s in sessions}
         for _ in range(steps):
-            hists = [self.arena.length(s) for s in sessions]
-            for s, h in zip(sessions, hists):
-                self.arena.check_length(s, h + 1)
-            rows = packing.pad_decode_rows(
-                slots, hists, cur, bucket, park_position=park,
-                pad_token=self.ecfg.pad_token, pad_slot=self.arena.scratch)
+            with trace.span("engine.prepare"):
+                hists = [self.arena.length(s) for s in sessions]
+                for s, h in zip(sessions, hists):
+                    self.arena.check_length(s, h + 1)
+                rows = packing.pad_decode_rows(
+                    slots, hists, cur, bucket, park_position=park,
+                    pad_token=self.ecfg.pad_token,
+                    pad_slot=self.arena.scratch)
             out_dev = dx.decode(
                 self.params, rows.tokens, rows.slot_map, rows.write_pos,
                 rows.kv_lengths, self.arena.arena)
@@ -1386,11 +1419,12 @@ class Engine:
             toks, logits_np = self._tokens_from_step(sessions, *out_dev)
             del out_dev     # the graph's outputs: done with them
             cur = toks.astype(np.int32)
-            for i, s in enumerate(sessions):
-                self.arena.set_length(s, hists[i] + 1)
-                out[s].append(int(cur[i]))
-                if logits_np is not None:
-                    self.last_logits[s] = logits_np[i]
+            with trace.span("engine.commit"):
+                for i, s in enumerate(sessions):
+                    self.arena.set_length(s, hists[i] + 1)
+                    out[s].append(int(cur[i]))
+                    if logits_np is not None:
+                        self.last_logits[s] = logits_np[i]
         return out
 
     def _decode_batch_paged(self, sessions: Sequence[int],
@@ -1410,39 +1444,41 @@ class Engine:
         cur = np.asarray(tokens, np.int32)
         out: Dict[int, List[int]] = {s: [] for s in sessions}
         for _ in range(steps):
-            hists = [ar.length(s) for s in sessions]
-            assert all(h > 0 for h in hists), \
-                f"paged decode on an empty session: {list(sessions)}"
-            tok = np.full(bucket, self.ecfg.pad_token, np.int32)
-            tok[:n] = cur
-            positions = np.full(bucket, ar.max_len - 1, np.int32)
-            write_pages = np.full(bucket, ar.scratch, np.int32)
-            write_offs = np.full(bucket, ps - 1, np.int32)
-            page_table = np.full((bucket, ar.max_pages_per_seq),
-                                 ar.scratch, np.int32)
-            kv_lengths = np.ones(bucket, np.int32)
-            state_map = np.full(bucket, ar.scratch, np.int32)
-            for i, (s, h) in enumerate(zip(sessions, hists)):
-                pages = ar.prepare_extend(s, 1)
-                page_table[i, :len(pages)] = pages
-                positions[i] = h
-                pidx = h // ps if ar.ring_pages is None \
-                    else (h // ps) % ar.ring_pages
-                write_pages[i] = pages[pidx]
-                write_offs[i] = h % ps
-                kv_lengths[i] = h + 1
-                if ar.state_slots:
-                    state_map[i] = ar.state_pages[s]
+            with trace.span("engine.prepare"):
+                hists = [ar.length(s) for s in sessions]
+                assert all(h > 0 for h in hists), \
+                    f"paged decode on an empty session: {list(sessions)}"
+                tok = np.full(bucket, self.ecfg.pad_token, np.int32)
+                tok[:n] = cur
+                positions = np.full(bucket, ar.max_len - 1, np.int32)
+                write_pages = np.full(bucket, ar.scratch, np.int32)
+                write_offs = np.full(bucket, ps - 1, np.int32)
+                page_table = np.full((bucket, ar.max_pages_per_seq),
+                                     ar.scratch, np.int32)
+                kv_lengths = np.ones(bucket, np.int32)
+                state_map = np.full(bucket, ar.scratch, np.int32)
+                for i, (s, h) in enumerate(zip(sessions, hists)):
+                    pages = ar.prepare_extend(s, 1)
+                    page_table[i, :len(pages)] = pages
+                    positions[i] = h
+                    pidx = h // ps if ar.ring_pages is None \
+                        else (h // ps) % ar.ring_pages
+                    write_pages[i] = pages[pidx]
+                    write_offs[i] = h % ps
+                    kv_lengths[i] = h + 1
+                    if ar.state_slots:
+                        state_map[i] = ar.state_pages[s]
             out_dev = dx.decode_paged(
                 self.params, tok, positions, write_pages, write_offs,
                 page_table, kv_lengths, ar.arena, state_map)
             dx.note_padding(n, bucket)
             # the KV written this tick belongs to the INPUT token — the
             # radix index must see the ids whose keys occupy the pages
-            for i, s in enumerate(sessions):
-                ar.commit(s, [int(cur[i])])
-                if self.draft is not None:
-                    self.draft.observe(s, [int(cur[i])])
+            with trace.span("engine.commit"):
+                for i, s in enumerate(sessions):
+                    ar.commit(s, [int(cur[i])])
+                    if self.draft is not None:
+                        self.draft.observe(s, [int(cur[i])])
             toks, logits_np = self._tokens_from_step(sessions, *out_dev)
             del out_dev     # the graph's outputs: done with them
             cur = toks.astype(np.int32)

@@ -27,6 +27,7 @@ from repro_torch.core.buckets import (DEFAULT_DECODE_BUCKETS,
                                       DecodeBucketLadder, TokenBucketLadder)
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving import trace
 from repro_torch.serving.graphs import StepGraph
 
 
@@ -257,9 +258,10 @@ class _ExecutorBase:
         g = self.graphs.get(key)
         if g is None:
             t0 = time.perf_counter()
-            g = StepGraph(fn, parked, pool=self.graph_pool)
-            if g.device.type == "cuda":
-                torch.cuda.synchronize(g.device)
+            with trace.span("graph.capture", kind=key[0]):
+                g = StepGraph(fn, parked, pool=self.graph_pool)
+                if g.device.type == "cuda":
+                    torch.cuda.synchronize(g.device)
             self.compile_times[key] = time.perf_counter() - t0
             self.graphs[key] = g
         return g

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.serving import trace
 
 
 def tensor_leaves(tree: Any) -> List[torch.Tensor]:
@@ -195,22 +196,25 @@ class StepGraph:
         """One step on ``args``: check the state, stage the inputs, call
         ``fill`` (which copies state into a buffer the graph reads, such
         as the gathered caches), replay.  Returns the static outputs."""
-        if [t.data_ptr() for t in self._state(args)] != self._ptrs:
-            raise RuntimeError("a step graph's state was rebound: the "
-                               "arena, caches and parameters must stay "
-                               "at their captured addresses")
-        if [_holds(t) for t in self._out] != self._held:
-            raise RuntimeError("a step output was kept across the next "
-                               "replay of its graph: copy what you keep")
-        self._stage(args)
-        if fill is not None:
-            fill()
-        if self.graph is not None:
-            self.graph.replay()
-            add_launches(kernel_ops.LAUNCHERS, self.delta)
-        else:
-            res = self.fn(*self._args)
-            for o, r in zip(self._out, tensor_leaves(res)):
-                o.copy_(r)
+        with trace.span("graph.check"):
+            if [t.data_ptr() for t in self._state(args)] != self._ptrs:
+                raise RuntimeError("a step graph's state was rebound: the "
+                                   "arena, caches and parameters must stay "
+                                   "at their captured addresses")
+            if [_holds(t) for t in self._out] != self._held:
+                raise RuntimeError("a step output was kept across the next "
+                                   "replay of its graph: copy what you keep")
+        with trace.span("graph.stage"):
+            self._stage(args)
+            if fill is not None:
+                fill()
+        with trace.span("graph.replay"):
+            if self.graph is not None:
+                self.graph.replay()
+                add_launches(kernel_ops.LAUNCHERS, self.delta)
+            else:
+                res = self.fn(*self._args)
+                for o, r in zip(self._out, tensor_leaves(res)):
+                    o.copy_(r)
         self.replays += 1
         return self.outputs

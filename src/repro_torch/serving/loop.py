@@ -32,6 +32,7 @@ from repro_torch.core.request import Batch, Request
 from repro_torch.core.scheduler import BasePolicy, ChunkWork
 from repro_torch.core.slo import SLOTracker
 from repro_torch.serving import packing
+from repro_torch.serving import trace
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.sampling import SamplingParams
 
@@ -446,25 +447,26 @@ class ServeLoop:
                 token_bucket=bucket,
                 max_new={s: self.active_decodes[s] for s, _ in fused})
             firsts = res.tokens
-            done = self.clock()
-            for s, _ in fused:
-                self._record_decoded(s, self._committed(res, s), done)
         else:
+            fused = []
             bucket = None
             if batch.uses_graph:
                 bucket = (batch.bucket_len, batch.bucket_depth)
             firsts = self.engine.prefill_batch(sessions, token_lists, bucket)
-            done = self.clock()
-        for r in batch.requests:
-            r.finish_time = done
-            self.tracker.record(r)
-            pr = self._tokens.pop(r.rid)     # prefill served: drop prompt
-            self._dec_pending(r.session, len(pr.tokens))
-            self._commit_turn(r.session, pr)
-            self._start_decoding(r.session, firsts[r.session],
-                                 pr.decode_tokens, done)
-            self._outstanding -= 1
-            self._finish_fill(r.rid)         # release parked waiters
+        done = self.clock()
+        with trace.span("serve.bookkeep"):
+            for s, _ in fused:
+                self._record_decoded(s, self._committed(res, s), done)
+            for r in batch.requests:
+                r.finish_time = done
+                self.tracker.record(r)
+                pr = self._tokens.pop(r.rid)  # prefill served: drop prompt
+                self._dec_pending(r.session, len(pr.tokens))
+                self._commit_turn(r.session, pr)
+                self._start_decoding(r.session, firsts[r.session],
+                                     pr.decode_tokens, done)
+                self._outstanding -= 1
+                self._finish_fill(r.rid)      # release parked waiters
 
     def _run_chunk(self, work: ChunkWork) -> None:
         now = self.clock()
@@ -518,22 +520,23 @@ class ServeLoop:
                 [(r.session, chunk)], fused, token_bucket=bucket,
                 max_new={s: self.active_decodes[s] for s, _ in fused})
             firsts = res.tokens
-            done = self.clock()
+        else:
+            fused = []
+            firsts = self.engine.prefill_batch([r.session], [chunk])
+        done = self.clock()
+        with trace.span("serve.bookkeep"):
             for s, _ in fused:
                 self._record_decoded(s, self._committed(res, s), done)
-        else:
-            firsts = self.engine.prefill_batch([r.session], [chunk])
-            done = self.clock()
-        self._dec_pending(r.session, len(chunk))
-        if work.is_last:
-            r.finish_time = done
-            self.tracker.record(r)
-            self._tokens.pop(r.rid, None)    # all chunks served
-            self._commit_turn(r.session, pr)
-            self._start_decoding(r.session, firsts[r.session],
-                                 pr.decode_tokens, done)
-            self._outstanding -= 1
-            self._finish_fill(r.rid)         # release parked waiters
+            self._dec_pending(r.session, len(chunk))
+            if work.is_last:
+                r.finish_time = done
+                self.tracker.record(r)
+                self._tokens.pop(r.rid, None)    # all chunks served
+                self._commit_turn(r.session, pr)
+                self._start_decoding(r.session, firsts[r.session],
+                                     pr.decode_tokens, done)
+                self._outstanding -= 1
+                self._finish_fill(r.rid)         # release parked waiters
 
     def _run_decode_only(self) -> None:
         """No prefill work this tick: advance every in-flight session in
@@ -548,14 +551,16 @@ class ServeLoop:
                 [(s, self.last_token[s]) for s in sessions],
                 max_new=dict(self.active_decodes))
             done = self.clock()
-            for s in sessions:
-                self._record_decoded(s, out[s], done)
+            with trace.span("serve.bookkeep"):
+                for s in sessions:
+                    self._record_decoded(s, out[s], done)
             return
         tokens = [self.last_token[s] for s in sessions]
         out = self.engine.decode_batch(sessions, tokens, steps=1)
         done = self.clock()
-        for s in sessions:
-            self._record_decoded(s, [out[s][0]], done)
+        with trace.span("serve.bookkeep"):
+            for s in sessions:
+                self._record_decoded(s, [out[s][0]], done)
 
     # --------------------------------------------------------------- run
     @property
@@ -569,12 +574,17 @@ class ServeLoop:
         periodically re-fit the §2.1 boundary.  Returns ``(did_work,
         wake_time)`` so multi-engine callers (ServeCluster) can
         interleave many loops without nesting their drain loops."""
+        with trace.span("serve.tick") as sp:
+            return self._tick(sp)
+
+    def _tick(self, sp) -> Tuple[bool, Optional[float]]:
         now = self.clock()
         self.ticks += 1
-        self.policy.note_decode_backlog(
-            len(self.active_decodes),
-            tokens_per_decode=self._tokens_per_decode())
-        work, wake = self.policy.next_work(now)
+        with trace.span("serve.schedule"):
+            self.policy.note_decode_backlog(
+                len(self.active_decodes),
+                tokens_per_decode=self._tokens_per_decode())
+            work, wake = self.policy.next_work(now)
         if work is not None and self.faults is not None and \
                 self.faults.dispatch_fails(self.engine_id, self.ticks):
             # §11 injected dispatch exception: the engine never ran, so
@@ -590,35 +600,44 @@ class ServeLoop:
                 self.tracker.note_retried(len(work.requests))
             else:
                 self.tracker.note_retried(1)
+            sp.set(kind="idle")
             return True, wake
         did = True
+        ran = None                       # the policy's work, once run
         if isinstance(work, Batch) and work.requests:
+            sp.set(kind="prefill")
             self._run_batch(work)
-            self.policy.on_complete(work, self.clock())
+            ran = work
         elif isinstance(work, ChunkWork):
+            sp.set(kind="chunk")
             self._run_chunk(work)
-            self.policy.on_complete(work, self.clock())
+            ran = work
         elif self.active_decodes:
             # the decode backlog fills what would be an idle wait —
             # temporal sharing without a separate decode phase
+            sp.set(kind="decode")
             self._run_decode_only()
         else:
+            sp.set(kind="idle")
             did = False
-        if self.engine.spec_dispatches:
-            # mirror the engine's speculative totals into the tracker so
-            # cluster-merged SLO reports carry acceptance statistics
-            self.tracker.note_spec(self.engine.tokens_drafted,
-                                   self.engine.tokens_accepted,
-                                   self.engine.spec_dispatches,
-                                   self.engine.spec_committed)
-        self._since_fit += 1
-        if self._since_fit >= self.refit_every:
-            self._since_fit = 0
-            fit = self.engine.fit_boundary()
-            if fit is not None and hasattr(self.policy, "dq") and \
-                    self.policy.dq.override is None:
-                self.policy.dq.model = None  # fitted threshold wins
-                self.policy.dq.override = fit.boundary()
+        with trace.span("serve.bookkeep"):
+            if ran is not None:
+                self.policy.on_complete(ran, self.clock())
+            if self.engine.spec_dispatches:
+                # mirror the engine's speculative totals into the tracker
+                # so cluster-merged SLO reports carry acceptance statistics
+                self.tracker.note_spec(self.engine.tokens_drafted,
+                                       self.engine.tokens_accepted,
+                                       self.engine.spec_dispatches,
+                                       self.engine.spec_committed)
+            self._since_fit += 1
+            if self._since_fit >= self.refit_every:
+                self._since_fit = 0
+                fit = self.engine.fit_boundary()
+                if fit is not None and hasattr(self.policy, "dq") and \
+                        self.policy.dq.override is None:
+                    self.policy.dq.model = None  # fitted threshold wins
+                    self.policy.dq.override = fit.boundary()
         return did, wake
 
     def run_until_idle(self, max_wall: float = 60.0) -> None:
