@@ -110,7 +110,15 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      bit-identical and a dropped chunk far outside the bound.  The dense
      decode kernel's lse against ``ref_flash_attn_lse`` and the keys split
      in two parts merged by ``distributed.local.merge_partials`` against
-     one call (``phase_decode_lse``);
+     one call (``phase_decode_lse``).  ``ragged_prefill_paged`` on its
+     TMA-fed core (bf16, D 128, no window; ``phase_tma_kernel``) at 32 /
+     8 and 40 / 8 heads, causal and not, over kv lengths at, below and
+     past pages and 64-key steps, a mixed step like qwen3-4b.mixed_closed's
+     (a 256-row chunk at history 4096 beside 15 one-row segments at
+     1024-12287) and shared prefix pages, with NaN in every pool row no
+     segment owns: finite, the same bits as over zero pools, twice, and
+     as the cp.async core's (the ring form at a window past every
+     position), each launch counted in ``tma.launches``;
   3. the engine against the plain dense forward — run on a CPU copy of
      the parameters, so it takes the plain versions and none of the
      kernels it checks — in each of its five attention modes (the
@@ -176,7 +184,8 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      engine with a fixed LAPS boundary (no wall-time refit); every
      request answered, each of the mode's kernels launched, finite
      logits; TTFT, throughput, seconds per tick, whole-slot copies,
-     peak memory and launches per mode.  A fifth mode, spec, serves the
+     peak memory and launches per mode (``ragged_prefill_paged``'s per
+     prefill tick beside its ``tma.launches``).  A fifth mode, spec, serves the
      paged trace with NGramDraft(n=3), k = 4 armed and half the sessions
      sampled through the fused kernel: 0 logits rows shipped, tokens per
      verify dispatch, acceptance and fused_sample launches per tick.
@@ -239,7 +248,9 @@ Drives every path of the port on one NVIDIA card and fails on any fault:
      40 x 151,936 bf16 rows, one of them alone, all 40 down the
      whole-row path (top-k off) and all 40 at top_k 1000 (the radix
      select), from a CUDA graph of 20 launches; ragged_prefill_paged also at a verify
-     tick's 8 x 5 rows; ``ssd_scan`` on a 2048-token prompt in 8 chunk
+     tick's 8 x 5 rows and at the mixed step of phase 2, each paged
+     prefill call that takes the TMA-fed core beside the cp.async
+     core's time for the same call; ``ssd_scan`` on a 2048-token prompt in 8 chunk
      steps (device time from a CUDA graph, its two CUDA kernels' share
      by ``torch.profiler``), and a (64, 8) grid step, a packed step's
      (512, 8) bridge with every row real and the bridge as phase 4 builds
@@ -416,6 +427,10 @@ def phase_build():
                 f"{f['blocks_per_sm']} blocks per SM"
                 for d, f in ((d, rp.launch_info(name, d, dt))
                              for d in rp.HEAD_DIMS)))
+    f = rp.tma_launch_info()
+    log(f"[1] ragged_prefill_paged bf16 D=128 on the TMA-fed core: "
+        f"{f['smem']} B shared a block, {f['regs']} registers, "
+        f"{f['blocks_per_sm']} blocks per SM")
     # flash_attn_bwd's launch plan: its three kernels at each head width
     # (bf16 on the tensor cores, fp32 on the CUDA cores), with the bytes
     # ptxas spilled, and their grids at the full-width training shape
@@ -892,6 +907,91 @@ def phase_tile_kernels(seed, errs, causal=True):
         assert all(getattr(rp, n).noncausal.launches >= 2 * len(NC_GROUPS)
                    for n in ("ragged_prefill_paged", "ragged_prefill_arena",
                              "ragged_prefill_attn"))
+
+
+# the paged prefill's TMA-fed core (bf16, D = 128, no window): segments
+# (rows, history, kv length) with kv lengths at, below and past 16-token
+# pages and 64-key steps (a keyless segment among them), a mixed step
+# like qwen3-4b.mixed_closed's, and two segments on shared prefix pages
+TMA_CASES = {
+    "edges": ([(1, 14, 15), (3, 13, 16), (1, 16, 17), (17, 46, 63),
+               (1, 63, 64), (64, 1, 65), (2, 126, 128), (1, 128, 129),
+               (5, 0, 0)], None),
+    "mixed": ([(256, 4096, 4352)] + [(1, int(h), int(h) + 1) for h in
+                                     np.linspace(1024, 12287, 15)], None),
+    "shared": ([(9, 48, 57), (17, 48, 65), (1, 70, 71), (40, 100, 140)],
+               (0, 1, 3)),
+}
+# a window past every position: the ring-table form then walks the
+# same 64-key steps with the same arithmetic on the cp.async core
+NO_WINDOW = 1 << 30
+
+
+def _tma_inputs(gen, rng, segs, share, hq, hkv):
+    """q, the pools with NaN in every row no segment owns and with 0
+    there, the table (entries past each length name a page of NaN) and
+    the index tensors."""
+    lens = [n for n, _, _ in segs]
+    kvl = [kv for _, _, kv in segs]
+    n_pages = sum(-(-x // PS) for x in kvl) + 8
+    table, _ = _layout(rng, n_pages - 1, 12288 // PS, kvl, share)
+    table = np.where(table == POISON, n_pages - 1, table).astype(np.int32)
+    ok = torch.zeros((n_pages, PS), dtype=torch.bool, device=DEVICE)
+    for i, n in enumerate(kvl):
+        for p in range(0, n, PS):
+            ok[int(table[i, p // PS]), :min(PS, n - p)] = True
+    pools = [torch.randn((n_pages, PS, hkv, D), generator=gen,
+                         device=DEVICE) for _ in range(2)]
+    kn, vn, kc, vc = (a.to(torch.bfloat16) for a in _nan_past(*pools, ok))
+    cu = [0] + [int(c) for c in np.cumsum(lens)]
+    q = torch.randn((cu[-1] + 7, hq, D), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    index = (_i32(table), _i32(cu), _i32([h for _, h, _ in segs]),
+             _i32(kvl))
+    return q, (kn, vn), (kc, vc), index, cu[-1]
+
+
+def phase_tma_kernel(seed, errs):
+    """``ragged_prefill_paged`` on its TMA-fed core over TMA_CASES at
+    qwen3-4b's 32 / 8 and qwen2.5-32b's 40 / 8 heads, causal and not:
+    within the bound of the plain version, finite over NaN pools and the
+    same bits as over pools with 0 there, two runs bit-identical, the
+    same bits as the cp.async core (the ring form at NO_WINDOW), each
+    launch counted in ``tma.launches``."""
+    import functools
+    from repro_torch.kernels import ragged_prefill as rp
+    fn = rp.ragged_prefill_paged
+    rng = np.random.default_rng(seed + 35)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 35)
+    for case, (segs, share) in TMA_CASES.items():
+        for hq, hkv in ((HQ, HKV), (40, HKV)):
+            q, (kn, vn), (kc, vc), index, total = _tma_inputs(
+                gen, rng, segs, share, hq, hkv)
+            for causal in (True, False):
+                c = dict(causal=causal)
+                t0 = fn.tma.launches
+                out = fn(q, kn, vn, *index, **c)
+                again = fn(q, kn, vn, *index, **c)
+                clean = fn(q, kc, vc, *index, **c)
+                cp = fn(q, kn, vn, *index, window=NO_WINDOW, **c)
+                torch.cuda.synchronize()
+                err, worst, ok, _ = _held(
+                    out, functools.partial(rp.ragged_prefill_paged_plain,
+                                           **c), q, kc, vc, *index)
+                same = (torch.equal(out, again), torch.equal(out, clean),
+                        torch.equal(out, cp))
+                ok = (ok and all(same) and bool(torch.isfinite(out).all())
+                      and bool((out[total:] == 0).all())
+                      and fn.tma.launches == t0 + 3)
+                errs.setdefault(("ragged_prefill_paged", torch.bfloat16),
+                                []).append(err)
+                log(f"[2] ragged_prefill_paged tma {case:6s} {hq}/{hkv} "
+                    f"{'causal' if causal else 'non-causal'}: max_abs_err="
+                    f"{err:.3e} err/bound={worst:.3f} bit-identical twice "
+                    f"{same[0]}, NaN = zero pools {same[1]}, = cp.async "
+                    f"core {same[2]} {'ok' if ok else 'FAIL'}")
+                assert ok, f"ragged_prefill_paged tma {case} {hq}/{hkv}"
 
 
 def phase_grad_check(seed):
@@ -3568,6 +3668,18 @@ def phase_full(seed, card, arch, kept, layers=None):
                 f"{r['replays_per_decode_tick']:.2f}, warm-up launches "
                 f"(in the counts above) {r['warmup_launches']}; peak "
                 f"{r['peak_gib']:.2f} GiB (card {card})")
+            if ran.get("ragged_prefill_paged"):
+                # the paged prefill launches per prefill tick and how many
+                # of them took the TMA-fed core, the graphs' warm-ups
+                # taken out
+                warm = r["warmup_launches"]
+                pre, tma = (ran.get(k, 0) - warm.get(k, 0) for k in (
+                    "ragged_prefill_paged", "ragged_prefill_paged@tma"))
+                n_pre = max(1, r["ticks"][0])
+                log(f"[4] {mode} run {i}: ragged_prefill_paged launches "
+                    f"per prefill tick {pre / n_pre:.2f}, on the TMA-fed "
+                    f"core {tma / n_pre:.2f} (tma.launches {tma} of {pre},"
+                    f" warm-ups aside)")
             if mode in SSM_MODES:
                 grouped = r["launches"]["ssd_scan@grouped"]
                 log(f"[4] {arch} {mode} run {i}: ssd_scan launches per "
@@ -4071,6 +4183,31 @@ def phase_times(seed, errs):
             flops=4 * attended * D * hq,
             bytes=(2 * rows * hq * D + 2 * keys * hkv * D) * el
             + 4 * (table.size + 3 * b_rows + 1))
+        _cp_async_beside(name, out[name], args)
+
+    # a mixed step like qwen3-4b.mixed_closed's: a 256-row chunk at
+    # history 4096 beside 15 one-row segments at histories 1024-12287
+    segs, _ = TMA_CASES["mixed"]
+    q, _, (kc, vc), index, total = _tma_inputs(gen, rng, segs, None, HQ,
+                                               HKV)
+    margs = (q, kc, vc) + index
+    got = rp.ragged_prefill_paged(*margs)
+    err, worst, ok, _ = _held(got, rp.ragged_prefill_paged_plain, *margs)
+    errs.setdefault(("ragged_prefill_paged", dt), []).append(err)
+    log(f"[5] ragged_prefill_paged (mixed tick) {total} rows: max_abs_err="
+        f"{err:.3e} err/bound={worst:.3f} {'ok' if ok else 'FAIL'}")
+    assert ok, "ragged_prefill_paged at the mixed tick"
+    attended = sum(sum(h + r + 1 for r in range(n)) for n, h, _ in segs)
+    out["ragged_prefill_paged (mixed tick)"] = dict(
+        ms=_time(lambda: rp.ragged_prefill_paged(*margs)),
+        plain_ms=_time(lambda: rp.ragged_prefill_paged_plain(*margs), 3),
+        # no single SDPA call over fifteen separate caches
+        library_ms=None,
+        flops=4 * attended * D * HQ,
+        bytes=(2 * total * HQ * D + 2 * sum(kv for _, _, kv in segs) * HKV
+               * D) * el + 4 * (index[0].numel() + 3 * len(segs) + 1))
+    _cp_async_beside("ragged_prefill_paged (mixed tick)",
+                     out["ragged_prefill_paged (mixed tick)"], margs)
 
     # the non-causal form on the same chunk at qwen3-4b's heads: every
     # row attends all 2048 held keys; the yardstick one SDPA call with
@@ -4301,6 +4438,25 @@ def phase_times(seed, errs):
             f"{r['flops'] / r['bound_ms'] / 1e9:.1f} and "
             f"{r['bytes'] / r['bound_ms'] / 1e6:.0f}")
     return out
+
+
+def _cp_async_beside(name, row, args):
+    """Time the cp.async core on a paged call the TMA-fed core takes (the
+    ring form at NO_WINDOW: the same steps, the same bits) in the same
+    run, and log both."""
+    from repro_torch.kernels import ragged_prefill as rp
+    t0 = rp.ragged_prefill_paged.tma.launches
+    tma = rp.ragged_prefill_paged(*args)
+    cp = rp.ragged_prefill_paged(*args, window=NO_WINDOW)
+    torch.cuda.synchronize()
+    assert rp.ragged_prefill_paged.tma.launches == t0 + 1, name
+    assert torch.equal(tma, cp), f"{name}: the two cores differ"
+    row["cp_async_ms"] = _time(
+        lambda: rp.ragged_prefill_paged(*args, window=NO_WINDOW))
+    log(f"[5] {name}: TMA-fed core {row['ms']:.4f} ms, cp.async core "
+        f"{row['cp_async_ms']:.4f} ms on the same call (the same bits), "
+        f"{row['flops'] / row['ms'] / 1e9:.1f} against "
+        f"{row['flops'] / row['cp_async_ms'] / 1e9:.1f} TFLOP/s")
 
 
 GRID_L, GRID_B, GRID_HIST, GRID_S = 64, 8, 256, 4096
@@ -6181,6 +6337,7 @@ def main() -> int:
         phase_slot_kernels(args.seed, errs)
         phase_tile_kernels(args.seed, errs)
         phase_tile_kernels(args.seed, errs, causal=False)
+        phase_tma_kernel(args.seed, errs)
         phase_grad_check(args.seed)
         phase_decode_groups(args.seed, errs)
         phase_sample_kernel(args.seed, errs)

@@ -8,8 +8,11 @@
 // backward's S^T = K.Q^T and dP^T = V.dO^T) and m64nDk16 with A in
 // registers (O += P.V, and the backward's dV += P^T.dO, dK += dS^T.Q,
 // dQ += dS.K); for the decode walk (decode_attn.cuh) the warp-level
-// ldmatrix and mma.sync m16n8k16.  sm_90a only: wgmma does not exist on
-// plain sm_90.
+// ldmatrix and mma.sync m16n8k16; for the paged prefill's TMA-fed core
+// (attn_tma.cuh) the tensor copies of the TMA into 128-byte-swizzled
+// tiles, the mbarriers of its ring, the descriptor of a swizzled wgmma
+// operand and the register hand-over between warpgroups (setmaxnreg).
+// sm_90a only: wgmma and setmaxnreg do not exist on plain sm_90.
 //
 // Shared-memory operand layout.  Every operand tile is stored as 8 x 8
 // "core matrices" of bf16, each 8 rows of 16 contiguous bytes (128 bytes
@@ -81,10 +84,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // 1-D bulk copies (the TMA's copy of contiguous bytes, no tensor map):
 // one instruction moves a whole row; the transaction count of an
 // mbarrier in shared memory tells the block when every row has landed.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared.b64 [%0], 1;\n"
-               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar))
-               : "memory");
+// An mbarrier whose phase completes after `count` arrivals (and the
+// bytes they expect).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
 }
 // arrive once, expecting `bytes` more to land in this phase
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
@@ -112,6 +117,45 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
+// arrive once, expecting no bytes (a consumer releasing a ring stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// --- tensor copies (TMA) -------------------------------------------------
+
+// The box of a 3-D tensor map (a CUtensorMap in parameter space, passed
+// __grid_constant__) at element coordinates (c0, c1, c2), innermost
+// first, into shared memory at dst; its bytes are counted on bar.  The
+// map's swizzle decides the layout in shared memory.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2) : "memory");
+}
+
+// --- warp specialisation ---------------------------------------------------
+
+// Lower (dec) or raise (inc) the registers a thread of this warpgroup
+// may hold; every warp of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // --- wgmma --------------------------------------------------------------
 
 // Descriptor of a no-swizzle operand at shared address `addr`: `lbo` is
@@ -126,6 +170,20 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// Descriptor of an operand the TMA wrote with the 128-byte swizzle: rows
+// of 128 bytes (64 bf16), 16-byte chunk j of row r stored at chunk j ^ (r
+// % 8), in 1024-byte atoms of 8 rows, each atom 1024-byte aligned.  As a
+// K-major operand (Q, K: rows are vectors or keys, 64 columns of D a
+// row) sbo is the step between 8-row atoms (1024) and lbo is unused (16);
+// the k-th 16-column step starts 32 k bytes into the row, the swizzle
+// applying to the address.  As an MN-major operand (V: rows are keys,
+// 64 columns of D a row) sbo steps 8 keys (1024) and lbo steps the next
+// 64 columns of N.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc(addr, lbo, sbo) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

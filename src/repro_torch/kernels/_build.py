@@ -27,7 +27,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point and argtypes of each kernel library
 SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "ragged_prefill_paged": (
-        "ragged_prefill_paged_launch", (_P,) * 8 + (_I,) * 10 + (_P,)),
+        "ragged_prefill_paged_launch", (_P,) * 8 + (_I,) * 11 + (_P,)),
     "decode_attn_paged": (
         "decode_attn_paged_launch", (_P,) * 7 + (_I,) * 10 + (_P,)),
     "ragged_prefill_arena": (

@@ -72,6 +72,9 @@ LAUNCHERS = {
     "ragged_prefill_paged@nc": _prefill.ragged_prefill_paged.noncausal,
     "ragged_prefill_arena@nc": _prefill.ragged_prefill_arena.noncausal,
     "ragged_prefill_attn@nc": _prefill.ragged_prefill_attn.noncausal,
+    # the paged prefill's TMA-fed core (``ragged_prefill.tma_core``):
+    # each launch that took it counts here and in the kernel's own count
+    "ragged_prefill_paged@tma": _prefill.ragged_prefill_paged.tma,
     # the SSD scan with B/C in several groups of several heads each:
     # each such launch counts here and in the kernel's own count
     "ssd_scan@grouped": _ssd.ssd_scan.grouped,

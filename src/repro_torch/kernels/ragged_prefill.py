@@ -26,6 +26,14 @@ same functions with plain tensor ops.  Each counts its launches in
 ``launches``, a windowed launch also in ``window.launches``, a
 non-causal launch also in ``noncausal.launches``, and a launch at head
 width d also in ``width[d].launches``.
+
+The paged kernel has two cores.  A call with no window, in bf16, at head
+width 128, over pages of 8, 16, 32 or 64 tokens (``tma_core``: what both
+served models run) takes the TMA-fed core (``csrc/attn_tma.cuh``), whose
+producer warp streams whole pages of K and V by TMA; every other call
+takes the ``cp.async`` tile core (``csrc/attn_tiles.cuh``).  The C side
+chooses by the same rule; ``ragged_prefill_paged.tma.launches`` counts
+the calls that took the TMA-fed core.
 """
 from __future__ import annotations
 
@@ -114,9 +122,24 @@ def window_arg(window: Optional[int]) -> int:
     return int(window)
 
 
+# page sizes the TMA-fed core takes: whole pages, 64 // page_size of them
+# a 64-key step, each box 8-row aligned for the 128-byte swizzle
+TMA_PAGE_SIZES = (8, 16, 32, 64)
+
+
+def tma_core(dtype: torch.dtype, head_dim: int, page_size: int,
+             window: Optional[int]) -> bool:
+    """Whether a ``ragged_prefill_paged`` call takes the TMA-fed core
+    (``csrc/attn_tma.cuh``; ``attn::tma_core`` states the same rule): no
+    window, bf16, head width 128 and a page size in ``TMA_PAGE_SIZES``.
+    Read from the call's own tensors and arguments."""
+    return (window_arg(window) == 0 and dtype == torch.bfloat16
+            and head_dim == 128 and page_size in TMA_PAGE_SIZES)
+
+
 class LaunchCount:
-    """The launch counter of a kernel's windowed or non-causal form or of
-    one of its head widths."""
+    """The launch counter of a kernel's windowed or non-causal form, of
+    one of its head widths, or of the paged kernel's TMA-fed core."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -127,6 +150,19 @@ def width_counts() -> Dict[int, LaunchCount]:
     return {d: LaunchCount() for d in HEAD_DIMS}
 
 
+def _facts(name: str, symbol: str, *args: int) -> Dict[str, int]:
+    """Call kernel library ``name``'s C function ``symbol`` with ``args``
+    and an int[3] it fills: shared bytes a block, registers a thread,
+    blocks resident per SM."""
+    out = (ctypes.c_int * 3)()
+    fn = _build.function(name, symbol,
+                         (ctypes.c_int,) * len(args) + (ctypes.c_void_p,))
+    err = fn(*args, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+    return dict(zip(("smem", "regs", "blocks_per_sm"), out))
+
+
 def launch_info(name: str, head_dim: int,
                 dtype: torch.dtype) -> Dict[str, int]:
     """The launch facts of the paged kernel ``name``
@@ -134,13 +170,14 @@ def launch_info(name: str, head_dim: int,
     kernel) at ``head_dim`` and ``dtype`` on this card: shared bytes a
     block, registers a thread, blocks resident per SM.  Needs the
     card."""
-    out = (ctypes.c_int * 3)()
-    fn = _build.function(name, f"{name}_info",
-                         (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-    err = fn(head_dim, _DTYPES[dtype], ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"{name}_info failed: CUDA error {err}")
-    return dict(zip(("smem", "regs", "blocks_per_sm"), out))
+    return _facts(name, f"{name}_info", head_dim, _DTYPES[dtype])
+
+
+def tma_launch_info() -> Dict[str, int]:
+    """The launch facts of ``ragged_prefill_paged``'s TMA-fed kernel
+    (bf16, head width 128) on this card, as ``launch_info``.  Needs the
+    card."""
+    return _facts("ragged_prefill_paged", "ragged_prefill_paged_tma_info")
 
 
 def launch(name: str, *args) -> None:
@@ -169,7 +206,8 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window`` selects the ring-table form: the table is a ring over its
     P_max entries, position p on entry (p // ps) % P_max, and each row
     attends the held keys in (its position − window, its position] —
-    non-causal, every held key above its position − window.  Never
+    non-causal, every held key above its position − window.  A call for
+    which ``tma_core`` holds runs on the TMA-fed core.  Never
     synchronises and never reads a device tensor back to the host.
     """
     w = window_arg(window)
@@ -187,9 +225,11 @@ def ragged_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch("ragged_prefill_paged",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
            cu_seqlens.data_ptr(), q_offsets.data_ptr(), kv_lengths.data_ptr(),
-           out.data_ptr(), t, hq, hkv, d, ps, b, p_max, int(causal), w,
-           _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+           out.data_ptr(), t, hq, hkv, d, ps, n_pages, b, p_max, int(causal),
+           w, _DTYPES[q.dtype],
+           torch.cuda.current_stream(q.device).cuda_stream)
     ragged_prefill_paged.launches += 1
+    ragged_prefill_paged.tma.launches += tma_core(q.dtype, d, ps, window)
     ragged_prefill_paged.noncausal.launches += not causal
     ragged_prefill_paged.window.launches += bool(w)
     ragged_prefill_paged.width[d].launches += 1
@@ -279,6 +319,7 @@ ragged_prefill_paged.launches = 0
 ragged_prefill_paged.noncausal = LaunchCount()
 ragged_prefill_paged.window = LaunchCount()
 ragged_prefill_paged.width = width_counts()
+ragged_prefill_paged.tma = LaunchCount()
 ragged_prefill_arena.launches = 0
 ragged_prefill_arena.noncausal = LaunchCount()
 ragged_prefill_arena.window = LaunchCount()

@@ -364,6 +364,129 @@ def _check_tiles(card, dtype, hq, hkv, d):
         assert (out[total:] == 0).all()
 
 
+# The paged prefill's TMA-fed core (``rp.tma_core``: bf16, D = 128, no
+# window).  Each case: segments (rows, history, kv length); the cases put
+# kv lengths at, below and just past 16-token pages and 64-key steps,
+# make a mixed step like qwen3-4b.mixed_closed's (a 256-row chunk at
+# history 4096 beside 15 one-row segments at 1024-12287), and give two
+# segments the same prefix pages.  A keyless segment, a pad segment and
+# tail rows ride along.
+TMA_CASES = {
+    "edges": [(1, 14, 15), (3, 13, 16), (1, 16, 17), (17, 46, 63),
+              (1, 63, 64), (64, 1, 65), (2, 126, 128), (1, 128, 129),
+              (5, 0, 0), (0, 0, 0)],
+    "mixed": [(256, 4096, 4352)] + [(1, int(h), int(h) + 1) for h in
+                                    np.linspace(1024, 12287, 15)],
+    "shared": [(9, 48, 57), (17, 48, 65), (1, 70, 71), (40, 100, 140)],
+}
+TMA_SHARE = {"shared": (0, 1, 3)}
+TMA_PMAX = 12288 // PS
+
+
+def _tma_case(card, case, hq, hkv, seed=0):
+    """q, the NaN pools and the zero pools, the page table (entries past
+    each length point at a page of NaN), and the index tensors, for a
+    case of TMA_CASES.  Pages are drawn in random order."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=card).manual_seed(seed)
+    segs = TMA_CASES[case]
+    lens = [n for n, _, _ in segs]
+    hists = [h for _, h, _ in segs]
+    kvl = [kv for _, _, kv in segs]
+    need = sum(-(-x // PS) for x in kvl)
+    n_pages = need + 8
+    nan_page = n_pages - 1             # owned by no segment
+    table = np.full((len(segs), TMA_PMAX), nan_page, np.int32)
+    free = list(rng.permutation(n_pages - 1))
+    ok = torch.zeros((n_pages, PS), dtype=torch.bool, device=card)
+    for i, n in enumerate(kvl):
+        for p in range(0, n, PS):
+            table[i, p // PS] = free.pop()
+    share = TMA_SHARE.get(case)
+    if share is not None:
+        a, b, k = share
+        table[b, :k] = table[a, :k]
+    for i, n in enumerate(kvl):
+        for p in range(0, n, PS):
+            ok[int(table[i, p // PS]), :min(PS, n - p)] = True
+    kv = [torch.randn((n_pages, PS, hkv, D), generator=g, device=card)
+          for _ in range(2)]
+    clean = [a.masked_fill(~ok[..., None, None], 0.0).to(torch.bfloat16)
+             for a in kv]
+    junk = [a.masked_fill(~ok[..., None, None], float("nan")).to(
+        torch.bfloat16) for a in kv]
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    tail = 7
+    q = torch.randn((int(cu[-1]) + tail, hq, D), generator=g,
+                    device=card).to(torch.bfloat16)
+    idx = [_i32(x, card) for x in (table, cu, hists, kvl)]
+    return q, junk, clean, idx, int(cu[-1])
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "nc"])
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (40, 8)], ids=["rep4", "rep5"])
+@pytest.mark.parametrize("case", list(TMA_CASES))
+def test_tma_core_matches_plain_and_the_cp_async_core(card, case, hq, hkv,
+                                                      causal):
+    """The TMA-fed core against the plain version under the bf16 bound,
+    with NaN in every page row past each length and every table entry
+    past it pointing at a page of NaN: the output is finite, the same
+    bits as over pools with 0 there, the same bits in two runs, and the
+    same bits as the cp.async core on the same inputs (the ring-table
+    form with a window past every position walks the same 64-key steps
+    with the same arithmetic)."""
+    q, (kn, vn), (kc, vc), idx, total = _tma_case(card, case, hq, hkv)
+    assert rp.tma_core(q.dtype, D, PS, None)
+    fn = rp.ragged_prefill_paged
+    n0, t0 = fn.launches, fn.tma.launches
+    out = rp.ragged_prefill_paged(q, kn, vn, *idx, causal=causal)
+    again = rp.ragged_prefill_paged(q, kn, vn, *idx, causal=causal)
+    clean = rp.ragged_prefill_paged(q, kc, vc, *idx, causal=causal)
+    cp = rp.ragged_prefill_paged(q, kn, vn, *idx, causal=causal,
+                                 window=1 << 30)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tma.launches) == (n0 + 4, t0 + 3)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    assert torch.equal(out, clean)
+    assert torch.equal(out, cp)
+    _assert_held(out, lambda *a: rp.ragged_prefill_paged_plain(
+        *a, causal=causal), q, kc, vc, *idx)
+    assert (out[total:] == 0).all()
+
+
+def test_tma_core_is_taken_by_its_calls_alone(card):
+    """``tma.launches`` counts the calls ``rp.tma_core`` names — bf16 at
+    head width 128 with no window — and no fp32 call, no windowed call
+    and no call at another width."""
+    g = torch.Generator(device=card).manual_seed(5)
+    table = _i32(np.arange(8, dtype=np.int32)[None], card)
+    idx = [table] + [_i32(x, card) for x in ([0, 40], [60], [100])]
+    for dtype, d, window, taken in ((torch.bfloat16, 128, None, True),
+                                    (torch.float32, 128, None, False),
+                                    (torch.bfloat16, 128, 64, False),
+                                    (torch.bfloat16, 64, None, False),
+                                    (torch.bfloat16, 96, None, False)):
+        q = torch.randn((40, HQ, d), generator=g, device=card).to(dtype)
+        k = torch.randn((8, PS, HKV, d), generator=g, device=card).to(dtype)
+        v = torch.randn((8, PS, HKV, d), generator=g, device=card).to(dtype)
+        assert rp.tma_core(dtype, d, PS, window) is taken
+        t0 = rp.ragged_prefill_paged.tma.launches
+        out = rp.ragged_prefill_paged(q, k, v, *idx, window=window)
+        torch.cuda.synchronize()
+        assert rp.ragged_prefill_paged.tma.launches == t0 + taken
+        _assert_held(out, lambda *a: rp.ragged_prefill_paged_plain(
+            *a, window=window), q, k, v, *idx)
+
+
+def test_tma_core_facts(card):
+    """The TMA-fed kernel's launch facts: one block of 384 threads an SM,
+    a ring of six 32 KB K/V stages beside Q's 32 KB."""
+    f = rp.tma_launch_info()
+    assert f["blocks_per_sm"] == 1
+    assert 7 * 32768 < f["smem"] <= 232448
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attn_arena_kernel_matches_plain(card, dtype):
     """Live rows of 0 to 2053 keys and ladder pad rows (length 1 on the
