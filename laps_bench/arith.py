@@ -1,8 +1,9 @@
-"""The yardstick's arithmetic: a dense decoder's model FLOPs per token,
-the operations and bytes each attention kernel's call needs, and the
-card's published peaks (``peaks.json``).  Counts follow the inputs, as a
-kernel needs them: causal keys only, every input byte read once, every
-output byte written once.  Nothing here imports the program."""
+"""The yardstick's arithmetic: a dense decoder's model FLOPs per token
+(the dense family's yardstick, ``models/dense.py``), the operations and
+bytes each attention kernel's call needs, and the card's published peaks
+(``peaks.json``).  Counts follow the inputs, as a kernel needs them:
+causal keys only, every input byte read once, every output byte written
+once.  Nothing here imports the program."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,6 +37,16 @@ class Shape:
                    d_ff=int(cfg["intermediate_size"]),
                    vocab=int(cfg["vocab_size"]),
                    elem_bytes=ELEM_BYTES[cfg.get("torch_dtype", "bfloat16")])
+
+    @property
+    def attn_layers(self) -> int:
+        """Layers that launch the attention kernels: every one."""
+        return self.layers
+
+    def step_flops(self, segments: Iterable[Tuple[int, int]]) -> float:
+        """Model FLOPs of one step (``step_flops``): what a family's
+        yardstick gives ``ticks_mfu``."""
+        return step_flops(self, segments)
 
     @property
     def block_matmul_params(self) -> int:
@@ -111,8 +122,9 @@ def least_seconds(flops: float, nbytes: float, peak: Dict) -> float:
 
 def ticks_mfu(rec, kinds: Sequence[str]) -> Optional[float]:
     """Model FLOPs of the window's untraced ticks of ``kinds`` ("prefill":
-    ran a packed step, "decode": decode only) over their wall seconds
-    times the card's bf16 peak, in %."""
+    ran a packed step, "decode": decode only), as the record's yardstick
+    (``rec.shape``) counts them, over their wall seconds times the card's
+    bf16 peak, in %."""
     if not rec.peak:
         return None
     flops = secs = 0.0
@@ -121,9 +133,9 @@ def ticks_mfu(rec, kinds: Sequence[str]) -> Optional[float]:
                 not rec.t_start <= k.t0 < rec.t_end:
             continue
         for segs in k.prefill:
-            flops += step_flops(rec.shape, segs)
+            flops += rec.shape.step_flops(segs)
         for lens in k.decode:
-            flops += step_flops(rec.shape, [(1, n - 1) for n in lens])
+            flops += rec.shape.step_flops([(1, n - 1) for n in lens])
         secs += k.t1 - k.t0
     if not secs:
         return None

@@ -6,7 +6,10 @@ A cell is found by name: ``BENCHMARK.json`` names its configuration file
 and traffic mix, ``cells/<cell>.json`` holds its load and its check, and
 each metric is read by ``metrics/<metric>.py``.  The configuration file
 names its plain reference under ``references/``, which also makes the
-seeded weights that the program and the reference both read.
+seeded weights that the program and the reference both read, and its
+model family under ``models/`` (``family_module``), which gives the
+program's model, the pool's size and the yardstick the readers count
+with.
 
 The program is ``repro_torch``'s serving path: a ``ServeLoop`` over an
 ``Engine`` on the paged pool with the radix prefix index, the packed
@@ -40,6 +43,7 @@ from laps_bench import trace as trace_mod
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+BENCH = os.path.basename(HERE)   # the benchmark's directory in a checkout
 DRAIN_CAP_S = 60.0         # a turn due in the window with no first token
                            # this long after the window closes has failed
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")   # whole top-level names
@@ -57,7 +61,9 @@ def _load_json(path: str) -> Dict:
 
 
 def load_spec(workload_name: str, root: str = ROOT) -> Dict:
-    """Everything a run of ``workload_name`` reads, found by name."""
+    """Everything a run of ``workload_name`` reads, found by name in the
+    checkout at ``root``."""
+    here = os.path.join(root, BENCH)
     bench = _load_json(os.path.join(root, "BENCHMARK.json"))
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload_name not in cells:
@@ -68,13 +74,15 @@ def load_spec(workload_name: str, root: str = ROOT) -> Dict:
            if workload_name in m.get("workloads", [workload_name])]
     layer = [m for m in bench["per_layer"]
              if workload_name in m.get("workloads", [workload_name])]
+    config = _load_json(os.path.join(root, conf["file"]))
     return {
         "name": workload_name,
         "chips": int(cell["chips"]),
-        "config": _load_json(os.path.join(root, conf["file"])),
-        "mix": _load_json(os.path.join(HERE, "traffic",
+        "config": config,
+        "family": family_module(config, root),
+        "mix": _load_json(os.path.join(here, "traffic",
                                        cell["traffic"] + ".json")),
-        "cell": _load_json(os.path.join(HERE, "cells",
+        "cell": _load_json(os.path.join(here, "cells",
                                         workload_name + ".json")),
         "end_to_end": e2e, "per_layer": layer,
     }
@@ -83,8 +91,35 @@ def load_spec(workload_name: str, root: str = ROOT) -> Dict:
 def _module(path: str, name: str):
     mod_spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(mod_spec)
+    sys.modules[name] = mod        # a dataclass looks its module up there
     mod_spec.loader.exec_module(mod)
     return mod
+
+
+def family_module(config: Dict, root: str = ROOT):
+    """``models/<config["model"]>.py`` (``dense`` without the key): all
+    that the harness knows of a model's shape.  It gives
+
+    - ``program_config(config)``: the program's ``ModelConfig``;
+    - ``page_bytes(config, page_size)``: every device byte one page of the
+      program's pool holds;
+    - ``pool(config, free_bytes)``: the ``EngineConfig`` fields that size
+      the program's caches from the bytes the card has left after the
+      weights and ``headroom_gib`` (``num_pages``, and any other pool the
+      family keeps); ``serving.num_pages`` in the configuration overrides
+      it;
+    - ``yardstick(config)``: what the metric readers count with: the
+      attention widths ``arith.prefill_call`` and ``arith.decode_call``
+      read (``heads``, ``kv_heads``, ``head_dim``, ``elem_bytes``), the
+      layers that launch those kernels (``attn_layers``), and
+      ``step_flops(segments)``, the model FLOPs of one step over segments
+      of (new tokens, history).
+
+    A family module loads nothing of the program but its
+    ``ModelConfig``."""
+    name = config.get("model", "dense")
+    return _module(os.path.join(root, BENCH, "models", name + ".py"),
+                   "laps_bench_model_" + name)
 
 
 def reference_module(config: Dict):
@@ -157,7 +192,7 @@ class Record:
     stats1: Dict
     graphs0: int
     graphs1: int
-    shape: arith.Shape
+    shape: Any                  # the family's yardstick
     peak: Dict
     trace: Optional[trace_mod.Summary] = None
     lateness: List[float] = dataclasses.field(default_factory=list)
@@ -243,64 +278,32 @@ class Probe:
 # ------------------------------------------------------------ the system
 
 
-def model_config(config: Dict):
-    """The program's ModelConfig for a Hugging Face style config."""
-    from repro_torch.models.config import ModelConfig
-    mt = config["model_type"]
-    d, hq = int(config["hidden_size"]), int(config["num_attention_heads"])
-    return ModelConfig(
-        name=config["name"], family="dense",
-        num_layers=int(config["num_hidden_layers"]), d_model=d,
-        num_heads=hq, num_kv_heads=int(config["num_key_value_heads"]),
-        d_ff=int(config["intermediate_size"]),
-        vocab_size=int(config["vocab_size"]),
-        head_dim=int(config.get("head_dim") or d // hq),
-        qk_norm=mt == "qwen3",
-        qkv_bias=bool(config.get("attention_bias", mt == "qwen2")),
-        rope_theta=float(config["rope_theta"]),
-        norm_eps=float(config["rms_norm_eps"]),
-        tie_embeddings=bool(config.get("tie_word_embeddings", False)),
-        max_seq_len=int(config["max_position_embeddings"]),
-        vocab_pad_to=int(config.get("vocab_pad_to", 256)),
-        dtype=config.get("torch_dtype", "bfloat16"))
-
-
-def page_bytes(config: Dict, page_size: int) -> int:
-    """Device bytes of one KV page: K and V of every layer."""
-    d, hq = int(config["hidden_size"]), int(config["num_attention_heads"])
-    hd = int(config.get("head_dim") or d // hq)
-    el = torch.empty(0, dtype=getattr(torch, config.get(
-        "torch_dtype", "bfloat16"))).element_size()
-    return (2 * int(config["num_hidden_layers"]) * page_size
-            * int(config["num_key_value_heads"]) * hd * el)
-
-
 class System:
-    """The program under test, built from a config's ``serving`` section:
-    the engine (its page pool sized to what the card holds after the
-    weights, less ``headroom_gib``), and a fresh policy and loop per
-    phase."""
+    """The program under test, built from a config's ``serving`` section
+    and its model family (``family_module``): the engine (its caches
+    sized by the family to what the card holds after the weights, less
+    ``headroom_gib``), and a fresh policy and loop per phase."""
 
-    def __init__(self, config: Dict, weights: Dict, device):
+    def __init__(self, config: Dict, weights: Dict, device, family):
         from repro_torch.serving.engine import Engine, EngineConfig
         sv = config["serving"]
         self.sv = sv
         dev = torch.device(device)
-        ps = int(sv["page_size"])
         if sv.get("num_pages"):
-            pages = int(sv["num_pages"])
+            sizes = {"num_pages": int(sv["num_pages"])}
         else:
             free, _ = torch.cuda.mem_get_info(dev)
-            pages = int((free - sv["headroom_gib"] * 2**30)
-                        // page_bytes(config, ps))
-        self.num_pages = pages
-        self.engine = Engine(model_config(config), weights, EngineConfig(
+            sizes = family.pool(config, free - sv["headroom_gib"] * 2**30)
+        self.num_pages = sizes["num_pages"]
+        ecfg = EngineConfig(
             num_slots=int(sv["num_slots"]), max_len=int(sv["max_len"]),
             chunk_tokens=int(sv["chunk_tokens"]), measure=True,
             packed=True, paged_kv=True, prefix_cache=True,
-            keep_last_logits=False, page_size=ps, num_pages=pages,
+            keep_last_logits=False, page_size=int(sv["page_size"]),
             token_buckets=tuple(sv["token_buckets"]),
-            decode_buckets=tuple(sv["decode_buckets"])), device=dev)
+            decode_buckets=tuple(sv["decode_buckets"]), **sizes)
+        self.engine = Engine(family.program_config(config), weights, ecfg,
+                             device=dev)
 
     def new_loop(self):
         from repro_torch.core import H200_QWEN32B, Variant, make_policy
@@ -612,7 +615,7 @@ def prepare(spec: Dict, seed: int, device) -> Tuple[Any, Dict, System]:
     ref = reference_module(config)
     ref.reference_config_check(config)
     weights = ref.make_weights(config, config["init"], seed, device)
-    system = System(config, weights, device)
+    system = System(config, weights, device, spec["family"])
     warm_up(system, int(config["vocab_size"]), seed)
     return ref, weights, system
 
@@ -650,7 +653,7 @@ def serve(spec: Dict, system: System, seed: int, seconds: float,
                  setup_s=setup_s, turns=drv.turns, ticks=drv.ticks,
                  stats0=stats0, stats1=system.engine.stats(),
                  graphs0=graphs0, graphs1=system.graphs(),
-                 shape=arith.Shape.from_config(config),
+                 shape=spec["family"].yardstick(config),
                  peak=(arith.peaks(torch.cuda.get_device_name(dev))
                        if dev.type == "cuda" else {}),
                  trace=tracer.summary() if tracer else None)
@@ -741,7 +744,7 @@ def run(spec: Dict, seed: int, seconds: float, trace: bool,
     readings = gap_readings(judged["gaps"])
     # the pool is reserved whole at set-up: what the traffic used of the
     # card is the peak less the pages that no turn ever held
-    unused = (system_pages - rec.peak_pages) * page_bytes(
+    unused = (system_pages - rec.peak_pages) * spec["family"].page_bytes(
         config, int(config["serving"]["page_size"]))
     log(f"[laps_bench] reference over {len(seqs)} conversations, "
         f"{sum(len(s['tokens']) for s in seqs)} tokens, in "

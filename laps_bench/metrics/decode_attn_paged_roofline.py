@@ -22,5 +22,5 @@ def read(rec):
             for lens in k.decode:
                 least += arith.least_seconds(
                     *arith.decode_call(rec.shape, lens), rec.peak)
-    least *= rec.shape.layers
+    least *= rec.shape.attn_layers        # one launch a layer with attention
     return 100.0 * least / dev if least else None

@@ -21,5 +21,5 @@ def read(rec):
             for segs in k.prefill:
                 least += arith.least_seconds(
                     *arith.prefill_call(rec.shape, segs), rec.peak)
-    least *= rec.shape.layers
+    least *= rec.shape.attn_layers        # one launch a layer with attention
     return 100.0 * least / dev if least else None

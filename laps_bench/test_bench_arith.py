@@ -88,3 +88,53 @@ def test_ticks_mfu_counts_the_window_untraced_ticks():
     assert arith.ticks_mfu(rec, ("decode",)) == \
         pytest.approx(100 * dec / (0.25 * 1e6))
     assert arith.ticks_mfu(types.SimpleNamespace(peak={}), ("decode",)) is None
+
+
+def _dense(name):
+    from laps_bench import harness
+    with open(os.path.join(HERE, "configs", name + ".json")) as f:
+        config = json.load(f)
+    family = harness.family_module(config)
+    assert os.path.basename(family.__file__) == "dense.py"
+    return config, family
+
+
+@pytest.mark.parametrize("name,page", [("qwen2.5-32b", 4_194_304),
+                                       ("qwen3-4b", 2_359_296)])
+def test_dense_family_page_bytes(name, page):
+    # K and V, 16 tokens, 8 kv heads of 128, bf16, every layer (64; 36)
+    config, family = _dense(name)
+    assert family.page_bytes(config, 16) == page
+    assert page == 2 * config["num_hidden_layers"] * 16 * 8 * 128 * 2
+
+
+# the counts of a (512 new, 1536 history) segment and of an 8-row decode
+# at 2048 keys, as the benchmark counted them before the family modules
+@pytest.mark.parametrize("name,step,prefill,decode_step,decode", [
+    ("qwen2.5-32b", 33159040204800.0, (18795724800.0, 18874368.0),
+     533221867520.0, (335544320.0, 67272704.0)),
+    ("qwen3-4b", 4262610206720.0, (15036579840.0, 16777216.0),
+     74020028416.0, (268435456.0, 67239936.0)),
+])
+def test_dense_yardstick_counts_as_before(name, step, prefill, decode_step,
+                                          decode):
+    config, family = _dense(name)
+    ys = family.yardstick(config)
+    assert ys == arith.Shape.from_config(config)
+    assert ys.attn_layers == config["num_hidden_layers"]
+    assert ys.step_flops([(512, 1536)]) == step
+    assert arith.prefill_call(ys, [(512, 1536)]) == prefill
+    assert ys.step_flops([(1, 2047)] * 8) == decode_step
+    assert arith.decode_call(ys, [2048] * 8) == decode
+
+
+@pytest.mark.parametrize("name,free,pages", [
+    ("qwen2.5-32b", 20 * 2**30, 4736), ("qwen2.5-32b", 17_000_000_000, 3669),
+    ("qwen3-4b", 20 * 2**30, 8419), ("qwen3-4b", 17_000_000_000, 6522)])
+def test_dense_pool_pages_as_before(name, free, pages):
+    """``free`` bytes left on the card after the weights; the harness
+    takes ``headroom_gib`` off before it asks the family."""
+    config, family = _dense(name)
+    left = free - config["serving"]["headroom_gib"] * 2**30
+    assert family.pool(config, left) == {"num_pages": pages}
+    assert pages == int(left // family.page_bytes(config, 16))

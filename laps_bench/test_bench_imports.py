@@ -1,6 +1,7 @@
 """Nothing the benchmark runs loads JAX or the JAX package ``repro``
 (compared by whole top-level module name: ``repro_torch`` is the
-program), and the plain reference loads nothing of the program.  Each
+program), the plain reference and ``arith`` load nothing of the program,
+and a family module (``models/``) loads only its ``ModelConfig``.  Each
 check runs in a fresh interpreter."""
 import os
 import subprocess
@@ -34,6 +35,28 @@ from laps_bench import harness, tiny_cell
 ref = harness.reference_module(tiny_cell.spec()["config"])
 print(sorted({m.split(".")[0] for m in sys.modules}
              & {"jax", "repro", "repro_torch"}))
+"""
+
+
+ARITH_ALONE = """
+import sys
+from laps_bench import arith
+print(sorted({m.split(".")[0] for m in sys.modules}
+             & {"jax", "repro", "repro_torch"}))
+"""
+
+FAMILY_ALONE = """
+import json, sys
+from laps_bench import harness
+bench = json.load(open("BENCHMARK.json"))
+for conf in bench["configs"]:
+    config = json.load(open(conf["file"]))
+    family = harness.family_module(config)
+    family.program_config(config)
+    family.page_bytes(config, 16)
+    family.pool(config, 2**34)
+    family.yardstick(config).step_flops([(512, 1536)])
+print(sorted(m for m in sys.modules if m.split(".")[0] == "repro_torch"))
 """
 
 
@@ -85,3 +108,13 @@ def test_the_command_needs_the_program_and_a_card(tmp_path):
                     if k != "PYTHONPATH"},
         cwd=str(bare), capture_output=True, text=True, timeout=300)
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_arith_loads_nothing_of_the_program():
+    assert _python(ARITH_ALONE)[-1] == "[]"
+
+
+def test_a_family_module_loads_only_the_programs_model_config():
+    """No kernel of the port: of the program, only its ``ModelConfig``."""
+    assert _python(FAMILY_ALONE)[-1] == str(
+        ["repro_torch", "repro_torch.models", "repro_torch.models.config"])

@@ -18,13 +18,18 @@ def _setup(model_type, seed=2**31 + 5):
     return ref, cfg, w
 
 
+def _program(cfg):
+    """The program's ModelConfig, as the cell's family module gives it."""
+    return harness.family_module(cfg).program_config(cfg)
+
+
 @pytest.mark.parametrize("model_type", ["qwen2", "qwen3"])
 def test_reference_matches_the_program_forward(model_type):
     from repro_torch.models import transformer as tr
     ref, cfg, w = _setup(model_type)
     toks = torch.as_tensor(np.random.default_rng(0).integers(1, 256, 150))
     with torch.no_grad():
-        prog = tr.forward(w, harness.model_config(cfg), toks[None])[0]
+        prog = tr.forward(w, _program(cfg), toks[None])[0]
     got = ref.logits_at(w, cfg, toks, torch.arange(150), q_block=64,
                         row_block=40)
     assert got.shape == (150, 256)
@@ -40,7 +45,7 @@ def test_weights_are_seeded_and_shaped():
     assert not torch.equal(w["blocks"][0]["mixer"]["wq"],
                            w3["blocks"][0]["mixer"]["wq"])
     from repro_torch.models import transformer as tr
-    shapes = tr.param_shapes(harness.model_config(cfg))
+    shapes = tr.param_shapes(_program(cfg))
     flat = lambda t, p="": ({p: tuple(t.shape)} if torch.is_tensor(t) else {
         k: v for i, x in (t.items() if isinstance(t, dict) else enumerate(t))
         for k, v in flat(x, f"{p}/{i}").items()})

@@ -10,6 +10,8 @@ import json
 import os
 from typing import Dict
 
+from laps_bench import harness
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 _CONFIG = {
@@ -55,6 +57,7 @@ def spec(model_type: str = "qwen3", **serving) -> Dict:
     with open(os.path.join(os.path.dirname(HERE), "BENCHMARK.json")) as f:
         bench = json.load(f)
     return {"name": "tiny", "chips": 1, "config": cfg,
+            "family": harness.family_module(cfg),
             "mix": copy.deepcopy(_MIX), "cell": copy.deepcopy(_CELL),
             "end_to_end": [m for m in bench["end_to_end"]
                            if m["name"] != "prompt_tok_s"],
